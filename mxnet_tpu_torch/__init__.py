@@ -1,0 +1,31 @@
+"""mxnet_tpu_torch — the PyTorch/CUDA port of ``mxnet_tpu``.
+
+A second package beside the JAX one, with the same public surface and
+the same symbol JSON and ``.params`` formats, for an NVIDIA H100.  This
+slice serves: ``ModelServer`` -> ``Predictor`` -> ``Symbol.bind`` ->
+``Executor.forward`` (with the ``MXTPU_FUSE`` pass pipeline), over the
+ops ResNet-50 v2 needs, with the one TPU kernel on that path,
+``fused_bn_relu``, written in CUDA C++ for sm_90a (``csrc/``).
+
+The package imports torch and numpy, never jax and nothing of
+``mxnet_tpu``.  Entry points run on the card unless the caller asks for
+the CPU (``dev_type='cpu'`` / ``ctx=cpu()``).
+
+>>> import mxnet_tpu_torch as mx
+>>> net = mx.models.resnet.get_symbol(num_classes=10, num_layers=50)
+"""
+from . import base, config, context, instrument
+from . import ops
+from . import ndarray
+from . import ndarray as nd
+from . import symbol
+from . import symbol as sym
+from . import executor, fuse, compile_cache, convert, models
+from .base import MXNetError
+from .context import Context, cpu, gpu
+from .predictor import Predictor
+from . import serving
+
+__all__ = ['MXNetError', 'Context', 'cpu', 'gpu',
+           'nd', 'sym', 'Predictor', 'serving', 'models', 'convert',
+           'fuse', 'ops', 'config', 'instrument']

@@ -1,0 +1,72 @@
+"""Runtime environment-variable config registry.
+
+The port's trimmed copy of ``mxnet_tpu/config.py``: only the knobs this
+package reads, under the SAME names, so one deployment environment
+configures both packages alike.
+"""
+from __future__ import annotations
+
+import os
+from typing import Callable, Dict, NamedTuple
+
+
+class _Knob(NamedTuple):
+    name: str
+    default: object
+    parse: Callable
+    doc: str
+
+
+def _bool(v):
+    return str(v).lower() in ('1', 'true', 'yes', 'on')
+
+
+_REGISTRY: Dict[str, _Knob] = {}
+
+
+def _register(name, default, parse, doc):
+    _REGISTRY[name] = _Knob(name, default, parse, doc)
+
+
+# -- step compiler (fuse.py) ------------------------------------------------
+_register('MXTPU_FUSE', '', str,
+          "Pass pipeline mode (fuse.py PassManager) for every symbol the "
+          "Executor runs: 'off' = no rewrites; 'safe' = structural "
+          "passes only (constant folding, dead-branch pruning, "
+          "elementwise-epilogue replay); 'aggressive' = adds conv+BN "
+          'weight folding and the BN->relu kernel fusion.  Unset: '
+          'MXTPU_FUSE_BN_CONV set -> aggressive, else off.')
+_register('MXTPU_FUSE_SKIP', '', str,
+          'Comma-separated pass names (fuse.default_passes) excluded '
+          'from the MXTPU_FUSE pipeline.')
+_register('MXTPU_FUSE_BN_CONV', False, _bool,
+          'Legacy alias: equivalent to MXTPU_FUSE=aggressive when '
+          'MXTPU_FUSE is unset.')
+# -- serving (serving/batcher.py, serving/server.py) -----------------------
+_register('MXTPU_SERVE_MAX_DELAY_MS', 2.0, float,
+          'Dynamic-batching flush deadline (milliseconds): a queued '
+          'request waits at most this long for more requests to '
+          'coalesce before a partial batch is flushed.')
+_register('MXTPU_SERVE_MAX_BATCH', 64, int,
+          'Cap on coalesced rows per serving flush (also the largest '
+          'pow2 bucket the batcher fills).  A single larger request '
+          'still executes, alone.')
+_register('MXTPU_SERVE_MAX_QUEUE', 1024, int,
+          'Admission bound on queued requests per model: past it '
+          'submit() sheds with ServerOverloadedError.')
+_register('MXTPU_SERVE_REQUEST_TIMEOUT', 30.0, float,
+          'Seconds a blocking ModelServer.predict() waits for its '
+          'response before raising TimeoutError.')
+_register('MXTPU_SERVE_DRAIN_TIMEOUT', 30.0, float,
+          'Seconds an unload/close waits for queued requests to drain '
+          'before shedding what is left.')
+
+
+def get(name):
+    """Read a registered knob from the environment (typed)."""
+    knob = _REGISTRY[name]
+    raw = os.environ.get(name)
+    if raw is None:
+        return knob.default
+    return knob.parse(raw)
+

@@ -1,0 +1,126 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+The counterpart of ``mxnet_tpu/ops/_caps.py``: where the JAX package
+probes what the installed Mosaic can compile, the port compiles its
+kernels itself.  Each ``csrc/*.cu`` source has a plain C entry point and
+is built at first use with ``nvcc`` for ``sm_90a`` into a shared library
+under ``build/mxnet_tpu_torch/`` of the checkout, named by the hash of
+its source and flags (an edited source rebuilds), then bound with
+``ctypes``.  Nothing here runs at import: the CPU tests import every
+module on hosts without ``nvcc``.
+
+A failed build raises :class:`KernelBuildError` with nvcc's output;
+there is no fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+from ..base import MXNetError
+
+__all__ = ['KernelBuildError', 'build', 'load', 'error_string',
+           'build_seconds', 'build_logs', 'NVCC_FLAGS', 'KERNELS']
+
+CSRC = Path(__file__).resolve().parent.parent / 'csrc'
+BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'mxnet_tpu_torch'
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+
+_P = ctypes.c_void_p
+_LL = ctypes.c_longlong
+_I = ctypes.c_int
+# kernel name -> (source under csrc/, C entry point, its argtypes)
+KERNELS = {
+    'fused_bn_relu': ('fused_bn_relu.cu', 'mxtpu_fused_bn_relu',
+                      (_P, _P, _P, _P, _LL, _LL, _LL, _I, _I, _P)),
+}
+
+build_seconds = {}      # kernel name -> wall seconds of its nvcc run
+build_logs = {}         # kernel name -> nvcc's output (ptxas -v report)
+_loaded = {}            # kernel name -> (entry, error_string, CDLL)
+_lock = threading.Lock()
+
+
+class KernelBuildError(MXNetError):
+    """nvcc is missing or refused a kernel source."""
+
+
+def _nvcc():
+    home = os.environ.get('CUDA_HOME') or os.environ.get('CUDA_PATH')
+    for cand in ([os.path.join(home, 'bin', 'nvcc')] if home else []) + \
+            ['/usr/local/cuda/bin/nvcc', shutil.which('nvcc')]:
+        if cand and os.path.isfile(cand) and os.access(cand, os.X_OK):
+            return cand
+    raise KernelBuildError('nvcc not found (set CUDA_HOME); the CUDA '
+                           'kernels build on a host with the CUDA toolkit')
+
+
+def _lib_path(name):
+    src = CSRC / KERNELS[name][0]
+    digest = hashlib.sha256(src.read_bytes() +
+                            ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / ('lib%s-%s.so' % (name, digest))
+
+
+def build(names=None):
+    """Compile the named kernels (default: all) that are not built yet,
+    one ``nvcc`` process per source, all started together.  Returns
+    ``{name: library path}``; raises :class:`KernelBuildError` when a
+    build fails."""
+    names = list(KERNELS) if names is None else list(names)
+    paths = {n: _lib_path(n) for n in names}
+    todo = [n for n in names if not paths[n].exists()]
+    if not todo:
+        return paths
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for n in todo:
+        tmp = paths[n].with_suffix('.%d.tmp' % os.getpid())
+        cmd = [nvcc, *NVCC_FLAGS, '-o', str(tmp), str(CSRC / KERNELS[n][0])]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True),
+                    tmp, time.monotonic())
+    failed = []
+    for n, (proc, tmp, t0) in procs.items():
+        out, _ = proc.communicate()
+        build_seconds[n] = time.monotonic() - t0
+        build_logs[n] = out
+        if proc.returncode != 0:
+            failed.append('%s (exit %d):\n%s' % (n, proc.returncode, out))
+            continue
+        # atomic rename: a concurrent loader never sees a partial library
+        os.replace(tmp, paths[n])
+    if failed:
+        raise KernelBuildError('nvcc failed for ' + '\n'.join(failed))
+    return paths
+
+
+def load(name):
+    """The ctypes entry point of kernel ``name``, built on first use."""
+    with _lock:
+        hit = _loaded.get(name)
+        if hit is None:
+            path = build([name])[name]
+            lib = ctypes.CDLL(str(path))
+            fn = getattr(lib, KERNELS[name][1])
+            fn.argtypes = list(KERNELS[name][2])
+            fn.restype = ctypes.c_int
+            errstr = lib.mxtpu_cuda_error_string
+            errstr.argtypes = [ctypes.c_int]
+            errstr.restype = ctypes.c_char_p
+            hit = _loaded[name] = (fn, errstr, lib)
+        return hit[0]
+
+
+def error_string(name, err):
+    """cudaGetErrorString of ``err`` as seen by kernel ``name``'s runtime."""
+    load(name)
+    return _loaded[name][1](int(err)).decode()

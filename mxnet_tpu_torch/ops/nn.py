@@ -1,0 +1,297 @@
+"""Neural-network layer operators of the ResNet serving path.
+
+The port of ``mxnet_tpu/ops/nn.py``: FullyConnected (``:49-76``),
+Convolution (``_conv_apply``, ``:90-162``), Pooling (``:325-378``),
+Activation (``:385-390``), SoftmaxOutput forward (``:502-548``) and
+BatchNorm with its shared stats step (``:645-726``).  NCHW in and out,
+weights in the reference layouts, so checkpoints interchange.  The JAX
+package computes convolution and matmul outside any Pallas kernel
+(``lax.conv_general_dilated``, ``jnp.dot``); here they are
+``F.conv2d`` / ``torch.matmul``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from .registry import alias, register, register_simple
+
+
+def _complete(shapes, idx, value):
+    if shapes[idx] is None:
+        shapes[idx] = tuple(int(v) for v in value)
+    return shapes
+
+
+def _tup(v, n=2, default=1):
+    if v is None or v == ():
+        return (default,) * n
+    if isinstance(v, int):
+        return (v,) * n
+    return tuple(int(x) for x in v)
+
+
+# ---------------------------------------------------------------------------
+# FullyConnected — weight layout (num_hidden, in), as in the reference
+# ---------------------------------------------------------------------------
+
+def _fc_apply(attrs, inputs, is_train, rng):
+    data, weight = inputs[0], inputs[1]
+    out = torch.matmul(data.reshape(data.shape[0], -1), weight.t())
+    if not bool(attrs.get('no_bias', False)):
+        out = out + inputs[2]
+    return [out], {}
+
+
+def _fc_complete(attrs, in_shapes):
+    num_hidden = int(attrs['num_hidden'])
+    data_shape = in_shapes[0]
+    if data_shape is not None:
+        in_dim = math.prod(data_shape[1:])
+        _complete(in_shapes, 1, (num_hidden, in_dim))
+    if not attrs.get('no_bias', False):
+        _complete(in_shapes, 2, (num_hidden,))
+    return in_shapes
+
+
+register('FullyConnected', _fc_apply,
+         input_names=lambda attrs: (['data', 'weight']
+                                    if attrs.get('no_bias', False)
+                                    else ['data', 'weight', 'bias']),
+         num_outputs=lambda attrs: 1,
+         complete_shapes=_fc_complete,
+         attr_defaults={'no_bias': False}, hint='fullyconnected')
+
+
+# ---------------------------------------------------------------------------
+# Convolution — NCHW / OIHW (1-D: NCW / OIW)
+# ---------------------------------------------------------------------------
+
+def _conv_apply(attrs, inputs, is_train, rng):
+    data, weight = inputs[0], inputs[1]
+    kernel = tuple(attrs['kernel'])
+    nd = len(kernel)
+    if nd not in (1, 2):
+        raise NotImplementedError('Convolution: %d-D kernels are not '
+                                  'ported' % nd)
+    stride = _tup(attrs.get('stride'), nd)
+    dilate = _tup(attrs.get('dilate'), nd)
+    pad = _tup(attrs.get('pad'), nd, default=0)
+    # 'pad_hi': high-side padding when it differs from 'pad' (the
+    # space-to-depth ResNet stem); absent -> symmetric padding
+    pad_hi = attrs.get('pad_hi')
+    pad_hi = _tup(pad_hi, nd) if pad_hi else pad
+    groups = int(attrs.get('num_group', 1))
+    conv = F.conv2d if nd == 2 else F.conv1d
+    if pad == pad_hi:
+        out = conv(data, weight, None, stride, pad, dilate, groups)
+    else:
+        # F.pad lists the LAST axis first
+        widths = []
+        for lo, hi in reversed(list(zip(pad, pad_hi))):
+            widths += [lo, hi]
+        out = conv(F.pad(data, widths), weight, None, stride, 0, dilate,
+                   groups)
+    if not bool(attrs.get('no_bias', False)):
+        out = out + inputs[2].reshape((1, -1) + (1,) * nd)
+    return [out], {}
+
+
+def _conv_complete(attrs, in_shapes):
+    kernel = tuple(attrs['kernel'])
+    num_filter = int(attrs['num_filter'])
+    groups = int(attrs.get('num_group', 1))
+    data_shape = in_shapes[0]
+    if data_shape is not None:
+        _complete(in_shapes, 1,
+                  (num_filter, data_shape[1] // groups) + kernel)
+    if not attrs.get('no_bias', False):
+        _complete(in_shapes, 2, (num_filter,))
+    return in_shapes
+
+
+register('Convolution', _conv_apply,
+         input_names=lambda attrs: (['data', 'weight']
+                                    if attrs.get('no_bias', False)
+                                    else ['data', 'weight', 'bias']),
+         num_outputs=lambda attrs: 1,
+         complete_shapes=_conv_complete,
+         attr_defaults={'no_bias': False, 'num_group': 1, 'stride': None,
+                        'dilate': None, 'pad': None, 'workspace': 1024,
+                        'cudnn_tune': None, 'cudnn_off': False,
+                        'layout': None},
+         hint='convolution')
+
+
+# ---------------------------------------------------------------------------
+# Pooling — 'valid' and 'full' conventions; avg counts padded cells
+# (count-include-pad, like mshadow's pool)
+# ---------------------------------------------------------------------------
+
+def _pool_out_dim(x, k, p, s, convention):
+    if convention == 'full':
+        return int(math.ceil(float(x + 2 * p - k) / s)) + 1
+    return (x + 2 * p - k) // s + 1
+
+
+def _pooling_apply(attrs, inputs, is_train, rng):
+    data = inputs[0]
+    pool_type = attrs.get('pool_type', 'max')
+    if pool_type not in ('max', 'avg', 'sum'):
+        raise ValueError('unknown pool_type %r' % pool_type)
+    nd = data.ndim - 2
+    if bool(attrs.get('global_pool', False)):
+        axes = tuple(range(2, data.ndim))
+        if pool_type == 'max':
+            return [torch.amax(data, dim=axes, keepdim=True)], {}
+        if pool_type == 'avg':
+            return [torch.mean(data, dim=axes, keepdim=True)], {}
+        return [torch.sum(data, dim=axes, keepdim=True)], {}
+    if nd != 2:
+        raise NotImplementedError('Pooling: only 2-D windows are ported')
+    kernel = _tup(attrs['kernel'], nd)
+    stride = _tup(attrs.get('stride'), nd)
+    pad = _tup(attrs.get('pad'), nd, default=0)
+    convention = attrs.get('pooling_convention', 'valid')
+    # right-pad so the window walk emits exactly the convention's
+    # output size (the JAX op's reduce_window padding rule)
+    widths = []
+    for i in reversed(range(nd)):
+        out_d = _pool_out_dim(data.shape[2 + i], kernel[i], pad[i],
+                              stride[i], convention)
+        needed = (out_d - 1) * stride[i] + kernel[i] - data.shape[2 + i]
+        widths += [pad[i], max(needed - pad[i], pad[i])]
+    if pool_type == 'max':
+        padded = F.pad(data, widths, value=float('-inf'))
+        return [F.max_pool2d(padded, kernel, stride)], {}
+    padded = F.pad(data, widths, value=0.0)
+    divisor = 1 if pool_type == 'sum' else None
+    return [F.avg_pool2d(padded, kernel, stride,
+                         divisor_override=divisor)], {}
+
+
+register('Pooling', _pooling_apply,
+         input_names=lambda attrs: ['data'],
+         num_outputs=lambda attrs: 1,
+         attr_defaults={'pool_type': 'max', 'global_pool': False,
+                        'kernel': (1, 1), 'stride': None, 'pad': None,
+                        'pooling_convention': 'valid', 'cudnn_off': False},
+         hint='pooling')
+
+
+# ---------------------------------------------------------------------------
+# Activation
+# ---------------------------------------------------------------------------
+
+_ACTS = {'relu': torch.relu, 'sigmoid': torch.sigmoid, 'tanh': torch.tanh,
+         'softrelu': F.softplus}
+
+register_simple('Activation',
+                lambda x, act_type='relu': _ACTS[act_type](x),
+                attr_defaults={'act_type': 'relu'}, hint='activation')
+
+
+# ---------------------------------------------------------------------------
+# SoftmaxOutput — forward only in this slice (the loss-gradient
+# injection of the JAX op's custom_vjp belongs to the training slice)
+# ---------------------------------------------------------------------------
+
+def _softmax_output_apply(attrs, inputs, is_train, rng):
+    d = inputs[0]
+    if bool(attrs.get('multi_output', False)):
+        return [torch.softmax(d, dim=1)], {}
+    if bool(attrs.get('preserve_shape', False)) or d.ndim <= 2:
+        return [torch.softmax(d, dim=-1)], {}
+    return [torch.softmax(d.reshape(d.shape[0], -1),
+                          dim=-1).reshape(d.shape)], {}
+
+
+def _softmax_output_complete(attrs, in_shapes):
+    d = in_shapes[0]
+    if d is not None and in_shapes[1] is None:
+        if bool(attrs.get('multi_output', False)):
+            in_shapes[1] = (d[0],) + tuple(d[2:])
+        else:
+            in_shapes[1] = tuple(d[:-1]) if len(d) > 1 else (d[0],)
+    return in_shapes
+
+
+register('SoftmaxOutput', _softmax_output_apply,
+         input_names=lambda attrs: ['data', 'label'],
+         num_outputs=lambda attrs: 1,
+         complete_shapes=_softmax_output_complete,
+         attr_defaults={'grad_scale': 1.0, 'ignore_label': -1.0,
+                        'multi_output': False, 'use_ignore': False,
+                        'preserve_shape': False, 'normalization': 'null',
+                        'out_grad': False},
+         hint='softmaxoutput')
+alias('Softmax', 'SoftmaxOutput')
+
+
+# ---------------------------------------------------------------------------
+# BatchNorm.  Aux moving stats are functional: updates are returned and
+# written back by the executor.
+# ---------------------------------------------------------------------------
+
+def batch_norm_stats(data, moving_mean, moving_var, axes, momentum,
+                     use_batch_stats):
+    """Shared stats step: returns ``(mean, var, aux_updates)``.
+
+    Batch statistics take the one-pass f32 E[x] / E[x^2] form of the
+    JAX op, clamping the cancellation at zero; moving statistics are
+    cast to the data dtype.  Also the stats step of the fused BN->relu
+    op (fuse.py) — ONE copy, so fused and unfused numerics agree.
+    """
+    if use_batch_stats:
+        x32 = data.float()
+        mean32 = torch.mean(x32, dim=axes)
+        var32 = torch.clamp(torch.mean(x32 * x32, dim=axes)
+                            - mean32 * mean32, min=0.0)
+        aux_updates = {
+            'moving_mean': momentum * moving_mean + (1 - momentum) * mean32,
+            'moving_var': momentum * moving_var + (1 - momentum) * var32,
+        }
+        return mean32.to(data.dtype), var32.to(data.dtype), aux_updates
+    return moving_mean.to(data.dtype), moving_var.to(data.dtype), {}
+
+
+def _batch_norm_apply(attrs, inputs, is_train, rng):
+    data, gamma, beta, moving_mean, moving_var = inputs
+    eps = float(attrs.get('eps', 1e-3))
+    momentum = float(attrs.get('momentum', 0.9))
+    fix_gamma = bool(attrs.get('fix_gamma', True))
+    use_global = bool(attrs.get('use_global_stats', False))
+    axes = (0,) + tuple(range(2, data.ndim))
+    bshape = (1, -1) + (1,) * (data.ndim - 2)
+    g = torch.ones_like(gamma) if fix_gamma else gamma
+    mean, var, aux_updates = batch_norm_stats(
+        data, moving_mean, moving_var, axes, momentum,
+        is_train and not use_global)
+    inv = torch.rsqrt(var.reshape(bshape) + eps)
+    out = ((data - mean.reshape(bshape)) * inv * g.reshape(bshape)
+           + beta.reshape(bshape)).to(data.dtype)
+    outs = [out]
+    if bool(attrs.get('output_mean_var', False)):
+        outs += [mean, torch.rsqrt(var + eps)]
+    return outs, aux_updates
+
+
+def _bn_complete(attrs, in_shapes):
+    if in_shapes[0] is not None:
+        c = in_shapes[0][1]
+        for i in (1, 2):
+            _complete(in_shapes, i, (c,))
+    return in_shapes
+
+
+register('BatchNorm', _batch_norm_apply,
+         input_names=lambda attrs: ['data', 'gamma', 'beta'],
+         num_outputs=lambda attrs: (3 if attrs.get('output_mean_var', False)
+                                    else 1),
+         aux_names=lambda attrs: ['moving_mean', 'moving_var'],
+         complete_shapes=_bn_complete,
+         attr_defaults={'eps': 1e-3, 'momentum': 0.9, 'fix_gamma': True,
+                        'use_global_stats': False, 'output_mean_var': False},
+         hint='batchnorm')

@@ -1,0 +1,204 @@
+"""Standalone inference API — the port of ``mxnet_tpu/predictor.py``'s
+single-device ``Predictor`` (reference ``c_predict_api.h``:
+MXPredCreate / SetInput / Forward / GetOutput).
+
+Every forward runs through the step-compiler pass pipeline on the
+Executor (``fuse.apply_fuse_passes``, ``MXTPU_FUSE``): under
+``aggressive`` a ResNet gets its conv+BN pairs folded and its remaining
+BN->relu chains lowered onto the ``fused_bn_relu`` CUDA kernel.
+
+The tensor-parallel ``mesh=`` path of the JAX Predictor is not ported.
+"""
+from __future__ import annotations
+
+import os
+import tempfile
+
+import numpy as np
+
+from . import compile_cache, instrument
+from . import ndarray as nd
+from . import symbol as sym_mod
+from .base import MXNetError
+from .context import Context
+from .ndarray import NDArray
+
+__all__ = ['Predictor']
+
+
+def _note_pad_waste(rows, bucket):
+    """Rows between the real batch and its pow2 bucket are filler."""
+    if bucket > rows:
+        instrument.inc('serving.pad_waste_rows', bucket - rows)
+    instrument.set_gauge('serving.bucket_occupancy|bucket=%d' % bucket,
+                         rows / float(bucket))
+
+
+def _split_params(params):
+    """``{'arg:x' | 'aux:x' | 'x': value}`` -> (arg_params, aux_params)."""
+    arg_params, aux_params = {}, {}
+    for k, v in params.items():
+        if k.startswith('arg:'):
+            arg_params[k[4:]] = v
+        elif k.startswith('aux:'):
+            aux_params[k[4:]] = v
+        else:
+            arg_params[k] = v
+    return arg_params, aux_params
+
+
+def _on(value, ctx):
+    if isinstance(value, NDArray):
+        return value.as_in_context(ctx)
+    return nd.array(value, ctx)
+
+
+class Predictor(object):
+    """(MXPredCreate analogue)
+
+    ``dev_type`` defaults to ``'gpu'``: the port serves on the card
+    unless the caller asks for the CPU with ``dev_type='cpu'``, and with
+    no CUDA device a ``'gpu'`` Predictor raises instead of running on the
+    CPU.  (The JAX package's default is ``'cpu'``; the difference is
+    deliberate.)  ``param_raw_bytes_or_dict`` is ``.params`` file bytes
+    or a dict of NDArrays, tensors or numpy arrays keyed ``arg:name`` /
+    ``aux:name`` (or bare argument names).
+    """
+
+    def __init__(self, symbol_json_str, param_raw_bytes_or_dict,
+                 input_shapes, dev_type='gpu', dev_id=0,
+                 pad_to_bucket=False):
+        symbol = sym_mod.load_json(symbol_json_str) \
+            if isinstance(symbol_json_str, str) else symbol_json_str
+        self._symbol = symbol
+        self._ctx = Context(dev_type, dev_id)
+        self._ctx.torch_device      # raises now when the device is absent
+
+        if isinstance(param_raw_bytes_or_dict, (bytes, bytearray)):
+            fd, path = tempfile.mkstemp(suffix='.params')
+            try:
+                with os.fdopen(fd, 'wb') as f:
+                    f.write(param_raw_bytes_or_dict)
+                params = nd.load(path)
+            finally:
+                os.unlink(path)
+        else:
+            params = dict(param_raw_bytes_or_dict)
+        arg_params, aux_params = _split_params(params)
+
+        self._input_shapes = {k: tuple(v) for k, v in input_shapes.items()}
+        self._batch_inputs = self._infer_batch_inputs()
+        self._out_arrays = None
+        self._active_bucket = None
+        self._valid_rows = None
+
+        arg_shapes, _, aux_shapes = symbol.infer_shape(**self._input_shapes)
+        if arg_shapes is None:
+            raise MXNetError('cannot infer shapes from %s' % input_shapes)
+        args = {}
+        for name, shape in zip(symbol.list_arguments(), arg_shapes):
+            if name in self._input_shapes or (
+                    name not in arg_params and name.endswith('label')):
+                args[name] = nd.zeros(shape, self._ctx)
+            elif name in arg_params:
+                args[name] = _on(arg_params[name], self._ctx)
+            else:
+                raise MXNetError('missing parameter %s' % name)
+        aux = {name: (_on(aux_params[name], self._ctx)
+                      if name in aux_params else nd.zeros(shape, self._ctx))
+               for name, shape in zip(symbol.list_auxiliary_states(),
+                                      aux_shapes)}
+        self._executor = symbol.bind(self._ctx, args, aux_states=aux)
+        # pow2 shape policy (compile_cache.pad_to_bucket): batch-axis
+        # inputs pad up to the next power of two and run on a per-bucket
+        # executor sharing the parameter arrays; outputs are sliced back
+        self._pad_to_bucket = bool(pad_to_bucket)
+        self._bucket_execs = {}
+
+    def _infer_batch_inputs(self):
+        """Inputs sharing the batch axis: leading dim equal to the
+        ``data`` input's (else the most common leading dim)."""
+        leading = {k: s[0] for k, s in self._input_shapes.items() if s}
+        if not leading:
+            return set()
+        if 'data' in leading:
+            batch = leading['data']
+        else:
+            dims = sorted(leading.values())
+            batch = max(dims, key=dims.count)
+        return {k for k, d in leading.items() if d == batch}
+
+    @property
+    def num_outputs(self):
+        return len(self._symbol.list_outputs())
+
+    def set_input(self, key, data):
+        """(MXPredSetInput)"""
+        if key not in self._executor.arg_dict:
+            raise MXNetError('unknown input %s' % key)
+        self._executor.arg_dict[key][:] = np.asarray(data, np.float32)
+
+    def forward(self, **kwargs):
+        """(MXPredForward)"""
+        if self._pad_to_bucket and kwargs:
+            return self._forward_bucketed(kwargs)
+        return self.forward_exact(**kwargs)
+
+    def _bucket_executor(self, rows):
+        bucket = compile_cache.pad_to_bucket(rows)
+        exe = self._bucket_execs.get(bucket)
+        if exe is None:
+            shapes = {name: ((bucket,) + tuple(shape[1:])
+                             if name in self._batch_inputs else shape)
+                      for name, shape in self._input_shapes.items()}
+            exe = self._executor.reshape(**shapes)
+            self._bucket_execs[bucket] = exe
+            instrument.inc('compile.shape_buckets')
+        return exe, bucket
+
+    def _forward_bucketed(self, kwargs):
+        rows = {np.asarray(v).shape[0] for k, v in kwargs.items()
+                if k in self._batch_inputs}
+        if len(rows) > 1:
+            raise MXNetError('pad_to_bucket needs one row count across '
+                             'the batch-axis inputs %s, got %s'
+                             % (sorted(self._batch_inputs), sorted(rows)))
+        if not rows:
+            return self.forward_exact(**kwargs)
+        rows = rows.pop()
+        exe, bucket = self._bucket_executor(rows)
+        for k, v in kwargs.items():
+            if k not in exe.arg_dict:
+                raise MXNetError('unknown input %s' % k)
+            v = np.asarray(v, np.float32)
+            if k in self._batch_inputs and v.shape[0] != bucket:
+                v = np.concatenate(
+                    [v, np.zeros((bucket - v.shape[0],) + v.shape[1:],
+                                 v.dtype)], axis=0)
+            exe.arg_dict[k][:] = v
+        self._out_arrays = exe.forward(is_train=False)
+        self._valid_rows = rows
+        self._active_bucket = bucket
+        _note_pad_waste(rows, bucket)
+        return self._out_arrays
+
+    def forward_exact(self, **kwargs):
+        """Forward at the EXACT bound shapes, bypassing the pow2 bucket
+        policy."""
+        self._valid_rows = None
+        self._active_bucket = None
+        for k, v in kwargs.items():
+            self.set_input(k, v)
+        self._out_arrays = self._executor.forward(is_train=False)
+        return self._out_arrays
+
+    def get_output(self, index):
+        """(MXPredGetOutput) — a host numpy copy, padded rows dropped."""
+        if self._out_arrays is None:
+            raise MXNetError('call forward first')
+        out = self._out_arrays[index]
+        if self._valid_rows is not None and out.ndim > 0 and \
+                out.shape[0] == self._active_bucket:
+            return NDArray(out.handle[:self._valid_rows],
+                           out.context).asnumpy()
+        return out.asnumpy()

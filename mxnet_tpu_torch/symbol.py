@@ -1,0 +1,575 @@
+"""Symbol — declarative graph construction.
+
+The port of ``mxnet_tpu/symbol.py``: a Symbol is a list of output entries
+of a DAG of :class:`Node` objects.  Composition, attribute scoping, JSON
+save/load (with the legacy-JSON upgrade), ``list_arguments`` /
+``list_auxiliary_states`` / ``get_internals`` / :func:`Group` and
+``bind`` mirror the JAX package, so symbol JSON written by either
+package loads in the other.
+
+``infer_shape`` evaluates each op on ``meta`` tensors, where the JAX
+package uses ``jax.eval_shape`` (``mxnet_tpu/symbol.py:744``): op
+implementations and their shape functions cannot disagree.  The JAX
+package's bidirectional partial-shape constraint pass (shapes with 0
+dims, outputs constraining inputs) is not ported; parameter and aux
+shapes are completed forward from the data shapes, which is what
+``bind``/``Predictor`` need.
+"""
+from __future__ import annotations
+
+import builtins
+import json
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from .base import MXNetError, NameManager, AttrScope, resolve_dtype
+from .ops import get_op, list_ops
+
+__all__ = ['Symbol', 'Variable', 'Group', 'load', 'load_json']
+
+
+class Node:
+    """Graph node: an operator application or a variable (op is None)."""
+
+    __slots__ = ('op', 'name', 'attrs', 'inputs', '_extra_attr')
+
+    def __init__(self, op: Optional[str], name: str, attrs: dict,
+                 inputs: List[Tuple['Node', int]]):
+        self.op = op
+        self.name = name
+        self.attrs = attrs          # operator parameters (typed)
+        self.inputs = inputs        # list of (node, out_index)
+        self._extra_attr = {}       # user attrs: ctx_group, lr_mult, ...
+
+    @property
+    def is_variable(self):
+        return self.op is None
+
+    def opdef(self):
+        return get_op(self.op)
+
+    def num_outputs(self):
+        if self.is_variable:
+            return 1
+        return self.opdef().num_outputs(self.attrs)
+
+    def output_names(self):
+        if self.is_variable:
+            return [self.name]
+        outs = self.opdef().output_names(self.attrs)
+        return ['%s_%s' % (self.name, o) for o in outs]
+
+
+def _topo_order(output_entries) -> List[Node]:
+    order: List[Node] = []
+    visited = set()
+
+    def visit(node):
+        if id(node) in visited:
+            return
+        visited.add(id(node))
+        for inp, _ in node.inputs:
+            visit(inp)
+        order.append(node)
+
+    for node, _ in output_entries:
+        visit(node)
+    return order
+
+
+class Symbol:
+    """Symbolic multi-output expression (reference symbol.py:44-)."""
+
+    def __init__(self, outputs: List[Tuple[Node, int]]):
+        self._outputs = outputs
+
+    # -- introspection -----------------------------------------------------
+    @property
+    def name(self):
+        if len(self._outputs) == 1:
+            return self._outputs[0][0].name
+        return None
+
+    def topo_nodes(self) -> List[Node]:
+        return _topo_order(self._outputs)
+
+    def _arg_nodes(self) -> List[Node]:
+        aux = set(self._aux_node_ids())
+        return [n for n in self.topo_nodes()
+                if n.is_variable and id(n) not in aux]
+
+    def list_arguments(self) -> List[str]:
+        return [n.name for n in self._arg_nodes()]
+
+    def list_outputs(self) -> List[str]:
+        return [node.output_names()[idx] for node, idx in self._outputs]
+
+    def list_auxiliary_states(self) -> List[str]:
+        aux = self._aux_node_ids()
+        order = {id(n): n for n in self.topo_nodes()}
+        return [order[i].name for i in aux if i in order]
+
+    def _aux_node_ids(self):
+        """ids of variable nodes feeding aux slots, in topo order."""
+        out = []
+        seen = set()
+        for n in self.topo_nodes():
+            if n.is_variable:
+                continue
+            op = n.opdef()
+            n_main = len(op.input_names(n.attrs))
+            for (inp, _idx) in n.inputs[n_main:]:
+                if inp.is_variable and id(inp) not in seen:
+                    seen.add(id(inp))
+                    out.append(id(inp))
+        return out
+
+    def get_internals(self) -> 'Symbol':
+        entries = []
+        for n in self.topo_nodes():
+            for i in range(n.num_outputs()):
+                entries.append((n, i))
+        return Symbol(entries)
+
+    def __getitem__(self, index):
+        if isinstance(index, str):
+            names = self.list_outputs()
+            if index not in names:
+                raise ValueError('cannot find output %s' % index)
+            index = names.index(index)
+        if isinstance(index, builtins.slice):
+            return Symbol(self._outputs[index])
+        return Symbol([self._outputs[index]])
+
+    def __len__(self):
+        return len(self._outputs)
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self)))
+
+    # -- attributes --------------------------------------------------------
+    def attr(self, key):
+        node = self._outputs[0][0]
+        val = node._extra_attr.get(key)
+        if val is None and not key.startswith('__'):
+            val = node._extra_attr.get('__%s__' % key)
+        return val
+
+    def _set_attr(self, **kwargs):
+        node = self._outputs[0][0]
+        node._extra_attr.update({k: str(v) for k, v in kwargs.items()})
+
+    def list_attr(self):
+        return dict(self._outputs[0][0]._extra_attr)
+
+    def attr_dict(self):
+        out = {}
+        for n in self.topo_nodes():
+            merged = {}
+            if not n.is_variable:
+                merged.update({k: str(v) for k, v in n.attrs.items()
+                               if v is not None})
+            merged.update(n._extra_attr)
+            if merged:
+                out[n.name] = merged
+        return out
+
+    # -- composition -------------------------------------------------------
+    def __call__(self, *args, **kwargs):
+        """Re-compose: plug new inputs into this symbol's free variables."""
+        s = self.__copy__()
+        s._compose(*args, **kwargs)
+        return s
+
+    def _compose(self, *args, **kwargs):
+        name = kwargs.pop('name', None)
+        repl: Dict[int, Node] = {}
+        nodes = self._arg_nodes()
+        for var, sym in zip(nodes, args):
+            repl[id(var)] = sym._outputs[0][0]
+        for k, v in kwargs.items():
+            for var in nodes:
+                if var.name == k:
+                    repl[id(var)] = v._outputs[0][0]
+        for n in self.topo_nodes():
+            n.inputs = [(repl.get(id(inp), inp), idx)
+                        for inp, idx in n.inputs]
+        if name:
+            self._outputs[0][0].name = name
+
+    def __copy__(self):
+        mapping: Dict[int, Node] = {}
+        for n in self.topo_nodes():
+            if n.is_variable:
+                mapping[id(n)] = n  # variables are shared
+            else:
+                nn = Node(n.op, n.name, dict(n.attrs),
+                          [(mapping.get(id(i), i), x) for i, x in n.inputs])
+                nn._extra_attr = dict(n._extra_attr)
+                mapping[id(n)] = nn
+        return Symbol([(mapping[id(n)], i) for n, i in self._outputs])
+
+    def __add__(self, other):
+        if not isinstance(other, Symbol):
+            raise TypeError('Symbol + %s is not ported (only Symbol + '
+                            'Symbol)' % type(other).__name__)
+        return _apply_op('_plus', None, [self, other], {})
+
+    __radd__ = __add__
+
+    # -- shape inference ---------------------------------------------------
+    def infer_shape(self, *args, **kwargs):
+        """``(arg_shapes, out_shapes, aux_shapes)`` from known argument
+        shapes, positional (in ``list_arguments`` order) or by name."""
+        known: Dict[str, tuple] = {}
+        for name, shape in zip(self.list_arguments(), args):
+            if shape is not None:
+                known[name] = tuple(shape)
+        known.update({k: tuple(v) for k, v in kwargs.items()
+                      if v is not None})
+        shapes = _infer(self, known)
+        arg_shapes = [shapes.get(n) for n in self.list_arguments()]
+        aux_shapes = [shapes.get(n) for n in self.list_auxiliary_states()]
+        out_shapes = [shapes.get(('out', id(node), idx))
+                      for node, idx in self._outputs]
+        if any(s is None for s in arg_shapes + out_shapes):
+            return None, None, None
+        return arg_shapes, out_shapes, aux_shapes
+
+    # -- serialization -----------------------------------------------------
+    def tojson(self):
+        nodes = self.topo_nodes()
+        nid = {id(n): i for i, n in enumerate(nodes)}
+        jnodes = []
+        for n in nodes:
+            jn = {'op': 'null' if n.is_variable else n.op,
+                  'name': n.name,
+                  'inputs': [[nid[id(i)], x, 0] for i, x in n.inputs]}
+            attrs = {k: str(v) for k, v in (n.attrs or {}).items()
+                     if v is not None}
+            attrs.update(n._extra_attr)
+            if attrs:
+                jn['attrs'] = attrs
+            jnodes.append(jn)
+        arg_nodes = [i for i, n in enumerate(nodes) if n.is_variable]
+        heads = [[nid[id(n)], i, 0] for n, i in self._outputs]
+        return json.dumps({'nodes': jnodes, 'arg_nodes': arg_nodes,
+                           'node_row_ptr': list(range(len(nodes) + 1)),
+                           'heads': heads,
+                           'attrs': {'mxnet_version': ['int', 903]}},
+                          indent=2)
+
+    def save(self, fname):
+        with open(fname, 'w') as f:
+            f.write(self.tojson())
+
+    # -- executor entry point (executor.py) --------------------------------
+    def bind(self, ctx, args, aux_states=None):
+        """An inference :class:`~mxnet_tpu_torch.executor.Executor` over
+        ``args`` / ``aux_states`` (dicts or lists of NDArrays); this
+        slice ports no backward, so there are no gradient buffers."""
+        from .executor import Executor
+        return Executor(self, ctx, args, aux_states)
+
+    def __repr__(self):
+        return '<Symbol %s>' % (self.name or self.list_outputs())
+
+
+# ---------------------------------------------------------------------------
+# Shape inference: forward evaluation over the graph on meta tensors
+# ---------------------------------------------------------------------------
+
+def _meta(shape, dtype):
+    return torch.empty(tuple(shape), dtype=dtype, device='meta')
+
+
+def _var_shape(n, known):
+    shp = known.get(n.name)
+    if shp is None:
+        sattr = n.attrs.get('__shape__') or n.attrs.get('shape')
+        if sattr:
+            shp = tuple(sattr) if not isinstance(sattr, str) \
+                else tuple(json.loads(sattr.replace('(', '[')
+                                      .replace(')', ']')))
+    # 0 = unknown dim (the reference convention): not known yet
+    if shp is None or 0 in tuple(shp):
+        return None
+    return tuple(shp)
+
+
+def _infer(sym: Symbol, known_shapes: Dict[str, tuple]):
+    nodes = sym.topo_nodes()
+    shapes: Dict[object, Optional[tuple]] = {}
+    entry: Dict[Tuple[int, int], torch.Tensor] = {}
+    for n in nodes:
+        if n.is_variable:
+            shp = _var_shape(n, known_shapes)
+            shapes[n.name] = shp
+            if shp is not None:
+                entry[(id(n), 0)] = _meta(
+                    shp, resolve_dtype(n.attrs.get('__dtype__')))
+
+    def set_var(inp_node, inp_idx, shp, dtype):
+        entry[(id(inp_node), inp_idx)] = _meta(shp, dtype)
+        if inp_node.is_variable:
+            shapes[inp_node.name] = tuple(shp)
+
+    evaled = set()
+    progress = True
+    while progress:
+        progress = False
+        for n in nodes:
+            if n.is_variable or id(n) in evaled:
+                continue
+            op = n.opdef()
+            attrs = n.attrs
+            ins = [entry.get((id(i), x)) for i, x in n.inputs]
+            n_main = len(op.input_names(attrs))
+            # parameter shapes completed from the data shapes
+            if op.complete_shapes is not None:
+                in_shapes = [None if t is None else tuple(t.shape)
+                             for t in ins[:n_main]]
+                try:
+                    completed = op.complete_shapes(attrs, list(in_shapes))
+                except (KeyError, TypeError):
+                    completed = in_shapes
+                for i, shp in enumerate(completed):
+                    if shp is not None and ins[i] is None:
+                        dt = ins[0].dtype if ins[0] is not None \
+                            else torch.float32
+                        set_var(*n.inputs[i], shp, dt)
+                        ins[i] = entry[(id(n.inputs[i][0]),
+                                        n.inputs[i][1])]
+            # aux shapes: the op's aux_shape hook, else aux tracks
+            # input[0]'s channel dim
+            if ins[0] is not None and op.aux_names(attrs):
+                hint = None
+                if op.aux_shape is not None:
+                    try:
+                        hint = op.aux_shape(
+                            attrs, [None if t is None else tuple(t.shape)
+                                    for t in ins[:n_main]])
+                    except (KeyError, TypeError):
+                        hint = None
+                for j, (inp, idx) in enumerate(n.inputs[n_main:]):
+                    if ins[n_main + j] is not None:
+                        continue
+                    if hint is not None and j < len(hint) and \
+                            hint[j] is not None:
+                        shp = tuple(hint[j])
+                    else:
+                        d = ins[0].shape
+                        shp = (d[1],) if len(d) > 1 else (d[0],)
+                    set_var(inp, idx, shp, torch.float32)
+                    ins[n_main + j] = entry[(id(inp), idx)]
+            if any(t is None for t in ins):
+                continue
+            try:
+                with torch.no_grad():
+                    outs, _ = op.apply(attrs, ins, False, None)
+            except Exception as e:
+                raise MXNetError('InferShape failed at node %s (%s): %s'
+                                 % (n.name, n.op, e)) from e
+            evaled.add(id(n))
+            progress = True
+            for i, t in enumerate(outs):
+                entry[(id(n), i)] = t
+
+    for n in nodes:
+        if n.is_variable or id(n) in evaled:
+            continue
+        missing = [inp.name for inp, x in n.inputs
+                   if entry.get((id(inp), x)) is None]
+        raise MXNetError('InferShape: node %s (%s) has unknown input '
+                         'shapes: %s — provide them to infer_shape'
+                         % (n.name, n.op, missing))
+    for n, i in sym._outputs:
+        t = entry.get((id(n), i))
+        shapes[('out', id(n), i)] = tuple(t.shape) if t is not None else None
+    return shapes
+
+
+# ---------------------------------------------------------------------------
+# Construction API
+# ---------------------------------------------------------------------------
+
+def Variable(name, attr=None, shape=None, lr_mult=None, wd_mult=None,
+             dtype=None, init=None):
+    """Create a free variable (reference symbol.py:1049)."""
+    if not isinstance(name, str):
+        raise TypeError('Expect a string for variable name')
+    attrs = {}
+    if shape is not None:
+        attrs['__shape__'] = tuple(shape)
+    if dtype is not None:
+        attrs['__dtype__'] = dtype
+    node = Node(None, name, attrs, [])
+    node._extra_attr = AttrScope.current().get(attr or {})
+    if lr_mult is not None:
+        node._extra_attr['__lr_mult__'] = str(lr_mult)
+    if wd_mult is not None:
+        node._extra_attr['__wd_mult__'] = str(wd_mult)
+    if init is not None:
+        node._extra_attr['__init__'] = init if isinstance(init, str) \
+            else init.dumps()
+    return Symbol([(node, 0)])
+
+
+var = Variable
+
+
+def Group(symbols):
+    """Concatenate symbols into a multi-output symbol (symbol.py:1078)."""
+    outputs = []
+    for s in symbols:
+        outputs.extend(s._outputs)
+    return Symbol(outputs)
+
+
+def load(fname):
+    with open(fname) as f:
+        return load_json(f.read())
+
+
+# attribute names the reference hides as __key__ extra attrs
+# (c_api_symbolic.cc kHiddenKeys) — legacy JSON stores them bare
+_HIDDEN_KEYS = ('ctx_group', 'lr_mult', 'wd_mult', 'force_mirroring',
+                'mirror_stage')
+
+
+def _upgrade_node_attrs(raw_attrs):
+    """Split a legacy node's raw attr dict into (op attrs, extra attrs,
+    per-input-variable attrs) — the reference's UpgradeJSON_FixParsing
+    (``src/nnvm/legacy_json_util.cc:30-90``)."""
+    op_attrs, extra, input_attrs = {}, {}, {}
+    for k, v in raw_attrs.items():
+        hidden = None
+        for hk in _HIDDEN_KEYS:
+            if k == hk:
+                hidden = ('self', hk)
+                break
+            if k.endswith('_' + hk):
+                hidden = (k[:-(len(hk) + 1)], hk)
+                break
+        if hidden is not None:
+            target, hk = hidden
+            if target == 'self':
+                extra['__%s__' % hk] = v
+            else:
+                input_attrs.setdefault(target, {})['__%s__' % hk] = v
+        elif k.startswith('__') and k.endswith('__'):
+            extra[k] = v            # already-hidden user attrs
+        else:
+            op_attrs[k] = v
+    return op_attrs, extra, input_attrs
+
+
+def load_json(json_str):
+    """Parse a symbol JSON, upgrading legacy formats as the JAX package
+    does: attrs under ``attr``/``param`` are accepted, bare hidden keys
+    move to ``__key__`` form, and pre-0.9 nodes that omit parameter/aux
+    inputs get them created as ``{node}_{arg}``."""
+    data = json.loads(json_str)
+    nodes: List[Node] = []
+    for jn in data['nodes']:
+        raw_attrs = jn.get('attrs', jn.get('attr', jn.get('param', {}))) or {}
+        if jn['op'] == 'null':
+            node = Node(None, jn['name'], {}, [])
+            node._extra_attr = {('__%s__' % k if k in _HIDDEN_KEYS else k): v
+                                for k, v in raw_attrs.items()}
+        else:
+            op = get_op(jn['op'])
+            op_attrs, extra, input_attrs = _upgrade_node_attrs(raw_attrs)
+            attrs = op.canon_attrs(op_attrs)
+            inputs = [(nodes[e[0]], e[1]) for e in jn['inputs']]
+            expected = op.input_names(attrs) + op.aux_names(attrs)
+            for j in range(len(inputs), len(expected)):
+                inputs.append((Node(None, '%s_%s' % (jn['name'],
+                                                     expected[j]), {}, []),
+                               0))
+            for target, hidden in input_attrs.items():
+                if target in expected:
+                    src = inputs[expected.index(target)][0]
+                    if src.is_variable:
+                        src._extra_attr.update(hidden)
+                        continue
+                extra.update({'%s_%s' % (target, k.strip('_')): v
+                              for k, v in hidden.items()})
+            node = Node(jn['op'], jn['name'], attrs, inputs)
+            node._extra_attr = extra
+        nodes.append(node)
+    heads = data.get('heads') or [[len(nodes) - 1, 0, 0]]
+    return Symbol([(nodes[h[0]], h[1]) for h in heads])
+
+
+def _apply_op(op_name, name, sym_inputs: List[Symbol], attrs: dict,
+              named_inputs: Optional[Dict[str, Symbol]] = None):
+    op = get_op(op_name)
+    cattrs = op.canon_attrs({k: v for k, v in attrs.items() if v is not None})
+    if 'num_args' in op.attr_defaults and sym_inputs:
+        cattrs['num_args'] = len(sym_inputs)
+    in_names = op.input_names(cattrs)
+    aux_names = op.aux_names(cattrs)
+    name = NameManager.current().get(name, op.hint)
+    entries: List[Optional[Tuple[Node, int]]] = \
+        [None] * (len(in_names) + len(aux_names))
+    for i, s in enumerate(sym_inputs):
+        entries[i] = s._outputs[0]
+    if named_inputs:
+        pos = {nm: i for i, nm in enumerate(in_names + aux_names)}
+        for k, v in named_inputs.items():
+            if k not in pos:
+                raise MXNetError('unknown input %r for op %s' % (k, op_name))
+            entries[pos[k]] = v._outputs[0]
+    # auto-create missing parameter/aux variables: name_weight, name_bias...
+    for i, e in enumerate(entries):
+        if e is None:
+            pname = (in_names + aux_names)[i]
+            vnode = Node(None, '%s_%s' % (name, pname), {}, [])
+            hint_attrs = (op.input_var_attrs(cattrs, pname)
+                          if op.input_var_attrs else None) or {}
+            vnode._extra_attr = AttrScope.current().get(hint_attrs)
+            entries[i] = (vnode, 0)
+    node = Node(op.name, name, cattrs, entries)
+    node._extra_attr = AttrScope.current().get({})
+    if node.num_outputs() == 1:
+        return Symbol([(node, 0)])
+    return Symbol([(node, i) for i in range(node.num_outputs())])
+
+
+def _make_creator(op_name):
+    def create(*args, **kwargs):
+        name = kwargs.pop('name', None)
+        attr = kwargs.pop('attr', None)
+        for a in args:
+            if not isinstance(a, Symbol):
+                raise TypeError('positional args to sym.%s must be Symbols'
+                                % op_name)
+        named = {k: v for k, v in kwargs.items() if isinstance(v, Symbol)}
+        attrs = {k: v for k, v in kwargs.items()
+                 if not isinstance(v, Symbol)}
+        s = _apply_op(op_name, name, list(args), attrs, named)
+        if attr:
+            s._set_attr(**attr)
+        return s
+    create.__name__ = op_name
+    create.__qualname__ = op_name
+    create.__doc__ = get_op(op_name).doc
+    return create
+
+
+for _op_name in list_ops():
+    globals().setdefault(_op_name, _make_creator(_op_name))
+del _op_name
+
+
+def __getattr__(name):
+    """Resolve ops registered after import (the fused ops of fuse.py)."""
+    try:
+        get_op(name)
+    except KeyError:
+        raise AttributeError('module %r has no attribute %r'
+                             % (__name__, name)) from None
+    globals()[name] = _make_creator(name)
+    return globals()[name]

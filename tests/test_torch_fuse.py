@@ -1,0 +1,183 @@
+"""The port's step-compiler pipeline (mxnet_tpu_torch/fuse.py) against the
+JAX package's (mxnet_tpu/fuse.py): the same rewritten graph, pass by
+pass, and a NotImplementedError — never a silently different graph —
+where a lowering needs a kernel the port does not have yet."""
+from collections import Counter
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import mxnet_tpu as mx
+import mxnet_tpu_torch as tmx
+from mxnet_tpu import fuse as jfuse
+from mxnet_tpu.models import resnet as jax_resnet
+from mxnet_tpu_torch import fuse as tfuse
+
+
+@pytest.fixture(scope='module')
+def resnet50_json():
+    return jax_resnet.get_symbol(num_classes=1000, num_layers=50).tojson()
+
+
+def _ops(sym):
+    return Counter(n.op for n in sym.topo_nodes() if not n.is_variable)
+
+
+def _names(sym):
+    return [(n.op, n.name) for n in sym.topo_nodes()]
+
+
+def test_resnet50_inference_graph_matches_jax(resnet50_json, monkeypatch):
+    # the JAX side with its kernel paths live (interpret forced), as it
+    # runs on a TPU
+    monkeypatch.setenv('MXTPU_FORCE_PALLAS_INTERPRET', '1')
+    jout = jfuse.apply_fuse_passes(mx.sym.load_json(resnet50_json), False,
+                                   'aggressive')
+    jstats = jfuse.last_run_stats()
+    tout = tfuse.apply_fuse_passes(tmx.sym.load_json(resnet50_json), False,
+                                   'aggressive')
+    tstats = tfuse.last_run_stats()
+    assert _ops(tout) == _ops(jout)
+    assert _ops(tout) == Counter({
+        '_conv_bn_folded': 33, 'Activation': 33, 'Convolution': 20,
+        '_bn_relu': 17, '_plus': 16, 'Pooling': 2, 'BatchNorm': 1,
+        'Flatten': 1, 'FullyConnected': 1, 'SoftmaxOutput': 1})
+    assert _names(tout) == _names(jout)
+    assert tstats == jstats
+    assert tstats['passes']['conv_bn_fold']['rewrites'] == 33
+    assert tstats['passes']['bn_relu']['rewrites'] == 17
+    assert tstats['passes']['bn_relu_conv']['rewrites'] == 0
+
+
+@pytest.mark.parametrize('mode', ['off', 'safe'])
+def test_resnet50_lower_modes_match_jax(resnet50_json, mode):
+    tsym = tmx.sym.load_json(resnet50_json)
+    tout = tfuse.apply_fuse_passes(tsym, False, mode)
+    jout = jfuse.apply_fuse_passes(mx.sym.load_json(resnet50_json), False,
+                                   mode)
+    assert _names(tout) == _names(jout)
+    if mode == 'off':
+        assert tout is tsym
+
+
+def test_resnet50_training_needs_unported_kernels(resnet50_json):
+    """Training keeps live BN statistics, so 52 BN->relu->conv chains
+    remain for bn_relu_conv — the training slice's kernels."""
+    with pytest.raises(NotImplementedError, match='fused_scale_bias'):
+        tfuse.apply_fuse_passes(tmx.sym.load_json(resnet50_json), True,
+                                'aggressive')
+
+
+def _bn_relu_conv(pkg):
+    data = pkg.sym.Variable('data')
+    bn = pkg.sym.BatchNorm(data, fix_gamma=False, name='bn')
+    act = pkg.sym.Activation(bn, act_type='relu', name='relu')
+    return pkg.sym.Convolution(act, num_filter=4, kernel=(1, 1),
+                               no_bias=True, name='conv')
+
+
+def test_unported_bn_relu_conv_lowering_raises(monkeypatch):
+    """No conv->BN pair to fold: the JAX kernel path rewrites the chain
+    into _bn_relu_conv, which the port cannot lower yet."""
+    monkeypatch.setenv('MXTPU_FORCE_PALLAS_INTERPRET', '1')
+    jout = jfuse.apply_fuse_passes(_bn_relu_conv(mx), False, 'aggressive')
+    assert '_bn_relu_conv' in _ops(jout)
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        tfuse.apply_fuse_passes(_bn_relu_conv(tmx), False, 'aggressive')
+    # skipping the pass takes the graph the JAX reference path builds
+    monkeypatch.setenv('MXTPU_FUSE_SKIP', 'bn_relu_conv')
+    monkeypatch.delenv('MXTPU_FORCE_PALLAS_INTERPRET')
+    tout = tfuse.apply_fuse_passes(_bn_relu_conv(tmx), False, 'aggressive')
+    jout = jfuse.apply_fuse_passes(_bn_relu_conv(mx), False, 'aggressive')
+    assert _names(tout) == _names(jout)
+    assert '_bn_relu' in _ops(tout)
+
+
+def _fc_relu(pkg):
+    data = pkg.sym.Variable('data')
+    fc = pkg.sym.FullyConnected(data, num_hidden=5, name='fc')
+    return pkg.sym.Activation(fc, act_type='relu', name='fc_relu')
+
+
+def test_unported_fc_epilogue_lowering_raises():
+    with pytest.raises(NotImplementedError, match='fused_dot_epilogue'):
+        tfuse.apply_fuse_passes(_fc_relu(tmx), False, 'aggressive')
+
+
+def test_safe_epilogue_replay_matches_jax():
+    """Under 'safe' the epilogue pass replays the chain exactly; the
+    fused graph runs through the Executor and matches the JAX one."""
+    r = np.random.RandomState(3)
+    x = r.randn(3, 7).astype(np.float32)
+    w = r.randn(5, 7).astype(np.float32)
+    b = r.randn(5).astype(np.float32)
+    tout = tfuse.apply_fuse_passes(_fc_relu(tmx), False, 'safe')
+    jout = jfuse.apply_fuse_passes(_fc_relu(mx), False, 'safe')
+    assert _names(tout) == _names(jout)
+    assert tfuse.last_run_stats()['passes']['epilogue']['rewrites'] == 1
+    args = {'data': x, 'fc_weight': w, 'fc_bias': b}
+    got = tmx.sym.load_json(tout.tojson()).bind(
+        tmx.cpu(), {k: tmx.nd.array(v) for k, v in args.items()}) \
+        .forward()[0].asnumpy()
+    want = jout.bind(mx.cpu(), {k: mx.nd.array(v) for k, v in args.items()},
+                     grad_req='null').forward()[0].asnumpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, np.maximum(x @ w.T + b, 0), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_dead_branch_matches_jax():
+    def build(pkg):
+        data = pkg.sym.Variable('data')
+        ident = pkg.sym.identity(data, name='ident')
+        bn = pkg.sym.BatchNorm(ident, output_mean_var=True, name='bn')
+        return pkg.sym.Activation(bn[0], act_type='relu', name='out')
+    tout, tn = tfuse.prune_dead_branches(build(tmx))
+    jout, jn = jfuse.prune_dead_branches(build(mx))
+    assert tn == jn == 2
+    assert _names(tout) == _names(jout)
+
+
+def test_conv_bn_fold_numerics_match_jax():
+    """A folded conv->BN node computes what the unfolded pair does, in
+    both packages."""
+    def build(pkg):
+        data = pkg.sym.Variable('data')
+        conv = pkg.sym.Convolution(data, num_filter=6, kernel=(3, 3),
+                                   pad=(1, 1), no_bias=True, name='c')
+        return pkg.sym.BatchNorm(conv, fix_gamma=False, eps=2e-5, name='b')
+    r = np.random.RandomState(4)
+    args = {'data': r.randn(2, 3, 8, 8).astype(np.float32),
+            'c_weight': r.randn(6, 3, 3, 3).astype(np.float32),
+            'b_gamma': (r.rand(6) + 0.5).astype(np.float32),
+            'b_beta': r.randn(6).astype(np.float32)}
+    aux = {'b_moving_mean': r.randn(6).astype(np.float32) * 0.1,
+           'b_moving_var': (r.rand(6) + 0.5).astype(np.float32)}
+    tsym, tn = tfuse.fold_conv_bn(build(tmx))
+    assert tn == 1
+    got = tsym.bind(tmx.cpu(), {k: tmx.nd.array(v) for k, v in args.items()},
+                    {k: tmx.nd.array(v) for k, v in aux.items()}) \
+        .forward()[0].asnumpy()
+    plain = build(tmx).bind(
+        tmx.cpu(), {k: tmx.nd.array(v) for k, v in args.items()},
+        {k: tmx.nd.array(v) for k, v in aux.items()}).forward()[0].asnumpy()
+    jsym, _ = jfuse.fold_conv_bn(build(mx))
+    want = jsym.bind(mx.cpu(), {k: mx.nd.array(v) for k, v in args.items()},
+                     grad_req='null',
+                     aux_states={k: mx.nd.array(v) for k, v in aux.items()}) \
+        .forward()[0].asnumpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, plain, rtol=1e-5, atol=1e-5)
+
+
+def test_bad_knobs_raise(monkeypatch):
+    monkeypatch.setenv('MXTPU_FUSE', 'turbo')
+    with pytest.raises(ValueError):
+        tfuse.fuse_mode()
+    monkeypatch.setenv('MXTPU_FUSE', 'safe')
+    monkeypatch.setenv('MXTPU_FUSE_SKIP', 'no_such_pass')
+    with pytest.raises(ValueError):
+        tfuse.apply_fuse_passes(_fc_relu(tmx), False)

@@ -1,0 +1,63 @@
+"""The PyTorch port stands alone: it imports neither jax nor the JAX
+package, and its entry points never fall back to the CPU on their own."""
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import mxnet_tpu_torch as tmx
+from mxnet_tpu_torch.models import resnet
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, 'mxnet_tpu_torch')
+# an import statement naming jax, or mxnet_tpu itself (not mxnet_tpu_torch)
+_FORBIDDEN = re.compile(
+    r'^\s*(?:from|import)\s+(?:jax\b|mxnet_tpu(?!_torch)\b)', re.M)
+
+
+def _sources():
+    for d, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith('.py'):
+                yield os.path.join(d, f)
+    yield os.path.join(ROOT, 'chip_smoke.py')
+
+
+def test_import_leaves_jax_out():
+    code = ('import sys, mxnet_tpu_torch, mxnet_tpu_torch.serving, '
+            'mxnet_tpu_torch.models.resnet; '
+            'bad = sorted(m for m in sys.modules if m == "jax" or '
+            'm.startswith("jax.") or m == "mxnet_tpu" or '
+            'm.startswith("mxnet_tpu.")); print(bad); '
+            'sys.exit(1 if bad else 0)')
+    env = dict(os.environ)
+    env['PYTHONPATH'] = ROOT
+    proc = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize('path', sorted(_sources()),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_source_imports_no_jax(path):
+    with open(path) as f:
+        src = f.read()
+    assert not _FORBIDDEN.search(src), path
+
+
+def test_gpu_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    sym = resnet.resnet(units=[1, 1, 1, 1], num_stages=4,
+                        filter_list=[8, 16, 32, 64, 128], num_classes=10,
+                        image_shape=(3, 64, 64))
+    with pytest.raises(tmx.MXNetError, match='CUDA'):
+        tmx.Predictor(sym.tojson(), {}, {'data': (1, 3, 64, 64)})
+    server = tmx.serving.ModelServer()
+    with pytest.raises(tmx.MXNetError, match='CUDA'):
+        server.load_model('m', symbol_json=sym.tojson(), params={},
+                          input_shapes={'data': (1, 3, 64, 64)})
+    with pytest.raises(tmx.MXNetError, match='CUDA'):
+        tmx.nd.zeros((2, 2), tmx.gpu())
