@@ -6,24 +6,46 @@ NVIDIA GPU (written for an H100, sm_90a).
 
 Phases, each printing one JSON line; any failure exits nonzero:
 
-1. device  — the card (torch and nvidia-smi).
-2. build   — nvcc builds every kernel of csrc/ for sm_90a, in parallel.
-3. kernels — each kernel's wrapper on card tensors at the shapes the
-             serving path gives it, held against its plain PyTorch version
-             (float32: max abs error <= 1e-6; bfloat16: within one bf16
-             ulp), timed on the device with CUDA events (median of 50,
-             L2 evicted before each launch) beside its plain version and
-             its bound, and its host cost per call.
-4. serve   — the main path: ModelServer serves full-width ResNet-50 v2
-             (1000 classes, 3x224x224, random weights from a numpy seed,
-             MXTPU_FUSE=aggressive, pow2 buckets up to 32 rows): after one
-             warm-up request per bucket, 64 requests of 1-8 rows from 4
-             client threads.  Launch counts are zeroed just before and
-             read just after; every kernel of the path must have launched
-             (fused_bn_relu: 17 per forward).
-5. parity  — 4 rows through the served model and through a CPU
-             Predictor, with TF32 off for this phase (cuDNN convolutions
-             run TF32 by default): rtol 1e-3, same top-1.
+1. device       — the card (torch and nvidia-smi).
+2. build        — nvcc builds every kernel of csrc/ for sm_90a, in
+                  parallel (one nvcc per source).
+3. kernels      — each kernel's wrapper on card tensors at every shape its
+                  main path gives it (shapes read from the fused graphs at
+                  32 rows), held against its plain PyTorch version with
+                  TF32 off, timed on the device with CUDA events (median
+                  of 50, L2 evicted before each launch) beside its plain
+                  version, its bound, the nearest single PyTorch call
+                  (library_ms) and its host cost per call.  fused_bn_relu:
+                  float32 max abs error <= 1e-6, bfloat16 within one ulp.
+                  fused_scale_bias_dot / fused_scale_bias_conv3x3: f32 and
+                  bf16, |got - plain| <= rtol * (|A| . |W|) elementwise,
+                  the product of the magnitudes (so the bound grows with
+                  K), rtol 1e-4 (f32) and 2e-2 (bf16); plus a ragged
+                  off-path dot and an odd-H stride-2 conv.
+4. serve        — main path 1: ModelServer serves full-width ResNet-50 v2
+                  (1000 classes, 3x224x224, random weights from a numpy
+                  seed, MXTPU_FUSE=aggressive, pow2 buckets up to 32
+                  rows): after one warm-up request per bucket, 64 requests
+                  of 1-8 rows from 4 client threads.  Launch counts are
+                  zeroed just before and read just after; fused_bn_relu
+                  must launch 17 times per forward.
+5. parity       — 4 rows through the served model and through a CPU
+                  Predictor, TF32 off: rtol 1e-3, same top-1.
+6. train        — main path 2: Module(resnet-50 v2, 1000 classes,
+                  3x224x224, context=gpu(0), compute_dtype=bfloat16).fit
+                  over an NDArrayIter of 10 batches of 32 random images and
+                  labels, SGD lr 0.05 momentum 0.9 wd 1e-4,
+                  MXTPU_FUSE=aggressive.  Counts zeroed just before fit and
+                  read just after: per step 36 fused_scale_bias_dot, 16
+                  fused_scale_bias_conv3x3 and as many fused_bn_relu as the
+                  training graph has _bn_relu nodes.  Loss and parameters
+                  finite, parameters moved; step ms (median after 2
+                  warm-up steps), images/s, peak device memory.
+7. train-parity — one fused step of the full-width model at 2 rows,
+                  float32, TF32 off, on the card and on the CPU from the
+                  same numpy parameters: updated parameters rtol 1e-3,
+                  atol 1e-5, except isolated relu-kink flips (at most 1e-4
+                  of the elements, none beyond 1e-3; see the phase).
 
 Then the card's nvidia-smi line, the kernels summary line, and the
 result line {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -43,7 +65,12 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 FP32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12             # H100 SXM dense bf16 on the tensor cores
+GEMM_RTOL = {'float32': 1e-4, 'bfloat16': 2e-2}
 BATCH = 32
+TRAIN_BATCHES = 10
+TRAIN_WARMUP = 2
+PARITY_ROWS = 2
 IMAGE = (3, 224, 224)
 N_REQUESTS = 64
 N_CLIENTS = 4
@@ -161,6 +188,182 @@ def check_bn_relu(torch, fused, shape, dtype, gen, flush):
             'bytes': nbytes}
 
 
+def train_kernel_shapes(mx, symbol, batch):
+    """The shapes the aggressive TRAINING graph gives each kernel at
+    ``batch`` rows, read from the graph: Counters of dot (M, K, N), conv
+    (N, H, W, C, F, stride) and BN-ReLU input shapes."""
+    prog = mx.fuse.apply_fuse_passes(symbol, True, 'aggressive')
+    internals = prog.get_internals()
+    _, out_shapes, _ = internals.infer_shape(data=(batch,) + IMAGE)
+    shape_of = dict(zip(internals.list_outputs(), out_shapes))
+    dots, convs, bn_relus = Counter(), Counter(), Counter()
+    for n in prog.topo_nodes():
+        if n.op not in ('_bn_relu_conv', '_bn_relu'):
+            continue
+        src, idx = n.inputs[0]
+        d = tuple(shape_of[src.output_names()[idx]])
+        if n.op == '_bn_relu':
+            bn_relus[d] += 1
+            continue
+        nb, h, w, c = d if n.attrs.get('in_layout') == 'NHWC' else \
+            (d[0], d[2], d[3], d[1])
+        f = int(n.attrs['num_filter'])
+        stride = tuple(n.attrs['stride'])[0]
+        if tuple(n.attrs['kernel']) == (1, 1):
+            oh, ow = (h - 1) // stride + 1, (w - 1) // stride + 1
+            dots[(nb * oh * ow, c, f)] += 1
+        else:
+            convs[(nb, h, w, c, f, stride)] += 1
+    return dots, convs, bn_relus
+
+
+def _gemm_case(torch, name, dtype, got, want, magnitude, timed, nbytes,
+               flops, flush):
+    """Check ``got`` against ``want`` elementwise within rtol * magnitude
+    (|A| . |W|, the bound a K-term sum's rounding scales with), then time
+    the kernel, the plain version and the library call."""
+    dt = str(dtype).replace('torch.', '')
+    torch.cuda.synchronize()
+    if got.dtype != dtype or got.shape != want.shape:
+        raise AssertionError('%s %s: got %s %s, want %s' % (
+            name, dt, got.dtype, tuple(got.shape), tuple(want.shape)))
+    err = (got.float() - want.float()).abs()
+    if not bool(torch.isfinite(got.float()).all()):
+        raise AssertionError('%s %s: non-finite output' % (name, dt))
+    ratio = float((err / magnitude.clamp_min(1e-30)).max())
+    if ratio > GEMM_RTOL[dt]:
+        raise AssertionError('%s %s disagrees with its plain version: '
+                             'max |err| / (|A|.|W|) = %g > %g (max abs err '
+                             '%g)' % (name, dt, ratio, GEMM_RTOL[dt],
+                                      float(err.max())))
+    kernel, plain, library = timed
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    op_ms = flops / peak * 1e3
+    return {'dtype': dt, 'max_abs_err': float(err.max()),
+            'max_err_over_magnitude': ratio,
+            'tolerance': '%g * (|A|.|W|)' % GEMM_RTOL[dt],
+            'ms': cuda_ms(torch, kernel, flush),
+            'plain_ms': cuda_ms(torch, plain, flush),
+            'library_ms': cuda_ms(torch, library, flush),
+            'host_us': host_us(torch, kernel),
+            'bound_ms': max(byte_ms, op_ms),
+            'bound_by': 'bytes' if byte_ms >= op_ms else 'operations',
+            'bytes': nbytes, 'flops': flops}
+
+
+def check_dot(torch, fused, mkn, dtype, gen, flush):
+    """One fused_scale_bias_dot case (relu on, as on the path)."""
+    dev = torch.device('cuda', 0)
+    m, k, n = mkn
+    x = torch.randn(m, k, generator=gen, device=dev).to(dtype)
+    w = (torch.randn(k, n, generator=gen, device=dev) / k ** 0.5).to(dtype)
+    s = torch.rand(k, generator=gen, device=dev) + 0.5
+    b = torch.randn(k, generator=gen, device=dev) * 0.5
+    got = fused.fused_scale_bias_dot(x, w, s, b, relu=True)
+    want = fused.fused_scale_bias_dot_plain(x, w, s, b, relu=True)
+    xa = torch.relu(x.float() * s + b).to(dtype)   # the normalized input
+    magnitude = torch.matmul(xa.float().abs(), w.float().abs())
+    case = _gemm_case(
+        torch, 'fused_scale_bias_dot', dtype, got, want, magnitude,
+        (lambda: fused.fused_scale_bias_dot(x, w, s, b, relu=True),
+         lambda: fused.fused_scale_bias_dot_plain(x, w, s, b, relu=True),
+         lambda: torch.matmul(xa, w)),
+        (m * k + k * n + m * n) * x.element_size() + 2 * k * 4,
+        2 * m * n * k, flush)
+    case['mkn'] = list(mkn)
+    return case
+
+
+def check_conv(torch, fused_conv, shape, dtype, gen, flush):
+    """One fused_scale_bias_conv3x3 case (relu on, as on the path)."""
+    import torch.nn.functional as F
+    dev = torch.device('cuda', 0)
+    n, h, wd, c, f, stride = shape
+    x = torch.randn(n, h, wd, c, generator=gen, device=dev).to(dtype)
+    w = (torch.randn(3, 3, c, f, generator=gen, device=dev)
+         / (9 * c) ** 0.5).to(dtype)
+    s = torch.rand(c, generator=gen, device=dev) + 0.5
+    b = torch.randn(c, generator=gen, device=dev) * 0.5
+    got = fused_conv.fused_scale_bias_conv3x3(x, w, s, b, stride)
+    want = fused_conv.fused_scale_bias_conv3x3_plain(x, w, s, b, stride)
+    xa = torch.relu(x.float() * s + b).to(dtype)   # the normalized input
+    magnitude = F.conv2d(xa.float().abs().permute(0, 3, 1, 2),
+                         w.float().abs().permute(3, 2, 0, 1), None, stride,
+                         1).permute(0, 2, 3, 1)
+    xa_cl = xa.permute(0, 3, 1, 2)     # NCHW view of NHWC memory
+    w_cl = w.permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    oh, ow = fused_conv.conv3x3_out_hw(h, wd, stride)
+    case = _gemm_case(
+        torch, 'fused_scale_bias_conv3x3', dtype, got, want, magnitude,
+        (lambda: fused_conv.fused_scale_bias_conv3x3(x, w, s, b, stride),
+         lambda: fused_conv.fused_scale_bias_conv3x3_plain(x, w, s, b,
+                                                           stride),
+         lambda: F.conv2d(xa_cl, w_cl, None, stride, 1)),
+        (n * h * wd * c + 9 * c * f + n * oh * ow * f) * x.element_size()
+        + 2 * c * 4,
+        2 * n * oh * ow * f * 9 * c, flush)
+    case['nhwcf_stride'] = list(shape)
+    return case
+
+
+def _sum_cases(cases, key):
+    return sum(c[key] * c['launches_per_step'] for c in cases)
+
+
+def gemm_summary(name, source, replaces, cases, launches):
+    """The kernels-line entry of a GEMM kernel: per-shape bf16 medians
+    summed over one 32-row training step's forward launches."""
+    on_path = [c for c in cases if c['launches_per_step']
+               and c['dtype'] == 'bfloat16']
+    return {'name': name, 'route': 'cuda', 'source': source,
+            'replaces': replaces, 'launches': launches,
+            'max_abs_err': max(c['max_abs_err'] for c in cases
+                               if c['launches_per_step']),
+            'ms': _sum_cases(on_path, 'ms'),
+            'plain_ms': _sum_cases(on_path, 'plain_ms'),
+            'bound_ms': _sum_cases(on_path, 'bound_ms'),
+            # the side that holds the larger share of the summed bound
+            'bound_by': ('operations' if _sum_cases(
+                [c for c in on_path if c['bound_by'] == 'operations'],
+                'bound_ms') > _sum_cases(on_path, 'bound_ms') / 2
+                else 'bytes'),
+            'library_ms': _sum_cases(on_path, 'library_ms'),
+            'library_call': ('torch.matmul' if 'dot' in name
+                             else 'F.conv2d') + ' on the normalized input',
+            'per': 'one 32-row training step forward, bfloat16',
+            'f32_ms': _sum_cases([c for c in cases if c['launches_per_step']
+                                  and c['dtype'] == 'float32'], 'ms'),
+            'cases': cases}
+
+
+def train_module(mx, torch, symbol, arg, aux, data, labels, ctx, dtype,
+                 batch):
+    """``Module.fit`` over an NDArrayIter; returns the module and the
+    host seconds of each step (each ends in a device synchronise)."""
+    times = []
+    last = [time.perf_counter()]
+    on_card = ctx.device_type == 'gpu'
+
+    def tick(_):
+        if on_card:
+            torch.cuda.synchronize()
+        now = time.perf_counter()
+        times.append(now - last[0])
+        last[0] = now
+
+    mod = mx.mod.Module(symbol, context=ctx, compute_dtype=dtype)
+    mod.fit(mx.io.NDArrayIter(data, labels, batch_size=batch),
+            num_epoch=1, eval_metric=['acc', 'ce'],
+            optimizer='sgd', optimizer_params={
+                'learning_rate': 0.05, 'momentum': 0.9, 'wd': 1e-4},
+            arg_params={k: mx.nd.array(v) for k, v in arg.items()},
+            aux_params={k: mx.nd.array(v) for k, v in aux.items()},
+            batch_end_callback=tick)
+    return mod, times
+
+
 def serve(server, data, rng):
     """64 requests of 1-8 rows from 4 threads; returns per-request
     (rows, latency_s, output) and the wall seconds."""
@@ -205,7 +408,7 @@ def main():
     try:
         import mxnet_tpu_torch as mx
         from mxnet_tpu_torch import convert, instrument
-        from mxnet_tpu_torch.ops import _kernels, fused
+        from mxnet_tpu_torch.ops import _kernels, fused, fused_conv
         from mxnet_tpu_torch.models import resnet
     except ImportError as e:
         print('chip_smoke: the mxnet_tpu_torch package is missing (%s); run '
@@ -255,8 +458,43 @@ def main():
     if not torch.equal(fused.fused_bn_relu(xu, su, bu),
                        fused.fused_bn_relu_plain(xu, su, bu)):
         raise AssertionError('fused_bn_relu: unaligned view disagrees')
+    # the training path, read from the aggressive training graph
+    dots, convs, train_bn_relus = train_kernel_shapes(mx, symbol, BATCH)
+    if sum(dots.values()) != 36 or sum(convs.values()) != 16:
+        raise AssertionError('expected 36 1x1 and 16 3x3 _bn_relu_conv '
+                             'nodes in ResNet-50 v2 training, found %s / %s'
+                             % (dict(dots), dict(convs)))
+    for shape, per_step in sorted(train_bn_relus.items()):
+        case = check_bn_relu(torch, fused, shape, torch.bfloat16, gen, flush)
+        case['launches_per_forward'] = 0
+        case['launches_per_step'] = per_step
+        cases.append(case)
+    # TF32 off: the f32 plain versions and library calls are full f32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dot_cases, conv_cases = [], []
+    for dtype in (torch.bfloat16, torch.float32):
+        for mkn, per_step in sorted(dots.items()):
+            case = check_dot(torch, fused, mkn, dtype, gen, flush)
+            case['launches_per_step'] = per_step
+            dot_cases.append(case)
+        for shape, per_step in sorted(convs.items()):
+            case = check_conv(torch, fused_conv, shape, dtype, gen, flush)
+            case['launches_per_step'] = per_step
+            conv_cases.append(case)
+        # off the path: a ragged dot (no tile divides M, K or N) and an
+        # odd-H/W stride-2 conv
+        case = check_dot(torch, fused, (1001, 37, 130), dtype, gen, flush)
+        case['launches_per_step'] = 0
+        dot_cases.append(case)
+        case = check_conv(torch, fused_conv, (3, 15, 13, 24, 40, 2), dtype,
+                          gen, flush)
+        case['launches_per_step'] = 0
+        conv_cases.append(case)
+    torch.backends.cudnn.allow_tf32 = True
     del flush
-    log({'phase': 'kernels', 'cases': cases})
+    log({'phase': 'kernels', 'cases': cases, 'dot_cases': dot_cases,
+         'conv_cases': conv_cases, 'tf32': False})
 
     # -- 4. serve: the main path ---------------------------------------------
     arg, aux = convert.random_params(symbol, {'data': (BATCH,) + IMAGE},
@@ -336,13 +574,120 @@ def main():
     if not top1:
         raise AssertionError('top-1 differs between the card and the CPU')
 
+    # -- 6. train: the second main path ----------------------------------
+    prog = mx.fuse.apply_fuse_passes(symbol, True, 'aggressive')
+    bn_relu_nodes = sum(1 for n in prog.topo_nodes() if n.op == '_bn_relu')
+    rng = np.random.default_rng(SEED + 2)
+    images = rng.standard_normal((TRAIN_BATCHES * BATCH,) + IMAGE,
+                                 dtype=np.float32)
+    labels = rng.integers(0, 1000, TRAIN_BATCHES * BATCH).astype(np.float32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in (fused.fused_bn_relu, fused.fused_scale_bias_dot,
+              fused_conv.fused_scale_bias_conv3x3):
+        k.launches = 0
+    t0 = time.monotonic()
+    mod, step_s = train_module(mx, torch, symbol, arg, aux, images, labels,
+                               mx.gpu(0), torch.bfloat16, BATCH)
+    torch.cuda.synchronize()
+    fit_s = time.monotonic() - t0
+    train_launches = {
+        'fused_scale_bias_dot': fused.fused_scale_bias_dot.launches,
+        'fused_scale_bias_conv3x3':
+            fused_conv.fused_scale_bias_conv3x3.launches,
+        'fused_bn_relu': fused.fused_bn_relu.launches}
+    expected = {'fused_scale_bias_dot': 36, 'fused_scale_bias_conv3x3': 16,
+                'fused_bn_relu': bn_relu_nodes}
+    steps = len(step_s)
+    for name, per_step in expected.items():
+        if train_launches[name] != per_step * steps or steps != \
+                TRAIN_BATCHES:
+            raise AssertionError('%s launched %d times in %d training steps '
+                                 '(expected %d each)'
+                                 % (name, train_launches[name], steps,
+                                    per_step))
+    metric = dict(mod._fused_metric.get_name_value())
+    trained, trained_aux = mod.get_params()
+    moved = 0.0
+    for k, v in arg.items():
+        t = trained[k].asnumpy()
+        if not np.all(np.isfinite(t)):
+            raise AssertionError('parameter %s is not finite' % k)
+        moved = max(moved, float(np.max(np.abs(t - v))))
+    if not all(np.all(np.isfinite(v.asnumpy()))
+               for v in trained_aux.values()):
+        raise AssertionError('a BatchNorm moving statistic is not finite')
+    if not np.isfinite(metric['cross-entropy']) or moved <= 0.0:
+        raise AssertionError('training did not move: loss %s, max |dw| %g'
+                             % (metric['cross-entropy'], moved))
+    step_ms = statistics.median(step_s[TRAIN_WARMUP:]) * 1e3
+    log({'phase': 'train', 'model': 'resnet-50 v2', 'classes': 1000,
+         'image': list(IMAGE), 'batch': BATCH, 'steps': steps,
+         'compute_dtype': 'bfloat16', 'fuse': 'aggressive',
+         'optimizer': 'sgd lr 0.05 momentum 0.9 wd 1e-4',
+         'launches': train_launches, 'launches_per_step': expected,
+         'fit_s': fit_s, 'step_ms': [t * 1e3 for t in step_s],
+         'step_ms_median_after_warmup': step_ms,
+         'images_per_s': BATCH / step_ms * 1e3,
+         'peak_memory_bytes': torch.cuda.max_memory_allocated(),
+         'train_cross_entropy': metric['cross-entropy'],
+         'train_accuracy': metric['accuracy'], 'max_param_change': moved})
+    del mod, trained, trained_aux
+
+    # -- 7. train-parity: one f32 step on the card and on the CPU ----------
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    p_images, p_labels = images[:PARITY_ROWS], labels[:PARITY_ROWS]
+    stepped = {}
+    for ctx in (mx.gpu(0), mx.cpu()):
+        t0 = time.monotonic()
+        pmod, _ = train_module(mx, torch, symbol, arg, aux, p_images,
+                               p_labels, ctx, None, PARITY_ROWS)
+        stepped[ctx.device_type] = ({k: v.asnumpy() for k, v in
+                                     pmod.get_params()[0].items()},
+                                    time.monotonic() - t0)
+        del pmod
+    (card, card_s), (host, cpu_s) = stepped['gpu'], stepped['cpu']
+    # Elementwise rtol 1e-3, atol 1e-5.  A relu whose input lies within
+    # the two devices' float32 differences (~1e-6) of zero can take the
+    # other side of its kink on one device: its gradient element flips,
+    # and the weight gradients of the channel it feeds move by far more
+    # than the tolerance.  Such isolated flips are expected at full width
+    # (millions of relu inputs), so the phase fails when more than 1e-4
+    # of all parameter elements are outside the tolerance, or any is
+    # more than 1e-3 away; it reports every parameter that differs.
+    outside, worst, total, n_out = [], (0.0, None), 0, 0
+    for k in sorted(card):
+        diff = np.abs(card[k] - host[k])
+        bad = int((diff > 1e-5 + 1e-3 * np.abs(host[k])).sum())
+        total += diff.size
+        n_out += bad
+        if bad:
+            outside.append((k, bad, float(diff.max())))
+        if float(diff.max()) > worst[0]:
+            worst = (float(diff.max()), k)
+    log({'phase': 'train-parity', 'rows': PARITY_ROWS, 'dtype': 'float32',
+         'tf32': False, 'tolerance': 'rtol 1e-3, atol 1e-5 elementwise; '
+         'at most 1e-4 of the elements outside it, none beyond 1e-3',
+         'params': len(card), 'elements': total,
+         'elements_outside': n_out, 'max_abs_err': worst[0],
+         'worst_param': worst[1], 'outside_tolerance': outside,
+         'card_s': card_s, 'cpu_s': cpu_s})
+    if n_out > 1e-4 * total or worst[0] > 1e-3:
+        raise AssertionError('train-parity: %d of %d parameter elements '
+                             'beyond rtol 1e-3, atol 1e-5, max abs err %g '
+                             'in %s' % (n_out, total, worst[0], worst[1]))
+
     # -- summary -------------------------------------------------------------
     on_path = [c for c in cases if c['launches_per_forward']]
     summary = {
         'name': 'fused_bn_relu', 'route': 'cuda',
         'source': 'mxnet_tpu_torch/csrc/fused_bn_relu.cu',
         'replaces': 'mxnet_tpu/ops/pallas_fused.py:196',
-        'launches': launches['fused_bn_relu'],
+        'launches': launches['fused_bn_relu']
+        + train_launches['fused_bn_relu'],
+        'launches_by_path': {'serve': launches['fused_bn_relu'],
+                             'train': train_launches['fused_bn_relu']},
         'max_abs_err': max(c['max_abs_err'] for c in on_path),
         # the 17 launches of one 32-row forward: per-shape medians summed
         'ms': sum(c['ms'] * c['launches_per_forward'] for c in on_path),
@@ -353,9 +698,24 @@ def main():
         'bound_by': ('bytes' if all(c['bound_by'] == 'bytes'
                                for c in on_path) else 'operations'),
         'library_ms': None,
-        'per_forward_of_rows': BATCH, 'cases': cases}
+        'per': 'one 32-row serving forward, float32',
+        'train_ms': sum(c['ms'] * c.get('launches_per_step', 0)
+                        for c in cases),
+        'train_bound_ms': sum(c['bound_ms'] * c.get('launches_per_step', 0)
+                              for c in cases),
+        'cases': cases}
+    kernels = [
+        summary,
+        gemm_summary('fused_scale_bias_dot', 'mxnet_tpu_torch/csrc/'
+                     'fused_scale_bias_dot.cu',
+                     'mxnet_tpu/ops/pallas_fused.py:72', dot_cases,
+                     train_launches['fused_scale_bias_dot']),
+        gemm_summary('fused_scale_bias_conv3x3', 'mxnet_tpu_torch/csrc/'
+                     'fused_scale_bias_conv3x3.cu',
+                     'mxnet_tpu/ops/pallas_conv.py:91', conv_cases,
+                     train_launches['fused_scale_bias_conv3x3'])]
     print(smi, flush=True)
-    log({'kernels': [summary]})
+    log({'kernels': kernels})
     log({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,
                                 'count': torch.cuda.device_count()}})
     return 0

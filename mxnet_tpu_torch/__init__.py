@@ -1,11 +1,13 @@
 """mxnet_tpu_torch — the PyTorch/CUDA port of ``mxnet_tpu``.
 
 A second package beside the JAX one, with the same public surface and
-the same symbol JSON and ``.params`` formats, for an NVIDIA H100.  This
-slice serves: ``ModelServer`` -> ``Predictor`` -> ``Symbol.bind`` ->
-``Executor.forward`` (with the ``MXTPU_FUSE`` pass pipeline), over the
-ops ResNet-50 v2 needs, with the one TPU kernel on that path,
-``fused_bn_relu``, written in CUDA C++ for sm_90a (``csrc/``).
+the same symbol JSON and ``.params`` formats, for an NVIDIA H100.  It
+serves (``ModelServer`` -> ``Predictor`` -> ``Symbol.bind`` ->
+``Executor.forward``) and trains (``Module.fit`` -> the fused train step:
+forward, backward, SGD-momentum update), both through the
+``MXTPU_FUSE`` pass pipeline, over the ops ResNet-50 v2 needs.  The TPU
+kernels on those paths — ``fused_bn_relu``, ``fused_scale_bias_dot`` and
+``fused_scale_bias_conv3x3`` — are CUDA C++ for sm_90a (``csrc/``).
 
 The package imports torch and numpy, never jax and nothing of
 ``mxnet_tpu``.  Entry points run on the card unless the caller asks for
@@ -21,11 +23,21 @@ from . import ndarray as nd
 from . import symbol
 from . import symbol as sym
 from . import executor, fuse, compile_cache, convert, models
+from . import random
+from . import (callback, initializer, io, lr_scheduler, metric, module,
+               optimizer, parallel)
+from . import initializer as init
+from . import module as mod
+from . import optimizer as opt
 from .base import MXNetError
 from .context import Context, cpu, gpu
+from .module import Module
 from .predictor import Predictor
 from . import serving
 
 __all__ = ['MXNetError', 'Context', 'cpu', 'gpu',
            'nd', 'sym', 'Predictor', 'serving', 'models', 'convert',
-           'fuse', 'ops', 'config', 'instrument']
+           'fuse', 'ops', 'config', 'instrument', 'Module', 'module', 'mod',
+           'io', 'metric', 'optimizer', 'lr_scheduler', 'initializer',
+           'opt', 'init', 'callback', 'random', 'parallel']
+

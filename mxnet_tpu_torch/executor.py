@@ -1,13 +1,21 @@
-"""Executor — evaluation of a bound Symbol.
+"""Executor — evaluation and differentiation of a bound Symbol.
 
-The port of ``mxnet_tpu/executor.py``'s forward path.  The JAX package
-traces the graph once into a jitted XLA program; here the same graph
-interpreter (:func:`_build_graph_fn`, ``mxnet_tpu/executor.py:42-103``)
-runs eagerly, op by op, on the tensors' device.  The step-compiler pass
+The port of ``mxnet_tpu/executor.py``.  The JAX package traces the graph
+once into a jitted XLA program; here the same graph interpreter
+(:func:`_build_graph_fn`, ``mxnet_tpu/executor.py:42-103``) runs
+eagerly, op by op, on the tensors' device.  The step-compiler pass
 pipeline (``fuse.apply_fuse_passes``, ``MXTPU_FUSE``) runs once per
 (executor, mode) on the symbol the interpreter walks, as
-``Executor._program_symbol`` does there (``:198-212``).  This slice
-ports no backward: forwards run under ``torch.no_grad()``.
+``Executor._program_symbol`` does there (``:198-212``).
+
+Inference forwards run under ``torch.no_grad()``.  A training forward of
+an executor with gradient buffers runs under autograd, with each
+argument whose ``grad_req`` is not ``'null'`` as a leaf; ``backward``
+then differentiates the recorded graph with zero head gradients — loss
+layers (``SoftmaxOutput``) inject their own, as in the reference — and
+writes the gradients into ``grad_dict`` (``'write'`` replaces, ``'add'``
+accumulates).  Gradients of the monitor, mirror and group2ctx paths of
+the JAX executor are not ported.
 """
 from __future__ import annotations
 
@@ -16,12 +24,12 @@ from typing import Dict, Tuple
 import torch
 
 from . import instrument
-from .base import MXNetError
+from .base import MXNetError, resolve_dtype
 from .context import Context
 from .ndarray import NDArray, zeros as nd_zeros
 from .symbol import Symbol
 
-__all__ = ['Executor']
+__all__ = ['Executor', 'simple_bind']
 
 
 def _build_graph_fn(symbol: Symbol, is_train: bool):
@@ -61,10 +69,19 @@ def _build_graph_fn(symbol: Symbol, is_train: bool):
     return fn
 
 
+def _grad_req_map(grad_req, arg_names):
+    if isinstance(grad_req, str):
+        return {n: grad_req for n in arg_names}
+    if isinstance(grad_req, (list, tuple)):
+        return dict(zip(arg_names, grad_req))
+    return {n: grad_req.get(n, 'null') for n in arg_names}
+
+
 class Executor:
     """A bound computation (reference ``python/mxnet/executor.py``)."""
 
-    def __init__(self, symbol: Symbol, ctx, args, aux_states=None):
+    def __init__(self, symbol: Symbol, ctx, args, args_grad=None,
+                 grad_req='write', aux_states=None):
         self._symbol = symbol
         self._ctx = ctx if isinstance(ctx, Context) else Context(ctx)
         self.arg_names = symbol.list_arguments()
@@ -73,12 +90,28 @@ class Executor:
         self.arg_dict = self._normalize(args, self.arg_names, 'args')
         self.aux_dict = self._normalize(aux_states, self.aux_names,
                                         'aux_states', allow_none=True)
+        self.grad_dict = self._normalize(args_grad, self.arg_names,
+                                         'args_grad', allow_none=True,
+                                         partial_ok=True)
+        self.grad_req = _grad_req_map(grad_req, self.arg_names)
+        for n in self.arg_names:
+            if n not in self.grad_dict:
+                self.grad_req[n] = 'null'
+        for n, req in self.grad_req.items():
+            if req not in ('write', 'add', 'null'):
+                raise MXNetError("grad_req of %s must be 'write', 'add' or "
+                                 "'null', got %r" % (n, req))
+        self._grad_names = [n for n in self.arg_names
+                            if self.grad_req[n] != 'null']
         self._fuse_cache: Dict[bool, Symbol] = {}
         self._graph_fns: Dict[bool, object] = {}
+        # (graph outputs, autograd leaves) of the last training forward,
+        # consumed by backward()
+        self._pending = None
         self.outputs = []
 
     @staticmethod
-    def _normalize(values, names, what, allow_none=False):
+    def _normalize(values, names, what, allow_none=False, partial_ok=False):
         if values is None:
             if allow_none:
                 return {}
@@ -87,7 +120,7 @@ class Executor:
             out = dict(values)
         else:
             values = list(values)
-            if len(values) != len(names):
+            if len(values) != len(names) and not partial_ok:
                 raise MXNetError('length of %s (%d) does not match '
                                  'number of names (%d)'
                                  % (what, len(values), len(names)))
@@ -109,44 +142,141 @@ class Executor:
             self._fuse_cache[key] = cached
         return cached
 
-    def forward(self, is_train=False, **kwargs):
-        """Run the graph; returns (and keeps in ``outputs``) one NDArray
-        per output.  Keyword arguments overwrite bound arguments first.
-        Training-mode forwards compute batch statistics and write the
-        moving-stat updates back to the aux arrays."""
-        for k, v in kwargs.items():
-            if k not in self.arg_dict:
-                raise MXNetError('unknown argument %s' % k)
-            self.arg_dict[k][:] = v
+    def _graph_fn(self, is_train):
         key = bool(is_train)
         fn = self._graph_fns.get(key)
         if fn is None:
             fn = self._graph_fns[key] = _build_graph_fn(
                 self._program_symbol(key), key)
+        return fn
+
+    def _run_with_grad(self):
+        """A training forward under autograd: ``(outputs, aux_updates,
+        leaves)``, the leaves being the differentiated arguments."""
         args = {k: v.handle for k, v in self.arg_dict.items()}
         aux = {k: v.handle for k, v in self.aux_dict.items()}
-        with torch.no_grad():
-            outs, aux_updates = fn(args, aux)
+        leaves = {}
+        for n in self._grad_names:
+            leaves[n] = args[n] = args[n].detach().requires_grad_(True)
+        with torch.enable_grad():
+            outs, aux_updates = self._graph_fn(True)(args, aux)
+        return outs, aux_updates, leaves
+
+    def forward(self, is_train=False, **kwargs):
+        """Run the graph; returns (and keeps in ``outputs``) one NDArray
+        per output.  Keyword arguments overwrite bound arguments first.
+        Training-mode forwards compute batch statistics and write the
+        moving-stat updates back to the aux arrays; with gradient
+        buffers bound they also record the graph ``backward`` needs."""
+        for k, v in kwargs.items():
+            if k not in self.arg_dict:
+                raise MXNetError('unknown argument %s' % k)
+            self.arg_dict[k][:] = v
+        self._pending = None
+        if is_train and self._grad_names:
+            outs, aux_updates, leaves = self._run_with_grad()
+            self._pending = (outs, leaves)
+        else:
+            args = {k: v.handle for k, v in self.arg_dict.items()}
+            aux = {k: v.handle for k, v in self.aux_dict.items()}
+            with torch.no_grad():
+                outs, aux_updates = self._graph_fn(is_train)(args, aux)
         for name, val in aux_updates.items():
             self.aux_dict[name]._set_data(val)
-        self.outputs = [NDArray(o, self._ctx) for o in outs]
+        self.outputs = [NDArray(o.detach(), self._ctx) for o in outs]
         instrument.inc('executor.forwards')
+        return self.outputs
+
+    def backward(self, out_grads=None):
+        """Compute gradients into ``grad_dict``.
+
+        Unsupplied head gradients are zero — loss layers inject their own
+        gradient, matching the reference where ``SoftmaxOutput``'s
+        backward ignores the head gradient.  Differentiates the graph of
+        the last ``forward(is_train=True)``; without one pending (a
+        second backward) the training forward is run again, its aux
+        updates discarded."""
+        if not self._grad_names:
+            return
+        if not self.outputs:
+            raise MXNetError('call forward(is_train=True) before backward()')
+        if self._pending is not None:
+            outs, leaves = self._pending
+            self._pending = None
+        else:
+            outs, _, leaves = self._run_with_grad()
+        if out_grads is None:
+            cots = [torch.zeros_like(o) for o in outs]
+        else:
+            if isinstance(out_grads, NDArray):
+                out_grads = [out_grads]
+            if isinstance(out_grads, dict):
+                out_grads = [out_grads[n] for n in self.output_names]
+            cots = [(g.handle if isinstance(g, NDArray)
+                     else torch.as_tensor(g)).to(o.device, o.dtype)
+                    for g, o in zip(out_grads, outs)]
+        heads = [(o, g) for o, g in zip(outs, cots) if o.requires_grad]
+        if heads:
+            torch.autograd.backward([o for o, _ in heads],
+                                    [g for _, g in heads])
+        for name in self._grad_names:
+            g = leaves[name].grad
+            if g is None:       # no path from this argument to an output
+                g = torch.zeros_like(leaves[name])
+            dst = self.grad_dict[name]
+            if self.grad_req[name] == 'add':
+                dst._set_data(dst.handle + g)
+            else:
+                dst._set_data(g)
+
+    def forward_backward(self, out_grads=None, **kwargs):
+        """``forward(is_train=True)`` then ``backward``; returns the
+        outputs."""
+        self.forward(is_train=True, **kwargs)
+        self.backward(out_grads)
         return self.outputs
 
     def reshape(self, **kwargs):
         """A new Executor bound at new argument shapes: arrays whose
-        shape is unchanged (the parameters) are shared, the rest are
-        fresh zeros."""
+        shape is unchanged (the parameters and their gradients) are
+        shared, the rest are fresh zeros."""
         arg_shapes, _, aux_shapes = self._symbol.infer_shape(**kwargs)
         if arg_shapes is None:
             raise MXNetError('Insufficient argument shapes provided.')
-        new_args, new_aux = {}, {}
+        new_args, new_grads, new_aux = {}, {}, {}
         for name, shape in zip(self.arg_names, arg_shapes):
             old = self.arg_dict[name]
-            new_args[name] = old if shape == old.shape else \
+            same = shape == old.shape
+            new_args[name] = old if same else \
                 nd_zeros(shape, self._ctx, dtype=old.dtype)
+            if name in self.grad_dict:
+                new_grads[name] = self.grad_dict[name] if same else \
+                    nd_zeros(shape, self._ctx, dtype=old.dtype)
         for name, shape in zip(self.aux_names, aux_shapes):
             old = self.aux_dict[name]
             new_aux[name] = old if shape == old.shape else \
                 nd_zeros(shape, self._ctx, dtype=old.dtype)
-        return Executor(self._symbol, self._ctx, new_args, new_aux)
+        return Executor(self._symbol, self._ctx, new_args,
+                        new_grads or None, self.grad_req, new_aux)
+
+
+def simple_bind(symbol: Symbol, ctx, grad_req='write', type_dict=None,
+                **kwargs):
+    """Allocate argument, gradient and aux arrays from the shapes
+    inferred from ``kwargs`` and bind (``mxnet_tpu/executor.py:808``;
+    reference ``symbol.py:788``)."""
+    arg_shapes, _, aux_shapes = symbol.infer_shape(**kwargs)
+    if arg_shapes is None:
+        raise MXNetError('cannot infer shapes from %s' % kwargs)
+    type_dict = type_dict or {}
+    ctx = ctx if isinstance(ctx, Context) else Context(ctx)
+    arg_names = symbol.list_arguments()
+    req = _grad_req_map(grad_req, arg_names)
+    args = {n: nd_zeros(s, ctx, dtype=resolve_dtype(type_dict.get(n)))
+            for n, s in zip(arg_names, arg_shapes)}
+    grads = {n: nd_zeros(s, ctx, dtype=resolve_dtype(type_dict.get(n)))
+             for n, s in zip(arg_names, arg_shapes)
+             if req.get(n, 'null') != 'null'}
+    aux = {n: nd_zeros(s, ctx)
+           for n, s in zip(symbol.list_auxiliary_states(), aux_shapes)}
+    return Executor(symbol, ctx, args, grads or None, req, aux)

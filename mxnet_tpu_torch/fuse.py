@@ -15,8 +15,10 @@ pass                level       rewrite
                                 BatchNorm mean/var heads
 ``conv_bn_fold``    aggressive  Convolution->BatchNorm folded into the conv
                                 weights (inference; training on moving stats)
-``bn_relu_conv``    aggressive  BN->relu->conv onto the fused-prologue conv
-                                kernels — NOT PORTED: raises on a match
+``bn_relu_conv``    aggressive  BN->relu->conv into ``_bn_relu_conv`` nodes,
+                                lowered onto ``fused_scale_bias_dot`` (1x1,
+                                ops/fused.py) and ``fused_scale_bias_conv3x3``
+                                (3x3, ops/fused_conv.py)
 ``bn_relu``         aggressive  leftover BN->relu chains onto the
                                 ``fused_bn_relu`` kernel (ops/fused.py)
 ``epilogue``        safe        bias-add/relu/clip chains after Conv/FC
@@ -24,21 +26,33 @@ pass                level       rewrite
                                 the aggressive FullyConnected lowering onto
                                 ``fused_dot_epilogue`` is NOT PORTED: raises
 ``nhwc_regions``    aggressive  channels-last regions around
-                                ``_bn_relu_conv`` — NOT PORTED: raises
+                                ``_bn_relu_conv`` (explicit ``transpose``
+                                nodes only at region boundaries)
 ==================  ==========  =============================================
 
-A pass whose lowering needs a kernel the port does not have yet raises
-``NotImplementedError`` naming the kernel when it would rewrite a node,
-instead of leaving the graph silently different from the JAX package's.
-On ResNet-50 v2 inference none of them fires: ``conv_bn_fold`` takes
-every conv->BN pair, so no BN->relu->conv chain is left, and ``bn_relu``
-lowers the 17 remaining BN->relu chains onto ``fused_bn_relu``.
+The JAX package runs ``bn_relu_conv`` and ``nhwc_regions`` only where its
+Pallas kernels are live (a TPU, or the Pallas interpreter forced:
+``mxnet_tpu/fuse.py:1071-1095``); on its plain-XLA path they step aside.
+The port's kernels are always live — the CUDA kernel on the card, the
+plain version on the CPU — so the port runs both passes whenever the
+mode is ``aggressive`` and builds the graph the JAX package builds on a
+TPU or in interpret mode.
+
+A lowering that needs a kernel the port does not have yet (the
+aggressive FullyConnected epilogue, kernel ``fused_dot_epilogue``)
+raises ``NotImplementedError`` naming the kernel when it would rewrite a
+node, instead of leaving the graph silently different from the JAX
+package's.  On ResNet-50 v2 inference ``conv_bn_fold`` takes every
+conv->BN pair, so ``bn_relu_conv`` finds nothing and ``bn_relu`` lowers
+the 17 remaining BN->relu chains; in training the live batch statistics
+keep the BNs unfolded and ``bn_relu_conv`` rewrites 52 of the 53 convs.
 """
 from __future__ import annotations
 
 import torch
 
-from .ops.fused import fused_bn_relu
+from .ops.fused import fused_bn_relu, fused_scale_bias_dot
+from .ops.fused_conv import fused_scale_bias_conv3x3
 from .ops.nn import _conv_apply, batch_norm_stats
 from .ops.registry import get_op, register
 from .symbol import Node, Symbol
@@ -48,7 +62,7 @@ __all__ = ['fold_conv_bn', 'fold_constants', 'prune_dead_branches',
            'default_passes', 'default_manager', 'fuse_mode',
            'apply_fuse_passes', 'last_run_stats']
 
-# where the kernels an unported lowering needs are queued
+# where the kernel of the unported FullyConnected epilogue lowering is queued
 _ROADMAP_KERNELS = "ROADMAP.md, 'Queue 2 — TPU kernels still to port'"
 
 
@@ -281,8 +295,80 @@ def fold_conv_bn(sym: Symbol, is_train=False, mode='safe'):
 
 
 # ---------------------------------------------------------------------------
-# BN->relu->conv — needs the fused-prologue GEMM/conv kernels (not ported)
+# BN->relu->conv onto the fused-prologue GEMM / implicit-GEMM conv kernels
 # ---------------------------------------------------------------------------
+
+def _bn_relu_conv_apply(attrs, inputs, is_train, rng):
+    """The JAX op (``mxnet_tpu/fuse.py:128-166``): the BN stats step on
+    the layout's non-channel axes folded to (scale, bias), then the 1x1
+    conv as ``fused_scale_bias_dot`` over (N*H*W, C) (stride 2 slices the
+    input first) or the 3x3 conv as ``fused_scale_bias_conv3x3`` on NHWC
+    with HWIO weights."""
+    data, gamma, beta, weight = inputs[:4]
+    in_nhwc = attrs.get('in_layout', 'NCHW') == 'NHWC'
+    out_nhwc = attrs.get('out_layout', 'NCHW') == 'NHWC'
+    scale, bias, aux_updates = _bn_scale_bias(
+        attrs, data, gamma, beta, inputs[4], inputs[5], is_train,
+        axes=(0, 1, 2) if in_nhwc else (0, 2, 3))
+    kernel = _tup_or(attrs.get('kernel'), (1, 1))
+    stride_hw = _tup_or(attrs.get('stride'), (1, 1))
+    if kernel not in ((1, 1), (3, 3)) or \
+            stride_hw not in ((1, 1), (2, 2)):
+        raise ValueError('_bn_relu_conv supports kernel 1x1/3x3 with '
+                         'square stride 1/2, got kernel=%s stride=%s'
+                         % (kernel, stride_hw))
+    stride = stride_hw[0]
+    x = data if in_nhwc else data.permute(0, 2, 3, 1)
+    n, c = x.shape[0], x.shape[3]
+    if kernel == (1, 1):
+        if stride > 1:
+            x = x[:, ::stride, ::stride, :]
+        oh, ow = x.shape[1], x.shape[2]
+        x2d = x.contiguous().reshape(-1, c)
+        w2d = weight.reshape(weight.shape[0], c).t()        # (C, Nf)
+        y2d = fused_scale_bias_dot(x2d, w2d.to(data.dtype).contiguous(),
+                                   scale, bias, relu=True)
+        y = y2d.reshape(n, oh, ow, -1)
+    else:
+        whwio = weight.permute(2, 3, 1, 0)                  # HWIO
+        y = fused_scale_bias_conv3x3(x.contiguous(),
+                                     whwio.to(data.dtype).contiguous(),
+                                     scale, bias, stride=stride, relu=True)
+    if not out_nhwc:
+        y = y.permute(0, 3, 1, 2)
+    return [y], aux_updates
+
+
+def _bn_relu_conv_complete(attrs, in_shapes):
+    d = in_shapes[0]
+    if d is not None:
+        c = d[3] if attrs.get('in_layout', 'NCHW') == 'NHWC' else d[1]
+        for i in (1, 2):
+            if in_shapes[i] is None:
+                in_shapes[i] = (c,)
+        if in_shapes[3] is None:
+            k = _tup_or(attrs.get('kernel'), (1, 1))
+            in_shapes[3] = (int(attrs['num_filter']), c) + k
+    return in_shapes
+
+
+def _bn_relu_conv_aux_shape(attrs, in_shapes):
+    d = in_shapes[0]
+    c = d[3] if attrs.get('in_layout', 'NCHW') == 'NHWC' else d[1]
+    return [(c,), (c,)]
+
+
+register('_bn_relu_conv', _bn_relu_conv_apply,
+         input_names=lambda a: ['data', 'gamma', 'beta', 'weight'],
+         aux_names=lambda a: ['moving_mean', 'moving_var'],
+         aux_shape=_bn_relu_conv_aux_shape,
+         num_outputs=lambda a: 1,
+         complete_shapes=_bn_relu_conv_complete,
+         attr_defaults={'eps': 1e-3, 'momentum': 0.9, 'fix_gamma': True,
+                        'use_global_stats': False, 'num_filter': 0,
+                        'kernel': (1, 1), 'stride': (1, 1)},
+         hint='bn_relu_conv')
+
 
 def _is_fusable_conv(node: Node) -> bool:
     if node.op != 'Convolution' or not node.attrs.get('no_bias', False):
@@ -304,45 +390,135 @@ def _is_fusable_conv(node: Node) -> bool:
     return False
 
 
-def _pass_bn_relu_conv(sym, is_train, mode='safe'):
+def _try_fuse_bn_relu_conv(n, consumer_list, mapped_entry):
     """The JAX matcher (``mxnet_tpu/fuse.py:389-424``): a conv fed by
     relu(BN(x)) where every consumer of the relu is a fusable conv and
-    the BN feeds only that relu.  Its lowering needs
-    ``fused_scale_bias_dot`` (1x1) and ``fused_scale_bias_conv3x3``
-    (3x3), so a match raises."""
-    def try_fuse(n, consumer_list, mapped_entry):
-        if not _is_fusable_conv(n):
-            return None
-        act, _ = n.inputs[0]
-        if (act.is_variable or act.op != 'Activation'
-                or act.attrs.get('act_type') != 'relu'
-                or not all(c is not None and _is_fusable_conv(c)
-                           for c in consumer_list(act))):
-            return None
-        bn, _ = act.inputs[0]
-        if (bn.is_variable or bn.op != 'BatchNorm'
-                or len(consumer_list(bn)) != 1
-                or bn.attrs.get('output_mean_var', False)):
-            return None
-        raise NotImplementedError(
-            'fuse pass bn_relu_conv would rewrite %s into _bn_relu_conv, '
-            'whose kernels fused_scale_bias_dot and '
-            'fused_scale_bias_conv3x3 are not ported yet (%s); set '
-            'MXTPU_FUSE_SKIP=bn_relu_conv to serve without it'
-            % (n.name, _ROADMAP_KERNELS))
+    the BN feeds only that relu."""
+    if not _is_fusable_conv(n):
+        return None
+    act, _ = n.inputs[0]
+    if (act.is_variable or act.op != 'Activation'
+            or act.attrs.get('act_type') != 'relu'
+            or not all(c is not None and _is_fusable_conv(c)
+                       for c in consumer_list(act))):
+        return None
+    bn, _ = act.inputs[0]
+    if (bn.is_variable or bn.op != 'BatchNorm'
+            or len(consumer_list(bn)) != 1
+            or bn.attrs.get('output_mean_var', False)):
+        return None
+    attrs = {'eps': bn.attrs.get('eps', 1e-3),
+             'momentum': bn.attrs.get('momentum', 0.9),
+             'fix_gamma': bn.attrs.get('fix_gamma', True),
+             'use_global_stats': bn.attrs.get('use_global_stats', False),
+             'num_filter': n.attrs['num_filter'],
+             'kernel': tuple(n.attrs.get('kernel', (1, 1))),
+             'stride': _tup_or(n.attrs.get('stride'), (1, 1))}
+    # bn inputs: data gamma beta + aux mean/var; conv inputs: act weight
+    ins = [mapped_entry(bn.inputs[0]), mapped_entry(bn.inputs[1]),
+           mapped_entry(bn.inputs[2]), mapped_entry(n.inputs[1]),
+           mapped_entry(bn.inputs[3]), mapped_entry(bn.inputs[4])]
+    fused = Node('_bn_relu_conv', n.name + '_fused', attrs, ins)
+    fused._extra_attr = dict(n._extra_attr)
+    return fused
 
-    return _rewrite_counted(sym, try_fuse)
+
+def _pass_bn_relu_conv(sym, is_train, mode='safe'):
+    """Collapse every BN->relu->conv chain whose relu feeds only fusable
+    convs into per-conv ``_bn_relu_conv`` nodes.  Returns ``(symbol,
+    rewrites)``."""
+    return _rewrite_counted(sym, _try_fuse_bn_relu_conv)
+
+
+# elementwise ops that pass NHWC data through untouched (same-shape
+# two-operand arithmetic; anything axis-sensitive is a region boundary)
+_LAYOUT_FLEX = {'_plus', 'elemwise_add', '_grad_add', '_minus', '_mul'}
+# single-operand elementwise ops a channels-last region grows across
+_LAYOUT_FLEX_UNARY = {'Activation', 'clip'}
+
+
+def _layout_transpose_name(src_name, out_idx, want):
+    """Name of a layout-conversion transpose node; the output index
+    disambiguates two outputs of one multi-output node."""
+    suffix = '' if out_idx == 0 else '_out%d' % out_idx
+    return '%s%s_to_%s' % (src_name, suffix, want.lower())
 
 
 def _pass_nhwc_regions(sym, is_train, mode='safe'):
-    """Grows channels-last regions around ``_bn_relu_conv`` nodes in the
-    JAX package; with no such node it rewrites nothing there either."""
-    for n in sym.topo_nodes():
+    """Keep fused chains channels-last end to end (the JAX region pass,
+    ``mxnet_tpu/fuse.py:291-386``): every ``_bn_relu_conv`` produces
+    NHWC, elementwise ops between them (residual adds, relu/clip) run on
+    NHWC data unchanged, and an explicit ``transpose`` node appears only
+    where an NHWC tensor meets a layout-sensitive consumer or a graph
+    output.  Returns ``(symbol, region nodes)``."""
+    nodes = sym.topo_nodes()
+    if not any(n.op == '_bn_relu_conv' for n in nodes
+               if not n.is_variable):
+        return sym, 0
+    grown = 0
+    mapping = {}     # id(old node) -> new node
+    layout = {}      # (id(new node), idx) -> 'NCHW' | 'NHWC'
+    to_nchw_cache = {}
+    to_nhwc_cache = {}
+
+    def mapped(entry):
+        return (mapping[id(entry[0])], entry[1])
+
+    def layout_of(entry):
+        new_entry = mapped(entry)
+        return layout.get((id(new_entry[0]), new_entry[1]), 'NCHW')
+
+    def as_layout(entry, want):
+        """Entry in the requested layout, inserting (and sharing) a
+        transpose node when needed."""
+        new_entry = mapped(entry)
+        if layout_of(entry) == want:
+            return new_entry
+        cache = to_nhwc_cache if want == 'NHWC' else to_nchw_cache
+        key = (id(new_entry[0]), new_entry[1])
+        t = cache.get(key)
+        if t is None:
+            axes = (0, 2, 3, 1) if want == 'NHWC' else (0, 3, 1, 2)
+            t = Node('transpose',
+                     _layout_transpose_name(entry[0].name, new_entry[1],
+                                            want),
+                     {'axes': axes}, [new_entry])
+            cache[key] = t
+        return (t, 0)
+
+    for n in nodes:
+        if n.is_variable:
+            mapping[id(n)] = n
+            continue
         if n.op == '_bn_relu_conv':
-            raise NotImplementedError(
-                'fuse pass nhwc_regions needs _bn_relu_conv, whose '
-                'kernels are not ported yet (%s)' % _ROADMAP_KERNELS)
-    return sym, 0
+            attrs = dict(n.attrs)
+            attrs['in_layout'] = layout_of(n.inputs[0])
+            attrs['out_layout'] = 'NHWC'
+            new = Node(n.op, n.name, attrs,
+                       [mapped(e) for e in n.inputs])
+            layout[(id(new), 0)] = 'NHWC'
+            grown += 1
+        elif n.op in _LAYOUT_FLEX and len(n.inputs) == 2 and any(
+                layout_of(e) == 'NHWC' for e in n.inputs):
+            # grow the region: both operands to NHWC, output NHWC
+            new = Node(n.op, n.name, n.attrs,
+                       [as_layout(e, 'NHWC') for e in n.inputs])
+            layout[(id(new), 0)] = 'NHWC'
+            grown += 1
+        elif n.op in _LAYOUT_FLEX_UNARY and len(n.inputs) == 1 and \
+                n.num_outputs() == 1 and layout_of(n.inputs[0]) == 'NHWC':
+            # single-operand elementwise: the data passes through in
+            # whatever layout it arrived
+            new = Node(n.op, n.name, n.attrs, [mapped(n.inputs[0])])
+            layout[(id(new), 0)] = 'NHWC'
+            grown += 1
+        else:
+            new = Node(n.op, n.name, n.attrs,
+                       [as_layout(e, 'NCHW') for e in n.inputs])
+        new._extra_attr = n._extra_attr
+        mapping[id(n)] = new
+
+    return Symbol([as_layout(e, 'NCHW') for e in sym._outputs]), grown
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,223 @@
+"""Weight initializers — the port of ``mxnet_tpu/initializer.py``
+(reference ``python/mxnet/initializer.py:253-460``).
+
+Same name-pattern-driven dispatch: an ``Initializer`` is called with
+``(name, array)`` and routes on the variable-name suffix
+(``_weight``/``_bias``/``_gamma``/``_beta``/``moving_*``).  Random draws
+come from the array's device generator (``random.py``).
+"""
+from __future__ import annotations
+
+import json
+import re
+
+import numpy as np
+
+from . import ndarray as nd
+from . import random as _random
+from .ndarray import NDArray
+
+__all__ = ['InitDesc', 'Initializer', 'Load', 'Mixed', 'Zero', 'One',
+           'Constant', 'Uniform', 'Normal', 'Xavier', 'create']
+
+
+class InitDesc(str):
+    """Parameter name carrying its variable attributes — lets a
+    Variable's ``init=...`` attr (``__init__`` in the symbol attr dict)
+    reach the initializer."""
+
+    def __new__(cls, name, attrs=None):
+        obj = super().__new__(cls, name)
+        obj.attrs = attrs or {}
+        return obj
+
+
+def create(spec):
+    """Build an initializer from a dumps() string or registry name."""
+    if callable(spec):
+        return spec
+    try:
+        klass, kwargs = json.loads(spec)
+        return _INIT_REGISTRY[klass.lower()](**kwargs)
+    except (ValueError, KeyError):
+        return _INIT_REGISTRY[str(spec).lower()]()
+
+
+class Initializer(object):
+    """Base initializer; routes by name pattern (initializer.py:24-107)."""
+
+    def __call__(self, name, arr):
+        if not isinstance(name, str):
+            raise TypeError('name must be string')
+        if not isinstance(arr, NDArray):
+            raise TypeError('arr must be NDArray')
+        # a Variable-level init= attr overrides pattern routing
+        init_attr = getattr(name, 'attrs', {}).get('__init__')
+        if init_attr:
+            create(init_attr)._init_weight(name, arr)
+            return
+        if name.endswith('bias'):
+            self._init_bias(name, arr)
+        elif name.endswith('gamma'):
+            self._init_gamma(name, arr)
+        elif name.endswith('beta'):
+            self._init_beta(name, arr)
+        elif name.endswith('weight'):
+            self._init_weight(name, arr)
+        elif name.endswith(('moving_mean', 'moving_inv_var', 'moving_avg')):
+            self._init_zero(name, arr)
+        elif name.endswith('moving_var'):
+            self._init_one(name, arr)
+        else:
+            self._init_default(name, arr)
+
+    def dumps(self):
+        return json.dumps([self.__class__.__name__.lower(),
+                           getattr(self, '_kwargs', {})])
+
+    def _init_zero(self, _, arr):
+        arr[:] = 0.0
+
+    def _init_one(self, _, arr):
+        arr[:] = 1.0
+
+    def _init_bias(self, _, arr):
+        arr[:] = 0.0
+
+    def _init_gamma(self, _, arr):
+        arr[:] = 1.0
+
+    def _init_beta(self, _, arr):
+        arr[:] = 0.0
+
+    def _init_weight(self, name, arr):
+        raise NotImplementedError('Must override it')
+
+    def _init_default(self, name, _):
+        raise ValueError(
+            'Unknown initialization pattern for %s. Default initialization '
+            'is now limited to "weight", "bias", "gamma" (1.0), and '
+            '"beta" (0.0).' % name)
+
+
+class Load(object):
+    """Init from a params dict (or ``.params`` file), falling back to
+    ``default_init`` (initializer.py:110-147)."""
+
+    def __init__(self, param, default_init=None, verbose=False):
+        if isinstance(param, str):
+            param = nd.load(param)
+        self.param = {
+            (k[4:] if k.startswith('arg:') or k.startswith('aux:') else k): v
+            for k, v in param.items()}
+        self.default_init = default_init
+        self.verbose = verbose
+
+    def __call__(self, name, arr):
+        if name in self.param:
+            if arr.shape != tuple(self.param[name].shape):
+                raise ValueError('Parameter %s cannot be initialized from '
+                                 'loading. Shape mismatch, target %s vs '
+                                 'loaded %s' % (name, str(arr.shape),
+                                                str(self.param[name].shape)))
+            arr[:] = self.param[name]
+        else:
+            if self.default_init is None:
+                raise ValueError('Cannot Initialize parameter: %s' % name)
+            self.default_init(name, arr)
+
+
+class Mixed(object):
+    """Regex-pattern-routed mix of initializers (initializer.py:150-180)."""
+
+    def __init__(self, patterns, initializers):
+        assert len(patterns) == len(initializers)
+        self.map = list(zip([re.compile(p) for p in patterns], initializers))
+
+    def __call__(self, name, arr):
+        for prog, init in self.map:
+            if prog.match(name):
+                init(name, arr)
+                return
+        raise ValueError('Parameter name %s did not match any pattern. '
+                         'Consider adding a ".*" pattern at the end.' % name)
+
+
+class Zero(Initializer):
+    def _init_weight(self, _, arr):
+        arr[:] = 0.0
+
+
+class One(Initializer):
+    def _init_weight(self, _, arr):
+        arr[:] = 1.0
+
+
+class Constant(Initializer):
+    def __init__(self, value=0.0):
+        self.value = value
+        self._kwargs = {'value': value}
+
+    def _init_weight(self, _, arr):
+        arr[:] = self.value
+
+
+class Uniform(Initializer):
+    """U(-scale, scale) (initializer.py:253)."""
+
+    def __init__(self, scale=0.07):
+        self.scale = scale
+        self._kwargs = {'scale': scale}
+
+    def _init_weight(self, _, arr):
+        _random.uniform(-self.scale, self.scale, out=arr)
+
+
+class Normal(Initializer):
+    """N(0, sigma) (initializer.py:272)."""
+
+    def __init__(self, sigma=0.01):
+        self.sigma = sigma
+        self._kwargs = {'sigma': sigma}
+
+    def _init_weight(self, _, arr):
+        _random.normal(0, self.sigma, out=arr)
+
+
+class Xavier(Initializer):
+    """Xavier/Glorot init (initializer.py:325)."""
+
+    def __init__(self, rnd_type='uniform', factor_type='avg', magnitude=3):
+        self.rnd_type = rnd_type
+        self.factor_type = factor_type
+        self.magnitude = float(magnitude)
+        self._kwargs = {'rnd_type': rnd_type, 'factor_type': factor_type,
+                        'magnitude': magnitude}
+
+    def _init_weight(self, _, arr):
+        shape = arr.shape
+        hw_scale = 1.
+        if len(shape) > 2:
+            hw_scale = np.prod(shape[2:])
+        fan_in, fan_out = shape[1] * hw_scale, shape[0] * hw_scale
+        if self.factor_type == 'avg':
+            factor = (fan_in + fan_out) / 2.0
+        elif self.factor_type == 'in':
+            factor = fan_in
+        elif self.factor_type == 'out':
+            factor = fan_out
+        else:
+            raise ValueError('Incorrect factor type')
+        scale = float(np.sqrt(self.magnitude / factor))
+        if self.rnd_type == 'uniform':
+            _random.uniform(-scale, scale, out=arr)
+        elif self.rnd_type == 'gaussian':
+            _random.normal(0, scale, out=arr)
+        else:
+            raise ValueError('Unknown random type')
+
+
+_INIT_REGISTRY = {
+    'zero': Zero, 'one': One, 'constant': Constant, 'uniform': Uniform,
+    'normal': Normal, 'xavier': Xavier,
+}

@@ -1,0 +1,248 @@
+"""BaseModule — the high-level train/predict interface; the port of
+``mxnet_tpu/module/base_module.py`` (reference
+``python/mxnet/module/base_module.py``).
+
+``fit`` is the reference loop (``base_module.py:369-503``): bind ->
+init_params -> init_optimizer -> per batch one training step (``Module``
+fuses forward, backward and update, see ``Module._fit_step``) and the
+metric update, epoch-end logging, ``epoch_end_callback``, evaluation.
+The JAX package's planes around the loop (elastic membership, health
+sentinels, goodput accounting, warm start, the device feed, the async
+step window, checkpoint/auto-resume, mesh) are not ported; asking for
+them raises.
+"""
+from __future__ import annotations
+
+import logging
+import time
+from collections import namedtuple
+
+from .. import instrument
+from .. import metric as _metric
+
+__all__ = ['BaseModule', 'BatchEndParam']
+
+BatchEndParam = namedtuple('BatchEndParams',
+                           ['epoch', 'nbatch', 'eval_metric', 'locals'])
+
+
+def _as_list(obj):
+    return obj if isinstance(obj, list) else [obj]
+
+
+def _check_input_names(symbol, names, typename, throw):
+    """(reference base_module.py:33)"""
+    args = symbol.list_arguments()
+    for name in names:
+        if name in args:
+            continue
+        candidates = [arg for arg in args if
+                      not arg.endswith(('_weight', '_bias', '_gamma',
+                                        '_beta'))]
+        msg = "You created Module with Module(..., %s_names=%s) but " \
+              "input with name '%s' is not found in symbol.list_arguments(). " \
+              "Did you mean one of:\n\t%s" % (
+                  typename, str(names), name, '\n\t'.join(candidates))
+        if throw:
+            raise ValueError(msg)
+        logging.warning(msg)
+
+
+class BaseModule(object):
+    """(reference base_module.py:64)"""
+
+    def __init__(self, logger=logging):
+        self.logger = logger
+        self.binded = False
+        self.for_training = False
+        self.inputs_need_grad = False
+        self.params_initialized = False
+        self.optimizer_initialized = False
+        self._symbol = None
+
+    # -- high level API ----------------------------------------------------
+    def forward_backward(self, data_batch):
+        """(reference base_module.py:192)"""
+        self.forward(data_batch, is_train=True)
+        self.backward()
+
+    def _fit_step(self, data_batch, eval_metric=None):
+        """One training step of the fit loop.  Returns truthy when the
+        step also accumulated ``eval_metric`` (the caller then skips the
+        host-side ``update_metric``); ``Module`` overrides it with the
+        fused step."""
+        self.forward_backward(data_batch)
+        self.update()
+        return False
+
+    def score(self, eval_data, eval_metric, num_batch=None,
+              batch_end_callback=None, score_end_callback=None, reset=True,
+              epoch=0):
+        """Evaluate on eval_data (reference base_module.py:205)."""
+        assert self.binded and self.params_initialized
+        if reset:
+            eval_data.reset()
+        if not isinstance(eval_metric, _metric.EvalMetric):
+            eval_metric = _metric.create(eval_metric)
+        eval_metric.reset()
+        actual_num_batch = 0
+        for nbatch, eval_batch in enumerate(eval_data):
+            if num_batch is not None and nbatch == num_batch:
+                break
+            self.forward(eval_batch, is_train=False)
+            self.update_metric(eval_metric, eval_batch.label)
+            if batch_end_callback is not None:
+                params = BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                       eval_metric=eval_metric,
+                                       locals=locals())
+                for callback in _as_list(batch_end_callback):
+                    callback(params)
+            actual_num_batch += 1
+        if score_end_callback:
+            params = BatchEndParam(epoch=epoch, nbatch=actual_num_batch,
+                                   eval_metric=eval_metric, locals=locals())
+            for callback in _as_list(score_end_callback):
+                callback(params)
+        return eval_metric.get_name_value()
+
+    def predict(self, eval_data, num_batch=None, merge_batches=True,
+                reset=True, always_output_list=False):
+        """(reference base_module.py:286)"""
+        assert self.binded and self.params_initialized
+        if reset:
+            eval_data.reset()
+        output_list = []
+        for nbatch, eval_batch in enumerate(eval_data):
+            if num_batch is not None and nbatch == num_batch:
+                break
+            self.forward(eval_batch, is_train=False)
+            pad = eval_batch.pad or 0
+            outputs = [out[0:out.shape[0] - pad].copy()
+                       for out in self.get_outputs()]
+            output_list.append(outputs)
+        if not output_list:
+            return output_list
+        if merge_batches:
+            num_outputs = len(output_list[0])
+            for out in output_list:
+                assert len(out) == num_outputs, \
+                    'Cannot merge batches, as num of outputs is not the ' \
+                    'same in mini-batches. Maybe bucketing is used?'
+            from .. import ndarray as nd
+            merged = [nd.concatenate([out[i] for out in output_list])
+                      for i in range(num_outputs)]
+            if num_outputs == 1 and not always_output_list:
+                return merged[0]
+            return merged
+        return output_list
+
+    def fit(self, train_data, eval_data=None, eval_metric='acc',
+            epoch_end_callback=None, batch_end_callback=None, kvstore='local',
+            optimizer='sgd', optimizer_params=(('learning_rate', 0.01),),
+            eval_end_callback=None, eval_batch_end_callback=None,
+            initializer=None, arg_params=None, aux_params=None,
+            allow_missing=False, force_rebind=False, force_init=False,
+            begin_epoch=0, num_epoch=None, validation_metric=None,
+            monitor=None, checkpoint_prefix=None, checkpoint_period=1,
+            auto_resume=None, warm_start=None, mesh=None, partition=None):
+        """Train (reference base_module.py:369-503)."""
+        assert num_epoch is not None, 'please specify number of epochs'
+        unported = {'monitor': monitor, 'checkpoint_prefix':
+                    checkpoint_prefix, 'auto_resume': auto_resume,
+                    'warm_start': warm_start, 'mesh': mesh,
+                    'partition': partition}
+        asked = sorted(k for k, v in unported.items() if v)
+        if asked:
+            raise NotImplementedError('fit(%s=...) is not ported to '
+                                      'mxnet_tpu_torch yet' % asked[0])
+        if initializer is None:
+            from .. import initializer as _init
+            initializer = _init.Uniform(0.01)
+        self.bind(data_shapes=train_data.provide_data,
+                  label_shapes=train_data.provide_label,
+                  for_training=True, force_rebind=force_rebind)
+        self.init_params(initializer=initializer, arg_params=arg_params,
+                         aux_params=aux_params, allow_missing=allow_missing,
+                         force_init=force_init)
+        self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
+                            optimizer_params=optimizer_params)
+        if validation_metric is None:
+            validation_metric = eval_metric
+        if not isinstance(eval_metric, _metric.EvalMetric):
+            eval_metric = _metric.create(eval_metric)
+
+        for epoch in range(begin_epoch, num_epoch):
+            tic = time.time()
+            eval_metric.reset()
+            for nbatch, data_batch in enumerate(train_data):
+                metric_on_device = self._fit_step(data_batch, eval_metric)
+                instrument.inc('fit.batches')
+                if not metric_on_device:
+                    self.update_metric(eval_metric, data_batch.label)
+                if batch_end_callback is not None:
+                    params = BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                           eval_metric=eval_metric,
+                                           locals=locals())
+                    for callback in _as_list(batch_end_callback):
+                        callback(params)
+            for name, val in eval_metric.get_name_value():
+                self.logger.info('Epoch[%d] Train-%s=%f', epoch, name, val)
+            self.logger.info('Epoch[%d] Time cost=%.3f', epoch,
+                             time.time() - tic)
+            arg_params_, aux_params_ = self.get_params()
+            if epoch_end_callback is not None:
+                for callback in _as_list(epoch_end_callback):
+                    callback(epoch, self.symbol, arg_params_, aux_params_)
+            if eval_data:
+                res = self.score(eval_data, validation_metric,
+                                 score_end_callback=eval_end_callback,
+                                 batch_end_callback=eval_batch_end_callback,
+                                 epoch=epoch)
+                for name, val in res:
+                    self.logger.info('Epoch[%d] Validation-%s=%f', epoch,
+                                     name, val)
+            train_data.reset()
+
+    # -- symbol ------------------------------------------------------------
+    @property
+    def symbol(self):
+        return self._symbol
+
+    # -- abstract interface ------------------------------------------------
+    def get_params(self):
+        raise NotImplementedError()
+
+    def init_params(self, initializer=None, arg_params=None, aux_params=None,
+                    allow_missing=False, force_init=False):
+        raise NotImplementedError()
+
+    def set_params(self, arg_params, aux_params, allow_missing=False,
+                   force_init=True):
+        self.init_params(initializer=None, arg_params=arg_params,
+                         aux_params=aux_params, allow_missing=allow_missing,
+                         force_init=force_init)
+
+    def bind(self, data_shapes, label_shapes=None, for_training=True,
+             inputs_need_grad=False, force_rebind=False, shared_module=None,
+             grad_req='write'):
+        raise NotImplementedError()
+
+    def init_optimizer(self, kvstore='local', optimizer='sgd',
+                       optimizer_params=(('learning_rate', 0.01),),
+                       force_init=False):
+        raise NotImplementedError()
+
+    def forward(self, data_batch, is_train=None):
+        raise NotImplementedError()
+
+    def backward(self, out_grads=None):
+        raise NotImplementedError()
+
+    def update(self):
+        raise NotImplementedError()
+
+    def get_outputs(self, merge_multi_context=True):
+        raise NotImplementedError()
+
+    def update_metric(self, eval_metric, labels):
+        raise NotImplementedError()

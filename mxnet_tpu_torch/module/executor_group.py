@@ -1,0 +1,152 @@
+"""The executor group of a one-device Module — the port of
+``mxnet_tpu/module/executor_group.py`` without its mesh: one
+:class:`~mxnet_tpu_torch.executor.Executor` on one context, batches
+copied to its device as they arrive."""
+from __future__ import annotations
+
+import logging
+
+import numpy as np
+import torch
+
+from ..base import MXNetError
+from ..executor import Executor
+from ..ndarray import NDArray
+
+__all__ = ['DataParallelExecutorGroup']
+
+
+class DataParallelExecutorGroup(object):
+    """(reference executor_group.py:69), one context."""
+
+    def __init__(self, symbol, contexts, data_shapes, label_shapes,
+                 param_names, for_training, inputs_need_grad,
+                 shared_group=None, logger=logging, fixed_param_names=None,
+                 grad_req='write'):
+        if len(contexts) != 1:
+            raise NotImplementedError(
+                'mxnet_tpu_torch trains on one device; a context list of %d '
+                'is not ported yet' % len(contexts))
+        if shared_group is not None:
+            raise NotImplementedError('shared executor groups (bucketing) '
+                                      'are not ported yet')
+        self.param_names = param_names
+        self.arg_names = symbol.list_arguments()
+        self.aux_names = symbol.list_auxiliary_states()
+        self.symbol = symbol
+        self.contexts = contexts
+        self.for_training = for_training
+        self.inputs_need_grad = inputs_need_grad
+        self.logger = logger
+        self.fixed_param_names = fixed_param_names or []
+        self.grad_req_spec = grad_req
+        self.execs = []
+        self.bind_exec(data_shapes, label_shapes)
+
+    @property
+    def _device(self):
+        return self.contexts[0].torch_device
+
+    def _place(self, value):
+        """A tensor on the group's device (float64 becomes float32)."""
+        t = value.handle if isinstance(value, NDArray) else \
+            torch.as_tensor(np.asarray(value))
+        if t.dtype == torch.float64:
+            t = t.float()
+        return t.to(self._device)
+
+    def bind_exec(self, data_shapes, label_shapes):
+        self.data_shapes = [(n, tuple(s)) for n, s in data_shapes]
+        self.label_shapes = [(n, tuple(s)) for n, s in label_shapes] \
+            if label_shapes is not None else []
+        self.data_names = [n for n, _ in self.data_shapes]
+        self.label_names = [n for n, _ in self.label_shapes]
+        self.batch_size = self.data_shapes[0][1][0]
+        input_shapes = dict(self.data_shapes)
+        input_shapes.update(dict(self.label_shapes))
+        arg_shapes, _, aux_shapes = self.symbol.infer_shape(**input_shapes)
+        if arg_shapes is None:
+            raise MXNetError('shape inference failed for %s' % input_shapes)
+        grad_req = {}
+        for name in self.arg_names:
+            req = 'null'
+            if self.for_training:
+                if name in self.param_names and \
+                        name not in self.fixed_param_names:
+                    req = self.grad_req_spec \
+                        if isinstance(self.grad_req_spec, str) else \
+                        self.grad_req_spec.get(name, 'write')
+                elif name in self.data_names and self.inputs_need_grad:
+                    req = 'write'
+            grad_req[name] = req
+        ctx = self.contexts[0]
+        dev = self._device
+        args, grads = {}, {}
+        for name, shape in zip(self.arg_names, arg_shapes):
+            args[name] = NDArray(torch.zeros(shape, device=dev), ctx)
+            if grad_req[name] != 'null':
+                grads[name] = NDArray(torch.zeros(shape, device=dev), ctx)
+        aux = {name: NDArray(torch.zeros(shape, device=dev), ctx)
+               for name, shape in zip(self.aux_names, aux_shapes)}
+        self.execs = [Executor(self.symbol, ctx, args, grads or None,
+                               grad_req, aux)]
+
+    def reshape(self, data_shapes, label_shapes):
+        if data_shapes == self.data_shapes and \
+                label_shapes == self.label_shapes:
+            return
+        self.bind_exec(data_shapes, label_shapes)
+
+    # -- params ------------------------------------------------------------
+    def set_params(self, arg_params, aux_params):
+        exec_ = self.execs[0]
+        for name, arr in arg_params.items():
+            if name in exec_.arg_dict:
+                exec_.arg_dict[name]._set_data(self._place(arr).clone())
+        for name, arr in (aux_params or {}).items():
+            if name in exec_.aux_dict:
+                exec_.aux_dict[name]._set_data(self._place(arr).clone())
+
+    def get_params(self, arg_params, aux_params):
+        """Copy the bound params out into the given dicts
+        (executor_group.py:281)."""
+        exec_ = self.execs[0]
+        for name in self.param_names:
+            if name in exec_.arg_dict:
+                exec_.arg_dict[name].copyto(arg_params[name])
+        for name in self.aux_names:
+            if name in exec_.aux_dict:
+                exec_.aux_dict[name].copyto(aux_params[name])
+
+    # -- compute -----------------------------------------------------------
+    def load_batch(self, data_batch):
+        """Copy a batch's data and labels into the executor's inputs."""
+        exec_ = self.execs[0]
+        for (name, _), value in zip(self.data_shapes, data_batch.data):
+            exec_.arg_dict[name]._set_data(self._place(value))
+        if self.label_shapes and data_batch.label:
+            for (name, _), value in zip(self.label_shapes,
+                                        data_batch.label):
+                exec_.arg_dict[name]._set_data(self._place(value))
+
+    def forward(self, data_batch, is_train=None):
+        if is_train is None:
+            is_train = self.for_training
+        self.load_batch(data_batch)
+        self.execs[0].forward(is_train=is_train)
+
+    def backward(self, out_grads=None):
+        assert self.for_training, \
+            're-bind with for_training=True to run backward'
+        self.execs[0].backward(out_grads)
+
+    def forward_backward(self, data_batch, out_grads=None):
+        self.load_batch(data_batch)
+        self.execs[0].forward_backward(out_grads)
+
+    def get_outputs(self, merge_multi_context=True):
+        outs = self.execs[0].outputs
+        return outs if merge_multi_context else [[o] for o in outs]
+
+    def update_metric(self, eval_metric, labels):
+        eval_metric.update(labels, self.get_outputs())

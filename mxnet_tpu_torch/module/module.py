@@ -1,0 +1,330 @@
+"""Module — symbol + executor group + optimizer wiring; the port of
+``mxnet_tpu/module/module.py`` for one device (reference
+``python/mxnet/module/module.py:323-567``).
+
+``context`` defaults to ``gpu(0)``: the port trains on the card unless
+the caller asks for the CPU (``context=cpu()``), and without a CUDA
+device a default Module raises (the JAX Module defaults to the current
+context; the difference is deliberate, as for ``Predictor``).
+
+The fit loop's step is the fused train step (``_fit_step`` ->
+``_try_build_fused`` / ``_run_fused``, ``parallel/train_step.py``):
+forward, backward and every parameter update in one call, with the
+metric's device form folded in.  It needs a functional optimizer and
+``grad_req='write'``, and falls back to ``forward_backward(); update()``
+(the per-parameter ``Updater`` loop) otherwise.  ``compute_dtype``
+(e.g. ``torch.bfloat16``) casts params and data for the fused
+forward/backward; master weights and optimizer state stay float32.
+kvstores, context lists and meshes are not ported.
+"""
+from __future__ import annotations
+
+import logging
+
+from .. import instrument
+from .. import optimizer as opt
+from ..base import MXNetError, resolve_dtype
+from ..context import Context, gpu
+from ..initializer import InitDesc, Uniform
+from ..ndarray import NDArray, zeros
+from .base_module import BaseModule, _check_input_names
+from .executor_group import DataParallelExecutorGroup
+
+__all__ = ['Module']
+
+
+class Module(BaseModule):
+    """(reference module.py:323)"""
+
+    def __init__(self, symbol, data_names=('data',),
+                 label_names=('softmax_label',), logger=logging,
+                 context=None, fixed_param_names=None, compute_dtype=None):
+        super().__init__(logger=logger)
+        self._compute_dtype = None if compute_dtype is None \
+            else resolve_dtype(compute_dtype)
+        if context is None:
+            context = gpu(0)
+        if isinstance(context, Context):
+            context = [context]
+        for c in context:
+            c.torch_device      # raises now when the device is absent
+        self._context = context
+
+        self._symbol = symbol
+        data_names = list(data_names) if data_names is not None else []
+        label_names = list(label_names) if label_names is not None else []
+        arg_names = symbol.list_arguments()
+        input_names = data_names + label_names
+        self._param_names = [x for x in arg_names if x not in input_names]
+        self._fixed_param_names = list(fixed_param_names or [])
+        self._aux_names = symbol.list_auxiliary_states()
+        self._data_names = data_names
+        self._label_names = label_names
+        self._output_names = symbol.list_outputs()
+        _check_input_names(symbol, data_names, 'data', True)
+        _check_input_names(symbol, label_names, 'label', False)
+        _check_input_names(symbol, self._fixed_param_names, 'fixed_param',
+                           True)
+
+        self._arg_params = None
+        self._aux_params = None
+        self._params_dirty = False
+        self._optimizer = None
+        self._updater = None
+        self._exec_group = None
+        self._data_shapes = None
+        self._label_shapes = None
+        self._reset_fused()
+
+    def _reset_fused(self):
+        self._fused = None
+        self._fused_unavailable = False
+        self._fused_trainable = None
+        self._fused_frozen = None
+        self._functional_opt = None
+        self._fused_opt_state = None
+        self._fused_metric = None
+
+    # -- properties --------------------------------------------------------
+    @property
+    def data_names(self):
+        return self._data_names
+
+    @property
+    def label_names(self):
+        return self._label_names
+
+    @property
+    def output_names(self):
+        return self._output_names
+
+    @property
+    def data_shapes(self):
+        assert self.binded
+        return self._data_shapes
+
+    @property
+    def label_shapes(self):
+        assert self.binded
+        return self._label_shapes
+
+    # -- params ------------------------------------------------------------
+    def get_params(self):
+        assert self.binded and self.params_initialized
+        if self._params_dirty:
+            self._exec_group.get_params(self._arg_params, self._aux_params)
+            self._params_dirty = False
+        return (self._arg_params, self._aux_params)
+
+    def init_params(self, initializer=Uniform(0.01), arg_params=None,
+                    aux_params=None, allow_missing=False, force_init=False):
+        """(reference module.py:193)"""
+        if self.params_initialized and not force_init:
+            return
+        assert self.binded, 'call bind before initializing the parameters'
+        exec_ = self._exec_group.execs[0]
+        ctx = self._context[0]
+        if self._arg_params is None:
+            self._arg_params = {n: zeros(exec_.arg_dict[n].shape, ctx)
+                                for n in self._param_names
+                                if n in exec_.arg_dict}
+        if self._aux_params is None:
+            self._aux_params = {n: zeros(exec_.aux_dict[n].shape, ctx)
+                                for n in self._aux_names}
+        attrs = self._symbol.attr_dict()
+
+        def _impl(name, arr, cache):
+            desc = InitDesc(name, attrs.get(name))
+            if cache is not None:
+                if name in cache:
+                    if cache[name] is not arr:
+                        arr[:] = cache[name]
+                    return
+                if not allow_missing:
+                    raise RuntimeError('%s is not presented' % name)
+                if initializer is None:
+                    return
+            initializer(desc, arr)
+
+        for name, arr in self._arg_params.items():
+            _impl(name, arr, arg_params)
+        for name, arr in self._aux_params.items():
+            _impl(name, arr, aux_params)
+        self.params_initialized = True
+        self._params_dirty = False
+        self._exec_group.set_params(self._arg_params, self._aux_params)
+
+    # -- binding -----------------------------------------------------------
+    def bind(self, data_shapes, label_shapes=None, for_training=True,
+             inputs_need_grad=False, force_rebind=False, shared_module=None,
+             grad_req='write'):
+        """(reference module.py:388)"""
+        if force_rebind:
+            self.binded = False
+            self._exec_group = None
+            self._reset_fused()
+        if self.binded:
+            self.logger.warning('Already binded, ignoring bind()')
+            return
+        if shared_module is not None:
+            raise NotImplementedError('bind(shared_module=...) is not '
+                                      'ported to mxnet_tpu_torch yet')
+        if not for_training:
+            assert not inputs_need_grad
+        self.for_training = for_training
+        self.inputs_need_grad = inputs_need_grad
+        self.binded = True
+        self._data_shapes = [(n, tuple(s)) for n, s in data_shapes]
+        self._label_shapes = [(n, tuple(s)) for n, s in label_shapes] \
+            if label_shapes is not None else None
+        self._exec_group = DataParallelExecutorGroup(
+            self._symbol, self._context, self._data_shapes, self._label_shapes, self._param_names,
+            for_training, inputs_need_grad, logger=self.logger,
+            fixed_param_names=self._fixed_param_names, grad_req=grad_req)
+        if self.params_initialized:
+            self._exec_group.set_params(self._arg_params, self._aux_params)
+
+    # -- optimizer ---------------------------------------------------------
+    def init_optimizer(self, kvstore='local', optimizer='sgd',
+                       optimizer_params=(('learning_rate', 0.01),),
+                       force_init=False):
+        """(reference module.py:459).  On one device the reference uses
+        no kvstore for ``'local'``/``'device'``/None; a distributed store
+        is not ported."""
+        assert self.binded and self.params_initialized
+        if self.optimizer_initialized and not force_init:
+            self.logger.warning('optimizer already initialized, '
+                                'ignoring...')
+            return
+        if kvstore is not None and not (isinstance(kvstore, str) and
+                                        'dist' not in kvstore):
+            raise NotImplementedError('kvstore %r is not ported to '
+                                      'mxnet_tpu_torch yet' % (kvstore,))
+        rescale_grad = 1.0 / self._exec_group.batch_size
+        if isinstance(optimizer, str):
+            idx2name = dict(enumerate(self._param_names))
+            optimizer_params = dict(optimizer_params)
+            optimizer_params.setdefault('rescale_grad', rescale_grad)
+            optimizer = opt.create(optimizer, sym=self.symbol,
+                                   param_idx2name=idx2name,
+                                   **optimizer_params)
+        elif not isinstance(optimizer, opt.Optimizer):
+            raise MXNetError('optimizer must be a name or an Optimizer')
+        self._optimizer = optimizer
+        self._updater = opt.get_updater(optimizer)
+        self._reset_fused()
+        self.optimizer_initialized = True
+
+    # -- compute -----------------------------------------------------------
+    def forward(self, data_batch, is_train=None):
+        assert self.binded and self.params_initialized
+        self._exec_group.forward(data_batch, is_train)
+
+    def backward(self, out_grads=None):
+        assert self.binded and self.params_initialized
+        self._exec_group.backward(out_grads=out_grads)
+
+    def forward_backward(self, data_batch):
+        assert self.binded and self.params_initialized
+        self._exec_group.forward_backward(data_batch)
+
+    def update(self):
+        """(reference module.py:551 -> model.py:88-131): the updater on
+        every parameter with a gradient."""
+        assert self.binded and self.params_initialized and \
+            self.optimizer_initialized
+        self._params_dirty = True
+        exec_ = self._exec_group.execs[0]
+        for idx, name in enumerate(self._param_names):
+            if name in exec_.grad_dict:
+                self._updater(idx, exec_.grad_dict[name],
+                              exec_.arg_dict[name])
+
+    def get_outputs(self, merge_multi_context=True):
+        assert self.binded and self.params_initialized
+        return self._exec_group.get_outputs(merge_multi_context)
+
+    def update_metric(self, eval_metric, labels):
+        self._exec_group.update_metric(eval_metric, labels)
+
+    # -- fused fit path ----------------------------------------------------
+    def _device_metric(self, eval_metric):
+        """The metric to fold into the fused step, or None for the
+        host-side path (no device form, several labels or outputs)."""
+        if eval_metric is None or len(self._label_names) != 1 or \
+                len(self._output_names) != 1:
+            return None
+        return eval_metric if eval_metric.device_capable() else None
+
+    def _fit_step(self, data_batch, eval_metric=None):
+        """One fit-loop step: forward + backward + every parameter update
+        through the fused step (``mxnet_tpu/module/module.py:593``), the
+        metric folded in when it has a device form (returns True then).
+        Falls back to ``forward_backward(); update()`` when the step
+        cannot be built (non-functional optimizer, a ``grad_req`` other
+        than 'write', inputs that need gradients)."""
+        metric = self._device_metric(eval_metric)
+        if self._fused is not None and metric is not self._fused_metric:
+            self._fused = None          # rebuilt below, state kept
+        elif self._fused is not None and \
+                self._functional_opt.mult_signature != \
+                self._optimizer._mult_signature():
+            self._fused = None          # lr/wd multipliers changed
+        if self._fused is None and not self._fused_unavailable:
+            self._try_build_fused(metric)
+        if self._fused is None:
+            super()._fit_step(data_batch)
+            return False
+        self._run_fused(data_batch)
+        return metric is not None
+
+    def _try_build_fused(self, metric=None):
+        """(``mxnet_tpu/module/module.py:662-731``)"""
+        from ..parallel.train_step import make_fit_step
+        self._fused_unavailable = True        # until proven otherwise
+        if not (self.binded and self.params_initialized and
+                self.optimizer_initialized):
+            return
+        if self.inputs_need_grad or \
+                self._exec_group.grad_req_spec != 'write':
+            return
+        exec_ = self._exec_group.execs[0]
+        trainable = [n for n in self._param_names if n in exec_.grad_dict]
+        frozen = [n for n in self._param_names
+                  if n not in exec_.grad_dict and n in exec_.arg_dict]
+        indices = {n: i for i, n in enumerate(self._param_names)}
+        functional = self._optimizer.make_functional(trainable, indices)
+        if functional is None:
+            return
+        self._functional_opt = functional
+        self._fused_trainable = trainable
+        self._fused_frozen = frozen
+        self._fused = make_fit_step(
+            self._symbol, functional, data_names=self._data_names,
+            compute_dtype=self._compute_dtype, metric=metric,
+            metric_label=self._label_names[0] if metric else None)
+        self._fused_metric = metric
+        if self._fused_opt_state is None:
+            self._fused_opt_state = functional.init(
+                {n: exec_.arg_dict[n].handle for n in trainable})
+        self._fused_unavailable = False
+
+    def _run_fused(self, data_batch):
+        """(``mxnet_tpu/module/module.py:809``)"""
+        group = self._exec_group
+        exec_ = group.execs[0]
+        group.load_batch(data_batch)
+        batch = {n: exec_.arg_dict[n].handle
+                 for n in group.data_names + group.label_names}
+        params = {n: exec_.arg_dict[n].handle for n in self._fused_trainable}
+        frozen = {n: exec_.arg_dict[n].handle for n in self._fused_frozen}
+        aux = {k: v.handle for k, v in exec_.aux_dict.items()}
+        for idx, name in enumerate(self._param_names):
+            if name in exec_.grad_dict:
+                self._optimizer._update_count(idx)
+        lr_t = self._optimizer.host_lr()
+        outs = self._fused(params, frozen, aux, self._fused_opt_state, batch,
+                           lr_t)
+        instrument.inc('module.fused_steps')
+        exec_.outputs = [NDArray(o, exec_._ctx) for o in outs]
+        self._params_dirty = True

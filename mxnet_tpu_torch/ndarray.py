@@ -1,8 +1,9 @@
 """NDArray over ``torch.Tensor``, and the ``.params`` container format.
 
-The port of the parts of ``mxnet_tpu/ndarray.py`` the serving slice
-uses: an :class:`NDArray` handle with mutable-handle semantics (``x[:] =
-v`` swaps in a new value), ``array``/``zeros`` creation, and
+The port of the parts of ``mxnet_tpu/ndarray.py`` the serving and
+training slices use: an :class:`NDArray` handle with mutable-handle
+semantics (``x[:] = v`` swaps in a new value; ``x[a:b]`` reads rows),
+``array``/``zeros``/``concatenate`` creation, and
 :func:`save`/:func:`load`, which read and write the JAX package's
 ``.params`` container byte for byte (``mxnet_tpu/ndarray.py:405-517``,
 magic ``MXTPU001``): a checkpoint written by either package loads in the
@@ -18,7 +19,7 @@ import torch
 from .base import MXNetError, resolve_dtype
 from .context import Context, cpu
 
-__all__ = ['NDArray', 'array', 'zeros', 'save', 'load']
+__all__ = ['NDArray', 'array', 'zeros', 'concatenate', 'save', 'load']
 
 
 class NDArray:
@@ -68,6 +69,30 @@ class NDArray:
     def _set_data(self, new_data):
         self._data = new_data
 
+    def __getitem__(self, key):
+        """Rows ``x[a:b]`` (a slice of the first axis) as a new
+        NDArray."""
+        if not isinstance(key, slice):
+            raise MXNetError('NDArray indexing takes a slice of the first '
+                             'axis')
+        return NDArray(self._data[key], self._ctx)
+
+    def copy(self):
+        return NDArray(self._data.clone(), self._ctx)
+
+    def copyto(self, other):
+        """Copy into ``other`` (an NDArray, whose device and dtype are
+        kept) or onto a Context (a new NDArray)."""
+        if isinstance(other, Context):
+            return NDArray(self._data.to(other.torch_device, copy=True),
+                           other)
+        if other.shape != self.shape:
+            raise MXNetError('copyto: shape %s into %s'
+                             % (self.shape, other.shape))
+        other._set_data(self._data.to(device=other.handle.device,
+                                      dtype=other.dtype, copy=True))
+        return other
+
     def __setitem__(self, key, value):
         if key != slice(None) and key is not Ellipsis:
             raise MXNetError('NDArray supports whole-array assignment '
@@ -109,6 +134,14 @@ def zeros(shape, ctx=None, dtype=None):
     shape = (shape,) if isinstance(shape, int) else tuple(shape)
     return NDArray(torch.zeros(shape, dtype=resolve_dtype(dtype),
                                device=ctx.torch_device), ctx)
+
+
+def concatenate(arrays, axis=0):
+    """Join NDArrays along ``axis`` on the first array's context."""
+    ctx = arrays[0].context
+    dev = arrays[0].handle.device
+    return NDArray(torch.cat([a.handle.to(dev) for a in arrays], dim=axis),
+                   ctx)
 
 
 _MAGIC = b'MXTPU001'

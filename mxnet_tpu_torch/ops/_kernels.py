@@ -5,7 +5,8 @@ probes what the installed Mosaic can compile, the port compiles its
 kernels itself.  Each ``csrc/*.cu`` source has a plain C entry point and
 is built at first use with ``nvcc`` for ``sm_90a`` into a shared library
 under ``build/mxnet_tpu_torch/`` of the checkout, named by the hash of
-its source and flags (an edited source rebuilds), then bound with
+its source, the shared headers (``csrc/*.cuh``) and the flags (an edited
+source rebuilds), then bound with
 ``ctypes``.  Nothing here runs at import: the CPU tests import every
 module on hosts without ``nvcc``.
 
@@ -40,6 +41,17 @@ _I = ctypes.c_int
 KERNELS = {
     'fused_bn_relu': ('fused_bn_relu.cu', 'mxtpu_fused_bn_relu',
                       (_P, _P, _P, _P, _LL, _LL, _LL, _I, _I, _P)),
+    # x, w, scale, bias, y, M, N, K, relu, dtype, stream
+    'fused_scale_bias_dot': ('fused_scale_bias_dot.cu',
+                             'mxtpu_fused_scale_bias_dot',
+                             (_P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _I,
+                              _P)),
+    # x, w, scale, bias, y, N, H, W, C, F, OH, OW, stride, relu, dtype,
+    # stream
+    'fused_scale_bias_conv3x3': ('fused_scale_bias_conv3x3.cu',
+                                 'mxtpu_fused_scale_bias_conv3x3',
+                                 (_P, _P, _P, _P, _P, _LL, _LL, _LL, _LL,
+                                  _LL, _LL, _LL, _I, _I, _I, _P)),
 }
 
 build_seconds = {}      # kernel name -> wall seconds of its nvcc run
@@ -63,9 +75,11 @@ def _nvcc():
 
 
 def _lib_path(name):
-    src = CSRC / KERNELS[name][0]
-    digest = hashlib.sha256(src.read_bytes() +
-                            ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / KERNELS[name][0]).read_bytes())
+    for header in sorted(CSRC.glob('*.cuh')):
+        h.update(header.read_bytes())
+    h.update(' '.join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / ('lib%s-%s.so' % (name, digest))
 
 

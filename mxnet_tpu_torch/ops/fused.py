@@ -1,14 +1,28 @@
-"""Fused BN-ReLU: ``relu(x * scale + bias)`` with a per-channel affine.
+"""Fused BatchNorm-apply kernels: ``fused_bn_relu`` and
+``fused_scale_bias_dot``.
 
-The counterpart of ``fused_bn_relu`` in ``mxnet_tpu/ops/pallas_fused.py``
-(TPU kernel ``_bn_relu_pallas``), the one kernel on the ResNet serving
-path: the ``bn_relu`` pass (fuse.py) lowers every BatchNorm->relu chain
-left after conv+BN folding onto it.  On a CUDA tensor the wrapper
-launches the hand-written kernel ``csrc/fused_bn_relu.cu`` (built and
+The counterparts of ``mxnet_tpu/ops/pallas_fused.py``:
+
+- ``fused_bn_relu(x, scale, bias) = relu(x * scale[c] + bias[c])`` (TPU
+  kernel ``_bn_relu_pallas``): the ``bn_relu`` pass (fuse.py) lowers
+  every BatchNorm->relu chain that feeds no fusable conv onto it.
+- ``fused_scale_bias_dot(x, w, scale, bias) = (relu?)(x * scale + bias)
+  @ w`` (TPU kernel ``_pallas_forward``): the 1x1-convolution case of the
+  ``_bn_relu_conv`` node (fuse.py), the BatchNorm apply step fused into
+  the matmul that consumes it.
+
+On a CUDA tensor each wrapper launches its hand-written kernel
+(``csrc/fused_bn_relu.cu``, ``csrc/fused_scale_bias_dot.cu``, built and
 bound by ``ops/_kernels.py``) or raises; a CPU tensor takes the plain
-PyTorch version, :func:`fused_bn_relu_plain`, which the tests and
-``chip_smoke.py`` hold the kernel against.  A ``meta`` tensor (shape
-inference) also takes the plain version, which computes no values.
+PyTorch version (``*_plain``), which the tests and ``chip_smoke.py`` hold
+the kernel against.  A ``meta`` tensor (shape inference) also takes the
+plain version, which computes no values.  Each kernel's ``launches``
+counter counts its launches.
+
+Both are ``torch.autograd.Function``s whose backward is the reference's
+``custom_vjp`` backward (``_bn_relu_bwd``, ``_bwd``), which the JAX
+package computes in plain JAX outside any kernel; here it is plain
+PyTorch (the matmuls of the dot's backward go to ``torch.matmul``).
 """
 from __future__ import annotations
 
@@ -21,11 +35,60 @@ from ..base import MXNetError
 from . import _kernels
 from .registry import register_simple
 
-__all__ = ['fused_bn_relu', 'fused_bn_relu_plain']
+__all__ = ['fused_bn_relu', 'fused_bn_relu_plain', 'fused_scale_bias_dot',
+           'fused_scale_bias_dot_plain']
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _count_lock = threading.Lock()
 
+
+def _count(fn):
+    with _count_lock:
+        fn.launches += 1
+
+
+def _raise_launch(name, err):
+    raise MXNetError('%s: kernel launch failed: %s (CUDA error %d)'
+                     % (name, _kernels.error_string(name, err), err))
+
+
+def _check_dtype(name, x):
+    if not isinstance(x, torch.Tensor):
+        raise TypeError('%s: x must be a torch.Tensor, got %s'
+                        % (name, type(x).__name__))
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError('%s: x must be float32 or bfloat16, got %s'
+                        % (name, x.dtype))
+    if not x.is_contiguous():
+        raise ValueError('%s: x must be contiguous' % name)
+
+
+def _check_vec(name, x, c, *vecs):
+    """``vecs`` are (name, tensor) pairs: 1-D of length ``c``, float32
+    or x's dtype, on x's device."""
+    for nm, v in vecs:
+        if not isinstance(v, torch.Tensor) or v.ndim != 1 or \
+                v.shape[0] != c:
+            raise ValueError('%s: %s must be a 1-D tensor of length %d'
+                             % (name, nm, c))
+        if v.dtype not in (torch.float32, x.dtype):
+            raise TypeError('%s: %s must be float32 or %s, got %s'
+                            % (name, nm, x.dtype, v.dtype))
+        if v.device != x.device:
+            raise ValueError('%s: %s is on %s, x on %s'
+                             % (name, nm, v.device, x.device))
+
+
+def _device_kind(name, x):
+    dev = x.device.type
+    if dev not in ('cuda', 'cpu', 'meta'):
+        raise MXNetError('%s: unsupported device %s' % (name, x.device))
+    return dev
+
+
+# ---------------------------------------------------------------------------
+# fused_bn_relu
+# ---------------------------------------------------------------------------
 
 def fused_bn_relu_plain(x, scale, bias):
     """The plain version: the affine in f32, relu, cast to x's dtype.
@@ -36,33 +99,16 @@ def fused_bn_relu_plain(x, scale, bias):
     return torch.relu(y).to(x.dtype)
 
 
-def _check(x, scale, bias):
-    if not isinstance(x, torch.Tensor):
-        raise TypeError('fused_bn_relu: x must be a torch.Tensor, got %s'
-                        % type(x).__name__)
-    if x.dtype not in _DTYPE_CODE:
-        raise TypeError('fused_bn_relu: x must be float32 or bfloat16, '
-                        'got %s' % x.dtype)
+def _bn_relu_check(x, scale, bias):
+    _check_dtype('fused_bn_relu', x)
     if x.ndim < 2:
         raise ValueError('fused_bn_relu: x must be (M, C) or (N, C, ...), '
                          'got shape %s' % (tuple(x.shape),))
-    if not x.is_contiguous():
-        raise ValueError('fused_bn_relu: x must be contiguous')
-    c = x.shape[1]
-    for nm, v in (('scale', scale), ('bias', bias)):
-        if not isinstance(v, torch.Tensor) or v.ndim != 1 or \
-                v.shape[0] != c:
-            raise ValueError('fused_bn_relu: %s must be a 1-D tensor of '
-                             'length C=%d' % (nm, c))
-        if v.dtype not in (torch.float32, x.dtype):
-            raise TypeError('fused_bn_relu: %s must be float32 or %s, got '
-                            '%s' % (nm, x.dtype, v.dtype))
-        if v.device != x.device:
-            raise ValueError('fused_bn_relu: %s is on %s, x on %s'
-                             % (nm, v.device, x.device))
+    _check_vec('fused_bn_relu', x, x.shape[1], ('scale', scale),
+               ('bias', bias))
 
 
-def _launch(x, scale, bias):
+def _bn_relu_launch(x, scale, bias):
     y = torch.empty_like(x)
     n = x.numel()
     if n == 0:
@@ -78,12 +124,37 @@ def _launch(x, scale, bias):
                  n, hw, x.shape[1], _DTYPE_CODE[x.dtype], int(vec_ok),
                  stream)
     if err:
-        raise MXNetError('fused_bn_relu: kernel launch failed: %s (CUDA '
-                         'error %d)'
-                         % (_kernels.error_string('fused_bn_relu', err), err))
-    with _count_lock:
-        fused_bn_relu.launches += 1
+        _raise_launch('fused_bn_relu', err)
+    _count(fused_bn_relu)
     return y
+
+
+def _bn_relu_bwd(x, scale, bias, g):
+    """The reference's ``_bn_relu_bwd`` (``pallas_fused.py:256-267``)."""
+    bshape = (1, -1) + (1,) * (x.ndim - 2)
+    axes = (0,) + tuple(range(2, x.ndim))
+    x32 = x.float()
+    s32 = scale.float().reshape(bshape)
+    pre = x32 * s32 + bias.float().reshape(bshape)
+    gm = g.float() * (pre > 0)
+    dx = (gm * s32).to(x.dtype)
+    dscale = torch.sum(gm * x32, dim=axes).to(scale.dtype)
+    dbias = torch.sum(gm, dim=axes).to(bias.dtype)
+    return dx, dscale, dbias
+
+
+class _BNReluFn(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, scale, bias):
+        ctx.save_for_backward(x, scale, bias)
+        if x.device.type == 'cuda':
+            return _bn_relu_launch(x, scale, bias)
+        return fused_bn_relu_plain(x, scale, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _bn_relu_bwd(*ctx.saved_tensors, g)
 
 
 def fused_bn_relu(x, scale, bias):
@@ -93,17 +164,120 @@ def fused_bn_relu(x, scale, bias):
     length C, float32 or x's dtype, on x's device.  A CUDA tensor runs
     the kernel (``fused_bn_relu.launches`` counts its launches) and a
     CPU tensor the plain version."""
-    _check(x, scale, bias)
-    dev = x.device.type
-    if dev == 'cuda':
-        return _launch(x, scale, bias)
-    if dev in ('cpu', 'meta'):
-        return fused_bn_relu_plain(x, scale, bias)
-    raise MXNetError('fused_bn_relu: unsupported device %s' % x.device)
+    _bn_relu_check(x, scale, bias)
+    _device_kind('fused_bn_relu', x)
+    return _BNReluFn.apply(x, scale, bias)
 
 
 fused_bn_relu.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# fused_scale_bias_dot
+# ---------------------------------------------------------------------------
+
+def fused_scale_bias_dot_plain(x, w, scale, bias, relu=False):
+    """The plain version, with the kernel's arithmetic: the affine (and
+    relu) in f32, rounded to x's dtype, then the product with f32
+    accumulation, stored in x's dtype."""
+    xa = x.float() * scale.float() + bias.float()
+    if relu:
+        xa = torch.relu(xa)
+    xa = xa.to(x.dtype)
+    return torch.matmul(xa.float(), w.float()).to(x.dtype)
+
+
+def _dot_check(x, w, scale, bias):
+    name = 'fused_scale_bias_dot'
+    _check_dtype(name, x)
+    if x.ndim != 2:
+        raise ValueError('%s: x must be 2-D (M, K), got shape %s'
+                         % (name, tuple(x.shape)))
+    if not isinstance(w, torch.Tensor) or w.ndim != 2 or \
+            w.shape[0] != x.shape[1]:
+        raise ValueError('%s: w must be (K, N) with K=%d' % (name,
+                                                            x.shape[1]))
+    if w.dtype != x.dtype:
+        raise TypeError('%s: w must be %s like x, got %s'
+                        % (name, x.dtype, w.dtype))
+    if w.device != x.device:
+        raise ValueError('%s: w is on %s, x on %s' % (name, w.device,
+                                                      x.device))
+    if not w.is_contiguous():
+        raise ValueError('%s: w must be contiguous' % name)
+    _check_vec(name, x, x.shape[1], ('scale', scale), ('bias', bias))
+
+
+def _dot_launch(x, w, scale, bias, relu):
+    m, k = x.shape
+    n = w.shape[1]
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if y.numel() == 0:
+        return y
+    s = scale.float().contiguous()
+    b = bias.float().contiguous()
+    fn = _kernels.load('fused_scale_bias_dot')
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), w.data_ptr(), s.data_ptr(), b.data_ptr(),
+                 y.data_ptr(), m, n, k, int(bool(relu)),
+                 _DTYPE_CODE[x.dtype], stream)
+    if err:
+        _raise_launch('fused_scale_bias_dot', err)
+    _count(fused_scale_bias_dot)
+    return y
+
+
+def _dot_bwd(x, w, scale, bias, g, relu):
+    """The reference's ``_bwd`` (``pallas_fused.py:145-160``)."""
+    g32 = g.float()
+    gx = torch.matmul(g32, w.float().t())    # d(loss)/d(xa) pre-matmul
+    xa = x.float() * scale.float() + bias.float()
+    if relu:
+        dw_lhs = torch.relu(xa)
+        gx = gx * (xa > 0)
+    else:
+        dw_lhs = xa
+    dx = (gx * scale.float()).to(x.dtype)
+    dw = torch.matmul(dw_lhs.t(), g32).to(w.dtype)
+    dscale = torch.sum(gx * x.float(), dim=0).to(scale.dtype)
+    dbias = torch.sum(gx, dim=0).to(bias.dtype)
+    return dx, dw, dscale, dbias
+
+
+class _ScaleBiasDotFn(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, w, scale, bias, relu):
+        ctx.save_for_backward(x, w, scale, bias)
+        ctx.relu = relu
+        if x.device.type == 'cuda':
+            return _dot_launch(x, w, scale, bias, relu)
+        return fused_scale_bias_dot_plain(x, w, scale, bias, relu)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _dot_bwd(*ctx.saved_tensors, g, ctx.relu) + (None,)
+
+
+def fused_scale_bias_dot(x, w, scale, bias, relu=False):
+    """``(relu?)(x * scale + bias) @ w``: the per-K-column affine (and
+    relu) in f32, rounded to x's dtype, then the product accumulated in
+    f32 and stored in x's dtype.  x is a contiguous (M, K) float32 or
+    bfloat16 tensor, w a contiguous (K, N) tensor of x's dtype, scale
+    and bias 1-D of length K (float32 or x's dtype).  A CUDA tensor runs
+    the kernel (``fused_scale_bias_dot.launches``), a CPU tensor the
+    plain version."""
+    _dot_check(x, w, scale, bias)
+    _device_kind('fused_scale_bias_dot', x)
+    return _ScaleBiasDotFn.apply(x, w, scale, bias, bool(relu))
+
+
+fused_scale_bias_dot.launches = 0
+
+
 register_simple('fused_bn_relu', fused_bn_relu, ninputs=3,
                 input_names=['data', 'scale', 'bias'])
+register_simple('fused_scale_bias_dot', fused_scale_bias_dot, ninputs=4,
+                input_names=['data', 'weight', 'scale', 'bias'],
+                attr_defaults={'relu': False})

@@ -1,9 +1,10 @@
-"""Neural-network layer operators of the ResNet serving path.
+"""Neural-network layer operators of the ResNet serving and training paths.
 
 The port of ``mxnet_tpu/ops/nn.py``: FullyConnected (``:49-76``),
 Convolution (``_conv_apply``, ``:90-162``), Pooling (``:325-378``),
-Activation (``:385-390``), SoftmaxOutput forward (``:502-548``) and
-BatchNorm with its shared stats step (``:645-726``).  NCHW in and out,
+Activation (``:385-390``), SoftmaxOutput with its injected loss gradient
+(``:468-548``) and BatchNorm with its shared stats step (``:645-726``).
+Gradients come from ``torch.autograd``.  NCHW in and out,
 weights in the reference layouts, so checkpoints interchange.  The JAX
 package computes convolution and matmul outside any Pallas kernel
 (``lax.conv_general_dilated``, ``jnp.dot``); here they are
@@ -194,18 +195,71 @@ register_simple('Activation',
 
 
 # ---------------------------------------------------------------------------
-# SoftmaxOutput — forward only in this slice (the loss-gradient
-# injection of the JAX op's custom_vjp belongs to the training slice)
+# SoftmaxOutput.  As in the reference, its backward injects the loss
+# gradient and ignores the head gradient (softmax_output-inl.h Backward;
+# the JAX op's custom_vjp, mxnet_tpu/ops/nn.py:468-527).
 # ---------------------------------------------------------------------------
 
-def _softmax_output_apply(attrs, inputs, is_train, rng):
-    d = inputs[0]
+def _softmax_output_grad(prob, label, attrs):
+    """d(loss)/d(data) of softmax cross-entropy: ``prob - onehot(label)``
+    with the op's ignore-label mask, normalization and grad_scale."""
+    multi = bool(attrs.get('multi_output', False))
+    grad_scale = float(attrs.get('grad_scale', 1.0))
+    use_ignore = bool(attrs.get('use_ignore', False))
+    ignore_label = float(attrs.get('ignore_label', -1))
+    normalization = attrs.get('normalization', 'null')
+    if multi:
+        # data (N, C, ...), label (N, ...)
+        onehot = F.one_hot(label.long(), prob.shape[1]).movedim(-1, 1) \
+            .to(prob.dtype)
+    elif label.ndim == prob.ndim:
+        onehot = label.to(prob.dtype)
+    else:
+        onehot = F.one_hot(label.long(), prob.shape[-1]).to(prob.dtype)
+    grad = prob - onehot
+    valid = None
+    if use_ignore and label.ndim < prob.ndim:
+        mask = (label != ignore_label).to(prob.dtype)
+        if multi:
+            grad = grad * mask[:, None]
+        else:
+            grad = grad * mask.reshape(mask.shape
+                                       + (1,) * (grad.ndim - mask.ndim))
+        valid = torch.sum(mask)
+    if normalization == 'batch':
+        grad = grad / prob.shape[0]
+    elif normalization == 'valid' and valid is not None:
+        grad = grad / torch.clamp(valid, min=1.0)
+    return grad * grad_scale
+
+
+def _softmax(d, attrs):
     if bool(attrs.get('multi_output', False)):
-        return [torch.softmax(d, dim=1)], {}
+        return torch.softmax(d, dim=1)
     if bool(attrs.get('preserve_shape', False)) or d.ndim <= 2:
-        return [torch.softmax(d, dim=-1)], {}
-    return [torch.softmax(d.reshape(d.shape[0], -1),
-                          dim=-1).reshape(d.shape)], {}
+        return torch.softmax(d, dim=-1)
+    return torch.softmax(d.reshape(d.shape[0], -1), dim=-1).reshape(d.shape)
+
+
+class _SoftmaxOutputFn(torch.autograd.Function):
+    """Softmax forward; backward returns the injected loss gradient."""
+
+    @staticmethod
+    def forward(ctx, d, label, attrs):
+        prob = _softmax(d, attrs)
+        ctx.save_for_backward(prob, label)
+        ctx.attrs = attrs
+        return prob
+
+    @staticmethod
+    def backward(ctx, g):
+        prob, label = ctx.saved_tensors
+        grad = _softmax_output_grad(prob, label, ctx.attrs).to(prob.dtype)
+        return grad, None, None
+
+
+def _softmax_output_apply(attrs, inputs, is_train, rng):
+    return [_SoftmaxOutputFn.apply(inputs[0], inputs[1], attrs)], {}
 
 
 def _softmax_output_complete(attrs, in_shapes):
@@ -240,21 +294,29 @@ def batch_norm_stats(data, moving_mean, moving_var, axes, momentum,
     """Shared stats step: returns ``(mean, var, aux_updates)``.
 
     Batch statistics take the one-pass f32 E[x] / E[x^2] form of the
-    JAX op, clamping the cancellation at zero; moving statistics are
-    cast to the data dtype.  Also the stats step of the fused BN->relu
-    op (fuse.py) — ONE copy, so fused and unfused numerics agree.
+    JAX op, clamping the cancellation at zero; the gradient flows
+    through the batch mean and variance.  The moving statistics are
+    never differentiated (their updates are detached, as the JAX op's
+    ``stop_gradient``), and are cast to the data dtype when used.  Also
+    the stats step of the fused BN ops (fuse.py) — ONE copy, so fused
+    and unfused numerics agree.
     """
     if use_batch_stats:
         x32 = data.float()
         mean32 = torch.mean(x32, dim=axes)
-        var32 = torch.clamp(torch.mean(x32 * x32, dim=axes)
-                            - mean32 * mean32, min=0.0)
+        # torch.maximum, not clamp: at a zero variance (a constant
+        # channel) it splits the gradient 0.5/0.5 as jnp.maximum does
+        var32 = torch.maximum(torch.mean(x32 * x32, dim=axes)
+                              - mean32 * mean32, torch.zeros_like(mean32))
         aux_updates = {
-            'moving_mean': momentum * moving_mean + (1 - momentum) * mean32,
-            'moving_var': momentum * moving_var + (1 - momentum) * var32,
+            'moving_mean': (momentum * moving_mean
+                            + (1 - momentum) * mean32).detach(),
+            'moving_var': (momentum * moving_var
+                           + (1 - momentum) * var32).detach(),
         }
         return mean32.to(data.dtype), var32.to(data.dtype), aux_updates
-    return moving_mean.to(data.dtype), moving_var.to(data.dtype), {}
+    return (moving_mean.detach().to(data.dtype),
+            moving_var.detach().to(data.dtype), {})
 
 
 def _batch_norm_apply(attrs, inputs, is_train, rng):

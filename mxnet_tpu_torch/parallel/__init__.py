@@ -1,0 +1,6 @@
+"""Training-step construction (the port of ``mxnet_tpu/parallel``'s
+single-device ``train_step.py``; the mesh, ZeRO and collective modules
+are not ported)."""
+from .train_step import make_fit_step, make_sgd_momentum, sgd_momentum_init
+
+__all__ = ['make_fit_step', 'make_sgd_momentum', 'sgd_momentum_init']

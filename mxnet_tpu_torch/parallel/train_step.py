@@ -1,0 +1,96 @@
+"""The fused training step — forward, backward and the optimizer update
+of every parameter as one call.
+
+The port of ``mxnet_tpu/parallel/train_step.py`` (``make_fit_step
+:47-256``, ``make_sgd_momentum :34``).  The JAX package traces the step
+into ONE jitted XLA program with donated buffers; PyTorch runs eagerly,
+so here the step runs the pass pipeline's graph (``MXTPU_FUSE``) under
+autograd with zero head gradients (``SoftmaxOutput`` injects the loss
+gradient), writes the aux updates back, and applies the functional
+optimizer to the f32 master weights and the optimizer state IN PLACE —
+the counterpart of the JAX step's buffer donation.
+
+Under ``compute_dtype`` (bf16 mixed precision) the parameters and the
+batch entries named in ``data_names`` are cast for the forward and
+backward; labels, master weights and optimizer state stay f32, and the
+gradients reach the f32 masters through the cast.
+
+Not ported: shardings (a mesh), health sentinels and CUDA graphs of the
+step; asking for them raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..executor import _build_graph_fn
+from ..symbol import Symbol
+
+__all__ = ['make_fit_step', 'make_sgd_momentum', 'sgd_momentum_init']
+
+
+def sgd_momentum_init(params):
+    return {k: torch.zeros_like(v) for k, v in params.items()}
+
+
+def make_sgd_momentum(lr=0.05, momentum=0.9, wd=1e-4, rescale_grad=1.0):
+    """Functional SGD + momentum (optimizer_op-inl.h semantics), in place:
+    ``update(params, grads, state)``."""
+    def update(params, grads, state):
+        with torch.no_grad():
+            for k, w in params.items():
+                g = grads[k].to(w.dtype) * rescale_grad + wd * w
+                state[k].mul_(momentum).sub_(lr * g)
+                w.add_(state[k])
+    return update
+
+
+def make_fit_step(symbol: Symbol, functional_opt, data_names=(),
+                  compute_dtype=None, metric=None, metric_label=None,
+                  shardings=None, health_action=None):
+    """Build ``step(params, frozen, aux, opt_state, batch, lr_t) ->
+    outputs``: forward, backward and every parameter update.  ``params``,
+    ``aux`` and ``opt_state`` are name -> tensor dicts updated in place;
+    ``functional_opt`` is an ``optimizer.FunctionalOptimizer`` (or any
+    object with ``update(params, grads, states, lr_t)``).
+
+    With ``metric`` (an ``EvalMetric`` with a device form) the step folds
+    ``metric.device_fold(batch[metric_label], outputs[0])`` — deltas from
+    the UNCAST label — so the fit loop never syncs on the metric."""
+    if shardings is not None:
+        raise NotImplementedError('make_fit_step: sharded (mesh) steps are '
+                                  'not ported to mxnet_tpu_torch yet')
+    if health_action is not None:
+        raise NotImplementedError('make_fit_step: health sentinels are not '
+                                  'ported to mxnet_tpu_torch yet')
+    from ..fuse import apply_fuse_passes
+    graph_fn = _build_graph_fn(apply_fuse_passes(symbol, True), True)
+    data_names = tuple(data_names)
+
+    def cast(v):
+        return v.to(compute_dtype) if compute_dtype is not None and \
+            v.is_floating_point() else v
+
+    def step(params, frozen, aux, opt_state, batch, lr_t):
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in params.items()}
+        merged = {k: cast(v) for k, v in frozen.items()}
+        merged.update({k: cast(v) for k, v in leaves.items()})
+        merged.update({k: (cast(v) if k in data_names else v)
+                       for k, v in batch.items()})
+        with torch.enable_grad():
+            outs, aux_upd = graph_fn(merged, aux)
+            heads = [o for o in outs if o.requires_grad]
+            if heads:
+                torch.autograd.backward(
+                    heads, [torch.zeros_like(o) for o in heads])
+        grads = {k: (v.grad if v.grad is not None else torch.zeros_like(v))
+                 for k, v in leaves.items()}
+        for k, v in aux_upd.items():
+            aux[k].copy_(v)
+        functional_opt.update(params, grads, opt_state, lr_t)
+        outs = [o.detach() for o in outs]
+        if metric is not None:
+            metric.device_fold(batch[metric_label], outs[0])
+        return outs
+
+    return step

@@ -265,12 +265,19 @@ class Symbol:
             f.write(self.tojson())
 
     # -- executor entry point (executor.py) --------------------------------
-    def bind(self, ctx, args, aux_states=None):
-        """An inference :class:`~mxnet_tpu_torch.executor.Executor` over
-        ``args`` / ``aux_states`` (dicts or lists of NDArrays); this
-        slice ports no backward, so there are no gradient buffers."""
+    def bind(self, ctx, args, args_grad=None, grad_req='write',
+             aux_states=None):
+        """An :class:`~mxnet_tpu_torch.executor.Executor` over ``args`` /
+        ``args_grad`` / ``aux_states`` (dicts or lists of NDArrays);
+        without ``args_grad`` it computes no gradients."""
         from .executor import Executor
-        return Executor(self, ctx, args, aux_states)
+        return Executor(self, ctx, args, args_grad, grad_req, aux_states)
+
+    def simple_bind(self, ctx, grad_req='write', type_dict=None, **kwargs):
+        """Bind with argument, gradient and aux arrays allocated from the
+        shapes inferred from ``kwargs``."""
+        from .executor import simple_bind
+        return simple_bind(self, ctx, grad_req, type_dict, **kwargs)
 
     def __repr__(self):
         return '<Symbol %s>' % (self.name or self.list_outputs())

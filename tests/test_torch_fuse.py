@@ -1,7 +1,11 @@
 """The port's step-compiler pipeline (mxnet_tpu_torch/fuse.py) against the
 JAX package's (mxnet_tpu/fuse.py): the same rewritten graph, pass by
-pass, and a NotImplementedError — never a silently different graph —
-where a lowering needs a kernel the port does not have yet."""
+pass, computing the same values and gradients, and a
+NotImplementedError — never a silently different graph — where a
+lowering needs a kernel the port does not have yet.  The JAX side runs
+with its kernel paths live (MXTPU_FORCE_PALLAS_INTERPRET), which is
+where its bn_relu_conv and nhwc_regions passes run; the port runs them
+always."""
 from collections import Counter
 
 import numpy as np
@@ -63,12 +67,37 @@ def test_resnet50_lower_modes_match_jax(resnet50_json, mode):
         assert tout is tsym
 
 
-def test_resnet50_training_needs_unported_kernels(resnet50_json):
-    """Training keeps live BN statistics, so 52 BN->relu->conv chains
-    remain for bn_relu_conv — the training slice's kernels."""
-    with pytest.raises(NotImplementedError, match='fused_scale_bias'):
-        tfuse.apply_fuse_passes(tmx.sym.load_json(resnet50_json), True,
-                                'aggressive')
+def test_resnet50_training_needs_unported_kernels(resnet50_json,
+                                                  monkeypatch):
+    """Training keeps live BN statistics, so 52 BN->relu->conv chains go
+    to bn_relu_conv — kernels this port now has: the aggressive training
+    graph equals the JAX one node for node, layout transposes
+    included."""
+    monkeypatch.setenv('MXTPU_FORCE_PALLAS_INTERPRET', '1')
+    jout = jfuse.apply_fuse_passes(mx.sym.load_json(resnet50_json), True,
+                                   'aggressive')
+    jstats = jfuse.last_run_stats()
+    tout = tfuse.apply_fuse_passes(tmx.sym.load_json(resnet50_json), True,
+                                   'aggressive')
+    tstats = tfuse.last_run_stats()
+    assert _names(tout) == _names(jout)
+    assert tstats == jstats
+    ops = _ops(tout)
+    assert ops['_bn_relu_conv'] == 52 and ops['Convolution'] == 1
+    assert ops['_bn_relu'] == 2
+    layouts = [(n.name, n.attrs.get('in_layout'), n.attrs.get('out_layout'))
+               for n in tout.topo_nodes() if n.op == '_bn_relu_conv']
+    assert layouts == [
+        (n.name, n.attrs.get('in_layout'), n.attrs.get('out_layout'))
+        for n in jout.topo_nodes() if n.op == '_bn_relu_conv']
+    # one region: a single transpose back to NCHW, after the last residual
+    # add (auto-named, so its number depends on what was built before)
+    transposes = sorted(n.name for n in tout.topo_nodes()
+                        if n.op == 'transpose')
+    assert transposes == sorted(n.name for n in jout.topo_nodes()
+                                if n.op == 'transpose')
+    assert len(transposes) == 1 and transposes[0].startswith('plus') and \
+        transposes[0].endswith('_to_nchw')
 
 
 def _bn_relu_conv(pkg):
@@ -80,20 +109,110 @@ def _bn_relu_conv(pkg):
 
 
 def test_unported_bn_relu_conv_lowering_raises(monkeypatch):
-    """No conv->BN pair to fold: the JAX kernel path rewrites the chain
-    into _bn_relu_conv, which the port cannot lower yet."""
+    """No conv->BN pair to fold: the chain becomes one _bn_relu_conv node
+    in both packages, and computes what the JAX node computes;
+    skipping the pass takes the graph the JAX reference path builds."""
     monkeypatch.setenv('MXTPU_FORCE_PALLAS_INTERPRET', '1')
     jout = jfuse.apply_fuse_passes(_bn_relu_conv(mx), False, 'aggressive')
-    assert '_bn_relu_conv' in _ops(jout)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tfuse.apply_fuse_passes(_bn_relu_conv(tmx), False, 'aggressive')
-    # skipping the pass takes the graph the JAX reference path builds
+    tout = tfuse.apply_fuse_passes(_bn_relu_conv(tmx), False, 'aggressive')
+    assert _names(tout) == _names(jout)
+    assert _ops(tout) == Counter({'_bn_relu_conv': 1, 'transpose': 1})
+    r = np.random.RandomState(5)
+    args = {'data': r.randn(2, 3, 5, 5).astype(np.float32),
+            'bn_gamma': (r.rand(3) + 0.5).astype(np.float32),
+            'bn_beta': r.randn(3).astype(np.float32),
+            'conv_weight': r.randn(4, 3, 1, 1).astype(np.float32)}
+    aux = {'bn_moving_mean': r.randn(3).astype(np.float32) * 0.1,
+           'bn_moving_var': (r.rand(3) + 0.5).astype(np.float32)}
+    got = tout.bind(tmx.cpu(), {k: tmx.nd.array(v) for k, v in args.items()},
+                    aux_states={k: tmx.nd.array(v) for k, v in aux.items()}) \
+        .forward()[0].asnumpy()
+    want = jout.bind(mx.cpu(), {k: mx.nd.array(v) for k, v in args.items()},
+                     grad_req='null',
+                     aux_states={k: mx.nd.array(v) for k, v in aux.items()}) \
+        .forward()[0].asnumpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     monkeypatch.setenv('MXTPU_FUSE_SKIP', 'bn_relu_conv')
     monkeypatch.delenv('MXTPU_FORCE_PALLAS_INTERPRET')
     tout = tfuse.apply_fuse_passes(_bn_relu_conv(tmx), False, 'aggressive')
     jout = jfuse.apply_fuse_passes(_bn_relu_conv(mx), False, 'aggressive')
     assert _names(tout) == _names(jout)
     assert '_bn_relu' in _ops(tout)
+
+
+def _shape_class_net(pkg, kernel, stride, shortcut):
+    """BN->relu->conv for one conv shape class (tests/test_fuse_bn_conv.py
+    :168-185); with ``shortcut`` the relu feeds two fusable convs whose
+    sum is the head."""
+    sym = pkg.sym
+    data = sym.Variable('data')
+    bn = sym.BatchNorm(data, fix_gamma=False, eps=1e-3, name='bn1')
+    act = sym.Activation(bn, act_type='relu', name='relu1')
+    pad = (1, 1) if kernel == (3, 3) else (0, 0)
+    conv = sym.Convolution(act, num_filter=8, kernel=kernel, stride=stride,
+                           pad=pad, no_bias=True, name='conv1')
+    if shortcut:
+        sc = sym.Convolution(act, num_filter=8, kernel=(1, 1),
+                             stride=stride, no_bias=True, name='sc')
+        conv = conv + sc
+    pool = sym.Pooling(conv, global_pool=True, kernel=(2, 2),
+                       pool_type='avg', name='pool')
+    return sym.SoftmaxOutput(sym.Flatten(pool, name='flat'), name='softmax')
+
+
+@pytest.mark.parametrize('kernel,stride,shortcut', [
+    ((3, 3), (1, 1), False),
+    ((3, 3), (2, 2), False),
+    ((1, 1), (2, 2), False),
+    ((3, 3), (2, 2), True),      # shared relu: conv + projection
+], ids=['3x3s1', '3x3s2', '1x1s2', '3x3s2+proj'])
+def test_bn_relu_conv_shape_classes_match_jax(kernel, stride, shortcut,
+                                              monkeypatch):
+    """Every fusable conv shape class of the training graph: the fused
+    node's forward, aux updates and gradients through the Executor
+    (training forward + backward) match the JAX Executor's on the same
+    fused graph (rtol 1e-4, atol 1e-5 as tests/test_fuse_bn_conv.py)."""
+    monkeypatch.setenv('MXTPU_FUSE', 'aggressive')
+    monkeypatch.setenv('MXTPU_FORCE_PALLAS_INTERPRET', '1')
+    r = np.random.RandomState(0)
+    vals = {'data': r.randn(4, 6, 8, 8).astype(np.float32),
+            'bn1_gamma': (r.rand(6) + 0.5).astype(np.float32),
+            'bn1_beta': r.randn(6).astype(np.float32),
+            'conv1_weight': (r.randn(8, 6, *kernel) * 0.3).astype(np.float32),
+            'softmax_label': r.randint(0, 8, 4).astype(np.float32)}
+    if shortcut:
+        vals['sc_weight'] = (r.randn(8, 6, 1, 1) * 0.3).astype(np.float32)
+    aux = {'bn1_moving_mean': np.zeros(6, np.float32),
+           'bn1_moving_var': np.ones(6, np.float32)}
+    res = {}
+    for pkg in (tmx, mx):
+        # a fresh name scope: the residual add is auto-named
+        with pkg.base.NameManager():
+            net = _shape_class_net(pkg, kernel, stride, shortcut)
+        exe = net.simple_bind(pkg.cpu(), grad_req='write', data=(4, 6, 8, 8))
+        for k, v in vals.items():
+            exe.arg_dict[k][:] = v
+        for k, v in aux.items():
+            exe.aux_dict[k][:] = v
+        exe.forward(is_train=True)
+        exe.backward()
+        prog = exe._program_symbol(True)
+        res[pkg] = (_names(prog), exe.outputs[0].asnumpy(),
+                    {k: v.asnumpy() for k, v in exe.aux_dict.items()},
+                    {k: v.asnumpy() for k, v in exe.grad_dict.items()})
+    tnames, tout, taux, tgrad = res[tmx]
+    jnames, jout, jaux, jgrad = res[mx]
+    assert tnames == jnames
+    assert Counter(op for op, _ in tnames)['_bn_relu_conv'] == \
+        (2 if shortcut else 1)
+    np.testing.assert_allclose(tout, jout, rtol=1e-5, atol=1e-5)
+    for k in jaux:
+        np.testing.assert_allclose(taux[k], jaux[k], rtol=1e-5, atol=1e-5,
+                                   err_msg=k)
+    assert set(tgrad) == set(jgrad)
+    for k in jgrad:
+        np.testing.assert_allclose(tgrad[k], jgrad[k], rtol=1e-4, atol=1e-5,
+                                   err_msg=k)
 
 
 def _fc_relu(pkg):
@@ -159,11 +278,12 @@ def test_conv_bn_fold_numerics_match_jax():
     tsym, tn = tfuse.fold_conv_bn(build(tmx))
     assert tn == 1
     got = tsym.bind(tmx.cpu(), {k: tmx.nd.array(v) for k, v in args.items()},
-                    {k: tmx.nd.array(v) for k, v in aux.items()}) \
+                    aux_states={k: tmx.nd.array(v) for k, v in aux.items()}) \
         .forward()[0].asnumpy()
     plain = build(tmx).bind(
         tmx.cpu(), {k: tmx.nd.array(v) for k, v in args.items()},
-        {k: tmx.nd.array(v) for k, v in aux.items()}).forward()[0].asnumpy()
+        aux_states={k: tmx.nd.array(v) for k, v in aux.items()}) \
+        .forward()[0].asnumpy()
     jsym, _ = jfuse.fold_conv_bn(build(mx))
     want = jsym.bind(mx.cpu(), {k: mx.nd.array(v) for k, v in args.items()},
                      grad_req='null',

@@ -118,3 +118,114 @@ def test_wrapper_rejects_bad_input(bad):
         s = torch.ones(8, dtype=torch.float64)
     with pytest.raises((TypeError, ValueError, MXNetError)):
         tf.fused_bn_relu(x, s, b)
+
+
+# ---------------------------------------------------------------------------
+# fused_scale_bias_dot against the JAX function (Pallas interpreter) and
+# its custom_vjp.  Tolerances: float32 rtol 1e-5, atol 1e-6 (the same f32
+# prologue; only the summation order of the product differs); bfloat16
+# relative error <= 0.05 of the output's scale (bench.py's bf16 kernel
+# parity bound: one bf16 rounding of inputs and output, and where no
+# block divides the shape the JAX function falls back to its reference,
+# whose affine runs in bf16).
+# ---------------------------------------------------------------------------
+
+DOT_SHAPES = [
+    (256, 128, 64),        # every block divides: the Pallas kernel runs
+    (64, 96, 160),
+    (49, 40, 29),          # ragged: no block divides M, K or N
+]
+
+
+def _dot_case(mkn, seed):
+    m, k, n = mkn
+    rng = np.random.RandomState(seed)
+    return (rng.randn(m, k).astype(np.float32),
+            (rng.randn(k, n) / np.sqrt(k)).astype(np.float32),
+            (rng.rand(k) + 0.5).astype(np.float32),
+            (rng.randn(k) * 0.5).astype(np.float32))
+
+
+def _jax_dot(args, relu, dtype, monkeypatch):
+    monkeypatch.setenv('MXTPU_FORCE_PALLAS_INTERPRET', '1')
+    ja = [jnp.asarray(a).astype(dtype) for a in args]
+    out = pf.fused_scale_bias_dot(*ja, relu=relu)
+    return np.asarray(out.astype(jnp.float32))
+
+
+def _rel(got, want):
+    return np.max(np.abs(got - want)) / max(np.max(np.abs(want)), 1e-30)
+
+
+@pytest.mark.parametrize('relu', [True, False], ids=['relu', 'affine'])
+@pytest.mark.parametrize('mkn', DOT_SHAPES, ids=lambda s: 'x'.join(map(str, s)))
+def test_dot_f32_matches_jax(mkn, relu, monkeypatch):
+    args = _dot_case(mkn, 5)
+    got = tf.fused_scale_bias_dot(*[torch.from_numpy(a) for a in args],
+                                  relu=relu)
+    assert got.dtype == torch.float32 and got.shape == (mkn[0], mkn[2])
+    want = _jax_dot(args, relu, jnp.float32, monkeypatch)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(
+        got.numpy(), tf.fused_scale_bias_dot_plain(
+            *[torch.from_numpy(a) for a in args], relu=relu).numpy(),
+        rtol=0, atol=0)
+
+
+@pytest.mark.parametrize('mkn', DOT_SHAPES, ids=lambda s: 'x'.join(map(str, s)))
+def test_dot_bf16_matches_jax(mkn, monkeypatch):
+    args = _dot_case(mkn, 6)
+    got = tf.fused_scale_bias_dot(
+        *[torch.from_numpy(a).to(torch.bfloat16) for a in args], relu=True)
+    assert got.dtype == torch.bfloat16
+    want = _jax_dot(args, True, jnp.bfloat16, monkeypatch)
+    assert _rel(got.float().numpy(), want) <= 0.05
+
+
+@pytest.mark.parametrize('relu', [True, False], ids=['relu', 'affine'])
+@pytest.mark.parametrize('mkn', [(64, 96, 32), (49, 40, 29)],
+                         ids=lambda s: 'x'.join(map(str, s)))
+def test_dot_gradients_match_jax_vjp(mkn, relu, monkeypatch):
+    """dx, dw, dscale, dbias of the autograd.Function against the JAX
+    custom_vjp, at a random head gradient."""
+    import jax
+    args = _dot_case(mkn, 7)
+    g = np.random.RandomState(8).randn(mkn[0], mkn[2]).astype(np.float32)
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in args]
+    y = tf.fused_scale_bias_dot(*ts, relu=relu)
+    got = torch.autograd.grad(y, ts, torch.from_numpy(g))
+    monkeypatch.setenv('MXTPU_FORCE_PALLAS_INTERPRET', '1')
+    _, vjp = jax.vjp(lambda *a: pf.fused_scale_bias_dot(*a, relu=relu),
+                     *[jnp.asarray(a) for a in args])
+    want = vjp(jnp.asarray(g))
+    for name, a, b in zip(('dx', 'dw', 'dscale', 'dbias'), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                   atol=1e-5, err_msg=name)
+
+
+def test_dot_cpu_path_never_touches_kernels(monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError('the CPU path reached the CUDA kernel loader')
+    monkeypatch.setattr(tf._kernels, 'load', boom)
+    before = tf.fused_scale_bias_dot.launches
+    tf.fused_scale_bias_dot(*[torch.from_numpy(a)
+                              for a in _dot_case((8, 4, 3), 9)])
+    assert tf.fused_scale_bias_dot.launches == before
+
+
+@pytest.mark.parametrize('bad', ['w_dtype', 'w_shape', 'x_1d', 'scale_len',
+                                 'w_noncontig'])
+def test_dot_wrapper_rejects_bad_input(bad):
+    x, w, s, b = [torch.from_numpy(a) for a in _dot_case((6, 4, 5), 10)]
+    if bad == 'w_dtype':
+        w = w.double()
+    elif bad == 'w_shape':
+        w = torch.zeros(3, 5)
+    elif bad == 'x_1d':
+        x = x.reshape(-1)
+    elif bad == 'scale_len':
+        s = torch.ones(3)
+    elif bad == 'w_noncontig':
+        w = torch.zeros(5, 4).t()
+    with pytest.raises((TypeError, ValueError, MXNetError)):
+        tf.fused_scale_bias_dot(x, w, s, b)

@@ -28,7 +28,9 @@ def _sources():
 
 def test_import_leaves_jax_out():
     code = ('import sys, mxnet_tpu_torch, mxnet_tpu_torch.serving, '
-            'mxnet_tpu_torch.models.resnet; '
+            'mxnet_tpu_torch.models.resnet, mxnet_tpu_torch.module, '
+            'mxnet_tpu_torch.parallel.train_step, '
+            'mxnet_tpu_torch.ops.fused_conv; '
             'bad = sorted(m for m in sys.modules if m == "jax" or '
             'm.startswith("jax.") or m == "mxnet_tpu" or '
             'm.startswith("mxnet_tpu.")); print(bad); '
@@ -61,3 +63,7 @@ def test_gpu_entry_points_raise_without_cuda(monkeypatch):
                           input_shapes={'data': (1, 3, 64, 64)})
     with pytest.raises(tmx.MXNetError, match='CUDA'):
         tmx.nd.zeros((2, 2), tmx.gpu())
+    with pytest.raises(tmx.MXNetError, match='CUDA'):
+        tmx.Module(sym)
+    with pytest.raises(tmx.MXNetError, match='CUDA'):
+        tmx.mod.Module(sym, context=tmx.gpu(0))

@@ -30,6 +30,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 # kernel-name fragments -> class, first match wins
 _CLASSES = (('bn_relu_kernel', 'fused_bn_relu'),
+            ('dotsrc', 'fused_scale_bias_dot'),
+            ('convsrc', 'fused_scale_bias_conv3x3'),
             ('conv', 'convolution'), ('xmma', 'convolution'),
             ('implicit', 'convolution'), ('winograd', 'convolution'),
             ('fft', 'convolution'),
@@ -62,14 +64,17 @@ def _time_forwards(torch, pred, data, iters):
     return statistics.median(host), statistics.median(dev)
 
 
-def _profile(torch, pred, data, iters):
+def profile_window(torch, run, iters, unit='forward'):
+    """torch.profiler over ``iters`` calls of ``run()``: wall and device
+    busy time per call, the device's idle share, kernel time by class
+    and by name."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(iters):
-            pred.forward(data=data)
+            run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans, by_name = [], defaultdict(float)
@@ -98,16 +103,16 @@ def _profile(torch, pred, data, iters):
     for name, ms in by_name.items():
         by_class[_class(name)] += ms
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    return {'phase': 'profile', 'forwards': iters,
-            'wall_ms_per_forward': wall_ms / iters,
-            'device_busy_ms_per_forward': busy_ms / iters,
+    return {'phase': 'profile', unit + 's': iters,
+            'wall_ms_per_' + unit: wall_ms / iters,
+            'device_busy_ms_per_' + unit: busy_ms / iters,
             'device_idle_share': max(0.0, 1.0 - busy_ms / wall_ms),
-            'kernel_ms_per_forward_by_class': {
+            'kernel_ms_per_%s_by_class' % unit: {
                 k: v / iters for k, v in sorted(by_class.items(),
                                                 key=lambda kv: -kv[1])},
-            'top_kernels_ms_per_forward': [[n[:90], v / iters]
+            'top_kernels_ms_per_' + unit: [[n[:90], v / iters]
                                            for n, v in top],
-            'kernels_per_forward': len(spans) / iters}
+            'kernels_per_' + unit: len(spans) / iters}
 
 
 def main():
@@ -151,10 +156,10 @@ def main():
                           'device_event_ms': [d for _, d in runs]}),
               flush=True)
     for mode in ('off', 'aggressive'):
-        print(json.dumps(dict(_profile(torch, preds[mode], data,
-                                       max(5, args.iters // 4)),
-                              fuse=mode, card=smi, rows=args.rows)),
-              flush=True)
+        pred = preds[mode]
+        print(json.dumps(dict(profile_window(
+            torch, lambda: pred.forward(data=data), max(5, args.iters // 4)),
+            fuse=mode, card=smi, rows=args.rows)), flush=True)
     return 0
 
 
