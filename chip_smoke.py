@@ -22,6 +22,17 @@ Phases, each printing one JSON line; any failure exits nonzero:
                   the product of the magnitudes (so the bound grows with
                   K), rtol 1e-4 (f32) and 2e-2 (bf16); plus a ragged
                   off-path dot and an odd-H stride-2 conv.
+3b. lm-kernels  — the same for the transformer LM's kernels, at the shapes
+                  of its aggressive training graph at 16 x 512 tokens, bf16
+                  and f32: flash_attention ([128, 512, 64] causal; O
+                  within 1e-4 (f32) / 2e-2 (bf16) of P . |V| elementwise,
+                  lse within 1e-4 * (1 + |lse|); library_ms is
+                  F.scaled_dot_product_attention) and fused_dot_epilogue
+                  ((8192, 512, 2048) with bias and relu; the GEMM rule
+                  above, |A|.|W| + |bias|; library_ms is torch.addmm),
+                  plus off-path cases: ragged causal attention with
+                  tq < tk, non-causal, D = 128; a ragged dot with bias,
+                  relu and clip, and one with no bias.
 4. serve        — main path 1: ModelServer serves full-width ResNet-50 v2
                   (1000 classes, 3x224x224, random weights from a numpy
                   seed, MXTPU_FUSE=aggressive, pow2 buckets up to 32
@@ -46,6 +57,21 @@ Phases, each printing one JSON line; any failure exits nonzero:
                   same numpy parameters: updated parameters rtol 1e-3,
                   atol 1e-5, except isolated relu-kink flips (at most 1e-4
                   of the elements, none beyond 1e-3; see the phase).
+8. lm-train     — main path 3, the JAX package's transformer-LM bench leg
+                  (bench.py:958-994) through the port's
+                  parallel.make_train_step: V=32000, E=512, 8 heads, 6
+                  layers, T=512, 16 rows, bf16 compute over f32 masters,
+                  SGD lr 0.01 momentum 0.9, MXTPU_FUSE=aggressive, N(0,
+                  0.02²) weights from numpy RandomState(0), 10 steps.
+                  Counts zeroed just before and read just after: 6
+                  flash_attention and 6 fused_dot_epilogue per step.
+                  Output and parameters finite, parameters moved;
+                  cross-entropy of the first and last step (ln 32000 =
+                  10.37), step ms (median after 2 warm-up steps),
+                  tokens/s, peak device memory.
+9. lm-parity    — one f32 step of the full-width LM at 2 x 512 tokens,
+                  TF32 off, on the card and on the CPU from the same numpy
+                  parameters, under train-parity's bound.
 
 Then the card's nvidia-smi line, the kernels summary line, and the
 result line {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -67,6 +93,16 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 FP32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
 BF16_FLOPS = 989e12             # H100 SXM dense bf16 on the tensor cores
 GEMM_RTOL = {'float32': 1e-4, 'bfloat16': 2e-2}
+# flash_attention: bf16 rounds P for the PV product and O on each side (3 *
+# 2^-8 of P.|V|, ops/attention.py); f32 differs in summation order only
+ATT_RTOL = {'float32': 1e-4, 'bfloat16': 2e-2}
+LSE_RTOL = 1e-4
+# the transformer LM of the JAX package's bench leg (bench.py:958-994)
+LM = dict(vocab_size=32000, num_embed=512, num_heads=8, num_layers=6,
+          seq_len=512)
+LM_BATCH = 16
+LM_STEPS = 10
+LM_PARITY_ROWS = 2
 BATCH = 32
 TRAIN_BATCHES = 10
 TRAIN_WARMUP = 2
@@ -308,17 +344,229 @@ def check_conv(torch, fused_conv, shape, dtype, gen, flush):
     return case
 
 
+def lm_kernel_shapes(mx, symbol, batch, seq_len):
+    """The shapes the aggressive LM training graph gives each kernel at
+    ``batch`` rows: Counters of fused_dot_epilogue (M, K, N, bias, relu,
+    clip) and flash_attention (BH, Tq, Tk, D, causal, scale) calls."""
+    # parameter shapes from the unfused graph: the fused epilogue node
+    # does not complete its inputs' shapes
+    arg_shapes, _, _ = symbol.infer_shape(data=(batch, seq_len),
+                                          softmax_label=(batch, seq_len))
+    prog = mx.fuse.apply_fuse_passes(symbol, True, 'aggressive')
+    internals = prog.get_internals()
+    _, out_shapes, _ = internals.infer_shape(
+        **dict(zip(symbol.list_arguments(), arg_shapes)))
+    shape_of = dict(zip(internals.list_outputs(), out_shapes))
+
+    def shape(entry):
+        src, idx = entry
+        return tuple(shape_of[src.output_names()[idx]])
+
+    dots, atts = Counter(), Counter()
+    for n in prog.topo_nodes():
+        if n.op == '_fused_epilogue' and n.attrs.get('lower_kernel') and \
+                n.attrs['base_op'] == 'FullyConnected':
+            d, w = shape(n.inputs[0]), shape(n.inputs[1])
+            steps = [s['op'] for s in n.attrs['steps']]
+            dots[(d[0], int(np.prod(d[1:])), w[0],
+                  not n.attrs['base_attrs'].get('no_bias', False),
+                  'Activation' in steps, 'clip' in steps)] += 1
+        elif n.op == 'FlashAttention':
+            q, k = shape(n.inputs[0]), shape(n.inputs[1])
+            atts[(q[0] * q[1], q[2], k[2], q[3], bool(n.attrs['causal']),
+                  float(n.attrs['scale']))] += 1
+    return dots, atts
+
+
+def live_pairs(tq, tk, causal):
+    """(query, key) pairs the bottom-right aligned mask keeps per head."""
+    if not causal:
+        return tq * tk
+    off = tk - tq
+    return sum(min(tk, max(0, r + off + 1)) for r in range(tq))
+
+
+def check_flash(torch, attention, bh, tq, tk, d, causal, scale, dtype, gen,
+                flush):
+    """One flash_attention case: O within rtol * (P @ |V|) of the plain
+    version elementwise and lse within 1e-4 * (1 + |lse|); then the
+    kernel, plain version and SDPA timed."""
+    import torch.nn.functional as F
+    dev = torch.device('cuda', 0)
+    dt = str(dtype).replace('torch.', '')
+    q = torch.randn(bh, tq, d, generator=gen, device=dev).to(dtype)
+    k = torch.randn(bh, tk, d, generator=gen, device=dev).to(dtype)
+    v = torch.randn(bh, tk, d, generator=gen, device=dev).to(dtype)
+    o, lse = attention._launch(q, k, v, scale, causal)
+    want, want_lse = attention.flash_attention_plain(q, k, v, scale, causal)
+    torch.cuda.synchronize()
+    if o.dtype != dtype or o.shape != q.shape or lse.shape != (bh, tq):
+        raise AssertionError('flash_attention %s: got %s %s' % (
+            dt, o.dtype, tuple(o.shape)))
+    s = torch.einsum('btd,bsd->bts', q.float(), k.float()) * scale
+    if causal:
+        keep = attention._causal_keep(tq, tk, dev)
+        s = torch.where(keep, s, torch.full_like(s, attention.NEG_INF))
+    magnitude = torch.einsum('bts,bsd->btd', torch.softmax(s, -1),
+                             v.float().abs())
+    del s
+    err = (o.float() - want.float()).abs()
+    if not bool(torch.isfinite(o.float()).all()):
+        raise AssertionError('flash_attention %s: non-finite output' % dt)
+    ratio = float((err / magnitude.clamp_min(1e-30)).max())
+    lse_ratio = float(((lse - want_lse).abs() / (1 + want_lse.abs())).max())
+    if ratio > ATT_RTOL[dt] or lse_ratio > LSE_RTOL:
+        raise AssertionError(
+            'flash_attention %s %s disagrees with its plain version: max '
+            '|err| / (P.|V|) = %g (tolerance %g), lse %g (tolerance %g)'
+            % ((bh, tq, tk, d), dt, ratio, ATT_RTOL[dt], lse_ratio,
+               LSE_RTOL))
+    pairs = live_pairs(tq, tk, causal)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() \
+        + 4 * bh * tq
+    flops = 4 * bh * d * pairs
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    op_ms = flops / (BF16_FLOPS if dtype == torch.bfloat16
+                     else FP32_FLOPS) * 1e3
+    # SDPA's is_causal is top-left aligned: the same function only when
+    # tq == tk.  Its fused backends take [B, H, T, D]: BH heads of one row
+    library = None
+    if not causal or tq == tk:
+        library = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], is_causal=causal, scale=scale), flush)
+    return {'bh_tq_tk_d': [bh, tq, tk, d], 'causal': causal, 'dtype': dt,
+            'max_abs_err': float(err.max()),
+            'max_err_over_magnitude': ratio,
+            'tolerance': '%g * (P.|V|); lse %g * (1 + |lse|)'
+                         % (ATT_RTOL[dt], LSE_RTOL),
+            'lse_max_abs_err': float((lse - want_lse).abs().max()),
+            'ms': cuda_ms(torch, lambda: attention.flash_attention(
+                q, k, v, causal, scale), flush),
+            'plain_ms': cuda_ms(torch, lambda: attention.flash_attention_plain(
+                q, k, v, scale, causal), flush),
+            'library_ms': library,
+            'host_us': host_us(torch, lambda: attention.flash_attention(
+                q, k, v, causal, scale)),
+            'bound_ms': max(byte_ms, op_ms),
+            'bound_by': 'bytes' if byte_ms >= op_ms else 'operations',
+            'bytes': nbytes, 'flops': flops}
+
+
+def check_epilogue(torch, fused, mkn, has_bias, relu, clip, dtype, gen,
+                   flush):
+    """One fused_dot_epilogue case, W given as the transposed view of an
+    (N, K) FullyConnected weight, as the fuse pass passes it."""
+    dev = torch.device('cuda', 0)
+    m, k, n = mkn
+    x = torch.randn(m, k, generator=gen, device=dev).to(dtype)
+    w = (torch.randn(n, k, generator=gen, device=dev) / k ** 0.5) \
+        .to(dtype).t()
+    b = (torch.randn(n, generator=gen, device=dev) * 0.5).to(dtype) \
+        if has_bias else None
+    got = fused.fused_dot_epilogue(x, w, b, relu=relu, clip=clip)
+    want = fused.fused_dot_epilogue_plain(x, w, b, relu=relu, clip=clip)
+    magnitude = torch.matmul(x.float().abs(), w.float().abs())
+    if b is not None:
+        magnitude = magnitude + b.float().abs()
+    case = _gemm_case(
+        torch, 'fused_dot_epilogue', dtype, got, want, magnitude,
+        (lambda: fused.fused_dot_epilogue(x, w, b, relu=relu, clip=clip),
+         lambda: fused.fused_dot_epilogue_plain(x, w, b, relu=relu,
+                                                clip=clip),
+         (lambda: torch.addmm(b, x, w)) if b is not None
+         else (lambda: torch.matmul(x, w))),
+        (m * k + k * n + m * n) * x.element_size() + (4 * n if has_bias
+                                                      else 0),
+        2 * m * n * k, flush)
+    case.update(mkn=list(mkn), bias=has_bias, relu=relu,
+                clip=list(clip) if clip else None)
+    return case
+
+
+def lm_symbol(models):
+    return models.get_symbol('transformer_lm', **LM)
+
+
+def lm_kernels(mx, torch, attention, fused, models, gen, flush):
+    """The LM phase of the kernel checks: both kernels at every shape the
+    LM training graph gives them, in bf16 (the path) and f32, plus
+    off-path cases (ragged and tq < tk attention, non-causal, D = 128; a
+    ragged dot with bias, relu and clip; a dot with no bias)."""
+    dots, atts = lm_kernel_shapes(mx, lm_symbol(models), LM_BATCH,
+                                  LM['seq_len'])
+    if sum(dots.values()) != LM['num_layers'] or \
+            sum(atts.values()) != LM['num_layers']:
+        raise AssertionError('expected %d lowered FC epilogues and %d '
+                             'FlashAttention nodes, found %s / %s'
+                             % (LM['num_layers'], LM['num_layers'],
+                                dict(dots), dict(atts)))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    att_cases, dot_cases = [], []
+    for dtype in (torch.bfloat16, torch.float32):
+        for (bh, tq, tk, d, causal, scale), per_step in sorted(atts.items()):
+            case = check_flash(torch, attention, bh, tq, tk, d, causal, scale,
+                               dtype, gen, flush)
+            case['launches_per_step'] = per_step
+            att_cases.append(case)
+        for bh, tq, tk, d, causal in ((6, 77, 200, 64, True),
+                                      (8, 256, 256, 64, False),
+                                      (16, 256, 256, 128, True)):
+            case = check_flash(torch, attention, bh, tq, tk, d, causal,
+                               d ** -0.5, dtype, gen, flush)
+            case['launches_per_step'] = 0
+            att_cases.append(case)
+        for (m, k, n, bias, relu, clip), per_step in sorted(dots.items()):
+            case = check_epilogue(torch, fused, (m, k, n), bias, relu,
+                                  (0.0, 6.0) if clip else None, dtype, gen,
+                                  flush)
+            case['launches_per_step'] = per_step
+            dot_cases.append(case)
+        for mkn, bias, relu, clip in (((1001, 37, 130), True, True,
+                                       (-0.5, 0.7)),
+                                      ((256, 96, 72), False, False, None)):
+            case = check_epilogue(torch, fused, mkn, bias, relu, clip, dtype,
+                                  gen, flush)
+            case['launches_per_step'] = 0
+            dot_cases.append(case)
+    return att_cases, dot_cases
+
+
+def lm_batch(torch, dev, rows):
+    """``rows`` x seq_len random token ids and their next-token labels,
+    as the bench leg makes them (labels = (toks + 1) % V)."""
+    v = LM['vocab_size']
+    toks = np.random.RandomState(SEED + 1).randint(
+        0, v, (LM_BATCH, LM['seq_len'])).astype(np.float32)[:rows]
+    return {'data': torch.from_numpy(toks).to(dev),
+            'softmax_label': torch.from_numpy((toks + 1) % v).to(dev)}
+
+
+def lm_step(ts, symbol, rows, compute_dtype):
+    opt = ts.make_sgd_momentum(lr=0.01, momentum=0.9, wd=0.0,
+                               rescale_grad=1.0 / (rows * LM['seq_len']))
+    return ts.make_train_step(symbol, opt, ('data', 'softmax_label'),
+                              compute_dtype=compute_dtype)
+
+
+def cross_entropy(torch, prob, label):
+    p = torch.gather(prob.float(), 1, label.reshape(-1, 1).long())
+    return float(-torch.log(p.clamp_min(1e-30)).mean())
+
+
 def _sum_cases(cases, key):
     return sum(c[key] * c['launches_per_step'] for c in cases)
 
 
-def gemm_summary(name, source, replaces, cases, launches):
-    """The kernels-line entry of a GEMM kernel: per-shape bf16 medians
-    summed over one 32-row training step's forward launches."""
+def gemm_summary(name, source, replaces, cases, launches_by_path,
+                 library_call, per='one 32-row training step forward, '
+                 'bfloat16'):
+    """The kernels-line entry of a kernel timed per training step:
+    per-shape bf16 medians summed over one step's forward launches."""
     on_path = [c for c in cases if c['launches_per_step']
                and c['dtype'] == 'bfloat16']
     return {'name': name, 'route': 'cuda', 'source': source,
-            'replaces': replaces, 'launches': launches,
+            'replaces': replaces, 'launches': sum(launches_by_path.values()),
+            'launches_by_path': launches_by_path,
             'max_abs_err': max(c['max_abs_err'] for c in cases
                                if c['launches_per_step']),
             'ms': _sum_cases(on_path, 'ms'),
@@ -330,12 +578,33 @@ def gemm_summary(name, source, replaces, cases, launches):
                 'bound_ms') > _sum_cases(on_path, 'bound_ms') / 2
                 else 'bytes'),
             'library_ms': _sum_cases(on_path, 'library_ms'),
-            'library_call': ('torch.matmul' if 'dot' in name
-                             else 'F.conv2d') + ' on the normalized input',
-            'per': 'one 32-row training step forward, bfloat16',
+            'library_call': library_call, 'per': per,
             'f32_ms': _sum_cases([c for c in cases if c['launches_per_step']
                                   and c['dtype'] == 'float32'], 'ms'),
             'cases': cases}
+
+
+def param_parity(card, host):
+    """Elementwise rtol 1e-3, atol 1e-5 between two parameter dicts.  A
+    relu whose input lies within the two devices' float32 differences
+    (~1e-6) of zero can take the other side of its kink on one device:
+    its gradient element flips, and the weight gradients of the channel
+    it feeds move by far more than the tolerance.  Such isolated flips
+    are expected at full width (millions of relu inputs), so a phase
+    fails when more than 1e-4 of all parameter elements are outside the
+    tolerance, or any is more than 1e-3 away.  Returns (elements outside,
+    total, worst (abs err, name), per-parameter outliers)."""
+    outside, worst, total, n_out = [], (0.0, None), 0, 0
+    for k in sorted(card):
+        diff = np.abs(card[k] - host[k])
+        bad = int((diff > 1e-5 + 1e-3 * np.abs(host[k])).sum())
+        total += diff.size
+        n_out += bad
+        if bad:
+            outside.append((k, bad, float(diff.max())))
+        if float(diff.max()) > worst[0]:
+            worst = (float(diff.max()), k)
+    return n_out, total, worst, outside
 
 
 def train_module(mx, torch, symbol, arg, aux, data, labels, ctx, dtype,
@@ -407,9 +676,10 @@ def main():
         return 1
     try:
         import mxnet_tpu_torch as mx
-        from mxnet_tpu_torch import convert, instrument
-        from mxnet_tpu_torch.ops import _kernels, fused, fused_conv
+        from mxnet_tpu_torch import convert, instrument, models
+        from mxnet_tpu_torch.ops import _kernels, attention, fused, fused_conv
         from mxnet_tpu_torch.models import resnet
+        from mxnet_tpu_torch.parallel import train_step as ts
     except ImportError as e:
         print('chip_smoke: the mxnet_tpu_torch package is missing (%s); run '
               'from the root of a checkout' % e, file=sys.stderr)
@@ -492,9 +762,13 @@ def main():
         case['launches_per_step'] = 0
         conv_cases.append(case)
     torch.backends.cudnn.allow_tf32 = True
-    del flush
     log({'phase': 'kernels', 'cases': cases, 'dot_cases': dot_cases,
          'conv_cases': conv_cases, 'tf32': False})
+    att_cases, epi_cases = lm_kernels(mx, torch, attention, fused, models,
+                                      gen, flush)
+    del flush
+    log({'phase': 'lm-kernels', 'flash_attention_cases': att_cases,
+         'fused_dot_epilogue_cases': epi_cases, 'tf32': False})
 
     # -- 4. serve: the main path ---------------------------------------------
     arg, aux = convert.random_params(symbol, {'data': (BATCH,) + IMAGE},
@@ -648,24 +922,9 @@ def main():
                                     time.monotonic() - t0)
         del pmod
     (card, card_s), (host, cpu_s) = stepped['gpu'], stepped['cpu']
-    # Elementwise rtol 1e-3, atol 1e-5.  A relu whose input lies within
-    # the two devices' float32 differences (~1e-6) of zero can take the
-    # other side of its kink on one device: its gradient element flips,
-    # and the weight gradients of the channel it feeds move by far more
-    # than the tolerance.  Such isolated flips are expected at full width
-    # (millions of relu inputs), so the phase fails when more than 1e-4
-    # of all parameter elements are outside the tolerance, or any is
-    # more than 1e-3 away; it reports every parameter that differs.
-    outside, worst, total, n_out = [], (0.0, None), 0, 0
-    for k in sorted(card):
-        diff = np.abs(card[k] - host[k])
-        bad = int((diff > 1e-5 + 1e-3 * np.abs(host[k])).sum())
-        total += diff.size
-        n_out += bad
-        if bad:
-            outside.append((k, bad, float(diff.max())))
-        if float(diff.max()) > worst[0]:
-            worst = (float(diff.max()), k)
+    # the relu-kink bound of param_parity; every parameter that differs
+    # is reported
+    n_out, total, worst, outside = param_parity(card, host)
     log({'phase': 'train-parity', 'rows': PARITY_ROWS, 'dtype': 'float32',
          'tf32': False, 'tolerance': 'rtol 1e-3, atol 1e-5 elementwise; '
          'at most 1e-4 of the elements outside it, none beyond 1e-3',
@@ -677,6 +936,105 @@ def main():
         raise AssertionError('train-parity: %d of %d parameter elements '
                              'beyond rtol 1e-3, atol 1e-5, max abs err %g '
                              'in %s' % (n_out, total, worst[0], worst[1]))
+
+    # -- 8. lm-train: the third main path ----------------------------------
+    dev = torch.device('cuda', 0)
+    lm_sym = lm_symbol(models)
+    seq = LM['seq_len']
+    lm_arg, _ = convert.random_params(
+        lm_sym, {'data': (LM_BATCH, seq), 'softmax_label': (LM_BATCH, seq)},
+        SEED, init='normal')
+    params = {k: torch.from_numpy(v).to(dev) for k, v in lm_arg.items()}
+    opt_state = ts.sgd_momentum_init(params)
+    batch = lm_batch(torch, dev, LM_BATCH)
+    step = lm_step(ts, lm_sym, LM_BATCH, torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    attention.flash_attention.launches = 0
+    fused.fused_dot_epilogue.launches = 0
+    lm_step_s, ce = [], []
+    t0 = time.monotonic()
+    for i in range(LM_STEPS):
+        t1 = time.perf_counter()
+        outs, params, _, opt_state = step(params, {}, opt_state, batch)
+        torch.cuda.synchronize()
+        lm_step_s.append(time.perf_counter() - t1)
+        if i in (0, LM_STEPS - 1):
+            ce.append(cross_entropy(torch, outs[0], batch['softmax_label']))
+    lm_s = time.monotonic() - t0
+    lm_launches = {'flash_attention': attention.flash_attention.launches,
+                   'fused_dot_epilogue': fused.fused_dot_epilogue.launches}
+    for name, n in lm_launches.items():
+        if n != LM['num_layers'] * LM_STEPS:
+            raise AssertionError('%s launched %d times in %d LM steps '
+                                 '(expected %d each)' % (
+                                     name, n, LM_STEPS, LM['num_layers']))
+    if tuple(outs[0].shape) != (LM_BATCH * seq, LM['vocab_size']) or \
+            not bool(torch.isfinite(outs[0].float()).all()) or \
+            not all(np.isfinite(ce)):
+        raise AssertionError('lm-train: bad output %s, cross-entropy %s'
+                             % (tuple(outs[0].shape), ce))
+    lm_moved = 0.0
+    for k, v in lm_arg.items():
+        t = params[k].cpu().numpy()
+        if not np.all(np.isfinite(t)):
+            raise AssertionError('LM parameter %s is not finite' % k)
+        lm_moved = max(lm_moved, float(np.max(np.abs(t - v))))
+    if lm_moved <= 0.0:
+        raise AssertionError('lm-train: the parameters did not move')
+    lm_ms = statistics.median(lm_step_s[TRAIN_WARMUP:]) * 1e3
+    log({'phase': 'lm-train', 'model': 'transformer_lm', **LM,
+         'batch': LM_BATCH, 'steps': LM_STEPS, 'compute_dtype': 'bfloat16',
+         'fuse': 'aggressive', 'entry': 'parallel.make_train_step',
+         'optimizer': 'sgd lr 0.01 momentum 0.9 wd 0 rescale 1/%d'
+                      % (LM_BATCH * seq),
+         'launches': lm_launches,
+         'launches_per_step': {k: LM['num_layers'] for k in lm_launches},
+         'wall_s': lm_s, 'step_ms': [t * 1e3 for t in lm_step_s],
+         'step_ms_median_after_warmup': lm_ms,
+         'tokens_per_s': LM_BATCH * seq / lm_ms * 1e3,
+         'peak_memory_bytes': torch.cuda.max_memory_allocated(),
+         'cross_entropy_first_last': ce,
+         'ln_vocab': float(np.log(LM['vocab_size'])),
+         'max_param_change': lm_moved})
+    del params, opt_state, outs, step
+
+    # -- 9. lm-parity: one f32 LM step on the card and on the CPU ----------
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    stepped = {}
+    for d in (dev, torch.device('cpu')):
+        t0 = time.monotonic()
+        # copies: the step updates in place, and on the CPU
+        # torch.from_numpy(...).to(d) would share lm_arg's memory
+        p = {k: torch.tensor(v, device=d) for k, v in lm_arg.items()}
+        _, p, _, _ = lm_step(ts, lm_sym, LM_PARITY_ROWS, None)(
+            p, {}, ts.sgd_momentum_init(p),
+            lm_batch(torch, d, LM_PARITY_ROWS))
+        stepped[d.type] = ({k: v.cpu().numpy() for k, v in p.items()},
+                           time.monotonic() - t0)
+        del p
+    (card, card_s), (host, cpu_s) = stepped['cuda'], stepped['cpu']
+    n_out, total, worst, outside = param_parity(card, host)
+    # the update itself is small against N(0, 0.02) weights (many
+    # elements move by less than their float32 spacing): the largest
+    # difference is reported against the largest update as well
+    max_update = max(float(np.max(np.abs(host[k] - lm_arg[k])))
+                     for k in host)
+    log({'phase': 'lm-parity', 'rows': LM_PARITY_ROWS, 'seq_len': seq,
+         'dtype': 'float32', 'tf32': False,
+         'tolerance': 'rtol 1e-3, atol 1e-5 elementwise; at most 1e-4 of '
+         'the elements outside it, none beyond 1e-3',
+         'params': len(card), 'elements': total,
+         'elements_outside': n_out, 'max_abs_err': worst[0],
+         'worst_param': worst[1], 'outside_tolerance': outside,
+         'max_update': max_update,
+         'max_abs_err_over_max_update': worst[0] / max_update,
+         'card_s': card_s, 'cpu_s': cpu_s})
+    if n_out > 1e-4 * total or worst[0] > 1e-3:
+        raise AssertionError('lm-parity: %d of %d parameter elements beyond '
+                             'rtol 1e-3, atol 1e-5, max abs err %g in %s'
+                             % (n_out, total, worst[0], worst[1]))
 
     # -- summary -------------------------------------------------------------
     on_path = [c for c in cases if c['launches_per_forward']]
@@ -704,16 +1062,30 @@ def main():
         'train_bound_ms': sum(c['bound_ms'] * c.get('launches_per_step', 0)
                               for c in cases),
         'cases': cases}
+    lm_per = 'one %d-row LM training step forward, bfloat16' % LM_BATCH
     kernels = [
         summary,
         gemm_summary('fused_scale_bias_dot', 'mxnet_tpu_torch/csrc/'
                      'fused_scale_bias_dot.cu',
                      'mxnet_tpu/ops/pallas_fused.py:72', dot_cases,
-                     train_launches['fused_scale_bias_dot']),
+                     {'train': train_launches['fused_scale_bias_dot']},
+                     'torch.matmul on the normalized input'),
         gemm_summary('fused_scale_bias_conv3x3', 'mxnet_tpu_torch/csrc/'
                      'fused_scale_bias_conv3x3.cu',
                      'mxnet_tpu/ops/pallas_conv.py:91', conv_cases,
-                     train_launches['fused_scale_bias_conv3x3'])]
+                     {'train': train_launches['fused_scale_bias_conv3x3']},
+                     'F.conv2d on the normalized input'),
+        gemm_summary('fused_dot_epilogue', 'mxnet_tpu_torch/csrc/'
+                     'fused_dot_epilogue.cu',
+                     'mxnet_tpu/ops/pallas_fused.py:328', epi_cases,
+                     {'lm-train': lm_launches['fused_dot_epilogue']},
+                     'torch.addmm (product and bias, no relu)', lm_per),
+        gemm_summary('flash_attention', 'mxnet_tpu_torch/csrc/'
+                     'flash_attention.cu',
+                     'mxnet_tpu/ops/pallas_attention.py:197', att_cases,
+                     {'lm-train': lm_launches['flash_attention']},
+                     'F.scaled_dot_product_attention(is_causal=True)',
+                     lm_per)]
     print(smi, flush=True)
     log({'kernels': kernels})
     log({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,

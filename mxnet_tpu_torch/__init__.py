@@ -3,11 +3,13 @@
 A second package beside the JAX one, with the same public surface and
 the same symbol JSON and ``.params`` formats, for an NVIDIA H100.  It
 serves (``ModelServer`` -> ``Predictor`` -> ``Symbol.bind`` ->
-``Executor.forward``) and trains (``Module.fit`` -> the fused train step:
-forward, backward, SGD-momentum update), both through the
-``MXTPU_FUSE`` pass pipeline, over the ops ResNet-50 v2 needs.  The TPU
-kernels on those paths — ``fused_bn_relu``, ``fused_scale_bias_dot`` and
-``fused_scale_bias_conv3x3`` — are CUDA C++ for sm_90a (``csrc/``).
+``Executor.forward``) and trains (``Module.fit`` or
+``parallel.make_train_step`` -> the fused train step: forward, backward,
+SGD-momentum update), both through the ``MXTPU_FUSE`` pass pipeline,
+over the ops ResNet-50 v2 and the transformer LM need.  The TPU kernels
+on those paths — ``fused_bn_relu``, ``fused_scale_bias_dot``,
+``fused_scale_bias_conv3x3``, ``fused_dot_epilogue`` and
+``flash_attention`` — are CUDA C++ for sm_90a (``csrc/``).
 
 The package imports torch and numpy, never jax and nothing of
 ``mxnet_tpu``.  Entry points run on the card unless the caller asks for

@@ -39,17 +39,34 @@ def params_from_numpy(arg_params, aux_params=None, device=None):
     return out
 
 
-def random_params(symbol, input_shapes, seed):
+def random_params(symbol, input_shapes, seed, init='he'):
     """Random ``(arg_params, aux_params)`` numpy dicts for ``symbol`` at
     ``input_shapes``, from a numpy seed — the same arrays can be fed to
-    both packages.  Weights are He-scaled (the last conv of each residual
-    branch, ``*_conv3_weight``, at 0.2 of that so stacked residual units
-    do not double the activation variance each), gammas and moving
-    variances in [0.5, 1.5), betas, biases and moving means ~ N(0, 0.1²).
-    Inputs named in ``input_shapes`` and ``*_label`` arguments get none."""
-    r = np.random.default_rng(seed)
+    both packages.  Inputs named in ``input_shapes`` and ``*_label``
+    arguments get none.
+
+    ``init='he'`` (ResNet): weights He-scaled (the last conv of each
+    residual branch, ``*_conv3_weight``, at 0.2 of that so stacked
+    residual units do not double the activation variance each), gammas
+    and moving variances in [0.5, 1.5), betas, biases and moving means
+    ~ N(0, 0.1²).  ``init='normal'`` (the transformer LM): every argument
+    ~ N(0, 0.02²) from ``np.random.RandomState(seed)`` in
+    ``list_arguments`` order, the draws of the JAX package's
+    transformer-LM bench leg (``bench.py:974-978``)."""
     arg_shapes, _, aux_shapes = symbol.infer_shape(**input_shapes)
     arg, aux = {}, {}
+    if init == 'normal':
+        rs = np.random.RandomState(seed)
+        for name, shp in zip(symbol.list_arguments(), arg_shapes):
+            if name not in input_shapes and not name.endswith('label'):
+                arg[name] = rs.normal(0, 0.02, shp).astype(np.float32)
+        if aux_shapes:
+            raise ValueError("init='normal' draws no auxiliary states; %s "
+                             'has %d' % (symbol.name, len(aux_shapes)))
+        return arg, aux
+    if init != 'he':
+        raise ValueError("init must be 'he' or 'normal', got %r" % (init,))
+    r = np.random.default_rng(seed)
     for name, shp in zip(symbol.list_arguments(), arg_shapes):
         if name in input_shapes or name.endswith('label'):
             continue

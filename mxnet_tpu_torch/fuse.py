@@ -23,35 +23,36 @@ pass                level       rewrite
                                 ``fused_bn_relu`` kernel (ops/fused.py)
 ``epilogue``        safe        bias-add/relu/clip chains after Conv/FC
                                 collapsed into the producer (exact replay);
-                                the aggressive FullyConnected lowering onto
-                                ``fused_dot_epilogue`` is NOT PORTED: raises
+                                under aggressive a FullyConnected chain
+                                ``[bias-add] [relu] [clip]`` is lowered
+                                onto ``fused_dot_epilogue`` (ops/fused.py)
 ``nhwc_regions``    aggressive  channels-last regions around
                                 ``_bn_relu_conv`` (explicit ``transpose``
                                 nodes only at region boundaries)
 ==================  ==========  =============================================
 
-The JAX package runs ``bn_relu_conv`` and ``nhwc_regions`` only where its
-Pallas kernels are live (a TPU, or the Pallas interpreter forced:
-``mxnet_tpu/fuse.py:1071-1095``); on its plain-XLA path they step aside.
-The port's kernels are always live — the CUDA kernel on the card, the
-plain version on the CPU — so the port runs both passes whenever the
-mode is ``aggressive`` and builds the graph the JAX package builds on a
-TPU or in interpret mode.
+The JAX package runs ``bn_relu_conv`` and ``nhwc_regions``, and lowers
+the aggressive epilogue onto its kernel, only where its Pallas kernels
+are live (a TPU, or the Pallas interpreter forced:
+``mxnet_tpu/fuse.py:1071-1095``, ``:916``); on its plain-XLA path they
+step aside.  The port's kernels are always live — the CUDA kernel on the
+card, the plain version on the CPU — so the port runs both passes and
+the lowering whenever the mode is ``aggressive`` and builds and computes
+the graph the JAX package builds on a TPU or in interpret mode.
 
-A lowering that needs a kernel the port does not have yet (the
-aggressive FullyConnected epilogue, kernel ``fused_dot_epilogue``)
-raises ``NotImplementedError`` naming the kernel when it would rewrite a
-node, instead of leaving the graph silently different from the JAX
-package's.  On ResNet-50 v2 inference ``conv_bn_fold`` takes every
-conv->BN pair, so ``bn_relu_conv`` finds nothing and ``bn_relu`` lowers
-the 17 remaining BN->relu chains; in training the live batch statistics
-keep the BNs unfolded and ``bn_relu_conv`` rewrites 52 of the 53 convs.
+On ResNet-50 v2 inference ``conv_bn_fold`` takes every conv->BN pair, so
+``bn_relu_conv`` finds nothing and ``bn_relu`` lowers the 17 remaining
+BN->relu chains; in training the live batch statistics keep the BNs
+unfolded and ``bn_relu_conv`` rewrites 52 of the 53 convs.  In the
+transformer LM each block's FFN ``FullyConnected -> relu`` is the one
+chain the epilogue pass takes.
 """
 from __future__ import annotations
 
 import torch
 
-from .ops.fused import fused_bn_relu, fused_scale_bias_dot
+from .ops.fused import (fused_bn_relu, fused_dot_epilogue,
+                        fused_scale_bias_dot)
 from .ops.fused_conv import fused_scale_bias_conv3x3
 from .ops.nn import _conv_apply, batch_norm_stats
 from .ops.registry import get_op, register
@@ -61,9 +62,6 @@ __all__ = ['fold_conv_bn', 'fold_constants', 'prune_dead_branches',
            'fuse_bn_relu', 'fuse_epilogues', 'FusePass', 'PassManager',
            'default_passes', 'default_manager', 'fuse_mode',
            'apply_fuse_passes', 'last_run_stats']
-
-# where the kernel of the unported FullyConnected epilogue lowering is queued
-_ROADMAP_KERNELS = "ROADMAP.md, 'Queue 2 — TPU kernels still to port'"
 
 
 def _tup_or(v, default):
@@ -615,43 +613,63 @@ def _admissible_epilogue_step(nxt, cur):
     return None
 
 
-def _kernel_lowerable(base_op, steps):
-    """Whether the JAX package's aggressive tier lowers this chain onto
-    ``fused_dot_epilogue`` (``mxnet_tpu/fuse.py:902-955``): a
-    FullyConnected followed by ``[bias-add] [relu] [clip(lo, hi)]`` in
-    that order.  (The JAX lowering also checks at run time that the
-    added bias is 1-D of the FC's width; a shape-only graph cannot, so
-    the port treats every such chain as lowerable.)"""
-    if base_op != 'FullyConnected':
-        return False
-    stage = 0
-    for st in steps:
-        node = st['node']
-        if node.op in _EPILOGUE_BINARY:
-            if stage > 0 or node.op not in _EPILOGUE_ADD:
-                return False
+def _try_lower_epilogue(attrs, base_attrs, inputs, nbase):
+    """The JAX package's ``_try_lower_epilogue``
+    (``mxnet_tpu/fuse.py:902-955``): a FullyConnected chain stamped
+    ``lower_kernel`` (aggressive) and matching ``[bias-add] [relu]
+    [clip(lo, hi)]`` in that order, each added bias 1-D of the FC's
+    width, runs as ONE ``fused_dot_epilogue``; anything else (a second
+    clip, a multiply) returns None for the exact replay.  The weight goes
+    in as it lies, (N, K): ``weight.t()`` is a view the kernel reads
+    without a copy."""
+    if attrs['base_op'] != 'FullyConnected' or \
+            not attrs.get('lower_kernel', False):
+        return None
+    data, weight = inputs[0], inputs[1]
+    bias = None if bool(base_attrs.get('no_bias', False)) else inputs[2]
+    relu = False
+    clip = None
+    stage = 0           # 0: bias-add, 1: relu, 2: clip — forward-only
+    ei = nbase
+    for st in attrs['steps']:
+        if st['op'] in _EPILOGUE_BINARY:
+            if stage > 0 or st['op'] not in _EPILOGUE_ADD:
+                return None
+            extra = inputs[ei]
+            ei += 1
+            if extra.ndim != 1 or extra.shape[0] != weight.shape[0]:
+                return None
+            bias = extra if bias is None else bias + extra
             stage = 1
-        elif node.op == 'Activation':
+        elif st['op'] == 'Activation':
             if stage > 1:
-                return False
+                return None
+            relu = True
             stage = 2
-        elif node.op == 'clip':
-            if stage > 2 or node.attrs.get('a_min') is None or \
-                    node.attrs.get('a_max') is None:
-                return False
+        elif st['op'] == 'clip':
+            if stage > 2:
+                return None     # second clip: fall back to the replay
+            sattrs = st['attrs']
+            if sattrs.get('a_min') is None or sattrs.get('a_max') is None:
+                return None
+            clip = (float(sattrs['a_min']), float(sattrs['a_max']))
             stage = 3
         else:
-            return False
-    return True
+            return None
+    x2 = data.reshape(data.shape[0], -1).contiguous()
+    return fused_dot_epilogue(x2, weight.t(), bias, relu=relu, clip=clip)
 
 
 def _fused_epilogue_apply(attrs, inputs, is_train, rng):
-    """Exact replay: the SAME ops in the SAME order the unfused graph
-    ran them."""
+    """The kernel lowering where it applies, else exact replay: the SAME
+    ops in the SAME order the unfused graph ran them."""
     base = get_op(attrs['base_op'])
     nbase = int(attrs['num_base_inputs'])
-    outs, aux = base.apply(base.canon_attrs(attrs['base_attrs']),
-                           list(inputs[:nbase]), is_train, rng)
+    base_attrs = base.canon_attrs(attrs['base_attrs'])
+    lowered = _try_lower_epilogue(attrs, base_attrs, inputs, nbase)
+    if lowered is not None:
+        return [lowered], {}
+    outs, aux = base.apply(base_attrs, list(inputs[:nbase]), is_train, rng)
     y = outs[0]
     ei = nbase
     for st in attrs['steps']:
@@ -679,9 +697,10 @@ def fuse_epilogues(sym: Symbol, is_train=False, mode='safe'):
     """Collapse elementwise chains following Convolution /
     FullyConnected / dot — parameter bias-adds, relu, clip — into ONE
     ``_fused_epilogue`` node replaying the chain.  Only single-consumer
-    intermediates fold.  Under ``aggressive`` the JAX package lowers a
-    FullyConnected chain onto ``fused_dot_epilogue``, which is not
-    ported: such a chain raises.  Returns ``(symbol, chains fused)``."""
+    intermediates fold.  Under ``aggressive`` the node is stamped
+    ``lower_kernel``: a FullyConnected chain then runs as
+    ``fused_dot_epilogue`` (:func:`_try_lower_epilogue`).  Returns
+    ``(symbol, chains fused)``."""
     nodes = sym.topo_nodes()
     consumers = {}
     for n in nodes:
@@ -708,11 +727,6 @@ def fuse_epilogues(sym: Symbol, is_train=False, mode='safe'):
             cur = cons[0]
         if not steps:
             continue
-        if mode == 'aggressive' and _kernel_lowerable(n.op, steps):
-            raise NotImplementedError(
-                'fuse pass epilogue would lower %s onto fused_dot_epilogue, '
-                'which is not ported yet (%s); set MXTPU_FUSE_SKIP=epilogue '
-                'to serve without it' % (n.name, _ROADMAP_KERNELS))
         chains[id(n)] = (steps, cur)
         in_chain.update(id(st['node']) for st in steps)
 

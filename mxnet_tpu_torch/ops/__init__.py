@@ -7,6 +7,7 @@ from . import tensor  # noqa: F401
 from . import nn  # noqa: F401
 from . import fused  # noqa: F401
 from . import fused_conv  # noqa: F401
+from . import attention  # noqa: F401
 
 __all__ = ['get_op', 'list_ops', 'register', 'register_simple', 'alias',
            'OpDef']

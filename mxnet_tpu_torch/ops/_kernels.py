@@ -37,6 +37,7 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
+_F = ctypes.c_float
 # kernel name -> (source under csrc/, C entry point, its argtypes)
 KERNELS = {
     'fused_bn_relu': ('fused_bn_relu.cu', 'mxtpu_fused_bn_relu',
@@ -52,6 +53,16 @@ KERNELS = {
                                  'mxtpu_fused_scale_bias_conv3x3',
                                  (_P, _P, _P, _P, _P, _LL, _LL, _LL, _LL,
                                   _LL, _LL, _LL, _I, _I, _I, _P)),
+    # x, w (N, K), bias or NULL, y, M, N, K, relu, has_clip, lo, hi,
+    # dtype, stream
+    'fused_dot_epilogue': ('fused_dot_epilogue.cu',
+                           'mxtpu_fused_dot_epilogue',
+                           (_P, _P, _P, _P, _LL, _LL, _LL, _I, _I, _F, _F,
+                            _I, _P)),
+    # q, k, v, o, lse, BH, Tq, Tk, D, scale, causal, dtype, stream
+    'flash_attention': ('flash_attention.cu', 'mxtpu_flash_attention',
+                        (_P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _F, _I, _I,
+                         _P)),
 }
 
 build_seconds = {}      # kernel name -> wall seconds of its nvcc run

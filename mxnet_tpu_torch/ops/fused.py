@@ -1,5 +1,5 @@
-"""Fused BatchNorm-apply kernels: ``fused_bn_relu`` and
-``fused_scale_bias_dot``.
+"""Fused GEMM prologue/epilogue kernels: ``fused_bn_relu``,
+``fused_scale_bias_dot`` and ``fused_dot_epilogue``.
 
 The counterparts of ``mxnet_tpu/ops/pallas_fused.py``:
 
@@ -10,19 +10,24 @@ The counterparts of ``mxnet_tpu/ops/pallas_fused.py``:
   @ w`` (TPU kernel ``_pallas_forward``): the 1x1-convolution case of the
   ``_bn_relu_conv`` node (fuse.py), the BatchNorm apply step fused into
   the matmul that consumes it.
+- ``fused_dot_epilogue(x, w, bias, relu, clip) = clip?(relu?(x @ w +
+  bias))`` (TPU kernel ``_dot_epi_pallas``): the aggressive lowering of
+  the ``epilogue`` pass (fuse.py), a FullyConnected whose bias-add, relu
+  and clip run on the f32 accumulator before the one store.
 
 On a CUDA tensor each wrapper launches its hand-written kernel
-(``csrc/fused_bn_relu.cu``, ``csrc/fused_scale_bias_dot.cu``, built and
-bound by ``ops/_kernels.py``) or raises; a CPU tensor takes the plain
-PyTorch version (``*_plain``), which the tests and ``chip_smoke.py`` hold
-the kernel against.  A ``meta`` tensor (shape inference) also takes the
-plain version, which computes no values.  Each kernel's ``launches``
-counter counts its launches.
+(``csrc/fused_bn_relu.cu``, ``csrc/fused_scale_bias_dot.cu``,
+``csrc/fused_dot_epilogue.cu``, built and bound by ``ops/_kernels.py``)
+or raises; a CPU tensor takes the plain PyTorch version (``*_plain``),
+which the tests and ``chip_smoke.py`` hold the kernel against.  A
+``meta`` tensor (shape inference) also takes the plain version, which
+computes no values.  Each kernel's ``launches`` counter counts its
+launches.
 
-Both are ``torch.autograd.Function``s whose backward is the reference's
-``custom_vjp`` backward (``_bn_relu_bwd``, ``_bwd``), which the JAX
-package computes in plain JAX outside any kernel; here it is plain
-PyTorch (the matmuls of the dot's backward go to ``torch.matmul``).
+All are ``torch.autograd.Function``s whose backward is the reference's
+``custom_vjp`` backward (``_bn_relu_bwd``, ``_bwd``, ``_dot_epi_bwd``),
+which the JAX package computes in plain JAX outside any kernel; here it
+is plain PyTorch (the matmuls of the backwards go to ``torch.matmul``).
 """
 from __future__ import annotations
 
@@ -36,7 +41,8 @@ from . import _kernels
 from .registry import register_simple
 
 __all__ = ['fused_bn_relu', 'fused_bn_relu_plain', 'fused_scale_bias_dot',
-           'fused_scale_bias_dot_plain']
+           'fused_scale_bias_dot_plain', 'fused_dot_epilogue',
+           'fused_dot_epilogue_plain']
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _count_lock = threading.Lock()
@@ -276,8 +282,131 @@ def fused_scale_bias_dot(x, w, scale, bias, relu=False):
 fused_scale_bias_dot.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# fused_dot_epilogue
+# ---------------------------------------------------------------------------
+
+def fused_dot_epilogue_plain(x, w, bias=None, relu=False, clip=None):
+    """The plain version, with the kernel's arithmetic: the product in
+    f32, bias add, relu and clip on the f32 result (NaN propagates, as
+    jnp.maximum / jnp.clip do), one rounding to x's dtype.  (The
+    reference's ``_dot_epi_reference`` rounds ``x @ w`` to x's dtype
+    before the bias add; the two agree in f32.)"""
+    y = torch.matmul(x.float(), w.float())
+    if bias is not None:
+        y = y + bias.float()
+    if relu:
+        y = torch.relu(y)
+    if clip is not None:
+        y = torch.clamp(y, clip[0], clip[1])
+    return y.to(x.dtype)
+
+
+def _epi_check(x, w, bias):
+    name = 'fused_dot_epilogue'
+    _check_dtype(name, x)
+    if x.ndim != 2:
+        raise ValueError('%s: x must be 2-D (M, K), got shape %s'
+                         % (name, tuple(x.shape)))
+    if not isinstance(w, torch.Tensor) or w.ndim != 2 or \
+            w.shape[0] != x.shape[1]:
+        raise ValueError('%s: w must be (K, N) with K=%d' % (name,
+                                                            x.shape[1]))
+    if w.dtype != x.dtype:
+        raise TypeError('%s: w must be %s like x, got %s'
+                        % (name, x.dtype, w.dtype))
+    if w.device != x.device:
+        raise ValueError('%s: w is on %s, x on %s' % (name, w.device,
+                                                      x.device))
+    if bias is not None:
+        _check_vec(name, x, w.shape[1], ('bias', bias))
+
+
+def _epi_launch(x, w, bias, relu, clip):
+    m, k = x.shape
+    n = w.shape[1]
+    # the kernel reads W as the FullyConnected weight lies, (N, K): free
+    # when w is the transposed view of such a weight
+    wt = w.t().contiguous()
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if y.numel() == 0:
+        return y
+    b = None if bias is None else bias.float().contiguous()
+    lo, hi = clip if clip is not None else (0.0, 0.0)
+    fn = _kernels.load('fused_dot_epilogue')
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), wt.data_ptr(),
+                 None if b is None else b.data_ptr(), y.data_ptr(), m, n, k,
+                 int(bool(relu)), int(clip is not None), float(lo),
+                 float(hi), _DTYPE_CODE[x.dtype], stream)
+    if err:
+        _raise_launch('fused_dot_epilogue', err)
+    _count(fused_dot_epilogue)
+    return y
+
+
+def _dot_epi_bwd(x, w, bias, g, relu, clip):
+    """The reference's ``_dot_epi_bwd`` (``pallas_fused.py:376-389``)."""
+    x32, w32 = x.float(), w.float()
+    pre = torch.matmul(x32, w32)
+    if bias is not None:
+        pre = pre + bias.float()
+    z = torch.relu(pre) if relu else pre
+    gm = g.float()
+    if clip is not None:
+        gm = gm * ((z > clip[0]) & (z < clip[1]))
+    if relu:
+        gm = gm * (pre > 0)
+    dx = torch.matmul(gm, w32.t()).to(x.dtype)
+    dw = torch.matmul(x32.t(), gm).to(w.dtype)
+    dbias = None if bias is None else torch.sum(gm, dim=0).to(bias.dtype)
+    return dx, dw, dbias
+
+
+class _DotEpilogueFn(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, w, bias, relu, clip):
+        ctx.save_for_backward(x, w, bias)
+        ctx.relu, ctx.clip = relu, clip
+        if x.device.type == 'cuda':
+            return _epi_launch(x, w, bias, relu, clip)
+        return fused_dot_epilogue_plain(x, w, bias, relu, clip)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, bias = ctx.saved_tensors
+        return _dot_epi_bwd(x, w, bias, g, ctx.relu, ctx.clip) + (None, None)
+
+
+def fused_dot_epilogue(x, w, bias=None, relu=False, clip=None):
+    """``(x @ w) [+ bias] [-> relu] [-> clip(lo, hi)]`` with the epilogue
+    applied to the f32 accumulator and one rounding to x's dtype.  x is
+    a contiguous (M, K) float32 or bfloat16 tensor, w a (K, N) tensor of
+    x's dtype (the transposed view of an (N, K) FullyConnected weight is
+    read as it lies), bias None or 1-D of length N (float32 or x's
+    dtype), ``clip`` a (lo, hi) pair or None.  A CUDA tensor runs the
+    kernel (``fused_dot_epilogue.launches``), a CPU tensor the plain
+    version."""
+    if clip is not None:
+        if len(clip) != 2:
+            raise ValueError('fused_dot_epilogue: clip must be a (lo, hi) '
+                             'pair, got %r' % (clip,))
+        clip = (float(clip[0]), float(clip[1]))
+    _epi_check(x, w, bias)
+    _device_kind('fused_dot_epilogue', x)
+    return _DotEpilogueFn.apply(x, w, bias, bool(relu), clip)
+
+
+fused_dot_epilogue.launches = 0
+
+
 register_simple('fused_bn_relu', fused_bn_relu, ninputs=3,
                 input_names=['data', 'scale', 'bias'])
 register_simple('fused_scale_bias_dot', fused_scale_bias_dot, ninputs=4,
                 input_names=['data', 'weight', 'scale', 'bias'],
                 attr_defaults={'relu': False})
+register_simple('fused_dot_epilogue', fused_dot_epilogue, ninputs=3,
+                input_names=['data', 'weight', 'bias'],
+                attr_defaults={'relu': False, 'clip': None})

@@ -1,9 +1,11 @@
-"""Neural-network layer operators of the ResNet serving and training paths.
+"""Neural-network layer operators of the ResNet and transformer-LM paths.
 
 The port of ``mxnet_tpu/ops/nn.py``: FullyConnected (``:49-76``),
 Convolution (``_conv_apply``, ``:90-162``), Pooling (``:325-378``),
 Activation (``:385-390``), SoftmaxOutput with its injected loss gradient
-(``:468-548``) and BatchNorm with its shared stats step (``:645-726``).
+(``:468-548``), BatchNorm with its shared stats step (``:645-726``),
+InstanceNorm (``:741-756``), SliceChannel (``:834-849``), Embedding
+(``:857-871``) and FlashAttention (``:985-1032``).
 Gradients come from ``torch.autograd``.  NCHW in and out,
 weights in the reference layouts, so checkpoints interchange.  The JAX
 package computes convolution and matmul outside any Pallas kernel
@@ -357,3 +359,105 @@ register('BatchNorm', _batch_norm_apply,
          attr_defaults={'eps': 1e-3, 'momentum': 0.9, 'fix_gamma': True,
                         'use_global_stats': False, 'output_mean_var': False},
          hint='batchnorm')
+
+
+# ---------------------------------------------------------------------------
+# InstanceNorm — the transformer LM's layer norm (over a (N, 1, E) view)
+# ---------------------------------------------------------------------------
+
+def _instance_norm_apply(attrs, inputs, is_train, rng):
+    data, gamma, beta = inputs
+    eps = float(attrs.get('eps', 1e-3))
+    axes = tuple(range(2, data.ndim))
+    # jnp.mean / jnp.var reduce a bf16 input in f32 and return bf16
+    x32 = data.float()
+    mean = torch.mean(x32, dim=axes, keepdim=True).to(data.dtype)
+    var = torch.var(x32, dim=axes, unbiased=False,
+                    keepdim=True).to(data.dtype)
+    bshape = (1, -1) + (1,) * (data.ndim - 2)
+    out = (data - mean) * torch.rsqrt(var + eps)
+    return [out * gamma.reshape(bshape) + beta.reshape(bshape)], {}
+
+
+register('InstanceNorm', _instance_norm_apply,
+         input_names=lambda attrs: ['data', 'gamma', 'beta'],
+         num_outputs=lambda attrs: 1,
+         complete_shapes=_bn_complete,
+         attr_defaults={'eps': 1e-3}, hint='instancenorm')
+
+
+# ---------------------------------------------------------------------------
+# SliceChannel / split, Embedding
+# ---------------------------------------------------------------------------
+
+def _slice_channel_apply(attrs, inputs, is_train, rng):
+    num = int(attrs.get('num_outputs', 1))
+    axis = int(attrs.get('axis', 1))
+    data = inputs[0]
+    if data.shape[axis] % num:
+        raise ValueError('SliceChannel: axis %d of size %d does not split '
+                         'into %d equal parts'
+                         % (axis, data.shape[axis], num))
+    parts = torch.split(data, data.shape[axis] // num, dim=axis)
+    if bool(attrs.get('squeeze_axis', False)):
+        parts = [p.squeeze(axis) for p in parts]
+    return list(parts), {}
+
+
+register('SliceChannel', _slice_channel_apply,
+         input_names=lambda attrs: ['data'],
+         num_outputs=lambda attrs: int(attrs.get('num_outputs', 1)),
+         attr_defaults={'num_outputs': 1, 'axis': 1, 'squeeze_axis': False},
+         hint='slicechannel')
+alias('split', 'SliceChannel')
+
+
+def _embedding_apply(attrs, inputs, is_train, rng):
+    # ids arrive as floats, truncated as astype(int32) does; the weight
+    # gradient is the scatter-add of the gathered rows' gradients
+    data, weight = inputs
+    return [F.embedding(data.long(), weight)], {}
+
+
+def _embedding_complete(attrs, in_shapes):
+    _complete(in_shapes, 1, (int(attrs['input_dim']),
+                             int(attrs['output_dim'])))
+    return in_shapes
+
+
+register('Embedding', _embedding_apply,
+         input_names=lambda attrs: ['data', 'weight'],
+         num_outputs=lambda attrs: 1,
+         complete_shapes=_embedding_complete,
+         attr_defaults={'dtype': 'float32'}, hint='embedding')
+
+
+# ---------------------------------------------------------------------------
+# FlashAttention — the symbol-level door to the flash-attention kernel
+# (ops/attention.py).  The JAX op's sequence-parallel branch (ring /
+# Ulysses attention inside a shard_map scope) is not ported.
+# ---------------------------------------------------------------------------
+
+def _flash_attention_apply(attrs, inputs, is_train, rng):
+    from .attention import flash_attention
+    q, k, v = inputs
+    scale = attrs.get('scale')
+    return [flash_attention(q, k, v, causal=bool(attrs.get('causal', False)),
+                            scale=None if scale is None else float(scale))], {}
+
+
+def _flash_attention_complete(attrs, in_shapes):
+    q = in_shapes[0]
+    if q is not None:
+        for i in (1, 2):
+            if in_shapes[i] is None:
+                in_shapes[i] = tuple(q)
+    return in_shapes
+
+
+register('FlashAttention', _flash_attention_apply,
+         input_names=lambda attrs: ['query', 'key', 'value'],
+         num_outputs=lambda attrs: 1,
+         complete_shapes=_flash_attention_complete,
+         attr_defaults={'causal': False, 'scale': None},
+         hint='attention')

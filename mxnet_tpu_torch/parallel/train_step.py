@@ -2,7 +2,8 @@
 of every parameter as one call.
 
 The port of ``mxnet_tpu/parallel/train_step.py`` (``make_fit_step
-:47-256``, ``make_sgd_momentum :34``).  The JAX package traces the step
+:47-256``, ``make_sgd_momentum :34``, ``make_train_step :270-292``,
+``make_eval_step :295-316``).  The JAX package traces the step
 into ONE jitted XLA program with donated buffers; PyTorch runs eagerly,
 so here the step runs the pass pipeline's graph (``MXTPU_FUSE``) under
 autograd with zero head gradients (``SoftmaxOutput`` injects the loss
@@ -25,7 +26,8 @@ import torch
 from ..executor import _build_graph_fn
 from ..symbol import Symbol
 
-__all__ = ['make_fit_step', 'make_sgd_momentum', 'sgd_momentum_init']
+__all__ = ['make_fit_step', 'make_train_step', 'make_eval_step',
+           'make_sgd_momentum', 'sgd_momentum_init']
 
 
 def sgd_momentum_init(params):
@@ -91,6 +93,68 @@ def make_fit_step(symbol: Symbol, functional_opt, data_names=(),
         outs = [o.detach() for o in outs]
         if metric is not None:
             metric.device_fold(batch[metric_label], outs[0])
+        return outs
+
+    return step
+
+
+class _PlainUpdate(object):
+    """Adapter presenting a bare ``update(params, grads, state)`` callable
+    as a functional optimizer (the lr is baked into the callable)."""
+
+    def __init__(self, fn):
+        self._fn = fn
+
+    def update(self, params, grads, state, lr_t):
+        return self._fn(params, grads, state)
+
+
+def make_train_step(symbol: Symbol, optimizer_update, batch_names,
+                    donate=True, compute_dtype=None):
+    """Build ``step(params, aux, opt_state, batch, rng=None) -> (outputs,
+    params, aux, opt_state)`` — the bench/raw-API entry
+    (``mxnet_tpu/parallel/train_step.py:270-292``), a thin wrapper over
+    :func:`make_fit_step` with no frozen params and the lr baked into
+    ``optimizer_update`` (e.g. :func:`make_sgd_momentum`).
+
+    ``batch_names`` is accepted for API stability; the batch is never
+    cast (``data_names=()``), so token ids stay exact under a bf16
+    ``compute_dtype``.  With ``donate`` (the default) ``params``, ``aux``
+    and ``opt_state`` are updated in place and returned — the
+    counterpart of the JAX step's donated buffers; ``donate=False`` works
+    on copies and leaves the caller's tensors as they were.  ``rng`` is
+    accepted for the JAX signature; the ported ops draw no random
+    numbers."""
+    raw = make_fit_step(symbol, _PlainUpdate(optimizer_update),
+                        data_names=(), compute_dtype=compute_dtype)
+
+    def step(params, aux, opt_state, batch, rng=None):
+        if not donate:
+            params, aux, opt_state = ({k: v.clone() for k, v in d.items()}
+                                      for d in (params, aux, opt_state))
+        outs = raw(params, {}, aux, opt_state, batch, 0.0)
+        return outs, params, aux, opt_state
+
+    return step
+
+
+def make_eval_step(symbol: Symbol, compute_dtype=None):
+    """Inference: ``step(params, aux, batch, rng=None) -> outputs``
+    (``mxnet_tpu/parallel/train_step.py:295-316``), through the pass
+    pipeline with ``is_train=False``; under ``compute_dtype`` the params
+    and the floating batch entries are cast."""
+    from ..fuse import apply_fuse_passes
+    graph_fn = _build_graph_fn(apply_fuse_passes(symbol, False), False)
+
+    def cast(v):
+        return v.to(compute_dtype) if compute_dtype is not None and \
+            v.is_floating_point() else v
+
+    def step(params, aux, batch, rng=None):
+        merged = {k: cast(v) for k, v in params.items()}
+        merged.update({k: cast(v) for k, v in batch.items()})
+        with torch.no_grad():
+            outs, _ = graph_fn(merged, aux)
         return outs
 
     return step

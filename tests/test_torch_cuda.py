@@ -1,5 +1,5 @@
-"""Tests of the PyTorch port that need the card: the fused_bn_relu CUDA
-kernel against its plain version, and a small fused Predictor on the GPU
+"""Tests of the PyTorch port that need the card: each CUDA kernel against
+its plain version, and small fused Predictor / LM train steps on the GPU
 against the CPU.  Marked ``cuda``; they skip on a host without a CUDA
 device.  On the GPU host:
 
@@ -145,6 +145,149 @@ def test_fused_kernels_reject_what_they_cannot_take(dev):
         fused_conv.fused_scale_bias_conv3x3(xc, wc, s, b, stride=3)
     with pytest.raises(ValueError):
         fused_conv.fused_scale_bias_conv3x3(xc, wc, s.cpu(), b)
+
+
+@pytest.mark.parametrize('mkn', [(8192, 512, 2048), (1001, 37, 130),
+                                 (256, 64, 72)],
+                         ids=lambda s: 'x'.join(map(str, s)))
+@pytest.mark.parametrize('epi', [(True, True, None), (False, False, None),
+                                 (True, True, (-0.5, 0.7))],
+                         ids=['bias-relu', 'plain-dot', 'bias-relu-clip'])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+def test_dot_epilogue_matches_plain(mkn, epi, dtype, dev, monkeypatch):
+    """|got - plain| <= rtol * (|x| . |W| + |b|) elementwise, W passed as
+    the transposed view of an (N, K) weight, as the fuse pass does."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, 'allow_tf32', False)
+    m, k, n = mkn
+    has_bias, relu, clip = epi
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(m, k, generator=g, device=dev).to(dtype)
+    w = (torch.randn(n, k, generator=g, device=dev) / k ** 0.5).to(dtype).t()
+    b = torch.randn(n, generator=g, device=dev) * 0.5 if has_bias else None
+    before = fused.fused_dot_epilogue.launches
+    got = fused.fused_dot_epilogue(x, w, b, relu=relu, clip=clip)
+    torch.cuda.synchronize()
+    assert fused.fused_dot_epilogue.launches == before + 1
+    assert got.dtype == dtype and got.shape == (m, n) and got.is_cuda
+    want = fused.fused_dot_epilogue_plain(x, w, b, relu=relu, clip=clip)
+    mag = torch.matmul(x.float().abs(), w.float().abs())
+    if b is not None:
+        mag = mag + b.abs()
+    err = (got.float() - want.float()).abs() / mag.clamp_min(1e-30)
+    assert float(err.max()) <= _TOL[dtype]
+
+
+def _attention_magnitude(q, k, v, scale, causal):
+    """P @ |V| with P the plain version's probabilities: the bound an
+    error in O scales with."""
+    from mxnet_tpu_torch.ops import attention
+    s = torch.einsum('btd,bsd->bts', q.float(), k.float()) * scale
+    if causal:
+        keep = attention._causal_keep(s.shape[1], s.shape[2], s.device)
+        s = torch.where(keep, s, torch.full_like(s, attention.NEG_INF))
+    return torch.einsum('bts,bsd->btd', torch.softmax(s, -1),
+                        v.float().abs())
+
+
+# bf16: P rounded to bf16 for the PV product and O rounded (3 * 2^-8 of
+# P @ |V|, ops/attention.py); f32: summation order only
+_ATT_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize('shapes,causal', [
+    (((128, 512, 64), (128, 512, 64)), True),     # the LM's path shape
+    (((6, 77, 64), (6, 200, 64)), True),          # ragged, tq < tk
+    (((8, 256, 64), (8, 256, 64)), False),
+    (((16, 256, 128), (16, 256, 128)), True),     # D = 128
+    (((4, 100, 40), (4, 100, 40)), True),         # D = 40: padded to 48
+], ids=['path', 'ragged', 'noncausal', 'd128', 'd40'])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+def test_flash_attention_matches_plain(shapes, causal, dtype, dev,
+                                       monkeypatch):
+    from mxnet_tpu_torch.ops import attention
+    monkeypatch.setattr(torch.backends.cuda.matmul, 'allow_tf32', False)
+    qs, ks = shapes
+    g = torch.Generator(device=dev).manual_seed(4)
+    q = torch.randn(qs, generator=g, device=dev).to(dtype)
+    k = torch.randn(ks, generator=g, device=dev).to(dtype)
+    v = torch.randn(ks, generator=g, device=dev).to(dtype)
+    scale = qs[-1] ** -0.5
+    before = attention.flash_attention.launches
+    o, lse = attention._launch(q, k, v, scale, causal)
+    torch.cuda.synchronize()
+    assert attention.flash_attention.launches == before + 1
+    want_o, want_lse = attention.flash_attention_plain(q, k, v, scale, causal)
+    assert o.dtype == dtype and o.shape == q.shape
+    assert lse.dtype == torch.float32 and lse.shape == qs[:2]
+    mag = _attention_magnitude(q, k, v, scale, causal)
+    err = (o.float() - want_o.float()).abs() / mag.clamp_min(1e-30)
+    assert float(err.max()) <= _ATT_TOL[dtype]
+    lse_err = (lse - want_lse).abs() / (1 + want_lse.abs())
+    assert float(lse_err.max()) <= 1e-4
+
+
+def test_flash_attention_gradients_on_card_match_cpu(dev, monkeypatch):
+    """The autograd Function on the card (kernel forward, plain blockwise
+    backward) against the CPU's, float32."""
+    from mxnet_tpu_torch.ops import attention
+    monkeypatch.setattr(torch.backends.cuda.matmul, 'allow_tf32', False)
+    r = np.random.RandomState(5)
+    arrays = [r.randn(2, 4, 96, 32).astype(np.float32) for _ in range(4)]
+    grads = {}
+    for d in (dev, torch.device('cpu')):
+        ts = [torch.from_numpy(a).to(d).requires_grad_(True)
+              for a in arrays[:3]]
+        o = attention.flash_attention(*ts, causal=True)
+        grads[d.type] = [o.detach().cpu()] + [
+            t.cpu() for t in torch.autograd.grad(
+                o, ts, torch.from_numpy(arrays[3]).to(d))]
+    for a, b in zip(grads['cuda'], grads['cpu']):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-5)
+
+
+def test_flash_attention_rejects_head_dims_it_cannot_take(dev):
+    from mxnet_tpu_torch.ops import attention
+    for d in (12, 136):
+        q = torch.randn(2, 16, d, device=dev)
+        with pytest.raises(tmx.MXNetError, match='multiple of 8 up to 128'):
+            attention.flash_attention(q, q, q)
+
+
+def test_small_lm_on_gpu_matches_cpu(dev, monkeypatch):
+    """One f32 make_train_step step of a narrow transformer LM on the card
+    (2 flash_attention + 2 fused_dot_epilogue launches) and on the CPU."""
+    from mxnet_tpu_torch.models import transformer_lm
+    from mxnet_tpu_torch.ops import attention
+    from mxnet_tpu_torch.parallel import train_step as ts
+    monkeypatch.setenv('MXTPU_FUSE', 'aggressive')
+    monkeypatch.setattr(torch.backends.cuda.matmul, 'allow_tf32', False)
+    shapes = {'data': (4, 64), 'softmax_label': (4, 64)}
+    sym = transformer_lm.get_symbol(vocab_size=300, num_embed=128,
+                                    num_heads=4, num_layers=2, seq_len=64)
+    arg, _ = convert.random_params(sym, shapes, 0, init='normal')
+    toks = np.random.RandomState(1).randint(0, 300, (4, 64)).astype(
+        np.float32)
+    out = {}
+    for d in ('cuda:0', 'cpu'):
+        params = {k: torch.tensor(v, device=d) for k, v in arg.items()}
+        step = ts.make_train_step(sym, ts.make_sgd_momentum(
+            lr=0.01, momentum=0.9, wd=0.0, rescale_grad=1 / 256.),
+            tuple(shapes))
+        before = (attention.flash_attention.launches,
+                  fused.fused_dot_epilogue.launches)
+        _, params, _, _ = step(params, {}, ts.sgd_momentum_init(params), {
+            'data': torch.from_numpy(toks).to(d),
+            'softmax_label': torch.from_numpy((toks + 1) % 300).to(d)})
+        launched = (attention.flash_attention.launches - before[0],
+                    fused.fused_dot_epilogue.launches - before[1])
+        assert launched == ((2, 2) if d != 'cpu' else (0, 0))
+        out[d] = {k: v.cpu().numpy() for k, v in params.items()}
+    for k in arg:
+        np.testing.assert_allclose(out['cuda:0'][k], out['cpu'][k],
+                                   rtol=1e-4, atol=1e-6, err_msg=k)
 
 
 def test_small_resnet_on_gpu_matches_cpu(dev, monkeypatch):

@@ -1,11 +1,9 @@
 """The port's step-compiler pipeline (mxnet_tpu_torch/fuse.py) against the
 JAX package's (mxnet_tpu/fuse.py): the same rewritten graph, pass by
-pass, computing the same values and gradients, and a
-NotImplementedError — never a silently different graph — where a
-lowering needs a kernel the port does not have yet.  The JAX side runs
-with its kernel paths live (MXTPU_FORCE_PALLAS_INTERPRET), which is
-where its bn_relu_conv and nhwc_regions passes run; the port runs them
-always."""
+pass, computing the same values and gradients.  The JAX side runs with
+its kernel paths live (MXTPU_FORCE_PALLAS_INTERPRET), which is where its
+bn_relu_conv and nhwc_regions passes and its epilogue lowering run; the
+port runs them always."""
 from collections import Counter
 
 import numpy as np
@@ -221,9 +219,75 @@ def _fc_relu(pkg):
     return pkg.sym.Activation(fc, act_type='relu', name='fc_relu')
 
 
-def test_unported_fc_epilogue_lowering_raises():
-    with pytest.raises(NotImplementedError, match='fused_dot_epilogue'):
-        tfuse.apply_fuse_passes(_fc_relu(tmx), False, 'aggressive')
+def _fc_clip(pkg, double_clip):
+    """FC -> relu -> clip [-> clip] (tests/test_fuse_passes.py:352-359)."""
+    sym = pkg.sym
+    fc = sym.FullyConnected(sym.Variable('data'), num_hidden=8, name='fc')
+    c = sym.clip(sym.Activation(fc, act_type='relu', name='r'),
+                 a_min=-1.0, a_max=0.5, name='cl')
+    if double_clip:
+        c = sym.clip(c, a_min=0.0, a_max=0.4, name='cl2')
+    return c
+
+
+def _fc_args(seed, scale):
+    r = np.random.RandomState(seed)
+    return {'data': r.randn(64, 32).astype(np.float32),
+            'fc_weight': r.randn(8, 32).astype(np.float32) * scale,
+            'fc_bias': r.randn(8).astype(np.float32)}
+
+
+def _forward(pkg, sym, args):
+    kw = {} if pkg is tmx else {'grad_req': 'null'}
+    return sym.bind(pkg.cpu(), {k: pkg.nd.array(v) for k, v in args.items()},
+                    **kw).forward()[0].asnumpy()
+
+
+def test_unported_fc_epilogue_lowering_raises(monkeypatch):
+    """The aggressive epilogue pass now lowers FC -> relu -> clip onto
+    fused_dot_epilogue as the JAX package does with its kernels live:
+    the same fused graph, stamped ``lower_kernel``, computing the JAX
+    result through the kernel's plain version (one launch-free call on
+    the CPU), and the unfused chain's result."""
+    monkeypatch.setenv('MXTPU_FORCE_PALLAS_INTERPRET', '1')
+    tout = tfuse.apply_fuse_passes(_fc_clip(tmx, False), True, 'aggressive')
+    jout = jfuse.apply_fuse_passes(_fc_clip(mx, False), True, 'aggressive')
+    assert _names(tout) == _names(jout)
+    assert _ops(tout) == Counter({'_fused_epilogue': 1})
+    node = [n for n in tout.topo_nodes() if n.op == '_fused_epilogue'][0]
+    assert node.attrs['lower_kernel'] is True
+    args = _fc_args(3, 0.3)
+    calls = []
+    real = tfuse.fused_dot_epilogue
+    monkeypatch.setattr(tfuse, 'fused_dot_epilogue',
+                        lambda *a, **k: calls.append(k) or real(*a, **k))
+    got = _forward(tmx, tout, args)
+    assert calls == [{'relu': True, 'clip': (-1.0, 0.5)}]
+    np.testing.assert_allclose(got, _forward(mx, jout, args), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(
+        got, np.clip(np.maximum(args['data'] @ args['fc_weight'].T
+                                + args['fc_bias'], 0), -1.0, 0.5),
+        rtol=1e-5, atol=1e-6)
+
+
+def test_epilogue_double_clip_keeps_exact_replay(monkeypatch):
+    """FC -> relu -> clip -> clip: the kernel cannot express two clips,
+    so the aggressive node falls back to the exact replay in both
+    packages (tests/test_fuse_passes.py:392-411), bit for bit the unfused
+    graph's result."""
+    monkeypatch.setenv('MXTPU_FORCE_PALLAS_INTERPRET', '1')
+    tout = tfuse.apply_fuse_passes(_fc_clip(tmx, True), True, 'aggressive')
+    jout = jfuse.apply_fuse_passes(_fc_clip(mx, True), True, 'aggressive')
+    assert _names(tout) == _names(jout)
+    assert tfuse.last_run_stats()['passes']['epilogue']['rewrites'] == 1
+    monkeypatch.setattr(tfuse, 'fused_dot_epilogue', None)   # never called
+    args = _fc_args(4, 0.5)
+    got = _forward(tmx, tout, args)
+    np.testing.assert_array_equal(got, _forward(tmx, _fc_clip(tmx, True),
+                                                args))
+    np.testing.assert_allclose(got, _forward(mx, jout, args), rtol=1e-5,
+                               atol=1e-6)
 
 
 def test_safe_epilogue_replay_matches_jax():

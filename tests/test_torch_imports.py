@@ -30,7 +30,8 @@ def test_import_leaves_jax_out():
     code = ('import sys, mxnet_tpu_torch, mxnet_tpu_torch.serving, '
             'mxnet_tpu_torch.models.resnet, mxnet_tpu_torch.module, '
             'mxnet_tpu_torch.parallel.train_step, '
-            'mxnet_tpu_torch.ops.fused_conv; '
+            'mxnet_tpu_torch.ops.fused_conv, mxnet_tpu_torch.ops.attention, '
+            'mxnet_tpu_torch.models.transformer_lm; '
             'bad = sorted(m for m in sys.modules if m == "jax" or '
             'm.startswith("jax.") or m == "mxnet_tpu" or '
             'm.startswith("mxnet_tpu.")); print(bad); '

@@ -32,10 +32,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 _CLASSES = (('bn_relu_kernel', 'fused_bn_relu'),
             ('dotsrc', 'fused_scale_bias_dot'),
             ('convsrc', 'fused_scale_bias_conv3x3'),
-            ('conv', 'convolution'), ('xmma', 'convolution'),
+            ('dot_epilogue', 'fused_dot_epilogue'),
+            ('flash_fwd', 'flash_attention'),
+            ('conv', 'convolution'),
             ('implicit', 'convolution'), ('winograd', 'convolution'),
             ('fft', 'convolution'),
-            ('gemm', 'matmul'), ('gemv', 'matmul'),
+            ('gemm', 'matmul'), ('gemv', 'matmul'), ('xmma', 'convolution'),
             ('pool', 'pooling'), ('softmax', 'softmax'),
             ('reduce', 'reduction'), ('elementwise', 'elementwise'),
             ('copy', 'copy'), ('memcpy', 'copy'), ('memset', 'copy'))

@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
-"""Where the time of a ResNet-50 v2 training step goes, on the GPU, in
-the PyTorch port (mxnet_tpu_torch).
+"""Where the time of a training step goes, on the GPU, in the PyTorch
+port (mxnet_tpu_torch).
 
-    python3 tools/torch_profile_training.py [--rows 32] [--steps 5]
+    python3 tools/torch_profile_training.py [--model resnet] [--rows 32]
+    python3 tools/torch_profile_training.py --model transformer_lm [--rows 16]
 
-Builds full-width ResNet-50 v2 (1000 classes, 3x224x224) with random
-weights from a numpy seed, trains it with Module.fit (bf16 compute, SGD
-lr 0.05 momentum 0.9 wd 1e-4, MXTPU_FUSE=aggressive) for two warm-up
-steps, then runs ``--steps`` more fused train steps under torch.profiler:
-wall and device-busy time per step, the device's idle share, kernel
-time by class and by name, kernels launched per step.  Prints one JSON
-line; needs a CUDA device.
+``resnet``: full-width ResNet-50 v2 (1000 classes, 3x224x224) trained
+with Module.fit (bf16 compute, SGD lr 0.05 momentum 0.9 wd 1e-4).
+``transformer_lm``: the JAX package's transformer-LM bench leg
+(bench.py:958-994: V=32000, E=512, 8 heads, 6 layers, T=512) through
+parallel.make_train_step (bf16 compute, SGD lr 0.01 momentum 0.9,
+N(0, 0.02²) weights).  Random weights and data from numpy seeds,
+MXTPU_FUSE=aggressive.  Two warm-up steps, then ``--steps`` more fused
+train steps under torch.profiler: wall and device-busy time per step,
+the device's idle share, kernel time by class and by name, kernels
+launched per step, and the port's kernel launches per step from their
+counters.  Prints one JSON line; needs a CUDA device.
 """
 import argparse
 import json
@@ -24,33 +29,22 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+LM = dict(vocab_size=32000, num_embed=512, num_heads=8, num_layers=6,
+          seq_len=512)
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    ap.add_argument('--rows', type=int, default=32)
-    ap.add_argument('--steps', type=int, default=5)
-    ap.add_argument('--seed', type=int, default=0)
-    args = ap.parse_args()
-    import torch
-    if not torch.cuda.is_available():
-        print('needs a CUDA device', file=sys.stderr)
-        return 1
-    os.environ['MXTPU_FUSE'] = 'aggressive'
-    import mxnet_tpu_torch as mx
+
+def resnet_step(mx, torch, rows, seed):
+    """A 32-row ResNet-50 v2 Module, fitted for two warm-up steps; returns
+    the fit step to profile."""
     from mxnet_tpu_torch import convert
     from mxnet_tpu_torch.models import resnet
-    from torch_profile_serving import profile_window
-    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                          '--format=csv,noheader'], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
-    shape = (args.rows, 3, 224, 224)
+    shape = (rows, 3, 224, 224)
     symbol = resnet.get_symbol(num_classes=1000, num_layers=50)
-    arg, aux = convert.random_params(symbol, {'data': shape}, args.seed)
-    rng = np.random.default_rng(args.seed + 1)
-    images = rng.standard_normal((2 * args.rows,) + shape[1:],
-                                 dtype=np.float32)
-    labels = rng.integers(0, 1000, 2 * args.rows).astype(np.float32)
-    it = mx.io.NDArrayIter(images, labels, batch_size=args.rows)
+    arg, aux = convert.random_params(symbol, {'data': shape}, seed)
+    rng = np.random.default_rng(seed + 1)
+    images = rng.standard_normal((2 * rows,) + shape[1:], dtype=np.float32)
+    labels = rng.integers(0, 1000, 2 * rows).astype(np.float32)
+    it = mx.io.NDArrayIter(images, labels, batch_size=rows)
     mod = mx.mod.Module(symbol, context=mx.gpu(0),
                         compute_dtype=torch.bfloat16)
     mod.fit(it, num_epoch=1, optimizer='sgd',
@@ -62,11 +56,72 @@ def main():
     batch = next(it)
     metric = mx.metric.create('acc')
     mod._fit_step(batch, metric)            # builds the step for the metric
+    return lambda: mod._fit_step(batch, metric)
+
+
+def lm_step(mx, torch, rows, seed):
+    """The bench leg's LM train step after two warm-up steps."""
+    from mxnet_tpu_torch import convert
+    from mxnet_tpu_torch.parallel import train_step as ts
+    seq = LM['seq_len']
+    symbol = mx.models.get_symbol('transformer_lm', **LM)
+    arg, _ = convert.random_params(
+        symbol, {'data': (rows, seq), 'softmax_label': (rows, seq)}, seed,
+        init='normal')
+    dev = torch.device('cuda', 0)
+    params = {k: torch.from_numpy(v).to(dev) for k, v in arg.items()}
+    state = ts.sgd_momentum_init(params)
+    toks = np.random.RandomState(seed + 1).randint(
+        0, LM['vocab_size'], (rows, seq)).astype(np.float32)
+    batch = {'data': torch.from_numpy(toks).to(dev),
+             'softmax_label': torch.from_numpy(
+                 (toks + 1) % LM['vocab_size']).to(dev)}
+    step = ts.make_train_step(
+        symbol, ts.make_sgd_momentum(lr=0.01, momentum=0.9, wd=0.0,
+                                     rescale_grad=1.0 / (rows * seq)),
+        ('data', 'softmax_label'), compute_dtype=torch.bfloat16)
+
+    def run():
+        step(params, {}, state, batch)
+    for _ in range(2):
+        run()
+    return run
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('--model', choices=('resnet', 'transformer_lm'),
+                    default='resnet')
+    ap.add_argument('--rows', type=int, default=None,
+                    help='rows per step (default 32 resnet, 16 LM)')
+    ap.add_argument('--steps', type=int, default=5)
+    ap.add_argument('--seed', type=int, default=0)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print('needs a CUDA device', file=sys.stderr)
+        return 1
+    os.environ['MXTPU_FUSE'] = 'aggressive'
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import attention, fused, fused_conv
+    from torch_profile_serving import profile_window
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    lm = args.model == 'transformer_lm'
+    rows = args.rows or (16 if lm else 32)
+    run = (lm_step if lm else resnet_step)(mx, torch, rows, args.seed)
     torch.cuda.synchronize()
-    out = profile_window(torch, lambda: mod._fit_step(batch, metric),
-                         args.steps, unit='step')
-    out.update(card=smi, rows=args.rows, compute_dtype='bfloat16',
-               fuse='aggressive')
+    counters = (fused.fused_bn_relu, fused.fused_scale_bias_dot,
+                fused_conv.fused_scale_bias_conv3x3,
+                fused.fused_dot_epilogue, attention.flash_attention)
+    before = [k.launches for k in counters]
+    out = profile_window(torch, run, args.steps, unit='step')
+    out.update(card=smi, model=args.model, rows=rows,
+               compute_dtype='bfloat16', fuse='aggressive',
+               port_kernel_launches_per_step={
+                   k.__name__: (k.launches - b) / args.steps
+                   for k, b in zip(counters, before) if k.launches > b})
     print(json.dumps(out), flush=True)
     return 0
 
