@@ -33,7 +33,22 @@ Phases, each printing one JSON line; any failure exits nonzero:
                   plus off-path cases: ragged causal attention with
                   tq < tk, non-causal, D = 128; a ragged dot with bias,
                   relu and clip, and one with no bias.
-4. serve        — main path 1: ModelServer serves full-width ResNet-50 v2
+3c. rtc-kernels — kernel #6: mx.rtc.Rtc's CUDA-source form, NVRTC-compiled
+                  for sm_90a and launched through the CUDA driver API
+                  (csrc/rtc.cu), on card tensors, each case against its
+                  plain PyTorch version and timed as above (plus the first
+                  push's NVRTC seconds): the reference MXNet's GPU test
+                  (expf(5x) through shared memory, within 2 ulp),
+                  tests/test_rtc.py's axpy and square as CUDA bodies
+                  (exact; a second shape compiles nothing, float16 a
+                  second module), the softmax head of path 4 forward
+                  (within rtol 1e-5 of torch.softmax in float64;
+                  library_ms is torch.softmax) and backward (y -
+                  onehot(label), exact; library_ms is torch.scatter_add
+                  of -1 at the labels) at (32, 1000)
+                  and, off the path, at the LM head's (8192, 32000); a
+                  body with a syntax error raises with NVRTC's log.
+4. serve       — main path 1: ModelServer serves full-width ResNet-50 v2
                   (1000 classes, 3x224x224, random weights from a numpy
                   seed, MXTPU_FUSE=aggressive, pow2 buckets up to 32
                   rows): after one warm-up request per bucket, 64 requests
@@ -72,6 +87,24 @@ Phases, each printing one JSON line; any failure exits nonzero:
 9. lm-parity    — one f32 step of the full-width LM at 2 x 512 tokens,
                   TF32 off, on the card and on the CPU from the same numpy
                   parameters, under train-parity's bound.
+10. imperative  — a fixed script of nd.* calls (one op of each family of
+                  the imperative layer, NDArray arithmetic, indexing,
+                  in-place updates, nd.Custom on the Sqr op of
+                  tests/test_operator_custom.py) under `with mx.gpu(0):`
+                  and on cpu() from the same numpy inputs: rtol 1e-5,
+                  exact for integer, indexing and data-movement ops;
+                  mx.random moments and seed determinism on each.
+11. custom-train — main path 4: the train phase's model, data and
+                  optimizer in float32, with SoftmaxOutput replaced by a
+                  Custom head (op_type 'softmax_rtc', user code in this
+                  file) whose operator pushes two Rtc kernels on the card.
+                  Counts zeroed just before fit and read just after: 2 Rtc
+                  launches per step and the training graph's counts of the
+                  other kernels.  Loss and parameters finite, parameters
+                  moved; step ms, images/s, peak device memory.
+12. custom-parity — one f32 step of that model at 2 rows on the card (Rtc
+                  head) and on the CPU (nd.* head, the same Custom op's
+                  CPU operator), under train-parity's bound.
 
 Then the card's nvidia-smi line, the kernels summary line, and the
 result line {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -664,6 +697,581 @@ def serve(server, data, rng):
     return results, wall
 
 
+# -- the user-extension path: Rtc kernels and Custom operators ---------------
+# What a user of mx.rtc writes (MXRtc's convention): the BODY of a CUDA
+# __global__ function whose parameters are the named inputs (const T*) and
+# outputs (T*).  MXRtc kernels take no scalar arguments, so the row width
+# is compiled in: one module per width.
+#
+# Row softmax, one block per row: a block-wide max, a block-wide sum of
+# exp(x - max), then y = exp(x - max) / sum.  blockDim.x is a multiple of
+# 32 (every lane takes part in the shuffles), at most 1024.
+SOFTMAX_FWD = r'''
+const int n = %(n)d;
+const float* xr = x + (long long)blockIdx.x * n;
+float* yr = y + (long long)blockIdx.x * n;
+__shared__ float part[32];
+const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+const int warps = blockDim.x >> 5;
+float m = __int_as_float(0xff800000);
+for (int j = threadIdx.x; j < n; j += blockDim.x) m = fmaxf(m, xr[j]);
+for (int o = 16; o > 0; o >>= 1)
+  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+if (lane == 0) part[warp] = m;
+__syncthreads();
+m = part[0];
+for (int w = 1; w < warps; ++w) m = fmaxf(m, part[w]);
+__syncthreads();
+float s = 0.f;
+for (int j = threadIdx.x; j < n; j += blockDim.x) s += expf(xr[j] - m);
+for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+if (lane == 0) part[warp] = s;
+__syncthreads();
+s = 0.f;
+for (int w = 0; w < warps; ++w) s += part[w];
+const float inv = 1.f / s;
+for (int j = threadIdx.x; j < n; j += blockDim.x)
+  yr[j] = expf(xr[j] - m) * inv;
+'''
+# the loss gradient of examples/numpy_ops.py: dx = y - onehot(label)
+SOFTMAX_BWD = r'''
+const int n = %(n)d;
+const long long row = blockIdx.x;
+const int hot = (int)label[row];
+const float* yr = y + row * n;
+float* dr = dx + row * n;
+for (int j = threadIdx.x; j < n; j += blockDim.x)
+  dr[j] = yr[j] - (j == hot ? 1.f : 0.f);
+'''
+# the reference MXNet's tests/python/gpu/test_rtc.py
+REF_BODY = r'''
+__shared__ float s_rec[10];
+s_rec[threadIdx.x] = x[threadIdx.x];
+y[threadIdx.x] = expf(s_rec[threadIdx.x]*5.0);
+'''
+# tests/test_rtc.py's axpy and square as CUDA bodies: one thread per
+# element, grid (rows, 1, 1) x block (columns, 1, 1)
+AXPY_BODY = r'''
+const int i = blockIdx.x * blockDim.x + threadIdx.x;
+out[i] = 2.0f * x[i] + y[i];
+'''
+SQUARE_BODY = r'''
+const int i = blockIdx.x * blockDim.x + threadIdx.x;
+o[i] = a[i] * a[i];
+'''
+BROKEN_BODY = 'y[0] = x[0] +;'
+SOFTMAX_RTOL = 1e-5
+LM_HEAD = (8192, 32000)     # the LM's logits at 16 x 512 tokens (off-path)
+CUSTOM_PARITY_ROWS = 2
+_SOFTMAX_KERNELS = {}
+
+
+def rtc_block(n):
+    """Threads per row: 256 for the head's 1000 classes; 1024 for wider
+    rows, where each thread then loops over 32 of the row's elements.
+    (At (8192, 32000) the forward's second and third reads of each row
+    still come from device memory, not L2: see PERF.md.)"""
+    return 256 if n <= 4096 else 1024
+
+
+def softmax_kernels(mx, n):
+    """The (forward, backward) Rtc kernels for rows of ``n`` classes, made
+    once per width."""
+    k = _SOFTMAX_KERNELS.get(n)
+    if k is None:
+        row, lab = mx.nd.zeros((1, n)), mx.nd.zeros((1,))
+        k = _SOFTMAX_KERNELS[n] = (
+            mx.rtc.Rtc('softmax_fwd', [('x', row)], [('y', row)],
+                       SOFTMAX_FWD % {'n': n}),
+            mx.rtc.Rtc('softmax_bwd', [('y', row), ('label', lab)],
+                       [('dx', row)], SOFTMAX_BWD % {'n': n}))
+    return k
+
+
+def push_softmax(mx, x, out):
+    fwd, _ = softmax_kernels(mx, x.shape[1])
+    fwd.push([x], [out], (x.shape[0], 1, 1), (rtc_block(x.shape[1]), 1, 1))
+
+
+def push_softmax_grad(mx, y, label, out):
+    _, bwd = softmax_kernels(mx, y.shape[1])
+    bwd.push([y, label], [out], (y.shape[0], 1, 1),
+             (rtc_block(y.shape[1]), 1, 1))
+
+
+def register_user_ops(mx):
+    """The user code of the extension phases, registered as Custom ops:
+    ``softmax_rtc``, the loss head of examples/numpy_ops.py
+    (need_top_grad=False; on a gpu context two Rtc kernels, on the CPU
+    nd.* only, the reference's idiom), and tests/test_operator_custom.py's
+    ``sqr``."""
+    nd = mx.nd
+
+    class RtcSoftmax(mx.operator.CustomOp):
+        # Rtc.push swaps its result into out_data / in_grad: a 'write'
+        def forward(self, is_train, req, in_data, out_data, aux):
+            push_softmax(mx, in_data[0], out_data[0])
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            push_softmax_grad(mx, out_data[0], in_data[1], in_grad[0])
+
+    class NdSoftmax(mx.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            x = in_data[0]
+            e = nd.exp(x - nd.max(x, axis=1, keepdims=True))
+            self.assign(out_data[0], req[0],
+                        e / nd.sum(e, axis=1, keepdims=True))
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            y = out_data[0]
+            self.assign(in_grad[0], req[0],
+                        y - nd.one_hot(in_data[1], depth=y.shape[1]))
+
+    @mx.operator.register('softmax_rtc')
+    class SoftmaxRtcProp(mx.operator.CustomOpProp):
+        def __init__(self):
+            super().__init__(need_top_grad=False)
+
+        def list_arguments(self):
+            return ['data', 'label']
+
+        def infer_shape(self, in_shape):
+            return [in_shape[0], (in_shape[0][0],)], [in_shape[0]], []
+
+        def create_operator(self, ctx, shapes, dtypes):
+            return RtcSoftmax() if ctx.device_type == 'gpu' else NdSoftmax()
+
+    class Sqr(mx.operator.CustomOp):
+        def __init__(self, scale):
+            self.scale = scale
+
+        def forward(self, is_train, req, in_data, out_data, aux):
+            self.assign(out_data[0], req[0],
+                        nd.square(in_data[0]) * self.scale)
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            self.assign(in_grad[0], req[0],
+                        out_grad[0] * in_data[0] * (2.0 * self.scale))
+
+    @mx.operator.register('sqr')
+    class SqrProp(mx.operator.CustomOpProp):
+        contexts = []       # what create_operator was given
+
+        def __init__(self, scale='1.0'):
+            super().__init__(need_top_grad=True)
+            self.scale = float(scale)
+
+        def create_operator(self, ctx, shapes, dtypes):
+            SqrProp.contexts.append(ctx)
+            return Sqr(self.scale)
+
+    return SqrProp
+
+
+def custom_symbol(mx, resnet):
+    """Full-width ResNet-50 v2 whose SoftmaxOutput is replaced by the
+    ``softmax_rtc`` Custom head over fc1's output."""
+    net = resnet.get_symbol(num_classes=1000, num_layers=50,
+                            image_shape=IMAGE)
+    fc1 = net.get_internals()['fc1_output']
+    return mx.sym.Custom(fc1, mx.sym.Variable('softmax_label'),
+                         op_type='softmax_rtc', name='softmax')
+
+
+def rtc_compile_stats(instrument):
+    return (instrument.counter_value('rtc.compiles'),
+            instrument.histogram('rtc.compile_secs').sum)
+
+
+def rtc_case(torch, instrument, name, kernel, ins, outs, dims, check, plain,
+             library, nbytes, ops, flush, **info):
+    """One Rtc case on the card: the first push (NVRTC compile and module
+    load where its dtypes are new to ``kernel``), ``check()`` of its
+    outputs (-> max abs error, tolerance text), then the push, its plain
+    version and the library call (None where no single PyTorch call
+    computes the function) timed as the other kernels are, the host cost
+    of one push (decoration, cache lookup, ctypes, the output's
+    allocation) and the bound."""
+    n0, s0 = rtc_compile_stats(instrument)
+    t0 = time.perf_counter()
+    kernel.push(ins, outs, *dims)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    n1, s1 = rtc_compile_stats(instrument)
+    err, tol = check()
+
+    def push():
+        kernel.push(ins, outs, *dims)
+
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    op_ms = ops / FP32_FLOPS * 1e3
+    return dict(name=name, **info, grid=list(dims[0]), block=list(dims[1]),
+                compiles=n1 - n0, nvrtc_s=s1 - s0, first_push_s=first_s,
+                max_abs_err=err, tolerance=tol,
+                ms=cuda_ms(torch, push, flush),
+                plain_ms=cuda_ms(torch, plain, flush),
+                library_ms=(cuda_ms(torch, library, flush)
+                            if library is not None else None),
+                host_us=host_us(torch, push),
+                bound_ms=max(byte_ms, op_ms),
+                bound_by='bytes' if byte_ms >= op_ms else 'operations',
+                bytes=nbytes, operations=ops)
+
+
+def softmax_cases(mx, torch, instrument, rows, n, gen, flush, per_step):
+    """The softmax head's two kernels at (rows, n) f32: the forward within
+    rtol 1e-5 of torch.softmax in float64 cast back (and of the plain
+    version, the nd.* head's arithmetic); the backward exactly y -
+    onehot(label)."""
+    dev = torch.device('cuda', 0)
+    x = torch.randn(rows, n, generator=gen, device=dev) * 3.0
+    label = torch.randint(0, n, (rows,), generator=gen,
+                          device=dev).float()
+    xa, la = mx.nd.NDArray(x), mx.nd.NDArray(label)
+    y, dx = mx.nd.zeros((rows, n), ctx=mx.gpu(0)), \
+        mx.nd.zeros((rows, n), ctx=mx.gpu(0))
+    fwd, bwd = softmax_kernels(mx, n)
+    dims = ((rows, 1, 1), (rtc_block(n), 1, 1))
+
+    def plain_fwd():
+        e = torch.exp(x - x.amax(1, keepdim=True))
+        return e / e.sum(1, keepdim=True)
+
+    def plain_bwd():
+        return y.handle - (torch.arange(n, device=dev)[None]
+                           == label.long()[:, None]).float()
+
+    hot = label.long()[:, None]
+    minus_one = torch.full((rows, 1), -1.0, device=dev)
+
+    def library_bwd():
+        return torch.scatter_add(y.handle, 1, hot, minus_one)
+
+    def check_fwd():
+        got = y.handle
+        want = torch.softmax(x.double(), 1).float()
+        rel = float(((got - want).abs()
+                     / want.abs().clamp_min(1e-37)).max())
+        plain = plain_fwd()
+        rel_plain = float(((got - plain).abs()
+                           / plain.abs().clamp_min(1e-37)).max())
+        if not bool(torch.isfinite(got).all()) or rel > SOFTMAX_RTOL or \
+                rel_plain > 2 * SOFTMAX_RTOL:
+            raise AssertionError(
+                'rtc softmax_fwd %s: max rel err %g vs float64 softmax, '
+                '%g vs the plain version (tolerance %g, %g)'
+                % ((rows, n), rel, rel_plain, SOFTMAX_RTOL,
+                   2 * SOFTMAX_RTOL))
+        return float((got - plain).abs().max()), \
+            'rtol %g of torch.softmax in float64 (max rel err %g)' % (
+                SOFTMAX_RTOL, rel)
+
+    def check_bwd():
+        want = plain_bwd()
+        if not torch.equal(library_bwd(), want):
+            raise AssertionError('rtc softmax_bwd %s: the library call '
+                                 'computes another function' % ((rows, n),))
+        if not torch.equal(dx.handle, want):
+            raise AssertionError('rtc softmax_bwd %s: dx differs from y - '
+                                 'onehot(label) by %g' % (
+                                     (rows, n), float((dx.handle - want)
+                                                      .abs().max())))
+        return 0.0, 'exact'
+
+    elems = rows * n
+    cases = [
+        rtc_case(torch, instrument, 'softmax_fwd', fwd, [xa], [y], dims,
+                 check_fwd, plain_fwd, lambda: torch.softmax(x, 1),
+                 2 * elems * 4, 7 * elems, flush, shape=[rows, n],
+                 dtype='float32', launches_per_step=per_step,
+                 library_call='torch.softmax'),
+        rtc_case(torch, instrument, 'softmax_bwd', bwd, [y, la], [dx], dims,
+                 check_bwd, plain_bwd, library_bwd, 2 * elems * 4 + rows * 4,
+                 elems, flush, shape=[rows, n], dtype='float32',
+                 launches_per_step=per_step,
+                 library_call='torch.scatter_add(y, 1, label, -1)')]
+    return cases
+
+
+def rtc_kernels(mx, torch, instrument, gen, flush):
+    """Phase 3c: the Rtc cases on the card, TF32 off."""
+    ctx = mx.gpu(0)
+    nd = mx.nd
+    cases = []
+    # the reference MXNet's GPU test: shared memory, expf, a 10-thread block
+    x, y = nd.ones((10,), ctx=ctx), nd.zeros((10,), ctx=ctx)
+    k = mx.rtc.Rtc('abc', [('x', x)], [('y', y)], REF_BODY)
+    want = np.float32(np.exp(5.0))
+
+    def check_ref():
+        got = y.asnumpy()
+        ulps = float(np.max(np.abs(got.astype(np.float64) - float(want))
+                            / np.spacing(want)))
+        if ulps > 2:
+            raise AssertionError('rtc abc: expf(5x) %d ulp from exp(5)'
+                                 % ulps)
+        return float(np.max(np.abs(got - want))), '2 ulp (%g ulp)' % ulps
+
+    cases.append(rtc_case(
+        torch, instrument, 'abc', k, [x], [y], ((1, 1, 1), (10, 1, 1)),
+        check_ref, lambda: torch.exp(x.handle * 5.0), None, 80, 20, flush,
+        shape=[10], dtype='float32', launches_per_step=0))
+    # tests/test_rtc.py's axpy and square; a second shape of square
+    # reuses its module, float16 compiles a second one
+    xa = nd.array(np.arange(12, dtype=np.float32).reshape(3, 4), ctx=ctx)
+    ya = nd.array(np.full((3, 4), 2.0, np.float32), ctx=ctx)
+    out = nd.zeros((3, 4), ctx=ctx)
+    axpy = mx.rtc.Rtc('axpy', [('x', xa), ('y', ya)], [('out', out)],
+                      AXPY_BODY)
+
+    def check_axpy():
+        want = 2.0 * xa.asnumpy() + ya.asnumpy()
+        if not np.array_equal(out.asnumpy(), want):
+            raise AssertionError('rtc axpy disagrees: %s' % out.asnumpy())
+        return 0.0, 'exact'
+
+    cases.append(rtc_case(
+        torch, instrument, 'axpy', axpy, [xa, ya], [out],
+        ((3, 1, 1), (4, 1, 1)), check_axpy,
+        lambda: 2.0 * xa.handle + ya.handle,
+        lambda: torch.add(ya.handle, xa.handle, alpha=2.0), 144, 24, flush,
+        shape=[3, 4], dtype='float32', launches_per_step=0,
+        library_call='torch.add(y, x, alpha=2)'))
+    sq = mx.rtc.Rtc('square', [('a', xa)], [('o', out)], SQUARE_BODY)
+    for shape, dt in (((3, 4), 'float32'), ((2, 3), 'float32'),
+                      ((2, 3), 'float16')):
+        a = nd.array(np.arange(np.prod(shape)).reshape(shape), ctx=ctx,
+                     dtype=dt)
+        o = nd.zeros(shape, ctx=ctx, dtype=dt)
+
+        def check_sq(a=a, o=o):
+            if not torch.equal(o.handle, a.handle * a.handle):
+                raise AssertionError('rtc square %s %s disagrees'
+                                     % (a.shape, a.dtype))
+            return 0.0, 'exact'
+
+        case = rtc_case(
+            torch, instrument, 'square', sq, [a], [o],
+            ((shape[0], 1, 1), (shape[1], 1, 1)), check_sq,
+            lambda a=a: a.handle * a.handle,
+            lambda a=a: torch.square(a.handle), 2 * a.size * a.handle
+            .element_size(), a.size, flush, shape=list(shape), dtype=dt,
+            launches_per_step=0, library_call='torch.square')
+        cases.append(case)
+    new = [c['compiles'] for c in cases if c['name'] == 'square']
+    if new != [1, 0, 1] or len(sq._cache) != 2:
+        raise AssertionError('rtc square: compiles per push %s (want one per '
+                             'dtype, none for a new shape), %d modules'
+                             % (new, len(sq._cache)))
+    # path 4's head at its shape, then at the LM head's (off the path)
+    cases += softmax_cases(mx, torch, instrument, BATCH, 1000, gen, flush, 1)
+    cases += softmax_cases(mx, torch, instrument, LM_HEAD[0], LM_HEAD[1],
+                           gen, flush, 0)
+    # a syntax error raises with NVRTC's log
+    bad = mx.rtc.Rtc('broken', [('x', x)], [('y', y)], BROKEN_BODY)
+    try:
+        bad.push([x], [nd.zeros((10,), ctx=ctx)])
+    except mx.MXNetError as e:
+        if 'expected an expression' not in str(e):
+            raise AssertionError('rtc: compile error without the log: %s'
+                                 % e) from e
+        bad_log = str(e)
+    else:
+        raise AssertionError('rtc: a body with a syntax error compiled')
+    for kernel in (k, axpy, sq):
+        kernel.close()
+    return cases, bad_log
+
+
+def rtc_summary(cases, launches):
+    """The kernels-line entry of Rtc: the head's two launches of one
+    32-row training step (forward and backward, float32)."""
+    on_path = [c for c in cases if c['launches_per_step']]
+    modules = [c for c in cases if c['compiles']]
+    return {'name': 'rtc', 'route': 'cuda',
+            'source': 'mxnet_tpu_torch/csrc/rtc.cu',
+            'replaces': 'mxnet_tpu/rtc.py:91', 'launches': launches,
+            'launches_by_path': {'custom-train': launches},
+            'kernel_bodies': 'chip_smoke.py SOFTMAX_FWD, SOFTMAX_BWD',
+            'max_abs_err': max(c['max_abs_err'] for c in on_path),
+            'ms': _sum_cases(on_path, 'ms'),
+            'plain_ms': _sum_cases(on_path, 'plain_ms'),
+            'bound_ms': _sum_cases(on_path, 'bound_ms'),
+            'bound_by': 'bytes',
+            'library_ms': _sum_cases(on_path, 'library_ms'),
+            'library_call': 'torch.softmax (forward) + torch.scatter_add '
+                            '(backward)',
+            'per': 'one 32-row training step (softmax forward and '
+                   'backward), float32',
+            'host_us_per_push': statistics.mean(c['host_us']
+                                                for c in on_path),
+            'nvrtc_s_per_module': statistics.mean(
+                c['nvrtc_s'] / c['compiles'] for c in modules),
+            'cases': cases}
+
+
+def imperative_script(mx, data):
+    """A fixed script of nd.* calls on the current context: one op of each
+    family of the imperative layer, NDArray arithmetic, indexing and
+    in-place updates, and nd.Custom.  Returns [(name, result, exact)]."""
+    nd = mx.nd
+    a, b = nd.array(data['a']), nd.array(data['b'])     # (3, 4)
+    i, j = nd.array(data['i']), nd.array(data['j'])     # integer-valued
+    r = nd.array(data['row'])                            # (1, 4)
+    idx = nd.array(data['idx'])                          # (3,) in [0, 4)
+    m3 = nd.array(data['m3'])                            # (2, 3, 4)
+    c = a.copy()
+    c[1, 1:3] = 7.0
+    c[0] = b[2]
+    d = a.copy()
+    d += b
+    d *= 2.0
+    e = nd.zeros((3, 4))
+    nd.relu(b, out=e)
+    top_v, top_i = nd.topk(i, k=2, ret_typ='both')
+    return [
+        ('exp', nd.exp(a), False), ('relu', nd.relu(a), True),
+        ('stop_gradient', nd.stop_gradient(a), True),
+        ('Cast', nd.Cast(a * 10, dtype='int32'), True),
+        ('_plus', nd._plus(a, b), True),
+        ('broadcast_mul', nd.broadcast_mul(a, r), True),
+        ('div', a / b, False), ('mod', a % 1.5, False),
+        ('scalar', 2.0 - a * 3.0, True), ('power_scalar', a ** 2, False),
+        ('greater', i > j, True),
+        ('smooth_l1', nd.smooth_l1(a, scalar=0.7), False),
+        ('broadcast_to', nd.broadcast_to(r, shape=(3, 4)), True),
+        ('broadcast_axis', nd.broadcast_axis(nd.expand_dims(idx, axis=1),
+                                             axis=1, size=4), True),
+        ('sum', nd.sum(m3, axis=(0, 2), keepdims=True), False),
+        ('mean', nd.mean(m3, axis=1), False),
+        ('max', nd.max(i, axis=1), True),
+        ('argmax', nd.argmax(i, axis=1), True),
+        ('norm', nd.norm(a), False),
+        ('expand_dims', nd.expand_dims(a, axis=0), True),
+        ('dot', nd.dot(a, b, transpose_b=True), False),
+        ('batch_dot', nd.batch_dot(m3, m3, transpose_b=True), False),
+        ('slice', nd.slice(m3, begin=(0, 1, None), end=(2, 3, -1)), True),
+        ('setitem', c, True), ('getitem', a[1:3], True),
+        ('_crop_assign_scalar', nd._crop_assign_scalar(
+            a, begin=(0, 1), end=(2, 3), scalar=5.0), True),
+        ('flip', nd.flip(a, axis=1), True),
+        ('repeat', nd.repeat(a, repeats=2, axis=0), True),
+        ('tile', nd.tile(a, reps=(2, 1)), True),
+        ('pad', nd.pad(m3.reshape((1, 2, 3, 4)), mode='constant',
+                       pad_width=(0, 0, 0, 0, 1, 1, 2, 2),
+                       constant_value=1.5), True),
+        ('take', nd.take(a, idx, axis=1), True),
+        ('batch_take', nd.batch_take(a, idx), True),
+        ('one_hot', nd.one_hot(idx, depth=4), True),
+        ('where', nd.where(i > 0, a, b), True),
+        ('_ones', nd._ones(shape=(2, 3)), True),
+        ('_full', nd._full(shape=(2, 3), value=2.5), True),
+        ('_arange', nd._arange(start=1.0, stop=9.0, step=2.0, repeat=2),
+         True),
+        ('arange', nd.arange(0, 6), True),
+        ('zeros_like', nd.zeros_like(a), True),
+        ('topk_value', top_v, True), ('topk_index', top_i, True),
+        ('sort', nd.sort(i, axis=1), True),
+        ('argsort', nd.argsort(i, axis=1), True),
+        ('add_n', nd.add_n(a, b, a), False),
+        ('reciprocal', nd.reciprocal(b), False),
+        ('trunc', nd.trunc(a * 3), True),
+        ('diag', nd.diag(i[:, :3], k=1), True),
+        ('stack', nd.stack(a, b, axis=1), True),
+        ('pick', nd.pick(a, idx, axis=1), True),
+        ('softmax', nd.softmax(a, axis=1), False),
+        ('SoftmaxActivation', nd.SoftmaxActivation(a), False),
+        ('LeakyReLU', nd.LeakyReLU(a, slope=0.1), True),
+        ('Dropout_p0', nd.Dropout(a, p=0.0), True),
+        ('Concat', nd.Concat(a, b, dim=1), True),
+        ('inplace', d, True), ('out', e, True),
+        ('maximum', nd.maximum(a, b), True),
+        ('power', nd.power(2.0, a), False),
+        ('Custom', nd.Custom(a, op_type='sqr', scale=3), True)]
+
+
+def imperative_data():
+    rs = np.random.RandomState(SEED)
+    return {'a': rs.randn(3, 4).astype(np.float32),
+            'b': (rs.rand(3, 4) + 0.5).astype(np.float32),
+            'i': rs.randint(-3, 3, (3, 4)).astype(np.float32),
+            'j': rs.randint(-3, 3, (3, 4)).astype(np.float32),
+            'row': rs.randn(1, 4).astype(np.float32),
+            'idx': rs.randint(0, 4, (3,)).astype(np.float32),
+            'm3': rs.randn(2, 3, 4).astype(np.float32)}
+
+
+def random_moments(mx):
+    """mx.random on the current context: moments of 10^5 draws (the
+    bounds of tests/test_random.py), seed determinism, and Dropout's kept
+    share."""
+    mx.random.seed(SEED)
+    u = mx.random.uniform(-2.0, 3.0, shape=(100000,))
+    n = mx.random.normal(1.0, 2.0, shape=(100000,))
+    mx.random.seed(SEED)
+    again = mx.random.uniform(-2.0, 3.0, shape=(100000,))
+    kept = float((mx.nd.Dropout(mx.nd.ones((100, 100)), p=0.3)
+                  .asnumpy() != 0).mean())
+    uv, nv = u.asnumpy(), n.asnumpy()
+    res = {'device': str(u.context), 'uniform_min': float(uv.min()),
+           'uniform_max': float(uv.max()), 'uniform_mean': float(uv.mean()),
+           'normal_mean': float(nv.mean()), 'normal_std': float(nv.std()),
+           'seed_repeats': bool(np.array_equal(uv, again.asnumpy())),
+           'dropout_kept': kept}
+    if not (uv.min() >= -2.0 and uv.max() <= 3.0
+            and abs(uv.mean() - 0.5) < 0.05 and abs(nv.mean() - 1.0) < 0.05
+            and abs(nv.std() - 2.0) < 0.05 and res['seed_repeats']
+            and abs(kept - 0.7) < 0.03):
+        raise AssertionError('mx.random moments off: %s' % res)
+    return res
+
+
+def imperative(mx, sqr_prop):
+    """Phase 10: the script under ``with mx.gpu(0):`` and on ``cpu()``
+    from the same numpy inputs: rtol 1e-5 (atol 1e-6), exact for integer,
+    indexing and data-movement ops; every result on its scope's
+    context."""
+    data = imperative_data()
+    # outside a scope: nd.array / nd.zeros on the host, the rest on the card
+    placed = [mx.nd.array([1.0]).context, mx.nd.zeros((1,)).context,
+              mx.nd.ones((1,)).context, mx.nd.arange(2).context,
+              mx.random.uniform(shape=(2,)).context]
+    if placed != [mx.cpu(0)] * 2 + [mx.gpu(0)] * 3:
+        raise AssertionError('imperative: default contexts %s' % placed)
+    runs, moments = {}, {}
+    for ctx in (mx.gpu(0), mx.cpu()):
+        with ctx:
+            del sqr_prop.contexts[:]
+            res = imperative_script(mx, data)
+            moments[ctx.device_type] = random_moments(mx)
+        wrong = [name for name, v, _ in res if v.context != ctx]
+        if wrong or sqr_prop.contexts != [ctx]:
+            raise AssertionError('imperative: %s ran off %s (Custom got %s)'
+                                 % (wrong, ctx, sqr_prop.contexts))
+        runs[ctx.device_type] = [(name, v.asnumpy(), exact)
+                                 for name, v, exact in res]
+    worst = (0.0, None)
+    for (name, g, exact), (_, h, _) in zip(runs['gpu'], runs['cpu']):
+        if g.dtype != h.dtype or g.shape != h.shape:
+            raise AssertionError('imperative %s: %s %s on the card, %s %s '
+                                 'on the CPU' % (name, g.dtype, g.shape,
+                                                 h.dtype, h.shape))
+        if exact:
+            np.testing.assert_array_equal(g, h, err_msg=name)
+        else:
+            np.testing.assert_allclose(g, h, rtol=1e-5, atol=1e-6,
+                                       err_msg=name)
+            err = float(np.max(np.abs(g.astype(np.float64) - h)))
+            if err > worst[0]:
+                worst = (err, name)
+    return {'calls': len(runs['gpu']),
+            'exact': sum(1 for r in runs['gpu'] if r[2]),
+            'max_abs_err_float': worst[0], 'worst': worst[1],
+            'tolerance': 'rtol 1e-5, atol 1e-6; exact for integer, '
+                         'indexing and data-movement ops',
+            'random': moments}
+
+
 def main():
     try:
         import torch
@@ -685,6 +1293,7 @@ def main():
               'from the root of a checkout' % e, file=sys.stderr)
         return 1
     os.environ['MXTPU_FUSE'] = 'aggressive'
+    sqr_prop = register_user_ops(mx)
 
     # -- 1. device ---------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -766,9 +1375,15 @@ def main():
          'conv_cases': conv_cases, 'tf32': False})
     att_cases, epi_cases = lm_kernels(mx, torch, attention, fused, models,
                                       gen, flush)
-    del flush
     log({'phase': 'lm-kernels', 'flash_attention_cases': att_cases,
          'fused_dot_epilogue_cases': epi_cases, 'tf32': False})
+    rtc_cases, bad_log = rtc_kernels(mx, torch, instrument, gen, flush)
+    del flush
+    compiles = instrument.histogram('rtc.compile_secs')
+    log({'phase': 'rtc-kernels', 'cases': rtc_cases, 'tf32': False,
+         'nvrtc_modules': compiles.count,
+         'nvrtc_s_per_module': compiles.sum / max(compiles.count, 1),
+         'compile_error_log': bad_log})
 
     # -- 4. serve: the main path ---------------------------------------------
     arg, aux = convert.random_params(symbol, {'data': (BATCH,) + IMAGE},
@@ -1036,6 +1651,95 @@ def main():
                              'rtol 1e-3, atol 1e-5, max abs err %g in %s'
                              % (n_out, total, worst[0], worst[1]))
 
+    # -- 10. imperative: nd.* on the card and on the CPU ------------------
+    log({'phase': 'imperative', **imperative(mx, sqr_prop)})
+
+    # -- 11. custom-train: the fourth main path ----------------------------
+    csym = custom_symbol(mx, resnet)
+    dots, convs, bn_relus = train_kernel_shapes(mx, csym, BATCH)
+    expected = {'fused_scale_bias_dot': sum(dots.values()),
+                'fused_scale_bias_conv3x3': sum(convs.values()),
+                'fused_bn_relu': sum(bn_relus.values()), 'rtc': 2}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in (fused.fused_bn_relu, fused.fused_scale_bias_dot,
+              fused_conv.fused_scale_bias_conv3x3, mx.rtc.Rtc):
+        k.launches = 0
+    t0 = time.monotonic()
+    mod, step_s = train_module(mx, torch, csym, arg, aux, images, labels,
+                               mx.gpu(0), None, BATCH)
+    torch.cuda.synchronize()
+    fit_s = time.monotonic() - t0
+    custom_launches = {
+        'fused_scale_bias_dot': fused.fused_scale_bias_dot.launches,
+        'fused_scale_bias_conv3x3':
+            fused_conv.fused_scale_bias_conv3x3.launches,
+        'fused_bn_relu': fused.fused_bn_relu.launches,
+        'rtc': mx.rtc.Rtc.launches}
+    steps = len(step_s)
+    for name, per_step in expected.items():
+        if custom_launches[name] != per_step * steps or steps != \
+                TRAIN_BATCHES:
+            raise AssertionError('custom-train: %s launched %d times in %d '
+                                 'steps (expected %d each)'
+                                 % (name, custom_launches[name], steps,
+                                    per_step))
+    metric = dict(mod._fused_metric.get_name_value())
+    trained = mod.get_params()[0]
+    moved = 0.0
+    for k, v in arg.items():
+        t = trained[k].asnumpy()
+        if not np.all(np.isfinite(t)):
+            raise AssertionError('custom-train: parameter %s is not finite'
+                                 % k)
+        moved = max(moved, float(np.max(np.abs(t - v))))
+    if not np.isfinite(metric['cross-entropy']) or moved <= 0.0:
+        raise AssertionError('custom-train did not move: loss %s, max |dw| '
+                             '%g' % (metric['cross-entropy'], moved))
+    step_ms = statistics.median(step_s[TRAIN_WARMUP:]) * 1e3
+    log({'phase': 'custom-train', 'model': 'resnet-50 v2', 'classes': 1000,
+         'image': list(IMAGE), 'batch': BATCH, 'steps': steps,
+         'head': 'Custom softmax_rtc (Rtc softmax_fwd / softmax_bwd)',
+         'compute_dtype': 'float32', 'fuse': 'aggressive',
+         'tf32_conv': torch.backends.cudnn.allow_tf32,
+         'optimizer': 'sgd lr 0.05 momentum 0.9 wd 1e-4',
+         'launches': custom_launches, 'launches_per_step': expected,
+         'fit_s': fit_s, 'step_ms': [t * 1e3 for t in step_s],
+         'step_ms_median_after_warmup': step_ms,
+         'images_per_s': BATCH / step_ms * 1e3,
+         'peak_memory_bytes': torch.cuda.max_memory_allocated(),
+         'train_cross_entropy': metric['cross-entropy'],
+         'train_accuracy': metric['accuracy'], 'max_param_change': moved})
+    del mod, trained
+
+    # -- 12. custom-parity: one f32 step, Rtc head vs nd.* head ------------
+    stepped = {}
+    for ctx in (mx.gpu(0), mx.cpu()):
+        t0 = time.monotonic()
+        pmod, _ = train_module(mx, torch, csym, arg, aux,
+                               images[:CUSTOM_PARITY_ROWS],
+                               labels[:CUSTOM_PARITY_ROWS], ctx, None,
+                               CUSTOM_PARITY_ROWS)
+        stepped[ctx.device_type] = ({k: v.asnumpy() for k, v in
+                                     pmod.get_params()[0].items()},
+                                    time.monotonic() - t0)
+        del pmod
+    (card, card_s), (host, cpu_s) = stepped['gpu'], stepped['cpu']
+    n_out, total, worst, outside = param_parity(card, host)
+    log({'phase': 'custom-parity', 'rows': CUSTOM_PARITY_ROWS,
+         'dtype': 'float32', 'tf32': False,
+         'heads': 'Rtc on the card, nd.* on the CPU',
+         'tolerance': 'rtol 1e-3, atol 1e-5 elementwise; at most 1e-4 of '
+         'the elements outside it, none beyond 1e-3',
+         'params': len(card), 'elements': total,
+         'elements_outside': n_out, 'max_abs_err': worst[0],
+         'worst_param': worst[1], 'outside_tolerance': outside,
+         'card_s': card_s, 'cpu_s': cpu_s})
+    if n_out > 1e-4 * total or worst[0] > 1e-3:
+        raise AssertionError('custom-parity: %d of %d parameter elements '
+                             'beyond rtol 1e-3, atol 1e-5, max abs err %g '
+                             'in %s' % (n_out, total, worst[0], worst[1]))
+
     # -- summary -------------------------------------------------------------
     on_path = [c for c in cases if c['launches_per_forward']]
     summary = {
@@ -1085,7 +1789,8 @@ def main():
                      'mxnet_tpu/ops/pallas_attention.py:197', att_cases,
                      {'lm-train': lm_launches['flash_attention']},
                      'F.scaled_dot_product_attention(is_causal=True)',
-                     lm_per)]
+                     lm_per),
+        rtc_summary(rtc_cases, custom_launches['rtc'])]
     print(smi, flush=True)
     log({'kernels': kernels})
     log({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,

@@ -6,10 +6,13 @@ serves (``ModelServer`` -> ``Predictor`` -> ``Symbol.bind`` ->
 ``Executor.forward``) and trains (``Module.fit`` or
 ``parallel.make_train_step`` -> the fused train step: forward, backward,
 SGD-momentum update), both through the ``MXTPU_FUSE`` pass pipeline,
-over the ops ResNet-50 v2 and the transformer LM need.  The TPU kernels
-on those paths — ``fused_bn_relu``, ``fused_scale_bias_dot``,
-``fused_scale_bias_conv3x3``, ``fused_dot_epilogue`` and
-``flash_attention`` — are CUDA C++ for sm_90a (``csrc/``).
+over the ops ResNet-50 v2 and the transformer LM need.  Users extend it
+as in the reference: the imperative ``nd.*`` layer over every registered
+op, Custom operators (``operator``) and runtime-compiled CUDA kernels
+(``rtc.Rtc``, on NVRTC).  The TPU kernels — ``fused_bn_relu``,
+``fused_scale_bias_dot``, ``fused_scale_bias_conv3x3``,
+``fused_dot_epilogue``, ``flash_attention`` and ``Rtc`` — are CUDA C++
+for sm_90a (``csrc/``).
 
 The package imports torch and numpy, never jax and nothing of
 ``mxnet_tpu``.  Entry points run on the card unless the caller asks for
@@ -26,19 +29,20 @@ from . import symbol
 from . import symbol as sym
 from . import executor, fuse, compile_cache, convert, models
 from . import random
+from . import operator, rtc
 from . import (callback, initializer, io, lr_scheduler, metric, module,
                optimizer, parallel)
 from . import initializer as init
 from . import module as mod
 from . import optimizer as opt
 from .base import MXNetError
-from .context import Context, cpu, gpu
+from .context import Context, cpu, current_context, gpu
 from .module import Module
 from .predictor import Predictor
 from . import serving
 
-__all__ = ['MXNetError', 'Context', 'cpu', 'gpu',
-           'nd', 'sym', 'Predictor', 'serving', 'models', 'convert',
+__all__ = ['MXNetError', 'Context', 'cpu', 'gpu', 'current_context',
+           'nd', 'sym', 'operator', 'rtc', 'Predictor', 'serving', 'models', 'convert',
            'fuse', 'ops', 'config', 'instrument', 'Module', 'module', 'mod',
            'io', 'metric', 'optimizer', 'lr_scheduler', 'initializer',
            'opt', 'init', 'callback', 'random', 'parallel']

@@ -42,6 +42,10 @@ def _build_graph_fn(symbol: Symbol, is_train: bool):
            aux_values: Dict[str, torch.Tensor]):
         entry_vals: Dict[Tuple[int, int], torch.Tensor] = {}
         aux_updates: Dict[str, torch.Tensor] = {}
+        # ops with no input (constants, samplers) are made on the device
+        # the graph runs on
+        dev = next((v.device for v in list(arg_values.values())
+                    + list(aux_values.values())), None)
         for node in nodes:
             if node.is_variable:
                 if node.name in arg_values:
@@ -53,7 +57,9 @@ def _build_graph_fn(symbol: Symbol, is_train: bool):
                 continue
             op = node.opdef()
             ins = [entry_vals[(id(n), x)] for n, x in node.inputs]
-            outs, aux_upd = op.apply(node.attrs, ins, is_train, None)
+            attrs = node.attrs if ins or dev is None else \
+                dict(node.attrs, ctx=dev)
+            outs, aux_upd = op.apply(attrs, ins, is_train, None)
             for j, o in enumerate(outs):
                 entry_vals[(id(node), j)] = o
             if aux_upd:

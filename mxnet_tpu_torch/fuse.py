@@ -9,8 +9,9 @@ leaves the JAX one.
 ==================  ==========  =============================================
 pass                level       rewrite
 ==================  ==========  =============================================
-``constant_fold``   safe        constant subgraphs (none can occur yet, see
-                                :func:`fold_constants`)
+``constant_fold``   safe        constant subgraphs (``_zeros`` / ``_ones`` /
+                                ``_full`` / ``_arange`` rooted) pre-evaluated
+                                into ``_graph_constant`` nodes
 ``dead_branch``     safe        elide identity nodes; drop unconsumed
                                 BatchNorm mean/var heads
 ``conv_bn_fold``    aggressive  Convolution->BatchNorm folded into the conv
@@ -49,8 +50,10 @@ chain the epilogue pass takes.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from .context import as_torch_device
 from .ops.fused import (fused_bn_relu, fused_dot_epilogue,
                         fused_scale_bias_dot)
 from .ops.fused_conv import fused_scale_bias_conv3x3
@@ -144,13 +147,116 @@ def _rewrite_counted(sym: Symbol, try_fuse):
 # constant folding
 # ---------------------------------------------------------------------------
 
+# ops that generate a constant from attrs alone (the fold frontier);
+# any rng-free, aux-free node all of whose inputs are constant extends it
+_CONST_LEAF_OPS = ('_zeros', '_ones', '_full', '_arange')
+# never embed constants past this size (the JAX pass's cap)
+_CONST_FOLD_MAX_ELEMS = 65536
+
+
+def _graph_constant_apply(attrs, inputs, is_train, rng):
+    # the value rides attrs as nested lists (JSON-able, as in the JAX
+    # pass); made on the device the graph runs on
+    arr = np.array(attrs['value'], dtype=attrs['dtype']).reshape(
+        tuple(attrs['shape']))
+    return [torch.from_numpy(arr).to(as_torch_device(attrs.get('ctx')))], {}
+
+
+register('_graph_constant', _graph_constant_apply,
+         input_names=lambda a: [], num_outputs=lambda a: 1,
+         hint='graph_constant')
+
+
+def _const_value(node):
+    return np.array(node.attrs['value'], dtype=node.attrs['dtype']).reshape(
+        tuple(node.attrs['shape']))
+
+
 def fold_constants(sym: Symbol, is_train=False, mode='safe'):
-    """The JAX pass pre-evaluates subgraphs rooted at the constant-leaf
-    ops (``_zeros``/``_ones``/``_full``/``_arange``,
-    ``mxnet_tpu/fuse.py:565``).  The port registers none of those ops
-    yet, so no graph it can load holds a constant subgraph and the pass
-    rewrites nothing; it folds again when they are ported."""
-    return sym, 0
+    """Pre-evaluate constant subgraphs (rooted at ``_zeros`` / ``_ones`` /
+    ``_full`` / ``_arange``) at pass time, on the CPU, and splice the
+    results in as ``_graph_constant`` nodes (``mxnet_tpu/fuse.py:
+    565-682``).  Only rng-free, aux-free, exception-free nodes whose
+    inputs are all constant fold, and results above
+    ``_CONST_FOLD_MAX_ELEMS`` elements stay symbolic.  Returns
+    ``(symbol, constants materialized)``."""
+    nodes = sym.topo_nodes()
+    vals = {}           # id(node) -> list of numpy outputs
+    cpu = torch.device('cpu')
+    for node in nodes:
+        if node.is_variable:
+            continue
+        if node.op == '_graph_constant':
+            vals[id(node)] = [_const_value(node)]
+            continue
+        op = node.opdef()
+        if op.takes_rng or op.aux_names(node.attrs):
+            continue
+        attrs = node.attrs
+        if node.inputs:
+            if not all(id(s) in vals for s, _ in node.inputs):
+                continue
+            ins = [torch.from_numpy(vals[id(s)][j]) for s, j in node.inputs]
+        elif node.op in _CONST_LEAF_OPS:
+            ins = []
+            attrs = dict(attrs, ctx=cpu)
+        else:
+            continue
+        try:
+            with torch.no_grad():
+                outs, aux = op.apply(attrs, ins, False, None)
+            outs = [o.detach().cpu().numpy() for o in outs]
+        except Exception:           # noqa: BLE001 - the node stays symbolic
+            continue
+        if aux or any(o.size > _CONST_FOLD_MAX_ELEMS for o in outs):
+            continue
+        vals[id(node)] = outs
+
+    if not vals or all(n.op == '_graph_constant' for n in nodes
+                       if id(n) in vals):
+        return sym, 0
+
+    new_nodes = {}
+    const_nodes = {}    # (id(old node), out idx) -> materialized Node
+    count = [0]
+
+    def const_entry(node, idx):
+        key = (id(node), idx)
+        c = const_nodes.get(key)
+        if c is None:
+            name = node.name if idx == 0 else \
+                '%s_out%d' % (node.name, idx)
+            v = vals[id(node)][idx]
+            c = Node('_graph_constant', name,
+                     {'value': v.tolist(), 'dtype': str(v.dtype),
+                      'shape': tuple(v.shape)}, [])
+            c._extra_attr = dict(node._extra_attr)
+            const_nodes[key] = c
+            count[0] += 1
+        return (c, 0)
+
+    def mapped(entry):
+        s, j = entry
+        if not s.is_variable and id(s) in vals and \
+                s.op != '_graph_constant':
+            return const_entry(s, j)
+        return (new_nodes[id(s)], j)
+
+    for node in nodes:
+        if node.is_variable:
+            new_nodes[id(node)] = node
+            continue
+        if id(node) in vals and node.op != '_graph_constant':
+            continue    # folded away; consumers materialize lazily
+        nn = Node(node.op, node.name, node.attrs,
+                  [mapped(e) for e in node.inputs])
+        nn._extra_attr = node._extra_attr
+        new_nodes[id(node)] = nn
+
+    outputs = [mapped(e) for e in sym._outputs]
+    if count[0] == 0:
+        return sym, 0
+    return Symbol(outputs), count[0]
 
 
 # ---------------------------------------------------------------------------

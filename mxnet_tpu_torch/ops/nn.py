@@ -2,10 +2,14 @@
 
 The port of ``mxnet_tpu/ops/nn.py``: FullyConnected (``:49-76``),
 Convolution (``_conv_apply``, ``:90-162``), Pooling (``:325-378``),
-Activation (``:385-390``), SoftmaxOutput with its injected loss gradient
-(``:468-548``), BatchNorm with its shared stats step (``:645-726``),
-InstanceNorm (``:741-756``), SliceChannel (``:834-849``), Embedding
-(``:857-871``) and FlashAttention (``:985-1032``).
+Activation (``:385-390``), LeakyReLU (``:393-445``), softmax /
+log_softmax / SoftmaxActivation (``:447-458``), SoftmaxOutput with its
+injected loss gradient (``:468-548``), BatchNorm with its shared stats
+step (``:645-726``), InstanceNorm (``:741-756``), Dropout (``:800-814``),
+Concat (``:821-831``), SliceChannel (``:834-849``), Embedding
+(``:857-871``) and FlashAttention (``:985-1032``).  The random draws of
+rrelu and Dropout come from the per-device ``torch.Generator`` of
+``random.py`` (the JAX ops take a key).
 Gradients come from ``torch.autograd``.  NCHW in and out,
 weights in the reference layouts, so checkpoints interchange.  The JAX
 package computes convolution and matmul outside any Pallas kernel
@@ -14,6 +18,7 @@ package computes convolution and matmul outside any Pallas kernel
 """
 from __future__ import annotations
 
+import json
 import math
 
 import torch
@@ -194,6 +199,72 @@ _ACTS = {'relu': torch.relu, 'sigmoid': torch.sigmoid, 'tanh': torch.tanh,
 register_simple('Activation',
                 lambda x, act_type='relu': _ACTS[act_type](x),
                 attr_defaults={'act_type': 'relu'}, hint='activation')
+
+
+def _uniform_like(data, lower, upper):
+    from ..random import generator
+    return torch.empty_like(data).uniform_(lower, upper,
+                                           generator=generator(data.device))
+
+
+def _leaky_relu_apply(attrs, inputs, is_train, rng):
+    act_type = attrs.get('act_type', 'leaky')
+    slope = float(attrs.get('slope', 0.25))
+    data = inputs[0]
+    lower = float(attrs.get('lower_bound', 0.125))
+    upper = float(attrs.get('upper_bound', 0.334))
+    if act_type == 'leaky':
+        neg = slope * data
+    elif act_type == 'elu':
+        neg = slope * (torch.exp(data) - 1.0)
+    elif act_type == 'prelu':
+        neg = inputs[1].reshape((1, -1) + (1,) * (data.ndim - 2)) * data
+    elif act_type == 'rrelu':
+        neg = (_uniform_like(data, lower, upper) if is_train
+               else (lower + upper) / 2.0) * data
+    else:
+        raise ValueError('unknown act_type %s' % act_type)
+    return [torch.where(data > 0, data, neg)], {}
+
+
+def _leaky_complete(attrs, in_shapes):
+    if attrs.get('act_type', 'leaky') == 'prelu' and in_shapes[0] is not None:
+        _complete(in_shapes, 1, (in_shapes[0][1],))
+    return in_shapes
+
+
+def _leaky_relu_var_attrs(attrs, input_name):
+    if input_name == 'gamma':
+        # the prelu slope starts at the op's slope (leaky_relu-inl.h)
+        return {'__init__': json.dumps(
+            ['constant', {'value': float(attrs.get('slope', 0.25))}])}
+    return None
+
+
+register('LeakyReLU', _leaky_relu_apply,
+         input_var_attrs=_leaky_relu_var_attrs,
+         input_names=lambda attrs: (['data', 'gamma']
+                                    if attrs.get('act_type', 'leaky') == 'prelu'
+                                    else ['data']),
+         num_outputs=lambda attrs: 1,
+         complete_shapes=_leaky_complete,
+         takes_rng=True,
+         attr_defaults={'act_type': 'leaky', 'slope': 0.25,
+                        'lower_bound': 0.125, 'upper_bound': 0.334},
+         hint='leakyrelu')
+
+register_simple('softmax', lambda x, axis=-1, temperature=1.0:
+                torch.softmax(x / temperature, dim=int(axis)),
+                attr_defaults={'axis': -1, 'temperature': 1.0})
+register_simple('log_softmax', lambda x, axis=-1:
+                torch.log_softmax(x, dim=int(axis)),
+                attr_defaults={'axis': -1})
+register_simple('SoftmaxActivation',
+                lambda x, mode='instance': (
+                    torch.softmax(x.reshape(x.shape[0], -1), dim=-1)
+                    .reshape(x.shape) if mode == 'instance'
+                    else torch.softmax(x, dim=1)),
+                attr_defaults={'mode': 'instance'}, hint='softmaxactivation')
 
 
 # ---------------------------------------------------------------------------
@@ -384,6 +455,41 @@ register('InstanceNorm', _instance_norm_apply,
          num_outputs=lambda attrs: 1,
          complete_shapes=_bn_complete,
          attr_defaults={'eps': 1e-3}, hint='instancenorm')
+
+
+# ---------------------------------------------------------------------------
+# Dropout (dropout-inl.h) — scaled inverted dropout, identity at eval;
+# Concat
+# ---------------------------------------------------------------------------
+
+def _dropout_apply(attrs, inputs, is_train, rng):
+    p = float(attrs.get('p', 0.5))
+    data = inputs[0]
+    if not is_train or p <= 0.0:
+        return [data], {}
+    keep = 1.0 - p
+    mask = _uniform_like(data.float(), 0.0, 1.0) < keep
+    return [torch.where(mask, data / keep, torch.zeros_like(data))
+            .to(data.dtype)], {}
+
+
+register('Dropout', _dropout_apply,
+         input_names=lambda attrs: ['data'],
+         num_outputs=lambda attrs: 1,
+         takes_rng=True,
+         attr_defaults={'p': 0.5}, hint='dropout')
+
+
+def _concat_apply(attrs, inputs, is_train, rng):
+    return [torch.cat(list(inputs), dim=int(attrs.get('dim', 1)))], {}
+
+
+register('Concat', _concat_apply,
+         input_names=lambda attrs: ['arg%d' % i for i in
+                                    range(int(attrs.get('num_args', 1)))],
+         num_outputs=lambda attrs: 1,
+         attr_defaults={'num_args': 1, 'dim': 1}, hint='concat')
+alias('concat', 'Concat')
 
 
 # ---------------------------------------------------------------------------

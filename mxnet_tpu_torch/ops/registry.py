@@ -15,9 +15,15 @@ Every op is an :class:`OpDef` with a canonical internal signature::
 - ``aux_updates``: dict aux-name -> new value (empty for stateless ops).
 
 Shape inference runs ``apply`` on ``meta`` tensors (symbol.py), so op
-implementations can never disagree with their shape functions.  Ops
+implementations can never disagree with their shape functions.  An op
+with no input (a constant or a sampler) makes its output on the device
+its ``ctx`` attr names; the executor passes the device the graph runs
+on.  ``rng`` is unused: sampling ops draw from the per-device
+``torch.Generator`` of ``random.py``.  Ops
 whose parameter shapes depend on data shapes (FullyConnected,
-Convolution, ...) additionally provide ``complete_shapes``.
+Convolution, ...) additionally provide ``complete_shapes``; an op that
+runs user code (``Custom``) provides ``infer_outputs`` instead of being
+run on meta tensors.
 """
 from __future__ import annotations
 
@@ -71,6 +77,8 @@ class OpDef:
                  hint: Optional[str] = None,
                  input_var_attrs: Optional[Callable] = None,
                  aux_shape: Optional[Callable] = None,
+                 arg_order: Optional[List[str]] = None,
+                 infer_outputs: Optional[Callable] = None,
                  doc: str = ''):
         self.name = name
         self.apply = apply_fn
@@ -91,6 +99,15 @@ class OpDef:
         # num_filter)
         self.aux_shape = aux_shape
         self.attr_defaults = attr_defaults or {}
+        # positional-attr contract of the imperative layer (nd.clip(x,
+        # a_min, a_max)): trailing non-array positionals map onto attrs
+        # in this order, attr_defaults' order unless given
+        self.arg_order = list(arg_order) if arg_order is not None \
+            else list(self.attr_defaults)
+        # (attrs, in_shapes, in_dtypes) -> [(shape, dtype)] per output,
+        # for an op whose apply runs user code that shape inference must
+        # not call on meta tensors (Custom, operator.py)
+        self.infer_outputs = infer_outputs
         self.hint = hint or name.lower().lstrip('_')
         self.doc = doc
 
@@ -112,7 +129,8 @@ def register(name, apply_fn, **kwargs):
 
 
 def register_simple(name, fn, *, ninputs=1, noutputs=1, input_names=None,
-                    attr_defaults=None, takes_rng=False, hint=None, doc=''):
+                    attr_defaults=None, takes_rng=False, hint=None,
+                    arg_order=None, doc=''):
     """Register a stateless op from a plain ``fn(*inputs, **attrs)``."""
     if input_names is None:
         input_names = (['data'] if ninputs == 1 else
@@ -132,7 +150,7 @@ def register_simple(name, fn, *, ninputs=1, noutputs=1, input_names=None,
         input_names=lambda attrs, _n=tuple(input_names): list(_n),
         num_outputs=lambda attrs, _k=noutputs: _k,
         attr_defaults=attr_defaults, takes_rng=takes_rng, hint=hint,
-        doc=doc)
+        arg_order=arg_order, doc=doc)
 
 
 def alias(new_name, existing):

@@ -3,8 +3,12 @@
 The JAX package threads one process-global functional PRNG key.  Here
 each device has its own explicit ``torch.Generator``, created on first
 use and seeded from the process seed; nothing draws from torch's global
-RNG.  The two packages give different numbers from the same seed: tests
-that compare them make their inputs with numpy.
+RNG.  :func:`uniform` and :func:`normal` are the imperative samplers of
+the reference (``shape=``, ``ctx=``, ``out=``, ``mxnet_tpu/random.py:
+20-31``), through the ``_random_uniform`` / ``_random_normal`` ops.  The
+two packages give different numbers from the same seed: tests that
+compare them make their inputs with numpy, and compare only moments of
+the samplers.
 """
 from __future__ import annotations
 
@@ -38,17 +42,26 @@ def generator(device):
     return g
 
 
-def uniform(low, high, out):
-    """U(low, high) samples into the NDArray ``out``, from its device's
-    generator."""
-    t = torch.empty(out.shape, dtype=out.dtype, device=out.handle.device)
-    out._set_data(t.uniform_(low, high, generator=generator(t.device)))
-    return out
+def _sample(op, a, b, shape, ctx, out):
+    from .ndarray import imperative_invoke
+    kw = {}
+    if out is not None:
+        shape = out.shape if shape is None else shape
+        ctx = out.context if ctx is None else ctx
+        kw['dtype'] = out.dtype
+    return imperative_invoke(op, a, b, shape=tuple(shape), ctx=ctx, out=out,
+                             **kw)
 
 
-def normal(loc, scale, out):
-    """N(loc, scale^2) samples into the NDArray ``out``, from its
-    device's generator."""
-    t = torch.empty(out.shape, dtype=out.dtype, device=out.handle.device)
-    out._set_data(t.normal_(loc, scale, generator=generator(t.device)))
-    return out
+def uniform(low=0.0, high=1.0, shape=None, ctx=None, out=None):
+    """U(low, high) samples of ``shape`` on ``ctx`` (default the ``with``
+    scope's context, else ``gpu(0)``), or into ``out`` (its shape, device
+    and dtype)."""
+    return _sample('_random_uniform', low, high, shape, ctx, out)
+
+
+def normal(loc=0.0, scale=1.0, shape=None, ctx=None, out=None):
+    """N(loc, scale^2) samples of ``shape`` on ``ctx`` (default the
+    ``with`` scope's context, else ``gpu(0)``), or into ``out`` (its shape,
+    device and dtype)."""
+    return _sample('_random_normal', loc, scale, shape, ctx, out)

@@ -9,7 +9,9 @@ package loads in the other.
 
 ``infer_shape`` evaluates each op on ``meta`` tensors, where the JAX
 package uses ``jax.eval_shape`` (``mxnet_tpu/symbol.py:744``): op
-implementations and their shape functions cannot disagree.  The JAX
+implementations and their shape functions cannot disagree.  An op that
+runs user code (``Custom``) gives its output shapes through its
+``infer_outputs`` hook instead.  The JAX
 package's bidirectional partial-shape constraint pass (shapes with 0
 dims, outputs constraining inputs) is not ported; parameter and aux
 shapes are completed forward from the data shapes, which is what
@@ -210,13 +212,24 @@ class Symbol:
                 mapping[id(n)] = nn
         return Symbol([(mapping[id(n)], i) for n, i in self._outputs])
 
-    def __add__(self, other):
-        if not isinstance(other, Symbol):
-            raise TypeError('Symbol + %s is not ported (only Symbol + '
-                            'Symbol)' % type(other).__name__)
-        return _apply_op('_plus', None, [self, other], {})
+    # -- arithmetic sugar (reference symbol.py __add__ etc.) ---------------
+    def _binop(self, other, op_name, scalar_op):
+        if isinstance(other, Symbol):
+            return _apply_op(op_name, None, [self, other], {})
+        return _apply_op(scalar_op, None, [self], {'scalar': float(other)})
 
-    __radd__ = __add__
+    def __add__(self, o): return self._binop(o, '_plus', '_plus_scalar')
+    def __radd__(self, o): return self.__add__(o)
+    def __sub__(self, o): return self._binop(o, '_minus', '_minus_scalar')
+    def __rsub__(self, o): return _apply_op('_rminus_scalar', None, [self],
+                                            {'scalar': float(o)})
+    def __mul__(self, o): return self._binop(o, '_mul', '_mul_scalar')
+    def __rmul__(self, o): return self.__mul__(o)
+    def __truediv__(self, o): return self._binop(o, '_div', '_div_scalar')
+    def __rtruediv__(self, o): return _apply_op('_rdiv_scalar', None, [self],
+                                                {'scalar': float(o)})
+    def __pow__(self, o): return self._binop(o, '_power', '_power_scalar')
+    def __neg__(self): return self.__mul__(-1.0)
 
     # -- shape inference ---------------------------------------------------
     def infer_shape(self, *args, **kwargs):
@@ -373,8 +386,14 @@ def _infer(sym: Symbol, known_shapes: Dict[str, tuple]):
             if any(t is None for t in ins):
                 continue
             try:
-                with torch.no_grad():
-                    outs, _ = op.apply(attrs, ins, False, None)
+                if op.infer_outputs is not None:
+                    # user code (Custom) never runs on meta tensors
+                    outs = [_meta(shp, dt) for shp, dt in op.infer_outputs(
+                        attrs, [tuple(t.shape) for t in ins],
+                        [t.dtype for t in ins])]
+                else:
+                    with torch.no_grad():
+                        outs, _ = op.apply(attrs, ins, False, None)
             except Exception as e:
                 raise MXNetError('InferShape failed at node %s (%s): %s'
                                  % (n.name, n.op, e)) from e

@@ -365,3 +365,43 @@ def test_bad_knobs_raise(monkeypatch):
     monkeypatch.setenv('MXTPU_FUSE_SKIP', 'no_such_pass')
     with pytest.raises(ValueError):
         tfuse.apply_fuse_passes(_fc_relu(tmx), False)
+
+
+def _const_net(pkg):
+    """A constant subgraph (``_ones * 2 + _arange``) feeding a
+    FullyConnected through a residual add."""
+    sym = pkg.sym
+    with pkg.base.NameManager():
+        const = sym._ones(shape=(3, 4)) * 2.0 + \
+            sym._arange(start=0, stop=4, name='ramp')
+        return sym.FullyConnected(sym.Variable('data') + const,
+                                  num_hidden=5, name='fc')
+
+
+def test_fold_constants_matches_jax():
+    """The _ones/_arange subgraph folds into one _graph_constant in both
+    packages: the same rewrite count, graph, constant value and forward
+    output as the unfolded graph."""
+    tout, tn = tfuse.fold_constants(_const_net(tmx))
+    jout, jn = jfuse.fold_constants(_const_net(mx))
+    assert tn == jn == 1
+    assert _names(tout) == _names(jout)
+    tconst, jconst = [[n.attrs for n in s.topo_nodes()
+                       if n.op == '_graph_constant'] for s in (tout, jout)]
+    assert len(tconst) == 1
+    assert tconst[0]['dtype'] == jconst[0]['dtype'] == 'float32'
+    assert tuple(tconst[0]['shape']) == tuple(jconst[0]['shape']) == (3, 4)
+    np.testing.assert_array_equal(np.array(tconst[0]['value']),
+                                  np.array(jconst[0]['value']))
+    r = np.random.RandomState(9)
+    args = {'data': r.randn(3, 4).astype(np.float32),
+            'fc_weight': r.randn(5, 4).astype(np.float32),
+            'fc_bias': r.randn(5).astype(np.float32)}
+    got = _forward(tmx, tmx.sym.load_json(tout.tojson()), args)
+    np.testing.assert_array_equal(got, _forward(tmx, _const_net(tmx), args))
+    np.testing.assert_allclose(got, _forward(mx, jout, args), rtol=1e-5,
+                               atol=1e-6)
+    # the pipeline runs it first: the safe pipeline folds the same
+    tfuse.apply_fuse_passes(_const_net(tmx), False, 'safe')
+    assert tfuse.last_run_stats()['passes']['constant_fold'][
+        'rewrites'] == 1

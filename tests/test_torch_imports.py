@@ -31,7 +31,8 @@ def test_import_leaves_jax_out():
             'mxnet_tpu_torch.models.resnet, mxnet_tpu_torch.module, '
             'mxnet_tpu_torch.parallel.train_step, '
             'mxnet_tpu_torch.ops.fused_conv, mxnet_tpu_torch.ops.attention, '
-            'mxnet_tpu_torch.models.transformer_lm; '
+            'mxnet_tpu_torch.models.transformer_lm, '
+            'mxnet_tpu_torch.operator, mxnet_tpu_torch.rtc; '
             'bad = sorted(m for m in sys.modules if m == "jax" or '
             'm.startswith("jax.") or m == "mxnet_tpu" or '
             'm.startswith("mxnet_tpu.")); print(bad); '
@@ -68,3 +69,15 @@ def test_gpu_entry_points_raise_without_cuda(monkeypatch):
         tmx.Module(sym)
     with pytest.raises(tmx.MXNetError, match='CUDA'):
         tmx.mod.Module(sym, context=tmx.gpu(0))
+    # outside a with scope, creation from no input array runs on the card
+    for make in (lambda: tmx.nd.ones((2,)), lambda: tmx.nd.full((2,), 1.0),
+                 lambda: tmx.nd.empty((2,)), lambda: tmx.nd.arange(3),
+                 lambda: tmx.nd._ones(shape=(2,)),
+                 lambda: tmx.random.uniform(shape=(2,))):
+        with pytest.raises(tmx.MXNetError, match='CUDA'):
+            make()
+    # a CUDA-source Rtc has no CPU form: on CPU arrays it raises
+    x = tmx.nd.zeros((4,))
+    k = tmx.rtc.Rtc('copy', [('x', x)], [('y', x)], 'y[0] = x[0];')
+    with pytest.raises(tmx.MXNetError, match='CUDA'):
+        k.push([x], [tmx.nd.zeros((4,))])

@@ -4,9 +4,12 @@ port (mxnet_tpu_torch).
 
     python3 tools/torch_profile_training.py [--model resnet] [--rows 32]
     python3 tools/torch_profile_training.py --model transformer_lm [--rows 16]
+    python3 tools/torch_profile_training.py --model resnet_custom_head
 
 ``resnet``: full-width ResNet-50 v2 (1000 classes, 3x224x224) trained
 with Module.fit (bf16 compute, SGD lr 0.05 momentum 0.9 wd 1e-4).
+``resnet_custom_head``: the same in float32 (TF32 off) with chip_smoke.py's
+Custom ``softmax_rtc`` loss head, whose operator pushes two Rtc kernels.
 ``transformer_lm``: the JAX package's transformer-LM bench leg
 (bench.py:958-994: V=32000, E=512, 8 heads, 6 layers, T=512) through
 parallel.make_train_step (bf16 compute, SGD lr 0.01 momentum 0.9,
@@ -33,20 +36,28 @@ LM = dict(vocab_size=32000, num_embed=512, num_heads=8, num_layers=6,
           seq_len=512)
 
 
-def resnet_step(mx, torch, rows, seed):
-    """A 32-row ResNet-50 v2 Module, fitted for two warm-up steps; returns
-    the fit step to profile."""
+def resnet_step(mx, torch, rows, seed, custom_head=False):
+    """A 32-row ResNet-50 v2 Module (bf16, or float32 with the Custom
+    Rtc head), fitted for two warm-up steps; returns the fit step to
+    profile."""
     from mxnet_tpu_torch import convert
     from mxnet_tpu_torch.models import resnet
     shape = (rows, 3, 224, 224)
-    symbol = resnet.get_symbol(num_classes=1000, num_layers=50)
+    if custom_head:
+        import chip_smoke
+        chip_smoke.register_user_ops(mx)
+        symbol = chip_smoke.custom_symbol(mx, resnet)
+        torch.backends.cudnn.allow_tf32 = False
+    else:
+        symbol = resnet.get_symbol(num_classes=1000, num_layers=50)
     arg, aux = convert.random_params(symbol, {'data': shape}, seed)
     rng = np.random.default_rng(seed + 1)
     images = rng.standard_normal((2 * rows,) + shape[1:], dtype=np.float32)
     labels = rng.integers(0, 1000, 2 * rows).astype(np.float32)
     it = mx.io.NDArrayIter(images, labels, batch_size=rows)
     mod = mx.mod.Module(symbol, context=mx.gpu(0),
-                        compute_dtype=torch.bfloat16)
+                        compute_dtype=None if custom_head else
+                        torch.bfloat16)
     mod.fit(it, num_epoch=1, optimizer='sgd',
             optimizer_params={'learning_rate': 0.05, 'momentum': 0.9,
                               'wd': 1e-4},
@@ -90,7 +101,8 @@ def lm_step(mx, torch, rows, seed):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    ap.add_argument('--model', choices=('resnet', 'transformer_lm'),
+    ap.add_argument('--model', choices=('resnet', 'transformer_lm',
+                                        'resnet_custom_head'),
                     default='resnet')
     ap.add_argument('--rows', type=int, default=None,
                     help='rows per step (default 32 resnet, 16 LM)')
@@ -109,16 +121,20 @@ def main():
                           '--format=csv,noheader'], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     lm = args.model == 'transformer_lm'
+    custom = args.model == 'resnet_custom_head'
     rows = args.rows or (16 if lm else 32)
-    run = (lm_step if lm else resnet_step)(mx, torch, rows, args.seed)
+    run = lm_step(mx, torch, rows, args.seed) if lm else resnet_step(
+        mx, torch, rows, args.seed, custom)
     torch.cuda.synchronize()
     counters = (fused.fused_bn_relu, fused.fused_scale_bias_dot,
                 fused_conv.fused_scale_bias_conv3x3,
-                fused.fused_dot_epilogue, attention.flash_attention)
+                fused.fused_dot_epilogue, attention.flash_attention,
+                mx.rtc.Rtc)
     before = [k.launches for k in counters]
     out = profile_window(torch, run, args.steps, unit='step')
     out.update(card=smi, model=args.model, rows=rows,
-               compute_dtype='bfloat16', fuse='aggressive',
+               compute_dtype='float32' if custom else 'bfloat16',
+               fuse='aggressive',
                port_kernel_launches_per_step={
                    k.__name__: (k.launches - b) / args.steps
                    for k, b in zip(counters, before) if k.launches > b})
