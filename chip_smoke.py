@@ -21,7 +21,19 @@ Phases, each printing one JSON line; any failure exits nonzero:
                   bf16, |got - plain| <= rtol * (|A| . |W|) elementwise,
                   the product of the magnitudes (so the bound grows with
                   K), rtol 1e-4 (f32) and 2e-2 (bf16); plus a ragged
-                  off-path dot and an odd-H stride-2 conv.
+                  off-path dot and an odd-H stride-2 conv.  The GEMM
+                  kernels' bf16 path shapes must take the sm90 route
+                  (TMA + wgmma, csrc/hopper_gemm.cuh; f32 the simt one);
+                  each such case is also run on the wmma route (the first
+                  design), checked by the same rule and timed in turns
+                  with the sm90 launch (wmma_ms), and each route's launch
+                  is timed on the host.  fused_scale_bias_dot takes w as
+                  the transposed view of the (N, K) 1x1 weight, as the
+                  path does; off the path on sm90: K = 72 with a positive
+                  bias and NaN past K in scale and bias (padding zeroed
+                  after the prologue), M = 1001, the N = 72 tile at
+                  BN = 64, a NaN row of x (exactly that output row NaN),
+                  and w contiguous against the view (the same bits).
 3b. lm-kernels  — the same for the transformer LM's kernels, at the shapes
                   of its aggressive training graph at 16 x 512 tokens, bf16
                   and f32: flash_attention ([128, 512, 64] causal; O
@@ -32,7 +44,9 @@ Phases, each printing one JSON line; any failure exits nonzero:
                   above, |A|.|W| + |bias|; library_ms is torch.addmm),
                   plus off-path cases: ragged causal attention with
                   tq < tk, non-causal, D = 128; a ragged dot with bias,
-                  relu and clip, and one with no bias.
+                  relu and clip (wmma route), one with no bias (sm90, the
+                  N = 72 tile at BN = 64); on sm90 M = 1001, no bias with
+                  a clip, and a NaN row through bias, relu and clip.
 3c. rtc-kernels — kernel #6: mx.rtc.Rtc's CUDA-source form, NVRTC-compiled
                   for sm_90a and launched through the CUDA driver API
                   (csrc/rtc.cu), on card tensors, each case against its
@@ -62,9 +76,10 @@ Phases, each printing one JSON line; any failure exits nonzero:
                   over an NDArrayIter of 10 batches of 32 random images and
                   labels, SGD lr 0.05 momentum 0.9 wd 1e-4,
                   MXTPU_FUSE=aggressive.  Counts zeroed just before fit and
-                  read just after: per step 36 fused_scale_bias_dot, 16
-                  fused_scale_bias_conv3x3 and as many fused_bn_relu as the
-                  training graph has _bn_relu nodes.  Loss and parameters
+                  read just after: per step 36 fused_scale_bias_dot (all
+                  on the sm90 route), 16 fused_scale_bias_conv3x3 and as
+                  many fused_bn_relu as the training graph has _bn_relu
+                  nodes.  Loss and parameters
                   finite, parameters moved; step ms (median after 2
                   warm-up steps), images/s, peak device memory.
 7. train-parity — one fused step of the full-width model at 2 rows,
@@ -79,7 +94,8 @@ Phases, each printing one JSON line; any failure exits nonzero:
                   SGD lr 0.01 momentum 0.9, MXTPU_FUSE=aggressive, N(0,
                   0.02²) weights from numpy RandomState(0), 10 steps.
                   Counts zeroed just before and read just after: 6
-                  flash_attention and 6 fused_dot_epilogue per step.
+                  flash_attention and 6 fused_dot_epilogue (all on the
+                  sm90 route) per step.
                   Output and parameters finite, parameters moved;
                   cross-entropy of the first and last step (ln 32000 =
                   10.37), step ms (median after 2 warm-up steps),
@@ -100,14 +116,17 @@ Phases, each printing one JSON line; any failure exits nonzero:
                   file) whose operator pushes two Rtc kernels on the card.
                   Counts zeroed just before fit and read just after: 2 Rtc
                   launches per step and the training graph's counts of the
-                  other kernels.  Loss and parameters finite, parameters
-                  moved; step ms, images/s, peak device memory.
+                  other kernels (fused_scale_bias_dot on the simt
+                  route).  Loss and parameters finite, parameters moved;
+                  step ms, images/s, peak device memory.
 12. custom-parity — one f32 step of that model at 2 rows on the card (Rtc
                   head) and on the CPU (nd.* head, the same Custom op's
                   CPU operator), under train-parity's bound.
 
-Then the card's nvidia-smi line, the kernels summary line, and the
-result line {"ok": true, "device": {...}}.  Without a CUDA device, or
+Then the card's nvidia-smi line, the kernels summary line (the two GEMM
+kernels' entries also carry path_route, launches_by_route, wmma_ms,
+host_us and launch_host_us), and the result line {"ok": true,
+"device": {...}}.  Without a CUDA device, or
 without the mxnet_tpu_torch package beside it, the script exits nonzero
 and prints no result.
 """
@@ -126,6 +145,8 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 FP32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
 BF16_FLOPS = 989e12             # H100 SXM dense bf16 on the tensor cores
 GEMM_RTOL = {'float32': 1e-4, 'bfloat16': 2e-2}
+# the route each GEMM kernel must take at the training paths' shapes
+PATH_ROUTE = {'bfloat16': 'sm90', 'float32': 'simt'}
 # flash_attention: bf16 rounds P for the PV product and O on each side (3 *
 # 2^-8 of P.|V|, ops/attention.py); f32 differs in summation order only
 ATT_RTOL = {'float32': 1e-4, 'bfloat16': 2e-2}
@@ -148,6 +169,13 @@ SEED = 0
 
 def log(obj):
     print(json.dumps(obj), flush=True)
+
+
+def reset_launches(kernel):
+    """Zero a wrapper's launch count (and its counts by route)."""
+    kernel.launches = 0
+    if hasattr(kernel, 'launches_by_route'):
+        kernel.launches_by_route = dict.fromkeys(kernel.launches_by_route, 0)
 
 
 def nvidia_smi():
@@ -173,26 +201,34 @@ def bn_relu_shapes(mx, symbol, batch):
     return shapes
 
 
-def cuda_ms(torch, fn, flush, reps=50, warmup=10):
-    """Median device time of ``fn`` (ms) from CUDA events.  Before each
-    run a read of ``flush`` (larger than the 50 MB L2) evicts ``fn``'s
-    inputs; a read leaves no dirty lines whose write-back would land in
-    the timed run.  A spin kernel first holds the stream while the host
-    enqueues every run, so the events bracket device work only and not
-    the host's Python/launch overhead (see :func:`host_us`)."""
+def cuda_ms_each(torch, fns, flush, reps=50, warmup=10):
+    """Median device time (ms) of each of ``fns`` from CUDA events, the
+    functions launched in turns, run after run, so that all see the same
+    card state.  Before each run a read of ``flush`` (larger than the 50 MB
+    L2) evicts the inputs; a read leaves no dirty lines whose write-back
+    would land in the timed run.  A spin kernel first holds the stream
+    while the host enqueues every run, so the events bracket device work
+    only and not the host's Python/launch overhead (see :func:`host_us`)."""
     torch.cuda.synchronize()
     torch.cuda._sleep(200_000_000)
-    pairs = []
+    pairs = [[] for _ in fns]
     for _ in range(warmup + reps):
-        flush.sum()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        pairs.append((start, end))
+        for fn, runs in zip(fns, pairs):
+            flush.sum()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            runs.append((start, end))
     torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in pairs[warmup:])
+    return [statistics.median(s.elapsed_time(e) for s, e in runs[warmup:])
+            for runs in pairs]
+
+
+def cuda_ms(torch, fn, flush, reps=50, warmup=10):
+    """Median device time (ms) of ``fn`` (:func:`cuda_ms_each`)."""
+    return cuda_ms_each(torch, (fn,), flush, reps, warmup)[0]
 
 
 def host_us(torch, fn, reps=200):
@@ -286,62 +322,163 @@ def train_kernel_shapes(mx, symbol, batch):
     return dots, convs, bn_relus
 
 
-def _gemm_case(torch, name, dtype, got, want, magnitude, timed, nbytes,
-               flops, flush):
-    """Check ``got`` against ``want`` elementwise within rtol * magnitude
-    (|A| . |W|, the bound a K-term sum's rounding scales with), then time
-    the kernel, the plain version and the library call."""
-    dt = str(dtype).replace('torch.', '')
-    torch.cuda.synchronize()
-    if got.dtype != dtype or got.shape != want.shape:
+def routed_call(kernel, fn):
+    """``fn()`` and the route of the one launch of ``kernel`` it made,
+    read from the wrapper's ``launches_by_route``."""
+    before = dict(kernel.launches_by_route)
+    out = fn()
+    moved = [r for r, n in kernel.launches_by_route.items()
+             if n != before[r]]
+    if len(moved) != 1 or kernel.launches_by_route[moved[0]] != \
+            before[moved[0]] + 1:
+        raise AssertionError('expected one launch on one route, got %s'
+                             % {r: kernel.launches_by_route[r] - before[r]
+                                for r in before})
+    return out, moved[0]
+
+
+def _gemm_err(torch, name, dt, got, want, magnitude, nan_row):
+    """max |got - want| / magnitude elementwise, after checking dtype and
+    shape, and that only ``nan_row`` (if any) holds NaN, in every
+    element; that row is left out of the comparison."""
+    if str(got.dtype).replace('torch.', '') != dt or \
+            got.shape != want.shape:
         raise AssertionError('%s %s: got %s %s, want %s' % (
             name, dt, got.dtype, tuple(got.shape), tuple(want.shape)))
-    err = (got.float() - want.float()).abs()
+    if nan_row is not None:
+        nan = torch.isnan(got.float())
+        rows = [int(r) for r in torch.nonzero(nan.any(1)).flatten()]
+        if rows != [nan_row] or not bool(nan[nan_row].all()):
+            raise AssertionError('%s %s: a NaN in row %d of x reached '
+                                 'output rows %s (all of its row: %s)'
+                                 % (name, dt, nan_row, rows[:8],
+                                    bool(nan[nan_row].all())))
+        keep = torch.ones(got.shape[0], dtype=torch.bool, device=got.device)
+        keep[nan_row] = False
+        got, want, magnitude = got[keep], want[keep], magnitude[keep]
     if not bool(torch.isfinite(got.float()).all()):
         raise AssertionError('%s %s: non-finite output' % (name, dt))
+    err = (got.float() - want.float()).abs()
     ratio = float((err / magnitude.clamp_min(1e-30)).max())
     if ratio > GEMM_RTOL[dt]:
         raise AssertionError('%s %s disagrees with its plain version: '
                              'max |err| / (|A|.|W|) = %g > %g (max abs err '
                              '%g)' % (name, dt, ratio, GEMM_RTOL[dt],
                                       float(err.max())))
+    return float(err.max()), ratio
+
+
+def _gemm_case(torch, name, dtype, got, want, magnitude, timed, nbytes,
+               flops, flush, route=None, launches=None, nan_row=None):
+    """Check ``got`` against ``want`` elementwise within rtol * magnitude
+    (|A| . |W|, the bound a K-term sum's rounding scales with), then time
+    the kernel, the plain version and the library call.  ``route``: the
+    route ``got`` took; ``launches``: route -> the same call forced onto
+    that route (the taken one, and for a bf16 call on sm90 also 'wmma'),
+    each checked by the same rule and timed for its host cost; the wmma
+    route's device time (wmma_ms) is taken in turns with the kernel's."""
+    dt = str(dtype).replace('torch.', '')
+    torch.cuda.synchronize()
+    max_err, ratio = _gemm_err(torch, name, dt, got, want, magnitude,
+                               nan_row)
+    launches = launches or {}
+    route_errs = {}
+    for r, fn in launches.items():
+        out = fn()
+        torch.cuda.synchronize()
+        route_errs[r] = _gemm_err(torch, '%s (%s route)' % (name, r), dt,
+                                  out, want, magnitude, nan_row)[1]
     kernel, plain, library = timed
     peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     op_ms = flops / peak * 1e3
-    return {'dtype': dt, 'max_abs_err': float(err.max()),
+    wmma = launches.get('wmma') if route == 'sm90' else None
+    if wmma is not None:
+        ms, wmma_ms = cuda_ms_each(torch, (kernel, wmma), flush)
+    else:
+        ms, wmma_ms = cuda_ms(torch, kernel, flush), None
+    case = {'dtype': dt, 'max_abs_err': max_err,
             'max_err_over_magnitude': ratio,
             'tolerance': '%g * (|A|.|W|)' % GEMM_RTOL[dt],
-            'ms': cuda_ms(torch, kernel, flush),
-            'plain_ms': cuda_ms(torch, plain, flush),
+            'ms': ms, 'plain_ms': cuda_ms(torch, plain, flush),
             'library_ms': cuda_ms(torch, library, flush),
             'host_us': host_us(torch, kernel),
             'bound_ms': max(byte_ms, op_ms),
             'bound_by': 'bytes' if byte_ms >= op_ms else 'operations',
             'bytes': nbytes, 'flops': flops}
+    if route is not None:
+        case.update(route=route, wmma_ms=wmma_ms,
+                    route_err_over_magnitude=route_errs,
+                    launch_host_us={r: host_us(torch, fn)
+                                    for r, fn in launches.items()})
+    if nan_row is not None:
+        case['nan_row'] = nan_row
+    return case
 
 
-def check_dot(torch, fused, mkn, dtype, gen, flush):
-    """One fused_scale_bias_dot case (relu on, as on the path)."""
+def check_dot(torch, fused, mkn, dtype, gen, flush, positive_bias=False,
+              nan_row=None):
+    """One fused_scale_bias_dot case (relu on, as on the path), w passed
+    as the transposed view of an (N, K) 1x1 weight, as the fuse pass
+    passes it.  ``positive_bias``: bias > 0, and scale and bias are views
+    of buffers whose elements past K are NaN, so that a padded channel
+    not zeroed after the prologue (relu(bias) > 0 against TMA's zeros) or
+    a scale or bias read past K shows in Y.  ``nan_row``: x holds a NaN
+    in that row, which must reach exactly that output row."""
     dev = torch.device('cuda', 0)
     m, k, n = mkn
     x = torch.randn(m, k, generator=gen, device=dev).to(dtype)
-    w = (torch.randn(k, n, generator=gen, device=dev) / k ** 0.5).to(dtype)
+    if nan_row is not None:
+        x[nan_row, k // 3] = float('nan')
+    w = (torch.randn(n, k, generator=gen, device=dev) / k ** 0.5) \
+        .to(dtype).t()
     s = torch.rand(k, generator=gen, device=dev) + 0.5
     b = torch.randn(k, generator=gen, device=dev) * 0.5
-    got = fused.fused_scale_bias_dot(x, w, s, b, relu=True)
+    if positive_bias:
+        buf = torch.full((2, k + 64), float('nan'), device=dev)
+        buf[0, :k], buf[1, :k] = s, b.abs() + 0.1
+        s, b = buf[0, :k], buf[1, :k]
+    kernel = fused.fused_scale_bias_dot
+    got, route = routed_call(kernel, lambda: kernel(x, w, s, b, relu=True))
     want = fused.fused_scale_bias_dot_plain(x, w, s, b, relu=True)
     xa = torch.relu(x.float() * s + b).to(dtype)   # the normalized input
     magnitude = torch.matmul(xa.float().abs(), w.float().abs())
+    launches = {r: (lambda r=r: fused._dot_launch(x, w, s, b, True, r))
+                for r in ((route, 'wmma') if route == 'sm90' else (route,))}
     case = _gemm_case(
         torch, 'fused_scale_bias_dot', dtype, got, want, magnitude,
-        (lambda: fused.fused_scale_bias_dot(x, w, s, b, relu=True),
+        (lambda: kernel(x, w, s, b, relu=True),
          lambda: fused.fused_scale_bias_dot_plain(x, w, s, b, relu=True),
          lambda: torch.matmul(xa, w)),
         (m * k + k * n + m * n) * x.element_size() + 2 * k * 4,
-        2 * m * n * k, flush)
+        2 * m * n * k, flush, route, launches, nan_row)
     case['mkn'] = list(mkn)
+    if positive_bias:
+        case['positive_bias_nan_tail'] = True
     return case
+
+
+def check_dot_layouts(torch, fused, mkn, gen):
+    """fused_scale_bias_dot with w as the transposed view of an (N, K)
+    weight (the path) and as a contiguous (K, N) copy of it: the same
+    route and the same bits."""
+    dev = torch.device('cuda', 0)
+    m, k, n = mkn
+    x = torch.randn(m, k, generator=gen, device=dev).bfloat16()
+    w = (torch.randn(n, k, generator=gen, device=dev) / k ** 0.5) \
+        .bfloat16().t()
+    s = torch.rand(k, generator=gen, device=dev) + 0.5
+    b = torch.randn(k, generator=gen, device=dev) * 0.5
+    kernel = fused.fused_scale_bias_dot
+    view, route = routed_call(kernel, lambda: kernel(x, w, s, b, relu=True))
+    copy, route_c = routed_call(
+        kernel, lambda: kernel(x, w.contiguous(), s, b, relu=True))
+    torch.cuda.synchronize()
+    if (route, route_c) != ('sm90', 'sm90') or not torch.equal(view, copy):
+        raise AssertionError('fused_scale_bias_dot %s: the transposed view '
+                             '(%s) and the contiguous w (%s) disagree'
+                             % (mkn, route, route_c))
+    return {'mkn': list(mkn), 'route': route, 'bit_equal': True}
 
 
 def check_conv(torch, fused_conv, shape, dtype, gen, flush):
@@ -486,31 +623,39 @@ def check_flash(torch, attention, bh, tq, tk, d, causal, scale, dtype, gen,
 
 
 def check_epilogue(torch, fused, mkn, has_bias, relu, clip, dtype, gen,
-                   flush):
+                   flush, nan_row=None):
     """One fused_dot_epilogue case, W given as the transposed view of an
-    (N, K) FullyConnected weight, as the fuse pass passes it."""
+    (N, K) FullyConnected weight, as the fuse pass passes it.
+    ``nan_row``: x holds a NaN in that row, which must reach exactly that
+    output row (through the bias add, relu and clip)."""
     dev = torch.device('cuda', 0)
     m, k, n = mkn
     x = torch.randn(m, k, generator=gen, device=dev).to(dtype)
+    if nan_row is not None:
+        x[nan_row, k // 3] = float('nan')
     w = (torch.randn(n, k, generator=gen, device=dev) / k ** 0.5) \
         .to(dtype).t()
     b = (torch.randn(n, generator=gen, device=dev) * 0.5).to(dtype) \
         if has_bias else None
-    got = fused.fused_dot_epilogue(x, w, b, relu=relu, clip=clip)
+    kernel = fused.fused_dot_epilogue
+    got, route = routed_call(
+        kernel, lambda: kernel(x, w, b, relu=relu, clip=clip))
     want = fused.fused_dot_epilogue_plain(x, w, b, relu=relu, clip=clip)
     magnitude = torch.matmul(x.float().abs(), w.float().abs())
     if b is not None:
         magnitude = magnitude + b.float().abs()
+    launches = {r: (lambda r=r: fused._epi_launch(x, w, b, relu, clip, r))
+                for r in ((route, 'wmma') if route == 'sm90' else (route,))}
     case = _gemm_case(
         torch, 'fused_dot_epilogue', dtype, got, want, magnitude,
-        (lambda: fused.fused_dot_epilogue(x, w, b, relu=relu, clip=clip),
+        (lambda: kernel(x, w, b, relu=relu, clip=clip),
          lambda: fused.fused_dot_epilogue_plain(x, w, b, relu=relu,
                                                 clip=clip),
          (lambda: torch.addmm(b, x, w)) if b is not None
          else (lambda: torch.matmul(x, w))),
         (m * k + k * n + m * n) * x.element_size() + (4 * n if has_bias
                                                       else 0),
-        2 * m * n * k, flush)
+        2 * m * n * k, flush, route, launches, nan_row)
     case.update(mkn=list(mkn), bias=has_bias, relu=relu,
                 clip=list(clip) if clip else None)
     return case
@@ -552,8 +697,14 @@ def lm_kernels(mx, torch, attention, fused, models, gen, flush):
             case = check_epilogue(torch, fused, (m, k, n), bias, relu,
                                   (0.0, 6.0) if clip else None, dtype, gen,
                                   flush)
+            if case['route'] != PATH_ROUTE[case['dtype']]:
+                raise AssertionError('fused_dot_epilogue %s %s took the %s '
+                                     'route' % ((m, k, n), case['dtype'],
+                                                case['route']))
             case['launches_per_step'] = per_step
             dot_cases.append(case)
+        # (1001, 37, 130): K and N off the multiples of 8, the wmma route
+        # in bf16; (256, 96, 72): the sm90 route's ragged N tile at BN 64
         for mkn, bias, relu, clip in (((1001, 37, 130), True, True,
                                        (-0.5, 0.7)),
                                       ((256, 96, 72), False, False, None)):
@@ -561,6 +712,19 @@ def lm_kernels(mx, torch, attention, fused, models, gen, flush):
                                   gen, flush)
             case['launches_per_step'] = 0
             dot_cases.append(case)
+    # the sm90 route off the path: ragged M, no bias with a clip, a NaN
+    # row through bias, relu and clip
+    for mkn, bias, relu, clip, nan_row in (
+            ((1001, 512, 2048), True, True, None, None),
+            ((512, 128, 256), False, False, (-0.5, 0.7), None),
+            ((1001, 512, 2048), True, True, (0.0, 6.0), 500)):
+        case = check_epilogue(torch, fused, mkn, bias, relu, clip,
+                              torch.bfloat16, gen, flush, nan_row)
+        if case['route'] != 'sm90':
+            raise AssertionError('fused_dot_epilogue %s took the %s route'
+                                 % (mkn, case['route']))
+        case['launches_per_step'] = 0
+        dot_cases.append(case)
     return att_cases, dot_cases
 
 
@@ -615,6 +779,24 @@ def gemm_summary(name, source, replaces, cases, launches_by_path,
             'f32_ms': _sum_cases([c for c in cases if c['launches_per_step']
                                   and c['dtype'] == 'float32'], 'ms'),
             'cases': cases}
+
+
+def route_summary(cases, launches_by_route):
+    """The route entries of a GEMM kernel's summary: the route its bf16
+    path cases took, the wmma route's device time at the same shapes
+    (summed over one step's launches, like ms), host us per call (the
+    public wrapper, and each route's launch alone) averaged over the
+    step's launches, and the main path's launches by route."""
+    on_path = [c for c in cases if c['launches_per_step']
+               and c['dtype'] == 'bfloat16']
+    calls = sum(c['launches_per_step'] for c in on_path)
+    return {'path_route': ','.join(sorted({c['route'] for c in on_path})),
+            'launches_by_route': launches_by_route,
+            'wmma_ms': _sum_cases(on_path, 'wmma_ms'),
+            'host_us': _sum_cases(on_path, 'host_us') / calls,
+            'launch_host_us': {
+                r: sum(c['launch_host_us'][r] * c['launches_per_step']
+                       for c in on_path) / calls for r in ('sm90', 'wmma')}}
 
 
 def param_parity(card, host):
@@ -1355,6 +1537,10 @@ def main():
     for dtype in (torch.bfloat16, torch.float32):
         for mkn, per_step in sorted(dots.items()):
             case = check_dot(torch, fused, mkn, dtype, gen, flush)
+            if case['route'] != PATH_ROUTE[case['dtype']]:
+                raise AssertionError('fused_scale_bias_dot %s %s took the '
+                                     '%s route' % (mkn, case['dtype'],
+                                                   case['route']))
             case['launches_per_step'] = per_step
             dot_cases.append(case)
         for shape, per_step in sorted(convs.items()):
@@ -1370,9 +1556,23 @@ def main():
                           gen, flush)
         case['launches_per_step'] = 0
         conv_cases.append(case)
+    # the sm90 route off the path: K = 72 (a second, padded K step) with a
+    # positive bias and NaN past K in scale and bias, ragged M; the ragged
+    # N tile at BN 64; a NaN row
+    for mkn, kw in (((1001, 72, 256), {'positive_bias': True}),
+                    ((256, 96, 72), {}),
+                    ((1001, 64, 256), {'nan_row': 500})):
+        case = check_dot(torch, fused, mkn, torch.bfloat16, gen, flush, **kw)
+        if case['route'] != 'sm90':
+            raise AssertionError('fused_scale_bias_dot %s took the %s route'
+                                 % (mkn, case['route']))
+        case['launches_per_step'] = 0
+        dot_cases.append(case)
+    dot_layouts = check_dot_layouts(torch, fused, (25088, 128, 512), gen)
     torch.backends.cudnn.allow_tf32 = True
     log({'phase': 'kernels', 'cases': cases, 'dot_cases': dot_cases,
-         'conv_cases': conv_cases, 'tf32': False})
+         'dot_w_layouts': dot_layouts, 'conv_cases': conv_cases,
+         'tf32': False})
     att_cases, epi_cases = lm_kernels(mx, torch, attention, fused, models,
                                       gen, flush)
     log({'phase': 'lm-kernels', 'flash_attention_cases': att_cases,
@@ -1408,7 +1608,7 @@ def main():
         torch.cuda.synchronize()
         warm_s = time.monotonic() - t0
         instrument.reset_metrics()
-        fused.fused_bn_relu.launches = 0
+        reset_launches(fused.fused_bn_relu)
         fwd0 = instrument.counter_value('executor.forwards')
         results, wall = serve(server, data, rng)
         torch.cuda.synchronize()
@@ -1474,7 +1674,7 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     for k in (fused.fused_bn_relu, fused.fused_scale_bias_dot,
               fused_conv.fused_scale_bias_conv3x3):
-        k.launches = 0
+        reset_launches(k)
     t0 = time.monotonic()
     mod, step_s = train_module(mx, torch, symbol, arg, aux, images, labels,
                                mx.gpu(0), torch.bfloat16, BATCH)
@@ -1495,6 +1695,12 @@ def main():
                                  '(expected %d each)'
                                  % (name, train_launches[name], steps,
                                     per_step))
+    train_routes = dict(fused.fused_scale_bias_dot.launches_by_route)
+    if train_routes['sm90'] != 36 * steps:
+        raise AssertionError('fused_scale_bias_dot took the sm90 route %d '
+                             'times of %d in %d steps: %s'
+                             % (train_routes['sm90'], 36 * steps, steps,
+                                train_routes))
     metric = dict(mod._fused_metric.get_name_value())
     trained, trained_aux = mod.get_params()
     moved = 0.0
@@ -1515,6 +1721,7 @@ def main():
          'compute_dtype': 'bfloat16', 'fuse': 'aggressive',
          'optimizer': 'sgd lr 0.05 momentum 0.9 wd 1e-4',
          'launches': train_launches, 'launches_per_step': expected,
+         'fused_scale_bias_dot_launches_by_route': train_routes,
          'fit_s': fit_s, 'step_ms': [t * 1e3 for t in step_s],
          'step_ms_median_after_warmup': step_ms,
          'images_per_s': BATCH / step_ms * 1e3,
@@ -1565,8 +1772,8 @@ def main():
     step = lm_step(ts, lm_sym, LM_BATCH, torch.bfloat16)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    attention.flash_attention.launches = 0
-    fused.fused_dot_epilogue.launches = 0
+    reset_launches(attention.flash_attention)
+    reset_launches(fused.fused_dot_epilogue)
     lm_step_s, ce = [], []
     t0 = time.monotonic()
     for i in range(LM_STEPS):
@@ -1584,6 +1791,12 @@ def main():
             raise AssertionError('%s launched %d times in %d LM steps '
                                  '(expected %d each)' % (
                                      name, n, LM_STEPS, LM['num_layers']))
+    lm_routes = dict(fused.fused_dot_epilogue.launches_by_route)
+    if lm_routes['sm90'] != LM['num_layers'] * LM_STEPS:
+        raise AssertionError('fused_dot_epilogue took the sm90 route %d '
+                             'times of %d in %d LM steps: %s'
+                             % (lm_routes['sm90'], LM['num_layers']
+                                * LM_STEPS, LM_STEPS, lm_routes))
     if tuple(outs[0].shape) != (LM_BATCH * seq, LM['vocab_size']) or \
             not bool(torch.isfinite(outs[0].float()).all()) or \
             not all(np.isfinite(ce)):
@@ -1605,6 +1818,7 @@ def main():
                       % (LM_BATCH * seq),
          'launches': lm_launches,
          'launches_per_step': {k: LM['num_layers'] for k in lm_launches},
+         'fused_dot_epilogue_launches_by_route': lm_routes,
          'wall_s': lm_s, 'step_ms': [t * 1e3 for t in lm_step_s],
          'step_ms_median_after_warmup': lm_ms,
          'tokens_per_s': LM_BATCH * seq / lm_ms * 1e3,
@@ -1664,7 +1878,7 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     for k in (fused.fused_bn_relu, fused.fused_scale_bias_dot,
               fused_conv.fused_scale_bias_conv3x3, mx.rtc.Rtc):
-        k.launches = 0
+        reset_launches(k)
     t0 = time.monotonic()
     mod, step_s = train_module(mx, torch, csym, arg, aux, images, labels,
                                mx.gpu(0), None, BATCH)
@@ -1684,6 +1898,11 @@ def main():
                                  'steps (expected %d each)'
                                  % (name, custom_launches[name], steps,
                                     per_step))
+    # float32 keeps the SIMT route
+    custom_routes = dict(fused.fused_scale_bias_dot.launches_by_route)
+    if custom_routes['simt'] != custom_launches['fused_scale_bias_dot']:
+        raise AssertionError('custom-train: fused_scale_bias_dot routes %s'
+                             % custom_routes)
     metric = dict(mod._fused_metric.get_name_value())
     trained = mod.get_params()[0]
     moved = 0.0
@@ -1704,6 +1923,7 @@ def main():
          'tf32_conv': torch.backends.cudnn.allow_tf32,
          'optimizer': 'sgd lr 0.05 momentum 0.9 wd 1e-4',
          'launches': custom_launches, 'launches_per_step': expected,
+         'fused_scale_bias_dot_launches_by_route': custom_routes,
          'fit_s': fit_s, 'step_ms': [t * 1e3 for t in step_s],
          'step_ms_median_after_warmup': step_ms,
          'images_per_s': BATCH / step_ms * 1e3,
@@ -1769,21 +1989,24 @@ def main():
     lm_per = 'one %d-row LM training step forward, bfloat16' % LM_BATCH
     kernels = [
         summary,
-        gemm_summary('fused_scale_bias_dot', 'mxnet_tpu_torch/csrc/'
-                     'fused_scale_bias_dot.cu',
-                     'mxnet_tpu/ops/pallas_fused.py:72', dot_cases,
-                     {'train': train_launches['fused_scale_bias_dot']},
-                     'torch.matmul on the normalized input'),
+        {**gemm_summary('fused_scale_bias_dot', 'mxnet_tpu_torch/csrc/'
+                        'fused_scale_bias_dot.cu',
+                        'mxnet_tpu/ops/pallas_fused.py:72', dot_cases,
+                        {'train': train_launches['fused_scale_bias_dot']},
+                        'torch.matmul on the normalized input'),
+         **route_summary(dot_cases, {'train': train_routes,
+                                     'custom-train': custom_routes})},
         gemm_summary('fused_scale_bias_conv3x3', 'mxnet_tpu_torch/csrc/'
                      'fused_scale_bias_conv3x3.cu',
                      'mxnet_tpu/ops/pallas_conv.py:91', conv_cases,
                      {'train': train_launches['fused_scale_bias_conv3x3']},
                      'F.conv2d on the normalized input'),
-        gemm_summary('fused_dot_epilogue', 'mxnet_tpu_torch/csrc/'
-                     'fused_dot_epilogue.cu',
-                     'mxnet_tpu/ops/pallas_fused.py:328', epi_cases,
-                     {'lm-train': lm_launches['fused_dot_epilogue']},
-                     'torch.addmm (product and bias, no relu)', lm_per),
+        {**gemm_summary('fused_dot_epilogue', 'mxnet_tpu_torch/csrc/'
+                        'fused_dot_epilogue.cu',
+                        'mxnet_tpu/ops/pallas_fused.py:328', epi_cases,
+                        {'lm-train': lm_launches['fused_dot_epilogue']},
+                        'torch.addmm (product and bias, no relu)', lm_per),
+         **route_summary(epi_cases, {'lm-train': lm_routes})},
         gemm_summary('flash_attention', 'mxnet_tpu_torch/csrc/'
                      'flash_attention.cu',
                      'mxnet_tpu/ops/pallas_attention.py:197', att_cases,

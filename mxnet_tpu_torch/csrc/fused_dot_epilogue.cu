@@ -12,22 +12,32 @@
 // then clip, then one rounding, the order of the reference's
 // `acc + b; maximum(y, 0); clip(y, lo, hi)` (NaN propagates).
 //
-// Tiling follows prologue_gemm.cuh without its prologue: bfloat16 on the
-// tensor cores through WMMA 16x16x16 fragments (f32 accumulators), a
-// 128 x 128 output tile, BK = 32, eight warps of 64 x 32, two shared
-// stages with the next K tile prefetched into registers, 16-byte loads
-// when K is a multiple of 8 and X and W are 16-byte aligned.  Both
-// operands are K-contiguous, so W's tile is staged as Bs[n][k] and read
-// as a column-major matrix_b.  float32 takes a SIMT FMA path (64 x 64
-// tile, 4 x 4 micro-tiles per thread).  Ragged M, N and K are masked.
+// Three routes, chosen by the caller (ops/fused.py gemm_route) before the
+// launch, never one because another failed:
+// - sm90 (mxtpu_fused_dot_epilogue_sm90): bfloat16 whose K and N are
+//   multiples of 8 and whose X, W and Y are 16-byte aligned, the
+//   transformer LM's path.  The warp-specialised TMA + wgmma pipeline of
+//   hopper_gemm.cuh with this file's epilogue as its hook, at the tile
+//   width, stage count and persistent grid the caller planned.
+// - wmma (mxtpu_fused_dot_epilogue, dtype 1): the other bfloat16 shapes.
+//   Tiling follows prologue_gemm.cuh without its prologue: WMMA 16x16x16
+//   fragments (f32 accumulators), a 128 x 128 output tile, BK = 32, eight
+//   warps of 64 x 32, two shared stages with the next K tile prefetched
+//   into registers, 16-byte loads when K is a multiple of 8 and X and W
+//   are 16-byte aligned.  W's tile is staged as Bs[n][k] and read as a
+//   column-major matrix_b.  Ragged M, N and K are masked.
+// - simt (dtype 0): float32, a SIMT FMA path (64 x 64 tile, 4 x 4
+//   micro-tiles per thread).
 //
 // Bound: operations at the transformer LM's shape (M = 8192, K = 512,
 // N = 2048: 17.2 GFLOP against 44 MB; 17.4 us of bf16 tensor-core time
-// against 13 us of memory time).  wgmma and TMA are for a later version.
+// against 13 us of memory time).  Only the sm90 route reaches the tensor
+// cores' rate (wgmma); the wmma route stays as the yardstick.
 //
 // Launch contract: runs on the caller's stream, does not synchronise,
-// allocates nothing; the entry point returns cudaGetLastError().
+// allocates nothing; the entry points return cudaGetLastError().
 
+#include "hopper_gemm.cuh"
 #include "prologue_gemm.cuh"
 
 namespace {
@@ -35,6 +45,20 @@ namespace {
 using mxtpu::from_f32;
 using mxtpu::load8;
 using mxtpu::Vec8;
+
+// bias add (when there is a bias), relu, clip: NaN propagates
+__device__ __forceinline__ float epilogue_value(float acc, float b,
+                                                bool has_bias, int relu,
+                                                int has_clip, float lo,
+                                                float hi) {
+  float v = has_bias ? __fadd_rn(acc, b) : acc;
+  if (relu && v < 0.0f) v = 0.0f;
+  if (has_clip) {
+    if (v < lo) v = lo;
+    if (v > hi) v = hi;
+  }
+  return v;
+}
 
 struct Epi {
   const void* x;
@@ -46,13 +70,24 @@ struct Epi {
   float lo, hi;
 
   __device__ __forceinline__ float apply(float acc, long long n) const {
-    float v = bias ? __fadd_rn(acc, bias[n]) : acc;
-    if (relu && v < 0.0f) v = 0.0f;
-    if (has_clip) {
-      if (v < lo) v = lo;
-      if (v > hi) v = hi;
-    }
-    return v;
+    return epilogue_value(acc, bias ? bias[n] : 0.0f, bias != nullptr, relu,
+                          has_clip, lo, hi);
+  }
+};
+
+// The same epilogue as the hook of hopper_gemm.cuh's sm90 mainloop.
+struct Sm90Epi {
+  const float* bias;  // nullptr: no bias
+  int N;
+  int relu, has_clip;
+  float lo, hi;
+
+  __device__ __forceinline__ float2 bias2(int n) const {
+    return (bias && n < N) ? make_float2(bias[n], bias[n + 1])
+                           : make_float2(0.0f, 0.0f);
+  }
+  __device__ __forceinline__ float operator()(float acc, float b) const {
+    return epilogue_value(acc, b, bias != nullptr, relu, has_clip, lo, hi);
   }
 };
 
@@ -259,6 +294,20 @@ extern "C" int mxtpu_fused_dot_epilogue(const void* x, const void* w,
     dot_epilogue_f32<<<grid, FTHREADS, 0, s>>>(p);
   }
   return (int)cudaGetLastError();
+}
+
+// The sm90 route: bfloat16 x (M, K), w (N, K), y (M, N); K and N
+// multiples of 8, x, w and y 16-byte aligned.  bn (64, 128, 256), stages
+// and grid (persistent blocks, at most one per SM) are the caller's plan
+// (ops/fused.py _sm90_plan).  Returns the cudaError_t of the launch.
+extern "C" int mxtpu_fused_dot_epilogue_sm90(
+    const void* x, const void* w, const float* bias, void* y, long long M,
+    long long N, long long K, int relu, int has_clip, float lo, float hi,
+    int bn, int stages, int grid, void* stream) {
+  const Sm90Epi epi{bias, (int)N, relu, has_clip, lo, hi};
+  return mxtpu::sm90::launch(x, w, mxtpu::sm90::NoPrologue{}, epi, y, M, N,
+                             K, bn, stages, grid,
+                             static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* mxtpu_cuda_error_string(int err) {

@@ -429,9 +429,11 @@ def _bn_relu_conv_apply(attrs, inputs, is_train, rng):
             x = x[:, ::stride, ::stride, :]
         oh, ow = x.shape[1], x.shape[2]
         x2d = x.contiguous().reshape(-1, c)
-        w2d = weight.reshape(weight.shape[0], c).t()        # (C, Nf)
-        y2d = fused_scale_bias_dot(x2d, w2d.to(data.dtype).contiguous(),
-                                   scale, bias, relu=True)
+        # (C, Nf): the transposed view of the (Nf, C) weight, which the
+        # kernel reads as it lies
+        w2d = weight.reshape(weight.shape[0], c).t()
+        y2d = fused_scale_bias_dot(x2d, w2d.to(data.dtype), scale, bias,
+                                   relu=True)
         y = y2d.reshape(n, oh, ow, -1)
     else:
         whwio = weight.permute(2, 3, 1, 0)                  # HWIO

@@ -24,6 +24,15 @@ which the tests and ``chip_smoke.py`` hold the kernel against.  A
 computes no values.  Each kernel's ``launches`` counter counts its
 launches.
 
+The two GEMM kernels have three routes each, chosen by
+:func:`gemm_route` from dtype, shape and alignment before the launch
+(never because another route failed) and counted in the wrapper's
+``launches_by_route``: ``sm90``, the warp-specialised TMA + wgmma
+pipeline of ``csrc/hopper_gemm.cuh`` (bfloat16, K and N multiples of 8,
+16-byte aligned bases: every shape of the training paths), planned per
+shape by :func:`_sm90_plan`; ``wmma``, the first WMMA design, for the
+other bfloat16 shapes; ``simt`` for float32.
+
 All are ``torch.autograd.Function``s whose backward is the reference's
 ``custom_vjp`` backward (``_bn_relu_bwd``, ``_bwd``, ``_dot_epi_bwd``),
 which the JAX package computes in plain JAX outside any kernel; here it
@@ -42,15 +51,18 @@ from .registry import register_simple
 
 __all__ = ['fused_bn_relu', 'fused_bn_relu_plain', 'fused_scale_bias_dot',
            'fused_scale_bias_dot_plain', 'fused_dot_epilogue',
-           'fused_dot_epilogue_plain']
+           'fused_dot_epilogue_plain', 'gemm_route', 'dot_route',
+           'epilogue_route', 'ROUTES']
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _count_lock = threading.Lock()
 
 
-def _count(fn):
+def _count(fn, route=None):
     with _count_lock:
         fn.launches += 1
+        if route is not None:
+            fn.launches_by_route[route] += 1
 
 
 def _raise_launch(name, err):
@@ -179,21 +191,108 @@ fused_bn_relu.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# GEMM routes and the sm90 tile plan
+# ---------------------------------------------------------------------------
+
+ROUTES = ('sm90', 'wmma', 'simt')
+# csrc/hopper_gemm.cuh: 128-row tiles, 64-deep K stages, 16 bytes of
+# mbarriers per stage, two 64 x 72 bf16 epilogue staging tiles, 1024
+# bytes of alignment slack; a block may use 227 KB
+_SM90_BM, _SM90_BK = 128, 64
+_SM90_WIDTHS = (256, 128, 64)
+_SM90_MAX_STAGES = 8
+_SM90_EPI_BYTES = 2 * 64 * 72 * 2
+SM90_SMEM_LIMIT = 232448
+_sm_counts = {}
+
+
+def gemm_route(dtype, k, n, ptrs):
+    """The route of one GEMM kernel call: ``'simt'`` for float32; for
+    bfloat16 ``'sm90'`` when K and N are multiples of 8 and every base
+    address in ``ptrs`` (X, W as the kernel reads it, Y) is 16-byte
+    aligned -- TMA's row-stride and address rules and the epilogue's
+    16-byte stores -- else ``'wmma'``.  A pure function of dtype, shape
+    and alignment, decided before the launch."""
+    if dtype == torch.float32:
+        return 'simt'
+    if dtype != torch.bfloat16:
+        raise TypeError('no GEMM route for %s' % dtype)
+    if k % 8 or n % 8 or any(p % 16 for p in ptrs):
+        return 'wmma'
+    return 'sm90'
+
+
+def _sm90_smem(bn, stages):
+    """Dynamic shared memory of one sm90 block, in bytes
+    (``smem_bytes`` of ``csrc/hopper_gemm.cuh``)."""
+    return 1024 + stages * ((_SM90_BM + bn) * _SM90_BK * 2 + 16) \
+        + _SM90_EPI_BYTES
+
+
+def _sm90_plan(m, n, sms):
+    """``(bn, stages, grid)`` of an sm90 launch with M rows and N columns
+    on a card of ``sms`` SMs.  ``bn``: the widest tile (256, 128, 64) no
+    wider than N rounded up to 64 that still gives about a wave of
+    128-row tiles (7/10 of the SMs), else the narrowest: a K step costs
+    nearly the same at every width, so wider tiles win until they leave
+    SMs idle (``tools/torch_gemm_sweep.py`` times every width at the path
+    shapes); ``stages``: as many as the shared memory holds beside the
+    epilogue's staging, at most 8; ``grid``: one persistent block per SM,
+    at most one per tile."""
+    rows = -(-m // _SM90_BM)
+    widths = [b for b in _SM90_WIDTHS if b <= -(-n // 64) * 64]
+    bn = next((b for b in widths if 10 * rows * -(-n // b) >= 7 * sms),
+              widths[-1])
+    return bn, _sm90_stages(bn), min(rows * -(-n // bn), sms)
+
+
+def _sm90_stages(bn):
+    """Stages of tile width ``bn``: as many as the shared memory holds
+    beside the epilogue's staging, at most 8."""
+    per_stage = _sm90_smem(bn, 1) - _sm90_smem(bn, 0)
+    return min(_SM90_MAX_STAGES,
+               (SM90_SMEM_LIMIT - _sm90_smem(bn, 0)) // per_stage)
+
+
+def _wnk_route(x, w):
+    """:func:`gemm_route` of a checked GEMM call whose kernel reads W as
+    the (N, K) matrix ``w`` is a transposed view of, or as an aligned copy
+    of ``w``; Y is a fresh, aligned tensor."""
+    wnk = w.t()
+    return gemm_route(x.dtype, x.shape[1], w.shape[1],
+                      (x.data_ptr(),
+                       wnk.data_ptr() if wnk.is_contiguous() else 0))
+
+
+def _sm_count(device):
+    """The SM count of a CUDA device, read once."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _sm_counts:
+        _sm_counts[idx] = \
+            torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sm_counts[idx]
+
+
+# ---------------------------------------------------------------------------
 # fused_scale_bias_dot
 # ---------------------------------------------------------------------------
 
 def fused_scale_bias_dot_plain(x, w, scale, bias, relu=False):
     """The plain version, with the kernel's arithmetic: the affine (and
     relu) in f32, rounded to x's dtype, then the product with f32
-    accumulation, stored in x's dtype."""
+    accumulation, stored in x's dtype.  ``w`` is read as a contiguous
+    (K, N) matrix whatever its strides, so a transposed view gives the
+    same bits as its contiguous copy."""
     xa = x.float() * scale.float() + bias.float()
     if relu:
         xa = torch.relu(xa)
     xa = xa.to(x.dtype)
-    return torch.matmul(xa.float(), w.float()).to(x.dtype)
+    return torch.matmul(xa.float(), w.float().contiguous()).to(x.dtype)
 
 
-def _dot_check(x, w, scale, bias):
+def _dot_check(x, w, scale=None, bias=None):
+    """scale and bias None: check x and w only."""
     name = 'fused_scale_bias_dot'
     _check_dtype(name, x)
     if x.ndim != 2:
@@ -209,28 +308,53 @@ def _dot_check(x, w, scale, bias):
     if w.device != x.device:
         raise ValueError('%s: w is on %s, x on %s' % (name, w.device,
                                                       x.device))
-    if not w.is_contiguous():
-        raise ValueError('%s: w must be contiguous' % name)
-    _check_vec(name, x, x.shape[1], ('scale', scale), ('bias', bias))
+    if not (w.is_contiguous() or w.t().is_contiguous()):
+        raise ValueError('%s: w must be contiguous, or the transposed view '
+                         'of a contiguous (N, K) weight' % name)
+    if scale is not None or bias is not None:
+        _check_vec(name, x, x.shape[1], ('scale', scale), ('bias', bias))
 
 
-def _dot_launch(x, w, scale, bias, relu):
+def dot_route(x, w):
+    """The route :func:`fused_scale_bias_dot` takes for ``x`` and ``w``
+    on the card (:func:`gemm_route`): the sm90 kernel reads W as the
+    (N, K) weight ``w`` is a view of, or an aligned copy."""
+    _dot_check(x, w)
+    return _wnk_route(x, w)
+
+
+def _dot_launch(x, w, scale, bias, relu, route=None):
+    """Launch the kernel on ``route`` (default: :func:`dot_route`'s)."""
     m, k = x.shape
     n = w.shape[1]
+    route = route or _wnk_route(x, w)
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
     s = scale.float().contiguous()
     b = bias.float().contiguous()
-    fn = _kernels.load('fused_scale_bias_dot')
+    name = 'fused_scale_bias_dot'
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), w.data_ptr(), s.data_ptr(), b.data_ptr(),
-                 y.data_ptr(), m, n, k, int(bool(relu)),
-                 _DTYPE_CODE[x.dtype], stream)
+        if route == 'sm90':
+            wnk = w.t().contiguous()    # no copy for a transposed view
+            # the prologue reads scale and bias 16 bytes at a time
+            s, b = (t if t.data_ptr() % 16 == 0 else t.clone()
+                    for t in (s, b))
+            bn, stages, grid = _sm90_plan(m, n, _sm_count(x.device))
+            err = _kernels.load(name, 'mxtpu_fused_scale_bias_dot_sm90')(
+                x.data_ptr(), wnk.data_ptr(), s.data_ptr(), b.data_ptr(),
+                y.data_ptr(), m, n, k, int(bool(relu)), bn, stages, grid,
+                stream)
+        else:
+            wkn = w.contiguous()
+            err = _kernels.load(name)(
+                x.data_ptr(), wkn.data_ptr(), s.data_ptr(), b.data_ptr(),
+                y.data_ptr(), m, n, k, int(bool(relu)),
+                _DTYPE_CODE[x.dtype], stream)
     if err:
-        _raise_launch('fused_scale_bias_dot', err)
-    _count(fused_scale_bias_dot)
+        _raise_launch(name, err)
+    _count(fused_scale_bias_dot, route)
     return y
 
 
@@ -270,16 +394,19 @@ def fused_scale_bias_dot(x, w, scale, bias, relu=False):
     """``(relu?)(x * scale + bias) @ w``: the per-K-column affine (and
     relu) in f32, rounded to x's dtype, then the product accumulated in
     f32 and stored in x's dtype.  x is a contiguous (M, K) float32 or
-    bfloat16 tensor, w a contiguous (K, N) tensor of x's dtype, scale
-    and bias 1-D of length K (float32 or x's dtype).  A CUDA tensor runs
-    the kernel (``fused_scale_bias_dot.launches``), a CPU tensor the
-    plain version."""
+    bfloat16 tensor, w a (K, N) tensor of x's dtype, contiguous or the
+    transposed view of a contiguous (N, K) 1x1 weight (read as it lies
+    on the sm90 route), scale and bias 1-D of length K (float32 or x's
+    dtype).  A CUDA tensor runs the kernel on :func:`dot_route`'s route
+    (``fused_scale_bias_dot.launches``, ``.launches_by_route``), a CPU
+    tensor the plain version."""
     _dot_check(x, w, scale, bias)
     _device_kind('fused_scale_bias_dot', x)
     return _ScaleBiasDotFn.apply(x, w, scale, bias, bool(relu))
 
 
 fused_scale_bias_dot.launches = 0
+fused_scale_bias_dot.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -322,9 +449,19 @@ def _epi_check(x, w, bias):
         _check_vec(name, x, w.shape[1], ('bias', bias))
 
 
-def _epi_launch(x, w, bias, relu, clip):
+def epilogue_route(x, w):
+    """The route :func:`fused_dot_epilogue` takes for ``x`` and ``w`` on
+    the card (:func:`gemm_route`): every route reads W as the (N, K)
+    FullyConnected weight ``w`` is a view of, or an aligned copy."""
+    _epi_check(x, w, None)
+    return _wnk_route(x, w)
+
+
+def _epi_launch(x, w, bias, relu, clip, route=None):
+    """Launch the kernel on ``route`` (default: :func:`epilogue_route`'s)."""
     m, k = x.shape
     n = w.shape[1]
+    route = route or _wnk_route(x, w)
     # the kernel reads W as the FullyConnected weight lies, (N, K): free
     # when w is the transposed view of such a weight
     wt = w.t().contiguous()
@@ -333,16 +470,21 @@ def _epi_launch(x, w, bias, relu, clip):
         return y
     b = None if bias is None else bias.float().contiguous()
     lo, hi = clip if clip is not None else (0.0, 0.0)
-    fn = _kernels.load('fused_dot_epilogue')
+    name = 'fused_dot_epilogue'
+    args = (x.data_ptr(), wt.data_ptr(), None if b is None else b.data_ptr(),
+            y.data_ptr(), m, n, k, int(bool(relu)), int(clip is not None),
+            float(lo), float(hi))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), wt.data_ptr(),
-                 None if b is None else b.data_ptr(), y.data_ptr(), m, n, k,
-                 int(bool(relu)), int(clip is not None), float(lo),
-                 float(hi), _DTYPE_CODE[x.dtype], stream)
+        if route == 'sm90':
+            bn, stages, grid = _sm90_plan(m, n, _sm_count(x.device))
+            err = _kernels.load(name, 'mxtpu_fused_dot_epilogue_sm90')(
+                *args, bn, stages, grid, stream)
+        else:
+            err = _kernels.load(name)(*args, _DTYPE_CODE[x.dtype], stream)
     if err:
-        _raise_launch('fused_dot_epilogue', err)
-    _count(fused_dot_epilogue)
+        _raise_launch(name, err)
+    _count(fused_dot_epilogue, route)
     return y
 
 
@@ -387,8 +529,9 @@ def fused_dot_epilogue(x, w, bias=None, relu=False, clip=None):
     x's dtype (the transposed view of an (N, K) FullyConnected weight is
     read as it lies), bias None or 1-D of length N (float32 or x's
     dtype), ``clip`` a (lo, hi) pair or None.  A CUDA tensor runs the
-    kernel (``fused_dot_epilogue.launches``), a CPU tensor the plain
-    version."""
+    kernel on :func:`epilogue_route`'s route
+    (``fused_dot_epilogue.launches``, ``.launches_by_route``), a CPU
+    tensor the plain version."""
     if clip is not None:
         if len(clip) != 2:
             raise ValueError('fused_dot_epilogue: clip must be a (lo, hi) '
@@ -400,6 +543,7 @@ def fused_dot_epilogue(x, w, bias=None, relu=False, clip=None):
 
 
 fused_dot_epilogue.launches = 0
+fused_dot_epilogue.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 register_simple('fused_bn_relu', fused_bn_relu, ninputs=3,

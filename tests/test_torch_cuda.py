@@ -1,9 +1,11 @@
 """Tests of the PyTorch port that need the card: each CUDA kernel against
-its plain version, and small fused Predictor / LM train steps on the GPU
+its plain version (the GEMM kernels' sm90 route also at the edge cases it
+must get right), and small fused Predictor / LM train steps on the GPU
 against the CPU.  Marked ``cuda``; they skip on a host without a CUDA
 device.  On the GPU host:
 
-    python -m pytest tests/test_torch_cuda.py -q -m cuda
+    python -m pytest tests/test_torch_cuda.py tests/test_torch_rtc.py -q \
+        -m cuda --noconftest
 """
 import numpy as np
 import pytest
@@ -136,7 +138,9 @@ def test_fused_kernels_reject_what_they_cannot_take(dev):
     w = torch.randn(8, 5, device=dev)
     s, b = torch.ones(8, device=dev), torch.zeros(8, device=dev)
     with pytest.raises(ValueError):
-        fused.fused_scale_bias_dot(x, w.t().contiguous().t(), s, b)
+        # neither contiguous nor the transposed view of a contiguous (N, K)
+        fused.fused_scale_bias_dot(x, torch.randn(8, 10, device=dev)[:, ::2],
+                                   s, b)
     with pytest.raises(TypeError):
         fused.fused_scale_bias_dot(x, w.bfloat16(), s, b)
     xc = torch.randn(1, 4, 4, 8, device=dev)
@@ -176,6 +180,147 @@ def test_dot_epilogue_matches_plain(mkn, epi, dtype, dev, monkeypatch):
         mag = mag + b.abs()
     err = (got.float() - want.float()).abs() / mag.clamp_min(1e-30)
     assert float(err.max()) <= _TOL[dtype]
+
+
+# ---------------------------------------------------------------------------
+# The sm90 route of the two GEMM kernels (csrc/hopper_gemm.cuh) off the
+# path: each case guards one mistake.  Tolerance: the bf16 GEMM rule
+# above, |got - plain| <= 2e-2 * (|A| . |W| [+ |b|]) elementwise.
+# ---------------------------------------------------------------------------
+
+def _routed(kernel, fn):
+    """fn() and the one route it launched ``kernel`` on."""
+    before = dict(kernel.launches_by_route)
+    out = fn()
+    torch.cuda.synchronize()
+    moved = {r: n - before[r] for r, n in kernel.launches_by_route.items()
+             if n != before[r]}
+    assert len(moved) == 1 and list(moved.values()) == [1], moved
+    return out, next(iter(moved))
+
+
+def _check_rows(got, want, mag, nan_row=None):
+    """The GEMM rule on every row but ``nan_row``, which must be NaN in
+    every element while no other row holds a NaN."""
+    got, want = got.float(), want.float()
+    if nan_row is not None:
+        nan_rows = torch.nonzero(torch.isnan(got).any(1)).flatten()
+        assert nan_rows.tolist() == [nan_row]
+        assert bool(torch.isnan(got[nan_row]).all())
+        keep = torch.ones(got.shape[0], dtype=torch.bool, device=got.device)
+        keep[nan_row] = False
+        got, want, mag = got[keep], want[keep], mag[keep]
+    assert bool(torch.isfinite(got).all())
+    assert float(((got - want).abs() / mag.clamp_min(1e-30)).max()) <= 2e-2
+
+
+def _sm90_dot_case(dev, m, k, n, positive_bias=False, nan_row=None, seed=4):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(m, k, generator=g, device=dev).bfloat16()
+    if nan_row is not None:
+        x[nan_row, k // 3] = float('nan')
+    w = (torch.randn(n, k, generator=g, device=dev) / k ** 0.5) \
+        .bfloat16().t()
+    s = torch.rand(k, generator=g, device=dev) + 0.5
+    b = torch.randn(k, generator=g, device=dev) * 0.5
+    if positive_bias:
+        # NaN past K: a scale or bias read there, or a padded channel
+        # left at relu(bias) instead of 0, would poison Y
+        buf = torch.full((2, k + 64), float('nan'), device=dev)
+        buf[0, :k], buf[1, :k] = s, b.abs() + 0.1
+        s, b = buf[0, :k], buf[1, :k]
+    return x, w, s, b
+
+
+@pytest.mark.parametrize('case', ['k72_positive_bias', 'ragged_m',
+                                  'n72_bn64', 'nan_row', 'tiny_m_k'])
+def test_scale_bias_dot_sm90_edge_cases(case, dev):
+    m, k, n = {'k72_positive_bias': (1001, 72, 256),
+               'ragged_m': (1001, 64, 256), 'n72_bn64': (256, 96, 72),
+               'nan_row': (1001, 64, 256), 'tiny_m_k': (8, 24, 64)}[case]
+    nan_row = 500 if case == 'nan_row' else None
+    # tiny_m_k: one tile, most of its rows and K columns out of range
+    x, w, s, b = _sm90_dot_case(dev, m, k, n,
+                                case in ('k72_positive_bias', 'tiny_m_k'),
+                                nan_row)
+    if case == 'n72_bn64':
+        assert fused._sm90_plan(m, n, fused._sm_count(dev))[0] == 64
+    got, route = _routed(fused.fused_scale_bias_dot,
+                         lambda: fused.fused_scale_bias_dot(x, w, s, b,
+                                                            relu=True))
+    assert route == 'sm90'
+    want = fused.fused_scale_bias_dot_plain(x, w, s, b, relu=True)
+    xa = torch.relu(x.float() * s + b).bfloat16()
+    mag = torch.matmul(xa.float().abs(), w.float().abs())
+    _check_rows(got, want, mag, nan_row)
+
+
+def test_scale_bias_dot_sm90_weight_view_equals_copy(dev):
+    x, w, s, b = _sm90_dot_case(dev, 25088, 128, 512)
+    view, r1 = _routed(fused.fused_scale_bias_dot,
+                       lambda: fused.fused_scale_bias_dot(x, w, s, b, True))
+    copy, r2 = _routed(fused.fused_scale_bias_dot,
+                       lambda: fused.fused_scale_bias_dot(
+                           x, w.contiguous(), s, b, True))
+    assert (r1, r2) == ('sm90', 'sm90') and torch.equal(view, copy)
+
+
+@pytest.mark.parametrize('case', ['ragged_m', 'n72_bn64', 'clip_no_bias',
+                                  'nan_row', 'tiny_m_k'])
+def test_dot_epilogue_sm90_edge_cases(case, dev, monkeypatch):
+    monkeypatch.setattr(torch.backends.cuda.matmul, 'allow_tf32', False)
+    (m, k, n), has_bias, relu, clip = {
+        'ragged_m': ((1001, 512, 2048), True, True, None),
+        'n72_bn64': ((256, 96, 72), False, False, None),
+        'clip_no_bias': ((512, 128, 256), False, False, (-0.5, 0.7)),
+        'nan_row': ((1001, 512, 2048), True, True, (0.0, 6.0)),
+        'tiny_m_k': ((8, 24, 64), True, True, None)}[case]
+    nan_row = 500 if case == 'nan_row' else None
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(m, k, generator=g, device=dev).bfloat16()
+    if nan_row is not None:
+        x[nan_row, k // 3] = float('nan')
+    w = (torch.randn(n, k, generator=g, device=dev) / k ** 0.5).bfloat16().t()
+    b = torch.randn(n, generator=g, device=dev) * 0.5 if has_bias else None
+    got, route = _routed(fused.fused_dot_epilogue,
+                         lambda: fused.fused_dot_epilogue(x, w, b, relu,
+                                                          clip))
+    assert route == 'sm90'
+    want = fused.fused_dot_epilogue_plain(x, w, b, relu, clip)
+    mag = torch.matmul(x.float().abs(), w.float().abs())
+    if b is not None:
+        mag = mag + b.abs()
+    _check_rows(got, want, mag, nan_row)
+
+
+@pytest.mark.parametrize('kernel', ['scale_bias_dot', 'dot_epilogue'])
+def test_sm90_and_wmma_routes_agree_at_a_path_shape(kernel, dev,
+                                                    monkeypatch):
+    """Both routes, forced, at a path shape: each within the GEMM rule of
+    the plain version, and of each other."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, 'allow_tf32', False)
+    if kernel == 'scale_bias_dot':
+        x, w, s, b = _sm90_dot_case(dev, 6272, 1024, 256)
+        run = {r: (lambda r=r: fused._dot_launch(x, w, s, b, True, r))
+               for r in ('sm90', 'wmma')}
+        want = fused.fused_scale_bias_dot_plain(x, w, s, b, relu=True)
+        xa = torch.relu(x.float() * s + b).bfloat16()
+        mag = torch.matmul(xa.float().abs(), w.float().abs())
+    else:
+        g = torch.Generator(device=dev).manual_seed(6)
+        x = torch.randn(8192, 512, generator=g, device=dev).bfloat16()
+        w = (torch.randn(2048, 512, generator=g, device=dev)
+             / 512 ** 0.5).bfloat16().t()
+        b = torch.randn(2048, generator=g, device=dev) * 0.5
+        run = {r: (lambda r=r: fused._epi_launch(x, w, b, True, None, r))
+               for r in ('sm90', 'wmma')}
+        want = fused.fused_dot_epilogue_plain(x, w, b, relu=True)
+        mag = torch.matmul(x.float().abs(), w.float().abs()) + b.abs()
+    got = {r: fn() for r, fn in run.items()}
+    torch.cuda.synchronize()
+    for r in run:
+        _check_rows(got[r], want, mag)
+    _check_rows(got['sm90'], got['wmma'], mag)
 
 
 def _attention_magnitude(q, k, v, scale, causal):

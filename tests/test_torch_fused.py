@@ -226,6 +226,7 @@ def test_dot_wrapper_rejects_bad_input(bad):
     elif bad == 'scale_len':
         s = torch.ones(3)
     elif bad == 'w_noncontig':
-        w = torch.zeros(5, 4).t()
+        # neither contiguous nor the transposed view of a contiguous (N, K)
+        w = torch.zeros(4, 10)[:, ::2]
     with pytest.raises((TypeError, ValueError, MXNetError)):
         tf.fused_scale_bias_dot(x, w, s, b)
