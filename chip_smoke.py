@@ -8,7 +8,9 @@ Phases, each printing one JSON line; any failure exits nonzero:
 
 1. device       — the card (torch and nvidia-smi).
 2. build        — nvcc builds every kernel of csrc/ for sm_90a, in
-                  parallel (one nvcc per source).
+                  parallel (one nvcc per source); then one line with
+                  ptxas's registers and spills of every sm90
+                  instantiation (gemm_sm90<...>, flash_fwd_sm90<D>).
 3. kernels      — each kernel's wrapper on card tensors at every shape its
                   main path gives it (shapes read from the fused graphs at
                   32 rows), held against its plain PyTorch version with
@@ -21,13 +23,19 @@ Phases, each printing one JSON line; any failure exits nonzero:
                   bf16, |got - plain| <= rtol * (|A| . |W|) elementwise,
                   the product of the magnitudes (so the bound grows with
                   K), rtol 1e-4 (f32) and 2e-2 (bf16); plus a ragged
-                  off-path dot and an odd-H stride-2 conv.  The GEMM
-                  kernels' bf16 path shapes must take the sm90 route
-                  (TMA + wgmma, csrc/hopper_gemm.cuh; f32 the simt one);
-                  each such case is also run on the wmma route (the first
-                  design), checked by the same rule and timed in turns
-                  with the sm90 launch (wmma_ms), and each route's launch
-                  is timed on the host.  fused_scale_bias_dot takes w as
+                  off-path dot and an odd-H stride-2 conv.  The GEMM and
+                  conv kernels' bf16 path shapes must take the sm90 route
+                  (TMA + wgmma, csrc/hopper_gemm.cuh, the conv's A through
+                  TMA's im2col mode; f32 the simt one); each such case is
+                  also run on the wmma route (the first design), checked
+                  by the same rule and timed in turns with the sm90 launch
+                  (wmma_ms), and each route's launch is timed on the host.
+                  The conv takes w as the HWIO view of an OIHW weight, as
+                  the path does; off the path on sm90: odd H and W at
+                  stride 2 with F = 40 and M = 168, 7 x 9 images, a
+                  positive bias at both strides, and a NaN input pixel
+                  (exactly the outputs whose window covers it NaN).
+                  fused_scale_bias_dot takes w as
                   the transposed view of the (N, K) 1x1 weight, as the
                   path does; off the path on sm90: K = 72 with a positive
                   bias and NaN past K in scale and bias (padding zeroed
@@ -39,11 +47,16 @@ Phases, each printing one JSON line; any failure exits nonzero:
                   and f32: flash_attention ([128, 512, 64] causal; O
                   within 1e-4 (f32) / 2e-2 (bf16) of P . |V| elementwise,
                   lse within 1e-4 * (1 + |lse|); library_ms is
-                  F.scaled_dot_product_attention) and fused_dot_epilogue
+                  F.scaled_dot_product_attention; the bf16 path case on
+                  the sm90 route (TMA + wgmma), the mma route (the first
+                  design) checked and timed in turns, mma_ms) and
+                  fused_dot_epilogue
                   ((8192, 512, 2048) with bias and relu; the GEMM rule
                   above, |A|.|W| + |bias|; library_ms is torch.addmm),
                   plus off-path cases: ragged causal attention with
-                  tq < tk, non-causal, D = 128; a ragged dot with bias,
+                  tq < tk, non-causal, D = 128, Tq = 300 against Tk = 700
+                  causal and not, one head (all sm90 in bf16), D = 40
+                  (mma); a ragged dot with bias,
                   relu and clip (wmma route), one with no bias (sm90, the
                   N = 72 tile at BN = 64); on sm90 M = 1001, no bias with
                   a clip, and a NaN row through bias, relu and clip.
@@ -76,8 +89,9 @@ Phases, each printing one JSON line; any failure exits nonzero:
                   over an NDArrayIter of 10 batches of 32 random images and
                   labels, SGD lr 0.05 momentum 0.9 wd 1e-4,
                   MXTPU_FUSE=aggressive.  Counts zeroed just before fit and
-                  read just after: per step 36 fused_scale_bias_dot (all
-                  on the sm90 route), 16 fused_scale_bias_conv3x3 and as
+                  read just after: per step 36 fused_scale_bias_dot and
+                  16 fused_scale_bias_conv3x3 (all on the sm90 route) and
+                  as
                   many fused_bn_relu as the training graph has _bn_relu
                   nodes.  Loss and parameters
                   finite, parameters moved; step ms (median after 2
@@ -95,7 +109,7 @@ Phases, each printing one JSON line; any failure exits nonzero:
                   0.02²) weights from numpy RandomState(0), 10 steps.
                   Counts zeroed just before and read just after: 6
                   flash_attention and 6 fused_dot_epilogue (all on the
-                  sm90 route) per step.
+                  sm90 routes) per step.
                   Output and parameters finite, parameters moved;
                   cross-entropy of the first and last step (ln 32000 =
                   10.37), step ms (median after 2 warm-up steps),
@@ -116,16 +130,18 @@ Phases, each printing one JSON line; any failure exits nonzero:
                   file) whose operator pushes two Rtc kernels on the card.
                   Counts zeroed just before fit and read just after: 2 Rtc
                   launches per step and the training graph's counts of the
-                  other kernels (fused_scale_bias_dot on the simt
-                  route).  Loss and parameters finite, parameters moved;
-                  step ms, images/s, peak device memory.
+                  other kernels (fused_scale_bias_dot and
+                  fused_scale_bias_conv3x3 on the simt route).  Loss and
+                  parameters finite, parameters moved; step ms, images/s,
+                  peak device memory.
 12. custom-parity — one f32 step of that model at 2 rows on the card (Rtc
                   head) and on the CPU (nd.* head, the same Custom op's
                   CPU operator), under train-parity's bound.
 
-Then the card's nvidia-smi line, the kernels summary line (the two GEMM
-kernels' entries also carry path_route, launches_by_route, wmma_ms,
-host_us and launch_host_us), and the result line {"ok": true,
+Then the card's nvidia-smi line, the kernels summary line (the entries of
+the GEMM, conv and attention kernels also carry path_route,
+launches_by_route, wmma_ms (attention: mma_ms), host_us and
+launch_host_us), and the result line {"ok": true,
 "device": {...}}.  Without a CUDA device, or
 without the mxnet_tpu_torch package beside it, the script exits nonzero
 and prints no result.
@@ -481,37 +497,101 @@ def check_dot_layouts(torch, fused, mkn, gen):
     return {'mkn': list(mkn), 'route': route, 'bit_equal': True}
 
 
-def check_conv(torch, fused_conv, shape, dtype, gen, flush):
-    """One fused_scale_bias_conv3x3 case (relu on, as on the path)."""
-    import torch.nn.functional as F
+def _conv_inputs(torch, shape, dtype, gen, positive_bias=False):
+    """x, w (the HWIO view of an OIHW weight, as the fuse pass passes
+    it), scale, bias of one conv case; ``positive_bias``: bias > 0, so
+    that a halo row left at relu(bias) instead of 0 shows."""
     dev = torch.device('cuda', 0)
-    n, h, wd, c, f, stride = shape
+    n, h, wd, c, f, _ = shape
     x = torch.randn(n, h, wd, c, generator=gen, device=dev).to(dtype)
-    w = (torch.randn(3, 3, c, f, generator=gen, device=dev)
-         / (9 * c) ** 0.5).to(dtype)
+    w = (torch.randn(f, c, 3, 3, generator=gen, device=dev)
+         / (9 * c) ** 0.5).to(dtype).permute(2, 3, 1, 0)
     s = torch.rand(c, generator=gen, device=dev) + 0.5
     b = torch.randn(c, generator=gen, device=dev) * 0.5
-    got = fused_conv.fused_scale_bias_conv3x3(x, w, s, b, stride)
+    if positive_bias:
+        b = b.abs() + 0.1
+    return x, w, s, b
+
+
+def _conv_magnitude(torch, x, w, s, b, stride):
+    """conv(|relu(x s + b)|, |w|): the bound a 9C-term sum's rounding
+    scales with."""
+    import torch.nn.functional as F
+    xa = torch.relu(x.float() * s + b).to(x.dtype)   # the normalized input
+    return F.conv2d(xa.float().abs().permute(0, 3, 1, 2),
+                    w.float().abs().permute(3, 2, 0, 1), None, stride,
+                    1).permute(0, 2, 3, 1)
+
+
+def check_conv(torch, fused_conv, shape, dtype, gen, flush,
+               positive_bias=False):
+    """One fused_scale_bias_conv3x3 case (relu on, as on the path): the
+    GEMM rule against the plain version, on the route the wrapper takes
+    and (bf16 on sm90) on the wmma route, timed in turns."""
+    import torch.nn.functional as F
+    n, h, wd, c, f, stride = shape
+    x, w, s, b = _conv_inputs(torch, shape, dtype, gen, positive_bias)
+    kernel = fused_conv.fused_scale_bias_conv3x3
+    got, route = routed_call(kernel, lambda: kernel(x, w, s, b, stride))
     want = fused_conv.fused_scale_bias_conv3x3_plain(x, w, s, b, stride)
-    xa = torch.relu(x.float() * s + b).to(dtype)   # the normalized input
-    magnitude = F.conv2d(xa.float().abs().permute(0, 3, 1, 2),
-                         w.float().abs().permute(3, 2, 0, 1), None, stride,
-                         1).permute(0, 2, 3, 1)
+    magnitude = _conv_magnitude(torch, x, w, s, b, stride)
+    xa = torch.relu(x.float() * s + b).to(dtype)
     xa_cl = xa.permute(0, 3, 1, 2)     # NCHW view of NHWC memory
     w_cl = w.permute(3, 2, 0, 1).contiguous(
         memory_format=torch.channels_last)
     oh, ow = fused_conv.conv3x3_out_hw(h, wd, stride)
+    launches = {r: (lambda r=r: fused_conv._launch(x, w, s, b, stride, True,
+                                                   r))
+                for r in ((route, 'wmma') if route == 'sm90' else (route,))}
     case = _gemm_case(
         torch, 'fused_scale_bias_conv3x3', dtype, got, want, magnitude,
-        (lambda: fused_conv.fused_scale_bias_conv3x3(x, w, s, b, stride),
+        (lambda: kernel(x, w, s, b, stride),
          lambda: fused_conv.fused_scale_bias_conv3x3_plain(x, w, s, b,
                                                            stride),
          lambda: F.conv2d(xa_cl, w_cl, None, stride, 1)),
         (n * h * wd * c + 9 * c * f + n * oh * ow * f) * x.element_size()
         + 2 * c * 4,
-        2 * n * oh * ow * f * 9 * c, flush)
+        2 * n * oh * ow * f * 9 * c, flush, route, launches)
     case['nhwcf_stride'] = list(shape)
+    if positive_bias:
+        case['positive_bias'] = True
     return case
+
+
+def check_conv_nan_pixel(torch, fused_conv, shape, pixel, gen):
+    """A NaN in one channel of input pixel (n, ih, iw) must reach exactly
+    the outputs whose 3x3 window covers that pixel, in all F channels;
+    every other output within the GEMM rule of the plain version on the
+    input with the NaN zeroed.  bf16, the route the wrapper takes."""
+    n, h, wd, c, _, stride = shape
+    x, w, s, b = _conv_inputs(torch, shape, torch.bfloat16, gen)
+    x[pixel + (c // 3,)] = float('nan')
+    kernel = fused_conv.fused_scale_bias_conv3x3
+    got, route = routed_call(kernel, lambda: kernel(x, w, s, b, stride))
+    clean = torch.nan_to_num(x, nan=0.0)
+    want = fused_conv.fused_scale_bias_conv3x3_plain(clean, w, s, b, stride)
+    magnitude = _conv_magnitude(torch, clean, w, s, b, stride)
+    torch.cuda.synchronize()
+    oh, ow = fused_conv.conv3x3_out_hw(h, wd, stride)
+    pn, ih, iw = pixel
+    dev = got.device
+    rows = (torch.arange(oh, device=dev) * stride - 1)[:, None]
+    cols = (torch.arange(ow, device=dev) * stride - 1)[None, :]
+    mask = torch.zeros(n, oh, ow, dtype=torch.bool, device=dev)
+    mask[pn] = (rows <= ih) & (ih <= rows + 2) & (cols <= iw) & \
+        (iw <= cols + 2)
+    nan = torch.isnan(got.float())
+    if not bool(nan[mask].all()) or bool(nan[~mask].any()):
+        raise AssertionError(
+            'fused_scale_bias_conv3x3 %s: a NaN at input pixel %s reached '
+            '%d outputs, %d of the %d whose window covers it'
+            % (shape, pixel, int(nan.any(-1).sum()),
+               int(nan.any(-1)[mask].sum()), int(mask.sum())))
+    err, ratio = _gemm_err(torch, 'fused_scale_bias_conv3x3', 'bfloat16',
+                           got[~mask], want[~mask], magnitude[~mask], None)
+    return {'nhwcf_stride': list(shape), 'nan_pixel': list(pixel),
+            'route': route, 'nan_outputs': int(mask.sum()),
+            'max_abs_err': err, 'max_err_over_magnitude': ratio}
 
 
 def lm_kernel_shapes(mx, symbol, batch, seq_len):
@@ -567,7 +647,9 @@ def check_flash(torch, attention, bh, tq, tk, d, causal, scale, dtype, gen,
     q = torch.randn(bh, tq, d, generator=gen, device=dev).to(dtype)
     k = torch.randn(bh, tk, d, generator=gen, device=dev).to(dtype)
     v = torch.randn(bh, tk, d, generator=gen, device=dev).to(dtype)
-    o, lse = attention._launch(q, k, v, scale, causal)
+    kernel = attention.flash_attention
+    (o, lse), route = routed_call(
+        kernel, lambda: attention._launch(q, k, v, scale, causal))
     want, want_lse = attention.flash_attention_plain(q, k, v, scale, causal)
     torch.cuda.synchronize()
     if o.dtype != dtype or o.shape != q.shape or lse.shape != (bh, tq):
@@ -580,17 +662,38 @@ def check_flash(torch, attention, bh, tq, tk, d, causal, scale, dtype, gen,
     magnitude = torch.einsum('bts,bsd->btd', torch.softmax(s, -1),
                              v.float().abs())
     del s
-    err = (o.float() - want.float()).abs()
-    if not bool(torch.isfinite(o.float()).all()):
-        raise AssertionError('flash_attention %s: non-finite output' % dt)
-    ratio = float((err / magnitude.clamp_min(1e-30)).max())
-    lse_ratio = float(((lse - want_lse).abs() / (1 + want_lse.abs())).max())
-    if ratio > ATT_RTOL[dt] or lse_ratio > LSE_RTOL:
-        raise AssertionError(
-            'flash_attention %s %s disagrees with its plain version: max '
-            '|err| / (P.|V|) = %g (tolerance %g), lse %g (tolerance %g)'
-            % ((bh, tq, tk, d), dt, ratio, ATT_RTOL[dt], lse_ratio,
-               LSE_RTOL))
+
+    def errors(o, lse, name):
+        err = (o.float() - want.float()).abs()
+        if not bool(torch.isfinite(o.float()).all()):
+            raise AssertionError('%s %s: non-finite output' % (name, dt))
+        ratio = float((err / magnitude.clamp_min(1e-30)).max())
+        lse_ratio = float(((lse - want_lse).abs()
+                           / (1 + want_lse.abs())).max())
+        if ratio > ATT_RTOL[dt] or lse_ratio > LSE_RTOL:
+            raise AssertionError(
+                '%s %s %s disagrees with its plain version: max |err| / '
+                '(P.|V|) = %g (tolerance %g), lse %g (tolerance %g)'
+                % (name, (bh, tq, tk, d), dt, ratio, ATT_RTOL[dt],
+                   lse_ratio, LSE_RTOL))
+        return err, ratio
+
+    err, ratio = errors(o, lse, 'flash_attention')
+    # each route's launch alone; on sm90 also the mma route (the first
+    # design), checked by the same rule and timed in turns
+    launches = {r: (lambda r=r: attention._launch(q, k, v, scale, causal,
+                                                  r))
+                for r in ((route, 'mma') if route == 'sm90' else (route,))}
+    route_errs = {}
+    for r, fn in launches.items():
+        out = fn()
+        torch.cuda.synchronize()
+        route_errs[r] = errors(*out, 'flash_attention (%s route)' % r)[1]
+    public = (lambda: attention.flash_attention(q, k, v, causal, scale))
+    if route == 'sm90':
+        ms, mma_ms = cuda_ms_each(torch, (public, launches['mma']), flush)
+    else:
+        ms, mma_ms = cuda_ms(torch, public, flush), None
     pairs = live_pairs(tq, tk, causal)
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() \
         + 4 * bh * tq
@@ -610,16 +713,17 @@ def check_flash(torch, attention, bh, tq, tk, d, causal, scale, dtype, gen,
             'tolerance': '%g * (P.|V|); lse %g * (1 + |lse|)'
                          % (ATT_RTOL[dt], LSE_RTOL),
             'lse_max_abs_err': float((lse - want_lse).abs().max()),
-            'ms': cuda_ms(torch, lambda: attention.flash_attention(
-                q, k, v, causal, scale), flush),
+            'ms': ms,
             'plain_ms': cuda_ms(torch, lambda: attention.flash_attention_plain(
                 q, k, v, scale, causal), flush),
             'library_ms': library,
-            'host_us': host_us(torch, lambda: attention.flash_attention(
-                q, k, v, causal, scale)),
+            'host_us': host_us(torch, public),
             'bound_ms': max(byte_ms, op_ms),
             'bound_by': 'bytes' if byte_ms >= op_ms else 'operations',
-            'bytes': nbytes, 'flops': flops}
+            'bytes': nbytes, 'flops': flops, 'route': route,
+            'mma_ms': mma_ms, 'route_err_over_magnitude': route_errs,
+            'launch_host_us': {r: host_us(torch, fn)
+                               for r, fn in launches.items()}}
 
 
 def check_epilogue(torch, fused, mkn, has_bias, relu, clip, dtype, gen,
@@ -684,13 +788,32 @@ def lm_kernels(mx, torch, attention, fused, models, gen, flush):
         for (bh, tq, tk, d, causal, scale), per_step in sorted(atts.items()):
             case = check_flash(torch, attention, bh, tq, tk, d, causal, scale,
                                dtype, gen, flush)
+            if case['route'] != PATH_ROUTE[case['dtype']]:
+                raise AssertionError('flash_attention %s %s took the %s '
+                                     'route' % ((bh, tq, tk, d),
+                                                case['dtype'],
+                                                case['route']))
             case['launches_per_step'] = per_step
             att_cases.append(case)
-        for bh, tq, tk, d, causal in ((6, 77, 200, 64, True),
-                                      (8, 256, 256, 64, False),
-                                      (16, 256, 256, 128, True)):
+        # off the path: ragged tq < tk, non-causal and D = 128 (sm90 in
+        # bf16); Tq = 300 against Tk = 700, causal and not (the diagonal
+        # at an offset of 400 crosses 128-row tiles), and one head (sm90);
+        # D = 40 (the mma route)
+        for bh, tq, tk, d, causal, bf16_route in (
+                (6, 77, 200, 64, True, 'sm90'),
+                (8, 256, 256, 64, False, 'sm90'),
+                (16, 256, 256, 128, True, 'sm90'),
+                (4, 300, 700, 64, True, 'sm90'),
+                (4, 300, 700, 64, False, 'sm90'),
+                (1, 512, 512, 64, True, 'sm90'),
+                (4, 100, 100, 40, True, 'mma')):
             case = check_flash(torch, attention, bh, tq, tk, d, causal,
                                d ** -0.5, dtype, gen, flush)
+            want_route = bf16_route if dtype == torch.bfloat16 else 'simt'
+            if case['route'] != want_route:
+                raise AssertionError('flash_attention %s %s took the %s '
+                                     'route' % ((bh, tq, tk, d), dtype,
+                                                case['route']))
             case['launches_per_step'] = 0
             att_cases.append(case)
         for (m, k, n, bias, relu, clip), per_step in sorted(dots.items()):
@@ -781,22 +904,48 @@ def gemm_summary(name, source, replaces, cases, launches_by_path,
             'cases': cases}
 
 
-def route_summary(cases, launches_by_route):
-    """The route entries of a GEMM kernel's summary: the route its bf16
-    path cases took, the wmma route's device time at the same shapes
-    (summed over one step's launches, like ms), host us per call (the
-    public wrapper, and each route's launch alone) averaged over the
-    step's launches, and the main path's launches by route."""
+def route_summary(cases, launches_by_route, old='wmma'):
+    """The route entries of a kernel's summary: the route its bf16 path
+    cases took, the replaced route's (``old``: wmma, or mma for
+    flash_attention) device time at the same shapes (summed over one
+    step's launches, like ms), host us per call (the public wrapper, and
+    each route's launch alone) averaged over the step's launches, and the
+    main paths' launches by route."""
     on_path = [c for c in cases if c['launches_per_step']
                and c['dtype'] == 'bfloat16']
     calls = sum(c['launches_per_step'] for c in on_path)
     return {'path_route': ','.join(sorted({c['route'] for c in on_path})),
             'launches_by_route': launches_by_route,
-            'wmma_ms': _sum_cases(on_path, 'wmma_ms'),
+            old + '_ms': _sum_cases(on_path, old + '_ms'),
             'host_us': _sum_cases(on_path, 'host_us') / calls,
             'launch_host_us': {
                 r: sum(c['launch_host_us'][r] * c['launches_per_step']
-                       for c in on_path) / calls for r in ('sm90', 'wmma')}}
+                       for c in on_path) / calls for r in ('sm90', old)}}
+
+
+def ptxas_sm90(build_logs):
+    """ptxas's register and spill report of every sm90 instantiation
+    (``gemm_sm90<...>``, ``flash_fwd_sm90<D>``) in nvcc's -Xptxas -v
+    output, by kernel source."""
+    report = []
+    for name, text in sorted(build_logs.items()):
+        fn = None
+        for ln in text.splitlines():
+            if 'Compiling entry function' in ln:
+                fn = ln.split("'")[1]
+                if 'sm90' not in fn:
+                    fn = None
+                else:
+                    report.append({'kernel': name, 'function': fn})
+            elif fn and 'spill stores' in ln:
+                nums = [int(t) for t in ln.replace(',', ' ').split()
+                        if t.isdigit()]
+                report[-1].update(stack_bytes=nums[0], spill_stores=nums[1],
+                                  spill_loads=nums[2])
+            elif fn and 'Used' in ln and 'registers' in ln:
+                report[-1]['registers'] = int(
+                    ln.split('Used')[1].split('registers')[0])
+    return report
 
 
 def param_parity(card, host):
@@ -1492,6 +1641,10 @@ def main():
              for n, log_ in _kernels.build_logs.items()}
     log({'phase': 'build', 'seconds': time.monotonic() - t0,
          'nvcc_seconds': _kernels.build_seconds, 'ptxas': ptxas})
+    sm90_report = ptxas_sm90(_kernels.build_logs)
+    log({'phase': 'ptxas-sm90', 'instantiations': sm90_report,
+         'spilling': [r['function'] for r in sm90_report
+                      if r.get('spill_stores') or r.get('spill_loads')]})
 
     # -- 3. kernels: each against its plain version ------------------------
     symbol = resnet.get_symbol(num_classes=1000, num_layers=50,
@@ -1545,6 +1698,10 @@ def main():
             dot_cases.append(case)
         for shape, per_step in sorted(convs.items()):
             case = check_conv(torch, fused_conv, shape, dtype, gen, flush)
+            if case['route'] != PATH_ROUTE[case['dtype']]:
+                raise AssertionError('fused_scale_bias_conv3x3 %s %s took '
+                                     'the %s route' % (shape, case['dtype'],
+                                                       case['route']))
             case['launches_per_step'] = per_step
             conv_cases.append(case)
         # off the path: a ragged dot (no tile divides M, K or N) and an
@@ -1568,11 +1725,32 @@ def main():
                                  % (mkn, case['route']))
         case['launches_per_step'] = 0
         dot_cases.append(case)
+    # the conv's sm90 route off the path: odd H and W at stride 2 with F =
+    # 40 and M = 168 (no multiple of 128); 7 x 9 images (tiles span
+    # images); a positive bias at both strides (a halo left at
+    # relu(bias) shows); a NaN pixel on the left edge and inside
+    for shape, kw in (((3, 15, 13, 64, 40, 2), {}),
+                      ((2, 7, 9, 64, 64, 1), {}),
+                      ((2, 14, 14, 128, 64, 1), {'positive_bias': True}),
+                      ((2, 14, 15, 192, 128, 2), {'positive_bias': True})):
+        case = check_conv(torch, fused_conv, shape, torch.bfloat16, gen,
+                          flush, **kw)
+        if case['route'] != 'sm90':
+            raise AssertionError('fused_scale_bias_conv3x3 %s took the %s '
+                                 'route' % (shape, case['route']))
+        case['launches_per_step'] = 0
+        conv_cases.append(case)
+    conv_nan = [check_conv_nan_pixel(torch, fused_conv, shape, pixel, gen)
+                for shape, pixel in (((2, 9, 9, 64, 32, 1), (1, 4, 0)),
+                                     ((2, 12, 12, 64, 32, 2), (0, 5, 6)))]
+    if any(c['route'] != 'sm90' for c in conv_nan):
+        raise AssertionError('fused_scale_bias_conv3x3 NaN-pixel cases took '
+                             'the routes %s' % [c['route'] for c in conv_nan])
     dot_layouts = check_dot_layouts(torch, fused, (25088, 128, 512), gen)
     torch.backends.cudnn.allow_tf32 = True
     log({'phase': 'kernels', 'cases': cases, 'dot_cases': dot_cases,
          'dot_w_layouts': dot_layouts, 'conv_cases': conv_cases,
-         'tf32': False})
+         'conv_nan_pixel_cases': conv_nan, 'tf32': False})
     att_cases, epi_cases = lm_kernels(mx, torch, attention, fused, models,
                                       gen, flush)
     log({'phase': 'lm-kernels', 'flash_attention_cases': att_cases,
@@ -1696,11 +1874,16 @@ def main():
                                  % (name, train_launches[name], steps,
                                     per_step))
     train_routes = dict(fused.fused_scale_bias_dot.launches_by_route)
-    if train_routes['sm90'] != 36 * steps:
-        raise AssertionError('fused_scale_bias_dot took the sm90 route %d '
-                             'times of %d in %d steps: %s'
-                             % (train_routes['sm90'], 36 * steps, steps,
-                                train_routes))
+    train_conv_routes = dict(
+        fused_conv.fused_scale_bias_conv3x3.launches_by_route)
+    for name, routes, per_step in (
+            ('fused_scale_bias_dot', train_routes, 36),
+            ('fused_scale_bias_conv3x3', train_conv_routes, 16)):
+        if routes['sm90'] != per_step * steps:
+            raise AssertionError('%s took the sm90 route %d times of %d in '
+                                 '%d steps: %s' % (name, routes['sm90'],
+                                                   per_step * steps, steps,
+                                                   routes))
     metric = dict(mod._fused_metric.get_name_value())
     trained, trained_aux = mod.get_params()
     moved = 0.0
@@ -1722,6 +1905,7 @@ def main():
          'optimizer': 'sgd lr 0.05 momentum 0.9 wd 1e-4',
          'launches': train_launches, 'launches_per_step': expected,
          'fused_scale_bias_dot_launches_by_route': train_routes,
+         'fused_scale_bias_conv3x3_launches_by_route': train_conv_routes,
          'fit_s': fit_s, 'step_ms': [t * 1e3 for t in step_s],
          'step_ms_median_after_warmup': step_ms,
          'images_per_s': BATCH / step_ms * 1e3,
@@ -1792,11 +1976,14 @@ def main():
                                  '(expected %d each)' % (
                                      name, n, LM_STEPS, LM['num_layers']))
     lm_routes = dict(fused.fused_dot_epilogue.launches_by_route)
-    if lm_routes['sm90'] != LM['num_layers'] * LM_STEPS:
-        raise AssertionError('fused_dot_epilogue took the sm90 route %d '
-                             'times of %d in %d LM steps: %s'
-                             % (lm_routes['sm90'], LM['num_layers']
-                                * LM_STEPS, LM_STEPS, lm_routes))
+    flash_routes = dict(attention.flash_attention.launches_by_route)
+    for name, routes in (('fused_dot_epilogue', lm_routes),
+                         ('flash_attention', flash_routes)):
+        if routes['sm90'] != LM['num_layers'] * LM_STEPS:
+            raise AssertionError('%s took the sm90 route %d times of %d in '
+                                 '%d LM steps: %s'
+                                 % (name, routes['sm90'], LM['num_layers']
+                                    * LM_STEPS, LM_STEPS, routes))
     if tuple(outs[0].shape) != (LM_BATCH * seq, LM['vocab_size']) or \
             not bool(torch.isfinite(outs[0].float()).all()) or \
             not all(np.isfinite(ce)):
@@ -1819,6 +2006,7 @@ def main():
          'launches': lm_launches,
          'launches_per_step': {k: LM['num_layers'] for k in lm_launches},
          'fused_dot_epilogue_launches_by_route': lm_routes,
+         'flash_attention_launches_by_route': flash_routes,
          'wall_s': lm_s, 'step_ms': [t * 1e3 for t in lm_step_s],
          'step_ms_median_after_warmup': lm_ms,
          'tokens_per_s': LM_BATCH * seq / lm_ms * 1e3,
@@ -1898,11 +2086,15 @@ def main():
                                  'steps (expected %d each)'
                                  % (name, custom_launches[name], steps,
                                     per_step))
-    # float32 keeps the SIMT route
+    # float32 keeps the SIMT routes
     custom_routes = dict(fused.fused_scale_bias_dot.launches_by_route)
-    if custom_routes['simt'] != custom_launches['fused_scale_bias_dot']:
-        raise AssertionError('custom-train: fused_scale_bias_dot routes %s'
-                             % custom_routes)
+    custom_conv_routes = dict(
+        fused_conv.fused_scale_bias_conv3x3.launches_by_route)
+    for name, routes in (('fused_scale_bias_dot', custom_routes),
+                         ('fused_scale_bias_conv3x3', custom_conv_routes)):
+        if routes['simt'] != custom_launches[name]:
+            raise AssertionError('custom-train: %s routes %s'
+                                 % (name, routes))
     metric = dict(mod._fused_metric.get_name_value())
     trained = mod.get_params()[0]
     moved = 0.0
@@ -1924,6 +2116,7 @@ def main():
          'optimizer': 'sgd lr 0.05 momentum 0.9 wd 1e-4',
          'launches': custom_launches, 'launches_per_step': expected,
          'fused_scale_bias_dot_launches_by_route': custom_routes,
+         'fused_scale_bias_conv3x3_launches_by_route': custom_conv_routes,
          'fit_s': fit_s, 'step_ms': [t * 1e3 for t in step_s],
          'step_ms_median_after_warmup': step_ms,
          'images_per_s': BATCH / step_ms * 1e3,
@@ -1996,23 +2189,26 @@ def main():
                         'torch.matmul on the normalized input'),
          **route_summary(dot_cases, {'train': train_routes,
                                      'custom-train': custom_routes})},
-        gemm_summary('fused_scale_bias_conv3x3', 'mxnet_tpu_torch/csrc/'
-                     'fused_scale_bias_conv3x3.cu',
-                     'mxnet_tpu/ops/pallas_conv.py:91', conv_cases,
-                     {'train': train_launches['fused_scale_bias_conv3x3']},
-                     'F.conv2d on the normalized input'),
+        {**gemm_summary('fused_scale_bias_conv3x3', 'mxnet_tpu_torch/csrc/'
+                        'fused_scale_bias_conv3x3.cu',
+                        'mxnet_tpu/ops/pallas_conv.py:91', conv_cases,
+                        {'train': train_launches['fused_scale_bias_conv3x3']},
+                        'F.conv2d on the normalized input'),
+         **route_summary(conv_cases, {'train': train_conv_routes,
+                                      'custom-train': custom_conv_routes})},
         {**gemm_summary('fused_dot_epilogue', 'mxnet_tpu_torch/csrc/'
                         'fused_dot_epilogue.cu',
                         'mxnet_tpu/ops/pallas_fused.py:328', epi_cases,
                         {'lm-train': lm_launches['fused_dot_epilogue']},
                         'torch.addmm (product and bias, no relu)', lm_per),
          **route_summary(epi_cases, {'lm-train': lm_routes})},
-        gemm_summary('flash_attention', 'mxnet_tpu_torch/csrc/'
-                     'flash_attention.cu',
-                     'mxnet_tpu/ops/pallas_attention.py:197', att_cases,
-                     {'lm-train': lm_launches['flash_attention']},
-                     'F.scaled_dot_product_attention(is_causal=True)',
-                     lm_per),
+        {**gemm_summary('flash_attention', 'mxnet_tpu_torch/csrc/'
+                        'flash_attention.cu',
+                        'mxnet_tpu/ops/pallas_attention.py:197', att_cases,
+                        {'lm-train': lm_launches['flash_attention']},
+                        'F.scaled_dot_product_attention(is_causal=True)',
+                        lm_per),
+         **route_summary(att_cases, {'lm-train': flash_routes}, 'mma')},
         rtc_summary(rtc_cases, custom_launches['rtc'])]
     print(smi, flush=True)
     log({'kernels': kernels})

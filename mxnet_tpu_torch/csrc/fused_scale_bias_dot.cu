@@ -89,8 +89,8 @@ struct BnPrologue {
   }
 
   __device__ __forceinline__ void operator()(Regs& r, uint8_t* a, int kb,
-                                             int nk, int K, int tid,
-                                             int wg) const {
+                                             int nk, int K, int tid, int wg,
+                                             int) const {
     const bool in = chan0(kb, tid) < K;
     const float s[8] = {r.s0.x, r.s0.y, r.s0.z, r.s0.w,
                         r.s1.x, r.s1.y, r.s1.z, r.s1.w};

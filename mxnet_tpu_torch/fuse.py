@@ -436,10 +436,11 @@ def _bn_relu_conv_apply(attrs, inputs, is_train, rng):
                                    relu=True)
         y = y2d.reshape(n, oh, ow, -1)
     else:
-        whwio = weight.permute(2, 3, 1, 0)                  # HWIO
-        y = fused_scale_bias_conv3x3(x.contiguous(),
-                                     whwio.to(data.dtype).contiguous(),
-                                     scale, bias, stride=stride, relu=True)
+        # the HWIO view of the (contiguous) OIHW weight: the kernel's
+        # launch makes the one copy its route reads
+        whwio = weight.to(data.dtype).contiguous().permute(2, 3, 1, 0)
+        y = fused_scale_bias_conv3x3(x.contiguous(), whwio, scale, bias,
+                                     stride=stride, relu=True)
     if not out_nhwc:
         y = y.permute(0, 3, 1, 2)
     return [y], aux_updates

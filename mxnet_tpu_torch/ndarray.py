@@ -34,7 +34,7 @@ import struct
 import numpy as np
 import torch
 
-from .base import MXNetError, resolve_dtype
+from .base import _DTYPES, MXNetError, resolve_dtype
 from .context import (Context, as_torch_device, compute_context, context_of,
                       current_context)
 from .ops import get_op, list_ops
@@ -456,9 +456,15 @@ def load(fname, ctx=None):
             klen, = struct.unpack('<q', _read(f, 8))
             keys.append(_read(f, klen).decode())
         arrays = []
-        for _ in range(n_arrays):
+        for i in range(n_arrays):
             dtlen, = struct.unpack('<q', _read(f, 8))
-            dt = np.dtype(_read(f, dtlen).decode())
+            dt_str = _read(f, dtlen).decode()
+            dt = np.dtype(dt_str)
+            if dt.name not in _DTYPES:
+                # e.g. the reference's bfloat16 entries, stored as '<V2'
+                raise MXNetError('cannot load entry %r of %s: dtype %r has '
+                                 'no NDArray type'
+                                 % (keys[i] if keys else i, fname, dt_str))
             ndim, = struct.unpack('<q', _read(f, 8))
             shape = tuple(struct.unpack('<q', _read(f, 8))[0]
                           for _ in range(ndim))

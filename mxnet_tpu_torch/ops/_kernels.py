@@ -8,8 +8,9 @@ under ``build/mxnet_tpu_torch/`` of the checkout, named by the hash of
 its source, the shared headers (``csrc/*.cuh``) and the flags, its own
 link flags included (an edited source rebuilds), then bound with
 ``ctypes``.  One table, ``KERNELS``, names each source, its entry points
-and the libraries it links: the two GEMM kernels' sm90 routes link the
-CUDA driver API (``cuTensorMapEncodeTiled``), ``csrc/rtc.cu`` (the NVRTC
+and the libraries it links: the sm90 routes of the GEMM, convolution and
+attention kernels link the CUDA driver API (``cuTensorMapEncodeTiled``,
+``cuTensorMapEncodeIm2col``), ``csrc/rtc.cu`` (the NVRTC
 bridge, whose entry points ``rtc.py`` binds itself from
 :func:`library`) NVRTC and the driver API; libcuda comes from the
 toolkit's stubs at link time and the installed one at run time.
@@ -75,7 +76,14 @@ KERNELS = {
         # dtype, stream
         'mxtpu_fused_scale_bias_conv3x3': (_P, _P, _P, _P, _P, _LL, _LL,
                                            _LL, _LL, _LL, _LL, _LL, _I, _I,
-                                           _I, _P)}),
+                                           _I, _P),
+        # x, w (F, 9C), scale, bias, y, N, H, W, C, F, OH, OW, stride,
+        # relu, bn, stages, grid, stream
+        'mxtpu_fused_scale_bias_conv3x3_sm90': (_P, _P, _P, _P, _P, _LL,
+                                                _LL, _LL, _LL, _LL, _LL,
+                                                _LL, _I, _I, _I, _I, _I,
+                                                _P)},
+        _DRIVER),
     'fused_dot_epilogue': Kernel('fused_dot_epilogue.cu', {
         # x, w (N, K), bias or NULL, y, M, N, K, relu, has_clip, lo, hi,
         # dtype, stream
@@ -88,12 +96,17 @@ KERNELS = {
     'flash_attention': Kernel('flash_attention.cu', {
         # q, k, v, o, lse, BH, Tq, Tk, D, scale, causal, dtype, stream
         'mxtpu_flash_attention': (_P, _P, _P, _P, _P, _LL, _LL, _LL, _I,
-                                  _F, _I, _I, _P)}),
+                                  _F, _I, _I, _P),
+        # q, k, v, o, lse, BH, Tq, Tk, D, scale, causal, grid, stream
+        'mxtpu_flash_attention_sm90': (_P, _P, _P, _P, _P, _LL, _LL, _LL,
+                                       _I, _F, _I, _I, _P)},
+        _DRIVER),
     'rtc': Kernel('rtc.cu', {}, ('-lnvrtc', '-lcuda')),
 }
 
 build_seconds = {}      # kernel name -> wall seconds of its nvcc run
-build_logs = {}         # kernel name -> nvcc's output (ptxas -v report)
+build_logs = {}         # kernel name -> nvcc's output (ptxas -v report),
+                        # also kept beside the library as <lib>.log
 _loaded = {}            # kernel name -> CDLL
 _lock = threading.Lock()
 
@@ -147,6 +160,11 @@ def build(names=None):
     names = list(KERNELS) if names is None else list(names)
     paths = {n: _lib_path(n) for n in names}
     todo = [n for n in names if not paths[n].exists()]
+    for n in set(names) - set(todo):
+        # a library built earlier: its nvcc output was kept beside it
+        log = paths[n].with_suffix('.log')
+        if n not in build_logs and log.exists():
+            build_logs[n] = log.read_text()
     if not todo:
         return paths
     nvcc = _nvcc()
@@ -167,6 +185,7 @@ def build(names=None):
         if proc.returncode != 0:
             failed.append('%s (exit %d):\n%s' % (n, proc.returncode, out))
             continue
+        paths[n].with_suffix('.log').write_text(out)
         # atomic rename: a concurrent loader never sees a partial library
         os.replace(tmp, paths[n])
     if failed:

@@ -3,19 +3,25 @@
 The counterpart of ``mxnet_tpu/ops/pallas_attention.py``.  The forward is
 the hand-written CUDA kernel ``csrc/flash_attention.cu`` (built and bound
 by ``ops/_kernels.py``), which replaces the TPU kernel ``_flash_fwd`` /
-``_fwd_kernel``: one thread block per (batch*head, 64-query tile) walks
-the key/value tiles with the softmax state (m, l, acc) in f32, so the
-full [Tq, Tk] score matrix never reaches device memory.  It returns O in
+``_fwd_kernel``: each (batch*head, query tile) walks the key/value
+tiles with the softmax state (m, l, acc) in f32, so the full [Tq, Tk]
+score matrix never reaches device memory.  It returns O in
 q's dtype and the f32 row lse.  Causal masking is bottom-right aligned
 (row r sees columns <= r + Tk - Tq) with the reference's finite mask
 constant ``NEG_INF``; key tiles strictly above the diagonal are skipped.
 
-bfloat16 runs both products on the tensor cores (``mma.sync``, bf16 in,
-f32 out).  The probabilities P are rounded to bf16 for the PV product,
-where the reference keeps them in f32 (``pallas_attention.py:144-149``);
-each term of O then carries a relative error of at most 2^-8 (bf16's
-unit roundoff), and O one more bf16 rounding on each side, so the kernel
-stays within 3 * 2^-8 (~1.2%) of (P @ |V|) of the plain version:
+The kernel has three routes, chosen by :func:`attention_route` before
+the launch and counted in ``flash_attention.launches_by_route``:
+``sm90`` (bfloat16 with D 64 or 128: TMA loads into an mbarrier ring,
+both products as wgmma, P kept in registers as the A operand of the PV
+product), ``mma`` (the other bfloat16 head dims: ``mma.sync``, the first
+design) and ``simt`` (float32).  bfloat16 runs both products on the
+tensor cores (bf16 in, f32 out).  The probabilities P are rounded to bf16
+for the PV product, where the reference keeps them in f32
+(``pallas_attention.py:144-149``); each term of O then carries a
+relative error of at most 2^-8 (bf16's unit roundoff), and O one more
+bf16 rounding on each side, so the kernel stays within 3 * 2^-8 (~1.2%)
+of (P @ |V|) of the plain version:
 ``chip_smoke.py`` holds it to 2e-2 of that magnitude.  float32 takes a
 SIMT path in full f32.  The kernel takes a head dim D that is a multiple
 of 8 up to 128 (``MAX_HEAD_DIM``); another D on a CUDA tensor raises
@@ -40,15 +46,32 @@ import torch
 
 from ..base import MXNetError
 from . import _kernels
-from .fused import _count, _raise_launch
+from .fused import _count, _raise_launch, _sm_count
 
 __all__ = ['flash_attention', 'flash_attention_plain', 'NEG_INF',
-           'MAX_HEAD_DIM']
+           'MAX_HEAD_DIM', 'attention_route', 'ROUTES']
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128
 DEFAULT_BLOCK_Q = 512
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = ('sm90', 'mma', 'simt')
+SM90_HEAD_DIMS = (64, 128)
+
+
+def attention_route(dtype, d, ptrs):
+    """The route of one kernel call: ``'simt'`` for float32; for bfloat16
+    ``'sm90'`` when the head dim D is 64 or 128 (whole 128-byte rows of
+    64-column TMA boxes) and every base address in ``ptrs`` (Q, K, V, O)
+    is 16-byte aligned, else ``'mma'``.  A pure function of dtype, shape
+    and alignment, decided before the launch."""
+    if dtype == torch.float32:
+        return 'simt'
+    if dtype != torch.bfloat16:
+        raise TypeError('no flash_attention route for %s' % dtype)
+    if d not in SM90_HEAD_DIMS or any(p % 16 for p in ptrs):
+        return 'mma'
+    return 'sm90'
 
 
 def _pick_block(t, pref):
@@ -111,7 +134,10 @@ def _aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _launch(q, k, v, scale, causal):
+def _launch(q, k, v, scale, causal, route=None):
+    """Launch the kernel on ``route`` (default: :func:`attention_route`'s
+    for the aligned, contiguous tensors the kernel reads); returns
+    ``(o, lse)``."""
     bh, tq, d = q.shape
     tk = k.shape[1]
     if d % 8 or d > MAX_HEAD_DIM:
@@ -123,15 +149,24 @@ def _launch(q, k, v, scale, causal):
     lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
     if o.numel() == 0 or tk == 0:
         return o.zero_(), lse.fill_(NEG_INF)
-    fn = _kernels.load('flash_attention')
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+    route = route or attention_route(q.dtype, d, ptrs)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), bh, tq, tk, d, float(scale), int(causal),
-                 _DTYPE_CODE[q.dtype], stream)
+        if route == 'sm90':
+            # persistent blocks: one per SM, at most one per 128-row tile
+            grid = min(bh * -(-tq // 128), _sm_count(q.device))
+            err = _kernels.load('flash_attention',
+                                'mxtpu_flash_attention_sm90')(
+                *ptrs, lse.data_ptr(), bh, tq, tk, d, float(scale),
+                int(causal), grid, stream)
+        else:
+            err = _kernels.load('flash_attention')(
+                *ptrs, lse.data_ptr(), bh, tq, tk, d, float(scale),
+                int(causal), _DTYPE_CODE[q.dtype], stream)
     if err:
         _raise_launch('flash_attention', err)
-    _count(flash_attention)
+    _count(flash_attention, route)
     return o, lse
 
 
@@ -184,8 +219,9 @@ def flash_attention(q, k, v, causal=False, scale=None):
     q, k, v: ``[B, H, T, D]`` or ``[BH, T, D]``, float32 or bfloat16;
     returns the attention output with q's shape and dtype.
     Differentiable.  ``scale`` defaults to 1/sqrt(D).  A CUDA tensor runs
-    the kernel (``flash_attention.launches`` counts its launches), a CPU
-    tensor the plain version."""
+    the kernel on :func:`attention_route`'s route
+    (``flash_attention.launches`` and ``.launches_by_route`` count its
+    launches), a CPU tensor the plain version."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     squeeze = q.ndim == 4
@@ -205,3 +241,4 @@ def flash_attention(q, k, v, causal=False, scale=None):
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)

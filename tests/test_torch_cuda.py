@@ -1,8 +1,9 @@
 """Tests of the PyTorch port that need the card: each CUDA kernel against
-its plain version (the GEMM kernels' sm90 route also at the edge cases it
-must get right), and small fused Predictor / LM train steps on the GPU
-against the CPU.  Marked ``cuda``; they skip on a host without a CUDA
-device.  On the GPU host:
+its plain version (the sm90 routes of the GEMM, convolution and
+attention kernels also at the edge cases they must get right, and
+against the route each replaced), and small fused Predictor / LM train
+steps on the GPU against the CPU.  Marked ``cuda``; they skip on a host
+without a CUDA device.  On the GPU host:
 
     python -m pytest tests/test_torch_cuda.py tests/test_torch_rtc.py -q \
         -m cuda --noconftest
@@ -458,3 +459,184 @@ def test_small_resnet_on_gpu_matches_cpu(dev, monkeypatch):
         assert launched == (5 if dt == 'gpu' else 0)
     np.testing.assert_allclose(outs['gpu'], outs['cpu'], rtol=1e-3,
                                atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# The sm90 route of fused_scale_bias_conv3x3 (TMA im2col + wgmma) and of
+# flash_attention (TMA + wgmma, P in registers): edge cases, and agreement
+# with the route each replaced (wmma / mma).  Conv tolerance: the GEMM
+# rule, |got - plain| <= 2e-2 * conv(|relu(x s + b)|, |w|) elementwise;
+# attention: O within 2e-2 of P @ |V|, lse within 1e-4 * (1 + |lse|).
+# ---------------------------------------------------------------------------
+
+def _conv_case(dev, shape, positive_bias=False, nan_pixel=None, seed=8):
+    n, h, wd, c, f, _ = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(n, h, wd, c, generator=g, device=dev).bfloat16()
+    if nan_pixel is not None:
+        x[nan_pixel + (c // 3,)] = float('nan')
+    w = (torch.randn(3, 3, c, f, generator=g, device=dev)
+         / (9 * c) ** 0.5).bfloat16()
+    s = torch.rand(c, generator=g, device=dev) + 0.5
+    b = torch.randn(c, generator=g, device=dev) * 0.5
+    if positive_bias:
+        # every input pixel maps to > 0: a halo row left at relu(bias)
+        # instead of 0 shows in every border output
+        b = b.abs() + 0.1
+    return x, w, s, b
+
+
+def _conv_magnitude(x, w, s, b, stride):
+    import torch.nn.functional as F
+    xa = torch.relu(x.float() * s + b).bfloat16().float()
+    return F.conv2d(xa.abs().permute(0, 3, 1, 2),
+                    w.float().abs().permute(3, 2, 0, 1), None, stride,
+                    1).permute(0, 2, 3, 1)
+
+
+def _covering(shape, pixel, dev):
+    """(N, OH, OW) mask of the outputs whose 3x3 window covers input
+    pixel (n, ih, iw)."""
+    n, h, wd, _, _, stride = shape
+    from mxnet_tpu_torch.ops import fused_conv
+    oh, ow = fused_conv.conv3x3_out_hw(h, wd, stride)
+    pn, ih, iw = pixel
+    rows = (torch.arange(oh, device=dev) * stride - 1)[:, None]
+    cols = (torch.arange(ow, device=dev) * stride - 1)[None, :]
+    hit = (rows <= ih) & (ih <= rows + 2) & (cols <= iw) & (iw <= cols + 2)
+    mask = torch.zeros(n, oh, ow, dtype=torch.bool, device=dev)
+    mask[pn] = hit
+    return mask
+
+
+@pytest.mark.parametrize('case', ['odd_stride2', 'ragged_m', 'one_tile',
+                                  'positive_bias', 'positive_bias_stride2',
+                                  'nan_pixel', 'nan_pixel_stride2'])
+def test_conv3x3_sm90_edge_cases(case, dev, monkeypatch):
+    from mxnet_tpu_torch.ops import fused_conv
+    monkeypatch.setattr(torch.backends.cudnn, 'allow_tf32', False)
+    shape, positive_bias, nan_pixel = {
+        # odd H and W at stride 2, F = 40 (a ragged BN = 64 tile); M =
+        # 168 is not a multiple of 128
+        'odd_stride2': ((3, 15, 13, 64, 40, 2), False, None),
+        # 7 x 9 images: a 128-row tile spans two images and a ragged end
+        'ragged_m': ((2, 7, 9, 64, 64, 1), False, None),
+        'one_tile': ((1, 3, 5, 128, 8, 1), True, None),
+        'positive_bias': ((2, 14, 14, 128, 64, 1), True, None),
+        'positive_bias_stride2': ((2, 14, 15, 192, 128, 2), True, None),
+        # the NaN on the left edge and on an interior pixel
+        'nan_pixel': ((2, 9, 9, 64, 32, 1), False, (1, 4, 0)),
+        'nan_pixel_stride2': ((2, 12, 12, 64, 32, 2), False, (0, 5, 6)),
+    }[case]
+    x, w, s, b = _conv_case(dev, shape, positive_bias, nan_pixel)
+    stride = shape[5]
+    conv = fused_conv.fused_scale_bias_conv3x3
+    got, route = _routed(conv, lambda: conv(x, w, s, b, stride))
+    assert route == 'sm90'
+    clean = x
+    if nan_pixel is not None:
+        clean = torch.nan_to_num(x, nan=0.0)
+    want = fused_conv.fused_scale_bias_conv3x3_plain(clean, w, s, b, stride)
+    mag = _conv_magnitude(clean, w, s, b, stride)
+    got = got.float()
+    if nan_pixel is not None:
+        mask = _covering(shape, nan_pixel, dev)
+        assert bool(torch.isnan(got[mask]).all())
+        assert not bool(torch.isnan(got[~mask]).any())
+        got, want, mag = got[~mask], want[~mask], mag[~mask]
+    assert bool(torch.isfinite(got).all())
+    assert float(((got - want.float()).abs()
+                  / mag.clamp_min(1e-30)).max()) <= 2e-2
+
+
+@pytest.mark.parametrize('shape', [(32, 14, 14, 256, 256, 1),
+                                   (32, 56, 56, 128, 128, 2)],
+                         ids=lambda s: 'x'.join(map(str, s)))
+def test_conv3x3_sm90_and_wmma_routes_agree_at_a_path_shape(shape, dev,
+                                                            monkeypatch):
+    from mxnet_tpu_torch.ops import fused_conv
+    monkeypatch.setattr(torch.backends.cudnn, 'allow_tf32', False)
+    x, w, s, b = _conv_case(dev, shape)
+    stride = shape[5]
+    assert fused_conv.conv_route(x, w) == 'sm90'
+    got = {r: fused_conv._launch(x, w, s, b, stride, True, r)
+           for r in ('sm90', 'wmma')}
+    torch.cuda.synchronize()
+    want = fused_conv.fused_scale_bias_conv3x3_plain(x, w, s, b, stride)
+    mag = _conv_magnitude(x, w, s, b, stride)
+    for r, y in list(got.items()) + [('sm90 vs wmma', got['sm90'])]:
+        ref = got['wmma'] if r == 'sm90 vs wmma' else want
+        err = (y.float() - ref.float()).abs() / mag.clamp_min(1e-30)
+        assert float(err.max()) <= 2e-2, r
+
+
+def test_conv3x3_weight_view_equals_contiguous(dev):
+    """The HWIO view of an OIHW weight (what the fuse pass passes) and
+    its contiguous HWIO copy: the same route and the same bits."""
+    from mxnet_tpu_torch.ops import fused_conv
+    x, w, s, b = _conv_case(dev, (4, 28, 28, 128, 128, 1))
+    view = w.permute(3, 2, 0, 1).contiguous().permute(2, 3, 1, 0)
+    assert not view.is_contiguous()
+    conv = fused_conv.fused_scale_bias_conv3x3
+    a, r1 = _routed(conv, lambda: conv(x, view, s, b))
+    c, r2 = _routed(conv, lambda: conv(x, w, s, b))
+    assert (r1, r2) == ('sm90', 'sm90') and torch.equal(a, c)
+
+
+def _flash_case(dev, bh, tq, tk, d, seed=9):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(bh, t, d, generator=g, device=dev).bfloat16()
+            for t in (tq, tk, tk)]
+
+
+def _check_flash(o, lse, q, k, v, scale, causal, want=None):
+    from mxnet_tpu_torch.ops import attention
+    want_o, want_lse = attention.flash_attention_plain(q, k, v, scale, causal)
+    mag = _attention_magnitude(q, k, v, scale, causal)
+    ref = want_o if want is None else want
+    assert bool(torch.isfinite(o.float()).all())
+    err = (o.float() - ref.float()).abs() / mag.clamp_min(1e-30)
+    assert float(err.max()) <= 2e-2
+    assert float(((lse - want_lse).abs()
+                  / (1 + want_lse.abs())).max()) <= 1e-4
+
+
+@pytest.mark.parametrize('case', ['ragged_causal', 'ragged_noncausal',
+                                  'd128', 'bh1', 'short'])
+def test_flash_attention_sm90_edge_cases(case, dev, monkeypatch):
+    from mxnet_tpu_torch.ops import attention
+    monkeypatch.setattr(torch.backends.cuda.matmul, 'allow_tf32', False)
+    bh, tq, tk, d, causal = {
+        # Tq != Tk, neither a multiple of the 128-row tiles: the causal
+        # diagonal crosses tiles at an offset of 400
+        'ragged_causal': (4, 300, 700, 64, True),
+        'ragged_noncausal': (4, 300, 700, 64, False),
+        'd128': (8, 512, 512, 128, True),
+        'bh1': (1, 512, 512, 64, True),
+        # one tile, most rows and keys out of range
+        'short': (3, 5, 9, 64, True),
+    }[case]
+    q, k, v = _flash_case(dev, bh, tq, tk, d)
+    scale = d ** -0.5
+    (o, lse), route = _routed(attention.flash_attention,
+                              lambda: attention._launch(q, k, v, scale,
+                                                        causal))
+    assert route == 'sm90'
+    _check_flash(o, lse, q, k, v, scale, causal)
+
+
+def test_flash_attention_sm90_and_mma_routes_agree(dev, monkeypatch):
+    """Both bf16 routes, forced, at the LM's path shape: each against the
+    plain version, and the sm90 route against the mma route."""
+    from mxnet_tpu_torch.ops import attention
+    monkeypatch.setattr(torch.backends.cuda.matmul, 'allow_tf32', False)
+    q, k, v = _flash_case(dev, 128, 512, 512, 64)
+    scale = 64 ** -0.5
+    assert attention.attention_route(
+        q.dtype, 64, [t.data_ptr() for t in (q, k, v)]) == 'sm90'
+    got = {r: attention._launch(q, k, v, scale, True, r)
+           for r in ('sm90', 'mma')}
+    torch.cuda.synchronize()
+    for r in got:
+        _check_flash(*got[r], q, k, v, scale, True)
+    _check_flash(*got['sm90'], q, k, v, scale, True, want=got['mma'][0])

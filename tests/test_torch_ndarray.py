@@ -445,6 +445,22 @@ def test_copyto_astype_wait_pickle():
         np.testing.assert_array_equal(got['c'].asnumpy(), c.asnumpy())
 
 
+@pytest.mark.parametrize('keyed', [True, False], ids=['dict', 'list'])
+def test_load_of_a_bfloat16_entry_raises_mxnet_error(keyed):
+    """The reference's ``nd.save`` writes a bfloat16 array with dtype
+    string '<V2', which no NDArray type holds: the port's ``load`` names
+    the entry and the dtype in an MXNetError."""
+    arrays = [mx.nd.array(np.arange(4.0), dtype='float32'),
+              mx.nd.array(np.arange(6.0).reshape(2, 3), dtype='bfloat16')]
+    with tempfile.TemporaryDirectory() as tmp:
+        fname = os.path.join(tmp, 'bf16.params')
+        mx.nd.save(fname, {'w32': arrays[0], 'w16': arrays[1]} if keyed
+                   else arrays)
+        with pytest.raises(tmx.MXNetError, match="<V2") as err:
+            tmx.nd.load(fname)
+    assert ("'w16'" if keyed else 'entry 1') in str(err.value)
+
+
 def test_onehot_encode_and_one_hot_match_jax():
     idx = np.array([0.0, 2.0, 1.0], np.float32)
     res = []

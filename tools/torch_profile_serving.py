@@ -32,6 +32,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 _CLASSES = (('bn_relu_kernel', 'fused_bn_relu'),
             ('dotsrc', 'fused_scale_bias_dot'),
             ('convsrc', 'fused_scale_bias_conv3x3'),
+            # the sm90 routes: gemm_sm90<..., hook> instantiations
+            ('bnprologue', 'fused_scale_bias_dot'),
+            ('convprologue', 'fused_scale_bias_conv3x3'),
+            ('sm90epi', 'fused_dot_epilogue'),
             ('dot_epilogue', 'fused_dot_epilogue'),
             ('flash_fwd', 'flash_attention'),
             ('conv', 'convolution'),
