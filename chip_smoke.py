@@ -69,12 +69,17 @@ Phases, each printing one JSON line; any failure exits nonzero:
                   tests/test_rtc.py's axpy and square as CUDA bodies
                   (exact; a second shape compiles nothing, float16 a
                   second module), the softmax head of path 4 forward
-                  (within rtol 1e-5 of torch.softmax in float64;
-                  library_ms is torch.softmax) and backward (y -
-                  onehot(label), exact; library_ms is torch.scatter_add
-                  of -1 at the labels) at (32, 1000)
-                  and, off the path, at the LM head's (8192, 32000); a
-                  body with a syntax error raises with NVRTC's log.
+                  (one read of each row; within rtol 1e-5 of
+                  torch.softmax in float64; library_ms is torch.softmax)
+                  and backward (128-bit; y - onehot(label), exact;
+                  library_ms is torch.scatter_add of -1 at the labels)
+                  at (32, 1000) and, off the path, at the LM head's
+                  (8192, 32000), each held with the body it replaced (three
+                  passes; scalar) to the same check and timed in turns
+                  with it (old_body_ms) and with an empty body of the
+                  same launch (floor_ms); host us of a push and of the
+                  library call; a body with a syntax error raises with
+                  NVRTC's log.
 4. serve       — main path 1: ModelServer serves full-width ResNet-50 v2
                   (1000 classes, 3x224x224, random weights from a numpy
                   seed, MXTPU_FUSE=aggressive, pow2 buckets up to 32
@@ -1034,10 +1039,132 @@ def serve(server, data, rng):
 # outputs (T*).  MXRtc kernels take no scalar arguments, so the row width
 # is compiled in: one module per width.
 #
-# Row softmax, one block per row: a block-wide max, a block-wide sum of
-# exp(x - max), then y = exp(x - max) / sum.  blockDim.x is a multiple of
-# 32 (every lane takes part in the shuffles), at most 1024.
+# Row softmax, one block per row of a compiled-in width N, T threads
+# (blockDim.x, a multiple of 32, at most 1024; also compiled in).  Each
+# thread keeps its share of the row in registers: V 4-wide chunks, chunk
+# c = threadIdx.x + k * T, so a warp's loads are 512 contiguous bytes.
+# One read of the row (128-bit loads where N % 4 == 0 and both row bases
+# are 16-byte aligned, else scalar loads with the same layout), a block
+# max and a block sum (warp shuffles and a 32-entry __shared__ array:
+# Rtc.push gives no dynamic shared memory), one write: y = exp(x - max) /
+# sum.  Padding past N holds -inf, whose exp adds nothing to the sum.
 SOFTMAX_FWD = r'''
+constexpr int N = %(n)d, T = %(block)d;
+constexpr int C = (N + 3) / 4, V = (C + T - 1) / T;
+const float* xr = x + (long long)blockIdx.x * N;
+float* yr = y + (long long)blockIdx.x * N;
+const bool vec = N %% 4 == 0 &&
+    ((reinterpret_cast<unsigned long long>(xr) |
+      reinterpret_cast<unsigned long long>(yr)) & 15) == 0;
+__shared__ float part[32];
+const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+const float ninf = __int_as_float(0xff800000);
+float4 v[V];
+if (vec) {
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const int j = 4 * (threadIdx.x + k * T);
+    v[k] = j < N ? *reinterpret_cast<const float4*>(xr + j)
+                 : make_float4(ninf, ninf, ninf, ninf);
+  }
+} else {
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const int j = 4 * (threadIdx.x + k * T);
+    v[k].x = j < N ? xr[j] : ninf;
+    v[k].y = j + 1 < N ? xr[j + 1] : ninf;
+    v[k].z = j + 2 < N ? xr[j + 2] : ninf;
+    v[k].w = j + 3 < N ? xr[j + 3] : ninf;
+  }
+}
+float m = ninf;
+#pragma unroll
+for (int k = 0; k < V; ++k)
+  m = fmaxf(m, fmaxf(fmaxf(v[k].x, v[k].y), fmaxf(v[k].z, v[k].w)));
+#pragma unroll
+for (int o = 16; o > 0; o >>= 1)
+  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+if (lane == 0) part[warp] = m;
+__syncthreads();
+m = lane < T / 32 ? part[lane] : ninf;
+#pragma unroll
+for (int o = 16; o > 0; o >>= 1)
+  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+__syncthreads();
+float s = 0.f;
+#pragma unroll
+for (int k = 0; k < V; ++k) {
+  v[k].x = expf(v[k].x - m);
+  v[k].y = expf(v[k].y - m);
+  v[k].z = expf(v[k].z - m);
+  v[k].w = expf(v[k].w - m);
+  s += (v[k].x + v[k].y) + (v[k].z + v[k].w);
+}
+#pragma unroll
+for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+if (lane == 0) part[warp] = s;
+__syncthreads();
+s = lane < T / 32 ? part[lane] : 0.f;
+#pragma unroll
+for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+const float inv = 1.f / s;
+#pragma unroll
+for (int k = 0; k < V; ++k) {
+  const int j = 4 * (threadIdx.x + k * T);
+  const float4 r = make_float4(v[k].x * inv, v[k].y * inv, v[k].z * inv,
+                               v[k].w * inv);
+  if (vec) {
+    if (j < N) *reinterpret_cast<float4*>(yr + j) = r;
+  } else {
+    if (j < N) yr[j] = r.x;
+    if (j + 1 < N) yr[j + 1] = r.y;
+    if (j + 2 < N) yr[j + 2] = r.z;
+    if (j + 3 < N) yr[j + 3] = r.w;
+  }
+}
+'''
+# the loss gradient of examples/numpy_ops.py, dx = y - onehot(label): the
+# row copied in 4-wide chunks (as the forward reads it) with 1 taken off
+# the one hot column; scalar where the chunks are not 16-byte aligned.
+# The other columns are y itself, which is y - 0 to the bit.
+SOFTMAX_BWD = r'''
+constexpr int N = %(n)d, T = %(block)d;
+constexpr int C = (N + 3) / 4, V = (C + T - 1) / T;
+const long long row = blockIdx.x;
+const int hot = (int)label[row];
+const float* yr = y + row * N;
+float* dr = dx + row * N;
+const bool vec = N %% 4 == 0 &&
+    ((reinterpret_cast<unsigned long long>(yr) |
+      reinterpret_cast<unsigned long long>(dr)) & 15) == 0;
+if (vec) {
+  float4 v[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const int j = 4 * (threadIdx.x + k * T);
+    if (j < N) v[k] = *reinterpret_cast<const float4*>(yr + j);
+  }
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const int j = 4 * (threadIdx.x + k * T);
+    if (j >= N) continue;
+    const int h = hot - j;
+    if (h == 0) v[k].x -= 1.f;
+    if (h == 1) v[k].y -= 1.f;
+    if (h == 2) v[k].z -= 1.f;
+    if (h == 3) v[k].w -= 1.f;
+    *reinterpret_cast<float4*>(dr + j) = v[k];
+  }
+} else {
+  for (int j = threadIdx.x; j < N; j += T)
+    dr[j] = yr[j] - (j == hot ? 1.f : 0.f);
+}
+'''
+# The first bodies, kept as the yardstick the ones above are timed
+# against in turns: three passes over the row (max, sum, write), the
+# second and third reading it from device memory again at the LM head's
+# width; and a scalar backward.
+SOFTMAX_FWD_3PASS = r'''
 const int n = %(n)d;
 const float* xr = x + (long long)blockIdx.x * n;
 float* yr = y + (long long)blockIdx.x * n;
@@ -1064,8 +1191,7 @@ const float inv = 1.f / s;
 for (int j = threadIdx.x; j < n; j += blockDim.x)
   yr[j] = expf(xr[j] - m) * inv;
 '''
-# the loss gradient of examples/numpy_ops.py: dx = y - onehot(label)
-SOFTMAX_BWD = r'''
+SOFTMAX_BWD_SCALAR = r'''
 const int n = %(n)d;
 const long long row = blockIdx.x;
 const int hot = (int)label[row];
@@ -1074,6 +1200,11 @@ float* dr = dx + row * n;
 for (int j = threadIdx.x; j < n; j += blockDim.x)
   dr[j] = yr[j] - (j == hot ? 1.f : 0.f);
 '''
+# (forward, backward) bodies by name; 'floor' is an empty body: what a
+# push of the same grid, block and arguments costs the card
+SOFTMAX_BODIES = {'new': (SOFTMAX_FWD, SOFTMAX_BWD),
+                  'old': (SOFTMAX_FWD_3PASS, SOFTMAX_BWD_SCALAR),
+                  'floor': ('', '')}
 # the reference MXNet's tests/python/gpu/test_rtc.py
 REF_BODY = r'''
 __shared__ float s_rec[10];
@@ -1098,24 +1229,25 @@ _SOFTMAX_KERNELS = {}
 
 
 def rtc_block(n):
-    """Threads per row: 256 for the head's 1000 classes; 1024 for wider
-    rows, where each thread then loops over 32 of the row's elements.
-    (At (8192, 32000) the forward's second and third reads of each row
-    still come from device memory, not L2: see PERF.md.)"""
+    """Threads per row, compiled into the bodies: 256 for the head's 1000
+    classes (one 4-wide chunk a thread); 1024 for wider rows (at 32000
+    classes, 8 chunks, 32 floats of registers a thread)."""
     return 256 if n <= 4096 else 1024
 
 
-def softmax_kernels(mx, n):
-    """The (forward, backward) Rtc kernels for rows of ``n`` classes, made
-    once per width."""
-    k = _SOFTMAX_KERNELS.get(n)
+def softmax_kernels(mx, n, bodies='new'):
+    """The (forward, backward) Rtc kernels for rows of ``n`` classes from
+    ``SOFTMAX_BODIES[bodies]``, made once per width."""
+    k = _SOFTMAX_KERNELS.get((n, bodies))
     if k is None:
+        fwd, bwd = SOFTMAX_BODIES[bodies]
+        fill = {'n': n, 'block': rtc_block(n)}
         row, lab = mx.nd.zeros((1, n)), mx.nd.zeros((1,))
-        k = _SOFTMAX_KERNELS[n] = (
+        k = _SOFTMAX_KERNELS[n, bodies] = (
             mx.rtc.Rtc('softmax_fwd', [('x', row)], [('y', row)],
-                       SOFTMAX_FWD % {'n': n}),
+                       fwd % fill),
             mx.rtc.Rtc('softmax_bwd', [('y', row), ('label', lab)],
-                       [('dx', row)], SOFTMAX_BWD % {'n': n}))
+                       [('dx', row)], bwd % fill))
     return k
 
 
@@ -1215,35 +1347,52 @@ def rtc_compile_stats(instrument):
 
 
 def rtc_case(torch, instrument, name, kernel, ins, outs, dims, check, plain,
-             library, nbytes, ops, flush, **info):
+             library, nbytes, ops, flush, old=None, **info):
     """One Rtc case on the card: the first push (NVRTC compile and module
-    load where its dtypes are new to ``kernel``), ``check()`` of its
-    outputs (-> max abs error, tolerance text), then the push, its plain
-    version and the library call (None where no single PyTorch call
-    computes the function) timed as the other kernels are, the host cost
-    of one push (decoration, cache lookup, ctypes, the output's
-    allocation) and the bound."""
+    load where its dtypes are new to ``kernel``), ``check(outs)`` of its
+    outputs (-> max abs error, tolerance text), then the push timed as the
+    other kernels are, in turns with ``old`` (the body it replaced, held
+    to the same check; None where there is none) and with the floor (an
+    empty body of the same launch, grid, block and arguments: what a push
+    costs the card), then its plain version and the library call (None
+    where no single PyTorch call computes the function), the host cost of
+    one push (checks, output allocation, plan lookup, the ctypes launch)
+    and of the library call, and the bound."""
     n0, s0 = rtc_compile_stats(instrument)
     t0 = time.perf_counter()
     kernel.push(ins, outs, *dims)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     n1, s1 = rtc_compile_stats(instrument)
-    err, tol = check()
-
-    def push():
-        kernel.push(ins, outs, *dims)
-
+    err, tol = check(outs)
+    # old bodies and the floor write into spare arrays, not the case's
+    spare = [o.copy() for o in outs]
+    floor = type(kernel)(kernel.name + '_floor',
+                         list(zip(kernel.input_names, ins)),
+                         list(zip(kernel.output_names, spare)), '')
+    runs = [lambda: kernel.push(ins, outs, *dims),
+            lambda: floor.push(ins, spare, *dims)]
+    if old is not None:
+        old.push(ins, spare, *dims)
+        torch.cuda.synchronize()
+        check(spare)
+        runs.append(lambda: old.push(ins, spare, *dims))
+    floor.push(ins, spare, *dims)
+    times = cuda_ms_each(torch, runs, flush)
+    floor.close()
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     op_ms = ops / FP32_FLOPS * 1e3
     return dict(name=name, **info, grid=list(dims[0]), block=list(dims[1]),
                 compiles=n1 - n0, nvrtc_s=s1 - s0, first_push_s=first_s,
-                max_abs_err=err, tolerance=tol,
-                ms=cuda_ms(torch, push, flush),
+                max_abs_err=err, tolerance=tol, ms=times[0],
+                floor_ms=times[1],
+                old_body_ms=times[2] if old is not None else None,
                 plain_ms=cuda_ms(torch, plain, flush),
                 library_ms=(cuda_ms(torch, library, flush)
                             if library is not None else None),
-                host_us=host_us(torch, push),
+                host_us=host_us(torch, runs[0]),
+                library_host_us=(host_us(torch, library)
+                                 if library is not None else None),
                 bound_ms=max(byte_ms, op_ms),
                 bound_by='bytes' if byte_ms >= op_ms else 'operations',
                 bytes=nbytes, operations=ops)
@@ -1253,7 +1402,8 @@ def softmax_cases(mx, torch, instrument, rows, n, gen, flush, per_step):
     """The softmax head's two kernels at (rows, n) f32: the forward within
     rtol 1e-5 of torch.softmax in float64 cast back (and of the plain
     version, the nd.* head's arithmetic); the backward exactly y -
-    onehot(label)."""
+    onehot(label).  The first bodies (``SOFTMAX_BODIES['old']``) are held
+    to the same checks and timed in turns (``old_body_ms``)."""
     dev = torch.device('cuda', 0)
     x = torch.randn(rows, n, generator=gen, device=dev) * 3.0
     label = torch.randint(0, n, (rows,), generator=gen,
@@ -1262,6 +1412,7 @@ def softmax_cases(mx, torch, instrument, rows, n, gen, flush, per_step):
     y, dx = mx.nd.zeros((rows, n), ctx=mx.gpu(0)), \
         mx.nd.zeros((rows, n), ctx=mx.gpu(0))
     fwd, bwd = softmax_kernels(mx, n)
+    old_fwd, old_bwd = softmax_kernels(mx, n, 'old')
     dims = ((rows, 1, 1), (rtc_block(n), 1, 1))
 
     def plain_fwd():
@@ -1278,8 +1429,8 @@ def softmax_cases(mx, torch, instrument, rows, n, gen, flush, per_step):
     def library_bwd():
         return torch.scatter_add(y.handle, 1, hot, minus_one)
 
-    def check_fwd():
-        got = y.handle
+    def check_fwd(outs):
+        got = outs[0].handle
         want = torch.softmax(x.double(), 1).float()
         rel = float(((got - want).abs()
                      / want.abs().clamp_min(1e-37)).max())
@@ -1297,15 +1448,16 @@ def softmax_cases(mx, torch, instrument, rows, n, gen, flush, per_step):
             'rtol %g of torch.softmax in float64 (max rel err %g)' % (
                 SOFTMAX_RTOL, rel)
 
-    def check_bwd():
+    def check_bwd(outs):
         want = plain_bwd()
         if not torch.equal(library_bwd(), want):
             raise AssertionError('rtc softmax_bwd %s: the library call '
                                  'computes another function' % ((rows, n),))
-        if not torch.equal(dx.handle, want):
+        got = outs[0].handle
+        if not torch.equal(got, want):
             raise AssertionError('rtc softmax_bwd %s: dx differs from y - '
                                  'onehot(label) by %g' % (
-                                     (rows, n), float((dx.handle - want)
+                                     (rows, n), float((got - want)
                                                       .abs().max())))
         return 0.0, 'exact'
 
@@ -1313,13 +1465,13 @@ def softmax_cases(mx, torch, instrument, rows, n, gen, flush, per_step):
     cases = [
         rtc_case(torch, instrument, 'softmax_fwd', fwd, [xa], [y], dims,
                  check_fwd, plain_fwd, lambda: torch.softmax(x, 1),
-                 2 * elems * 4, 7 * elems, flush, shape=[rows, n],
-                 dtype='float32', launches_per_step=per_step,
-                 library_call='torch.softmax'),
+                 2 * elems * 4, 7 * elems, flush, old=old_fwd,
+                 shape=[rows, n], dtype='float32',
+                 launches_per_step=per_step, library_call='torch.softmax'),
         rtc_case(torch, instrument, 'softmax_bwd', bwd, [y, la], [dx], dims,
                  check_bwd, plain_bwd, library_bwd, 2 * elems * 4 + rows * 4,
-                 elems, flush, shape=[rows, n], dtype='float32',
-                 launches_per_step=per_step,
+                 elems, flush, old=old_bwd, shape=[rows, n],
+                 dtype='float32', launches_per_step=per_step,
                  library_call='torch.scatter_add(y, 1, label, -1)')]
     return cases
 
@@ -1334,8 +1486,8 @@ def rtc_kernels(mx, torch, instrument, gen, flush):
     k = mx.rtc.Rtc('abc', [('x', x)], [('y', y)], REF_BODY)
     want = np.float32(np.exp(5.0))
 
-    def check_ref():
-        got = y.asnumpy()
+    def check_ref(outs):
+        got = outs[0].asnumpy()
         ulps = float(np.max(np.abs(got.astype(np.float64) - float(want))
                             / np.spacing(want)))
         if ulps > 2:
@@ -1355,10 +1507,11 @@ def rtc_kernels(mx, torch, instrument, gen, flush):
     axpy = mx.rtc.Rtc('axpy', [('x', xa), ('y', ya)], [('out', out)],
                       AXPY_BODY)
 
-    def check_axpy():
+    def check_axpy(outs):
         want = 2.0 * xa.asnumpy() + ya.asnumpy()
-        if not np.array_equal(out.asnumpy(), want):
-            raise AssertionError('rtc axpy disagrees: %s' % out.asnumpy())
+        if not np.array_equal(outs[0].asnumpy(), want):
+            raise AssertionError('rtc axpy disagrees: %s'
+                                 % outs[0].asnumpy())
         return 0.0, 'exact'
 
     cases.append(rtc_case(
@@ -1375,8 +1528,8 @@ def rtc_kernels(mx, torch, instrument, gen, flush):
                      dtype=dt)
         o = nd.zeros(shape, ctx=ctx, dtype=dt)
 
-        def check_sq(a=a, o=o):
-            if not torch.equal(o.handle, a.handle * a.handle):
+        def check_sq(outs, a=a):
+            if not torch.equal(outs[0].handle, a.handle * a.handle):
                 raise AssertionError('rtc square %s %s disagrees'
                                      % (a.shape, a.dtype))
             return 0.0, 'exact'
@@ -1423,7 +1576,12 @@ def rtc_summary(cases, launches):
             'source': 'mxnet_tpu_torch/csrc/rtc.cu',
             'replaces': 'mxnet_tpu/rtc.py:91', 'launches': launches,
             'launches_by_path': {'custom-train': launches},
-            'kernel_bodies': 'chip_smoke.py SOFTMAX_FWD, SOFTMAX_BWD',
+            'kernel_bodies': 'chip_smoke.py SOFTMAX_FWD (one read of each '
+                             'row, 128-bit loads), SOFTMAX_BWD (128-bit); '
+                             'old_body_ms: SOFTMAX_FWD_3PASS, '
+                             'SOFTMAX_BWD_SCALAR',
+            'old_body_ms': _sum_cases(on_path, 'old_body_ms'),
+            'floor_ms': _sum_cases(on_path, 'floor_ms'),
             'max_abs_err': max(c['max_abs_err'] for c in on_path),
             'ms': _sum_cases(on_path, 'ms'),
             'plain_ms': _sum_cases(on_path, 'plain_ms'),
@@ -1436,6 +1594,8 @@ def rtc_summary(cases, launches):
                    'backward), float32',
             'host_us_per_push': statistics.mean(c['host_us']
                                                 for c in on_path),
+            'library_host_us': statistics.mean(c['library_host_us']
+                                               for c in on_path),
             'nvrtc_s_per_module': statistics.mean(
                 c['nvrtc_s'] / c['compiles'] for c in modules),
             'cases': cases}

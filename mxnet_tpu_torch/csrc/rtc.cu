@@ -8,9 +8,16 @@
 // design goes back to the reference MXNet's MXRtc (src/common/mxrtc.cc):
 // the user writes the body of a __global__ function and chooses its
 // grid and block.  What bounds a launch is the user's kernel; this file
-// adds host work only (a cached module, one cuLaunchKernel), and the
-// CUBIN is compiled for sm_90a ahead of the launch, so no PTX JIT runs
-// when the module loads.
+// adds host work only, and the CUBIN is compiled for sm_90a ahead of the
+// launch, so no PTX JIT runs when the module loads.
+//
+// Host cost of a push: rtc.py keeps one launch plan per (device, argument
+// dtypes) — this file's context and function handles — in a dict it reads
+// without a lock, and makes one ctypes call per push, whose one argument
+// is a packed launch record of plain integers (the handles, stream, grid,
+// block and the arguments' device addresses).  The launch checks
+// the calling thread's current context (a few nanoseconds) instead of
+// pushing and popping the primary context around every cuLaunchKernel.
 //
 // Plain C entry points, bound with ctypes.  Each returns 0 or the
 // nvrtcResult / CUresult code of the call that failed;
@@ -137,18 +144,49 @@ int mxtpu_rtc_load(const void* cubin, const char* name, int device,
   return CUDA_SUCCESS;
 }
 
-// Launch `function` on `stream` with no dynamic shared memory, as MXRtc
-// did.  `params` holds one pointer to each kernel argument; cuLaunchKernel
-// copies the arguments before it returns.  Does not synchronise.
-int mxtpu_rtc_launch(void* ctx, void* function, unsigned gx, unsigned gy,
-                     unsigned gz, unsigned bx, unsigned by, unsigned bz,
-                     void** params, void* stream) {
-  CUresult r = cuCtxPushCurrent(static_cast<CUcontext>(ctx));
+// Launch one kernel as rtc.py packs it, with no dynamic shared memory, as
+// MXRtc did.  `record` holds native-endian uint64s, read here with memcpy
+// (no alignment assumed): the context and function of mxtpu_rtc_load, the
+// stream, grid x/y/z, block x/y/z, the argument count n, and the n
+// arguments (the arrays' device addresses).  Packed in one bytes object,
+// a push costs one ctypes argument conversion instead of eleven.  The
+// parameter array cuLaunchKernel reads (one pointer to each argument) is
+// built on this stack; cuLaunchKernel copies the arguments before it
+// returns.  The context is the primary context the function was loaded
+// into, which is the current one on any thread where PyTorch has used
+// the device: it is pushed, and popped after the launch, only where
+// another context or none is current (a thread that never touched CUDA,
+// another device).  Does not synchronise.
+int mxtpu_rtc_launch_record(const unsigned char* record) {
+  enum { kHead = 10, kMaxArgs = 512 };
+  unsigned long long head[kHead];
+  std::memcpy(head, record, sizeof head);
+  const unsigned long long n = head[9];
+  if (n > kMaxArgs) return CUDA_ERROR_INVALID_VALUE;
+  for (int i = 3; i < 9; ++i)
+    if (head[i] > 0xffffffffull) return CUDA_ERROR_INVALID_VALUE;
+  unsigned long long args[kMaxArgs];
+  void* params[kMaxArgs];
+  std::memcpy(args, record + sizeof head, n * sizeof(unsigned long long));
+  for (unsigned long long i = 0; i < n; ++i) params[i] = &args[i];
+  CUcontext ctx = reinterpret_cast<CUcontext>(head[0]);
+  CUcontext current = nullptr;
+  CUresult r = cuCtxGetCurrent(&current);
   if (r != CUDA_SUCCESS) return r;
-  r = cuLaunchKernel(static_cast<CUfunction>(function), gx, gy, gz, bx, by,
-                     bz, 0, static_cast<CUstream>(stream), params, nullptr);
-  CUcontext popped;
-  cuCtxPopCurrent(&popped);
+  const bool push = current != ctx;
+  if (push && (r = cuCtxPushCurrent(ctx)) != CUDA_SUCCESS) return r;
+  r = cuLaunchKernel(reinterpret_cast<CUfunction>(head[1]),
+                     static_cast<unsigned>(head[3]),
+                     static_cast<unsigned>(head[4]),
+                     static_cast<unsigned>(head[5]),
+                     static_cast<unsigned>(head[6]),
+                     static_cast<unsigned>(head[7]),
+                     static_cast<unsigned>(head[8]), 0,
+                     reinterpret_cast<CUstream>(head[2]), params, nullptr);
+  if (push) {
+    CUcontext popped;
+    cuCtxPopCurrent(&popped);
+  }
   return r;
 }
 

@@ -16,10 +16,21 @@ int32 ``int``, int64 ``long long``, uint8 ``unsigned char``;
 ``cuda_fp16.h`` / ``cuda_bf16.h`` are included only when a 16-bit type
 occurs).  NVRTC compiles it for ``sm_90a`` to a CUBIN, one module per
 (device, input dtypes, output dtypes) — shapes do not change the code —
-and :meth:`Rtc.push` launches it through the CUDA driver API
-(``csrc/rtc.cu``) with ``grid_dims`` / ``block_dims`` (default
-``(1, 1, 1)``), no dynamic shared memory, on torch's current stream of
-the arrays' device, without synchronising.
+loaded into the device's primary context, and :meth:`Rtc.push` launches
+it through the CUDA driver API (``csrc/rtc.cu``) with ``grid_dims`` /
+``block_dims`` (default ``(1, 1, 1)``), no dynamic shared memory, on
+torch's current stream of the arrays' device, without synchronising.
+
+A push is one cached launch plan: the module cache is a dict keyed by
+the arguments' devices and dtypes, read without a lock (the lock guards
+the compile on a miss, where the devices are checked), and the launch
+is one ctypes call whose one argument is a packed launch record of plain
+integers (the plan's handles, the stream, grid, block and the arguments'
+device addresses).  The launch pushes the primary context only
+where the calling thread has another context current or none (a thread
+that never touched CUDA), so it runs on the arrays' device from any
+thread, and the thread's context is left as it was.  A push can be
+captured in a CUDA graph (``torch.cuda.graph``) once its plan exists.
 
 Outputs: each output gets a fresh contiguous tensor, launched into and
 then swapped into its NDArray (``_set_data``), as the JAX package swaps
@@ -45,6 +56,7 @@ from __future__ import annotations
 import ctypes
 import itertools
 import re
+import struct
 import threading
 import time
 
@@ -86,11 +98,63 @@ def _c_identifier(kind, name):
 
 
 def _dims(dims, what):
-    dims = tuple(int(d) for d in (dims or ()))
-    if len(dims) > 3 or any(d < 1 for d in dims):
+    """``dims`` (up to three positive ints; None or empty for none) as a
+    CUDA (x, y, z), the missing trailing ones 1."""
+    if type(dims) is tuple and len(dims) == 3:     # the common case, fast
+        x, y, z = dims
+        if type(x) is int and type(y) is int and type(z) is int and \
+                x > 0 and y > 0 and z > 0:
+            return dims
+    if not dims:
+        return (1, 1, 1)
+    dims = tuple(map(int, dims))
+    if len(dims) > 3 or min(dims) < 1:
         raise MXNetError('Rtc %s must be up to 3 positive ints, got %r'
                          % (what, dims))
     return dims + (1,) * (3 - len(dims))
+
+
+def _device_index(name, tensors):
+    """The CUDA device index all ``tensors`` lie on; raises where one lies
+    on the CPU or on another device."""
+    index = {t.get_device() for t in tensors}
+    if len(index) == 1 and min(index) >= 0:
+        return min(index)
+    raise MXNetError(
+        'Rtc %s: a CUDA-source kernel runs on one CUDA device; its arrays '
+        'are on %s' % (name, sorted({str(t.device) for t in tensors})))
+
+
+def _key(tensors):
+    """A launch plan's key: each argument's device index, then its dtype.
+    Shapes, grid and block change no code, so a new one compiles nothing.
+    A plan is made only for arguments on one CUDA device, so a hit in the
+    cache is the device check too."""
+    return (*[t.get_device() for t in tensors], *[t.dtype for t in tensors])
+
+
+def _record(nargs):
+    """The packer of a launch record of ``nargs`` kernel arguments:
+    native-endian uint64s, as ``mxtpu_rtc_launch_record`` reads them."""
+    return struct.Struct('=%dQ' % (10 + nargs)).pack
+
+
+def _pack(record, ctx, function, stream, grid, block, tensors):
+    """One launch: the plan's context and function handles, the stream,
+    grid, block, the argument count and the tensors' device addresses,
+    packed by ``record`` (:func:`_record`) into one bytes object, the
+    launch entry's only argument."""
+    return record(ctx, function, stream, *grid, *block, len(tensors),
+                  *[t.data_ptr() for t in tensors])
+
+
+def _raw_stream(index):
+    """The handle of torch's current stream on device ``index``.  The
+    public ``torch.cuda.current_stream(index).cuda_stream`` builds a
+    Stream object on every call (a few us); the private binding returns
+    the handle as an int and is the one torch's own generated code
+    launches with (``torch._inductor``'s ``get_raw_stream``)."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def _tensor(x):
@@ -107,7 +171,7 @@ class _Shim:
     def __init__(self):
         from .ops import _kernels
         lib = _kernels.library('rtc')
-        P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+        P, I = ctypes.c_void_p, ctypes.c_int
         self.compile = lib.mxtpu_rtc_compile
         self.compile.argtypes = [ctypes.c_char_p, ctypes.c_char_p,
                                  ctypes.c_char_p, ctypes.c_char_p,
@@ -121,11 +185,12 @@ class _Shim:
         self.load.argtypes = [ctypes.c_char_p, ctypes.c_char_p, I,
                               ctypes.POINTER(P),
                               ctypes.POINTER(P), ctypes.POINTER(P)]
-        self.launch = lib.mxtpu_rtc_launch
-        self.launch.argtypes = [P, P, U, U, U, U, U, U, P, P]
+        # one launch record (_pack), passed as a pointer to its bytes
+        self.launch_record = lib.mxtpu_rtc_launch_record
+        self.launch_record.argtypes = [ctypes.c_char_p]
         self.free = lib.mxtpu_rtc_free
         self.free.argtypes = [P, P, I]
-        for fn in (self.compile, self.load, self.launch, self.free):
+        for fn in (self.compile, self.load, self.launch_record, self.free):
             fn.restype = I
         self.cuda_error = lib.mxtpu_cuda_error_string
         self.nvrtc_error = lib.mxtpu_nvrtc_error_string
@@ -202,9 +267,11 @@ class Rtc(object):
             raise TypeError('Rtc kernel must be a CUDA source string or a '
                             'callable')
         # callable: (in avals, out avals, grid) -> body, the JAX package's
-        # keys; CUDA: (device index, in dtypes, out dtypes) -> (context,
-        # module, function)
+        # keys; CUDA: _key -> the launch plan (_load), read without the
+        # lock
         self._cache = {}
+        self._record = _record(len(self.input_names)
+                               + len(self.output_names))
         self._lock = threading.Lock()
 
     def source(self, in_dtypes, out_dtypes):
@@ -238,43 +305,43 @@ class Rtc(object):
                 raise TypeError('Rtc.push outputs must be NDArrays')
         if self._body is not None:
             return self._push_callable(xs, outs, grid_dims)
-        grid = _dims(grid_dims or (1, 1, 1), 'grid_dims')
-        block = _dims(block_dims or (1, 1, 1), 'block_dims')
-        devices = {t.device for t in xs} | {o.handle.device for o in outs}
-        dev = next(iter(devices))
-        if len(devices) != 1 or dev.type != 'cuda':
-            raise MXNetError(
-                'Rtc %s: a CUDA-source kernel runs on one CUDA device; its '
-                'arrays are on %s' % (self.name, sorted(map(str, devices))))
+        grid = _dims(grid_dims, 'grid_dims')
+        block = _dims(block_dims, 'block_dims')
+        olds = [o.handle for o in outs]
+        key = _key(xs + olds)
+        ctx, function, launch, index, _ = self._cache.get(key) or \
+            self._load(key, xs, olds)
         xs = [t.contiguous() for t in xs]
-        ys = [torch.empty(o.shape, dtype=o.dtype, device=dev) for o in outs]
-        shim = _get_shim()
-        ctx, _, function = self._function(
-            shim, dev, tuple(t.dtype for t in xs), tuple(t.dtype for t in ys))
-        ptrs = [ctypes.c_void_p(t.data_ptr()) for t in xs + ys]
-        params = (ctypes.c_void_p * len(ptrs))(
-            *[ctypes.addressof(p) for p in ptrs])
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = shim.launch(ctx, function, *grid, *block, params, stream)
+        ys = [torch.empty_like(t, memory_format=torch.contiguous_format)
+              for t in olds]
+        err = launch(_pack(self._record, ctx, function, _raw_stream(index),
+                           grid, block, xs + ys))
         if err:
             raise MXNetError('Rtc %s: launch failed: %s (CUDA error %d)' % (
-                self.name, shim.cuda_error(err).decode(), err))
+                self.name, _get_shim().cuda_error(err).decode(), err))
         with _count_lock:
             Rtc.launches += 1
         for dst, y in zip(outs, ys):
             dst._set_data(y)
         return outs
 
-    def _function(self, shim, dev, in_dtypes, out_dtypes):
-        key = (dev.index, in_dtypes, out_dtypes)
+    def _load(self, key, xs, ys):
+        """The launch plan of ``key`` for inputs ``xs`` and outputs ``ys``
+        (context, function, launch entry, device index, module), compiled
+        and loaded: the cache's miss path, the only one that takes the
+        lock.  Raises where the arrays are not on one CUDA device."""
+        index = _device_index(self.name, xs + ys)
+        in_dtypes = [t.dtype for t in xs]
+        out_dtypes = [t.dtype for t in ys]
         with self._lock:
-            hit = self._cache.get(key)
-            if hit is not None:
-                return hit
+            plan = self._cache.get(key)
+            if plan is not None:
+                return plan
+            shim = _get_shim()
             cubin = _compile(shim, self.source(in_dtypes, out_dtypes),
                              self.name)
             ctx, module, function = (ctypes.c_void_p() for _ in range(3))
-            err = shim.load(cubin, self.name.encode(), dev.index,
+            err = shim.load(cubin, self.name.encode(), index,
                             ctypes.byref(ctx), ctypes.byref(module),
                             ctypes.byref(function))
             if err:
@@ -282,8 +349,10 @@ class Rtc(object):
                                  '(CUDA error %d)' % (
                                      self.name, shim.cuda_error(err).decode(),
                                      err))
-            hit = self._cache[key] = (ctx, module, function)
-            return hit
+            plan = self._cache[key] = (ctx.value, function.value,
+                                       shim.launch_record, index,
+                                       module.value)
+            return plan
 
     def _push_callable(self, xs, outs, grid_dims):
         grid = tuple(int(g) for g in grid_dims) if grid_dims else ()
@@ -309,7 +378,7 @@ class Rtc(object):
         if self._body is not None:
             return
         with self._lock:
-            for (device, _, _), (ctx, module, _) in self._cache.items():
+            for ctx, _, _, device, module in self._cache.values():
                 _get_shim().free(ctx, module, device)
             self._cache.clear()
 
