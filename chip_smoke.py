@@ -60,7 +60,15 @@ Phases, each printing one JSON line; any failure exits nonzero:
                   relu and clip (wmma route), one with no bias (sm90, the
                   N = 72 tile at BN = 64); on sm90 M = 1001, no bias with
                   a clip, and a NaN row through bias, relu and clip.
-3c. rtc-kernels — kernel #6: mx.rtc.Rtc's CUDA-source form, NVRTC-compiled
+3c. bucket-kernels — the same two kernels at the bucketed path's shapes, in
+                  float32 (its dtype; the simt routes), read from each
+                  bucket's aggressive training graph at 16 rows:
+                  flash_attention [128, T, 64] causal with Tq = Tk = T and
+                  fused_dot_epilogue (16 T, 512, 2048) with bias and relu,
+                  for T in 128, 200, 320, 512 (200 and 320 leave ragged
+                  128-row tiles); the tolerances above, library_ms SDPA
+                  (is_causal) and torch.addmm.
+3d. rtc-kernels — kernel #6: mx.rtc.Rtc's CUDA-source form, NVRTC-compiled
                   for sm_90a and launched through the CUDA driver API
                   (csrc/rtc.cu), on card tensors, each case against its
                   plain PyTorch version and timed as above (plus the first
@@ -122,6 +130,38 @@ Phases, each printing one JSON line; any failure exits nonzero:
 9. lm-parity    — one f32 step of the full-width LM at 2 x 512 tokens,
                   TF32 off, on the card and on the CPU from the same numpy
                   parameters, under train-parity's bound.
+9b. bucket-train — main path 5: BucketingModule(transformer_lm
+                  .sym_gen_bucketing(...), default_bucket_key=512,
+                  context=gpu(0)).fit over a BucketSentenceIter of random
+                  sentences of 64-512 tokens (a numpy seed; padding -1, so
+                  Embedding's wrapped ids and SoftmaxOutput's zero one-hot
+                  rows run on the card), buckets 128, 200, 320, 512, 16
+                  rows, the LM of lm-train in float32 with TF32 off, SGD lr
+                  0.01 momentum 0.9; one warm-up and 3 measured batches per
+                  bucket.  Counts zeroed just before fit and read just
+                  after: 6 flash_attention and 6 fused_dot_epilogue per
+                  step, all simt.  Every bucket module's parameters,
+                  gradients and optimizer state are the default bucket's
+                  (same data_ptr, same objects); per bucket the median step
+                  ms, padded and unpadded tokens/s and launches per step by
+                  route; peak memory; then a fit with every bucket declared
+                  under MXTPU_PRECOMPILE_BUCKETS, one batch per bucket: the
+                  host ms of each bucket's first batch with the knob off and
+                  on.
+9c. bucket-parity — one fit step of bucket 200 at 4 rows (with padding),
+                  float32, TF32 off, on the card and on the CPU from the
+                  same numpy parameters, under train-parity's bound.
+9d. sp          — main path 6: parallel.make_sp_train_step on a one-rank
+                  NCCL group (init_process_group over a localhost TCP
+                  store, a DeviceMesh with one 'seq' dimension), the LM of
+                  lm-train at T=512 and 16 rows, 5 bf16 steps in each of
+                  attn_mode 'ring' (plain PyTorch: no kernel launch) and
+                  'ulysses' (all_to_all_single around flash_attention: 6
+                  launches per step, all sm90); then one f32 step of each
+                  mode against make_train_step on the same parameters and
+                  batch, both on the card, under train-parity's bound.
+                  Four ranks need four cards; their behaviour is held on
+                  the CPU (tests/test_torch_sp.py, gloo).
 10. imperative  — a fixed script of nd.* calls (one op of each family of
                   the imperative layer, NDArray arithmetic, indexing,
                   in-place updates, nd.Custom on the Sqr op of
@@ -178,6 +218,16 @@ LM = dict(vocab_size=32000, num_embed=512, num_heads=8, num_layers=6,
 LM_BATCH = 16
 LM_STEPS = 10
 LM_PARITY_ROWS = 2
+# the bucketed LM (main path 5): the bench leg's width over length
+# buckets (200 and 320 are no multiple of the 128-row tile), float32
+BUCKETS = (128, 200, 320, 512)
+BUCKET_MIN_LEN = 64         # sentences of BUCKET_MIN_LEN to 512 tokens
+BUCKET_ROWS = 16
+BUCKET_STEPS = 3            # measured batches per bucket, after one warm-up
+BUCKET_PARITY = (200, 4)    # (bucket, rows) of the card-vs-CPU step
+# sequence parallelism (main path 6): one NCCL rank, the LM at T=512
+SP_STEPS = 5
+SP_SEQ_PARAMS = ('pos_embed_weight',)
 BATCH = 32
 TRAIN_BATCHES = 10
 TRAIN_WARMUP = 2
@@ -856,6 +906,409 @@ def lm_kernels(mx, torch, attention, fused, models, gen, flush):
     return att_cases, dot_cases
 
 
+def bucket_gen(models):
+    """The LM's sym_gen over length buckets: one positional table of
+    max(BUCKETS) rows, prefix-sliced per bucket."""
+    return models.transformer_lm.sym_gen_bucketing(
+        vocab_size=LM['vocab_size'], num_embed=LM['num_embed'],
+        num_heads=LM['num_heads'], num_layers=LM['num_layers'],
+        max_seq_len=max(BUCKETS))
+
+
+def bucket_kernels(mx, torch, attention, fused, models, gen, flush):
+    """Both LM kernels at every bucket's shapes, read from each bucket's
+    aggressive training graph at BUCKET_ROWS rows, in float32 (the
+    bucketed path's dtype; the simt routes): flash_attention causal at
+    Tq = Tk = T, fused_dot_epilogue at M = rows * T."""
+    att_cases, dot_cases = [], []
+    for t in BUCKETS:
+        dots, atts = lm_kernel_shapes(mx, bucket_gen(models)(t)[0],
+                                      BUCKET_ROWS, t)
+        if sum(dots.values()) != LM['num_layers'] or \
+                sum(atts.values()) != LM['num_layers']:
+            raise AssertionError('bucket %d: expected %d lowered FC '
+                                 'epilogues and FlashAttention nodes, found '
+                                 '%s / %s' % (t, LM['num_layers'],
+                                              dict(dots), dict(atts)))
+        for (bh, tq, tk, d, causal, scale), per_step in sorted(atts.items()):
+            case = check_flash(torch, attention, bh, tq, tk, d, causal, scale,
+                               torch.float32, gen, flush)
+            case.update(bucket=t, launches_per_step=per_step)
+            att_cases.append(case)
+        for (m, k, n, bias, relu, clip), per_step in sorted(dots.items()):
+            case = check_epilogue(torch, fused, (m, k, n), bias, relu,
+                                  (0.0, 6.0) if clip else None,
+                                  torch.float32, gen, flush)
+            case.update(bucket=t, launches_per_step=per_step)
+            dot_cases.append(case)
+    for case in att_cases + dot_cases:
+        if case['route'] != 'simt':
+            raise AssertionError('bucket %d: a float32 kernel took the %s '
+                                 'route' % (case['bucket'], case['route']))
+    return att_cases, dot_cases
+
+
+def bucket_corpus(seed, per_bucket):
+    """Random sentences of token ids from a numpy seed, ``per_bucket`` of
+    them with lengths drawn in each bucket's range: [64, 128], [129, 200],
+    [201, 320], [321, 512]."""
+    rng = np.random.RandomState(seed)
+    sentences, low = [], BUCKET_MIN_LEN
+    for b in BUCKETS:
+        for n in rng.randint(low, b + 1, per_bucket):
+            sentences.append(list(rng.randint(0, LM['vocab_size'], n)))
+        low = b + 1
+    rng.shuffle(sentences)
+    return sentences
+
+
+def bucket_iter(mx, sentences, rows):
+    """A BucketSentenceIter over ``sentences`` (padding -1), its shuffles
+    seeded; its notice of discarded sentences goes to stderr."""
+    import contextlib
+    import random
+    random.seed(SEED)
+    np.random.seed(SEED)
+    with contextlib.redirect_stdout(sys.stderr):
+        return mx.rnn.BucketSentenceIter(sentences, rows,
+                                         buckets=list(BUCKETS))
+
+
+def timed_steps(torch, mod, kernels):
+    """Wrap ``mod``'s fit step: each step's bucket, host ms (ending in a
+    device synchronise), real (unpadded) tokens and launches of each of
+    ``kernels`` by route go to the returned list."""
+    steps, inner = [], mod._fit_step
+
+    def step(data_batch, eval_metric=None):
+        before = [dict(k.launches_by_route) for k in kernels]
+        t0 = time.perf_counter()
+        handled = inner(data_batch, eval_metric)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        steps.append({
+            'bucket': data_batch.bucket_key, 'ms': ms,
+            'real_tokens': int((data_batch.data[0].asnumpy() != -1).sum()),
+            'launches': [{r: k.launches_by_route[r] - b[r] for r in b}
+                         for k, b in zip(kernels, before)]})
+        return handled
+
+    mod._fit_step = step
+    return steps
+
+
+def bucket_fit(mx, torch, models, arg, sentences, bucket_keys=None):
+    """``BucketingModule(...).fit`` on the card over a BucketSentenceIter
+    of ``sentences``: SGD lr 0.01 momentum 0.9, float32; returns the
+    module, its timed steps and the fit's wall seconds."""
+    from mxnet_tpu_torch.ops import attention, fused
+    mod = mx.mod.BucketingModule(bucket_gen(models),
+                                 default_bucket_key=max(BUCKETS),
+                                 context=mx.gpu(0), bucket_keys=bucket_keys)
+    it = bucket_iter(mx, sentences, BUCKET_ROWS)
+    # the step wrapper goes on the BucketingModule: its _fit_step picks
+    # the bucket module
+    steps = timed_steps(torch, mod, (fused.fused_dot_epilogue,
+                                     attention.flash_attention))
+    t0 = time.monotonic()
+    mod.fit(it, num_epoch=1, eval_metric='acc', optimizer='sgd',
+            optimizer_params={'learning_rate': 0.01, 'momentum': 0.9},
+            arg_params={k: mx.nd.array(v) for k, v in arg.items()})
+    torch.cuda.synchronize()
+    return mod, steps, time.monotonic() - t0
+
+
+class OneBatch(object):
+    """A data iterator of one bucketed batch; ``provide_data`` names the
+    default bucket's shapes, as a BucketSentenceIter's does."""
+
+    def __init__(self, batch, default_shapes):
+        self.batch = batch
+        self.provide_data, self.provide_label = default_shapes
+        self.done = False
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self.done:
+            raise StopIteration
+        self.done = True
+        return self.batch
+
+    def reset(self):
+        self.done = False
+
+
+def bucket_parity(mx, torch, models, arg, sentences):
+    """One fit step of bucket BUCKET_PARITY[0] at BUCKET_PARITY[1] rows,
+    float32, TF32 off, on the card and on the CPU from the same numpy
+    parameters and batch (-1 padded): the updated parameters of both."""
+    t, rows = BUCKET_PARITY
+    picked = [s for s in sentences if max(b for b in BUCKETS if b < t)
+              < len(s) <= t][:rows]
+    data = np.full((rows, t), -1, np.float32)
+    for i, sent in enumerate(picked):
+        data[i, :len(sent)] = sent
+    label = np.full_like(data, -1)
+    label[:, :-1] = data[:, 1:]
+    default = max(BUCKETS)
+    stepped = {}
+    for ctx in (mx.gpu(0), mx.cpu()):
+        t0 = time.monotonic()
+        batch = mx.io.DataBatch(
+            [mx.nd.array(data)], [mx.nd.array(label)], pad=0, bucket_key=t,
+            provide_data=[('data', (rows, t))],
+            provide_label=[('softmax_label', (rows, t))])
+        mod = mx.mod.BucketingModule(bucket_gen(models),
+                                     default_bucket_key=default, context=ctx)
+        mod.fit(OneBatch(batch, ([('data', (rows, default))],
+                                 [('softmax_label', (rows, default))])),
+                num_epoch=1, eval_metric='acc', optimizer='sgd',
+                optimizer_params={'learning_rate': 0.01, 'momentum': 0.9},
+                arg_params={k: mx.nd.array(v) for k, v in arg.items()})
+        stepped[ctx.device_type] = ({k: v.asnumpy() for k, v in
+                                     mod.get_params()[0].items()},
+                                    time.monotonic() - t0)
+        del mod
+    return stepped, int((data == -1).sum())
+
+
+def bucket_train(mx, torch, models, lm_arg, sentences):
+    """Main path 5: ``BucketingModule(sym_gen_bucketing(...)).fit`` on the
+    card over a BucketSentenceIter of ``sentences``, float32, TF32 off,
+    the launch counts zeroed just before and read just after; then the
+    same fit with every bucket declared under MXTPU_PRECOMPILE_BUCKETS.
+    Returns the phase's report and the main path's launches (totals and
+    by route) of fused_dot_epilogue and flash_attention."""
+    from mxnet_tpu_torch.ops import attention, fused
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    flash, epi = attention.flash_attention, fused.fused_dot_epilogue
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(flash)
+    reset_launches(epi)
+    bmod, bsteps, bfit_s = bucket_fit(mx, torch, models, lm_arg, sentences)
+    bucket_launches = {'fused_dot_epilogue': epi.launches,
+                       'flash_attention': flash.launches}
+    bucket_routes = {'fused_dot_epilogue': dict(epi.launches_by_route),
+                     'flash_attention': dict(flash.launches_by_route)}
+    peak = torch.cuda.max_memory_allocated()
+    nsteps = len(bsteps)
+    if nsteps != len(BUCKETS) * (BUCKET_STEPS + 1):
+        raise AssertionError('bucket-train ran %d steps, expected %d'
+                             % (nsteps, len(BUCKETS) * (BUCKET_STEPS + 1)))
+    for name, n in bucket_launches.items():
+        if n != LM['num_layers'] * nsteps or \
+                bucket_routes[name]['simt'] != n:
+            raise AssertionError('bucket-train: %s launched %d times in %d '
+                                 'steps, by route %s (expected %d each, '
+                                 'simt)' % (name, n, nsteps,
+                                            bucket_routes[name],
+                                            LM['num_layers']))
+    if sorted(bmod._buckets) != sorted(BUCKETS):
+        raise AssertionError('bucket-train bound %s' % sorted(bmod._buckets))
+    default = bmod._buckets[max(BUCKETS)]._exec_group.execs[0]
+    for key, m in bmod._buckets.items():
+        ex = m._exec_group.execs[0]
+        for name in default.grad_dict:
+            if ex.arg_dict[name].handle.data_ptr() != \
+                    default.arg_dict[name].handle.data_ptr() or \
+                    ex.grad_dict[name] is not default.grad_dict[name]:
+                raise AssertionError('bucket %d does not share %s with the '
+                                     'default bucket' % (key, name))
+        if m._fused_opt_state is not \
+                bmod._buckets[max(BUCKETS)]._fused_opt_state:
+            raise AssertionError('bucket %d has its own optimizer state'
+                                 % key)
+    out = bmod.get_outputs()[0].handle
+    if out.shape != (BUCKET_ROWS * bmod._curr_bucket_key,
+                     LM['vocab_size']) or \
+            not bool(torch.isfinite(out).all()):
+        raise AssertionError('bucket-train: bad output %s'
+                             % (tuple(out.shape),))
+    bucket_moved = 0.0
+    for k, v in bmod.get_params()[0].items():
+        t = v.asnumpy()
+        if not np.all(np.isfinite(t)):
+            raise AssertionError('bucket-train: %s is not finite' % k)
+        bucket_moved = max(bucket_moved, float(np.max(np.abs(t - lm_arg[k]))))
+    if bucket_moved <= 0.0:
+        raise AssertionError('bucket-train: the parameters did not move')
+    per_bucket = {}
+    for t in BUCKETS:
+        mine = [x for x in bsteps if x['bucket'] == t]
+        ms = statistics.median(x['ms'] for x in mine[1:])
+        real = statistics.mean(x['real_tokens'] for x in mine[1:])
+        per_bucket[t] = {
+            'steps': len(mine), 'first_ms': mine[0]['ms'],
+            'step_ms': [x['ms'] for x in mine],
+            'step_ms_median_after_warmup': ms,
+            'tokens_per_s_padded': BUCKET_ROWS * t / ms * 1e3,
+            'tokens_per_s_unpadded': real / ms * 1e3,
+            'real_token_share': real / (BUCKET_ROWS * t),
+            'launches_per_step_by_route': {
+                name: {r: sum(x['launches'][i][r] for x in mine) / len(mine)
+                       for r in mine[0]['launches'][i]}
+                for i, name in enumerate(('fused_dot_epilogue',
+                                          'flash_attention'))}}
+    del bmod
+    # the same fit with every bucket declared and MXTPU_PRECOMPILE_BUCKETS:
+    # each bucket is bound and its step built before the first batch
+    os.environ['MXTPU_PRECOMPILE_BUCKETS'] = '1'
+    try:
+        pmod, psteps, pfit_s = bucket_fit(
+            mx, torch, models, lm_arg,
+            bucket_corpus(SEED + 4, BUCKET_ROWS), bucket_keys=list(BUCKETS))
+    finally:
+        del os.environ['MXTPU_PRECOMPILE_BUCKETS']
+    del pmod
+    first_on = {x['bucket']: x['ms'] for x in psteps}
+    report = {
+        'model': 'transformer_lm',
+        **{k: v for k, v in LM.items() if k != 'seq_len'},
+        'max_seq_len': max(BUCKETS), 'buckets': list(BUCKETS),
+        'rows': BUCKET_ROWS, 'dtype': 'float32', 'tf32': False,
+        'fuse': 'aggressive', 'padding': -1,
+        'entry': 'mod.BucketingModule(sym_gen_bucketing).fit over '
+                 'rnn.BucketSentenceIter',
+        'optimizer': 'sgd lr 0.01 momentum 0.9 rescale 1/%d' % BUCKET_ROWS,
+        'steps': nsteps, 'fit_s': bfit_s, 'buckets_bound': len(BUCKETS),
+        'launches': bucket_launches, 'launches_by_route': bucket_routes,
+        'per_bucket': per_bucket, 'peak_memory_bytes': peak,
+        'max_param_change': bucket_moved,
+        'first_batch_ms_precompile_off': {t: per_bucket[t]['first_ms']
+                                          for t in BUCKETS},
+        'first_batch_ms_precompile_on': first_on,
+        # bind, warm start and the iterator: the fit's time outside steps
+        'precompile_fit_s': pfit_s,
+        'precompile_outside_steps_s': pfit_s - sum(first_on.values()) / 1e3}
+    return report, bucket_launches, bucket_routes
+
+
+def free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        return sock.getsockname()[1]
+
+
+def sp_step(ts, sp, symbol, mesh, mode, compute_dtype):
+    opt = ts.make_sgd_momentum(lr=0.01, momentum=0.9, wd=0.0,
+                               rescale_grad=1.0 / (LM_BATCH * LM['seq_len']))
+    return sp.make_sp_train_step(symbol, mesh, opt, seq_axis='seq',
+                                 seq_param_names=SP_SEQ_PARAMS,
+                                 compute_dtype=compute_dtype, attn_mode=mode)
+
+
+def sequence_parallel(mx, torch, models, ts, lm_arg, dev):
+    """Main path 6: ``parallel.make_sp_train_step`` on a one-rank NCCL
+    group (a DeviceMesh with one 'seq' dimension), the full-width LM at
+    T = 512 and LM_BATCH rows, SP_STEPS bf16 steps in each of
+    attn_mode 'ring' (plain PyTorch, no kernel) and 'ulysses' (the
+    all-to-all around flash_attention, whose launches must take sm90);
+    then one f32 step of each mode against ``make_train_step`` on the same
+    parameters and batch, both on the card, TF32 off.  Returns the
+    report and the main path's flash_attention launches."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from mxnet_tpu_torch.ops import attention, fused
+    from mxnet_tpu_torch.parallel import sp
+    flash, epi = attention.flash_attention, fused.fused_dot_epilogue
+    symbol = lm_symbol(models)
+    batch = lm_batch(torch, dev, LM_BATCH)
+    dist.init_process_group('nccl', init_method='tcp://127.0.0.1:%d'
+                            % free_port(), world_size=1, rank=0)
+    try:
+        mesh = init_device_mesh('cuda', (1,), mesh_dim_names=('seq',))
+        report = {'model': 'transformer_lm', **LM, 'rows': LM_BATCH,
+                  'ranks': 1, 'backend': dist.get_backend(),
+                  'entry': 'parallel.make_sp_train_step',
+                  'seq_param_names': list(SP_SEQ_PARAMS),
+                  'compute_dtype': 'bfloat16', 'steps': SP_STEPS,
+                  'optimizer': 'sgd lr 0.01 momentum 0.9 wd 0 rescale 1/%d'
+                               % (LM_BATCH * LM['seq_len'])}
+        torch_params = {k: torch.from_numpy(v) for k, v in lm_arg.items()}
+        for mode in ('ring', 'ulysses'):
+            p = sp.shard_sp_params(torch_params, mesh, 'seq', SP_SEQ_PARAMS)
+            state = sp.shard_sp_params(ts.sgd_momentum_init(p), mesh, 'seq',
+                                       SP_SEQ_PARAMS)
+            step = sp_step(ts, sp, symbol, mesh, mode, torch.bfloat16)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches(flash)
+            reset_launches(epi)
+            times, ce = [], []
+            for i in range(SP_STEPS):
+                t0 = time.perf_counter()
+                outs, p, state = step(p, state, batch)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                if i in (0, SP_STEPS - 1):
+                    ce.append(cross_entropy(torch, outs[0],
+                                            batch['softmax_label']))
+            routes = dict(flash.launches_by_route)
+            want = LM['num_layers'] * SP_STEPS if mode == 'ulysses' else 0
+            if flash.launches != want or routes['sm90'] != want or \
+                    epi.launches:
+                raise AssertionError(
+                    'sp %s: flash_attention launched %d times (%s), '
+                    'fused_dot_epilogue %d; expected %d on sm90 and none'
+                    % (mode, flash.launches, routes, epi.launches, want))
+            if tuple(outs[0].shape) != (LM_BATCH * LM['seq_len'],
+                                        LM['vocab_size']) or \
+                    not bool(torch.isfinite(outs[0].float()).all()) or \
+                    not all(np.isfinite(ce)):
+                raise AssertionError('sp %s: bad output %s, cross-entropy '
+                                     '%s' % (mode, tuple(outs[0].shape), ce))
+            moved = max(float((p[k].float().cpu() - torch_params[k]).abs()
+                              .max()) for k in p)
+            if not all(bool(torch.isfinite(v).all()) for v in p.values()) \
+                    or moved <= 0.0:
+                raise AssertionError('sp %s: parameters not finite or did '
+                                     'not move (%g)' % (mode, moved))
+            report[mode] = {
+                'step_ms': times,
+                'step_ms_median_after_warmup': statistics.median(times[1:]),
+                'tokens_per_s': LM_BATCH * LM['seq_len']
+                / statistics.median(times[1:]) * 1e3,
+                'flash_attention_launches_by_route': routes,
+                'fused_dot_epilogue_launches': epi.launches,
+                'peak_memory_bytes': torch.cuda.max_memory_allocated(),
+                'cross_entropy_first_last': ce, 'max_param_change': moved}
+            del p, state, outs, step
+        launches = report['ulysses']['flash_attention_launches_by_route']
+        # parity: one f32 step of each mode against make_train_step
+        torch.backends.cuda.matmul.allow_tf32 = False
+        ref = {k: torch.tensor(v, device=dev) for k, v in lm_arg.items()}
+        _, ref, _, _ = lm_step(ts, symbol, LM_BATCH, None)(
+            ref, {}, ts.sgd_momentum_init(ref), batch)
+        ref = {k: v.cpu().numpy() for k, v in ref.items()}
+        for mode in ('ring', 'ulysses'):
+            p = sp.shard_sp_params(torch_params, mesh, 'seq', SP_SEQ_PARAMS)
+            _, p, _ = sp_step(ts, sp, symbol, mesh, mode, None)(
+                p, ts.sgd_momentum_init(p), batch)
+            got = {k: v.cpu().numpy() for k, v in p.items()}
+            n_out, total, worst, outside = param_parity(got, ref)
+            report[mode + '_parity'] = {
+                'against': 'make_train_step, float32, on the card',
+                'tolerance': 'rtol 1e-3, atol 1e-5 elementwise; at most '
+                             '1e-4 of the elements outside it, none beyond '
+                             '1e-3',
+                'elements': total, 'elements_outside': n_out,
+                'max_abs_err': worst[0], 'worst_param': worst[1],
+                'outside_tolerance': outside}
+            if n_out > 1e-4 * total or worst[0] > 1e-3:
+                raise AssertionError(
+                    'sp %s parity: %d of %d parameter elements beyond rtol '
+                    '1e-3, atol 1e-5, max abs err %g in %s'
+                    % (mode, n_out, total, worst[0], worst[1]))
+    finally:
+        dist.destroy_process_group()
+    return report, launches
+
+
 def lm_batch(torch, dev, rows):
     """``rows`` x seq_len random token ids and their next-token labels,
     as the bench leg makes them (labels = (toks + 1) % V)."""
@@ -907,6 +1360,18 @@ def gemm_summary(name, source, replaces, cases, launches_by_path,
             'f32_ms': _sum_cases([c for c in cases if c['launches_per_step']
                                   and c['dtype'] == 'float32'], 'ms'),
             'cases': cases}
+
+
+def bucket_summary(cases):
+    """The bucketed path's shapes of a kernel (float32, simt): per bucket,
+    one launch's device ms, bound, plain and library ms, and the launches
+    of one step."""
+    return [{'bucket': c['bucket'], 'route': c['route'],
+             'launches_per_step': c['launches_per_step'],
+             'max_abs_err': c['max_abs_err'], 'ms': c['ms'],
+             'bound_ms': c['bound_ms'], 'bound_by': c['bound_by'],
+             'plain_ms': c['plain_ms'], 'library_ms': c['library_ms']}
+            for c in cases]
 
 
 def route_summary(cases, launches_by_route, old='wmma'):
@@ -1915,6 +2380,11 @@ def main():
                                       gen, flush)
     log({'phase': 'lm-kernels', 'flash_attention_cases': att_cases,
          'fused_dot_epilogue_cases': epi_cases, 'tf32': False})
+    bucket_att, bucket_epi = bucket_kernels(mx, torch, attention, fused,
+                                            models, gen, flush)
+    log({'phase': 'bucket-kernels', 'rows': BUCKET_ROWS,
+         'buckets': list(BUCKETS), 'flash_attention_cases': bucket_att,
+         'fused_dot_epilogue_cases': bucket_epi, 'tf32': False})
     rtc_cases, bad_log = rtc_kernels(mx, torch, instrument, gen, flush)
     del flush
     compiles = instrument.histogram('rtc.compile_secs')
@@ -2213,6 +2683,37 @@ def main():
                              'rtol 1e-3, atol 1e-5, max abs err %g in %s'
                              % (n_out, total, worst[0], worst[1]))
 
+    # -- 9b. bucket-train: the fifth main path ------------------------------
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sentences = bucket_corpus(SEED + 3, BUCKET_ROWS * (BUCKET_STEPS + 1))
+    report, bucket_launches, bucket_routes = bucket_train(
+        mx, torch, models, lm_arg, sentences)
+    log({'phase': 'bucket-train', **report})
+    stepped, pads = bucket_parity(mx, torch, models, lm_arg, sentences)
+    (card, card_s), (host, cpu_s) = stepped['gpu'], stepped['cpu']
+    n_out, total, worst, outside = param_parity(card, host)
+    max_update = max(float(np.max(np.abs(host[k] - lm_arg[k])))
+                     for k in host)
+    log({'phase': 'bucket-parity', 'bucket': BUCKET_PARITY[0],
+         'rows': BUCKET_PARITY[1], 'padded_tokens': pads, 'dtype': 'float32',
+         'tf32': False,
+         'tolerance': 'rtol 1e-3, atol 1e-5 elementwise; at most 1e-4 of '
+         'the elements outside it, none beyond 1e-3',
+         'params': len(card), 'elements': total,
+         'elements_outside': n_out, 'max_abs_err': worst[0],
+         'worst_param': worst[1], 'outside_tolerance': outside,
+         'max_update': max_update, 'card_s': card_s, 'cpu_s': cpu_s})
+    if n_out > 1e-4 * total or worst[0] > 1e-3:
+        raise AssertionError('bucket-parity: %d of %d parameter elements '
+                             'beyond rtol 1e-3, atol 1e-5, max abs err %g in '
+                             '%s' % (n_out, total, worst[0], worst[1]))
+
+    # -- 9c. sp: the sixth main path, sequence parallelism on NCCL ---------
+    sp_report, sp_launches = sequence_parallel(mx, torch, models, ts,
+                                               lm_arg, dev)
+    log({'phase': 'sp', **sp_report})
+
     # -- 10. imperative: nd.* on the card and on the CPU ------------------
     log({'phase': 'imperative', **imperative(mx, sqr_prop)})
 
@@ -2359,16 +2860,27 @@ def main():
         {**gemm_summary('fused_dot_epilogue', 'mxnet_tpu_torch/csrc/'
                         'fused_dot_epilogue.cu',
                         'mxnet_tpu/ops/pallas_fused.py:328', epi_cases,
-                        {'lm-train': lm_launches['fused_dot_epilogue']},
+                        {'lm-train': lm_launches['fused_dot_epilogue'],
+                         'bucket-train':
+                             bucket_launches['fused_dot_epilogue']},
                         'torch.addmm (product and bias, no relu)', lm_per),
-         **route_summary(epi_cases, {'lm-train': lm_routes})},
+         **route_summary(epi_cases, {
+             'lm-train': lm_routes,
+             'bucket-train': bucket_routes['fused_dot_epilogue']}),
+         'bucket_shapes': bucket_summary(bucket_epi)},
         {**gemm_summary('flash_attention', 'mxnet_tpu_torch/csrc/'
                         'flash_attention.cu',
                         'mxnet_tpu/ops/pallas_attention.py:197', att_cases,
-                        {'lm-train': lm_launches['flash_attention']},
+                        {'lm-train': lm_launches['flash_attention'],
+                         'bucket-train': bucket_launches['flash_attention'],
+                         'sp': sum(sp_launches.values())},
                         'F.scaled_dot_product_attention(is_causal=True)',
                         lm_per),
-         **route_summary(att_cases, {'lm-train': flash_routes}, 'mma')},
+         **route_summary(att_cases, {
+             'lm-train': flash_routes,
+             'bucket-train': bucket_routes['flash_attention'],
+             'sp': sp_launches}, 'mma'),
+         'bucket_shapes': bucket_summary(bucket_att)},
         rtc_summary(rtc_cases, custom_launches['rtc'])]
     print(smi, flush=True)
     log({'kernels': kernels})

@@ -6,7 +6,11 @@ serves (``ModelServer`` -> ``Predictor`` -> ``Symbol.bind`` ->
 ``Executor.forward``) and trains (``Module.fit`` or
 ``parallel.make_train_step`` -> the fused train step: forward, backward,
 SGD-momentum update), both through the ``MXTPU_FUSE`` pass pipeline,
-over the ops ResNet-50 v2 and the transformer LM need.  Users extend it
+over the ops ResNet-50 v2 and the transformer LM need; variable-length
+sequences train through ``mod.BucketingModule`` over
+``rnn.BucketSentenceIter``, and long ones with the sequence dimension
+sharded over ranks (``parallel.make_sp_train_step``, ring or Ulysses
+attention on ``torch.distributed``).  Users extend it
 as in the reference: the imperative ``nd.*`` layer over every registered
 op, Custom operators (``operator``) and runtime-compiled CUDA kernels
 (``rtc.Rtc``, on NVRTC).  The TPU kernels — ``fused_bn_relu``,
@@ -31,7 +35,7 @@ from . import executor, fuse, compile_cache, convert, models
 from . import random
 from . import operator, rtc
 from . import (callback, initializer, io, lr_scheduler, metric, module,
-               optimizer, parallel)
+               optimizer, parallel, rnn)
 from . import initializer as init
 from . import module as mod
 from . import optimizer as opt
@@ -45,5 +49,5 @@ __all__ = ['MXNetError', 'Context', 'cpu', 'gpu', 'current_context',
            'nd', 'sym', 'operator', 'rtc', 'Predictor', 'serving', 'models', 'convert',
            'fuse', 'ops', 'config', 'instrument', 'Module', 'module', 'mod',
            'io', 'metric', 'optimizer', 'lr_scheduler', 'initializer',
-           'opt', 'init', 'callback', 'random', 'parallel']
+           'opt', 'init', 'callback', 'random', 'parallel', 'rnn']
 

@@ -42,6 +42,16 @@ _register('MXTPU_FUSE_SKIP', '', str,
 _register('MXTPU_FUSE_BN_CONV', False, _bool,
           'Legacy alias: equivalent to MXTPU_FUSE=aggressive when '
           'MXTPU_FUSE is unset.')
+# -- fit warm start (module/, compile_cache.py) ----------------------------
+_register('MXTPU_WARM_START', False, _bool,
+          'Module.fit builds the fused train step BEFORE the first batch: '
+          'the fuse passes, shape inference, the graph function and the '
+          'kernel libraries it will launch, so the first batch pays none '
+          'of that.  Same as fit(warm_start=True).')
+_register('MXTPU_PRECOMPILE_BUCKETS', False, _bool,
+          'BucketingModule binds and warms every bucket declared via '
+          'bucket_keys=[...] at fit start instead of binding each bucket '
+          'lazily the first time its key appears mid-epoch.')
 # -- serving (serving/batcher.py, serving/server.py) -----------------------
 _register('MXTPU_SERVE_MAX_DELAY_MS', 2.0, float,
           'Dynamic-batching flush deadline (milliseconds): a queued '

@@ -242,8 +242,13 @@ class CrossEntropy(EvalMetric):
             self.num_inst += label.shape[0]
 
     def device_update(self, label, pred):
+        # read as jnp.take_along_axis reads it: -1 (padding) wraps to the
+        # last class, a label outside [-C, C) gives NaN
+        from .ops.tensor import fill_index
         label = label.reshape(-1).to(torch.int64)
-        prob = torch.gather(pred.float(), 1, label[:, None])[:, 0]
+        index, kept = fill_index(label, pred.shape[1])
+        prob = torch.gather(pred.float(), 1, index[:, None])[:, 0]
+        prob = prob.masked_fill(~kept, float('nan'))
         return (-torch.log(prob + self.eps)).sum(), label.shape[0]
 
 

@@ -6,10 +6,14 @@
 init_params -> init_optimizer -> per batch one training step (``Module``
 fuses forward, backward and update, see ``Module._fit_step``) and the
 metric update, epoch-end logging, ``epoch_end_callback``, evaluation.
-The JAX package's planes around the loop (elastic membership, health
-sentinels, goodput accounting, warm start, the device feed, the async
-step window, checkpoint/auto-resume, mesh) are not ported; asking for
-them raises.
+``fit(warm_start=...)`` (default: the ``MXTPU_WARM_START`` knob) builds
+the fused step before the first batch (``compile_cache.warm_start``); a
+``BucketingModule`` under ``MXTPU_PRECOMPILE_BUCKETS`` with declared
+``bucket_keys`` does so for every declared bucket whatever it says.
+The JAX package's other planes around the loop (elastic membership,
+health sentinels, goodput accounting, the device feed, the async step
+window, checkpoint/auto-resume, mesh) are not ported; asking for them
+raises.
 """
 from __future__ import annotations
 
@@ -149,8 +153,7 @@ class BaseModule(object):
         assert num_epoch is not None, 'please specify number of epochs'
         unported = {'monitor': monitor, 'checkpoint_prefix':
                     checkpoint_prefix, 'auto_resume': auto_resume,
-                    'warm_start': warm_start, 'mesh': mesh,
-                    'partition': partition}
+                    'mesh': mesh, 'partition': partition}
         asked = sorted(k for k, v in unported.items() if v)
         if asked:
             raise NotImplementedError('fit(%s=...) is not ported to '
@@ -170,6 +173,12 @@ class BaseModule(object):
             validation_metric = eval_metric
         if not isinstance(eval_metric, _metric.EvalMetric):
             eval_metric = _metric.create(eval_metric)
+        if warm_start is None:
+            from .. import config as _config
+            warm_start = _config.get('MXTPU_WARM_START')
+        if warm_start or getattr(self, '_warm_eager', False):
+            from .. import compile_cache
+            compile_cache.warm_start(self, eval_metric, data_iter=train_data)
 
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()

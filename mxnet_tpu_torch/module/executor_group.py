@@ -1,7 +1,13 @@
 """The executor group of a one-device Module — the port of
 ``mxnet_tpu/module/executor_group.py`` without its mesh: one
 :class:`~mxnet_tpu_torch.executor.Executor` on one context, batches
-copied to its device as they arrive."""
+copied to its device as they arrive.
+
+With ``shared_group`` (a bucket of a ``BucketingModule``) the executor
+takes the shared group's own ``NDArray`` objects for every parameter, aux
+state and gradient buffer; only its data and label inputs are its own.
+The fused step updates those tensors in place, so every bucket trains
+the one set of weights."""
 from __future__ import annotations
 
 import logging
@@ -27,9 +33,6 @@ class DataParallelExecutorGroup(object):
             raise NotImplementedError(
                 'mxnet_tpu_torch trains on one device; a context list of %d '
                 'is not ported yet' % len(contexts))
-        if shared_group is not None:
-            raise NotImplementedError('shared executor groups (bucketing) '
-                                      'are not ported yet')
         self.param_names = param_names
         self.arg_names = symbol.list_arguments()
         self.aux_names = symbol.list_auxiliary_states()
@@ -40,6 +43,7 @@ class DataParallelExecutorGroup(object):
         self.logger = logger
         self.fixed_param_names = fixed_param_names or []
         self.grad_req_spec = grad_req
+        self.shared_group = shared_group
         self.execs = []
         self.bind_exec(data_shapes, label_shapes)
 
@@ -81,12 +85,26 @@ class DataParallelExecutorGroup(object):
             grad_req[name] = req
         ctx = self.contexts[0]
         dev = self._device
+        shared = self.shared_group.execs[0] \
+            if self.shared_group is not None else None
+        inputs = set(self.data_names + self.label_names)
+
+        def own_or_shared(kind, name, shape):
+            table = getattr(shared, kind, {})
+            if name in inputs or name not in table:
+                return NDArray(torch.zeros(shape, device=dev), ctx)
+            arr = table[name]
+            if arr.shape != tuple(shape):
+                raise MXNetError('%s has shape %s in the shared group and '
+                                 '%s here' % (name, arr.shape, tuple(shape)))
+            return arr
+
         args, grads = {}, {}
         for name, shape in zip(self.arg_names, arg_shapes):
-            args[name] = NDArray(torch.zeros(shape, device=dev), ctx)
+            args[name] = own_or_shared('arg_dict', name, shape)
             if grad_req[name] != 'null':
-                grads[name] = NDArray(torch.zeros(shape, device=dev), ctx)
-        aux = {name: NDArray(torch.zeros(shape, device=dev), ctx)
+                grads[name] = own_or_shared('grad_dict', name, shape)
+        aux = {name: own_or_shared('aux_dict', name, shape)
                for name, shape in zip(self.aux_names, aux_shapes)}
         self.execs = [Executor(self.symbol, ctx, args, grads or None,
                                grad_req, aux)]

@@ -14,7 +14,15 @@ metric's device form folded in.  It needs a functional optimizer and
 ``grad_req='write'``, and falls back to ``forward_backward(); update()``
 (the per-parameter ``Updater`` loop) otherwise.  ``compute_dtype``
 (e.g. ``torch.bfloat16``) casts params and data for the fused
-forward/backward; master weights and optimizer state stay float32.
+forward/backward, but never an input the graph reads only as an index
+(token ids; ``parallel.train_step.index_inputs``); master weights and
+optimizer state stay float32.
+
+``bind(shared_module=...)`` and ``borrow_optimizer`` are the bucketing
+hooks (``module/bucketing_module.py``): the bound module takes the shared
+module's parameter, gradient and aux arrays and, once borrowed, its
+optimizer (one update count and lr schedule for every bucket).
+``_warm_start`` builds the fused step before the first batch.
 kvstores, context lists and meshes are not ported.
 """
 from __future__ import annotations
@@ -166,9 +174,11 @@ class Module(BaseModule):
         if self.binded:
             self.logger.warning('Already binded, ignoring bind()')
             return
+        shared_group = None
         if shared_module is not None:
-            raise NotImplementedError('bind(shared_module=...) is not '
-                                      'ported to mxnet_tpu_torch yet')
+            assert isinstance(shared_module, Module) and \
+                shared_module.binded and shared_module.params_initialized
+            shared_group = shared_module._exec_group
         if not for_training:
             assert not inputs_need_grad
         self.for_training = for_training
@@ -179,9 +189,13 @@ class Module(BaseModule):
             if label_shapes is not None else None
         self._exec_group = DataParallelExecutorGroup(
             self._symbol, self._context, self._data_shapes, self._label_shapes, self._param_names,
-            for_training, inputs_need_grad, logger=self.logger,
+            for_training, inputs_need_grad, shared_group, logger=self.logger,
             fixed_param_names=self._fixed_param_names, grad_req=grad_req)
-        if self.params_initialized:
+        if shared_module is not None:
+            self.params_initialized = True
+            self._arg_params = shared_module._arg_params
+            self._aux_params = shared_module._aux_params
+        elif self.params_initialized:
             self._exec_group.set_params(self._arg_params, self._aux_params)
 
     # -- optimizer ---------------------------------------------------------
@@ -214,6 +228,17 @@ class Module(BaseModule):
         self._updater = opt.get_updater(optimizer)
         self._reset_fused()
         self.optimizer_initialized = True
+
+    def borrow_optimizer(self, shared_module):
+        """(reference module.py:701) Use ``shared_module``'s optimizer and
+        updater: one update count and lr schedule for every bucket.  The
+        fused step is rebuilt for it; its optimizer state is the bucketing
+        module's to share."""
+        assert shared_module.optimizer_initialized
+        self._optimizer = shared_module._optimizer
+        self._updater = shared_module._updater
+        self.optimizer_initialized = True
+        self._reset_fused()
 
     # -- compute -----------------------------------------------------------
     def forward(self, data_batch, is_train=None):
@@ -277,6 +302,27 @@ class Module(BaseModule):
             return False
         self._run_fused(data_batch)
         return metric is not None
+
+    def _warm_start(self, eval_metric=None):
+        """Build the fused step before the first batch
+        (``mxnet_tpu/module/module.py:956``): the fuse passes, shape
+        inference and the graph function, and on the card the kernel
+        libraries the graph launches (``nvcc`` at first use), so the first
+        batch pays none of that."""
+        from .. import metric as _metric
+        if not (self.binded and self.params_initialized and
+                self.optimizer_initialized):
+            return
+        metric = None
+        if eval_metric is not None:
+            metric = self._device_metric(_metric.create(eval_metric))
+        if self._fused is None and not self._fused_unavailable:
+            self._try_build_fused(metric)
+        if self._fused is not None and \
+                self._context[0].device_type == 'gpu':
+            from ..ops import _kernels
+            for name in self._fused.kernels:
+                _kernels.library(name)
 
     def _try_build_fused(self, metric=None):
         """(``mxnet_tpu/module/module.py:662-731``)"""

@@ -281,14 +281,18 @@ def _softmax_output_grad(prob, label, attrs):
     use_ignore = bool(attrs.get('use_ignore', False))
     ignore_label = float(attrs.get('ignore_label', -1))
     normalization = attrs.get('normalization', 'null')
+    # the one-hot of ops/tensor.py, as jax.nn.one_hot: a label outside
+    # [0, C) (the padding -1 of BucketSentenceIter) gives a zero row, where
+    # F.one_hot raises (and device-asserts on the card)
+    from .tensor import _one_hot
     if multi:
         # data (N, C, ...), label (N, ...)
-        onehot = F.one_hot(label.long(), prob.shape[1]).movedim(-1, 1) \
-            .to(prob.dtype)
+        onehot = _one_hot(label, prob.shape[1], dtype=prob.dtype) \
+            .movedim(-1, 1)
     elif label.ndim == prob.ndim:
         onehot = label.to(prob.dtype)
     else:
-        onehot = F.one_hot(label.long(), prob.shape[-1]).to(prob.dtype)
+        onehot = _one_hot(label, prob.shape[-1], dtype=prob.dtype)
     grad = prob - onehot
     valid = None
     if use_ignore and label.ndim < prob.ndim:
@@ -519,10 +523,15 @@ alias('split', 'SliceChannel')
 
 
 def _embedding_apply(attrs, inputs, is_train, rng):
-    # ids arrive as floats, truncated as astype(int32) does; the weight
-    # gradient is the scatter-add of the gathered rows' gradients
+    # ids arrive as floats, truncated as astype(int32) does, and are read
+    # as jnp.take reads them (ops/tensor.py fill_index): -1 wraps to the
+    # last row, an id outside [-V, V) gives a NaN row and no gradient;
+    # the weight gradient is the scatter-add of the kept rows' gradients
+    from .tensor import fill_index
     data, weight = inputs
-    return [F.embedding(data.long(), weight)], {}
+    index, kept = fill_index(data.long(), weight.shape[0])
+    rows = F.embedding(index, weight)
+    return [rows.masked_fill(~kept[..., None], float('nan'))], {}
 
 
 def _embedding_complete(attrs, in_shapes):
@@ -540,15 +549,26 @@ register('Embedding', _embedding_apply,
 
 # ---------------------------------------------------------------------------
 # FlashAttention — the symbol-level door to the flash-attention kernel
-# (ops/attention.py).  The JAX op's sequence-parallel branch (ring /
-# Ulysses attention inside a shard_map scope) is not ported.
+# (ops/attention.py).  Inside a sequence-parallel scope (parallel/sp.py)
+# the node runs ring or Ulysses attention over the scope's process group.
 # ---------------------------------------------------------------------------
 
 def _flash_attention_apply(attrs, inputs, is_train, rng):
     from .attention import flash_attention
+    from ..parallel.sp import current_sp_axis, current_sp_mode
     q, k, v = inputs
+    causal = bool(attrs.get('causal', False))
     scale = attrs.get('scale')
-    return [flash_attention(q, k, v, causal=bool(attrs.get('causal', False)),
+    group = current_sp_axis()
+    if group is not None:
+        from ..parallel.ring import ring_attention, ulysses_attention
+        if scale is not None:
+            # the sharded forms use 1/sqrt(D): a custom scale goes into q
+            q = q * (float(scale) * (q.shape[-1] ** 0.5))
+        attend = ulysses_attention if current_sp_mode() == 'ulysses' \
+            else ring_attention
+        return [attend(q, k, v, group, causal=causal)], {}
+    return [flash_attention(q, k, v, causal=causal,
                             scale=None if scale is None else float(scale))], {}
 
 

@@ -520,6 +520,16 @@ alias('swapaxes', 'SwapAxis')
 # ---------------------------------------------------------------------------
 
 
+def fill_index(ids, n):
+    """``jnp.take``'s default reading of integer ``ids`` into an axis of
+    length ``n``: an id in [-n, 0) wraps to n + id, one outside [-n, n)
+    reads a NaN.  Returns the index to gather (always in [0, n): a gather
+    at a negative index device-asserts on the card) and the mask of the
+    ids that are kept, with no host sync."""
+    ids = torch.where(ids < 0, ids + n, ids)
+    return ids.clamp(0, n - 1), (ids >= 0) & (ids < n)
+
+
 def _take(a, indices, axis=0, mode='clip'):
     axis = int(axis) % a.ndim
     n = a.shape[axis]

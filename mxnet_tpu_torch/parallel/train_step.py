@@ -14,7 +14,10 @@ the counterpart of the JAX step's buffer donation.
 Under ``compute_dtype`` (bf16 mixed precision) the parameters and the
 batch entries named in ``data_names`` are cast for the forward and
 backward; labels, master weights and optimizer state stay f32, and the
-gradients reach the f32 masters through the cast.
+gradients reach the f32 masters through the cast.  A batch entry the
+graph reads only as an index (:func:`index_inputs`: token ids into an
+``Embedding``) is never cast: bf16 holds integers exactly only up to 256
+(the JAX package casts them, a recorded reference fault).
 
 Not ported: shardings (a mesh), health sentinels and CUDA graphs of the
 step; asking for them raises.
@@ -27,7 +30,28 @@ from ..executor import _build_graph_fn
 from ..symbol import Symbol
 
 __all__ = ['make_fit_step', 'make_train_step', 'make_eval_step',
-           'make_sgd_momentum', 'sgd_momentum_init']
+           'make_sgd_momentum', 'sgd_momentum_init', 'index_inputs']
+
+# the inputs each op reads as an index, by position
+_INDEX_POSITIONS = {'Embedding': (0,), 'take': (1,), 'one_hot': (0,),
+                    'pick': (1,), 'batch_take': (1,)}
+
+
+def index_inputs(symbol):
+    """The variables ``symbol`` reads only as an index (the ``data`` of
+    ``Embedding``, the index input of ``take``, ``one_hot``, ``pick`` and
+    ``batch_take``): casting them to a low precision would change which
+    rows are read."""
+    from ..ops.registry import get_op
+    index, other = set(), set()
+    for node in symbol.topo_nodes():
+        if node.is_variable:
+            continue
+        positions = _INDEX_POSITIONS.get(get_op(node.op).name, ())
+        for i, (src, _) in enumerate(node.inputs):
+            if src.is_variable:
+                (index if i in positions else other).add(src.name)
+    return index - other
 
 
 def sgd_momentum_init(params):
@@ -44,6 +68,26 @@ def make_sgd_momentum(lr=0.05, momentum=0.9, wd=1e-4, rescale_grad=1.0):
                 state[k].mul_(momentum).sub_(lr * g)
                 w.add_(state[k])
     return update
+
+
+def graph_kernels(program):
+    """The kernel libraries (``ops/_kernels.KERNELS`` names) a fused
+    graph launches on the card."""
+    from ..fuse import _tup_or
+    names = set()
+    for n in program.topo_nodes():
+        if n.op == 'FlashAttention':
+            names.add('flash_attention')
+        elif n.op == '_fused_epilogue' and n.attrs.get('lower_kernel') and \
+                n.attrs.get('base_op') == 'FullyConnected':
+            names.add('fused_dot_epilogue')
+        elif n.op == '_bn_relu':
+            names.add('fused_bn_relu')
+        elif n.op == '_bn_relu_conv':
+            names.add('fused_scale_bias_conv3x3'
+                      if _tup_or(n.attrs.get('kernel'), (1, 1)) == (3, 3)
+                      else 'fused_scale_bias_dot')
+    return sorted(names)
 
 
 def make_fit_step(symbol: Symbol, functional_opt, data_names=(),
@@ -65,8 +109,10 @@ def make_fit_step(symbol: Symbol, functional_opt, data_names=(),
         raise NotImplementedError('make_fit_step: health sentinels are not '
                                   'ported to mxnet_tpu_torch yet')
     from ..fuse import apply_fuse_passes
-    graph_fn = _build_graph_fn(apply_fuse_passes(symbol, True), True)
-    data_names = tuple(data_names)
+    program = apply_fuse_passes(symbol, True)
+    graph_fn = _build_graph_fn(program, True)
+    indices = index_inputs(symbol)
+    data_names = tuple(n for n in data_names if n not in indices)
 
     def cast(v):
         return v.to(compute_dtype) if compute_dtype is not None and \
@@ -95,6 +141,7 @@ def make_fit_step(symbol: Symbol, functional_opt, data_names=(),
             metric.device_fold(batch[metric_label], outs[0])
         return outs
 
+    step.kernels = graph_kernels(program)
     return step
 
 

@@ -640,3 +640,111 @@ def test_flash_attention_sm90_and_mma_routes_agree(dev, monkeypatch):
     for r in got:
         _check_flash(*got[r], q, k, v, scale, True)
     _check_flash(*got['sm90'], q, k, v, scale, True, want=got['mma'][0])
+
+
+# ---------------------------------------------------------------------------
+# The bucketed LM's shapes (mod.BucketingModule over sym_gen_bucketing,
+# float32): T = 200 and 320 leave ragged 128-row query and key tiles, the
+# causal mask aligned at the bottom right with Tq == Tk
+# ---------------------------------------------------------------------------
+
+BUCKETS = (128, 200, 320, 512)
+
+
+@pytest.mark.parametrize('t', BUCKETS)
+def test_flash_attention_at_the_bucket_shapes(t, dev, monkeypatch):
+    """[128, T, 64] causal, float32 (the simt route), against the plain
+    version under the f32 rule above."""
+    from mxnet_tpu_torch.ops import attention
+    monkeypatch.setattr(torch.backends.cuda.matmul, 'allow_tf32', False)
+    g = torch.Generator(device=dev).manual_seed(t)
+    q, k, v = (torch.randn(128, t, 64, generator=g, device=dev)
+               for _ in range(3))
+    before = dict(attention.flash_attention.launches_by_route)
+    o, lse = attention._launch(q, k, v, 0.125, True)
+    torch.cuda.synchronize()
+    assert attention.flash_attention.launches_by_route['simt'] == \
+        before['simt'] + 1
+    want_o, want_lse = attention.flash_attention_plain(q, k, v, 0.125, True)
+    mag = _attention_magnitude(q, k, v, 0.125, True)
+    err = (o - want_o).abs() / mag.clamp_min(1e-30)
+    assert float(err.max()) <= _ATT_TOL[torch.float32]
+    assert float(((lse - want_lse).abs() / (1 + want_lse.abs())).max()) \
+        <= 1e-4
+
+
+@pytest.mark.parametrize('t', BUCKETS)
+def test_dot_epilogue_at_the_bucket_shapes(t, dev, monkeypatch):
+    """(16 T, 512, 2048) with bias and relu, float32 (the simt route)."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, 'allow_tf32', False)
+    g = torch.Generator(device=dev).manual_seed(t)
+    x = torch.randn(16 * t, 512, generator=g, device=dev)
+    w = (torch.randn(2048, 512, generator=g, device=dev) / 512 ** 0.5).t()
+    b = torch.randn(2048, generator=g, device=dev) * 0.5
+    before = dict(fused.fused_dot_epilogue.launches_by_route)
+    got = fused.fused_dot_epilogue(x, w, b, relu=True)
+    torch.cuda.synchronize()
+    assert fused.fused_dot_epilogue.launches_by_route['simt'] == \
+        before['simt'] + 1
+    want = fused.fused_dot_epilogue_plain(x, w, b, relu=True)
+    mag = torch.matmul(x.abs(), w.abs()) + b.abs()
+    err = (got - want).abs() / mag.clamp_min(1e-30)
+    assert float(err.max()) <= _TOL[torch.float32]
+
+
+def test_embedding_ids_outside_the_vocabulary_on_the_card(dev):
+    """-1 wraps to the last row, V and -V-1 give NaN rows, with no
+    device assert (the context stays usable)."""
+    from mxnet_tpu_torch.ops.registry import get_op
+    w = torch.arange(12, dtype=torch.float32, device=dev).reshape(4, 3)
+    ids = torch.tensor([-1.0, 0.0, 4.0, -5.0, 2.7], device=dev)
+    out = get_op('Embedding').apply({'input_dim': 4, 'output_dim': 3},
+                                    [ids, w], False, None)[0][0]
+    want = get_op('Embedding').apply({'input_dim': 4, 'output_dim': 3},
+                                     [ids.cpu(), w.cpu()], False,
+                                     None)[0][0]
+    torch.testing.assert_close(out.cpu(), want, equal_nan=True)
+    assert torch.isnan(out[2:4]).all() and torch.equal(out[0], w[3])
+    assert float(torch.ones(1, device=dev).sum()) == 1.0
+
+
+def test_bucketing_module_on_gpu_matches_cpu(dev, monkeypatch):
+    """Two fused steps of a narrow bucketed LM (buckets 200 then 128,
+    padded with -1) on the card and on the CPU, float32, TF32 off."""
+    from mxnet_tpu_torch.models import transformer_lm
+    monkeypatch.setenv('MXTPU_FUSE', 'aggressive')
+    monkeypatch.setattr(torch.backends.cuda.matmul, 'allow_tf32', False)
+    gen = transformer_lm.sym_gen_bucketing(vocab_size=300, num_embed=64,
+                                           num_heads=1, num_layers=1,
+                                           max_seq_len=256)
+    arg, _ = convert.random_params(
+        gen(256)[0], {'data': (2, 256), 'softmax_label': (2, 256)}, 0,
+        init='normal')
+    rng = np.random.RandomState(1)
+    batches = []
+    for t in (200, 128):
+        toks = rng.randint(0, 300, (2, t)).astype(np.float32)
+        toks[1, t // 2:] = -1
+        labels = np.full_like(toks, -1)
+        labels[:, :-1] = toks[:, 1:]
+        batches.append((t, toks, labels))
+    params = {}
+    for ctx in (tmx.gpu(0), tmx.cpu()):
+        mod = tmx.mod.BucketingModule(gen, default_bucket_key=256,
+                                      context=ctx)
+        mod.bind([('data', (2, 256))], [('softmax_label', (2, 256))])
+        mod.init_params(arg_params={k: tmx.nd.array(v)
+                                    for k, v in arg.items()})
+        mod.init_optimizer(optimizer='sgd', optimizer_params={
+            'learning_rate': 0.05, 'momentum': 0.9})
+        for t, toks, labels in batches:
+            mod._fit_step(tmx.io.DataBatch(
+                [tmx.nd.array(toks)], [tmx.nd.array(labels)], bucket_key=t,
+                provide_data=[('data', (2, t))],
+                provide_label=[('softmax_label', (2, t))]),
+                tmx.metric.create('acc'))
+        params[ctx.device_type] = {k: v.asnumpy() for k, v in
+                                   mod.get_params()[0].items()}
+    for k in arg:
+        np.testing.assert_allclose(params['gpu'][k], params['cpu'][k],
+                                   rtol=1e-3, atol=1e-5, err_msg=k)

@@ -32,7 +32,9 @@ def test_import_leaves_jax_out():
             'mxnet_tpu_torch.parallel.train_step, '
             'mxnet_tpu_torch.ops.fused_conv, mxnet_tpu_torch.ops.attention, '
             'mxnet_tpu_torch.models.transformer_lm, '
-            'mxnet_tpu_torch.operator, mxnet_tpu_torch.rtc; '
+            'mxnet_tpu_torch.operator, mxnet_tpu_torch.rtc, '
+            'mxnet_tpu_torch.rnn, mxnet_tpu_torch.module.bucketing_module, '
+            'mxnet_tpu_torch.parallel.ring, mxnet_tpu_torch.parallel.sp; '
             'bad = sorted(m for m in sys.modules if m == "jax" or '
             'm.startswith("jax.") or m == "mxnet_tpu" or '
             'm.startswith("mxnet_tpu.")); print(bad); '
@@ -52,6 +54,13 @@ def test_source_imports_no_jax(path):
     assert not _FORBIDDEN.search(src), path
 
 
+def test_sources_cover_every_subpackage():
+    found = {os.path.relpath(os.path.dirname(p), PKG) for p in _sources()
+             if p.startswith(PKG)}
+    assert {'.', 'rnn', 'module', 'parallel', 'ops', 'models',
+            'serving'} <= found
+
+
 def test_gpu_entry_points_raise_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     sym = resnet.resnet(units=[1, 1, 1, 1], num_stages=4,
@@ -69,6 +78,11 @@ def test_gpu_entry_points_raise_without_cuda(monkeypatch):
         tmx.Module(sym)
     with pytest.raises(tmx.MXNetError, match='CUDA'):
         tmx.mod.Module(sym, context=tmx.gpu(0))
+    gen = tmx.models.transformer_lm.sym_gen_bucketing(
+        vocab_size=10, num_embed=8, num_heads=2, num_layers=1, max_seq_len=4)
+    with pytest.raises(tmx.MXNetError, match='CUDA'):
+        tmx.mod.BucketingModule(gen, default_bucket_key=4).bind(
+            [('data', (1, 4))], [('softmax_label', (1, 4))])
     # outside a with scope, creation from no input array runs on the card
     for make in (lambda: tmx.nd.ones((2,)), lambda: tmx.nd.full((2,), 1.0),
                  lambda: tmx.nd.empty((2,)), lambda: tmx.nd.arange(3),

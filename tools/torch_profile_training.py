@@ -5,6 +5,8 @@ port (mxnet_tpu_torch).
     python3 tools/torch_profile_training.py [--model resnet] [--rows 32]
     python3 tools/torch_profile_training.py --model transformer_lm [--rows 16]
     python3 tools/torch_profile_training.py --model resnet_custom_head
+    python3 tools/torch_profile_training.py --model transformer_lm_bucket \
+        [--bucket 200]
 
 ``resnet``: full-width ResNet-50 v2 (1000 classes, 3x224x224) trained
 with Module.fit (bf16 compute, SGD lr 0.05 momentum 0.9 wd 1e-4).
@@ -13,7 +15,12 @@ Custom ``softmax_rtc`` loss head, whose operator pushes two Rtc kernels.
 ``transformer_lm``: the JAX package's transformer-LM bench leg
 (bench.py:958-994: V=32000, E=512, 8 heads, 6 layers, T=512) through
 parallel.make_train_step (bf16 compute, SGD lr 0.01 momentum 0.9,
-N(0, 0.02²) weights).  Random weights and data from numpy seeds,
+N(0, 0.02²) weights).  ``transformer_lm_bucket``: that LM as
+chip_smoke.py's bucket-train runs it, mod.BucketingModule over
+sym_gen_bucketing (positional table of 512 rows) in float32 with TF32
+off, SGD lr 0.01 momentum 0.9, one bucket's fit step (``--bucket``, a
+sequence length up to 512; the batch's last position padded with -1).
+Random weights and data from numpy seeds,
 MXTPU_FUSE=aggressive.  Two warm-up steps, then ``--steps`` more fused
 train steps under torch.profiler: wall and device-busy time per step,
 the device's idle share, kernel time by class and by name, kernels
@@ -99,11 +106,46 @@ def lm_step(mx, torch, rows, seed):
     return run
 
 
+def bucket_step(mx, torch, rows, seed, bucket):
+    """The bucketed LM's fit step at ``bucket`` after two warm-up steps."""
+    import chip_smoke
+    from mxnet_tpu_torch import convert
+    torch.backends.cuda.matmul.allow_tf32 = False
+    default = max(chip_smoke.BUCKETS)
+    gen = chip_smoke.bucket_gen(mx.models)
+    shapes = [('data', (rows, default))], [('softmax_label', (rows, default))]
+    arg, _ = convert.random_params(gen(default)[0],
+                                   dict(shapes[0] + shapes[1]), seed,
+                                   init='normal')
+    toks = np.random.RandomState(seed + 1).randint(
+        0, LM['vocab_size'], (rows, bucket)).astype(np.float32)
+    labels = np.full_like(toks, -1)
+    labels[:, :-1] = toks[:, 1:]
+    batch = mx.io.DataBatch([mx.nd.array(toks)], [mx.nd.array(labels)],
+                            bucket_key=bucket,
+                            provide_data=[('data', (rows, bucket))],
+                            provide_label=[('softmax_label', (rows, bucket))])
+    mod = mx.mod.BucketingModule(gen, default_bucket_key=default,
+                                 context=mx.gpu(0))
+    mod.bind(*shapes)
+    mod.init_params(arg_params={k: mx.nd.array(v) for k, v in arg.items()})
+    mod.init_optimizer(optimizer='sgd', optimizer_params={
+        'learning_rate': 0.01, 'momentum': 0.9})
+    metric = mx.metric.create('acc')
+    for _ in range(2):
+        mod._fit_step(batch, metric)
+    return lambda: mod._fit_step(batch, metric)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--model', choices=('resnet', 'transformer_lm',
-                                        'resnet_custom_head'),
+                                        'resnet_custom_head',
+                                        'transformer_lm_bucket'),
                     default='resnet')
+    ap.add_argument('--bucket', type=int, default=200,
+                    help='transformer_lm_bucket: the bucket (sequence '
+                         'length) whose step is profiled')
     ap.add_argument('--rows', type=int, default=None,
                     help='rows per step (default 32 resnet, 16 LM)')
     ap.add_argument('--steps', type=int, default=5)
@@ -120,11 +162,15 @@ def main():
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    lm = args.model == 'transformer_lm'
+    lm = args.model.startswith('transformer_lm')
     custom = args.model == 'resnet_custom_head'
     rows = args.rows or (16 if lm else 32)
-    run = lm_step(mx, torch, rows, args.seed) if lm else resnet_step(
-        mx, torch, rows, args.seed, custom)
+    if args.model == 'transformer_lm_bucket':
+        run = bucket_step(mx, torch, rows, args.seed, args.bucket)
+    elif lm:
+        run = lm_step(mx, torch, rows, args.seed)
+    else:
+        run = resnet_step(mx, torch, rows, args.seed, custom)
     torch.cuda.synchronize()
     counters = (fused.fused_bn_relu, fused.fused_scale_bias_dot,
                 fused_conv.fused_scale_bias_conv3x3,
@@ -132,8 +178,10 @@ def main():
                 mx.rtc.Rtc)
     before = [k.launches for k in counters]
     out = profile_window(torch, run, args.steps, unit='step')
+    bucketed = args.model == 'transformer_lm_bucket'
     out.update(card=smi, model=args.model, rows=rows,
-               compute_dtype='float32' if custom else 'bfloat16',
+               bucket=args.bucket if bucketed else None,
+               compute_dtype='float32' if custom or bucketed else 'bfloat16',
                fuse='aggressive',
                port_kernel_launches_per_step={
                    k.__name__: (k.launches - b) / args.steps
