@@ -88,15 +88,29 @@ Phases, each printing one JSON line; any failure exits nonzero:
                   same launch (floor_ms); host us of a push and of the
                   library call; a body with a syntax error raises with
                   NVRTC's log.
+Main paths 1, 2, 3 and 5 run captured (whole-step capture: one CUDA
+graph per bucket and batch signature, replayed), the default.  Beside
+each, in the same call, the same steps run eagerly under NaiveEngine
+from the same numpy state (EAGER_STEPS of them for train and lm-train,
+the same requests and the same epoch for serve and bucket-train), and
+the phase's line carries both: step ms (forward p50/p99 for serve; per
+bucket for bucket-train), launches per step by kernel and route (they
+must be equal), the parameters after those steps (held to
+train-parity's bound), each graph's capture host ms and replays (the
+graphs held), and peak allocated and reserved device memory.
+
 4. serve       — main path 1: ModelServer serves full-width ResNet-50 v2
                   (1000 classes, 3x224x224, random weights from a numpy
                   seed, MXTPU_FUSE=aggressive, pow2 buckets up to 32
-                  rows): after one warm-up request per bucket, 64 requests
-                  of 1-8 rows from 4 client threads.  Launch counts are
-                  zeroed just before and read just after; fused_bn_relu
-                  must launch 17 times per forward.
-5. parity       — 4 rows through the served model and through a CPU
-                  Predictor, TF32 off: rtol 1e-3, same top-1.
+                  rows, each captured when the model loads): after one
+                  warm-up request per bucket, 64 requests of 1-8 rows
+                  from 4 client threads.  Launch counts are zeroed just
+                  before and read just after; fused_bn_relu must launch
+                  17 times per forward.
+5. parity       — 4 rows through a served Predictor captured with TF32
+                  off (a graph keeps the library kernels chosen when it
+                  was recorded) and through a CPU Predictor: rtol 1e-3,
+                  same top-1.
 6. train        — main path 2: Module(resnet-50 v2, 1000 classes,
                   3x224x224, context=gpu(0), compute_dtype=bfloat16).fit
                   over an NDArrayIter of 10 batches of 32 random images and
@@ -181,7 +195,22 @@ Phases, each printing one JSON line; any failure exits nonzero:
                   peak device memory.
 12. custom-parity — one f32 step of that model at 2 rows on the card (Rtc
                   head) and on the CPU (nd.* head, the same Custom op's
-                  CPU operator), under train-parity's bound.
+                  CPU operator), under train-parity's bound.  The
+                  Custom-headed step stays eager by rule (user Python
+                  runs every step).
+13. capture     — the cuda tests of tests/test_torch_capture.py in a child
+                  pytest, each a behaviour of capture held against eager:
+                  an lr schedule that lowers the lr at step 3 changes the
+                  captured update; a metric with no device form reads
+                  each replay's outputs with two steps in flight; a
+                  warm-started fit equals a cold one
+                  and the step window reaches 2 steps in flight;
+                  alternating buckets share one set of parameters and a
+                  bucket's outputs survive another's replay; a served
+                  forward's arrays survive the next forward; set_params
+                  drops the graphs and the next step trains the new
+                  values; random nodes draw anew per replay; a host sync
+                  raises naming its node; a Custom graph stays eager.
 
 Then the card's nvidia-smi line, the kernels summary line (the entries of
 the GEMM, conv and attention kernels also carry path_route,
@@ -231,6 +260,22 @@ SP_SEQ_PARAMS = ('pos_embed_weight',)
 BATCH = 32
 TRAIN_BATCHES = 10
 TRAIN_WARMUP = 2
+# the eager (NaiveEngine) run beside each captured main path: its first
+# steps from the same numpy state
+EAGER_STEPS = 3
+# the card tests the capture phase runs (tests/test_torch_capture.py)
+CAPTURE_CHECKS = (
+    'test_fit_step_captured_matches_eager',
+    'test_lm_train_step_captured_matches_eager',
+    'test_predictor_bucket_captured_matches_eager',
+    'test_lr_schedule_changes_the_captured_update',
+    'test_host_metric_reads_each_replays_outputs',
+    'test_warm_started_fit_equals_cold_fit_and_window_overlaps',
+    'test_buckets_share_parameters_and_keep_their_outputs',
+    'test_set_params_drops_the_graphs',
+    'test_dropout_draws_a_new_mask_on_each_replay',
+    'test_host_sync_under_capture_raises_naming_the_node',
+    'test_custom_graph_stays_eager')
 PARITY_ROWS = 2
 IMAGE = (3, 224, 224)
 N_REQUESTS = 64
@@ -1085,8 +1130,7 @@ def bucket_train(mx, torch, models, lm_arg, sentences):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     flash, epi = attention.flash_attention, fused.fused_dot_epilogue
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    fresh_memory(torch)
     reset_launches(flash)
     reset_launches(epi)
     bmod, bsteps, bfit_s = bucket_fit(mx, torch, models, lm_arg, sentences)
@@ -1095,6 +1139,7 @@ def bucket_train(mx, torch, models, lm_arg, sentences):
     bucket_routes = {'fused_dot_epilogue': dict(epi.launches_by_route),
                      'flash_attention': dict(flash.launches_by_route)}
     peak = torch.cuda.max_memory_allocated()
+    captured_memory = memory(torch)
     nsteps = len(bsteps)
     if nsteps != len(BUCKETS) * (BUCKET_STEPS + 1):
         raise AssertionError('bucket-train ran %d steps, expected %d'
@@ -1136,24 +1181,41 @@ def bucket_train(mx, torch, models, lm_arg, sentences):
         bucket_moved = max(bucket_moved, float(np.max(np.abs(t - lm_arg[k]))))
     if bucket_moved <= 0.0:
         raise AssertionError('bucket-train: the parameters did not move')
-    per_bucket = {}
-    for t in BUCKETS:
-        mine = [x for x in bsteps if x['bucket'] == t]
-        ms = statistics.median(x['ms'] for x in mine[1:])
-        real = statistics.mean(x['real_tokens'] for x in mine[1:])
-        per_bucket[t] = {
-            'steps': len(mine), 'first_ms': mine[0]['ms'],
-            'step_ms': [x['ms'] for x in mine],
-            'step_ms_median_after_warmup': ms,
-            'tokens_per_s_padded': BUCKET_ROWS * t / ms * 1e3,
-            'tokens_per_s_unpadded': real / ms * 1e3,
-            'real_token_share': real / (BUCKET_ROWS * t),
-            'launches_per_step_by_route': {
-                name: {r: sum(x['launches'][i][r] for x in mine) / len(mine)
-                       for r in mine[0]['launches'][i]}
-                for i, name in enumerate(('fused_dot_epilogue',
-                                          'flash_attention'))}}
+    per_bucket = bucket_report(bsteps)
+    graphs = {t: graph_report(m._graphs.values())
+              for t, m in sorted(bmod._buckets.items())}
+    for t, g in graphs.items():
+        if len(g) != 1 or not g[0]['captured'] or \
+                g[0]['replays'] != BUCKET_STEPS:
+            raise AssertionError('bucket-train: bucket %d did not replay one '
+                                 'graph: %s' % (t, g))
+    card = {k: v.asnumpy() for k, v in bmod.get_params()[0].items()}
     del bmod
+    # the same epoch eagerly (NaiveEngine), from the same state
+    fresh_memory(torch)
+    set_engine(mx, True)
+    try:
+        emod, esteps, _ = bucket_fit(mx, torch, models, lm_arg, sentences)
+    finally:
+        set_engine(mx, False)
+    eager_buckets = bucket_report(esteps)
+    capture = compare_runs(
+        'bucket-train',
+        {'step_ms_median_after_warmup': {
+            t: b['step_ms_median_after_warmup']
+            for t, b in per_bucket.items()},
+         'launches_per_step': {t: b['launches_per_step_by_route']
+                               for t, b in per_bucket.items()},
+         **captured_memory},
+        {'step_ms_median_after_warmup': {
+            t: b['step_ms_median_after_warmup']
+            for t, b in eager_buckets.items()},
+         'launches_per_step': {t: b['launches_per_step_by_route']
+                               for t, b in eager_buckets.items()},
+         **memory(torch)},
+        card, {k: v.asnumpy() for k, v in emod.get_params()[0].items()},
+        nsteps)
+    del emod
     # the same fit with every bucket declared and MXTPU_PRECOMPILE_BUCKETS:
     # each bucket is bound and its step built before the first batch
     os.environ['MXTPU_PRECOMPILE_BUCKETS'] = '1'
@@ -1163,6 +1225,12 @@ def bucket_train(mx, torch, models, lm_arg, sentences):
             bucket_corpus(SEED + 4, BUCKET_ROWS), bucket_keys=list(BUCKETS))
     finally:
         del os.environ['MXTPU_PRECOMPILE_BUCKETS']
+    pgraphs = {t: graph_report(m._graphs.values())
+               for t, m in sorted(pmod._buckets.items())}
+    if not all(g and g[0]['captured'] and g[0]['replays'] == 1
+               for g in pgraphs.values()):
+        raise AssertionError('bucket-train: precompile did not capture every '
+                             'bucket before its batch: %s' % pgraphs)
     del pmod
     first_on = {x['bucket']: x['ms'] for x in psteps}
     report = {
@@ -1181,10 +1249,36 @@ def bucket_train(mx, torch, models, lm_arg, sentences):
         'first_batch_ms_precompile_off': {t: per_bucket[t]['first_ms']
                                           for t in BUCKETS},
         'first_batch_ms_precompile_on': first_on,
-        # bind, warm start and the iterator: the fit's time outside steps
+        # bind, warm start (each bucket's capture) and the iterator: the
+        # fit's time outside steps
         'precompile_fit_s': pfit_s,
-        'precompile_outside_steps_s': pfit_s - sum(first_on.values()) / 1e3}
+        'precompile_outside_steps_s': pfit_s - sum(first_on.values()) / 1e3,
+        'precompile_graphs': pgraphs, 'graphs': graphs,
+        'capture_vs_eager': capture}
     return report, bucket_launches, bucket_routes
+
+
+def bucket_report(steps):
+    """Per bucket of a bucketed fit's timed steps: median step ms after
+    the first, tokens/s and launches per step by route."""
+    per_bucket = {}
+    for t in BUCKETS:
+        mine = [x for x in steps if x['bucket'] == t]
+        ms = statistics.median(x['ms'] for x in mine[1:])
+        real = statistics.mean(x['real_tokens'] for x in mine[1:])
+        per_bucket[t] = {
+            'steps': len(mine), 'first_ms': mine[0]['ms'],
+            'step_ms': [x['ms'] for x in mine],
+            'step_ms_median_after_warmup': ms,
+            'tokens_per_s_padded': BUCKET_ROWS * t / ms * 1e3,
+            'tokens_per_s_unpadded': real / ms * 1e3,
+            'real_token_share': real / (BUCKET_ROWS * t),
+            'launches_per_step_by_route': {
+                name: {r: sum(x['launches'][i][r] for x in mine) / len(mine)
+                       for r in mine[0]['launches'][i]}
+                for i, name in enumerate(('fused_dot_epilogue',
+                                          'flash_attention'))}}
+    return per_bucket
 
 
 def free_port():
@@ -1441,20 +1535,207 @@ def param_parity(card, host):
     return n_out, total, worst, outside
 
 
+def set_engine(mx, naive):
+    """NaiveEngine (every step eager) or the default (captured)."""
+    mx.engine.set_engine_type('NaiveEngine' if naive else
+                              'ThreadedEnginePerDevice')
+
+
+def launch_counts(kernels):
+    """{kernel: (launches, {route: launches})} of the kernel wrappers."""
+    return {getattr(k, '__name__', str(k)):
+            (k.launches, dict(getattr(k, 'launches_by_route', {})))
+            for k in kernels}
+
+
+def launches_per_step(before, after, steps):
+    """Launches per step by kernel (and route) between two
+    launch_counts, for the kernels that launched."""
+    out = {}
+    for name, (n, routes) in after.items():
+        n0, routes0 = before[name]
+        if n != n0:
+            out[name] = {'all': (n - n0) / steps}
+            out[name].update({r: (v - routes0.get(r, 0)) / steps
+                              for r, v in routes.items()
+                              if v != routes0.get(r, 0)})
+    return out
+
+
+def graph_report(caps):
+    """Each captured step a path holds: whether it was captured (or the
+    rule that kept it eager), its capture's host ms, its replays and the
+    kernel launches it records per replay."""
+    return [{'name': c.name, 'captured': c.captured, 'skip': c.skip,
+             'capture_ms': c.capture_ms, 'replays': c.replays,
+             'launches_per_replay': c.launches} for c in caps]
+
+
+def memory(torch):
+    """Peak allocated and reserved device bytes since the last reset (the
+    graphs' pools are reserved memory)."""
+    return {'peak_allocated_bytes': torch.cuda.max_memory_allocated(),
+            'peak_reserved_bytes': torch.cuda.max_memory_reserved()}
+
+
+def fresh_memory(torch):
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def compare_runs(phase, captured, eager, card, host, steps):
+    """A captured run against the eager run of the same steps: launches
+    per step by kernel and route must be equal, the parameters after
+    ``steps`` steps within train-parity's bound (bit-identical where the
+    library picks the same algorithms)."""
+    if captured['launches_per_step'] != eager['launches_per_step']:
+        raise AssertionError('%s: launches per step captured %s, eager %s'
+                             % (phase, captured['launches_per_step'],
+                                eager['launches_per_step']))
+    n_out, total, worst, outside = param_parity(card, host)
+    report = {'captured': captured, 'eager': eager,
+              'params_after_steps': steps, 'elements': total,
+              'elements_outside': n_out, 'max_abs_err': worst[0],
+              'worst_param': worst[1], 'outside_tolerance': outside,
+              'bitwise_equal': all(np.array_equal(card[k], host[k])
+                                   for k in card),
+              'tolerance': 'rtol 1e-3, atol 1e-5 elementwise; at most 1e-4 '
+                           'of the elements outside it, none beyond 1e-3'}
+    if n_out > 1e-4 * total or worst[0] > 1e-3:
+        raise AssertionError('%s: captured against eager, %d of %d '
+                             'parameter elements beyond rtol 1e-3, atol '
+                             '1e-5, max abs err %g in %s'
+                             % (phase, n_out, total, worst[0], worst[1]))
+    return report
+
+
+def serve_phase(mx, torch, server, symbol, params, data, rng, fused,
+                instrument):
+    """Main path 1 on ``server``: load (which builds, and unless under
+    NaiveEngine captures, every pow2 bucket), one request per bucket,
+    then the measured requests with the launch counts zeroed just before
+    and read just after (17 fused_bn_relu per forward).  Each forward is
+    timed on the host up to a device synchronise."""
+    t0 = time.monotonic()
+    predictor = server.load_model('resnet50', symbol_json=symbol.tojson(),
+                                  params=params,
+                                  input_shapes={'data': (BATCH,) + IMAGE})
+    load_s = time.monotonic() - t0
+    forward_s, forward = [], predictor.forward
+
+    def timed_forward(**inputs):
+        t1 = time.perf_counter()
+        out = forward(**inputs)
+        torch.cuda.synchronize()
+        forward_s.append(time.perf_counter() - t1)
+        return out
+    predictor.forward = timed_forward
+    # one request per pow2 bucket first: each bucket's first forward pays
+    # cuDNN's algorithm setup, which the measured run should not
+    t0 = time.monotonic()
+    b = 1
+    while b <= BATCH:
+        server.predict('resnet50', timeout=300, data=data[:b])
+        b *= 2
+    torch.cuda.synchronize()
+    warm_s = time.monotonic() - t0
+    del forward_s[:]
+    instrument.reset_metrics()
+    reset_launches(fused.fused_bn_relu)
+    results, wall = serve(server, data, rng)
+    torch.cuda.synchronize()
+    n_bn_relu = fused.fused_bn_relu.launches
+    forwards = instrument.counter_value('executor.forwards')
+    if n_bn_relu == 0:
+        raise AssertionError('kernel fused_bn_relu never launched on the '
+                             'main path')
+    if n_bn_relu != 17 * forwards or forwards != len(forward_s):
+        raise AssertionError('fused_bn_relu launched %d times in %d forwards '
+                             '(expected 17 each)' % (n_bn_relu, forwards))
+    for rows, _, out in results:
+        if out.shape != (rows, 1000) or not np.all(np.isfinite(out)) \
+                or not np.allclose(out.sum(axis=1), 1.0, atol=1e-4):
+            raise AssertionError('bad response: shape %s' % (out.shape,))
+    lat = np.array([r[1] for r in results])
+    hist = instrument.histogram('serving.e2e_secs')
+    fwd = np.array(forward_s)
+    return {'load_s': load_s, 'warmup_s': warm_s,
+            'rows': sum(r[0] for r in results), 'forwards': forwards,
+            'fused_bn_relu_launches': n_bn_relu,
+            'launches_per_forward': {'fused_bn_relu': n_bn_relu / forwards},
+            'wall_s': wall,
+            'images_per_s': sum(r[0] for r in results) / wall,
+            'p50_ms': float(np.percentile(lat, 50)) * 1e3,
+            'p99_ms': float(np.percentile(lat, 99)) * 1e3,
+            'forward_p50_ms': float(np.percentile(fwd, 50)) * 1e3,
+            'forward_p99_ms': float(np.percentile(fwd, 99)) * 1e3,
+            'server_e2e_p50_ms': hist.quantile(0.5) * 1e3,
+            'server_e2e_p99_ms': hist.quantile(0.99) * 1e3,
+            'flushes': instrument.counter_value('serving.flushes'),
+            'graphs': graph_report(e._forward_graph for e in
+                                   predictor._bucket_execs.values()
+                                   if e._forward_graph is not None),
+            **memory(torch)}
+
+
+def capture_checks():
+    """The capture phase: the card tests of tests/test_torch_capture.py,
+    in a child pytest.  Each holds one behaviour of whole-step capture
+    against the eager run of the same steps (an lr schedule changes the
+    captured update at step 3; a warm-started fit equals a cold one and
+    the step window reaches two steps in flight; alternating buckets
+    share one set of parameters and keep their outputs; a served
+    forward's arrays survive the next forward; set_params drops the
+    graphs and the next step trains the new values; random nodes,
+    host syncs and Custom nodes).  Returns {test: outcome} and the
+    seconds taken; raises unless every test ran and passed."""
+    import tempfile
+    import xml.etree.ElementTree as ET
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory() as tmp:
+        report = os.path.join(tmp, 'capture.xml')
+        proc = subprocess.run(
+            [sys.executable, '-m', 'pytest', 'tests/test_torch_capture.py',
+             '-m', 'cuda', '-q', '--noconftest', '-p', 'no:cacheprovider',
+             '--junitxml', report], cwd=root, capture_output=True,
+            text=True, timeout=600)
+        cases = {}
+        if os.path.exists(report):
+            for case in ET.parse(report).getroot().iter('testcase'):
+                outcome = 'passed'
+                for child in case:
+                    if child.tag in ('failure', 'error', 'skipped'):
+                        outcome = child.tag
+                cases[case.get('name')] = outcome
+    missing = [n for n in CAPTURE_CHECKS if cases.get(n) != 'passed']
+    if proc.returncode != 0 or missing:
+        print(proc.stdout[-6000:], proc.stderr[-2000:], file=sys.stderr)
+        raise AssertionError('capture: pytest rc %d, not passed: %s'
+                             % (proc.returncode, missing or cases))
+    return cases, time.monotonic() - t0
+
+
 def train_module(mx, torch, symbol, arg, aux, data, labels, ctx, dtype,
-                 batch):
+                 batch, snap_at=None):
     """``Module.fit`` over an NDArrayIter; returns the module and the
-    host seconds of each step (each ends in a device synchronise)."""
+    host seconds of each step (each ends in a device synchronise), and
+    with ``snap_at`` the parameters after that many steps."""
     times = []
     last = [time.perf_counter()]
     on_card = ctx.device_type == 'gpu'
+    snap = {}
 
     def tick(_):
         if on_card:
             torch.cuda.synchronize()
         now = time.perf_counter()
         times.append(now - last[0])
-        last[0] = now
+        if len(times) == snap_at:
+            snap.update({k: v.asnumpy()
+                         for k, v in mod.get_params()[0].items()})
+        last[0] = time.perf_counter()
 
     mod = mx.mod.Module(symbol, context=ctx, compute_dtype=dtype)
     mod.fit(mx.io.NDArrayIter(data, labels, batch_size=batch),
@@ -1464,6 +1745,8 @@ def train_module(mx, torch, symbol, arg, aux, data, labels, ctx, dtype,
             arg_params={k: mx.nd.array(v) for k, v in arg.items()},
             aux_params={k: mx.nd.array(v) for k, v in aux.items()},
             batch_end_callback=tick)
+    if snap_at is not None:
+        return mod, times, snap
     return mod, times
 
 
@@ -2244,6 +2527,10 @@ def main():
         from mxnet_tpu_torch.ops import _kernels, attention, fused, fused_conv
         from mxnet_tpu_torch.models import resnet
         from mxnet_tpu_torch.parallel import train_step as ts
+        all_kernels = (fused.fused_bn_relu, fused.fused_scale_bias_dot,
+                       fused.fused_dot_epilogue,
+                       fused_conv.fused_scale_bias_conv3x3,
+                       attention.flash_attention, mx.rtc.Rtc)
     except ImportError as e:
         print('chip_smoke: the mxnet_tpu_torch package is missing (%s); run '
               'from the root of a checkout' % e, file=sys.stderr)
@@ -2393,70 +2680,56 @@ def main():
          'nvrtc_s_per_module': compiles.sum / max(compiles.count, 1),
          'compile_error_log': bad_log})
 
-    # -- 4. serve: the main path ---------------------------------------------
+    # -- 4. serve: the main path, captured, beside an eager server ----------
     arg, aux = convert.random_params(symbol, {'data': (BATCH,) + IMAGE},
                                       SEED)
     params = convert.params_from_numpy(arg, aux, 'cuda:0')
-    server = mx.serving.ModelServer(max_delay_ms=2.0, max_batch=BATCH)
     rng = np.random.default_rng(SEED + 1)
     data = rng.standard_normal((64,) + IMAGE, dtype=np.float32)
-    try:
-        t0 = time.monotonic()
-        server.load_model('resnet50', symbol_json=symbol.tojson(),
-                          params=params, input_shapes={'data': (BATCH,)
-                                                       + IMAGE})
-        load_s = time.monotonic() - t0
-        # one request per pow2 bucket first: each bucket's first forward
-        # pays cuDNN's algorithm setup, which the measured run should not
-        t0 = time.monotonic()
-        b = 1
-        while b <= BATCH:
-            server.predict('resnet50', timeout=300, data=data[:b])
-            b *= 2
-        torch.cuda.synchronize()
-        warm_s = time.monotonic() - t0
-        instrument.reset_metrics()
-        reset_launches(fused.fused_bn_relu)
-        fwd0 = instrument.counter_value('executor.forwards')
-        results, wall = serve(server, data, rng)
-        torch.cuda.synchronize()
-        launches = {'fused_bn_relu': fused.fused_bn_relu.launches}
-        forwards = instrument.counter_value('executor.forwards') - fwd0
-        for name, n in launches.items():
-            if n == 0:
-                raise AssertionError('kernel %s never launched on the main '
-                                     'path' % name)
-        if launches['fused_bn_relu'] != 17 * forwards:
-            raise AssertionError('fused_bn_relu launched %d times in %d '
-                                 'forwards (expected 17 each)'
-                                 % (launches['fused_bn_relu'], forwards))
-        for rows, _, out in results:
-            if out.shape != (rows, 1000) or not np.all(np.isfinite(out)) \
-                    or not np.allclose(out.sum(axis=1), 1.0, atol=1e-4):
-                raise AssertionError('bad response: shape %s' % (out.shape,))
-        lat = np.array([r[1] for r in results])
-        rows_total = sum(r[0] for r in results)
-        hist = instrument.histogram('serving.e2e_secs')
-        log({'phase': 'serve', 'model': 'resnet-50 v2', 'classes': 1000,
-             'image': list(IMAGE), 'max_batch': BATCH, 'fuse': 'aggressive',
-             'tf32_conv': torch.backends.cudnn.allow_tf32,
-             'load_s': load_s, 'warmup_s': warm_s,
-             'requests': len(results), 'rows': rows_total,
-             'forwards': forwards, 'launches': launches,
-             'wall_s': wall, 'images_per_s': rows_total / wall,
-             'p50_ms': float(np.percentile(lat, 50)) * 1e3,
-             'p99_ms': float(np.percentile(lat, 99)) * 1e3,
-             'server_e2e_p50_ms': hist.quantile(0.5) * 1e3,
-             'server_e2e_p99_ms': hist.quantile(0.99) * 1e3,
-             'flushes': instrument.counter_value('serving.flushes')})
+    served = {}
+    for mode in ('eager', 'captured'):
+        fresh_memory(torch)
+        set_engine(mx, mode == 'eager')
+        server = mx.serving.ModelServer(max_delay_ms=2.0, max_batch=BATCH)
+        try:
+            served[mode] = serve_phase(mx, torch, server, symbol, params,
+                                       data, np.random.default_rng(SEED + 1),
+                                       fused, instrument)
+        finally:
+            set_engine(mx, False)
+            server.close()
+    cap, eager = served['captured'], served['eager']
+    if cap['launches_per_forward'] != eager['launches_per_forward']:
+        raise AssertionError('serve: launches per forward captured %s, eager '
+                             '%s' % (cap['launches_per_forward'],
+                                     eager['launches_per_forward']))
+    if not all(g['captured'] for g in cap['graphs']) or \
+            len(cap['graphs']) != BATCH.bit_length():
+        raise AssertionError('serve: buckets not all captured: %s'
+                             % cap['graphs'])
+    launches = {'fused_bn_relu': cap.pop('fused_bn_relu_launches')}
+    eager.pop('fused_bn_relu_launches')
+    log({'phase': 'serve', 'model': 'resnet-50 v2', 'classes': 1000,
+         'image': list(IMAGE), 'max_batch': BATCH, 'fuse': 'aggressive',
+         'tf32_conv': torch.backends.cudnn.allow_tf32,
+         'requests': N_REQUESTS, **cap, 'eager': eager})
 
-        # -- 5. parity against the CPU, TF32 off ---------------------------
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-        rows = data[:4]
-        card = server.predict('resnet50', timeout=300, data=rows)[0]
-    finally:
-        server.close()
+    # -- 5. parity against the CPU, TF32 off ---------------------------------
+    # a graph keeps the library kernels chosen when it was recorded, TF32
+    # on or off: the card's side is a served Predictor captured with TF32
+    # off, its 4-row bucket replayed
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = data[:4]
+    card_pred = mx.Predictor(symbol.tojson(), params, {'data': (BATCH,)
+                                                       + IMAGE},
+                             pad_to_bucket=True)
+    card_pred.warm_buckets(4)
+    card_pred.forward(data=rows)
+    card = card_pred.get_output(0)
+    if card_pred._bucket_execs[4]._forward_graph.replays != 1:
+        raise AssertionError('parity: the 4-row bucket did not replay')
+    del params, card_pred
     cpu_pred = mx.Predictor(symbol.tojson(),
                             convert.params_from_numpy(arg, aux, 'cpu'),
                             {'data': (4,) + IMAGE}, dev_type='cpu')
@@ -2478,16 +2751,28 @@ def main():
     images = rng.standard_normal((TRAIN_BATCHES * BATCH,) + IMAGE,
                                  dtype=np.float32)
     labels = rng.integers(0, 1000, TRAIN_BATCHES * BATCH).astype(np.float32)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    fresh_memory(torch)
     for k in (fused.fused_bn_relu, fused.fused_scale_bias_dot,
               fused_conv.fused_scale_bias_conv3x3):
         reset_launches(k)
+    counts0 = launch_counts(all_kernels)
     t0 = time.monotonic()
-    mod, step_s = train_module(mx, torch, symbol, arg, aux, images, labels,
-                               mx.gpu(0), torch.bfloat16, BATCH)
+    mod, step_s, snap = train_module(mx, torch, symbol, arg, aux, images,
+                                     labels, mx.gpu(0), torch.bfloat16,
+                                     BATCH, snap_at=EAGER_STEPS)
     torch.cuda.synchronize()
     fit_s = time.monotonic() - t0
+    train_captured = {
+        'step_ms_median_after_warmup':
+            statistics.median(step_s[TRAIN_WARMUP:]) * 1e3,
+        'launches_per_step': launches_per_step(
+            counts0, launch_counts(all_kernels), len(step_s)),
+        **memory(torch)}
+    train_graphs = graph_report(mod._graphs.values())
+    if len(train_graphs) != 1 or not train_graphs[0]['captured'] or \
+            train_graphs[0]['replays'] != TRAIN_BATCHES - 1:
+        raise AssertionError('train: the fit step did not replay one graph: '
+                             '%s' % train_graphs)
     train_launches = {
         'fused_scale_bias_dot': fused.fused_scale_bias_dot.launches,
         'fused_scale_bias_conv3x3':
@@ -2529,6 +2814,27 @@ def main():
         raise AssertionError('training did not move: loss %s, max |dw| %g'
                              % (metric['cross-entropy'], moved))
     step_ms = statistics.median(step_s[TRAIN_WARMUP:]) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    del mod, trained, trained_aux
+    # the same first steps eagerly (NaiveEngine), from the same state
+    fresh_memory(torch)
+    counts0 = launch_counts(all_kernels)
+    set_engine(mx, True)
+    try:
+        emod, estep_s = train_module(
+            mx, torch, symbol, arg, aux, images[:EAGER_STEPS * BATCH],
+            labels[:EAGER_STEPS * BATCH], mx.gpu(0), torch.bfloat16, BATCH)
+    finally:
+        set_engine(mx, False)
+    train_capture = compare_runs(
+        'train', train_captured,
+        {'step_ms_median_after_warmup': statistics.median(estep_s[1:]) * 1e3,
+         'launches_per_step': launches_per_step(
+             counts0, launch_counts(all_kernels), len(estep_s)),
+         **memory(torch)},
+        snap, {k: v.asnumpy() for k, v in emod.get_params()[0].items()},
+        EAGER_STEPS)
+    del emod
     log({'phase': 'train', 'model': 'resnet-50 v2', 'classes': 1000,
          'image': list(IMAGE), 'batch': BATCH, 'steps': steps,
          'compute_dtype': 'bfloat16', 'fuse': 'aggressive',
@@ -2539,10 +2845,10 @@ def main():
          'fit_s': fit_s, 'step_ms': [t * 1e3 for t in step_s],
          'step_ms_median_after_warmup': step_ms,
          'images_per_s': BATCH / step_ms * 1e3,
-         'peak_memory_bytes': torch.cuda.max_memory_allocated(),
+         'peak_memory_bytes': peak,
          'train_cross_entropy': metric['cross-entropy'],
-         'train_accuracy': metric['accuracy'], 'max_param_change': moved})
-    del mod, trained, trained_aux
+         'train_accuracy': metric['accuracy'], 'max_param_change': moved,
+         'graphs': train_graphs, 'capture_vs_eager': train_capture})
 
     # -- 7. train-parity: one f32 step on the card and on the CPU ----------
     torch.backends.cudnn.allow_tf32 = False
@@ -2584,10 +2890,10 @@ def main():
     opt_state = ts.sgd_momentum_init(params)
     batch = lm_batch(torch, dev, LM_BATCH)
     step = lm_step(ts, lm_sym, LM_BATCH, torch.bfloat16)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    fresh_memory(torch)
     reset_launches(attention.flash_attention)
     reset_launches(fused.fused_dot_epilogue)
+    counts0 = launch_counts(all_kernels)
     lm_step_s, ce = [], []
     t0 = time.monotonic()
     for i in range(LM_STEPS):
@@ -2597,7 +2903,19 @@ def main():
         lm_step_s.append(time.perf_counter() - t1)
         if i in (0, LM_STEPS - 1):
             ce.append(cross_entropy(torch, outs[0], batch['softmax_label']))
+        if i == EAGER_STEPS - 1:
+            lm_snap = {k: v.cpu().numpy() for k, v in params.items()}
     lm_s = time.monotonic() - t0
+    lm_captured = {
+        'step_ms_median_after_warmup':
+            statistics.median(lm_step_s[TRAIN_WARMUP:]) * 1e3,
+        'launches_per_step': launches_per_step(
+            counts0, launch_counts(all_kernels), LM_STEPS),
+        **memory(torch)}
+    lm_graphs = graph_report(c for c, _ in step.graphs.values())
+    if len(lm_graphs) != 1 or lm_graphs[0]['replays'] != LM_STEPS - 1:
+        raise AssertionError('lm-train: the step did not replay one graph: '
+                             '%s' % lm_graphs)
     lm_launches = {'flash_attention': attention.flash_attention.launches,
                    'fused_dot_epilogue': fused.fused_dot_epilogue.launches}
     for name, n in lm_launches.items():
@@ -2628,6 +2946,32 @@ def main():
     if lm_moved <= 0.0:
         raise AssertionError('lm-train: the parameters did not move')
     lm_ms = statistics.median(lm_step_s[TRAIN_WARMUP:]) * 1e3
+    lm_peak = torch.cuda.max_memory_allocated()
+    del params, opt_state, outs, step
+    fresh_memory(torch)
+    counts0 = launch_counts(all_kernels)
+    set_engine(mx, True)
+    try:
+        estep = lm_step(ts, lm_sym, LM_BATCH, torch.bfloat16)
+        eparams = {k: torch.from_numpy(v).to(dev) for k, v in lm_arg.items()}
+        estate = ts.sgd_momentum_init(eparams)
+        elm_s = []
+        for i in range(EAGER_STEPS):
+            t1 = time.perf_counter()
+            _, eparams, _, estate = estep(eparams, {}, estate, batch)
+            torch.cuda.synchronize()
+            elm_s.append(time.perf_counter() - t1)
+    finally:
+        set_engine(mx, False)
+    lm_capture = compare_runs(
+        'lm-train', lm_captured,
+        {'step_ms_median_after_warmup': statistics.median(elm_s[1:]) * 1e3,
+         'launches_per_step': launches_per_step(
+             counts0, launch_counts(all_kernels), EAGER_STEPS),
+         **memory(torch)},
+        lm_snap, {k: v.cpu().numpy() for k, v in eparams.items()},
+        EAGER_STEPS)
+    del estep, eparams, estate
     log({'phase': 'lm-train', 'model': 'transformer_lm', **LM,
          'batch': LM_BATCH, 'steps': LM_STEPS, 'compute_dtype': 'bfloat16',
          'fuse': 'aggressive', 'entry': 'parallel.make_train_step',
@@ -2640,11 +2984,11 @@ def main():
          'wall_s': lm_s, 'step_ms': [t * 1e3 for t in lm_step_s],
          'step_ms_median_after_warmup': lm_ms,
          'tokens_per_s': LM_BATCH * seq / lm_ms * 1e3,
-         'peak_memory_bytes': torch.cuda.max_memory_allocated(),
+         'peak_memory_bytes': lm_peak,
          'cross_entropy_first_last': ce,
          'ln_vocab': float(np.log(LM['vocab_size'])),
-         'max_param_change': lm_moved})
-    del params, opt_state, outs, step
+         'max_param_change': lm_moved,
+         'graphs': lm_graphs, 'capture_vs_eager': lm_capture})
 
     # -- 9. lm-parity: one f32 LM step on the card and on the CPU ----------
     torch.backends.cudnn.allow_tf32 = False
@@ -2769,6 +3113,10 @@ def main():
         raise AssertionError('custom-train did not move: loss %s, max |dw| '
                              '%g' % (metric['cross-entropy'], moved))
     step_ms = statistics.median(step_s[TRAIN_WARMUP:]) * 1e3
+    custom_graphs = graph_report(mod._graphs.values())
+    if [g['skip'] for g in custom_graphs] != ['Custom']:
+        raise AssertionError('custom-train: the Custom-headed step must stay '
+                             'eager by rule: %s' % custom_graphs)
     log({'phase': 'custom-train', 'model': 'resnet-50 v2', 'classes': 1000,
          'image': list(IMAGE), 'batch': BATCH, 'steps': steps,
          'head': 'Custom softmax_rtc (Rtc softmax_fwd / softmax_bwd)',
@@ -2783,7 +3131,8 @@ def main():
          'images_per_s': BATCH / step_ms * 1e3,
          'peak_memory_bytes': torch.cuda.max_memory_allocated(),
          'train_cross_entropy': metric['cross-entropy'],
-         'train_accuracy': metric['accuracy'], 'max_param_change': moved})
+         'train_accuracy': metric['accuracy'], 'max_param_change': moved,
+         'graphs': custom_graphs})
     del mod, trained
 
     # -- 12. custom-parity: one f32 step, Rtc head vs nd.* head ------------
@@ -2813,6 +3162,11 @@ def main():
         raise AssertionError('custom-parity: %d of %d parameter elements '
                              'beyond rtol 1e-3, atol 1e-5, max abs err %g '
                              'in %s' % (n_out, total, worst[0], worst[1]))
+
+    # -- 13. capture: whole-step capture's behaviours on the card ----------
+    checks, capture_s = capture_checks()
+    log({'phase': 'capture', 'checks': checks, 'seconds': capture_s,
+         'source': 'tests/test_torch_capture.py (cuda)'})
 
     # -- summary -------------------------------------------------------------
     on_path = [c for c in cases if c['launches_per_forward']]

@@ -16,7 +16,10 @@ op, Custom operators (``operator``) and runtime-compiled CUDA kernels
 (``rtc.Rtc``, on NVRTC).  The TPU kernels — ``fused_bn_relu``,
 ``fused_scale_bias_dot``, ``fused_scale_bias_conv3x3``,
 ``fused_dot_epilogue``, ``flash_attention`` and ``Rtc`` — are CUDA C++
-for sm_90a (``csrc/``).
+for sm_90a (``csrc/``).  On the card each fit step, LM train step and
+served bucket forward is captured once per batch signature as a CUDA
+graph and replayed (``compile_cache.CapturedStep``); under
+``MXNET_ENGINE_TYPE=NaiveEngine`` every step runs eagerly.
 
 The package imports torch and numpy, never jax and nothing of
 ``mxnet_tpu``.  Entry points run on the card unless the caller asks for
@@ -25,7 +28,7 @@ the CPU (``dev_type='cpu'`` / ``ctx=cpu()``).
 >>> import mxnet_tpu_torch as mx
 >>> net = mx.models.resnet.get_symbol(num_classes=10, num_layers=50)
 """
-from . import base, config, context, instrument
+from . import base, config, context, engine, instrument
 from . import ops
 from . import ndarray
 from . import ndarray as nd
@@ -45,9 +48,14 @@ from .module import Module
 from .predictor import Predictor
 from . import serving
 
+# the reference's import-time engine knob (docs/how_to/env_var.md)
+if config.get('MXNET_ENGINE_TYPE') != 'ThreadedEnginePerDevice':
+    engine.set_engine_type(config.get('MXNET_ENGINE_TYPE'))
+
 __all__ = ['MXNetError', 'Context', 'cpu', 'gpu', 'current_context',
            'nd', 'sym', 'operator', 'rtc', 'Predictor', 'serving', 'models', 'convert',
            'fuse', 'ops', 'config', 'instrument', 'Module', 'module', 'mod',
            'io', 'metric', 'optimizer', 'lr_scheduler', 'initializer',
-           'opt', 'init', 'callback', 'random', 'parallel', 'rnn']
+           'opt', 'init', 'callback', 'random', 'parallel', 'rnn',
+           'engine']
 

@@ -1,31 +1,317 @@
-"""Warm start and the pow2 shape policy of ``mxnet_tpu/compile_cache.py``
-(``warm_start :341``, ``pad_to_bucket :365``).
+"""Whole-step capture, batch signatures and the pow2 shape policy; the
+port of ``mxnet_tpu/compile_cache.py`` (``fingerprint :161``,
+``warm_start :341``, ``pad_to_bucket :365``, ``sig_key``/``batch_sig
+:378-397``).
 
-PyTorch runs eagerly, so there is no compiled program per shape to
-cache: :func:`warm_start` builds each module's fused step (and, on the
-card, loads the kernel libraries it launches) before the first batch,
-with no persistent cache and no warmup manifest.  Whole-step capture
-(one CUDA graph per bucket and batch signature) is what will fill those
-in.  The serving path keeps the pow2 policy, so the port serves the same
-batch shapes as the JAX package.
+The JAX package compiles each fused step, and each served bucket, into
+one XLA program, AOT-warmed and looked up by :func:`batch_sig`.  Here the
+counterpart is :class:`CapturedStep`: one ``torch.cuda.CUDAGraph`` of a
+step body that reads and writes only fixed buffers (batch, lr tensor,
+parameters, aux, optimizer state, metric accumulators), recorded once
+per (bucket, batch signature) and replayed.  A replay launches the same
+hand-written kernels as the eager step, without the host's per-op work.
+
+Capture is decided by a rule, before any attempt (:func:`capture_skip_reason`):
+a step stays eager on the CPU, under ``NaiveEngine``, when its graph has
+a ``Custom`` node (user Python runs every step), and when it draws random
+numbers and this PyTorch cannot register a generator with a graph; the
+caller keeps eager paths of its own for collectives (the sp step) and
+``make_train_step(donate=False)``.  Each such choice counts
+``compile.capture_skipped`` and logs its reason.  A capture that fails
+raises; nothing falls back to the eager step.
+
+Counters, as in the reference: a capture counts ``compile.traces`` and
+its host seconds ``compile.warmup_secs``; a replay ``executor.cache_hits``.
+The kernel launches and ``instrument`` counters the body counts while it
+is recorded (``instrument.recording``, on the capturing thread) are
+applied on each replay instead, so launches per step mean the same
+captured or eager.
+
+The persistent cache and the warmup manifest of the reference
+(``mxnet_tpu/compile_cache.py:85-300``) are not ported.
 """
 from __future__ import annotations
 
-__all__ = ['pad_to_bucket', 'warm_start']
+import hashlib
+import logging
+import time
+
+import torch
+
+from . import engine, instrument
+from .base import MXNetError
+
+__all__ = ['pad_to_bucket', 'sig_key', 'batch_sig', 'fingerprint',
+           'warm_start', 'capture_skip_reason', 'random_nodes',
+           'CapturedStep', 'snapshot', 'step_tensors']
+
+# ops that draw from the device generator: name -> does this node draw
+_DRAWS = {
+    'Dropout': lambda a, train: train and float(a.get('p', 0.5)) > 0,
+    'LeakyReLU': lambda a, train: train and a.get('act_type') == 'rrelu',
+    '_random_uniform': lambda a, train: True,
+    '_random_normal': lambda a, train: True,
+}
+
+
+def pad_to_bucket(n, minimum=1):
+    """Smallest power of two >= ``n`` (and >= ``minimum``)."""
+    n = max(int(n), int(minimum), 1)
+    return 1 << (n - 1).bit_length()
+
+
+def _dtype_name(dtype):
+    """numpy's name of a dtype ('float32', 'int32', 'bfloat16'), so a key
+    here equals the JAX package's for the same batch."""
+    return str(dtype).replace('torch.', '')
+
+
+def sig_key(shapes_map, mesh=None):
+    """Hashable key of a ``{name: (shape, dtype_str)}`` signature."""
+    key = tuple(sorted((str(k), tuple(int(d) for d in s), str(dt))
+                       for k, (s, dt) in shapes_map.items()))
+    if mesh is not None:
+        key = key + (('__mesh__', str(mesh)),)
+    return key
+
+
+def batch_sig(batch, mesh=None):
+    """:func:`sig_key` of a placed batch ``{name: tensor}`` — the key of
+    a module's captured steps."""
+    return sig_key({k: (tuple(v.shape), _dtype_name(v.dtype))
+                    for k, v in batch.items()}, mesh=mesh)
+
+
+def fingerprint(symbol):
+    """Stable identity of a Symbol's computation (sha1 of its JSON)."""
+    fp = getattr(symbol, '_compile_cache_fp', None)
+    if fp is None:
+        fp = hashlib.sha1(symbol.tojson().encode()).hexdigest()[:16]
+        symbol._compile_cache_fp = fp
+    return fp
 
 
 def warm_start(module, eval_metric=None, data_iter=None):
     """Entry point of ``fit(warm_start=True)``: the module's
-    ``_warm_start`` hook (``Module``, ``BucketingModule``).  Modules
-    without the hook warm nothing.  ``data_iter`` is taken for the JAX
-    signature, whose hook reads the batch dtypes from it to key compiled
-    programs; an eager step has none to key."""
+    ``_warm_start`` hook (``Module``, ``BucketingModule``) with the batch
+    signature ``data_iter`` provides (its ``provide_data`` and
+    ``provide_label``, float32 as the bound arrays are).  On the card
+    the hook captures the step for it before the first batch.  Modules
+    without the hook warm nothing."""
     hook = getattr(module, '_warm_start', None)
-    if hook is not None:
-        hook(eval_metric)
+    if hook is None:
+        return
+    sig = None
+    if data_iter is not None:
+        try:
+            descs = list(data_iter.provide_data or []) + \
+                list(data_iter.provide_label or [])
+            sig = sig_key({n: (s, 'float32') for n, s in descs})
+        except (AttributeError, TypeError, ValueError):
+            sig = None
+    hook(eval_metric, data_sig=sig)
 
 
-def pad_to_bucket(n):
-    """Smallest power of two >= ``n``."""
-    n = max(int(n), 1)
-    return 1 << (n - 1).bit_length()
+# ---------------------------------------------------------------------------
+# Whole-step capture
+# ---------------------------------------------------------------------------
+
+def random_nodes(program, is_train=True):
+    """Names of the nodes of ``program`` that draw random numbers."""
+    return [n.name for n in program.topo_nodes() if not n.is_variable
+            and n.op in _DRAWS and _DRAWS[n.op](n.attrs, is_train)]
+
+
+def _graph_generators():
+    return hasattr(torch.cuda.CUDAGraph, 'register_generator_state')
+
+
+def capture_skip_reason(device, program=None, is_train=True):
+    """Why a step on ``device`` running ``program`` stays eager, or None
+    when it is captured: 'NaiveEngine', 'cpu', 'Custom' (a graph with a
+    Custom node runs user Python every step) or 'random' (a node draws
+    random numbers and this PyTorch cannot register the device generator
+    with a graph)."""
+    if not engine.capture_enabled():
+        return 'NaiveEngine'
+    if torch.device(device).type != 'cuda':
+        return 'cpu'
+    if program is not None:
+        if any(n.op == 'Custom' for n in program.topo_nodes()):
+            return 'Custom'
+        if random_nodes(program, is_train) and not _graph_generators():
+            return 'random'
+    return None
+
+
+def note_skip(name, reason):
+    """Count and log a step that stays eager by rule."""
+    instrument.inc('compile.capture_skipped')
+    logging.getLogger(__name__).info('%s stays eager: %s', name, reason)
+
+
+def step_tensors(*trees):
+    """The tensors of ``trees`` (dicts, lists, tensors; None skipped), in
+    order: what a captured step is recorded over."""
+    out = []
+    for t in trees:
+        if isinstance(t, torch.Tensor):
+            out.append(t)
+        elif isinstance(t, dict):
+            out.extend(step_tensors(*t.values()))
+        elif isinstance(t, (list, tuple)):
+            out.extend(step_tensors(*t))
+    return out
+
+
+def snapshot(tensors, generators=()):
+    """Copies of ``tensors`` (and generator states); returns a function
+    that writes them back in place."""
+    saved = [(t, t.detach().clone()) for t in tensors]
+    states = [(g, g.get_state()) for g in generators]
+
+    def restore():
+        with torch.no_grad():
+            for t, c in saved:
+                t.copy_(c)
+        for g, s in states:
+            g.set_state(s)
+    return restore
+
+
+class CapturedStep(object):
+    """One step over fixed buffers, replayed from a CUDA graph.
+
+    ``body()`` runs the step on buffers it reads and writes in place and
+    returns its outputs; ``bindings`` are the tensors it was built over
+    (:meth:`holds` tells a caller whether they are still the ones it
+    holds: a graph keeps raw addresses, the sm90 kernels' TMA tensor
+    maps included).  ``skip`` is :func:`capture_skip_reason`'s answer:
+    with a reason the step only ever runs eagerly.
+
+    :meth:`run` is a fit step: the first call runs the body eagerly on
+    the capture's side stream — a real step that is also the warm-up —
+    and then records the graph (recording runs no kernel); later calls
+    replay it.  Before any real step (a warm start) the caller runs
+    :meth:`warm_up` inside :func:`snapshot` / restore, then
+    :meth:`capture`.
+
+    Graphs of one module share a memory ``pool`` (they replay on one
+    stream, never at once).  A graph's temporaries may then lie under
+    another graph's outputs, so with ``copy_outputs`` the body's outputs
+    are copied into buffers allocated outside the pool, which no other
+    graph's replay can touch.  Captures use ``capture_error_mode=
+    'thread_local'``: the feed's worker and serving's client threads
+    keep making CUDA calls while a graph is recorded."""
+
+    def __init__(self, name, body, device, bindings=(), pool=None,
+                 copy_outputs=False, skip=None, generators=()):
+        self.name = name
+        self.body = body
+        self.device = torch.device(device)
+        self.bindings = list(bindings)
+        self.pool = pool
+        self.copy_outputs = copy_outputs
+        self.skip = skip
+        self.generators = list(generators)
+        self.graph = None
+        self.outputs = None
+        self.capture_ms = None
+        self.replays = 0
+        self.launches = {}          # kernel name -> launches per replay
+        self._counts = {}           # what one replay counts
+        self._out_meta = None
+        self._stream = None
+        if skip is not None:
+            note_skip(name, skip)
+
+    @property
+    def captured(self):
+        return self.graph is not None
+
+    def holds(self, tensors):
+        """True when ``tensors`` are (identically) the tensors the step
+        was built over."""
+        return len(tensors) == len(self.bindings) and \
+            all(a is b for a, b in zip(tensors, self.bindings))
+
+    def _side_stream(self):
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        return self._stream
+
+    def warm_up(self):
+        """Run the body once, eagerly: on the card on the capture's side
+        stream (ordered after, and before, the current stream's work)."""
+        if self.skip is not None:
+            return self.body()
+        s, cur = self._side_stream(), torch.cuda.current_stream(self.device)
+        s.wait_stream(cur)
+        with torch.cuda.stream(s):
+            outs = self.body()
+        cur.wait_stream(s)
+        self._out_meta = [(tuple(o.shape), o.dtype) for o in outs]
+        return outs
+
+    def capture(self):
+        """Record the graph (after a :meth:`warm_up`).  Raises on a
+        failed capture, naming the graph node where the interpreter
+        knows it."""
+        if self.skip is not None:
+            raise MXNetError('%s stays eager (%s); it is never captured'
+                             % (self.name, self.skip))
+        if self._out_meta is None:
+            raise MXNetError('%s: warm_up() before capture()' % self.name)
+        t0 = time.perf_counter()
+        ext = [torch.empty(s, dtype=d, device=self.device)
+               for s, d in self._out_meta] if self.copy_outputs else None
+        graph = torch.cuda.CUDAGraph()
+        for g in self.generators:
+            graph.register_generator_state(g)
+        err, outs = None, None
+        try:
+            with instrument.recording() as self._counts, \
+                    torch.cuda.graph(graph, pool=self.pool,
+                                     stream=self._side_stream(),
+                                     capture_error_mode='thread_local'):
+                try:
+                    outs = self.body()
+                    if ext is not None:
+                        for e, o in zip(ext, outs):
+                            e.copy_(o)
+                        outs = ext
+                except Exception as e:             # noqa: BLE001
+                    err = e
+        except Exception:                          # noqa: BLE001
+            if err is None:
+                raise
+        if err is not None:
+            raise MXNetError('%s: CUDA graph capture failed: %s'
+                             % (self.name, err)) from err
+        self.graph = graph
+        self.outputs = list(outs)
+        for key, n in self._counts.items():
+            if not isinstance(key, str):
+                name = getattr(key[0], '__name__', str(key[0]))
+                self.launches[name] = self.launches.get(name, 0) + n
+        secs = time.perf_counter() - t0
+        self.capture_ms = secs * 1e3
+        instrument.inc('compile.traces')
+        instrument.observe_hist('compile.warmup_secs', secs)
+
+    def replay(self):
+        self.graph.replay()
+        self.replays += 1
+        instrument.apply_counts(self._counts)
+        instrument.inc('executor.cache_hits')
+        return self.outputs
+
+    def run(self):
+        """One step: the replay once captured, else the body (the first
+        call on the card also records the graph)."""
+        if self.graph is not None:
+            return self.replay()
+        outs = self.warm_up()
+        if self.skip is None:
+            self.capture()
+        return outs

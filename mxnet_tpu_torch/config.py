@@ -28,6 +28,25 @@ def _register(name, default, parse, doc):
     _REGISTRY[name] = _Knob(name, default, parse, doc)
 
 
+# -- engine ----------------------------------------------------------------
+_register('MXNET_ENGINE_TYPE', 'ThreadedEnginePerDevice', str,
+          'Execution mode: NaiveEngine = every step runs eagerly, op by '
+          'op (no CUDA graph capture); anything else captures each fit '
+          'step, LM train step and served bucket forward once per batch '
+          'signature and replays it (env_var.md:8). Consumed at import '
+          'by engine.set_engine_type.')
+# -- sync-free fit loop ------------------------------------------------------
+_register('MXTPU_ASYNC_DEPTH', 2, int,
+          'Max in-flight training steps in the fit loop '
+          '(engine.StepWindow): step N+1 is launched while step N runs '
+          'on the device, with backpressure on the oldest step. '
+          '1 = fully synchronous stepping.')
+_register('MXTPU_DEVICE_FEED', True, _bool,
+          'Double-buffered host->device feed: Module.fit wraps the '
+          'train iterator in io.DeviceFeedIter, which stages batch N+1 '
+          'through pinned memory onto the device on its own stream, '
+          'from a background thread, while step N runs.  Set 0 to copy '
+          'batch data on the step\'s critical path.')
 # -- step compiler (fuse.py) ------------------------------------------------
 _register('MXTPU_FUSE', '', str,
           "Pass pipeline mode (fuse.py PassManager) for every symbol the "
@@ -46,12 +65,15 @@ _register('MXTPU_FUSE_BN_CONV', False, _bool,
 _register('MXTPU_WARM_START', False, _bool,
           'Module.fit builds the fused train step BEFORE the first batch: '
           'the fuse passes, shape inference, the graph function and the '
-          'kernel libraries it will launch, so the first batch pays none '
-          'of that.  Same as fit(warm_start=True).')
+          'kernel libraries it will launch, and on the card captures the '
+          'step for the bound batch signature (a warm-up step whose '
+          'effects are undone), so the first batch pays none of that.  '
+          'Same as fit(warm_start=True).')
 _register('MXTPU_PRECOMPILE_BUCKETS', False, _bool,
-          'BucketingModule binds and warms every bucket declared via '
-          'bucket_keys=[...] at fit start instead of binding each bucket '
-          'lazily the first time its key appears mid-epoch.')
+          'BucketingModule binds, warms and (on the card) captures every '
+          'bucket declared via bucket_keys=[...] at fit start instead of '
+          'binding each bucket lazily the first time its key appears '
+          'mid-epoch.')
 # -- serving (serving/batcher.py, serving/server.py) -----------------------
 _register('MXTPU_SERVE_MAX_DELAY_MS', 2.0, float,
           'Dynamic-batching flush deadline (milliseconds): a queued '

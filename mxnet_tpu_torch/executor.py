@@ -8,13 +8,19 @@ pipeline (``fuse.apply_fuse_passes``, ``MXTPU_FUSE``) runs once per
 (executor, mode) on the symbol the interpreter walks, as
 ``Executor._program_symbol`` does there (``:198-212``).
 
-Inference forwards run under ``torch.no_grad()``.  A training forward of
-an executor with gradient buffers runs under autograd, with each
-argument whose ``grad_req`` is not ``'null'`` as a leaf; ``backward``
-then differentiates the recorded graph with zero head gradients — loss
-layers (``SoftmaxOutput``) inject their own, as in the reference — and
-writes the gradients into ``grad_dict`` (``'write'`` replaces, ``'add'``
-accumulates).  Gradients of the monitor, mirror and group2ctx paths of
+Inference forwards run under ``torch.no_grad()``.  An executor with
+:meth:`Executor.enable_capture` (the Predictor's bucket executors) runs
+its inference forward through a CUDA graph of its graph function
+(``compile_cache.CapturedStep``), recorded at its first forward and
+replayed while its argument and aux arrays hold the same tensors; its
+``outputs`` are then the graph's, overwritten by the next forward.
+
+A training forward of an executor with gradient buffers runs under
+autograd, with each argument whose ``grad_req`` is not ``'null'`` as a
+leaf; ``backward`` then differentiates the recorded graph with zero head
+gradients — loss layers (``SoftmaxOutput``) inject their own, as in the
+reference — and writes the gradients into ``grad_dict`` (``'write'``
+replaces, ``'add'`` accumulates).  Gradients of the monitor, mirror and group2ctx paths of
 the JAX executor are not ported.
 """
 from __future__ import annotations
@@ -59,7 +65,15 @@ def _build_graph_fn(symbol: Symbol, is_train: bool):
             ins = [entry_vals[(id(n), x)] for n, x in node.inputs]
             attrs = node.attrs if ins or dev is None else \
                 dict(node.attrs, ctx=dev)
-            outs, aux_upd = op.apply(attrs, ins, is_train, None)
+            try:
+                outs, aux_upd = op.apply(attrs, ins, is_train, None)
+            except Exception as e:
+                if dev is not None and dev.type == 'cuda' and \
+                        torch.cuda.is_current_stream_capturing():
+                    raise MXNetError(
+                        'node %r (op %s) cannot run inside a CUDA graph '
+                        'capture: %s' % (node.name, node.op, e)) from e
+                raise
             for j, o in enumerate(outs):
                 entry_vals[(id(node), j)] = o
             if aux_upd:
@@ -115,6 +129,9 @@ class Executor:
         # consumed by backward()
         self._pending = None
         self.outputs = []
+        self._capture = False
+        self._capture_pool = None
+        self._forward_graph = None
 
     @staticmethod
     def _normalize(values, names, what, allow_none=False, partial_ok=False):
@@ -179,7 +196,9 @@ class Executor:
                 raise MXNetError('unknown argument %s' % k)
             self.arg_dict[k][:] = v
         self._pending = None
-        if is_train and self._grad_names:
+        if not is_train and self._capture:
+            outs, aux_updates = self._inference_graph().run(), {}
+        elif is_train and self._grad_names:
             outs, aux_updates, leaves = self._run_with_grad()
             self._pending = (outs, leaves)
         else:
@@ -192,6 +211,34 @@ class Executor:
         self.outputs = [NDArray(o.detach(), self._ctx) for o in outs]
         instrument.inc('executor.forwards')
         return self.outputs
+
+    def enable_capture(self, pool=None):
+        """Run inference forwards through a CUDA graph (on the card, by
+        ``compile_cache.capture_skip_reason``'s rule); graphs of executors
+        given one ``pool`` share its memory."""
+        self._capture = True
+        self._capture_pool = pool
+
+    def _inference_graph(self):
+        """The captured inference forward over the current argument and
+        aux tensors (a new one when any of them was rebound)."""
+        from . import compile_cache
+        args = {k: v.handle for k, v in self.arg_dict.items()}
+        aux = {k: v.handle for k, v in self.aux_dict.items()}
+        tensors = compile_cache.step_tensors(args, aux)
+        cap = self._forward_graph
+        if cap is None or not cap.holds(tensors):
+            fn = self._graph_fn(False)
+
+            def body():
+                with torch.no_grad():
+                    return fn(args, aux)[0]
+            device = self._ctx.torch_device
+            cap = self._forward_graph = compile_cache.CapturedStep(
+                'forward', body, device, tensors, pool=self._capture_pool,
+                skip=compile_cache.capture_skip_reason(
+                    device, self._program_symbol(False), is_train=False))
+        return cap
 
     def backward(self, out_grads=None):
         """Compute gradients into ``grad_dict``.

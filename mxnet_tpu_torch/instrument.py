@@ -6,13 +6,21 @@ gauges and bounded-memory histograms on the same fixed log-scale
 buckets (quarter-decades from 1 us to 100 s), with the same bucket-walk
 quantile estimate.  Metrics are always on here: each record is one lock
 and an add.
+
+The kernel wrappers count their launches here too (:func:`count_launch`).
+Inside :func:`recording` the counts a thread makes are kept apart and
+applied later, as often as wanted (:func:`apply_counts`): a CUDA graph
+capture runs the step's host code once and launches nothing, and each
+replay of the graph is a step.
 """
 from __future__ import annotations
 
 import bisect
+import contextlib
 import threading
 
-__all__ = ['inc', 'set_gauge', 'observe_hist', 'counter_value',
+__all__ = ['inc', 'count_launch', 'recording', 'apply_counts',
+           'set_gauge', 'observe_hist', 'counter_value',
            'histogram', 'metrics_snapshot', 'reset_metrics', 'HIST_EDGES']
 
 HIST_EDGES = tuple(10.0 ** (e / 4.0) for e in range(-24, 9))
@@ -68,9 +76,52 @@ class Histogram(object):
                 'p95': self.quantile(0.95), 'p99': self.quantile(0.99)}
 
 
+_recorder = threading.local()
+
+
 def inc(name, n=1):
+    rec = getattr(_recorder, 'counts', None)
+    if rec is not None:
+        rec[name] = rec.get(name, 0) + n
+        return
     with _lock:
         _counters[name] = _counters.get(name, 0) + n
+
+
+def count_launch(kernel, route=None):
+    """One launch of ``kernel``, a wrapper with a ``launches`` count (and,
+    with ``route``, a ``launches_by_route`` dict)."""
+    rec = getattr(_recorder, 'counts', None)
+    if rec is not None:
+        rec[kernel, route] = rec.get((kernel, route), 0) + 1
+        return
+    apply_counts({(kernel, route): 1})
+
+
+@contextlib.contextmanager
+def recording():
+    """Counter increments and kernel launches this thread counts inside
+    the block go into the yielded dict instead of the registry."""
+    prev = getattr(_recorder, 'counts', None)
+    _recorder.counts = rec = {}
+    try:
+        yield rec
+    finally:
+        _recorder.counts = prev
+
+
+def apply_counts(rec):
+    """Add what :func:`recording` kept: ``{counter name: n}`` and
+    ``{(kernel, route): launches}``."""
+    with _lock:
+        for key, n in rec.items():
+            if isinstance(key, str):
+                _counters[key] = _counters.get(key, 0) + n
+                continue
+            kernel, route = key
+            kernel.launches += n
+            if route is not None:
+                kernel.launches_by_route[route] += n
 
 
 def counter_value(name, default=0):

@@ -8,11 +8,13 @@ Two update paths per metric, as in the JAX package:
   predictions to the host every call.
 - ``device_update(label, pred)`` — a tensor form returning ``(sum_delta,
   inst_delta)`` on the predictions' device.  The fused train step
-  (``parallel/train_step.py``) folds it into every step and adds the
-  deltas to device accumulators; the host reads them only when
-  :meth:`EvalMetric.get` drains them (``metric.host_syncs`` counts the
-  drains), so the steady-state fit loop never waits on the device for a
-  metric.
+  (``parallel/train_step.py``) folds it into every step: the sum is
+  added IN PLACE into a fixed device accumulator (so a captured step's
+  replays keep adding to it) and the instance count, known from shapes,
+  is host arithmetic done once per step outside the step's body.  The
+  host reads the accumulator only when :meth:`EvalMetric.get` drains it
+  and zeroes it in place (``metric.host_syncs`` counts the drains), so
+  the steady-state fit loop never waits on the device for a metric.
 """
 from __future__ import annotations
 
@@ -58,8 +60,13 @@ class EvalMetric(object):
         else:
             self.num_inst = [0] * self.num
             self.sum_metric = [0.0] * self.num
-        # device accumulators, created on first use; dropped, not read
-        self._dev_sum = None
+        # the device accumulator, created on first use, is zeroed in
+        # place, never replaced: captured steps hold its address.
+        # _dev_inst is the host count pending in it (None: nothing)
+        acc = getattr(self, '_dev_sum', None)
+        if acc is not None:
+            acc.zero_()
+        self._dev_sum = acc
         self._dev_inst = None
 
     # -- on-device accumulation --------------------------------------------
@@ -72,28 +79,50 @@ class EvalMetric(object):
         """Add this batch's deltas to the accumulators: the sum stays a
         device tensor (no host synchronisation), the instance count is
         known from shapes on the host."""
+        self._fold_count(self._fold_device(label, pred))
+
+    def _accumulators(self, device):
+        """The device accumulators on ``device``, made (zero) if absent:
+        a step captures their addresses, so they exist before it."""
+        device = torch.device(device)
+        if self._dev_sum is not None and self._dev_sum.device != device:
+            self._drain_device()
+            self._dev_sum = None
+        if self._dev_sum is None:
+            self._dev_sum = torch.zeros((), dtype=torch.float32,
+                                        device=device)
+        return [self._dev_sum]
+
+    def _fold_device(self, label, pred):
+        """The device half of :meth:`device_fold`: the batch's sum added
+        in place into the accumulator.  Returns the batch's instance
+        count for :meth:`_fold_count`."""
         ds, dn = self.device_update(label, pred)
-        self._dev_sum = ds if self._dev_sum is None else self._dev_sum + ds
-        self._dev_inst = (self._dev_inst or 0) + int(dn)
+        self._accumulators(ds.device)[0].add_(ds)
+        return int(dn)
+
+    def _fold_count(self, n):
+        """The host half of :meth:`device_fold`."""
+        self._dev_inst = (self._dev_inst or 0) + n
 
     def _take_device_state(self):
-        """Detach pending accumulators: ``[(owner, sum, inst)]``."""
-        if self._dev_sum is None:
+        """Pending accumulators: ``[(owner, sum, inst)]``."""
+        if self._dev_inst is None:
             return []
-        s, n = self._dev_sum, self._dev_inst
-        self._dev_sum = self._dev_inst = None
-        return [(self, s, n)]
+        n, self._dev_inst = self._dev_inst, None
+        return [(self, self._dev_sum, n)]
 
     def _drain_device(self):
-        """Fold the device accumulators into the host sums: THE host
-        sync of the device-metric path, one per drain however many
-        accumulators are pending."""
+        """Fold the device accumulators into the host sums and zero
+        them in place: THE host sync of the device-metric path, one per
+        drain however many accumulators are pending."""
         pending = self._take_device_state()
         if not pending:
             return
         sums = torch.stack([s.double() for _, s, _ in pending]).cpu()
         instrument.inc('metric.host_syncs')
-        for (metric, _, n), s in zip(pending, sums.tolist()):
+        for (metric, acc, n), s in zip(pending, sums.tolist()):
+            acc.zero_()
             metric.sum_metric += s
             metric.num_inst += n
 
@@ -155,6 +184,16 @@ class CompositeEvalMetric(EvalMetric):
     def device_fold(self, label, pred):
         for metric in self.metrics:
             metric.device_fold(label, pred)
+
+    def _accumulators(self, device):
+        return [a for m in self.metrics for a in m._accumulators(device)]
+
+    def _fold_device(self, label, pred):
+        return [m._fold_device(label, pred) for m in self.metrics]
+
+    def _fold_count(self, n):
+        for metric, k in zip(self.metrics, n):
+            metric._fold_count(k)
 
     def _take_device_state(self):
         return [p for m in self.metrics for p in m._take_device_state()]

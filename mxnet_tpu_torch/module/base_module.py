@@ -7,13 +7,23 @@ init_params -> init_optimizer -> per batch one training step (``Module``
 fuses forward, backward and update, see ``Module._fit_step``) and the
 metric update, epoch-end logging, ``epoch_end_callback``, evaluation.
 ``fit(warm_start=...)`` (default: the ``MXTPU_WARM_START`` knob) builds
-the fused step before the first batch (``compile_cache.warm_start``); a
-``BucketingModule`` under ``MXTPU_PRECOMPILE_BUCKETS`` with declared
-``bucket_keys`` does so for every declared bucket whatever it says.
-The JAX package's other planes around the loop (elastic membership,
-health sentinels, goodput accounting, the device feed, the async step
-window, checkpoint/auto-resume, mesh) are not ported; asking for them
-raises.
+the fused step, and on the card captures it, before the first batch
+(``compile_cache.warm_start``); a ``BucketingModule`` under
+``MXTPU_PRECOMPILE_BUCKETS`` with declared ``bucket_keys`` does so for
+every declared bucket whatever it says.
+
+The loop is the reference's sync-free one (``base_module.py:413-440``):
+at most ``MXTPU_ASYNC_DEPTH`` steps in flight (``engine.StepWindow``,
+each step's ticket a CUDA event recorded after it), and under
+``MXTPU_DEVICE_FEED`` the batches come through an ``io.DeviceFeedIter``
+that stages batch N+1 on the card while step N runs.  A captured step's
+outputs are the graph's and the next replay overwrites them: the host
+metric update, ``batch_end_callback`` and ``get_outputs`` read them
+before the next step is launched, in stream order, and the window
+drains before the epoch-end metric read.  The JAX package's other
+planes around the loop (elastic membership, health sentinels, goodput
+accounting, checkpoint/auto-resume, mesh) are not ported; asking for
+them raises.
 """
 from __future__ import annotations
 
@@ -21,8 +31,13 @@ import logging
 import time
 from collections import namedtuple
 
+import torch
+
+from .. import config as _config
 from .. import instrument
+from .. import io as _io
 from .. import metric as _metric
+from ..engine import StepWindow
 
 __all__ = ['BaseModule', 'BatchEndParam']
 
@@ -78,6 +93,32 @@ class BaseModule(object):
         self.forward_backward(data_batch)
         self.update()
         return False
+
+    def _device_place_fn(self):
+        """The device feed's placement function (``io.DeviceFeedIter``),
+        or None when this module has no bound device placement —
+        ``Module`` returns its executor group's ``_place_data``."""
+        return None
+
+    def _feed_device(self):
+        """The ``torch.device`` the feed stages batches onto."""
+        return None
+
+    def _step_ticket(self):
+        """What ``engine.StepWindow`` waits on for the last launched
+        step: a CUDA event recorded after it on the card, its output
+        tensors on the CPU."""
+        try:
+            outs = [o.handle for o in self.get_outputs()]
+        except (AssertionError, AttributeError, IndexError):
+            return None
+        if not outs:
+            return None
+        if outs[0].is_cuda:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(outs[0].device))
+            return event
+        return outs
 
     def score(self, eval_data, eval_metric, num_batch=None,
               batch_end_callback=None, score_end_callback=None, reset=True,
@@ -174,17 +215,41 @@ class BaseModule(object):
         if not isinstance(eval_metric, _metric.EvalMetric):
             eval_metric = _metric.create(eval_metric)
         if warm_start is None:
-            from .. import config as _config
             warm_start = _config.get('MXTPU_WARM_START')
         if warm_start or getattr(self, '_warm_eager', False):
             from .. import compile_cache
             compile_cache.warm_start(self, eval_metric, data_iter=train_data)
+        window = StepWindow(_config.get('MXTPU_ASYNC_DEPTH'))
+        feed = None
+        if _config.get('MXTPU_DEVICE_FEED') and \
+                not isinstance(train_data, _io.DeviceFeedIter):
+            place = self._device_place_fn()
+            if place is not None:
+                train_data = feed = _io.DeviceFeedIter(
+                    train_data, place, device=self._feed_device())
+        try:
+            self._fit_epochs(train_data, eval_data, eval_metric,
+                             validation_metric, epoch_end_callback,
+                             batch_end_callback, eval_end_callback,
+                             eval_batch_end_callback, begin_epoch,
+                             num_epoch, window)
+        finally:
+            # hand the caller's iterator back in a clean state (the feed
+            # runs one fetch ahead of the consumer)
+            if feed is not None:
+                feed.close()
 
+    def _fit_epochs(self, train_data, eval_data, eval_metric,
+                    validation_metric, epoch_end_callback,
+                    batch_end_callback, eval_end_callback,
+                    eval_batch_end_callback, begin_epoch, num_epoch,
+                    window):
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()
             eval_metric.reset()
             for nbatch, data_batch in enumerate(train_data):
                 metric_on_device = self._fit_step(data_batch, eval_metric)
+                window.admit(self._step_ticket())
                 instrument.inc('fit.batches')
                 if not metric_on_device:
                     self.update_metric(eval_metric, data_batch.label)
@@ -194,6 +259,8 @@ class BaseModule(object):
                                            locals=locals())
                     for callback in _as_list(batch_end_callback):
                         callback(params)
+            # the epoch boundary is a real barrier
+            window.drain()
             for name, val in eval_metric.get_name_value():
                 self.logger.info('Epoch[%d] Train-%s=%f', epoch, name, val)
             self.logger.info('Epoch[%d] Time cost=%.3f', epoch,

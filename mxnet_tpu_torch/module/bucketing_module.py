@@ -8,7 +8,13 @@ bucket's own parameter, gradient and aux arrays, and borrows its
 optimizer.  The fused step updates those tensors and the optimizer state
 in place, so the one optimizer-state dict is handed from bucket to
 bucket (``_fit_step``), as the reference shared one updater across its
-bucket executors.
+bucket executors.  On the card each bucket module replays its own CUDA
+graph over those shared tensors (``Module._step_graph``); every bucket's
+graphs share the default bucket's memory pool (they replay on one
+stream, never at once) and copy their outputs out of it, so a bucket's
+outputs survive another bucket's replay.  ``_warm_start`` under
+``MXTPU_PRECOMPILE_BUCKETS`` captures every declared bucket at fit
+start.
 
 ``context`` defaults to ``gpu(0)``, as ``Module``'s does;
 ``work_load_list`` is taken for the reference's signature and unused
@@ -107,6 +113,9 @@ class BucketingModule(BaseModule):
                                       aux_params=aux_params,
                                       allow_missing=allow_missing,
                                       force_init=force_init)
+        # the shared arrays were rebound: no bucket's graph holds them
+        for mod in self._buckets.values():
+            mod._drop_graphs()
         self._params_dirty = False
         self.params_initialized = True
 
@@ -155,6 +164,7 @@ class BucketingModule(BaseModule):
                         self._curr_module.for_training,
                         self._curr_module.inputs_need_grad,
                         shared_module=default)
+            module._pool_owner = default
             if self.optimizer_initialized:
                 module.borrow_optimizer(default)
             self._buckets[bucket_key] = module
@@ -214,10 +224,11 @@ class BucketingModule(BaseModule):
         curr = self._buckets[curr_key]
         self.switch_bucket(curr_key, curr.data_shapes, curr.label_shapes)
 
-    def _warm_start(self, eval_metric=None):
+    def _warm_start(self, eval_metric=None, data_sig=None):
         """Warm every bound bucket and, under MXTPU_PRECOMPILE_BUCKETS,
         every declared one: each builds its fused step on the shared
-        optimizer state, so no bucket pays that on its first batch."""
+        optimizer state and, on the card, captures its graph, so no
+        bucket pays that on its first batch."""
         assert self.binded and self.params_initialized
         if self._declared_bucket_keys and \
                 _config.get('MXTPU_PRECOMPILE_BUCKETS'):
@@ -228,6 +239,12 @@ class BucketingModule(BaseModule):
             if mod is not default:
                 mod._fused_opt_state = default._fused_opt_state
                 mod._warm_start(eval_metric)
+
+    def _device_place_fn(self):
+        return self._curr_module._device_place_fn() if self.binded else None
+
+    def _feed_device(self):
+        return self._curr_module._feed_device()
 
     def _fit_step(self, data_batch, eval_metric=None):
         """One fused step on the batch's bucket.  Parameters are shared

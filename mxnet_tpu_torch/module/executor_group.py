@@ -1,7 +1,12 @@
 """The executor group of a one-device Module — the port of
 ``mxnet_tpu/module/executor_group.py`` without its mesh: one
-:class:`~mxnet_tpu_torch.executor.Executor` on one context, batches
-copied to its device as they arrive.
+:class:`~mxnet_tpu_torch.executor.Executor` on one context.  Each batch
+is copied INTO the bound data and label arrays (:meth:`load_batch`),
+which are the fixed inputs a captured step reads; a batch of another
+shape or dtype rebinds the array (a new batch signature).
+:meth:`_place_data` is the device feed's placement (``io.DeviceFeedIter``,
+the JAX module's ``_device_place_fn``): pinned host staging, then a copy
+to the card on the calling thread's current stream (the feed's own).
 
 With ``shared_group`` (a bucket of a ``BucketingModule``) the executor
 takes the shared group's own ``NDArray`` objects for every parameter, aux
@@ -51,12 +56,24 @@ class DataParallelExecutorGroup(object):
     def _device(self):
         return self.contexts[0].torch_device
 
-    def _place(self, value):
-        """A tensor on the group's device (float64 becomes float32)."""
+    @staticmethod
+    def _host(value):
+        """A batch value as a tensor (float64 becomes float32)."""
         t = value.handle if isinstance(value, NDArray) else \
             torch.as_tensor(np.asarray(value))
-        if t.dtype == torch.float64:
-            t = t.float()
+        return t.float() if t.dtype == torch.float64 else t
+
+    def _place(self, value):
+        """A tensor on the group's device (float64 becomes float32)."""
+        return self._host(value).to(self._device)
+
+    def _place_data(self, value):
+        """The feed's placement: ``value`` on the group's device, through
+        pinned host memory and an asynchronous copy on the current
+        stream when it goes from the host to the card."""
+        t = self._host(value)
+        if self._device.type == 'cuda' and t.device.type == 'cpu':
+            return t.pin_memory().to(self._device, non_blocking=True)
         return t.to(self._device)
 
     def bind_exec(self, data_shapes, label_shapes):
@@ -138,14 +155,28 @@ class DataParallelExecutorGroup(object):
 
     # -- compute -----------------------------------------------------------
     def load_batch(self, data_batch):
-        """Copy a batch's data and labels into the executor's inputs."""
+        """Copy a batch's data and labels into the executor's inputs, in
+        place where shape and dtype match (the copy waits for the feed's
+        staging event, if the batch has one), else by rebinding them."""
         exec_ = self.execs[0]
-        for (name, _), value in zip(self.data_shapes, data_batch.data):
-            exec_.arg_dict[name]._set_data(self._place(value))
+        pairs = list(zip(self.data_shapes, data_batch.data))
         if self.label_shapes and data_batch.label:
-            for (name, _), value in zip(self.label_shapes,
-                                        data_batch.label):
-                exec_.arg_dict[name]._set_data(self._place(value))
+            pairs += list(zip(self.label_shapes, data_batch.label))
+        ready = getattr(data_batch, 'ready_event', None)
+        stream = None
+        if ready is not None:
+            stream = torch.cuda.current_stream(self._device)
+            stream.wait_event(ready)
+        with torch.no_grad():
+            for (name, _), value in pairs:
+                arr, src = exec_.arg_dict[name], self._host(value)
+                dst = arr.handle
+                if dst.shape != src.shape or dst.dtype != src.dtype:
+                    arr._set_data(src.to(self._device, copy=True))
+                    continue
+                dst.copy_(src, non_blocking=src.is_cuda or src.is_pinned())
+                if stream is not None and src.is_cuda:
+                    src.record_stream(stream)
 
     def forward(self, data_batch, is_train=None):
         if is_train is None:

@@ -22,14 +22,31 @@ optimizer state stay float32.
 hooks (``module/bucketing_module.py``): the bound module takes the shared
 module's parameter, gradient and aux arrays and, once borrowed, its
 optimizer (one update count and lr schedule for every bucket).
-``_warm_start`` builds the fused step before the first batch.
+
+Whole-step capture (``mxnet_tpu/module/module.py:809-950``, the AOT
+table keyed by ``compile_cache.batch_sig``): ``_run_fused`` copies the
+batch into the bound arrays, fills the lr tensor and runs the
+``compile_cache.CapturedStep`` of the batch's signature — made on a
+miss, whose first step runs eagerly and then records the CUDA graph,
+and replayed after that.  The graphs of a module (and of every bucket
+of a ``BucketingModule``) share one memory pool and copy their outputs
+out of it.  ``_warm_start`` builds the fused step before the first batch
+and on the card captures the bound signature (a warm-up step whose
+effects on parameters, aux, optimizer state, metric and generator are
+undone).  A graph holds raw addresses, so anything that rebinds a
+parameter, aux or optimizer-state tensor drops the module's graphs
+(``_drop_graphs``), and a graph whose tensors were rebound another way
+is not replayed (``CapturedStep.holds``).
 kvstores, context lists and meshes are not ported.
 """
 from __future__ import annotations
 
 import logging
 
-from .. import instrument
+import torch
+
+from .. import compile_cache, instrument
+from .. import random as _random
 from .. import optimizer as opt
 from ..base import MXNetError, resolve_dtype
 from ..context import Context, gpu
@@ -82,6 +99,10 @@ class Module(BaseModule):
         self._exec_group = None
         self._data_shapes = None
         self._label_shapes = None
+        # the module whose graph pool this one's graphs share (a
+        # BucketingModule's bucket points at the default bucket)
+        self._pool_owner = None
+        self._graph_pool = None
         self._reset_fused()
 
     def _reset_fused(self):
@@ -92,6 +113,12 @@ class Module(BaseModule):
         self._functional_opt = None
         self._fused_opt_state = None
         self._fused_metric = None
+        self._lr_t = None
+        self._drop_graphs()
+
+    def _drop_graphs(self):
+        """Forget every captured step (a graph holds raw addresses)."""
+        self._graphs = {}
 
     # -- properties --------------------------------------------------------
     @property
@@ -161,6 +188,7 @@ class Module(BaseModule):
         self.params_initialized = True
         self._params_dirty = False
         self._exec_group.set_params(self._arg_params, self._aux_params)
+        self._drop_graphs()
 
     # -- binding -----------------------------------------------------------
     def bind(self, data_shapes, label_shapes=None, for_training=True,
@@ -281,6 +309,12 @@ class Module(BaseModule):
             return None
         return eval_metric if eval_metric.device_capable() else None
 
+    def _device_place_fn(self):
+        return self._exec_group._place_data if self.binded else None
+
+    def _feed_device(self):
+        return self._context[0].torch_device
+
     def _fit_step(self, data_batch, eval_metric=None):
         """One fit-loop step: forward + backward + every parameter update
         through the fused step (``mxnet_tpu/module/module.py:593``), the
@@ -303,12 +337,15 @@ class Module(BaseModule):
         self._run_fused(data_batch)
         return metric is not None
 
-    def _warm_start(self, eval_metric=None):
+    def _warm_start(self, eval_metric=None, data_sig=None):
         """Build the fused step before the first batch
         (``mxnet_tpu/module/module.py:956``): the fuse passes, shape
-        inference and the graph function, and on the card the kernel
-        libraries the graph launches (``nvcc`` at first use), so the first
-        batch pays none of that."""
+        inference and the graph function, on the card the kernel
+        libraries the graph launches (``nvcc`` at first use) and the
+        capture of the step for the bound batch signature, so the first
+        batch pays none of that.  ``data_sig`` is the iterator's
+        signature (``compile_cache.warm_start``); a batch of another
+        signature captures at its first step."""
         from .. import metric as _metric
         if not (self.binded and self.params_initialized and
                 self.optimizer_initialized):
@@ -316,13 +353,42 @@ class Module(BaseModule):
         metric = None
         if eval_metric is not None:
             metric = self._device_metric(_metric.create(eval_metric))
+        if self._fused is not None and metric is not self._fused_metric:
+            self._fused = None
         if self._fused is None and not self._fused_unavailable:
             self._try_build_fused(metric)
-        if self._fused is not None and \
-                self._context[0].device_type == 'gpu':
+        if self._fused is None:
+            return
+        if self._context[0].device_type == 'gpu':
             from ..ops import _kernels
             for name in self._fused.kernels:
                 _kernels.library(name)
+        buffers = self._fused_buffers()
+        if data_sig is not None and \
+                data_sig != compile_cache.batch_sig(buffers[3]):
+            self.logger.info('warm start: the iterator\'s signature is not '
+                             'the bound one; its first batch captures')
+        cap = self._step_graph(*buffers)
+        if cap.skip is None and not cap.captured:
+            self._warm_step(cap)
+            cap.capture()
+
+    def _warm_step(self, cap):
+        """Run ``cap``'s step once and undo it: parameters, aux,
+        optimizer state, the metric's accumulators and the device
+        generator are written back as they were (the update counts are
+        the host's and never move)."""
+        params, frozen, aux, batch = self._fused_buffers()
+        device = next(iter(batch.values())).device
+        tensors = compile_cache.step_tensors(params, aux,
+                                             self._fused_opt_state)
+        if self._fused_metric is not None:
+            tensors += self._fused_metric._accumulators(device)
+        gens = [_random.generator(device)] if compile_cache.random_nodes(
+            self._fused.program) else []
+        restore = compile_cache.snapshot(tensors, gens)
+        cap.warm_up()
+        restore()
 
     def _try_build_fused(self, metric=None):
         """(``mxnet_tpu/module/module.py:662-731``)"""
@@ -353,24 +419,57 @@ class Module(BaseModule):
         if self._fused_opt_state is None:
             self._fused_opt_state = functional.init(
                 {n: exec_.arg_dict[n].handle for n in trainable})
+        self._lr_t = torch.zeros((), dtype=torch.float32,
+                                 device=self._context[0].torch_device)
+        self._drop_graphs()
         self._fused_unavailable = False
+
+    def _fused_buffers(self):
+        """The fixed buffers of the fused step: (params, frozen, aux,
+        batch) name -> tensor dicts of the bound arrays."""
+        group = self._exec_group
+        exec_ = group.execs[0]
+        return ({n: exec_.arg_dict[n].handle for n in self._fused_trainable},
+                {n: exec_.arg_dict[n].handle for n in self._fused_frozen},
+                {k: v.handle for k, v in exec_.aux_dict.items()},
+                {n: exec_.arg_dict[n].handle
+                 for n in group.data_names + group.label_names})
+
+    def _family_pool(self):
+        """The graph memory pool this module's graphs share with its
+        bucket family."""
+        owner = self._pool_owner or self
+        if owner._graph_pool is None:
+            owner._graph_pool = torch.cuda.graph_pool_handle()
+        return owner._graph_pool
+
+    def _step_graph(self, params, frozen, aux, batch):
+        """The captured step of ``batch``'s signature over these buffers,
+        made on a miss (or when its tensors were rebound)."""
+        sig = compile_cache.batch_sig(batch)
+        cap = self._graphs.get(sig)
+        if cap is None or not cap.holds(compile_cache.step_tensors(
+                params, frozen, aux, batch, self._fused_opt_state,
+                self._lr_t)):
+            pool = self._family_pool() if self._lr_t.is_cuda else None
+            cap = self._graphs[sig] = self._fused.capture(
+                params, frozen, aux, self._fused_opt_state, batch,
+                self._lr_t, pool=pool, copy_outputs=True)
+        return cap
 
     def _run_fused(self, data_batch):
         """(``mxnet_tpu/module/module.py:809``)"""
         group = self._exec_group
         exec_ = group.execs[0]
         group.load_batch(data_batch)
-        batch = {n: exec_.arg_dict[n].handle
-                 for n in group.data_names + group.label_names}
-        params = {n: exec_.arg_dict[n].handle for n in self._fused_trainable}
-        frozen = {n: exec_.arg_dict[n].handle for n in self._fused_frozen}
-        aux = {k: v.handle for k, v in exec_.aux_dict.items()}
+        cap = self._step_graph(*self._fused_buffers())
         for idx, name in enumerate(self._param_names):
             if name in exec_.grad_dict:
                 self._optimizer._update_count(idx)
-        lr_t = self._optimizer.host_lr()
-        outs = self._fused(params, frozen, aux, self._fused_opt_state, batch,
-                           lr_t)
+        self._lr_t.fill_(self._optimizer.host_lr())
+        outs = cap.run()
+        if self._fused_metric is not None:
+            self._fused_metric._fold_count(self._fused.metric_count)
         instrument.inc('module.fused_steps')
         exec_.outputs = [NDArray(o, exec_._ctx) for o in outs]
         self._params_dirty = True

@@ -41,11 +41,11 @@ is plain PyTorch (the matmuls of the backwards go to ``torch.matmul``).
 from __future__ import annotations
 
 import math
-import threading
 
 import torch
 
 from ..base import MXNetError
+from ..instrument import count_launch as _count
 from . import _kernels
 from .registry import register_simple
 
@@ -55,14 +55,6 @@ __all__ = ['fused_bn_relu', 'fused_bn_relu_plain', 'fused_scale_bias_dot',
            'epilogue_route', 'ROUTES']
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_count_lock = threading.Lock()
-
-
-def _count(fn, route=None):
-    with _count_lock:
-        fn.launches += 1
-        if route is not None:
-            fn.launches_by_route[route] += 1
 
 
 def _raise_launch(name, err):

@@ -177,7 +177,13 @@ class FunctionalOptimizer(object):
     """The optimizer's update over name -> tensor dicts, for the fused
     train step.  ``init(params)`` builds the per-weight state;
     ``update(params, grads, states, lr_t)`` applies one step in place
-    given the host-computed base lr (post-scheduler, pre-multiplier)."""
+    given the base lr (post-scheduler, pre-multiplier): a Python float,
+    or a 0-dim device tensor the host fills before each step — the
+    counterpart of the JAX step's traced ``jnp.float32(host_lr())``
+    argument.  A captured step must take the tensor: a float would be
+    frozen into the graph at its capture value.  ``update_one(name, w,
+    g, state, lr)`` gets the parameter's own lr (base times its
+    multiplier)."""
 
     def __init__(self, opt, param_names, update_one, init_one,
                  param_indices=None):
@@ -198,10 +204,14 @@ class FunctionalOptimizer(object):
 
     def update(self, params, grads, states, lr_t):
         """One step, in place on ``params`` and ``states``."""
+        lrs = {1.0: lr_t}       # one product per distinct multiplier
         with torch.no_grad():
             for n, w in params.items():
+                mult = self.lr_mults[n]
+                if mult not in lrs:
+                    lrs[mult] = lr_t * mult
                 self._update_one(n, w, grads[n].to(w.dtype), states[n],
-                                 lr_t)
+                                 lrs[mult])
 
 
 register = Optimizer.register
@@ -231,7 +241,8 @@ class SGD(Optimizer):
                      dtype=self._state_dtype(weight))
 
     def _step(self, w, g, mom, lr, wd):
-        """In place on ``w`` (and ``mom``)."""
+        """In place on ``w`` (and ``mom``); ``lr`` a float or a 0-dim
+        tensor."""
         g = _rescale_clip(self, g)
         if mom is None:
             w.sub_(lr * (g + wd * w))
@@ -259,9 +270,8 @@ class SGD(Optimizer):
                 torch.zeros(w.shape, dtype=fn._state_dtype(w),
                             device=w.device)
 
-        def update_one(name, w, g, s, lr_t):
-            fn._step(w, g, s, lr_t * fo.lr_mults[name],
-                     fn.wd * fo.wd_mults[name])
+        def update_one(name, w, g, s, lr):
+            fn._step(w, g, s, lr, fn.wd * fo.wd_mults[name])
 
         fo = FunctionalOptimizer(self, param_names, update_one, init_one,
                                  param_indices=param_indices)

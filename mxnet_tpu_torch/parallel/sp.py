@@ -97,6 +97,7 @@ def make_sp_train_step(symbol, mesh, optimizer_update, seq_axis='seq',
     its rank's slice.  The outputs are the rank's own rows: its block of
     the JAX step's dim-0 shard-blocked output.  As in the JAX version, no
     fuse pass runs and auxiliary states raise."""
+    from .. import compile_cache
     from ..executor import _build_graph_fn
     from .train_step import index_inputs
     if symbol.list_auxiliary_states():
@@ -107,6 +108,9 @@ def make_sp_train_step(symbol, mesh, optimizer_update, seq_axis='seq',
     if attn_mode not in ('ring', 'ulysses'):
         raise ValueError("attn_mode must be 'ring' or 'ulysses', got %r"
                          % (attn_mode,))
+    # its collectives (NCCL / gloo) are not captured: the step stays
+    # eager, by rule
+    compile_cache.note_skip('sp_train_step', 'collectives')
     graph_fn = _build_graph_fn(symbol, True)
     group = mesh.get_group(seq_axis)
     n = dist.get_world_size(group)

@@ -4,12 +4,18 @@ of every parameter as one call.
 The port of ``mxnet_tpu/parallel/train_step.py`` (``make_fit_step
 :47-256``, ``make_sgd_momentum :34``, ``make_train_step :270-292``,
 ``make_eval_step :295-316``).  The JAX package traces the step
-into ONE jitted XLA program with donated buffers; PyTorch runs eagerly,
-so here the step runs the pass pipeline's graph (``MXTPU_FUSE``) under
-autograd with zero head gradients (``SoftmaxOutput`` injects the loss
-gradient), writes the aux updates back, and applies the functional
-optimizer to the f32 master weights and the optimizer state IN PLACE —
-the counterpart of the JAX step's buffer donation.
+into ONE jitted XLA program with donated buffers.  Here the step body
+runs the pass pipeline's graph (``MXTPU_FUSE``) under autograd with zero
+head gradients (``SoftmaxOutput`` injects the loss gradient), writes the
+aux updates back, and applies the functional optimizer to the f32 master
+weights and the optimizer state IN PLACE — the counterpart of the JAX
+step's buffer donation.  Because the body reads and writes only fixed
+buffers (batch, lr tensor, parameters, aux, optimizer state, metric
+accumulators), it is what a ``torch.cuda.CUDAGraph`` records:
+:meth:`FitStep.capture` wraps it in a ``compile_cache.CapturedStep``
+that replays it on the card (one graph per batch signature), the
+counterpart of the JAX package's compiled program.  On the CPU, and
+under ``NaiveEngine``, the same body runs eagerly.
 
 Under ``compute_dtype`` (bf16 mixed precision) the parameters and the
 batch entries named in ``data_names`` are cast for the forward and
@@ -19,10 +25,12 @@ graph reads only as an index (:func:`index_inputs`: token ids into an
 ``Embedding``) is never cast: bf16 holds integers exactly only up to 256
 (the JAX package casts them, a recorded reference fault).
 
-Not ported: shardings (a mesh), health sentinels and CUDA graphs of the
-step; asking for them raises.
+Not ported: shardings (a mesh) and health sentinels; asking for them
+raises.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -90,14 +98,98 @@ def graph_kernels(program):
     return sorted(names)
 
 
+class FitStep(object):
+    """The fused step :func:`make_fit_step` builds.  Calling it runs one
+    step eagerly; :meth:`body` is the same step without the metric's
+    host count, the part a CUDA graph records; :meth:`capture` wraps the
+    body over fixed buffers in a ``compile_cache.CapturedStep``."""
+
+    def __init__(self, symbol, functional_opt, data_names, compute_dtype,
+                 metric, metric_label):
+        from ..fuse import apply_fuse_passes
+        self.program = apply_fuse_passes(symbol, True)
+        self._graph_fn = _build_graph_fn(self.program, True)
+        indices = index_inputs(symbol)
+        self._data_names = tuple(n for n in data_names if n not in indices)
+        self._opt = functional_opt
+        self._dtype = compute_dtype
+        self.metric = metric
+        self.metric_label = metric_label
+        self.metric_count = None    # instances the metric counts per step
+        self.kernels = graph_kernels(self.program)
+
+    def _cast(self, v):
+        return v.to(self._dtype) if self._dtype is not None and \
+            v.is_floating_point() else v
+
+    def body(self, params, frozen, aux, opt_state, batch, lr_t):
+        """Forward, backward, every update and the metric's device fold;
+        returns the outputs."""
+        cast = self._cast
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in params.items()}
+        merged = {k: cast(v) for k, v in frozen.items()}
+        merged.update({k: cast(v) for k, v in leaves.items()})
+        merged.update({k: (cast(v) if k in self._data_names else v)
+                       for k, v in batch.items()})
+        with torch.enable_grad():
+            outs, aux_upd = self._graph_fn(merged, aux)
+            heads = [o for o in outs if o.requires_grad]
+            if heads:
+                torch.autograd.backward(
+                    heads, [torch.zeros_like(o) for o in heads])
+        grads = {k: (v.grad if v.grad is not None else torch.zeros_like(v))
+                 for k, v in leaves.items()}
+        with torch.no_grad():
+            for k, v in aux_upd.items():
+                aux[k].copy_(v)
+        self._opt.update(params, grads, opt_state, lr_t)
+        outs = [o.detach() for o in outs]
+        if self.metric is not None:
+            self.metric_count = self.metric._fold_device(
+                batch[self.metric_label], outs[0])
+        return outs
+
+    def __call__(self, params, frozen, aux, opt_state, batch, lr_t):
+        outs = self.body(params, frozen, aux, opt_state, batch, lr_t)
+        if self.metric is not None:
+            self.metric._fold_count(self.metric_count)
+        return outs
+
+    def capture(self, params, frozen, aux, opt_state, batch, lr_t,
+                pool=None, copy_outputs=False, name='fit_step'):
+        """A ``CapturedStep`` of :meth:`body` over these buffers (name ->
+        tensor dicts; ``lr_t`` a 0-dim tensor the caller fills before
+        each step).  It records its graph on its first ``run()``, after
+        that real step, and stays eager where
+        ``compile_cache.capture_skip_reason`` says so.  The caller adds
+        the metric's host count (:attr:`metric_count`) per step."""
+        from .. import compile_cache, random
+        device = next(iter(batch.values())).device
+        if self.metric is not None:
+            self.metric._accumulators(device)
+        skip = compile_cache.capture_skip_reason(device, self.program)
+        gens = [random.generator(device)] if skip is None and \
+            compile_cache.random_nodes(self.program) else []
+        return compile_cache.CapturedStep(
+            name, lambda: self.body(params, frozen, aux, opt_state, batch,
+                                    lr_t),
+            device, compile_cache.step_tensors(params, frozen, aux, batch,
+                                               opt_state, lr_t),
+            pool=pool, copy_outputs=copy_outputs, skip=skip,
+            generators=gens)
+
+
 def make_fit_step(symbol: Symbol, functional_opt, data_names=(),
                   compute_dtype=None, metric=None, metric_label=None,
                   shardings=None, health_action=None):
-    """Build ``step(params, frozen, aux, opt_state, batch, lr_t) ->
-    outputs``: forward, backward and every parameter update.  ``params``,
-    ``aux`` and ``opt_state`` are name -> tensor dicts updated in place;
-    ``functional_opt`` is an ``optimizer.FunctionalOptimizer`` (or any
-    object with ``update(params, grads, states, lr_t)``).
+    """Build the step ``step(params, frozen, aux, opt_state, batch, lr_t)
+    -> outputs`` (a :class:`FitStep`): forward, backward and every
+    parameter update.  ``params``, ``aux`` and ``opt_state`` are name ->
+    tensor dicts updated in place; ``functional_opt`` is an
+    ``optimizer.FunctionalOptimizer`` (or any object with
+    ``update(params, grads, states, lr_t)``); ``lr_t`` a float or a 0-dim
+    tensor.
 
     With ``metric`` (an ``EvalMetric`` with a device form) the step folds
     ``metric.device_fold(batch[metric_label], outputs[0])`` — deltas from
@@ -108,41 +200,8 @@ def make_fit_step(symbol: Symbol, functional_opt, data_names=(),
     if health_action is not None:
         raise NotImplementedError('make_fit_step: health sentinels are not '
                                   'ported to mxnet_tpu_torch yet')
-    from ..fuse import apply_fuse_passes
-    program = apply_fuse_passes(symbol, True)
-    graph_fn = _build_graph_fn(program, True)
-    indices = index_inputs(symbol)
-    data_names = tuple(n for n in data_names if n not in indices)
-
-    def cast(v):
-        return v.to(compute_dtype) if compute_dtype is not None and \
-            v.is_floating_point() else v
-
-    def step(params, frozen, aux, opt_state, batch, lr_t):
-        leaves = {k: v.detach().requires_grad_(True)
-                  for k, v in params.items()}
-        merged = {k: cast(v) for k, v in frozen.items()}
-        merged.update({k: cast(v) for k, v in leaves.items()})
-        merged.update({k: (cast(v) if k in data_names else v)
-                       for k, v in batch.items()})
-        with torch.enable_grad():
-            outs, aux_upd = graph_fn(merged, aux)
-            heads = [o for o in outs if o.requires_grad]
-            if heads:
-                torch.autograd.backward(
-                    heads, [torch.zeros_like(o) for o in heads])
-        grads = {k: (v.grad if v.grad is not None else torch.zeros_like(v))
-                 for k, v in leaves.items()}
-        for k, v in aux_upd.items():
-            aux[k].copy_(v)
-        functional_opt.update(params, grads, opt_state, lr_t)
-        outs = [o.detach() for o in outs]
-        if metric is not None:
-            metric.device_fold(batch[metric_label], outs[0])
-        return outs
-
-    step.kernels = graph_kernels(program)
-    return step
+    return FitStep(symbol, functional_opt, data_names, compute_dtype,
+                   metric, metric_label)
 
 
 class _PlainUpdate(object):
@@ -154,6 +213,48 @@ class _PlainUpdate(object):
 
     def update(self, params, grads, state, lr_t):
         return self._fn(params, grads, state)
+
+
+class _StepTable(object):
+    """The captured steps of one raw-API step function, keyed on the
+    batch signature and the ``data_ptr`` of every parameter, aux and
+    state tensor: a graph holds those addresses.  Each entry owns fixed
+    batch buffers (copies of the first batch), which each later call
+    refreshes in place.  Where ``compile_cache.capture_skip_reason``
+    says the step stays eager, it runs on the caller's own tensors."""
+
+    def __init__(self, name, program, is_train, make):
+        self.name = name
+        self.program = program
+        self.is_train = is_train
+        self.make = make            # make(static_batch) -> CapturedStep
+        self.graphs = {}
+        self._skips = {}
+
+    def skip(self, device):
+        from .. import compile_cache, engine
+        key = (device, engine.get_engine_type())
+        if key not in self._skips:
+            reason = self._skips[key] = compile_cache.capture_skip_reason(
+                device, self.program, self.is_train)
+            if reason is not None:
+                compile_cache.note_skip(self.name, reason)
+        return self._skips[key]
+
+    def step(self, batch, *trees):
+        from .. import compile_cache
+        key = (compile_cache.batch_sig(batch),
+               tuple(t.data_ptr()
+                     for t in compile_cache.step_tensors(*trees)))
+        entry = self.graphs.get(key)
+        if entry is None:
+            static = {k: v.clone() for k, v in batch.items()}
+            entry = self.graphs[key] = (self.make(static), static)
+        else:
+            with torch.no_grad():
+                for k, v in batch.items():
+                    entry[1][k].copy_(v, non_blocking=True)
+        return entry[0]
 
 
 def make_train_step(symbol: Symbol, optimizer_update, batch_names,
@@ -168,20 +269,37 @@ def make_train_step(symbol: Symbol, optimizer_update, batch_names,
     cast (``data_names=()``), so token ids stay exact under a bf16
     ``compute_dtype``.  With ``donate`` (the default) ``params``, ``aux``
     and ``opt_state`` are updated in place and returned — the
-    counterpart of the JAX step's donated buffers; ``donate=False`` works
-    on copies and leaves the caller's tensors as they were.  ``rng`` is
-    accepted for the JAX signature; the ported ops draw no random
-    numbers."""
+    counterpart of the JAX step's donated buffers — and on the card the
+    step is captured once per batch signature and set of parameter
+    tensors (their ``data_ptr``s) and replayed while the caller passes
+    the same tensors; the batch is copied into the graph's own batch
+    buffers, and the outputs returned are the graph's, overwritten by
+    the next call.  ``donate=False`` works on fresh copies each call, so
+    it stays eager.  ``rng`` is accepted for the JAX signature; the
+    ported ops draw from the device generator (``random.generator``)."""
+    from .. import compile_cache
     raw = make_fit_step(symbol, _PlainUpdate(optimizer_update),
                         data_names=(), compute_dtype=compute_dtype)
+    if not donate:
+        compile_cache.note_skip('train_step', 'donate=False')
+    table = _StepTable('train_step', raw.program, True,
+                       lambda static: raw.capture(
+                           state['params'], {}, state['aux'],
+                           state['opt'], static, 0.0, name='train_step'))
+    state = {}
 
     def step(params, aux, opt_state, batch, rng=None):
         if not donate:
             params, aux, opt_state = ({k: v.clone() for k, v in d.items()}
                                       for d in (params, aux, opt_state))
-        outs = raw(params, {}, aux, opt_state, batch, 0.0)
+        if not donate or table.skip(next(iter(batch.values())).device):
+            outs = raw(params, {}, aux, opt_state, batch, 0.0)
+        else:
+            state.update(params=params, aux=aux, opt=opt_state)
+            outs = table.step(batch, params, aux, opt_state).run()
         return outs, params, aux, opt_state
 
+    step.graphs = table.graphs
     return step
 
 
@@ -189,19 +307,36 @@ def make_eval_step(symbol: Symbol, compute_dtype=None):
     """Inference: ``step(params, aux, batch, rng=None) -> outputs``
     (``mxnet_tpu/parallel/train_step.py:295-316``), through the pass
     pipeline with ``is_train=False``; under ``compute_dtype`` the params
-    and the floating batch entries are cast."""
+    and the floating batch entries are cast.  On the card it is captured
+    and replayed as :func:`make_train_step`'s step is (its outputs are
+    the graph's, overwritten by the next call)."""
+    from .. import compile_cache
     from ..fuse import apply_fuse_passes
-    graph_fn = _build_graph_fn(apply_fuse_passes(symbol, False), False)
+    program = apply_fuse_passes(symbol, False)
+    graph_fn = _build_graph_fn(program, False)
 
     def cast(v):
         return v.to(compute_dtype) if compute_dtype is not None and \
             v.is_floating_point() else v
 
-    def step(params, aux, batch, rng=None):
+    def forward(params, aux, batch):
         merged = {k: cast(v) for k, v in params.items()}
         merged.update({k: cast(v) for k, v in batch.items()})
         with torch.no_grad():
-            outs, _ = graph_fn(merged, aux)
-        return outs
+            return graph_fn(merged, aux)[0]
 
+    table = _StepTable('eval_step', program, False,
+                       lambda static: compile_cache.CapturedStep(
+                           'eval_step', functools.partial(
+                               forward, state['params'], state['aux'],
+                               static), next(iter(static.values())).device))
+    state = {}
+
+    def step(params, aux, batch, rng=None):
+        if table.skip(next(iter(batch.values())).device):
+            return forward(params, aux, batch)
+        state.update(params=params, aux=aux)
+        return table.step(batch, params, aux).run()
+
+    step.graphs = table.graphs
     return step

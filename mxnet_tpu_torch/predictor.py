@@ -7,6 +7,15 @@ Executor (``fuse.apply_fuse_passes``, ``MXTPU_FUSE``): under
 ``aggressive`` a ResNet gets its conv+BN pairs folded and its remaining
 BN->relu chains lowered onto the ``fused_bn_relu`` CUDA kernel.
 
+With ``pad_to_bucket`` each pow2 bucket has its own executor (sharing
+the parameter arrays), whose inference forward runs through a CUDA graph
+on the card (``Executor.enable_capture``; the graphs of one Predictor
+share a memory pool): :meth:`Predictor.warm_buckets` captures every
+bucket up to a batch size before the first request, a request is copied
+into the bucket's pinned host staging and from there into the graph's
+input on the card, and ``forward`` returns copies of the graph's
+outputs, which a later forward does not overwrite.
+
 The tensor-parallel ``mesh=`` path of the JAX Predictor is not ported.
 """
 from __future__ import annotations
@@ -15,6 +24,7 @@ import os
 import tempfile
 
 import numpy as np
+import torch
 
 from . import compile_cache, instrument
 from . import ndarray as nd
@@ -114,6 +124,8 @@ class Predictor(object):
         # executor sharing the parameter arrays; outputs are sliced back
         self._pad_to_bucket = bool(pad_to_bucket)
         self._bucket_execs = {}
+        self._graph_pool = None
+        self._staging = {}      # (bucket, input) -> (pinned tensor, event)
 
     def _infer_batch_inputs(self):
         """Inputs sharing the batch axis: leading dim equal to the
@@ -152,9 +164,62 @@ class Predictor(object):
                              if name in self._batch_inputs else shape)
                       for name, shape in self._input_shapes.items()}
             exe = self._executor.reshape(**shapes)
+            if self._ctx.device_type == 'gpu':
+                if self._graph_pool is None:
+                    self._graph_pool = torch.cuda.graph_pool_handle()
+                exe.enable_capture(self._graph_pool)
             self._bucket_execs[bucket] = exe
             instrument.inc('compile.shape_buckets')
         return exe, bucket
+
+    def warm_buckets(self, max_batch):
+        """Build, and on the card capture, the executor of every pow2
+        bucket up to ``max_batch`` (``mxnet_tpu/predictor.py:334``): a
+        forward of zeros records each bucket's graph, so no request pays
+        a capture.  Returns the buckets; without ``pad_to_bucket`` (or
+        batch-axis inputs) none."""
+        if not (self._pad_to_bucket and self._batch_inputs):
+            return []
+        buckets, top = [], compile_cache.pad_to_bucket(max_batch)
+        b = 1
+        while b <= top:
+            exe, bucket = self._bucket_executor(b)
+            if exe._capture:
+                cap = exe._inference_graph()
+                if cap.skip is None and not cap.captured:
+                    cap.run()
+            buckets.append(bucket)
+            b *= 2
+        return buckets
+
+    def _stage(self, exe, bucket, name, value, rows):
+        """Copy ``value`` (``rows`` rows of a batch-axis input, zero-padded
+        to the bucket, or a whole constant input) into the executor's
+        bound input: through the bucket's pinned staging on the card."""
+        dst = exe.arg_dict[name].handle
+        if tuple(value.shape[1:]) != tuple(dst.shape[1:]) or \
+                (rows is None and value.shape != dst.shape):
+            raise MXNetError('input %s has shape %s, the bucket wants %s'
+                             % (name, value.shape, tuple(dst.shape)))
+        if not dst.is_cuda:
+            if rows is not None and rows != dst.shape[0]:
+                value = np.concatenate([value, np.zeros(
+                    (dst.shape[0] - rows,) + value.shape[1:], value.dtype)])
+            dst.copy_(torch.from_numpy(np.ascontiguousarray(value)))
+            return
+        stage, done = self._staging.get((bucket, name), (None, None))
+        if stage is None:
+            stage = torch.empty(dst.shape, dtype=dst.dtype, pin_memory=True)
+        elif done is not None:
+            done.synchronize()      # the last copy out of it has ended
+        host = stage.numpy()
+        n = value.shape[0] if rows is not None else len(host)
+        host[:n] = value
+        host[n:] = 0
+        dst.copy_(stage, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(dst.device))
+        self._staging[(bucket, name)] = (stage, done)
 
     def _forward_bucketed(self, kwargs):
         rows = {np.asarray(v).shape[0] for k, v in kwargs.items()
@@ -170,13 +235,13 @@ class Predictor(object):
         for k, v in kwargs.items():
             if k not in exe.arg_dict:
                 raise MXNetError('unknown input %s' % k)
-            v = np.asarray(v, np.float32)
-            if k in self._batch_inputs and v.shape[0] != bucket:
-                v = np.concatenate(
-                    [v, np.zeros((bucket - v.shape[0],) + v.shape[1:],
-                                 v.dtype)], axis=0)
-            exe.arg_dict[k][:] = v
-        self._out_arrays = exe.forward(is_train=False)
+            self._stage(exe, bucket, k, np.asarray(v, np.float32),
+                        rows if k in self._batch_inputs else None)
+        outs = exe.forward(is_train=False)
+        if exe._capture:
+            # the graph's outputs: the next forward overwrites them
+            outs = [NDArray(o.handle.clone(), o.context) for o in outs]
+        self._out_arrays = outs
         self._valid_rows = rows
         self._active_bucket = bucket
         _note_pad_waste(rows, bucket)

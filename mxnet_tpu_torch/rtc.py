@@ -81,7 +81,6 @@ _IDENT = re.compile(r'[A-Za-z_][A-Za-z0-9_]*')
 _LOG_CAP = 1 << 16
 
 _state = threading.local()      # the callable form's grid point
-_count_lock = threading.Lock()
 
 
 def program_id(axis):
@@ -319,8 +318,7 @@ class Rtc(object):
         if err:
             raise MXNetError('Rtc %s: launch failed: %s (CUDA error %d)' % (
                 self.name, _get_shim().cuda_error(err).decode(), err))
-        with _count_lock:
-            Rtc.launches += 1
+        instrument.count_launch(Rtc)
         for dst, y in zip(outs, ys):
             dst._set_data(y)
         return outs

@@ -6,7 +6,10 @@ replica per model.
 :class:`~mxnet_tpu_torch.serving.batcher.DynamicBatcher`.  The replica
 runs on ``cuda:dev_id`` (``gpu(0)`` by default) unless the server is
 built with ``dev_type='cpu'``; with no CUDA device a GPU server raises
-at ``load_model`` instead of serving on the CPU.
+at ``load_model`` instead of serving on the CPU.  ``load_model`` builds
+every pow2 bucket up to the batcher's cap (``Predictor.warm_buckets``),
+which on the card captures each bucket's forward as a CUDA graph before
+the batcher serves.
 
 Replica fleets, the supervisor, the autoscaler, brownout, mesh replicas,
 hot reload and checkpoint-prefix loading wait for a later slice.
@@ -69,6 +72,12 @@ class ModelServer(object):
         predictor = Predictor(symbol_json, params, dict(input_shapes),
                               dev_type=self._dev[0], dev_id=self._dev[1],
                               pad_to_bucket=True)
+        # every pow2 bucket the batcher can fill is built (and captured on
+        # the card) before the batcher's worker thread starts
+        # (mxnet_tpu/serving/server.py:381)
+        predictor.warm_buckets(self._max_batch if self._max_batch
+                               is not None else
+                               config.get('MXTPU_SERVE_MAX_BATCH'))
         batcher = DynamicBatcher(name, self._make_execute(predictor),
                                  max_delay_ms=self._max_delay_ms,
                                  max_batch=self._max_batch,

@@ -5,14 +5,18 @@ the PyTorch port (mxnet_tpu_torch).
     python3 tools/torch_profile_serving.py [--rows 32] [--iters 20]
 
 Builds full-width ResNet-50 v2 (1000 classes, 3x224x224) with random
-weights from a numpy seed and, for MXTPU_FUSE=off and =aggressive in
-turns (off, aggressive, aggressive, off), times the Predictor's forward
-at ``--rows`` rows: host wall per forward (ending in a synchronize) and
-device time from CUDA events around the same forwards.  Then a
-torch.profiler window over each mode's forwards gives the device's busy
-time per forward (union of kernel intervals), its idle share, and kernel
-time by class and by name.  Prints one JSON line per result;
-needs a CUDA device.  Convolutions run PyTorch's default (cuDNN TF32).
+weights from a numpy seed and a serving Predictor (pow2 buckets) for
+three modes: MXTPU_FUSE=off and =aggressive built under NaiveEngine (op
+by op, the request uploaded from pageable memory), and aggressive
+captured (the bucket's forward one CUDA graph, the request staged
+through pinned memory).  It times the forward at ``--rows`` rows in
+turns (each mode, then again in reverse order): host wall per forward
+(ending in a synchronize) and device time from CUDA events around the
+same forwards.  Then a torch.profiler window over each mode's forwards
+gives the device's busy time per forward (union of kernel intervals),
+its idle share, and kernel time by class and by name.  Prints one JSON
+line per result; needs a CUDA device.  Convolutions run PyTorch's
+default (cuDNN TF32).
 """
 import argparse
 import json
@@ -143,29 +147,36 @@ def main():
     params = convert.params_from_numpy(arg, aux, 'cuda:0')
     data = np.random.default_rng(args.seed + 1).standard_normal(
         shape, dtype=np.float32)
+    modes = (('off', 'eager'), ('aggressive', 'eager'),
+             ('aggressive', 'captured'))
     preds = {}
-    for mode in ('off', 'aggressive'):
-        os.environ['MXTPU_FUSE'] = mode
-        pred = mx.Predictor(symbol.tojson(), params, {'data': shape})
+    for fuse, engine in modes:
+        os.environ['MXTPU_FUSE'] = fuse
+        mx.engine.set_engine_type('NaiveEngine' if engine == 'eager' else
+                                  'ThreadedEnginePerDevice')
+        pred = mx.Predictor(symbol.tojson(), params, {'data': shape},
+                            pad_to_bucket=True)
+        pred.warm_buckets(args.rows)
         for _ in range(3):                      # cuDNN setup, allocator
             pred.forward(data=data)
         torch.cuda.synchronize()
-        preds[mode] = pred
+        preds[fuse, engine] = pred
+    mx.engine.set_engine_type('ThreadedEnginePerDevice')
     times = defaultdict(list)
-    for mode in ('off', 'aggressive', 'aggressive', 'off'):
+    for mode in modes + modes[::-1]:
         times[mode].append(_time_forwards(torch, preds[mode], data,
                                           args.iters))
-    for mode, runs in times.items():
-        print(json.dumps({'phase': 'forward', 'fuse': mode,
-                          'rows': args.rows, 'card': smi,
+    for (fuse, engine), runs in times.items():
+        print(json.dumps({'phase': 'forward', 'fuse': fuse,
+                          'engine': engine, 'rows': args.rows, 'card': smi,
                           'host_ms': [h for h, _ in runs],
                           'device_event_ms': [d for _, d in runs]}),
               flush=True)
-    for mode in ('off', 'aggressive'):
-        pred = preds[mode]
+    for (fuse, engine), pred in preds.items():
         print(json.dumps(dict(profile_window(
             torch, lambda: pred.forward(data=data), max(5, args.iters // 4)),
-            fuse=mode, card=smi, rows=args.rows)), flush=True)
+            fuse=fuse, engine=engine, card=smi, rows=args.rows)),
+            flush=True)
     return 0
 
 

@@ -21,11 +21,13 @@ sym_gen_bucketing (positional table of 512 rows) in float32 with TF32
 off, SGD lr 0.01 momentum 0.9, one bucket's fit step (``--bucket``, a
 sequence length up to 512; the batch's last position padded with -1).
 Random weights and data from numpy seeds,
-MXTPU_FUSE=aggressive.  Two warm-up steps, then ``--steps`` more fused
+MXTPU_FUSE=aggressive.  For each ``--engine`` (default both, eager
+first): the step built under ``NaiveEngine`` (op by op) or captured (one
+CUDA graph, replayed), two warm-up steps, then ``--steps`` more fused
 train steps under torch.profiler: wall and device-busy time per step,
 the device's idle share, kernel time by class and by name, kernels
 launched per step, and the port's kernel launches per step from their
-counters.  Prints one JSON line; needs a CUDA device.
+counters.  Prints one JSON line per engine; needs a CUDA device.
 """
 import argparse
 import json
@@ -149,6 +151,8 @@ def main():
     ap.add_argument('--rows', type=int, default=None,
                     help='rows per step (default 32 resnet, 16 LM)')
     ap.add_argument('--steps', type=int, default=5)
+    ap.add_argument('--engine', choices=('both', 'eager', 'captured'),
+                    default='both')
     ap.add_argument('--seed', type=int, default=0)
     args = ap.parse_args()
     import torch
@@ -165,28 +169,34 @@ def main():
     lm = args.model.startswith('transformer_lm')
     custom = args.model == 'resnet_custom_head'
     rows = args.rows or (16 if lm else 32)
-    if args.model == 'transformer_lm_bucket':
-        run = bucket_step(mx, torch, rows, args.seed, args.bucket)
-    elif lm:
-        run = lm_step(mx, torch, rows, args.seed)
-    else:
-        run = resnet_step(mx, torch, rows, args.seed, custom)
-    torch.cuda.synchronize()
+    bucketed = args.model == 'transformer_lm_bucket'
     counters = (fused.fused_bn_relu, fused.fused_scale_bias_dot,
                 fused_conv.fused_scale_bias_conv3x3,
                 fused.fused_dot_epilogue, attention.flash_attention,
                 mx.rtc.Rtc)
-    before = [k.launches for k in counters]
-    out = profile_window(torch, run, args.steps, unit='step')
-    bucketed = args.model == 'transformer_lm_bucket'
-    out.update(card=smi, model=args.model, rows=rows,
-               bucket=args.bucket if bucketed else None,
-               compute_dtype='float32' if custom or bucketed else 'bfloat16',
-               fuse='aggressive',
-               port_kernel_launches_per_step={
-                   k.__name__: (k.launches - b) / args.steps
-                   for k, b in zip(counters, before) if k.launches > b})
-    print(json.dumps(out), flush=True)
+    engines = ('eager', 'captured') if args.engine == 'both' else \
+        (args.engine,)
+    for engine in engines:
+        mx.engine.set_engine_type('NaiveEngine' if engine == 'eager' else
+                                  'ThreadedEnginePerDevice')
+        if bucketed:
+            run = bucket_step(mx, torch, rows, args.seed, args.bucket)
+        elif lm:
+            run = lm_step(mx, torch, rows, args.seed)
+        else:
+            run = resnet_step(mx, torch, rows, args.seed, custom)
+        torch.cuda.synchronize()
+        before = [k.launches for k in counters]
+        out = profile_window(torch, run, args.steps, unit='step')
+        out.update(card=smi, model=args.model, rows=rows, engine=engine,
+                   bucket=args.bucket if bucketed else None,
+                   compute_dtype='float32' if custom or bucketed
+                   else 'bfloat16', fuse='aggressive',
+                   port_kernel_launches_per_step={
+                       k.__name__: (k.launches - b) / args.steps
+                       for k, b in zip(counters, before) if k.launches > b})
+        print(json.dumps(out), flush=True)
+        del run
     return 0
 
 

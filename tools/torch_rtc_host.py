@@ -75,10 +75,6 @@ def ctx_push_stages(torch, rtc, kernel, ins, outs, grid, block):
         p = [ctypes.c_void_p(t.data_ptr()) for t in xs + ys]
         return (ctypes.c_void_p * len(p))(*[ctypes.addressof(q) for q in p])
 
-    def count():
-        with rtc._count_lock:
-            rtc.Rtc.launches += 1
-
     return {
         'checks': lambda: (len(ins) != len(kernel.input_names),
                            [rtc._tensor(x) for x in ins],
@@ -98,9 +94,21 @@ def ctx_push_stages(torch, rtc, kernel, ins, outs, grid, block):
         # params holds the addresses of ptrs' objects: keep them alive
         'launch': lambda keep=ptrs: shim.launch(ctx, function, *g, *b,
                                                 params, stream),
-        'count': count,
+        'count': _counter(rtc),
         'swap': lambda: [o._set_data(y) for o, y in zip(outs, ys)],
     }
+
+
+def _counter(rtc):
+    """The push's launch count: through ``instrument.count_launch``, or
+    under the module's own lock in a tree from before it."""
+    if hasattr(rtc.instrument, 'count_launch'):
+        return lambda: rtc.instrument.count_launch(rtc.Rtc)
+
+    def count():
+        with rtc._count_lock:
+            rtc.Rtc.launches += 1
+    return count
 
 
 def plan_stages(torch, rtc, kernel, ins, outs, grid, block):
@@ -116,10 +124,6 @@ def plan_stages(torch, rtc, kernel, ins, outs, grid, block):
     stream = rtc._raw_stream(index)
     g, b = rtc._dims(grid, 'grid_dims'), rtc._dims(block, 'block_dims')
     record = rtc._pack(kernel._record, ctx, function, stream, g, b, xs + ys)
-
-    def count():
-        with rtc._count_lock:
-            rtc.Rtc.launches += 1
 
     return {
         'checks': lambda: (len(ins) != len(kernel.input_names),
@@ -137,7 +141,7 @@ def plan_stages(torch, rtc, kernel, ins, outs, grid, block):
         'launch_record': lambda: rtc._pack(kernel._record, ctx, function,
                                            stream, g, b, xs + ys),
         'launch': lambda: launch(record),
-        'count': count,
+        'count': _counter(rtc),
         'swap': lambda: [o._set_data(y) for o, y in zip(outs, ys)],
     }
 
