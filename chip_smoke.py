@@ -198,8 +198,52 @@ graphs held), and peak allocated and reserved device memory.
                   CPU operator), under train-parity's bound.  The
                   Custom-headed step stays eager by rule (user Python
                   runs every step).
-13. capture     — the cuda tests of tests/test_torch_capture.py in a child
-                  pytest, each a behaviour of capture held against eager:
+12b. optim-train — the training lifecycle, optimizers: the train phase's
+                  model, data and bf16 compute, OPTIM_STEPS (3) captured
+                  steps under each of SGD with momentum, NAG, Adam,
+                  AdaGrad and centered RMSProp (counts zeroed just before,
+                  read just after: 36 + 16 sm90 and 2 fused_bn_relu per
+                  step), then the same steps from the same state under
+                  NaiveEngine (launches per step by kernel and route
+                  equal, parameters within train-parity's bound), then in
+                  float32 (TF32 off) captured and through the Updater loop
+                  (MXTPU_FUSED_FIT=0: forward_backward, then the
+                  ops/optim.py update ops), held to the same bound; per
+                  optimizer the step ms of each run, capture ms, peak
+                  memory and the number of state tensors.
+12c. checkpoint-resume — SGD with momentum, bf16, 2 epochs of 4 batches with
+                  fit(checkpoint_prefix=...) and module_checkpoint(...,
+                  save_optimizer_states=True) (launches per step as in
+                  train); Module.load(prefix, 1, load_optimizer_states=
+                  True, context=gpu(0)).fit(begin_epoch=1) against the
+                  uninterrupted run's epoch-2 parameters, and
+                  fit(auto_resume=True) from a prefix holding epoch 1
+                  against Module.load without states (both restart the
+                  momentum), each within train-parity's bound; ms to write
+                  and read the .params (25.5 M f32) and .states files,
+                  the resumed fit's first-step host ms (it captures),
+                  checkpoint.commits and checkpoint.resumes.
+12d. feedforward — FeedForward.create on the ResNet symbol (ctx=gpu(0),
+                  float32 with TF32 off, 4 shuffled batches of 32), predict
+                  and score on
+                  64 images (17 fused_bn_relu per forward, counts zeroed
+                  just before), save, FeedForward.load and predict again:
+                  the predictions equal.
+12e. lm-adam    — the LM of lm-train through Module.fit (bf16, Adam lr
+                  1e-3, a device-folded Perplexity(ignore_label=None)), 5
+                  steps captured (counts zeroed just before, read just
+                  after: 6 flash_attention and 6 fused_dot_epilogue per
+                  step, sm90) and under NaiveEngine: launches equal,
+                  perplexity within 2e-2, parameters within
+                  train-parity's bound; step ms, tokens/s.
+13. capture     — the cuda tests of tests/test_torch_capture.py and
+                  tests/test_torch_lifecycle.py in a child pytest; the
+                  lifecycle ones: each optimizer's captured narrow-ResNet
+                  step against NaiveEngine and the Updater loop;
+                  load_optimizer_states into a module that holds graphs
+                  (the same graph replays after, no recapture); checkpoints
+                  at two steps in flight against one.  Each capture test
+                  is a behaviour of capture held against eager:
                   an lr schedule that lowers the lr at step 3 changes the
                   captured update; a metric with no device form reads
                   each replay's outputs with two steps in flight; a
@@ -220,6 +264,7 @@ launch_host_us), and the result line {"ok": true,
 without the mxnet_tpu_torch package beside it, the script exits nonzero
 and prints no result.
 """
+import gc
 import json
 import os
 import statistics
@@ -258,6 +303,7 @@ BUCKET_PARITY = (200, 4)    # (bucket, rows) of the card-vs-CPU step
 SP_STEPS = 5
 SP_SEQ_PARAMS = ('pos_embed_weight',)
 BATCH = 32
+SGD_MOMENTUM = {'learning_rate': 0.05, 'momentum': 0.9, 'wd': 1e-4}
 TRAIN_BATCHES = 10
 TRAIN_WARMUP = 2
 # the eager (NaiveEngine) run beside each captured main path: its first
@@ -276,6 +322,29 @@ CAPTURE_CHECKS = (
     'test_dropout_draws_a_new_mask_on_each_replay',
     'test_host_sync_under_capture_raises_naming_the_node',
     'test_custom_graph_stays_eager')
+# ... and of tests/test_torch_lifecycle.py (optimizers, .states, depth 2)
+LIFECYCLE_CHECKS = tuple(
+    'test_captured_optimizer_matches_eager_and_loop[%s]' % o
+    for o in ('sgd', 'nag', 'adam', 'adagrad', 'rmsprop')) + (
+    'test_load_optimizer_states_into_a_captured_module',
+    'test_checkpoints_at_depth_two_on_the_card')
+# optim-train: each optimizer's captured ResNet step beside NaiveEngine and
+# the Updater loop (MXTPU_FUSED_FIT=0), OPTIM_STEPS steps from one state
+OPTIM_STEPS = 3
+OPTIMIZERS = (
+    ('sgd', SGD_MOMENTUM),
+    ('nag', SGD_MOMENTUM),
+    ('adam', {'learning_rate': 0.001, 'wd': 1e-4}),
+    ('adagrad', {'learning_rate': 0.01, 'wd': 1e-4}),
+    ('rmsprop', {'learning_rate': 0.001, 'centered': True, 'wd': 1e-4}))
+# checkpoint-resume: 2 epochs of CKPT_BATCHES batches; feedforward:
+# FeedForward.create over FF_ROWS images, predict/score on FF_EVAL_ROWS
+CKPT_BATCHES = 4
+FF_ROWS = 128
+FF_EVAL_ROWS = 64
+# lm-adam: the LM through Module.fit, Adam, a device-folded Perplexity
+LM_ADAM_STEPS = 5
+LM_ADAM = {'learning_rate': 0.001}
 PARITY_ROWS = 2
 IMAGE = (3, 224, 224)
 N_REQUESTS = 64
@@ -1579,9 +1648,41 @@ def memory(torch):
 
 
 def fresh_memory(torch):
+    gc.collect()        # modules of earlier phases still in cycles
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+
+
+def parity_report(got, want):
+    """:func:`param_parity` of two parameter dicts as a report."""
+    n_out, total, worst, outside = param_parity(got, want)
+    return {'elements': total, 'elements_outside': n_out,
+            'max_abs_err': worst[0], 'worst_param': worst[1],
+            'outside_tolerance': outside,
+            'bitwise_equal': all(np.array_equal(got[k], want[k])
+                                 for k in want)}
+
+
+def beyond_bound(phase, report):
+    """The failure message when ``report`` is outside train-parity's
+    bound, else None."""
+    if report['elements_outside'] > 1e-4 * report['elements'] or \
+            report['max_abs_err'] > 1e-3:
+        return ('%s: %d of %d parameter elements beyond rtol 1e-3, atol '
+                '1e-5, max abs err %g in %s'
+                % (phase, report['elements_outside'], report['elements'],
+                   report['max_abs_err'], report['worst_param']))
+    return None
+
+
+def compare_params(phase, got, want):
+    """Two parameter dicts under train-parity's bound (raises outside)."""
+    report = parity_report(got, want)
+    failure = beyond_bound(phase, report)
+    if failure:
+        raise AssertionError(failure)
+    return report
 
 
 def compare_runs(phase, captured, eager, card, host, steps):
@@ -1593,21 +1694,12 @@ def compare_runs(phase, captured, eager, card, host, steps):
         raise AssertionError('%s: launches per step captured %s, eager %s'
                              % (phase, captured['launches_per_step'],
                                 eager['launches_per_step']))
-    n_out, total, worst, outside = param_parity(card, host)
-    report = {'captured': captured, 'eager': eager,
-              'params_after_steps': steps, 'elements': total,
-              'elements_outside': n_out, 'max_abs_err': worst[0],
-              'worst_param': worst[1], 'outside_tolerance': outside,
-              'bitwise_equal': all(np.array_equal(card[k], host[k])
-                                   for k in card),
-              'tolerance': 'rtol 1e-3, atol 1e-5 elementwise; at most 1e-4 '
-                           'of the elements outside it, none beyond 1e-3'}
-    if n_out > 1e-4 * total or worst[0] > 1e-3:
-        raise AssertionError('%s: captured against eager, %d of %d '
-                             'parameter elements beyond rtol 1e-3, atol '
-                             '1e-5, max abs err %g in %s'
-                             % (phase, n_out, total, worst[0], worst[1]))
-    return report
+    return {'captured': captured, 'eager': eager,
+            'params_after_steps': steps,
+            **compare_params(phase + ', captured against eager', card,
+                             host),
+            'tolerance': 'rtol 1e-3, atol 1e-5 elementwise; at most 1e-4 '
+                         'of the elements outside it, none beyond 1e-3'}
 
 
 def serve_phase(mx, torch, server, symbol, params, data, rng, fused,
@@ -1698,6 +1790,7 @@ def capture_checks():
         report = os.path.join(tmp, 'capture.xml')
         proc = subprocess.run(
             [sys.executable, '-m', 'pytest', 'tests/test_torch_capture.py',
+             'tests/test_torch_lifecycle.py',
              '-m', 'cuda', '-q', '--noconftest', '-p', 'no:cacheprovider',
              '--junitxml', report], cwd=root, capture_output=True,
             text=True, timeout=600)
@@ -1709,7 +1802,8 @@ def capture_checks():
                     if child.tag in ('failure', 'error', 'skipped'):
                         outcome = child.tag
                 cases[case.get('name')] = outcome
-    missing = [n for n in CAPTURE_CHECKS if cases.get(n) != 'passed']
+    missing = [n for n in CAPTURE_CHECKS + LIFECYCLE_CHECKS
+               if cases.get(n) != 'passed']
     if proc.returncode != 0 or missing:
         print(proc.stdout[-6000:], proc.stderr[-2000:], file=sys.stderr)
         raise AssertionError('capture: pytest rc %d, not passed: %s'
@@ -1718,10 +1812,13 @@ def capture_checks():
 
 
 def train_module(mx, torch, symbol, arg, aux, data, labels, ctx, dtype,
-                 batch, snap_at=None):
-    """``Module.fit`` over an NDArrayIter; returns the module and the
-    host seconds of each step (each ends in a device synchronise), and
-    with ``snap_at`` the parameters after that many steps."""
+                 batch, snap_at=None, optimizer='sgd', optimizer_params=None,
+                 eval_metric=('acc', 'ce'), epoch_end=None, **fit_kw):
+    """``Module.fit`` over an NDArrayIter (SGD lr 0.05 momentum 0.9 wd
+    1e-4 unless told otherwise; ``epoch_end(mod)`` makes the epoch-end
+    callback); returns the module and the host seconds of each step
+    (each ends in a device synchronise), and with ``snap_at`` the
+    parameters after that many steps."""
     times = []
     last = [time.perf_counter()]
     on_card = ctx.device_type == 'gpu'
@@ -1738,16 +1835,387 @@ def train_module(mx, torch, symbol, arg, aux, data, labels, ctx, dtype,
         last[0] = time.perf_counter()
 
     mod = mx.mod.Module(symbol, context=ctx, compute_dtype=dtype)
+    if epoch_end is not None:
+        fit_kw['epoch_end_callback'] = epoch_end(mod)
     mod.fit(mx.io.NDArrayIter(data, labels, batch_size=batch),
-            num_epoch=1, eval_metric=['acc', 'ce'],
-            optimizer='sgd', optimizer_params={
-                'learning_rate': 0.05, 'momentum': 0.9, 'wd': 1e-4},
+            num_epoch=fit_kw.pop('num_epoch', 1),
+            eval_metric=list(eval_metric) if isinstance(eval_metric, tuple)
+            else eval_metric,
+            optimizer=optimizer, optimizer_params=dict(
+                optimizer_params or SGD_MOMENTUM),
             arg_params={k: mx.nd.array(v) for k, v in arg.items()},
             aux_params={k: mx.nd.array(v) for k, v in aux.items()},
-            batch_end_callback=tick)
+            batch_end_callback=tick, **fit_kw)
     if snap_at is not None:
         return mod, times, snap
     return mod, times
+
+
+def numpy_params(mod):
+    return {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+
+
+def step_report(step_s, counts0, kernels, torch):
+    """Host ms per step (the first captures), the median of the later
+    ones, launches per step by kernel and route, peak memory."""
+    return {'step_ms': [t * 1e3 for t in step_s],
+            'step_ms_median_after_first': statistics.median(step_s[1:]) * 1e3,
+            'launches_per_step': launches_per_step(
+                counts0, launch_counts(kernels), len(step_s)),
+            **memory(torch)}
+
+
+def optim_train(mx, torch, symbol, arg, aux, images, labels, kernels,
+                expected):
+    """optim-train: per optimizer, OPTIM_STEPS captured bf16 steps of the
+    full-width ResNet (counts zeroed just before, read just after), the
+    same steps under NaiveEngine (launches per step by kernel and route
+    must be equal, parameters within train-parity's bound), then the same
+    steps in float32 captured and through the Updater loop
+    (MXTPU_FUSED_FIT=0: forward_backward, then the ops/optim.py update
+    ops; parameters within the bound)."""
+    rows = images[:OPTIM_STEPS * BATCH], labels[:OPTIM_STEPS * BATCH]
+    report, launches, failures = {}, dict.fromkeys(expected, 0), []
+    for opt, params in OPTIMIZERS:
+        entry = {'optimizer_params': params}
+        fresh_memory(torch)
+        for k in kernels:
+            reset_launches(k)
+        counts0 = launch_counts(kernels)
+        mod, step_s = train_module(mx, torch, symbol, arg, aux, *rows,
+                                   mx.gpu(0), torch.bfloat16, BATCH,
+                                   optimizer=opt, optimizer_params=params)
+        for name in launches:
+            launches[name] += kernels_by_name(kernels)[name].launches
+        captured = step_report(step_s, counts0, kernels, torch)
+        graphs = graph_report(mod._graphs.values())
+        if len(graphs) != 1 or not graphs[0]['captured'] or \
+                graphs[0]['replays'] != OPTIM_STEPS - 1:
+            raise AssertionError('optim-train %s: not one replayed graph: %s'
+                                 % (opt, graphs))
+        for name, per_step in expected.items():
+            got = captured['launches_per_step'].get(name, {})
+            if got.get('all') != per_step or (
+                    name != 'fused_bn_relu' and got.get('sm90') != per_step):
+                raise AssertionError('optim-train %s: %s launches per step '
+                                     '%s, expected %d (sm90)'
+                                     % (opt, name, got, per_step))
+        card = numpy_params(mod)
+        state_leaves = sum(len(v) if isinstance(v, tuple) else
+                           int(v is not None)
+                           for v in mod._fused_opt_state.values())
+        del mod
+        fresh_memory(torch)
+        counts0 = launch_counts(kernels)
+        set_engine(mx, True)
+        try:
+            emod, estep_s = train_module(mx, torch, symbol, arg, aux, *rows,
+                                         mx.gpu(0), torch.bfloat16, BATCH,
+                                         optimizer=opt,
+                                         optimizer_params=params)
+        finally:
+            set_engine(mx, False)
+        eager = step_report(estep_s, counts0, kernels, torch)
+        entry['capture_vs_eager'] = compare_runs(
+            'optim-train %s' % opt, captured, eager, card,
+            numpy_params(emod), OPTIM_STEPS)
+        del emod
+        # float32: the captured step against the Updater loop, with
+        # deterministic cuDNN algorithms (the two paths run the same ops)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        runs = {}
+        for mode in ('captured', 'loop'):
+            fresh_memory(torch)
+            counts0 = launch_counts(kernels)
+            os.environ['MXTPU_FUSED_FIT'] = '0' if mode == 'loop' else '1'
+            try:
+                m, ms = train_module(mx, torch, symbol, arg, aux, *rows,
+                                     mx.gpu(0), None, BATCH, optimizer=opt,
+                                     optimizer_params=params)
+            finally:
+                os.environ.pop('MXTPU_FUSED_FIT')
+            if (m._fused is None) != (mode == 'loop'):
+                raise AssertionError('optim-train %s: the %s run took the '
+                                     'other path' % (opt, mode))
+            runs[mode] = (step_report(ms, counts0, kernels, torch),
+                          numpy_params(m))
+            del m
+        loop = parity_report(runs['loop'][1], runs['captured'][1])
+        entry['f32_captured_vs_loop'] = {
+            'captured': runs['captured'][0], 'loop': runs['loop'][0], **loop}
+        failure = beyond_bound('optim-train %s, loop against captured'
+                               % opt, loop)
+        if failure:
+            failures.append(failure)
+        torch.backends.cudnn.deterministic = False
+        torch.backends.cudnn.allow_tf32 = True
+        entry.update(capture_ms=graphs[0]['capture_ms'],
+                     state_tensors=state_leaves,
+                     step_ms_captured=captured['step_ms_median_after_first'],
+                     step_ms_eager=eager['step_ms_median_after_first'],
+                     step_ms_loop_f32=runs['loop'][0][
+                         'step_ms_median_after_first'],
+                     step_ms_captured_f32=runs['captured'][0][
+                         'step_ms_median_after_first'])
+        report[opt] = entry
+    return report, launches, failures
+
+
+def kernels_by_name(kernels):
+    return {getattr(k, '__name__', str(k)): k for k in kernels}
+
+
+def _timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def checkpoint_resume(mx, torch, symbol, arg, aux, images, labels, kernels,
+                      expected, tmp):
+    """checkpoint-resume: SGD with momentum, bf16, 2 epochs of
+    CKPT_BATCHES batches with fit(checkpoint_prefix=...) and
+    module_checkpoint(..., save_optimizer_states=True); Module.load of
+    epoch 1 with its optimizer states into a fresh module, fit of epoch
+    2: its parameters against the uninterrupted run's; then
+    fit(auto_resume=True) from a prefix holding only epoch 1, against
+    Module.load without optimizer states (both restart the momentum).
+    Times writing and reading the .params and .states files."""
+    rows = images[:CKPT_BATCHES * BATCH], labels[:CKPT_BATCHES * BATCH]
+    prefix = os.path.join(tmp, 'resnet')
+    instrument = mx.instrument
+    commits0 = instrument.counter_value('checkpoint.commits')
+    resumes0 = instrument.counter_value('checkpoint.resumes')
+    fresh_memory(torch)
+    for k in kernels:
+        reset_launches(k)
+    counts0 = launch_counts(kernels)
+    mod, step_s = train_module(
+        mx, torch, symbol, arg, aux, *rows, mx.gpu(0), torch.bfloat16, BATCH,
+        num_epoch=2, checkpoint_prefix=prefix,
+        epoch_end=lambda m: mx.callback.module_checkpoint(
+            m, prefix + '-mc', save_optimizer_states=True))
+    launches = {name: kernels_by_name(kernels)[name].launches
+                for name in expected}
+    straight = step_report(step_s, counts0, kernels, torch)
+    for name, per_step in expected.items():
+        if straight['launches_per_step'].get(name, {}).get('all') != per_step:
+            raise AssertionError('checkpoint-resume: %s launches per step %s'
+                                 % (name, straight['launches_per_step']))
+    want = numpy_params(mod)
+    timing = {}
+    fname = os.path.join(tmp, 'timed')
+    _, timing['params_write_ms'] = _timed(
+        lambda: mod.save_params(fname + '.params'))
+    _, timing['states_write_ms'] = _timed(
+        lambda: mod.save_optimizer_states(fname + '.states'))
+    _, timing['params_read_ms'] = _timed(
+        lambda: mx.nd.load(fname + '.params'))
+
+    def read_states():
+        with open(fname + '.states', 'rb') as f:
+            return mx.optimizer.loads_states(f.read())
+    _, timing['states_read_ms'] = _timed(read_states)
+    timing['params_bytes'] = os.path.getsize(fname + '.params')
+    timing['states_bytes'] = os.path.getsize(fname + '.states')
+    del mod
+    epochs = mx.model.loadable_epochs(prefix)
+    mc_epochs = mx.model.loadable_epochs(prefix + '-mc')
+    if epochs != [1, 2] or mc_epochs != [1, 2] or not os.path.exists(
+            prefix + '-mc-0001.states'):
+        raise AssertionError('checkpoint-resume: checkpoints %s / %s'
+                             % (epochs, mc_epochs))
+
+    def resumed(load_states):
+        fresh_memory(torch)
+        rmod = mx.mod.Module.load(prefix + '-mc', 1,
+                                  load_optimizer_states=load_states,
+                                  context=mx.gpu(0),
+                                  compute_dtype=torch.bfloat16)
+        first = []
+        t0 = time.perf_counter()
+
+        def tick(_):
+            if not first:
+                torch.cuda.synchronize()
+                first.append((time.perf_counter() - t0) * 1e3)
+        rmod.fit(mx.io.NDArrayIter(*rows, batch_size=BATCH), num_epoch=2,
+                 begin_epoch=1, optimizer='sgd',
+                 optimizer_params=dict(SGD_MOMENTUM),
+                 eval_metric=['acc', 'ce'], batch_end_callback=tick)
+        torch.cuda.synchronize()
+        got = numpy_params(rmod)
+        del rmod
+        return got, first[0]
+
+    got, first_ms = resumed(True)
+    resume = compare_params('checkpoint-resume load', got, want)
+    # auto_resume from a prefix that holds only epoch 1's files
+    auto = os.path.join(tmp, 'auto')
+    for suffix in ('-symbol.json', '-0001.params'):
+        with open(prefix + '-mc' + suffix, 'rb') as f, \
+                open(auto + suffix, 'wb') as g:
+            g.write(f.read())
+    fresh_memory(torch)
+    amod, _ = train_module(mx, torch, symbol, arg, aux, *rows, mx.gpu(0),
+                           torch.bfloat16, BATCH, num_epoch=2,
+                           checkpoint_prefix=auto, auto_resume=True)
+    got_auto = numpy_params(amod)
+    del amod
+    if mx.model.loadable_epochs(auto) != [1, 2]:
+        raise AssertionError('checkpoint-resume: auto_resume wrote %s'
+                             % mx.model.loadable_epochs(auto))
+    want_auto, _ = resumed(False)
+    auto_report = compare_params('checkpoint-resume auto', got_auto,
+                                 want_auto)
+    return {'checkpoints': epochs, 'module_checkpoints': mc_epochs,
+            'uninterrupted': straight, **timing,
+            'resumed_first_step_host_ms': first_ms,
+            'load_optimizer_states_vs_uninterrupted': resume,
+            'auto_resume_vs_load_without_states': auto_report,
+            'checkpoint_commits':
+                instrument.counter_value('checkpoint.commits') - commits0,
+            'checkpoint_resumes':
+                instrument.counter_value('checkpoint.resumes') - resumes0}, \
+        launches
+
+
+def feedforward_phase(mx, torch, fused, symbol, arg, aux, images, labels,
+                      tmp):
+    """feedforward: FeedForward.create over FF_ROWS images (float32, SGD
+    with momentum, numpy_batch_size 32: 4 shuffled batches), then predict
+    and score on FF_EVAL_ROWS images (17 fused_bn_relu per forward,
+    counts zeroed just before), save, FeedForward.load, predict again:
+    the predictions must be equal."""
+    # float32 without TF32: which cuDNN algorithm a TF32 convolution takes
+    # (and so its rounding) varied between two inference modules here
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    np.random.seed(SEED)
+    t0 = time.perf_counter()
+    model = mx.FeedForward.create(
+        symbol, images[:FF_ROWS], labels[:FF_ROWS], ctx=mx.gpu(0),
+        num_epoch=1, numpy_batch_size=BATCH, arg_params={
+            k: mx.nd.array(v) for k, v in arg.items()},
+        aux_params={k: mx.nd.array(v) for k, v in aux.items()},
+        **SGD_MOMENTUM)
+    torch.cuda.synchronize()
+    fit_ms = (time.perf_counter() - t0) * 1e3
+    reset_launches(fused.fused_bn_relu)
+    forwards0 = mx.instrument.counter_value('executor.forwards')
+    pred, predict_ms = _timed(lambda: model.predict(images[:FF_EVAL_ROWS]))
+    bn_relu = fused.fused_bn_relu.launches
+    forwards = mx.instrument.counter_value('executor.forwards') - forwards0
+    if bn_relu != 17 * forwards or forwards != FF_EVAL_ROWS // BATCH:
+        raise AssertionError('feedforward: %d fused_bn_relu launches in %d '
+                             'forwards' % (bn_relu, forwards))
+    acc = model.score(mx.io.NDArrayIter(images[:FF_EVAL_ROWS],
+                                        labels[:FF_EVAL_ROWS],
+                                        batch_size=BATCH))
+    prefix = os.path.join(tmp, 'ff')
+    model.save(prefix)
+    back = mx.FeedForward.load(prefix, 1, ctx=mx.gpu(0))
+    for name, saved, loaded in (('arg', model.arg_params, back.arg_params),
+                                ('aux', model.aux_params, back.aux_params)):
+        if sorted(saved) != sorted(loaded) or not all(
+                np.array_equal(saved[k].asnumpy(), loaded[k].asnumpy())
+                for k in saved):
+            raise AssertionError('feedforward: the loaded %s params differ'
+                                 % name)
+    if back.symbol.tojson() != symbol.tojson():
+        raise AssertionError('feedforward: the loaded symbol differs')
+    repeat = model.predict(images[:FF_EVAL_ROWS])
+    again = back.predict(images[:FF_EVAL_ROWS])
+    if pred.shape != (FF_EVAL_ROWS, 1000) or not np.all(np.isfinite(pred)) \
+            or not np.allclose(pred.sum(axis=1), 1.0, atol=1e-4):
+        raise AssertionError('feedforward: bad predictions %s'
+                             % (pred.shape,))
+    if not np.array_equal(pred, again):
+        raise AssertionError(
+            'feedforward: the loaded model predicts otherwise (max abs diff '
+            '%g; the trained model again: %g; rows differing %s)'
+            % (float(np.max(np.abs(pred - again))),
+               float(np.max(np.abs(pred - repeat))),
+               np.nonzero(np.any(pred != again, axis=1))[0].tolist()))
+    moved = max(float(np.max(np.abs(model.arg_params[k].asnumpy() - v)))
+                for k, v in arg.items())
+    if moved <= 0.0:
+        raise AssertionError('feedforward: the parameters did not move')
+    torch.backends.cudnn.allow_tf32 = True
+    return {'rows': FF_ROWS, 'batches': FF_ROWS // BATCH,
+            'compute_dtype': 'float32', 'tf32': False, 'fit_ms': fit_ms,
+            'predict_rows': FF_EVAL_ROWS, 'predict_ms': predict_ms,
+            'fused_bn_relu_launches': bn_relu, 'forwards': forwards,
+            'score_accuracy': acc, 'max_param_change': moved,
+            'reloaded_predictions_equal': True}, bn_relu
+
+
+def lm_adam(mx, torch, models, lm_arg, kernels):
+    """lm-adam: the full-width LM through Module.fit in bf16, Adam, a
+    device-folded Perplexity(ignore_label=None), LM_ADAM_STEPS steps
+    captured (counts zeroed just before, read just after: 6
+    flash_attention and 6 fused_dot_epilogue per step, sm90), then the
+    same steps under NaiveEngine: launches equal, perplexity within
+    bf16's bound (rtol 2e-2), parameters within train-parity's bound."""
+    sym = lm_symbol(models)
+    seq, v = LM['seq_len'], LM['vocab_size']
+    toks = np.random.RandomState(SEED + 4).randint(
+        0, v, (LM_ADAM_STEPS * LM_BATCH, seq)).astype(np.float32)
+    label = ((toks + 1) % v).astype(np.float32)
+    runs = {}
+    for mode in ('captured', 'eager'):
+        fresh_memory(torch)
+        for k in kernels:
+            reset_launches(k)
+        counts0 = launch_counts(kernels)
+        set_engine(mx, mode == 'eager')
+        try:
+            metric = mx.metric.Perplexity(ignore_label=None)
+            mod, step_s = train_module(
+                mx, torch, sym, lm_arg, {}, toks, label, mx.gpu(0),
+                torch.bfloat16, LM_BATCH, optimizer='adam',
+                optimizer_params=LM_ADAM, eval_metric=metric)
+        finally:
+            set_engine(mx, False)
+        if mod._fused_metric is not metric:
+            raise AssertionError('lm-adam: the perplexity was not folded '
+                                 'into the step')
+        rep = step_report(step_s, counts0, kernels, torch)
+        rep['launches'] = {k: kernels_by_name(kernels)[k].launches
+                           for k in ('flash_attention',
+                                     'fused_dot_epilogue')}
+        rep['perplexity'] = metric.get()[1]
+        rep['graphs'] = graph_report(mod._graphs.values())
+        runs[mode] = (rep, numpy_params(mod))
+        del mod
+    cap, eager = runs['captured'][0], runs['eager'][0]
+    for name in ('flash_attention', 'fused_dot_epilogue'):
+        got = cap['launches_per_step'].get(name, {})
+        if got.get('all') != LM['num_layers'] or \
+                got.get('sm90') != LM['num_layers']:
+            raise AssertionError('lm-adam: %s launches per step %s'
+                                 % (name, got))
+    if not (cap['graphs'][0]['captured'] and
+            cap['graphs'][0]['replays'] == LM_ADAM_STEPS - 1):
+        raise AssertionError('lm-adam: graphs %s' % cap['graphs'])
+    ppl = (cap['perplexity'], eager['perplexity'])
+    if not all(np.isfinite(ppl)) or abs(ppl[0] - ppl[1]) > 2e-2 * ppl[1]:
+        raise AssertionError('lm-adam: perplexity captured %g, eager %g'
+                             % ppl)
+    report = compare_runs('lm-adam', cap, eager, runs['captured'][1],
+                          runs['eager'][1], LM_ADAM_STEPS)
+    step_ms = cap['step_ms_median_after_first']
+    return {'model': 'transformer_lm', **LM, 'batch': LM_BATCH,
+            'steps': LM_ADAM_STEPS, 'compute_dtype': 'bfloat16',
+            'entry': 'Module.fit', 'optimizer': 'adam %s' % LM_ADAM,
+            'metric': 'Perplexity(ignore_label=None), folded',
+            'perplexity_captured': ppl[0], 'perplexity_eager': ppl[1],
+            'step_ms_captured': step_ms,
+            'step_ms_eager': eager['step_ms_median_after_first'],
+            'tokens_per_s': LM_BATCH * seq / step_ms * 1e3,
+            'capture_vs_eager': report}, cap['launches']
 
 
 def serve(server, data, rng):
@@ -3163,6 +3631,47 @@ def main():
                              'beyond rtol 1e-3, atol 1e-5, max abs err %g '
                              'in %s' % (n_out, total, worst[0], worst[1]))
 
+    # -- 12b-12e. the training lifecycle ----------------------------------
+    import tempfile
+    resnet_kernels = (fused.fused_bn_relu, fused.fused_scale_bias_dot,
+                      fused_conv.fused_scale_bias_conv3x3)
+    resnet_expected = {'fused_scale_bias_dot': 36,
+                       'fused_scale_bias_conv3x3': 16,
+                       'fused_bn_relu': bn_relu_nodes}
+    t0 = time.monotonic()
+    optim_report, optim_launches, failures = optim_train(
+        mx, torch, symbol, arg, aux, images, labels, resnet_kernels,
+        resnet_expected)
+    log({'phase': 'optim-train', 'model': 'resnet-50 v2', 'batch': BATCH,
+         'steps': OPTIM_STEPS, 'compute_dtype': 'bfloat16 (f32 masters); '
+         'f32 for captured-vs-loop', 'launches': optim_launches,
+         'launches_per_step': resnet_expected,
+         'seconds': time.monotonic() - t0, 'optimizers': optim_report,
+         'failures': failures})
+    if failures:
+        raise AssertionError('; '.join(failures))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.monotonic()
+        ckpt_report, ckpt_launches = checkpoint_resume(
+            mx, torch, symbol, arg, aux, images, labels, resnet_kernels,
+            resnet_expected, tmp)
+        log({'phase': 'checkpoint-resume', 'model': 'resnet-50 v2',
+             'batch': BATCH, 'batches_per_epoch': CKPT_BATCHES,
+             'optimizer': 'sgd %s' % SGD_MOMENTUM,
+             'compute_dtype': 'bfloat16', 'launches': ckpt_launches,
+             'seconds': time.monotonic() - t0, **ckpt_report})
+        t0 = time.monotonic()
+        ff_report, ff_bn_relu = feedforward_phase(
+            mx, torch, fused, symbol, arg, aux, images, labels, tmp)
+        log({'phase': 'feedforward', 'model': 'resnet-50 v2',
+             'seconds': time.monotonic() - t0, **ff_report})
+    t0 = time.monotonic()
+    lm_adam_report, lm_adam_launches = lm_adam(
+        mx, torch, models, lm_arg, (attention.flash_attention,
+                                    fused.fused_dot_epilogue))
+    log({'phase': 'lm-adam', 'seconds': time.monotonic() - t0,
+         'launches': lm_adam_launches, **lm_adam_report})
+
     # -- 13. capture: whole-step capture's behaviours on the card ----------
     checks, capture_s = capture_checks()
     log({'phase': 'capture', 'checks': checks, 'seconds': capture_s,
@@ -3175,9 +3684,15 @@ def main():
         'source': 'mxnet_tpu_torch/csrc/fused_bn_relu.cu',
         'replaces': 'mxnet_tpu/ops/pallas_fused.py:196',
         'launches': launches['fused_bn_relu']
-        + train_launches['fused_bn_relu'],
+        + train_launches['fused_bn_relu']
+        + optim_launches['fused_bn_relu'] + ckpt_launches['fused_bn_relu']
+        + ff_bn_relu,
         'launches_by_path': {'serve': launches['fused_bn_relu'],
-                             'train': train_launches['fused_bn_relu']},
+                             'train': train_launches['fused_bn_relu'],
+                             'optim-train': optim_launches['fused_bn_relu'],
+                             'checkpoint-resume':
+                                 ckpt_launches['fused_bn_relu'],
+                             'feedforward': ff_bn_relu},
         'max_abs_err': max(c['max_abs_err'] for c in on_path),
         # the 17 launches of one 32-row forward: per-shape medians summed
         'ms': sum(c['ms'] * c['launches_per_forward'] for c in on_path),
@@ -3200,14 +3715,22 @@ def main():
         {**gemm_summary('fused_scale_bias_dot', 'mxnet_tpu_torch/csrc/'
                         'fused_scale_bias_dot.cu',
                         'mxnet_tpu/ops/pallas_fused.py:72', dot_cases,
-                        {'train': train_launches['fused_scale_bias_dot']},
+                        {'train': train_launches['fused_scale_bias_dot'],
+                         'optim-train':
+                             optim_launches['fused_scale_bias_dot'],
+                         'checkpoint-resume':
+                             ckpt_launches['fused_scale_bias_dot']},
                         'torch.matmul on the normalized input'),
          **route_summary(dot_cases, {'train': train_routes,
                                      'custom-train': custom_routes})},
         {**gemm_summary('fused_scale_bias_conv3x3', 'mxnet_tpu_torch/csrc/'
                         'fused_scale_bias_conv3x3.cu',
                         'mxnet_tpu/ops/pallas_conv.py:91', conv_cases,
-                        {'train': train_launches['fused_scale_bias_conv3x3']},
+                        {'train': train_launches['fused_scale_bias_conv3x3'],
+                         'optim-train':
+                             optim_launches['fused_scale_bias_conv3x3'],
+                         'checkpoint-resume':
+                             ckpt_launches['fused_scale_bias_conv3x3']},
                         'F.conv2d on the normalized input'),
          **route_summary(conv_cases, {'train': train_conv_routes,
                                       'custom-train': custom_conv_routes})},
@@ -3216,7 +3739,8 @@ def main():
                         'mxnet_tpu/ops/pallas_fused.py:328', epi_cases,
                         {'lm-train': lm_launches['fused_dot_epilogue'],
                          'bucket-train':
-                             bucket_launches['fused_dot_epilogue']},
+                             bucket_launches['fused_dot_epilogue'],
+                         'lm-adam': lm_adam_launches['fused_dot_epilogue']},
                         'torch.addmm (product and bias, no relu)', lm_per),
          **route_summary(epi_cases, {
              'lm-train': lm_routes,
@@ -3227,7 +3751,8 @@ def main():
                         'mxnet_tpu/ops/pallas_attention.py:197', att_cases,
                         {'lm-train': lm_launches['flash_attention'],
                          'bucket-train': bucket_launches['flash_attention'],
-                         'sp': sum(sp_launches.values())},
+                         'sp': sum(sp_launches.values()),
+                         'lm-adam': lm_adam_launches['flash_attention']},
                         'F.scaled_dot_product_attention(is_causal=True)',
                         lm_per),
          **route_summary(att_cases, {

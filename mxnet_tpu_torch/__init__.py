@@ -13,7 +13,11 @@ sharded over ranks (``parallel.make_sp_train_step``, ring or Ulysses
 attention on ``torch.distributed``).  Users extend it
 as in the reference: the imperative ``nd.*`` layer over every registered
 op, Custom operators (``operator``) and runtime-compiled CUDA kernels
-(``rtc.Rtc``, on NVRTC).  The TPU kernels — ``fused_bn_relu``,
+(``rtc.Rtc``, on NVRTC).  Training runs the whole lifecycle: the
+reference's optimizers and their update ops, checkpoints of parameters
+and optimizer state, ``fit``'s per-epoch checkpoint and auto-resume,
+the checkpoint callbacks and the ``FeedForward`` estimator.  The TPU
+kernels — ``fused_bn_relu``,
 ``fused_scale_bias_dot``, ``fused_scale_bias_conv3x3``,
 ``fused_dot_epilogue``, ``flash_attention`` and ``Rtc`` — are CUDA C++
 for sm_90a (``csrc/``).  On the card each fit step, LM train step and
@@ -38,12 +42,14 @@ from . import executor, fuse, compile_cache, convert, models
 from . import random
 from . import operator, rtc
 from . import (callback, initializer, io, lr_scheduler, metric, module,
-               optimizer, parallel, rnn)
+               optimizer, parallel, resilience, rnn)
+from . import model
 from . import initializer as init
 from . import module as mod
 from . import optimizer as opt
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu
+from .model import FeedForward
 from .module import Module
 from .predictor import Predictor
 from . import serving
@@ -57,5 +63,5 @@ __all__ = ['MXNetError', 'Context', 'cpu', 'gpu', 'current_context',
            'fuse', 'ops', 'config', 'instrument', 'Module', 'module', 'mod',
            'io', 'metric', 'optimizer', 'lr_scheduler', 'initializer',
            'opt', 'init', 'callback', 'random', 'parallel', 'rnn',
-           'engine']
+           'engine', 'model', 'FeedForward', 'resilience']
 

@@ -1,11 +1,52 @@
-"""Training callbacks — the port of ``mxnet_tpu/callback.py``'s
-``Speedometer`` (reference ``python/mxnet/callback.py:89``)."""
+"""Training callbacks — the port of ``mxnet_tpu/callback.py``
+(reference ``python/mxnet/callback.py``): ``module_checkpoint``,
+``do_checkpoint``, ``log_train_metric``, ``Speedometer`` and
+``ProgressBar``."""
 from __future__ import annotations
 
 import logging
+import math
 import time
 
-__all__ = ['Speedometer']
+__all__ = ['module_checkpoint', 'do_checkpoint', 'log_train_metric',
+           'Speedometer', 'ProgressBar']
+
+
+def module_checkpoint(mod, prefix, period=1, save_optimizer_states=False):
+    """An epoch-end callback that checkpoints ``mod`` every ``period``
+    epochs (callback.py:9): ``mod.save_checkpoint(prefix, epoch + 1,
+    save_optimizer_states)``."""
+    period = int(max(1, period))
+
+    def _callback(iter_no, sym=None, arg=None, aux=None):
+        if (iter_no + 1) % period == 0:
+            mod.save_checkpoint(prefix, iter_no + 1, save_optimizer_states)
+    return _callback
+
+
+def do_checkpoint(prefix, period=1):
+    """An epoch-end callback that saves the symbol and the parameters it
+    is given every ``period`` epochs (callback.py:31)."""
+    from .model import save_checkpoint
+    period = int(max(1, period))
+
+    def _callback(iter_no, sym, arg, aux):
+        if (iter_no + 1) % period == 0:
+            save_checkpoint(prefix, iter_no + 1, sym, arg, aux)
+    return _callback
+
+
+def log_train_metric(period, auto_reset=False):
+    """A batch-end callback that logs the training metric every
+    ``period`` batches (callback.py:54)."""
+    def _callback(param):
+        if param.nbatch % period == 0 and param.eval_metric is not None:
+            for name, value in param.eval_metric.get_name_value():
+                logging.info('Iter[%d] Batch[%d] Train-%s=%f',
+                             param.epoch, param.nbatch, name, value)
+            if auto_reset:
+                param.eval_metric.reset()
+    return _callback
 
 
 class Speedometer(object):
@@ -47,3 +88,18 @@ class Speedometer(object):
             logging.info('Iter[%d] Batch [%d]\tSpeed: %.2f samples/sec',
                          param.epoch, count, speed)
         self.tic = time.monotonic()
+
+
+class ProgressBar(object):
+    """An ASCII progress bar of the batches done (callback.py:112)."""
+
+    def __init__(self, total, length=80):
+        self.bar_len = length
+        self.total = total
+
+    def __call__(self, param):
+        count = param.nbatch
+        filled_len = int(round(self.bar_len * count / float(self.total)))
+        percents = math.ceil(100.0 * count / float(self.total))
+        prog_bar = '=' * filled_len + '-' * (self.bar_len - filled_len)
+        logging.info('[%s] %s%s\r', prog_bar, percents, '%')

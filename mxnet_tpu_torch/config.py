@@ -35,6 +35,16 @@ _register('MXNET_ENGINE_TYPE', 'ThreadedEnginePerDevice', str,
           'step, LM train step and served bucket forward once per batch '
           'signature and replays it (env_var.md:8). Consumed at import '
           'by engine.set_engine_type.')
+# -- fit: fused step, checkpoints --------------------------------------------
+_register('MXTPU_FUSED_FIT', True, _bool,
+          'Module.fit runs forward, backward and every update as one fused '
+          'step (captured on the card) when the optimizer has a functional '
+          'form.  Set 0 for the reference-style per-parameter Updater loop '
+          '(forward_backward, then the ops/optim.py update ops).')
+_register('MXTPU_AUTO_RESUME', False, _bool,
+          'fit(checkpoint_prefix=...) resumes from the newest loadable '
+          'checkpoint above begin_epoch (model.find_latest_checkpoint; a '
+          'truncated file is skipped).  Same as fit(auto_resume=True).')
 # -- sync-free fit loop ------------------------------------------------------
 _register('MXTPU_ASYNC_DEPTH', 2, int,
           'Max in-flight training steps in the fit loop '

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from . import instrument
@@ -281,6 +282,42 @@ class Executor:
                 dst._set_data(dst.handle + g)
             else:
                 dst._set_data(g)
+
+    @property
+    def arg_arrays(self):
+        return [self.arg_dict[n] for n in self.arg_names]
+
+    @property
+    def grad_arrays(self):
+        return [self.grad_dict.get(n) for n in self.arg_names]
+
+    @property
+    def aux_arrays(self):
+        return [self.aux_dict[n] for n in self.aux_names]
+
+    def copy_params_from(self, arg_params, aux_params=None,
+                         allow_extra_params=False):
+        """Copy values INTO the bound arrays' tensors
+        (``mxnet_tpu/executor.py:763``): a captured step or forward holds
+        their addresses, so they are written, never rebound."""
+        for table, params, what in ((self.arg_dict, arg_params,
+                                     'arguments'),
+                                    (self.aux_dict, aux_params or {},
+                                     'auxiliary states')):
+            for name, array in params.items():
+                if name in table:
+                    src = array.handle if isinstance(array, NDArray) \
+                        else torch.as_tensor(np.asarray(array))
+                    dst = table[name].handle
+                    if tuple(src.shape) != tuple(dst.shape):
+                        raise MXNetError('copy_params_from: %s has shape %s, '
+                                         'bound %s' % (name, tuple(src.shape),
+                                                       tuple(dst.shape)))
+                    with torch.no_grad():
+                        dst.copy_(src)
+                elif not allow_extra_params:
+                    raise ValueError('Find name "%s" that is not in the %s'
+                                     % (name, what))
 
     def forward_backward(self, out_grads=None, **kwargs):
         """``forward(is_train=True)`` then ``backward``; returns the

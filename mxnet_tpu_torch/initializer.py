@@ -3,8 +3,10 @@
 
 Same name-pattern-driven dispatch: an ``Initializer`` is called with
 ``(name, array)`` and routes on the variable-name suffix
-(``_weight``/``_bias``/``_gamma``/``_beta``/``moving_*``).  Random draws
-come from the array's device generator (``random.py``).
+(``_weight``/``_bias``/``_gamma``/``_beta``/``moving_*``; ``upsampling*``
+takes the bilinear kernel).  Random draws come from the array's device
+generator (``random.py``), except ``Orthogonal``'s, which are numpy's
+global generator's, as in the reference.
 """
 from __future__ import annotations
 
@@ -18,7 +20,8 @@ from . import random as _random
 from .ndarray import NDArray
 
 __all__ = ['InitDesc', 'Initializer', 'Load', 'Mixed', 'Zero', 'One',
-           'Constant', 'Uniform', 'Normal', 'Xavier', 'create']
+           'Constant', 'Uniform', 'Normal', 'Orthogonal', 'Xavier',
+           'MSRAPrelu', 'Bilinear', 'create']
 
 
 class InitDesc(str):
@@ -56,7 +59,9 @@ class Initializer(object):
         if init_attr:
             create(init_attr)._init_weight(name, arr)
             return
-        if name.endswith('bias'):
+        if name.startswith('upsampling'):
+            self._init_bilinear(name, arr)
+        elif name.endswith('bias'):
             self._init_bias(name, arr)
         elif name.endswith('gamma'):
             self._init_gamma(name, arr)
@@ -74,6 +79,17 @@ class Initializer(object):
     def dumps(self):
         return json.dumps([self.__class__.__name__.lower(),
                            getattr(self, '_kwargs', {})])
+
+    def _init_bilinear(self, _, arr):
+        """The bilinear upsampling kernel over the last two axes
+        (initializer.py:75)."""
+        shape = arr.shape
+        f = np.ceil(shape[3] / 2.)
+        c = (2 * f - 1 - f % 2) / (2. * f)
+        i = np.arange(int(np.prod(shape)))
+        x, y = i % shape[3], (i // shape[3]) % shape[2]
+        weight = ((1 - np.abs(x / f - c)) * (1 - np.abs(y / f - c)))
+        arr[:] = weight.astype('float32').reshape(shape)
 
     def _init_zero(self, _, arr):
         arr[:] = 0.0
@@ -184,6 +200,27 @@ class Normal(Initializer):
         _random.normal(0, self.sigma, out=arr)
 
 
+class Orthogonal(Initializer):
+    """An orthogonal matrix, scaled (initializer.py:205): the U or V of
+    the SVD of a numpy draw, uniform in [-1, 1) or standard normal."""
+
+    def __init__(self, scale=1.414, rand_type='uniform'):
+        self.scale = scale
+        self.rand_type = rand_type
+        self._kwargs = {'scale': scale, 'rand_type': rand_type}
+
+    def _init_weight(self, _, arr):
+        nout = arr.shape[0]
+        nin = int(np.prod(arr.shape[1:]))
+        if self.rand_type == 'uniform':
+            tmp = np.random.uniform(-1.0, 1.0, (nout, nin))
+        else:
+            tmp = np.random.normal(0.0, 1.0, (nout, nin))
+        u, _, v = np.linalg.svd(tmp, full_matrices=False)
+        res = u if u.shape == tmp.shape else v
+        arr[:] = (self.scale * res).reshape(arr.shape)
+
+
 class Xavier(Initializer):
     """Xavier/Glorot init (initializer.py:325)."""
 
@@ -217,7 +254,24 @@ class Xavier(Initializer):
             raise ValueError('Unknown random type')
 
 
+class MSRAPrelu(Xavier):
+    """Kaiming initialization for PReLU nets (initializer.py:259):
+    gaussian Xavier of magnitude 2 / (1 + slope^2)."""
+
+    def __init__(self, factor_type='avg', slope=0.25):
+        super().__init__('gaussian', factor_type, 2. / (1 + slope ** 2))
+        self._kwargs = {'factor_type': factor_type, 'slope': slope}
+
+
+class Bilinear(Initializer):
+    """Every weight the bilinear upsampling kernel (initializer.py:267)."""
+
+    def _init_weight(self, name, arr):
+        self._init_bilinear(name, arr)
+
+
 _INIT_REGISTRY = {
     'zero': Zero, 'one': One, 'constant': Constant, 'uniform': Uniform,
-    'normal': Normal, 'xavier': Xavier,
+    'normal': Normal, 'orthogonal': Orthogonal, 'xavier': Xavier,
+    'msraprelu': MSRAPrelu, 'bilinear': Bilinear,
 }

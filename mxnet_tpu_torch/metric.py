@@ -1,6 +1,7 @@
 """Evaluation metrics — the port of ``mxnet_tpu/metric.py``:
-``EvalMetric``, ``Accuracy``, ``TopKAccuracy``, ``CrossEntropy``,
-``CompositeEvalMetric`` and ``create``.
+``EvalMetric``, ``Accuracy``, ``TopKAccuracy``, ``F1``, ``Perplexity``,
+``MAE``, ``MSE``, ``RMSE``, ``CrossEntropy``, ``Torch``/``Caffe``,
+``CustomMetric``, ``np``, ``CompositeEvalMetric`` and ``create``.
 
 Two update paths per metric, as in the JAX package:
 
@@ -15,8 +16,14 @@ Two update paths per metric, as in the JAX package:
   host reads the accumulator only when :meth:`EvalMetric.get` drains it
   and zeroes it in place (``metric.host_syncs`` counts the drains), so
   the steady-state fit loop never waits on the device for a metric.
+
+Accuracy, TopKAccuracy, CrossEntropy, Perplexity, MAE, MSE and RMSE have
+a device form; ``device_fold_key`` is the identity of the folded
+computation (a fresh metric of equal key reuses a fused step).
 """
 from __future__ import annotations
+
+import math
 
 import numpy
 
@@ -25,7 +32,8 @@ import torch
 from . import instrument
 
 __all__ = ['EvalMetric', 'CompositeEvalMetric', 'Accuracy', 'TopKAccuracy',
-           'CrossEntropy', 'create', 'check_label_shapes']
+           'F1', 'Perplexity', 'MAE', 'MSE', 'RMSE', 'CrossEntropy', 'Torch',
+           'Caffe', 'CustomMetric', 'np', 'create', 'check_label_shapes']
 
 
 def check_label_shapes(labels, preds, shape=0):
@@ -75,6 +83,12 @@ class EvalMetric(object):
         is in use."""
         return callable(self.device_update) and self.num is None
 
+    def device_fold_key(self):
+        """Hashable identity of the folded computation: two metrics of
+        equal keys fold the same device form (``mxnet_tpu/metric.py:94``);
+        subclasses whose form depends on parameters add them."""
+        return (type(self).__module__, type(self).__qualname__)
+
     def device_fold(self, label, pred):
         """Add this batch's deltas to the accumulators: the sum stays a
         device tensor (no host synchronisation), the instance count is
@@ -92,6 +106,12 @@ class EvalMetric(object):
             self._dev_sum = torch.zeros((), dtype=torch.float32,
                                         device=device)
         return [self._dev_sum]
+
+    def _take_accumulators(self, other):
+        """Take over ``other``'s (drained) device accumulators: a fused
+        step and its graphs keep adding into the same tensors."""
+        self._drain_device()
+        self._dev_sum, other._dev_sum = other._dev_sum, None
 
     def _fold_device(self, label, pred):
         """The device half of :meth:`device_fold`: the batch's sum added
@@ -119,12 +139,20 @@ class EvalMetric(object):
         pending = self._take_device_state()
         if not pending:
             return
-        sums = torch.stack([s.double() for _, s, _ in pending]).cpu()
+        flat = torch.cat([s.double().reshape(-1)
+                          for _, s, _ in pending]).cpu().tolist()
         instrument.inc('metric.host_syncs')
-        for (metric, acc, n), s in zip(pending, sums.tolist()):
+        i = 0
+        for metric, acc, n in pending:
+            metric._apply_drained(flat[i:i + acc.numel()], n)
+            i += acc.numel()
             acc.zero_()
-            metric.sum_metric += s
-            metric.num_inst += n
+
+    def _apply_drained(self, values, n):
+        """Fold one drained accumulator (its values, as floats) and the
+        host count into the host sums."""
+        self.sum_metric += values[0]
+        self.num_inst += n
 
     def get(self):
         self._drain_device()
@@ -185,8 +213,16 @@ class CompositeEvalMetric(EvalMetric):
         for metric in self.metrics:
             metric.device_fold(label, pred)
 
+    def device_fold_key(self):
+        return ('composite',) + tuple(m.device_fold_key()
+                                      for m in self.metrics)
+
     def _accumulators(self, device):
         return [a for m in self.metrics for a in m._accumulators(device)]
+
+    def _take_accumulators(self, other):
+        for metric, theirs in zip(self.metrics, other.metrics):
+            metric._take_accumulators(theirs)
 
     def _fold_device(self, label, pred):
         return [m._fold_device(label, pred) for m in self.metrics]
@@ -262,6 +298,180 @@ class TopKAccuracy(EvalMetric):
         hits = (topk == truth[:, None]).any(dim=1)
         return hits.sum().float(), scores.shape[0]
 
+    def device_fold_key(self):
+        return super().device_fold_key() + (self.top_k,)
+
+
+class F1(EvalMetric):
+    """Binary-classification F1 of each batch, averaged over batches
+    (metric.py:346); host only."""
+
+    def __init__(self):
+        super().__init__('f1')
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            scores = _host(pred)
+            truth = _host(label).astype('int32')
+            check_label_shapes(truth, scores)
+            if numpy.unique(truth).size > 2:
+                raise ValueError('F1 currently only supports binary '
+                                 'classification.')
+            truth = truth.ravel()
+            decided = numpy.argmax(scores, axis=1)
+            tp = int(numpy.sum((decided == 1) & (truth == 1)))
+            fp = int(numpy.sum((decided == 1) & (truth == 0)))
+            fn = int(numpy.sum((decided == 0) & (truth == 1)))
+            precision = tp / (tp + fp) if tp + fp else 0.0
+            recall = tp / (tp + fn) if tp + fn else 0.0
+            self.sum_metric += (2 * precision * recall /
+                                (precision + recall)
+                                if precision + recall else 0.0)
+            self.num_inst += 1
+
+
+class Perplexity(EvalMetric):
+    """exp of the mean negative log-probability of the labels
+    (metric.py:380); labels equal to ``ignore_label`` count for nothing.
+    Probabilities are floored at 1e-10."""
+
+    def __init__(self, ignore_label, axis=-1):
+        super().__init__('Perplexity')
+        self.ignore_label = ignore_label
+        self.axis = axis
+
+    def update(self, labels, preds):
+        assert len(labels) == len(preds)
+        loss, num = 0., 0
+        for label, pred in zip(labels, preds):
+            assert label.size == pred.size / pred.shape[-1], \
+                'shape mismatch: %s vs. %s' % (label.shape, pred.shape)
+            label_np = _host(label).reshape(-1).astype('int32')
+            pred_np = _host(pred).reshape(-1, pred.shape[-1])
+            probs = pred_np[numpy.arange(label_np.shape[0]), label_np]
+            if self.ignore_label is not None:
+                ignore = label_np == self.ignore_label
+                probs = numpy.where(ignore, 1.0, probs)
+                num -= int(ignore.sum())
+            loss -= numpy.sum(numpy.log(numpy.maximum(1e-10, probs)))
+            num += pred_np.shape[0]
+        self.sum_metric += loss
+        self.num_inst += num
+
+    def device_update(self, label, pred):
+        # the count of kept labels is data: it rides in the accumulator's
+        # second slot (_accumulators), and the host count is 0.  Labels
+        # read as jnp.take_along_axis reads them: -1 wraps, one outside
+        # [-C, C) gives NaN
+        from .ops.tensor import fill_index
+        label = label.reshape(-1).to(torch.int64)
+        pred2 = pred.reshape(-1, pred.shape[-1]).float()
+        index, kept = fill_index(label, pred2.shape[1])
+        probs = torch.gather(pred2, 1, index[:, None])[:, 0]
+        probs = probs.masked_fill(~kept, float('nan'))
+        num = torch.full((), float(pred2.shape[0]), device=pred.device)
+        if self.ignore_label is not None:
+            ignore = label == int(self.ignore_label)
+            probs = torch.where(ignore, torch.ones_like(probs), probs)
+            num = num - ignore.sum().float()
+        loss = -torch.sum(torch.log(torch.clamp(probs, min=1e-10)))
+        return torch.stack([loss, num]), 0
+
+    def _accumulators(self, device):
+        device = torch.device(device)
+        if self._dev_sum is not None and (self._dev_sum.device != device or
+                                          self._dev_sum.shape != (2,)):
+            self._drain_device()
+            self._dev_sum = None
+        if self._dev_sum is None:
+            self._dev_sum = torch.zeros(2, dtype=torch.float32,
+                                        device=device)
+        return [self._dev_sum]
+
+    def _apply_drained(self, values, n):
+        self.sum_metric += values[0]
+        self.num_inst += int(round(values[1]))
+
+    def device_fold_key(self):
+        return super().device_fold_key() + (self.ignore_label, self.axis)
+
+    def get(self):
+        self._drain_device()
+        if self.num_inst == 0:
+            return (self.name, float('nan'))
+        return (self.name, math.exp(self.sum_metric / self.num_inst))
+
+
+def _align_regression(label, pred):
+    """Column-ize 1-D labels and predictions so that a difference never
+    broadcasts (N,) against (N, 1) into (N, N)."""
+    if len(label.shape) == 1:
+        label = label.reshape(label.shape[0], 1)
+    if len(pred.shape) == 1:
+        pred = pred.reshape(pred.shape[0], 1)
+    return label, pred
+
+
+class _Regression(EvalMetric):
+    """MAE / MSE / RMSE: one value per batch, averaged over batches."""
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            label, pred = _align_regression(_host(label), _host(pred))
+            self.sum_metric += self._np(label - pred)
+            self.num_inst += 1
+
+    def device_update(self, label, pred):
+        label, pred = _align_regression(label, pred)
+        return self._value(label.float() - pred.float()).float(), 1
+
+
+class MAE(_Regression):
+    """Mean absolute error (metric.py:466)."""
+
+    def __init__(self):
+        super().__init__('mae')
+
+    @staticmethod
+    def _np(diff):
+        return numpy.abs(diff).mean()
+
+    @staticmethod
+    def _value(diff):
+        return torch.abs(diff).mean()
+
+
+class MSE(_Regression):
+    """Mean squared error (metric.py:486)."""
+
+    def __init__(self):
+        super().__init__('mse')
+
+    @staticmethod
+    def _np(diff):
+        return (diff ** 2.0).mean()
+
+    @staticmethod
+    def _value(diff):
+        return (diff ** 2.0).mean()
+
+
+class RMSE(_Regression):
+    """Root mean squared error (metric.py:506)."""
+
+    def __init__(self):
+        super().__init__('rmse')
+
+    @staticmethod
+    def _np(diff):
+        return numpy.sqrt((diff ** 2.0).mean())
+
+    @staticmethod
+    def _value(diff):
+        return torch.sqrt((diff ** 2.0).mean())
+
 
 class CrossEntropy(EvalMetric):
     """Cross-entropy of softmax outputs (metric.py:370)."""
@@ -290,9 +500,68 @@ class CrossEntropy(EvalMetric):
         prob = prob.masked_fill(~kept, float('nan'))
         return (-torch.log(prob + self.eps)).sum(), label.shape[0]
 
+    def device_fold_key(self):
+        return super().device_fold_key() + (self.eps,)
+
+
+class Torch(EvalMetric):
+    """The mean of the outputs, for loss outputs (metric.py:551)."""
+
+    def __init__(self, name='torch'):
+        super().__init__(name)
+
+    def update(self, _, preds):
+        for pred in preds:
+            self.sum_metric += _host(pred).mean()
+        self.num_inst += 1
+
+
+class Caffe(Torch):
+    def __init__(self):
+        super().__init__('caffe')
+
+
+class CustomMetric(EvalMetric):
+    """A metric from ``feval(label, pred)`` on numpy arrays, returning a
+    value or ``(sum, count)`` (metric.py:563); host only."""
+
+    def __init__(self, feval, name=None, allow_extra_outputs=False):
+        if name is None:
+            name = feval.__name__
+            if name.find('<') != -1:
+                name = 'custom(%s)' % name
+        super().__init__(name)
+        self._feval = feval
+        self._allow_extra_outputs = allow_extra_outputs
+
+    def update(self, labels, preds):
+        if not self._allow_extra_outputs:
+            check_label_shapes(labels, preds)
+        for pred, label in zip(preds, labels):
+            reval = self._feval(_host(label), _host(pred))
+            if isinstance(reval, tuple):
+                sum_metric, num_inst = reval
+                self.sum_metric += sum_metric
+                self.num_inst += num_inst
+            else:
+                self.sum_metric += reval
+                self.num_inst += 1
+
+
+def np(numpy_feval, name=None, allow_extra_outputs=False):
+    """Wrap a numpy eval function into a :class:`CustomMetric`
+    (metric.py:603)."""
+    def feval(label, pred):
+        return numpy_feval(label, pred)
+    feval.__name__ = numpy_feval.__name__
+    return CustomMetric(feval, name, allow_extra_outputs)
+
 
 def create(metric, **kwargs):
-    """Create by name, list of names, EvalMetric (metric.py:462)."""
+    """Create by name, list of names, EvalMetric or callable
+    (metric.py:620)."""
+    if callable(metric):
+        return CustomMetric(metric)
     if isinstance(metric, EvalMetric):
         return metric
     if isinstance(metric, list):
@@ -301,8 +570,10 @@ def create(metric, **kwargs):
             composite_metric.add(create(child_metric, **kwargs))
         return composite_metric
     metrics = {'acc': Accuracy, 'accuracy': Accuracy, 'ce': CrossEntropy,
-               'top_k_accuracy': TopKAccuracy}
+               'f1': F1, 'mae': MAE, 'mse': MSE, 'rmse': RMSE,
+               'top_k_accuracy': TopKAccuracy, 'perplexity': Perplexity}
     try:
         return metrics[metric.lower()](**kwargs)
     except Exception:
-        raise ValueError('Metric must be one of {}'.format(sorted(metrics)))
+        raise ValueError('Metric must be either callable or in {}'.format(
+            sorted(metrics)))

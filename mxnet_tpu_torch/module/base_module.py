@@ -20,10 +20,17 @@ that stages batch N+1 on the card while step N runs.  A captured step's
 outputs are the graph's and the next replay overwrites them: the host
 metric update, ``batch_end_callback`` and ``get_outputs`` read them
 before the next step is launched, in stream order, and the window
-drains before the epoch-end metric read.  The JAX package's other
-planes around the loop (elastic membership, health sentinels, goodput
-accounting, checkpoint/auto-resume, mesh) are not ported; asking for
-them raises.
+drains before the epoch-end metric read.
+
+``fit(checkpoint_prefix=...)`` writes ``prefix-symbol.json`` and
+``prefix-%04d.params`` every ``checkpoint_period`` epochs (and after the
+last), atomically, after the window has drained; with ``auto_resume``
+(default: the ``MXTPU_AUTO_RESUME`` knob) it first restarts from the
+newest loadable checkpoint above ``begin_epoch`` (``checkpoint.resumes``;
+the parameters only: the update count and optimizer state start again,
+as in the reference).  The JAX package's other planes around the loop
+(elastic membership, health sentinels, goodput accounting, monitors,
+mesh) are not ported; asking for them raises.
 """
 from __future__ import annotations
 
@@ -72,6 +79,7 @@ class BaseModule(object):
 
     def __init__(self, logger=logging):
         self.logger = logger
+        self._window = None         # the running fit's StepWindow
         self.binded = False
         self.for_training = False
         self.inputs_need_grad = False
@@ -103,6 +111,12 @@ class BaseModule(object):
     def _feed_device(self):
         """The ``torch.device`` the feed stages batches onto."""
         return None
+
+    def _drain_window(self):
+        """Wait out the steps the running fit has in flight (before a
+        checkpoint reads the parameters or optimizer state they write)."""
+        if self._window is not None:
+            self._window.drain()
 
     def _step_ticket(self):
         """What ``engine.StepWindow`` waits on for the last launched
@@ -150,6 +164,21 @@ class BaseModule(object):
                 callback(params)
         return eval_metric.get_name_value()
 
+    def iter_predict(self, eval_data, num_batch=None, reset=True):
+        """Yield ``(outputs, nbatch, batch)`` per batch, the outputs cut
+        to the batch's real rows (reference base_module.py:262)."""
+        assert self.binded and self.params_initialized
+        if reset:
+            eval_data.reset()
+        for nbatch, eval_batch in enumerate(eval_data):
+            if num_batch is not None and nbatch == num_batch:
+                break
+            self.forward(eval_batch, is_train=False)
+            pad = eval_batch.pad or 0
+            outputs = [out[0:out.shape[0] - pad]
+                       for out in self.get_outputs()]
+            yield (outputs, nbatch, eval_batch)
+
     def predict(self, eval_data, num_batch=None, merge_batches=True,
                 reset=True, always_output_list=False):
         """(reference base_module.py:286)"""
@@ -192,9 +221,7 @@ class BaseModule(object):
             auto_resume=None, warm_start=None, mesh=None, partition=None):
         """Train (reference base_module.py:369-503)."""
         assert num_epoch is not None, 'please specify number of epochs'
-        unported = {'monitor': monitor, 'checkpoint_prefix':
-                    checkpoint_prefix, 'auto_resume': auto_resume,
-                    'mesh': mesh, 'partition': partition}
+        unported = {'monitor': monitor, 'mesh': mesh, 'partition': partition}
         asked = sorted(k for k, v in unported.items() if v)
         if asked:
             raise NotImplementedError('fit(%s=...) is not ported to '
@@ -202,6 +229,21 @@ class BaseModule(object):
         if initializer is None:
             from .. import initializer as _init
             initializer = _init.Uniform(0.01)
+        if checkpoint_prefix:
+            if auto_resume is None:
+                auto_resume = _config.get('MXTPU_AUTO_RESUME')
+            if auto_resume:
+                from ..model import find_latest_checkpoint, load_checkpoint
+                latest = find_latest_checkpoint(checkpoint_prefix)
+                if latest is not None and latest > begin_epoch:
+                    _, arg_params, aux_params = load_checkpoint(
+                        checkpoint_prefix, latest)
+                    begin_epoch = latest
+                    force_init = True
+                    instrument.inc('checkpoint.resumes')
+                    self.logger.info('Auto-resuming from checkpoint '
+                                     '"%s-%04d.params"', checkpoint_prefix,
+                                     latest)
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
@@ -227,13 +269,16 @@ class BaseModule(object):
             if place is not None:
                 train_data = feed = _io.DeviceFeedIter(
                     train_data, place, device=self._feed_device())
+        self._window = window
         try:
             self._fit_epochs(train_data, eval_data, eval_metric,
                              validation_metric, epoch_end_callback,
                              batch_end_callback, eval_end_callback,
                              eval_batch_end_callback, begin_epoch,
-                             num_epoch, window)
+                             num_epoch, window, checkpoint_prefix,
+                             checkpoint_period)
         finally:
+            self._window = None
             # hand the caller's iterator back in a clean state (the feed
             # runs one fetch ahead of the consumer)
             if feed is not None:
@@ -243,7 +288,7 @@ class BaseModule(object):
                     validation_metric, epoch_end_callback,
                     batch_end_callback, eval_end_callback,
                     eval_batch_end_callback, begin_epoch, num_epoch,
-                    window):
+                    window, checkpoint_prefix=None, checkpoint_period=1):
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()
             eval_metric.reset()
@@ -266,6 +311,11 @@ class BaseModule(object):
             self.logger.info('Epoch[%d] Time cost=%.3f', epoch,
                              time.time() - tic)
             arg_params_, aux_params_ = self.get_params()
+            if checkpoint_prefix and ((epoch + 1) % checkpoint_period == 0
+                                      or epoch + 1 == num_epoch):
+                from ..model import save_checkpoint
+                save_checkpoint(checkpoint_prefix, epoch + 1, self.symbol,
+                                arg_params_, aux_params_)
             if epoch_end_callback is not None:
                 for callback in _as_list(epoch_end_callback):
                     callback(epoch, self.symbol, arg_params_, aux_params_)
@@ -298,6 +348,46 @@ class BaseModule(object):
                          aux_params=aux_params, allow_missing=allow_missing,
                          force_init=force_init)
 
+    def save_params(self, fname):
+        """Save the parameters as ``arg:``/``aux:`` entries, committed
+        atomically (reference base_module.py:590)."""
+        from .. import ndarray as nd
+        from .. import resilience
+        arg_params, aux_params = self.get_params()
+        save_dict = {('arg:%s' % k): v for k, v in arg_params.items()}
+        save_dict.update({('aux:%s' % k): v for k, v in aux_params.items()})
+        with resilience.atomic_replace(fname) as tmp:
+            nd.save(tmp, save_dict)
+
+    def load_params(self, fname):
+        """(reference base_module.py:601)"""
+        from .. import ndarray as nd
+        arg_params, aux_params = {}, {}
+        for k, value in nd.load(fname).items():
+            arg_type, name = k.split(':', 1)
+            if arg_type == 'arg':
+                arg_params[name] = value
+            elif arg_type == 'aux':
+                aux_params[name] = value
+            else:
+                raise ValueError('Invalid param file ' + fname)
+        self.set_params(arg_params, aux_params)
+
+    def get_states(self, merge_multi_context=True):
+        """A module without states has none (reference
+        base_module.py:617)."""
+        assert self.binded and self.params_initialized
+        assert not merge_multi_context
+        return []
+
+    def set_states(self, states=None, value=None):
+        assert self.binded and self.params_initialized
+        assert not states and not value
+
+    def install_monitor(self, mon):
+        raise NotImplementedError('monitors (monitor.py) are not ported to '
+                                  'mxnet_tpu_torch yet')
+
     def bind(self, data_shapes, label_shapes=None, for_training=True,
              inputs_need_grad=False, force_rebind=False, shared_module=None,
              grad_req='write'):
@@ -318,6 +408,9 @@ class BaseModule(object):
         raise NotImplementedError()
 
     def get_outputs(self, merge_multi_context=True):
+        raise NotImplementedError()
+
+    def get_input_grads(self, merge_multi_context=True):
         raise NotImplementedError()
 
     def update_metric(self, eval_metric, labels):

@@ -127,10 +127,19 @@ class DataParallelExecutorGroup(object):
                                grad_req, aux)]
 
     def reshape(self, data_shapes, label_shapes):
+        """Rebind at new input shapes over the same parameter, gradient
+        and aux arrays (their shapes must not change)."""
+        data_shapes = [(n, tuple(s)) for n, s in data_shapes]
+        label_shapes = [(n, tuple(s)) for n, s in label_shapes or []]
         if data_shapes == self.data_shapes and \
                 label_shapes == self.label_shapes:
             return
-        self.bind_exec(data_shapes, label_shapes)
+        shared = self.shared_group
+        self.shared_group = _Bound(self.execs[0])
+        try:
+            self.bind_exec(data_shapes, label_shapes or None)
+        finally:
+            self.shared_group = shared
 
     # -- params ------------------------------------------------------------
     def set_params(self, arg_params, aux_params):
@@ -197,5 +206,18 @@ class DataParallelExecutorGroup(object):
         outs = self.execs[0].outputs
         return outs if merge_multi_context else [[o] for o in outs]
 
+    def get_input_grads(self, merge_multi_context=True):
+        assert self.inputs_need_grad
+        grads = [self.execs[0].grad_dict[n] for n in self.data_names]
+        return grads if merge_multi_context else [[g] for g in grads]
+
     def update_metric(self, eval_metric, labels):
         eval_metric.update(labels, self.get_outputs())
+
+
+class _Bound(object):
+    """A group-like holder of one executor: what ``reshape`` binds the
+    new executor's parameters against."""
+
+    def __init__(self, exec_):
+        self.execs = [exec_]

@@ -37,7 +37,17 @@ undone).  A graph holds raw addresses, so anything that rebinds a
 parameter, aux or optimizer-state tensor drops the module's graphs
 (``_drop_graphs``), and a graph whose tensors were rebound another way
 is not replayed (``CapturedStep.holds``).
-kvstores, context lists and meshes are not ported.
+
+Checkpoints (``mxnet_tpu/module/module.py:139-166, 778-807, 1119-1140``):
+``Module.load`` reads a ``save_checkpoint`` (and with
+``load_optimizer_states`` the ``.states`` file, applied at
+``init_optimizer``).  The fused step's optimizer state lives in the
+step's own tensors, not in the ``Updater``: ``save_optimizer_states``
+first copies it out (``_sync_fused_states_to_updater``, after the step
+window drains), and ``load_optimizer_states`` copies the loaded values
+INTO those tensors (``_overlay_updater_states``), so the module's graphs
+stay valid.  ``MXTPU_FUSED_FIT=0`` trains through the ``Updater`` loop.
+kvstores, context lists, monitors and meshes are not ported.
 """
 from __future__ import annotations
 
@@ -46,6 +56,7 @@ import logging
 import torch
 
 from .. import compile_cache, instrument
+from .. import config as _config
 from .. import random as _random
 from .. import optimizer as opt
 from ..base import MXNetError, resolve_dtype
@@ -96,6 +107,7 @@ class Module(BaseModule):
         self._params_dirty = False
         self._optimizer = None
         self._updater = None
+        self._preload_opt_states = None
         self._exec_group = None
         self._data_shapes = None
         self._label_shapes = None
@@ -120,6 +132,87 @@ class Module(BaseModule):
         """Forget every captured step (a graph holds raw addresses)."""
         self._graphs = {}
 
+    # -- persistence -------------------------------------------------------
+    @staticmethod
+    def load(prefix, epoch, load_optimizer_states=False, **kwargs):
+        """A Module over checkpoint ``prefix``/``epoch`` (module.py:139);
+        ``kwargs`` go to the constructor (``context`` defaults to the
+        card).  The ``.states`` file, when asked for, is read at
+        ``init_optimizer``.  The update count is not restored: a resumed
+        fit's Adam ``t`` and lr schedule start again from
+        ``begin_num_update``, as in the reference."""
+        from ..model import load_checkpoint
+        symbol, arg_params, aux_params = load_checkpoint(prefix, epoch)
+        mod = Module(symbol=symbol, **kwargs)
+        mod._arg_params = arg_params
+        mod._aux_params = aux_params
+        mod.params_initialized = True
+        if load_optimizer_states:
+            mod._preload_opt_states = '%s-%04d.states' % (prefix, epoch)
+        return mod
+
+    def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
+        """``prefix-symbol.json``, ``prefix-%04d.params`` and, when asked,
+        ``prefix-%04d.states``, each committed atomically
+        (module.py:152); counts ``checkpoint.commits``."""
+        from .. import resilience
+        with resilience.atomic_replace('%s-symbol.json' % prefix) as tmp:
+            self._symbol.save(tmp)
+        param_name = '%s-%04d.params' % (prefix, epoch)
+        self.save_params(param_name)
+        instrument.inc('checkpoint.commits')
+        logging.info('Saved checkpoint to "%s"', param_name)
+        if save_optimizer_states:
+            state_name = '%s-%04d.states' % (prefix, epoch)
+            self.save_optimizer_states(state_name)
+            logging.info('Saved optimizer state to "%s"', state_name)
+
+    def save_optimizer_states(self, fname):
+        """Pickle the optimizer state (``Updater.get_states``), the fused
+        step's copied out first, committed atomically (module.py:1119)."""
+        from .. import resilience
+        assert self.optimizer_initialized
+        self._sync_fused_states_to_updater()
+        with resilience.atomic_replace(fname) as tmp:
+            with open(tmp, 'wb') as fout:
+                fout.write(self._updater.get_states())
+
+    def load_optimizer_states(self, fname):
+        """Load a ``.states`` file (either package's) into the Updater and,
+        when the fused step has state, into its tensors in place
+        (module.py:1131)."""
+        assert self.optimizer_initialized
+        with open(fname, 'rb') as f:
+            self._updater.set_states(f.read())
+        if self._fused_opt_state is not None:
+            self._overlay_updater_states()
+
+    def _sync_fused_states_to_updater(self):
+        """Copy the fused step's optimizer state into ``Updater.states``
+        (module.py:798), after every step in flight has finished: the
+        next step, or a graph's replay, overwrites it in place."""
+        if self._fused_opt_state is None or self._updater is None:
+            return
+        self._drain_window()
+        for idx, name in enumerate(self._param_names):
+            if name in self._fused_opt_state:
+                self._updater.states[idx] = \
+                    self._functional_opt.state_to_updater(
+                        name, self._fused_opt_state[name])
+
+    def _overlay_updater_states(self):
+        """Copy ``Updater.states`` into the fused step's optimizer-state
+        tensors, in place (module.py:778): a captured step holds their
+        addresses."""
+        upd = self._updater
+        if upd is None or not upd.states or self._fused_opt_state is None:
+            return
+        for idx, name in enumerate(self._param_names):
+            entry = upd.states.get(idx)
+            if name in self._fused_opt_state and entry is not None:
+                self._functional_opt.load_state(
+                    name, self._fused_opt_state[name], entry)
+
     # -- properties --------------------------------------------------------
     @property
     def data_names(self):
@@ -143,10 +236,20 @@ class Module(BaseModule):
         assert self.binded
         return self._label_shapes
 
+    @property
+    def output_shapes(self):
+        """``[(name, shape)]`` of the outputs at the bound shapes."""
+        assert self.binded
+        shapes = dict(self._data_shapes)
+        shapes.update(dict(self._label_shapes or []))
+        _, out_shapes, _ = self._symbol.infer_shape(**shapes)
+        return list(zip(self._output_names, out_shapes))
+
     # -- params ------------------------------------------------------------
     def get_params(self):
         assert self.binded and self.params_initialized
         if self._params_dirty:
+            self._drain_window()
             self._exec_group.get_params(self._arg_params, self._aux_params)
             self._params_dirty = False
         return (self._arg_params, self._aux_params)
@@ -226,6 +329,16 @@ class Module(BaseModule):
         elif self.params_initialized:
             self._exec_group.set_params(self._arg_params, self._aux_params)
 
+    def reshape(self, data_shapes, label_shapes=None):
+        """Rebind at new input shapes, keeping the parameters
+        (module.py:326); the fused step captures the new signature at
+        its first step."""
+        assert self.binded
+        self._data_shapes = [(n, tuple(s)) for n, s in data_shapes]
+        self._label_shapes = [(n, tuple(s)) for n, s in label_shapes] \
+            if label_shapes is not None else None
+        self._exec_group.reshape(self._data_shapes, self._label_shapes)
+
     # -- optimizer ---------------------------------------------------------
     def init_optimizer(self, kvstore='local', optimizer='sgd',
                        optimizer_params=(('learning_rate', 0.01),),
@@ -256,6 +369,9 @@ class Module(BaseModule):
         self._updater = opt.get_updater(optimizer)
         self._reset_fused()
         self.optimizer_initialized = True
+        if self._preload_opt_states is not None:
+            self.load_optimizer_states(self._preload_opt_states)
+            self._preload_opt_states = None
 
     def borrow_optimizer(self, shared_module):
         """(reference module.py:701) Use ``shared_module``'s optimizer and
@@ -297,6 +413,12 @@ class Module(BaseModule):
         assert self.binded and self.params_initialized
         return self._exec_group.get_outputs(merge_multi_context)
 
+    def get_input_grads(self, merge_multi_context=True):
+        """(module.py:1097)"""
+        assert self.binded and self.params_initialized and \
+            self.inputs_need_grad
+        return self._exec_group.get_input_grads(merge_multi_context)
+
     def update_metric(self, eval_metric, labels):
         self._exec_group.update_metric(eval_metric, labels)
 
@@ -323,7 +445,7 @@ class Module(BaseModule):
         cannot be built (non-functional optimizer, a ``grad_req`` other
         than 'write', inputs that need gradients)."""
         metric = self._device_metric(eval_metric)
-        if self._fused is not None and metric is not self._fused_metric:
+        if self._fused is not None and not self._adopt_metric(metric):
             self._fused = None          # rebuilt below, state kept
         elif self._fused is not None and \
                 self._functional_opt.mult_signature != \
@@ -336,6 +458,23 @@ class Module(BaseModule):
             return False
         self._run_fused(data_batch)
         return metric is not None
+
+    def _adopt_metric(self, metric):
+        """Whether the fused step serves ``metric``: it is the step's own,
+        or a fresh one of the same device form (``device_fold_key``; each
+        ``fit`` makes a new metric from a string), which then takes over
+        the step's accumulators, the tensors its graphs add into (the
+        old metric's pending sums are drained into it first)."""
+        old = self._fused_metric
+        if metric is old:
+            return True
+        if metric is None or old is None or \
+                metric.device_fold_key() != old.device_fold_key():
+            return False
+        old._drain_device()
+        metric._take_accumulators(old)
+        self._fused_metric = self._fused.metric = metric
+        return True
 
     def _warm_start(self, eval_metric=None, data_sig=None):
         """Build the fused step before the first batch
@@ -353,7 +492,7 @@ class Module(BaseModule):
         metric = None
         if eval_metric is not None:
             metric = self._device_metric(_metric.create(eval_metric))
-        if self._fused is not None and metric is not self._fused_metric:
+        if self._fused is not None and not self._adopt_metric(metric):
             self._fused = None
         if self._fused is None and not self._fused_unavailable:
             self._try_build_fused(metric)
@@ -394,6 +533,8 @@ class Module(BaseModule):
         """(``mxnet_tpu/module/module.py:662-731``)"""
         from ..parallel.train_step import make_fit_step
         self._fused_unavailable = True        # until proven otherwise
+        if not _config.get('MXTPU_FUSED_FIT'):
+            return
         if not (self.binded and self.params_initialized and
                 self.optimizer_initialized):
             return
@@ -419,6 +560,8 @@ class Module(BaseModule):
         if self._fused_opt_state is None:
             self._fused_opt_state = functional.init(
                 {n: exec_.arg_dict[n].handle for n in trainable})
+            # a loaded .states file, or the loop path's state
+            self._overlay_updater_states()
         self._lr_t = torch.zeros((), dtype=torch.float32,
                                  device=self._context[0].torch_device)
         self._drop_graphs()

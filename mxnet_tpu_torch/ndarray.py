@@ -29,6 +29,7 @@ default to :func:`~context.compute_context` (``gpu(0)`` outside a scope).
 from __future__ import annotations
 
 import builtins
+import os
 import struct
 
 import numpy as np
@@ -40,7 +41,8 @@ from .context import (Context, as_torch_device, compute_context, context_of,
 from .ops import get_op, list_ops
 
 __all__ = ['NDArray', 'array', 'zeros', 'ones', 'full', 'empty', 'arange',
-           'concatenate', 'save', 'load', 'imperative_invoke', 'waitall',
+           'concatenate', 'save', 'load', 'validate', 'imperative_invoke',
+           'waitall',
            'onehot_encode', 'maximum', 'minimum', 'power']
 
 
@@ -286,11 +288,19 @@ class NDArray:
                 'ctx_id': self._ctx.device_id}
 
     def __setstate__(self, state):
-        ctx = Context(state['ctx_type'], state['ctx_id'])
+        # the JAX package's state has no 'dtype' (the array's own) and
+        # may name a device type the port has not ('tpu': the host then)
+        ctx_type = state['ctx_type']
+        ctx = Context(ctx_type if ctx_type in Context.devstr2type else 'cpu',
+                      state['ctx_id'] if ctx_type in Context.devstr2type
+                      else 0)
+        data = np.asarray(state['data'])
+        dtype = state.get('dtype')
         self._ctx = ctx
-        self._data = torch.from_numpy(state['data']).to(
+        self._data = torch.from_numpy(data.copy()).to(
             device=ctx.torch_device,
-            dtype=resolve_dtype(state['dtype'].replace('torch.', '')))
+            dtype=resolve_dtype(dtype.replace('torch.', '')) if dtype
+            else resolve_dtype(data.dtype))
 
 
 def waitall():
@@ -440,6 +450,47 @@ def _read(f, n):
     return b
 
 
+def validate(fname):
+    """Whether ``fname`` is a whole ``MXTPU001`` container: walks the
+    headers and checks that every byte they promise is there, without
+    building the arrays (``mxnet_tpu/ndarray.py:440``).  A truncated or
+    torn file gives False; never raises."""
+    try:
+        with open(fname, 'rb') as f:
+            if f.read(len(_MAGIC)) != _MAGIC:
+                return False
+            n_arrays, = struct.unpack('<q', _read(f, 8))
+            n_keys, = struct.unpack('<q', _read(f, 8))
+            if not (0 <= n_arrays < 1 << 32 and 0 <= n_keys < 1 << 32):
+                return False
+            if n_keys and n_keys != n_arrays:
+                return False
+            for _ in range(n_keys):
+                klen, = struct.unpack('<q', _read(f, 8))
+                if not 0 <= klen < 1 << 20:
+                    return False
+                _read(f, klen)
+            for _ in range(n_arrays):
+                dtlen, = struct.unpack('<q', _read(f, 8))
+                if not 0 < dtlen < 64:
+                    return False
+                dt = np.dtype(_read(f, dtlen).decode())
+                ndim, = struct.unpack('<q', _read(f, 8))
+                if not 0 <= ndim < 64:
+                    return False
+                shape = [struct.unpack('<q', _read(f, 8))[0]
+                         for _ in range(ndim)]
+                blen, = struct.unpack('<q', _read(f, 8))
+                if blen != int(np.prod(shape, dtype=np.int64)) * dt.itemsize:
+                    return False
+                f.seek(blen, 1)
+                if f.tell() > os.fstat(f.fileno()).st_size:
+                    return False
+            return True
+    except Exception:           # noqa: BLE001 - any damage reads False
+        return False
+
+
 def load(fname, ctx=None):
     """Load a ``MXTPU001`` container: a dict when it has keys, else a
     list.  Arrays land on ``ctx`` (default ``cpu()``)."""
@@ -541,7 +592,11 @@ def imperative_invoke(op_name: str, *args, out=None, name=None, **kwargs):
     if out is not None:
         out_list = out if isinstance(out, (list, tuple)) else [out]
         for dst, src in zip(out_list, outs):
-            dst._set_data(src._data)
+            if op.out_in_place and dst.shape == src.shape and \
+                    dst.handle.device == src.handle.device:
+                dst.handle.copy_(src._data)
+            else:
+                dst._set_data(src._data)
         return out
     if len(outs) == 1:
         return outs[0]

@@ -8,6 +8,7 @@ from . import nn  # noqa: F401
 from . import fused  # noqa: F401
 from . import fused_conv  # noqa: F401
 from . import attention  # noqa: F401
+from . import optim  # noqa: F401
 
 __all__ = ['get_op', 'list_ops', 'register', 'register_simple', 'alias',
            'OpDef']

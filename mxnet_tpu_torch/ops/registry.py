@@ -79,6 +79,7 @@ class OpDef:
                  aux_shape: Optional[Callable] = None,
                  arg_order: Optional[List[str]] = None,
                  infer_outputs: Optional[Callable] = None,
+                 out_in_place: bool = False,
                  doc: str = ''):
         self.name = name
         self.apply = apply_fn
@@ -108,6 +109,11 @@ class OpDef:
         # for an op whose apply runs user code that shape inference must
         # not call on meta tensors (Custom, operator.py)
         self.infer_outputs = infer_outputs
+        # the imperative layer writes this op's results INTO the arrays
+        # of ``out=`` (their tensors), not by swapping the handles: the
+        # optimizer updates (ops/optim.py) write the weight and state
+        # tensors an Updater holds
+        self.out_in_place = out_in_place
         self.hint = hint or name.lower().lstrip('_')
         self.doc = doc
 
@@ -130,7 +136,7 @@ def register(name, apply_fn, **kwargs):
 
 def register_simple(name, fn, *, ninputs=1, noutputs=1, input_names=None,
                     attr_defaults=None, takes_rng=False, hint=None,
-                    arg_order=None, doc=''):
+                    arg_order=None, out_in_place=False, doc=''):
     """Register a stateless op from a plain ``fn(*inputs, **attrs)``."""
     if input_names is None:
         input_names = (['data'] if ninputs == 1 else
@@ -150,7 +156,7 @@ def register_simple(name, fn, *, ninputs=1, noutputs=1, input_names=None,
         input_names=lambda attrs, _n=tuple(input_names): list(_n),
         num_outputs=lambda attrs, _k=noutputs: _k,
         attr_defaults=attr_defaults, takes_rng=takes_rng, hint=hint,
-        arg_order=arg_order, doc=doc)
+        arg_order=arg_order, out_in_place=out_in_place, doc=doc)
 
 
 def alias(new_name, existing):

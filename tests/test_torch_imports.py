@@ -5,6 +5,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -34,7 +35,11 @@ def test_import_leaves_jax_out():
             'mxnet_tpu_torch.models.transformer_lm, '
             'mxnet_tpu_torch.operator, mxnet_tpu_torch.rtc, '
             'mxnet_tpu_torch.rnn, mxnet_tpu_torch.module.bucketing_module, '
-            'mxnet_tpu_torch.parallel.ring, mxnet_tpu_torch.parallel.sp; '
+            'mxnet_tpu_torch.parallel.ring, mxnet_tpu_torch.parallel.sp, '
+            'mxnet_tpu_torch.model, mxnet_tpu_torch.resilience, '
+            'mxnet_tpu_torch.ops.optim, mxnet_tpu_torch.models.lenet, '
+            'mxnet_tpu_torch.module.sequential_module, '
+            'mxnet_tpu_torch.module.python_module; '
             'bad = sorted(m for m in sys.modules if m == "jax" or '
             'm.startswith("jax.") or m == "mxnet_tpu" or '
             'm.startswith("mxnet_tpu.")); print(bad); '
@@ -61,7 +66,7 @@ def test_sources_cover_every_subpackage():
             'serving'} <= found
 
 
-def test_gpu_entry_points_raise_without_cuda(monkeypatch):
+def test_gpu_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     sym = resnet.resnet(units=[1, 1, 1, 1], num_stages=4,
                         filter_list=[8, 16, 32, 64, 128], num_classes=10,
@@ -78,6 +83,15 @@ def test_gpu_entry_points_raise_without_cuda(monkeypatch):
         tmx.Module(sym)
     with pytest.raises(tmx.MXNetError, match='CUDA'):
         tmx.mod.Module(sym, context=tmx.gpu(0))
+    # FeedForward's ctx and Module.load's context default to the card too
+    x = np.zeros((4, 3, 64, 64), np.float32)
+    with pytest.raises(tmx.MXNetError, match='CUDA'):
+        tmx.FeedForward(sym, num_epoch=1).fit(x, np.zeros(4, np.float32))
+    prefix = str(tmp_path / 'ck')
+    tmx.model.save_checkpoint(prefix, 1, sym,
+                              {'fc1_bias': tmx.nd.zeros((10,))}, {})
+    with pytest.raises(tmx.MXNetError, match='CUDA'):
+        tmx.mod.Module.load(prefix, 1)
     gen = tmx.models.transformer_lm.sym_gen_bucketing(
         vocab_size=10, num_embed=8, num_heads=2, num_layers=1, max_seq_len=4)
     with pytest.raises(tmx.MXNetError, match='CUDA'):
