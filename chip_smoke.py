@@ -228,7 +228,11 @@ graphs held), and peak allocated and reserved device memory.
                   and score on
                   64 images (17 fused_bn_relu per forward, counts zeroed
                   just before), save, FeedForward.load and predict again:
-                  the predictions equal.
+                  the predictions equal.  Then with TF32 on: the loaded
+                  model held at the trained model's predict batch
+                  (numpy_batch_size 32) predicts bit-identically; at its
+                  own default (one 64-row batch) within FF_TF32_ATOL
+                  (cuDNN's TF32 algorithm depends on the batch shape).
 12e. lm-adam    — the LM of lm-train through Module.fit (bf16, Adam lr
                   1e-3, a device-folded Perplexity(ignore_label=None)), 5
                   steps captured (counts zeroed just before, read just
@@ -236,13 +240,69 @@ graphs held), and peak allocated and reserved device memory.
                   step, sm90) and under NaiveEngine: launches equal,
                   perplexity within 2e-2, parameters within
                   train-parity's bound; step ms, tokens/s.
+12f. mirror-train — MXNET_BACKWARD_DO_MIRROR: the train phase's captured
+                  ResNet fit step (bf16, 32 rows) and lm-train's captured
+                  LM step, each MIRROR_STEPS (3) steps with the mirror
+                  off, under 'dots' and under 'nothing' from the same
+                  state, cuDNN deterministic: per run the step ms, peak
+                  allocated and reserved memory, launches per step by
+                  kernel and route (#1/#4, #3/#5 between once and twice
+                  the unmirrored count: the recompute runs their forward
+                  again), capture ms, and the parameters' gap to the
+                  unmirrored run ('nothing' bit-identical, 'dots' within
+                  train-parity's bound).
+12g. monitor-fit — ResNet-50 v2 in f32 (TF32 off, cuDNN deterministic)
+                  through Module.fit(monitor=Monitor(2, pattern
+                  '.*(conv|fc).*')) over PrefetchingIter(ResizeIter(
+                  NDArrayIter, 6)), 6 steps, beside the same fit
+                  unmonitored (captured): step ms both ways, taps per
+                  step and tap names, compile.capture_skipped (1: the
+                  monitored module stays eager), and one monitored step
+                  by hand: its forward launches no kernel (the original
+                  symbol runs), its backward #1, #4 and #2 (the fused
+                  training forward runs again).  The first monitored
+                  step at PARITY_ROWS rows on the card and on the CPU:
+                  stats within rtol 1e-3, parameters within
+                  train-parity's bound.
+12h. mnist-lenet — MNISTIter over idx files written to a temporary
+                  directory (60,000 seeded 28x28 images, MNIST's
+                  training-set size; nothing downloaded): LeNet
+                  (models/lenet.py) one epoch at batch 128, SGD, over
+                  MNISTIter and PrefetchingIter(MNISTIter) with the device
+                  feed off and over MNISTIter with it on: images/s and
+                  the share of the epoch spent waiting on the iterator;
+                  then CSVIter over a 10,000 x 784 CSV into the MLP
+                  (models/mlp.py), one epoch.
+12i. alexnet-train — AlexNet (models/alexnet.py, 1000 classes, 3x224x224,
+                  32 rows) through Module.fit, float32 (TF32 off) and
+                  bf16, 5 captured steps each (its Dropout draws inside
+                  the graph): step ms, images/s; the two LRNs' forward +
+                  backward at their path shapes timed alone, against the
+                  f32 step.
+12j. nn-ops     — each op this slice adds, forward and backward on the card
+                  against the same call on the CPU (f32, TF32 off), at a
+                  real user's shapes: Deconvolution at DCGAN's generator
+                  layers (nz 100, ngf 64, 4x4, stride 2, 4 -> 64 pixels,
+                  batch 64) and at examples/fcn_xs.py's 2x upsampling (21
+                  classes) with its Crop; UpSampling x2 nearest and
+                  bilinear at (32, 256, 56, 56); LRN at (32, 96, 55, 55);
+                  L2Normalization (channel) at (32, 512, 38, 38);
+                  CuDNNBatchNorm; SequenceLast / SequenceMask /
+                  SequenceReverse at (512, 16, 512) with lengths; the
+                  regression outputs and SVMOutput at (32, 1000);
+                  softmax_cross_entropy at (8192, 32000).  Max abs error
+                  against rtol 1e-4 of the largest |CPU value| per tensor
+                  (exact for Crop and the Sequence ops), and ms.
 13. capture     — the cuda tests of tests/test_torch_capture.py and
                   tests/test_torch_lifecycle.py in a child pytest; the
                   lifecycle ones: each optimizer's captured narrow-ResNet
                   step against NaiveEngine and the Updater loop;
                   load_optimizer_states into a module that holds graphs
                   (the same graph replays after, no recapture); checkpoints
-                  at two steps in flight against one.  Each capture test
+                  at two steps in flight against one; a mirrored captured
+                  step against the unmirrored one (both policies); a
+                  monitored step's forward and backward launches.  Each
+                  capture test
                   is a behaviour of capture held against eager:
                   an lr schedule that lowers the lr at step 3 changes the
                   captured update; a metric with no device form reads
@@ -327,7 +387,10 @@ LIFECYCLE_CHECKS = tuple(
     'test_captured_optimizer_matches_eager_and_loop[%s]' % o
     for o in ('sgd', 'nag', 'adam', 'adagrad', 'rmsprop')) + (
     'test_load_optimizer_states_into_a_captured_module',
-    'test_checkpoints_at_depth_two_on_the_card')
+    'test_checkpoints_at_depth_two_on_the_card',
+    'test_mirrored_captured_step_matches_unmirrored[nothing]',
+    'test_mirrored_captured_step_matches_unmirrored[dots]',
+    'test_monitored_step_runs_no_fused_forward')
 # optim-train: each optimizer's captured ResNet step beside NaiveEngine and
 # the Updater loop (MXTPU_FUSED_FIT=0), OPTIM_STEPS steps from one state
 OPTIM_STEPS = 3
@@ -342,6 +405,10 @@ OPTIMIZERS = (
 CKPT_BATCHES = 4
 FF_ROWS = 128
 FF_EVAL_ROWS = 64
+# predicted probabilities of one model at two batch shapes under TF32:
+# cuDNN's TF32 rounds each operand to 10 mantissa bits (2^-11 relative),
+# and a different algorithm at another batch rounds otherwise
+FF_TF32_ATOL = 2e-3
 # lm-adam: the LM through Module.fit, Adam, a device-folded Perplexity
 LM_ADAM_STEPS = 5
 LM_ADAM = {'learning_rate': 0.001}
@@ -767,10 +834,16 @@ def lm_kernel_shapes(mx, symbol, batch, seq_len):
     """The shapes the aggressive LM training graph gives each kernel at
     ``batch`` rows: Counters of fused_dot_epilogue (M, K, N, bias, relu,
     clip) and flash_attention (BH, Tq, Tk, D, causal, scale) calls."""
+    return graph_kernel_shapes(mx, symbol, {'data': (batch, seq_len),
+                                            'softmax_label': (batch,
+                                                              seq_len)})
+
+
+def graph_kernel_shapes(mx, symbol, input_shapes):
+    """:func:`lm_kernel_shapes` of any symbol at ``input_shapes``."""
     # parameter shapes from the unfused graph: the fused epilogue node
     # does not complete its inputs' shapes
-    arg_shapes, _, _ = symbol.infer_shape(data=(batch, seq_len),
-                                          softmax_label=(batch, seq_len))
+    arg_shapes, _, _ = symbol.infer_shape(**input_shapes)
     prog = mx.fuse.apply_fuse_passes(symbol, True, 'aggressive')
     internals = prog.get_internals()
     _, out_shapes, _ = internals.infer_shape(
@@ -2143,13 +2216,36 @@ def feedforward_phase(mx, torch, fused, symbol, arg, aux, images, labels,
                 for k, v in arg.items())
     if moved <= 0.0:
         raise AssertionError('feedforward: the parameters did not move')
+    # TF32 on (cuDNN): a loaded FeedForward predicts at its own
+    # numpy_batch_size (default 128: the 64 images as one 64-row batch,
+    # where the trained model's are two of 32), and cuDNN's TF32
+    # algorithm (its rounding) depends on the batch shape
+    # (tools/torch_tf32_reload.py).  At the trained model's batch the
+    # predictions are equal; at its own they stay within FF_TF32_ATOL.
     torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    same = mx.FeedForward.load(prefix, 1, ctx=mx.gpu(0),
+                               numpy_batch_size=BATCH)
+    tf32 = model.predict(images[:FF_EVAL_ROWS])
+    tf32_same = same.predict(images[:FF_EVAL_ROWS])
+    tf32_own = back.predict(images[:FF_EVAL_ROWS])
+    tf32_gap = float(np.max(np.abs(tf32 - tf32_own)))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if not np.array_equal(tf32, tf32_same) or tf32_gap > FF_TF32_ATOL:
+        raise AssertionError(
+            'feedforward, TF32: at the trained batch max abs diff %g (must '
+            'be 0); at the loaded model\'s own batch %g (bound %g)'
+            % (float(np.max(np.abs(tf32 - tf32_same))), tf32_gap,
+               FF_TF32_ATOL))
     return {'rows': FF_ROWS, 'batches': FF_ROWS // BATCH,
             'compute_dtype': 'float32', 'tf32': False, 'fit_ms': fit_ms,
             'predict_rows': FF_EVAL_ROWS, 'predict_ms': predict_ms,
             'fused_bn_relu_launches': bn_relu, 'forwards': forwards,
             'score_accuracy': acc, 'max_param_change': moved,
-            'reloaded_predictions_equal': True}, bn_relu
+            'reloaded_predictions_equal': True,
+            'tf32_reloaded_at_trained_batch_equal': True,
+            'tf32_reloaded_at_own_batch_max_abs_diff': tf32_gap,
+            'tf32_bound': FF_TF32_ATOL}, bn_relu
 
 
 def lm_adam(mx, torch, models, lm_arg, kernels):
@@ -2979,6 +3075,617 @@ def imperative(mx, sqr_prop):
             'random': moments}
 
 
+# ---------------------------------------------------------------------------
+# The rest of training: backward mirroring, monitors, the data iterators,
+# AlexNet, and the nn ops of the slice
+# ---------------------------------------------------------------------------
+
+MIRROR_STEPS = 3
+MIRROR_POLICIES = ('off', 'dots', 'nothing')
+MONITOR_STEPS = 6
+MONITOR_PATTERN = '.*(conv|fc).*'
+MNIST_IMAGES = 60000        # the size of MNIST's training set
+MNIST_BATCH = 128
+CSV_ROWS = 10000
+ALEXNET_STEPS = 5
+
+
+def set_mirror(policy):
+    """MXNET_BACKWARD_DO_MIRROR under ``policy`` ('off' unsets it)."""
+    if policy == 'off':
+        os.environ.pop('MXNET_BACKWARD_DO_MIRROR', None)
+        os.environ.pop('MXNET_BACKWARD_MIRROR_POLICY', None)
+    else:
+        os.environ['MXNET_BACKWARD_DO_MIRROR'] = '1'
+        os.environ['MXNET_BACKWARD_MIRROR_POLICY'] = policy
+
+
+def mirror_runs(mx, torch, run, kernels):
+    """``run(policy) -> (step seconds, params, graphs)`` under each
+    policy from the same state: per run the step ms, peak memory, launches
+    per step by kernel and route, capture ms and the parameters' gap to
+    the unmirrored run ('nothing' must be bit-identical, 'dots' within
+    train-parity's bound)."""
+    runs, params = {}, {}
+    for policy in MIRROR_POLICIES:
+        set_mirror(policy)
+        try:
+            fresh_memory(torch)
+            counts0 = launch_counts(kernels)
+            mirrored0 = mx.instrument.counter_value(
+                'executor.mirrored_forwards')
+            step_s, params[policy], graphs = run(policy)
+        finally:
+            set_mirror('off')
+        runs[policy] = {
+            **step_report(step_s, counts0, kernels, torch),
+            'mirrored_forwards': mx.instrument.counter_value(
+                'executor.mirrored_forwards') - mirrored0,
+            'graphs': graphs}
+    failures = []
+    for policy in ('dots', 'nothing'):
+        rep = parity_report(params[policy], params['off'])
+        runs[policy]['gap_to_off'] = rep
+        if policy == 'nothing' and not rep['bitwise_equal']:
+            failures.append("mirror 'nothing' is not bit-identical to the "
+                            'unmirrored run: %s' % rep['worst_param'])
+        failure = beyond_bound('mirror %s' % policy, rep)
+        if failure:
+            failures.append(failure)
+        for name, off in runs['off']['launches_per_step'].items():
+            got = runs[policy]['launches_per_step'].get(name, {}).get('all')
+            if got is None or not off['all'] <= got <= 2 * off['all']:
+                failures.append('mirror %s: %s launched %s per step against '
+                                '%s unmirrored' % (policy, name, got,
+                                                   off['all']))
+        if not runs[policy]['mirrored_forwards']:
+            failures.append('mirror %s: no mirrored forward' % policy)
+        if not all(g['captured'] for g in runs[policy]['graphs']):
+            failures.append('mirror %s: not captured: %s'
+                            % (policy, runs[policy]['graphs']))
+    for policy in MIRROR_POLICIES:
+        runs[policy]['peak_allocated_vs_off'] = (
+            runs[policy]['peak_allocated_bytes']
+            / runs['off']['peak_allocated_bytes'])
+        runs[policy]['step_ms_vs_off'] = (
+            runs[policy]['step_ms_median_after_first']
+            / runs['off']['step_ms_median_after_first'])
+    return runs, failures
+
+
+def mirror_train(mx, torch, ts, symbol, arg, aux, images, labels, lm_sym,
+                 lm_arg, resnet_kernels, lm_kern):
+    """mirror-train: the captured ResNet fit step (bf16 over f32 masters,
+    SGD with momentum, 32 rows) and the captured LM train step (bf16, 16 x
+    512) with the mirror off, under 'dots' and under 'nothing', from the
+    same state, MIRROR_STEPS steps each, cuDNN deterministic."""
+    torch.backends.cudnn.deterministic = True
+    dev = torch.device('cuda', 0)
+    n = MIRROR_STEPS * BATCH
+    launches = Counter()
+    try:
+        def resnet_run(policy):
+            c0 = launch_counts(resnet_kernels)
+            mod, step_s = train_module(mx, torch, symbol, arg, aux,
+                                       images[:n], labels[:n], mx.gpu(0),
+                                       torch.bfloat16, BATCH)
+            for name, (k, _) in launch_counts(resnet_kernels).items():
+                launches[name] += k - c0[name][0]
+            out = (step_s, numpy_params(mod),
+                   graph_report(mod._graphs.values()))
+            del mod
+            return out
+        resnet_runs, failures = mirror_runs(mx, torch, resnet_run,
+                                            resnet_kernels)
+        batch = lm_batch(torch, dev, LM_BATCH)
+
+        def lm_run(policy):
+            c0 = launch_counts(lm_kern)
+            step = lm_step(ts, lm_sym, LM_BATCH, torch.bfloat16)
+            params = {k: torch.tensor(v, device=dev)
+                      for k, v in lm_arg.items()}
+            state = ts.sgd_momentum_init(params)
+            step_s = []
+            for _ in range(MIRROR_STEPS):
+                t1 = time.perf_counter()
+                _, params, _, state = step(params, {}, state, batch)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t1)
+            for name, (k, _) in launch_counts(lm_kern).items():
+                launches[name] += k - c0[name][0]
+            out = (step_s, {k: v.cpu().numpy() for k, v in params.items()},
+                   graph_report(c for c, _ in step.graphs.values()))
+            del step, params, state
+            return out
+        lm_runs, lm_failures = mirror_runs(mx, torch, lm_run, lm_kern)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return ({'resnet': resnet_runs, 'lm': lm_runs},
+            failures + lm_failures, dict(launches))
+
+
+class _Recorder(object):
+    """A monitor's ``toc_print`` that keeps what it would log."""
+
+    def __init__(self, mon):
+        self.seen = []
+        mon.toc_print = lambda: self.seen.append(mon.toc())
+
+
+def monitor_iter(mx, images, labels, rows, steps):
+    """PrefetchingIter(ResizeIter(NDArrayIter(...), steps)): two batches
+    of data, resized to ``steps`` batches."""
+    return mx.io.PrefetchingIter(mx.io.ResizeIter(
+        mx.io.NDArrayIter(images[:2 * rows], labels[:2 * rows],
+                          batch_size=rows), steps))
+
+
+def monitored_fit(mx, torch, symbol, arg, aux, images, labels, ctx, rows,
+                  steps, monitor):
+    """Module.fit over :func:`monitor_iter` (float32, SGD with momentum),
+    with ``monitor`` or without; returns the module, the step seconds and
+    the recorder."""
+    times, last = [], [time.perf_counter()]
+    on_card = ctx.device_type == 'gpu'
+
+    def tick(_):
+        if on_card:
+            torch.cuda.synchronize()
+        now = time.perf_counter()
+        times.append(now - last[0])
+        last[0] = time.perf_counter()
+
+    recorder = _Recorder(monitor) if monitor is not None else None
+    it = monitor_iter(mx, images, labels, rows, steps)
+    mod = mx.mod.Module(symbol, context=ctx)
+    try:
+        mod.fit(it, num_epoch=1, optimizer='sgd',
+                optimizer_params=dict(SGD_MOMENTUM),
+                arg_params={k: mx.nd.array(v) for k, v in arg.items()},
+                aux_params={k: mx.nd.array(v) for k, v in aux.items()},
+                batch_end_callback=tick, monitor=monitor)
+    finally:
+        it.close()
+    return mod, times, recorder
+
+
+def monitor_fit(mx, torch, symbol, arg, aux, images, labels, kernels):
+    """monitor-fit: ResNet-50 v2 (f32, TF32 off, cuDNN deterministic)
+    through Module.fit(monitor=Monitor(2, pattern=MONITOR_PATTERN)) over
+    PrefetchingIter(ResizeIter(NDArrayIter, 6)), against the same fit
+    unmonitored (captured); one more monitored step by hand counts the
+    kernels of its forward (none: the original symbol runs) and of its
+    backward (the fused program's training forward); the first monitored
+    step's stats and parameters at PARITY_ROWS rows on the card against
+    the CPU."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    out, failures = {}, []
+    try:
+        fresh_memory(torch)
+        mod, plain_s, _ = monitored_fit(mx, torch, symbol, arg, aux, images,
+                                        labels, mx.gpu(0), BATCH,
+                                        MONITOR_STEPS, None)
+        out['unmonitored'] = {
+            'step_ms': [t * 1e3 for t in plain_s],
+            'step_ms_median_after_first':
+                statistics.median(plain_s[1:]) * 1e3,
+            'graphs': graph_report(mod._graphs.values())}
+        del mod
+        fresh_memory(torch)
+        skipped0 = mx.instrument.counter_value('compile.capture_skipped')
+        counts0 = launch_counts(kernels)
+        mon = mx.monitor.Monitor(2, pattern=MONITOR_PATTERN)
+        mod, mon_s, rec = monitored_fit(mx, torch, symbol, arg, aux, images,
+                                        labels, mx.gpu(0), BATCH,
+                                        MONITOR_STEPS, mon)
+        fit_launches = launch_counts(kernels)
+        skipped = mx.instrument.counter_value('compile.capture_skipped') \
+            - skipped0
+        taps = [len(b) for b in rec.seen]
+        names = sorted({n for b in rec.seen for _, n, _ in b})
+        # one monitored step by hand: the forward's and backward's kernels
+        batch = mx.io.DataBatch([mx.nd.array(images[:BATCH])],
+                                [mx.nd.array(labels[:BATCH])])
+        c0 = launch_counts(kernels)
+        mon.tic()
+        mod.forward(batch, is_train=True)
+        torch.cuda.synchronize()
+        c1 = launch_counts(kernels)
+        mod.backward()
+        mod.update()
+        torch.cuda.synchronize()
+        c2 = launch_counts(kernels)
+        mon.toc()
+        launches = {name: c2[name][0] - counts0[name][0] for name in c2}
+        out['monitored'] = {
+            'step_ms': [t * 1e3 for t in mon_s],
+            'step_ms_median_after_first':
+                statistics.median(mon_s[1:]) * 1e3,
+            'launches_per_step': launches_per_step(counts0, fit_launches,
+                                                   len(mon_s)),
+            'forward_launches': launches_per_step(c0, c1, 1),
+            'backward_launches': launches_per_step(c1, c2, 1),
+            'taps_per_step': taps, 'tap_names': len(names),
+            'tap_names_head': names[:6], 'capture_skipped': skipped,
+            'fused': mod._fused is not None,
+            'graphs': graph_report(mod._graphs.values())}
+        del mod
+        if out['monitored']['forward_launches']:
+            failures.append('monitor-fit: the tapped forward launched %s'
+                            % out['monitored']['forward_launches'])
+        back = out['monitored']['backward_launches']
+        for name in ('fused_scale_bias_dot', 'fused_scale_bias_conv3x3',
+                     'fused_bn_relu'):
+            if not back.get(name):
+                failures.append('monitor-fit: the backward did not launch %s'
+                                % name)
+        if taps != [len(taps) and taps[0], 0] * (MONITOR_STEPS // 2) or \
+                not taps[0] or skipped != 1 or out['monitored']['graphs']:
+            failures.append('monitor-fit: taps %s, capture_skipped %d, '
+                            'graphs %s' % (taps, skipped,
+                                           out['monitored']['graphs']))
+        # the first monitored step on the card and on the CPU
+        stepped = {}
+        for ctx in (mx.gpu(0), mx.cpu()):
+            m = mx.monitor.Monitor(2, pattern=MONITOR_PATTERN)
+            pmod, _, prec = monitored_fit(mx, torch, symbol, arg, aux,
+                                          images, labels, ctx, PARITY_ROWS,
+                                          1, m)
+            stepped[ctx.device_type] = (numpy_params(pmod), prec.seen[0])
+            del pmod
+        (card, ctaps), (host, htaps) = stepped['gpu'], stepped['cpu']
+        if [n for _, n, _ in ctaps] != [n for _, n, _ in htaps]:
+            failures.append('monitor-fit: tap names differ card/CPU')
+        worst = 0.0
+        for (_, name, cv), (_, _, hv) in zip(ctaps, htaps):
+            a, b = np.array(cv.split(), np.float64), \
+                np.array(hv.split(), np.float64)
+            worst = max(worst, float(np.max(np.abs(a - b) / np.maximum(
+                np.abs(b), 1e-12))))
+        if worst > 1e-3:
+            failures.append('monitor-fit: stats differ card/CPU by %g '
+                            '(relative)' % worst)
+        out['parity'] = {'rows': PARITY_ROWS, 'taps': len(ctaps),
+                         'stats_max_rel_err': worst,
+                         'stats_tolerance': 'rtol 1e-3 (one norm each)',
+                         **parity_report(card, host),
+                         'tolerance': 'rtol 1e-3, atol 1e-5 elementwise; '
+                                      'at most 1e-4 of the elements outside '
+                                      'it, none beyond 1e-3'}
+        failure = beyond_bound('monitor-fit parity', out['parity'])
+        if failure:
+            failures.append(failure)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return out, failures, launches
+
+
+def write_idx(path, array):
+    """An idx file: two zero bytes, the type 0x08 (uint8), the number of
+    dims, each dim big-endian, then the bytes."""
+    import struct
+    with open(path, 'wb') as f:
+        f.write(struct.pack('>HBB', 0, 0x08, array.ndim))
+        f.write(struct.pack('>%dI' % array.ndim, *array.shape))
+        f.write(np.ascontiguousarray(array, dtype=np.uint8).tobytes())
+
+
+class _TimedIter(object):
+    """Seconds the consumer waited in ``next()`` of the wrapped
+    iterator."""
+
+    def __init__(self, it):
+        self.it, self.wait_s = it, 0.0
+        self.provide_data, self.provide_label = it.provide_data, \
+            it.provide_label
+        self.batch_size = it.batch_size
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        t0 = time.perf_counter()
+        try:
+            return self.it.next()
+        finally:
+            self.wait_s += time.perf_counter() - t0
+
+    next = __next__
+
+    def reset(self):
+        self.it.reset()
+
+
+def epoch_report(mx, torch, symbol, arg, make_iter, feed, rows):
+    """One epoch of Module.fit (float32, SGD with momentum) over
+    ``make_iter()``: images/s and the share of the epoch the consumer
+    waited on the iterator."""
+    os.environ['MXTPU_DEVICE_FEED'] = '1' if feed else '0'
+    it = _TimedIter(make_iter())
+    try:
+        mod = mx.mod.Module(symbol, context=mx.gpu(0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mod.fit(it, num_epoch=1, optimizer='sgd',
+                optimizer_params=dict(SGD_MOMENTUM),
+                arg_params={k: mx.nd.array(v) for k, v in arg.items()})
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+    finally:
+        os.environ.pop('MXTPU_DEVICE_FEED', None)
+        close = getattr(it.it, 'close', None)
+        if close is not None:
+            close()
+    params = numpy_params(mod)
+    moved = max(float(np.max(np.abs(params[k] - v))) for k, v in arg.items())
+    if not all(np.all(np.isfinite(v)) for v in params.values()) or \
+            moved <= 0.0:
+        raise AssertionError('%s: parameters not finite or not moved'
+                             % symbol.name)
+    return {'epoch_s': epoch_s, 'images_per_s': rows / epoch_s,
+            'iterator_wait_s': it.wait_s,
+            'host_share': it.wait_s / epoch_s, 'device_feed': feed}
+
+
+def mnist_lenet(mx, torch, models, convert, tmp):
+    """mnist-lenet: MNISTIter over idx files written here (MNIST_IMAGES
+    seeded 28x28 images, labels 0-9), LeNet one epoch at batch 128 (SGD),
+    over MNISTIter and over PrefetchingIter(MNISTIter) with the device
+    feed off, and over MNISTIter with the fit loop's feed on; then
+    CSVIter over a CSV_ROWS x 784 CSV into the MLP, one epoch."""
+    rng = np.random.default_rng(SEED + 7)
+    images = rng.integers(0, 256, (MNIST_IMAGES, 28, 28), dtype=np.uint8)
+    labels = rng.integers(0, 10, MNIST_IMAGES, dtype=np.uint8)
+    img, lab = os.path.join(tmp, 'images-idx3-ubyte'), \
+        os.path.join(tmp, 'labels-idx1-ubyte')
+    t0 = time.perf_counter()
+    write_idx(img, images)
+    write_idx(lab, labels)
+    write_s = time.perf_counter() - t0
+    lenet = models.get_symbol('lenet', num_classes=10)
+    arg, _ = convert.random_params(lenet, {'data': (MNIST_BATCH, 1, 28, 28)},
+                                   SEED)
+
+    def mnist():
+        return mx.io.MNISTIter(image=img, label=lab, batch_size=MNIST_BATCH,
+                               shuffle=True, seed=SEED)
+    t0 = time.perf_counter()
+    first = mnist()
+    load_s = time.perf_counter() - t0
+    b = first.next()
+    if b.data[0].shape != (MNIST_BATCH, 1, 28, 28) or \
+            float(b.data[0].asnumpy().max()) > 1.0:
+        raise AssertionError('mnist-lenet: bad MNISTIter batch')
+    # a short untimed fit first: the first fit of the process builds what
+    # every later one reuses
+    epoch_report(mx, torch, lenet, arg,
+                 lambda: mx.io.ResizeIter(mnist(), 8), False, 8 * MNIST_BATCH)
+    runs = {
+        'mnist_iter': epoch_report(mx, torch, lenet, arg, mnist, False,
+                                   MNIST_IMAGES),
+        'prefetching_iter': epoch_report(
+            mx, torch, lenet, arg,
+            lambda: mx.io.PrefetchingIter(mnist()), False, MNIST_IMAGES),
+        'mnist_iter_device_feed': epoch_report(mx, torch, lenet, arg, mnist,
+                                               True, MNIST_IMAGES)}
+    # CSVIter into the MLP
+    csv_data = os.path.join(tmp, 'data.csv')
+    csv_label = os.path.join(tmp, 'label.csv')
+    t0 = time.perf_counter()
+    flat = images[:CSV_ROWS].reshape(CSV_ROWS, 784)
+    with open(csv_data, 'w') as f:
+        f.write('\n'.join(','.join(map(str, r)) for r in flat.tolist()))
+    np.savetxt(csv_label, labels[:CSV_ROWS], fmt='%d')
+    csv_write_s = time.perf_counter() - t0
+    mlp = models.get_symbol('mlp', num_classes=10)
+    marg, _ = convert.random_params(mlp, {'data': (MNIST_BATCH, 784)}, SEED)
+    t0 = time.perf_counter()
+    csv_iter = mx.io.CSVIter(data_csv=csv_data, data_shape=(784,),
+                             label_csv=csv_label, batch_size=MNIST_BATCH)
+    csv_load_s = time.perf_counter() - t0
+    csv_run = epoch_report(mx, torch, mlp, marg, lambda: csv_iter, False,
+                           CSV_ROWS)
+    csv_run['load_s'] = csv_load_s
+    csv_run['write_s'] = csv_write_s
+    return {'images': MNIST_IMAGES, 'batch': MNIST_BATCH, 'model': 'lenet',
+            'idx_write_s': write_s, 'mnist_load_s': load_s, **runs,
+            'prefetching_moves_host_share_by':
+                runs['mnist_iter']['host_share']
+                - runs['prefetching_iter']['host_share'],
+            'csv': {'rows': CSV_ROWS, 'columns': 784, 'model': 'mlp',
+                    **csv_run}}
+
+
+def alexnet_train(mx, torch, models, convert, flush):
+    """alexnet-train: AlexNet (1000 classes, 3x224x224, 32 rows) through
+    Module.fit, float32 (TF32 off) and bfloat16, ALEXNET_STEPS captured
+    steps each; and the LRN's forward + backward at its two path shapes,
+    timed alone with CUDA events, against the step."""
+    from mxnet_tpu_torch.ops import get_op
+    symbol = models.get_symbol('alexnet', num_classes=1000)
+    arg, aux = convert.random_params(symbol, {'data': (BATCH,) + IMAGE},
+                                     SEED)
+    rng = np.random.default_rng(SEED + 5)
+    images = rng.standard_normal((ALEXNET_STEPS * BATCH,) + IMAGE,
+                                 dtype=np.float32)
+    labels = rng.integers(0, 1000, ALEXNET_STEPS * BATCH).astype(np.float32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for dtype in (None, torch.bfloat16):
+        fresh_memory(torch)
+        mod, step_s = train_module(mx, torch, symbol, arg, aux, images,
+                                   labels, mx.gpu(0), dtype, BATCH)
+        metric = dict(mod._fused_metric.get_name_value())
+        params = numpy_params(mod)
+        moved = max(float(np.max(np.abs(params[k] - v)))
+                    for k, v in arg.items())
+        if not np.isfinite(metric['cross-entropy']) or moved <= 0.0 or \
+                not all(np.all(np.isfinite(v)) for v in params.values()):
+            raise AssertionError('alexnet-train: loss %s, max |dw| %g'
+                                 % (metric['cross-entropy'], moved))
+        graphs = graph_report(mod._graphs.values())
+        if not all(g['captured'] for g in graphs):
+            raise AssertionError('alexnet-train: not captured: %s' % graphs)
+        out['float32' if dtype is None else 'bfloat16'] = {
+            'step_ms': [t * 1e3 for t in step_s],
+            'step_ms_median_after_first':
+                statistics.median(step_s[1:]) * 1e3,
+            'images_per_s': BATCH / statistics.median(step_s[1:]),
+            'cross_entropy': metric['cross-entropy'],
+            'graphs': graphs, **memory(torch)}
+        del mod
+    lrn = get_op('LRN')
+    attrs = lrn.canon_attrs({'alpha': 0.0001, 'beta': 0.75, 'knorm': 2,
+                             'nsize': 5})
+    internals = symbol.get_internals()
+    _, shapes, _ = internals.infer_shape(data=(BATCH,) + IMAGE)
+    shape_of = dict(zip(internals.list_outputs(), shapes))
+    lrn_ms = {}
+    for node in symbol.topo_nodes():
+        if node.op == 'LRN':
+            src, idx = node.inputs[0]
+            shape = tuple(shape_of[src.output_names()[idx]])
+            x = torch.randn(shape, device='cuda').relu_().requires_grad_()
+            g = torch.randn(shape, device='cuda')
+
+            def fwd_bwd(x=x, g=g):
+                y = lrn.apply(attrs, [x], True, None)[0]
+                torch.autograd.grad(y, x, g)
+            lrn_ms[node.name] = {'shape': list(shape),
+                                 'fwd_bwd_ms': cuda_ms(torch, fwd_bwd, flush,
+                                                       reps=10, warmup=3)}
+    total = sum(v['fwd_bwd_ms'] for v in lrn_ms.values())
+    out['lrn'] = {'nodes': lrn_ms, 'fwd_bwd_ms': total,
+                  'share_of_f32_step': total
+                  / out['float32']['step_ms_median_after_first']}
+    torch.backends.cudnn.allow_tf32 = True
+    return out
+
+
+def _op_case(torch, name, attrs, inputs, diff, flush, exact=False):
+    """One op forward and backward on the card and on the CPU (f32, TF32
+    off) from the same inputs and a seeded cotangent: max abs error of
+    the outputs and the gradients against ``rtol * max|CPU value|``
+    (exact when ``exact``), and the card's forward + backward ms."""
+    from mxnet_tpu_torch.ops import get_op
+    op = get_op(name)
+    attrs = op.canon_attrs(attrs)
+    cot_rng = np.random.default_rng(SEED + 11)
+
+    def run(dev, cots=None):
+        args = [torch.from_numpy(a).to(dev) for a in inputs]
+        for i in diff:
+            args[i].requires_grad_(True)
+        outs = op.apply(attrs, args, True, None)[0]
+        if cots is None:
+            cots = [cot_rng.standard_normal(tuple(o.shape)).astype(np.float32)
+                    for o in outs]
+        torch.autograd.backward(outs, [torch.from_numpy(c).to(dev)
+                                       for c in cots])
+        return ([o.detach().cpu().numpy() for o in outs],
+                [args[i].grad.cpu().numpy() for i in diff], cots, args, outs)
+
+    host_outs, host_grads, cots, _, _ = run(torch.device('cpu'))
+    card_outs, card_grads, _, args, outs = run(torch.device('cuda', 0), cots)
+    rtol = 0.0 if exact else 1e-4
+    err, bound = 0.0, 0.0
+    worst_rel = 0.0
+    for got, want in zip(card_outs + card_grads, host_outs + host_grads):
+        if got.shape != want.shape:
+            raise AssertionError('nn-ops %s: shape %s against %s'
+                                 % (name, got.shape, want.shape))
+        e = float(np.max(np.abs(got - want)))
+        b = rtol * float(np.max(np.abs(want)))
+        err, bound = max(err, e), max(bound, b)
+        if e > b:
+            worst_rel = max(worst_rel, e / max(b, 1e-30))
+    cots_dev = [torch.from_numpy(c).to('cuda') for c in cots]
+
+    def fwd_bwd():
+        xs = [a.detach().requires_grad_(a.requires_grad) for a in args]
+        ys = op.apply(attrs, xs, True, None)[0]
+        torch.autograd.backward(ys, cots_dev)
+    ms = cuda_ms(torch, fwd_bwd, flush, reps=10, warmup=3)
+    return {'op': name, 'shapes': [list(a.shape) for a in inputs],
+            'max_abs_err': err, 'bound': bound,
+            'tolerance': 'exact' if exact else
+            'rtol 1e-4 of the largest |CPU value| per tensor',
+            'ms_fwd_bwd': ms, 'within': worst_rel == 0.0}
+
+
+def nn_ops(torch, flush):
+    """nn-ops: each op this slice adds, forward and backward on the card
+    against the same call on the CPU, at a real user's shapes."""
+    rng = np.random.default_rng(SEED + 9)
+
+    def n(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    def ints(*shape):
+        return rng.integers(-3, 4, shape).astype(np.float32)
+
+    cases = []
+    # DCGAN's generator (examples/train_dcgan.py) at the upstream widths:
+    # nz 100, ngf 64, 4x4 kernels, 4 -> 64 pixels, batch 64
+    dcgan = [((64, 100, 1, 1), 512, (1, 1), (0, 0)),
+             ((64, 512, 4, 4), 256, (2, 2), (1, 1)),
+             ((64, 256, 8, 8), 128, (2, 2), (1, 1)),
+             ((64, 128, 16, 16), 64, (2, 2), (1, 1)),
+             ((64, 64, 32, 32), 3, (2, 2), (1, 1))]
+    for shape, nf, stride, pad in dcgan:
+        cases.append(_op_case(torch, 'Deconvolution', {
+            'kernel': (4, 4), 'stride': stride, 'pad': pad,
+            'num_filter': nf, 'no_bias': True},
+            [n(*shape), n(shape[1], nf, 4, 4, scale=0.05)], (0, 1), flush))
+    # examples/fcn_xs.py's 2x upsampling and its Crop, VOC's 21 classes
+    cases.append(_op_case(torch, 'Deconvolution', {
+        'kernel': (4, 4), 'stride': (2, 2), 'pad': (1, 1), 'num_filter': 21,
+        'no_bias': True}, [n(8, 21, 125, 125), n(21, 21, 4, 4, scale=0.1)],
+        (0, 1), flush))
+    cases.append(_op_case(torch, 'Crop', {'num_args': 2},
+                          [n(8, 21, 250, 250), n(8, 21, 248, 248)], (0,),
+                          flush, exact=True))
+    for sample in ('nearest', 'bilinear'):
+        # nearest's forward copies; its backward sums 4 values a pixel
+        cases.append(_op_case(torch, 'UpSampling', {
+            'scale': 2, 'sample_type': sample, 'num_filter': 256},
+            [n(32, 256, 56, 56)], (0,), flush))
+    cases.append(_op_case(torch, 'LRN', {'nsize': 5, 'alpha': 1e-4,
+                                         'beta': 0.75, 'knorm': 2.0},
+                          [np.abs(n(32, 96, 55, 55, scale=4.0))], (0,),
+                          flush))
+    cases.append(_op_case(torch, 'L2Normalization', {'mode': 'channel'},
+                          [n(32, 512, 38, 38)], (0,), flush))
+    cases.append(_op_case(torch, 'CuDNNBatchNorm', {'fix_gamma': False},
+                          [n(32, 64, 56, 56), n(64), n(64), n(64),
+                           np.abs(n(64)) + 0.5], (0, 1, 2), flush))
+    lengths = rng.integers(1, 513, 16).astype(np.float32)
+    for name, attrs in (('SequenceLast', {}), ('SequenceMask',
+                                               {'value': -1.0}),
+                        ('SequenceReverse', {})):
+        cases.append(_op_case(torch, name,
+                              dict(attrs, use_sequence_length=True),
+                              [n(512, 16, 512), lengths], (0,), flush,
+                              exact=True))
+    label = rng.integers(0, 1000, 32).astype(np.float32)
+    for name in ('LinearRegressionOutput', 'MAERegressionOutput',
+                 'LogisticRegressionOutput'):
+        cases.append(_op_case(torch, name, {}, [n(32, 1000), n(32, 1000)],
+                              (0,), flush))
+    cases.append(_op_case(torch, 'SVMOutput', {}, [n(32, 1000), label], (0,),
+                          flush))
+    cases.append(_op_case(torch, 'softmax_cross_entropy', {},
+                          [n(8192, 32000), rng.integers(0, 32000, 8192)
+                           .astype(np.float32)], (0,), flush))
+    failures = ['nn-ops %s %s: max abs err %g beyond %g'
+                % (c['op'], c['shapes'], c['max_abs_err'], c['bound'])
+                for c in cases if not c['within']]
+    return cases, failures
+
+
 def main():
     try:
         import torch
@@ -3672,6 +4379,83 @@ def main():
     log({'phase': 'lm-adam', 'seconds': time.monotonic() - t0,
          'launches': lm_adam_launches, **lm_adam_report})
 
+    # -- 12f-12j. the rest of training and the nn ops ----------------------
+    t0 = time.monotonic()
+    mirror_report, failures, mirror_launches = mirror_train(
+        mx, torch, ts, symbol, arg, aux, images, labels, lm_sym, lm_arg,
+        resnet_kernels, (attention.flash_attention, fused.fused_dot_epilogue))
+    log({'phase': 'mirror-train', 'steps': MIRROR_STEPS,
+         'resnet': 'resnet-50 v2, 32 rows, bf16 over f32 masters, sgd '
+                   'momentum, Module.fit captured',
+         'lm': 'transformer_lm %d x %d, bf16, make_train_step captured'
+               % (LM_BATCH, LM['seq_len']),
+         'cudnn_deterministic': True, 'launches': mirror_launches,
+         'seconds': time.monotonic() - t0, **mirror_report,
+         'failures': failures})
+    if failures:
+        raise AssertionError('; '.join(failures))
+    t0 = time.monotonic()
+    monitor_report, failures, monitor_launches = monitor_fit(
+        mx, torch, symbol, arg, aux, images, labels, resnet_kernels)
+    log({'phase': 'monitor-fit', 'model': 'resnet-50 v2', 'batch': BATCH,
+         'steps': MONITOR_STEPS, 'monitor': 'Monitor(2, pattern=%r)'
+         % MONITOR_PATTERN, 'data': 'PrefetchingIter(ResizeIter('
+         'NDArrayIter, %d))' % MONITOR_STEPS, 'dtype': 'float32',
+         'tf32': False, 'launches': monitor_launches,
+         'seconds': time.monotonic() - t0, **monitor_report,
+         'failures': failures})
+    if failures:
+        raise AssertionError('; '.join(failures))
+    # the MLP's and AlexNet's FullyConnected -> relu chains run #3
+    epi0 = fused.fused_dot_epilogue.launches
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.monotonic()
+        mnist_report = mnist_lenet(mx, torch, models, convert, tmp)
+        mnist_launches = fused.fused_dot_epilogue.launches - epi0
+        log({'phase': 'mnist-lenet', 'seconds': time.monotonic() - t0,
+             'launches': {'fused_dot_epilogue': mnist_launches},
+             **mnist_report})
+    flush = torch.ones(32 << 20, device='cuda')    # 128 MiB
+    t0 = time.monotonic()
+    epi0 = fused.fused_dot_epilogue.launches
+    alexnet_report = alexnet_train(mx, torch, models, convert, flush)
+    alexnet_launches = fused.fused_dot_epilogue.launches - epi0
+    log({'phase': 'alexnet-train', 'batch': BATCH, 'image': list(IMAGE),
+         'steps': ALEXNET_STEPS, 'tf32': False,
+         'launches': {'fused_dot_epilogue': alexnet_launches},
+         **alexnet_report, 'seconds': time.monotonic() - t0})
+    # #3 at the shapes these two paths give it, against its plain version
+    torch.backends.cudnn.allow_tf32 = False
+    fc_cases = []
+    for name, shapes, dtypes in (
+            ('alexnet', {'data': (BATCH,) + IMAGE},
+             (torch.float32, torch.bfloat16)),
+            ('mlp', {'data': (MNIST_BATCH, 784)}, (torch.float32,))):
+        dots, _ = graph_kernel_shapes(
+            mx, models.get_symbol(name, num_classes=1000 if name ==
+                                  'alexnet' else 10), shapes)
+        for dtype in dtypes:
+            for (m, k, n, bias, relu, clip), per_step in sorted(
+                    dots.items()):
+                case = check_epilogue(torch, fused, (m, k, n), bias, relu,
+                                      (0.0, 6.0) if clip else None, dtype,
+                                      gen, flush)
+                case.update(model=name, launches_per_step=per_step)
+                fc_cases.append(case)
+    torch.backends.cudnn.allow_tf32 = True
+    log({'phase': 'fc-kernels', 'tf32': False,
+         'fused_dot_epilogue_cases': fc_cases})
+    t0 = time.monotonic()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    op_cases, failures = nn_ops(torch, flush)
+    torch.backends.cudnn.allow_tf32 = True
+    del flush
+    log({'phase': 'nn-ops', 'tf32': False, 'cases': op_cases,
+         'seconds': time.monotonic() - t0, 'failures': failures})
+    if failures:
+        raise AssertionError('; '.join(failures))
+
     # -- 13. capture: whole-step capture's behaviours on the card ----------
     checks, capture_s = capture_checks()
     log({'phase': 'capture', 'checks': checks, 'seconds': capture_s,
@@ -3686,13 +4470,17 @@ def main():
         'launches': launches['fused_bn_relu']
         + train_launches['fused_bn_relu']
         + optim_launches['fused_bn_relu'] + ckpt_launches['fused_bn_relu']
-        + ff_bn_relu,
+        + ff_bn_relu + mirror_launches['fused_bn_relu']
+        + monitor_launches['fused_bn_relu'],
         'launches_by_path': {'serve': launches['fused_bn_relu'],
                              'train': train_launches['fused_bn_relu'],
                              'optim-train': optim_launches['fused_bn_relu'],
                              'checkpoint-resume':
                                  ckpt_launches['fused_bn_relu'],
-                             'feedforward': ff_bn_relu},
+                             'feedforward': ff_bn_relu,
+                             'mirror-train': mirror_launches['fused_bn_relu'],
+                             'monitor-fit':
+                                 monitor_launches['fused_bn_relu']},
         'max_abs_err': max(c['max_abs_err'] for c in on_path),
         # the 17 launches of one 32-row forward: per-shape medians summed
         'ms': sum(c['ms'] * c['launches_per_forward'] for c in on_path),
@@ -3719,7 +4507,11 @@ def main():
                          'optim-train':
                              optim_launches['fused_scale_bias_dot'],
                          'checkpoint-resume':
-                             ckpt_launches['fused_scale_bias_dot']},
+                             ckpt_launches['fused_scale_bias_dot'],
+                         'mirror-train':
+                             mirror_launches['fused_scale_bias_dot'],
+                         'monitor-fit':
+                             monitor_launches['fused_scale_bias_dot']},
                         'torch.matmul on the normalized input'),
          **route_summary(dot_cases, {'train': train_routes,
                                      'custom-train': custom_routes})},
@@ -3730,7 +4522,11 @@ def main():
                          'optim-train':
                              optim_launches['fused_scale_bias_conv3x3'],
                          'checkpoint-resume':
-                             ckpt_launches['fused_scale_bias_conv3x3']},
+                             ckpt_launches['fused_scale_bias_conv3x3'],
+                         'mirror-train':
+                             mirror_launches['fused_scale_bias_conv3x3'],
+                         'monitor-fit':
+                             monitor_launches['fused_scale_bias_conv3x3']},
                         'F.conv2d on the normalized input'),
          **route_summary(conv_cases, {'train': train_conv_routes,
                                       'custom-train': custom_conv_routes})},
@@ -3740,7 +4536,11 @@ def main():
                         {'lm-train': lm_launches['fused_dot_epilogue'],
                          'bucket-train':
                              bucket_launches['fused_dot_epilogue'],
-                         'lm-adam': lm_adam_launches['fused_dot_epilogue']},
+                         'lm-adam': lm_adam_launches['fused_dot_epilogue'],
+                         'mirror-train':
+                             mirror_launches['fused_dot_epilogue'],
+                         'mnist-lenet': mnist_launches,
+                         'alexnet-train': alexnet_launches},
                         'torch.addmm (product and bias, no relu)', lm_per),
          **route_summary(epi_cases, {
              'lm-train': lm_routes,
@@ -3752,7 +4552,8 @@ def main():
                         {'lm-train': lm_launches['flash_attention'],
                          'bucket-train': bucket_launches['flash_attention'],
                          'sp': sum(sp_launches.values()),
-                         'lm-adam': lm_adam_launches['flash_attention']},
+                         'lm-adam': lm_adam_launches['flash_attention'],
+                         'mirror-train': mirror_launches['flash_attention']},
                         'F.scaled_dot_product_attention(is_causal=True)',
                         lm_per),
          **route_summary(att_cases, {

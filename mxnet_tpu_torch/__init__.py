@@ -16,7 +16,9 @@ op, Custom operators (``operator``) and runtime-compiled CUDA kernels
 (``rtc.Rtc``, on NVRTC).  Training runs the whole lifecycle: the
 reference's optimizers and their update ops, checkpoints of parameters
 and optimizer state, ``fit``'s per-epoch checkpoint and auto-resume,
-the checkpoint callbacks and the ``FeedForward`` estimator.  The TPU
+the checkpoint callbacks and the ``FeedForward`` estimator, with
+monitors (``monitor.Monitor``), backward mirroring
+(``MXNET_BACKWARD_DO_MIRROR``) and the reference's data iterators.  The TPU
 kernels — ``fused_bn_relu``,
 ``fused_scale_bias_dot``, ``fused_scale_bias_conv3x3``,
 ``fused_dot_epilogue``, ``flash_attention`` and ``Rtc`` — are CUDA C++
@@ -43,7 +45,7 @@ from . import random
 from . import operator, rtc
 from . import (callback, initializer, io, lr_scheduler, metric, module,
                optimizer, parallel, resilience, rnn)
-from . import model
+from . import model, monitor
 from . import initializer as init
 from . import module as mod
 from . import optimizer as opt
@@ -63,5 +65,5 @@ __all__ = ['MXNetError', 'Context', 'cpu', 'gpu', 'current_context',
            'fuse', 'ops', 'config', 'instrument', 'Module', 'module', 'mod',
            'io', 'metric', 'optimizer', 'lr_scheduler', 'initializer',
            'opt', 'init', 'callback', 'random', 'parallel', 'rnn',
-           'engine', 'model', 'FeedForward', 'resilience']
+           'engine', 'model', 'FeedForward', 'resilience', 'monitor']
 

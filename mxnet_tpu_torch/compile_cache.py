@@ -13,8 +13,11 @@ hand-written kernels as the eager step, without the host's per-op work.
 
 Capture is decided by a rule, before any attempt (:func:`capture_skip_reason`):
 a step stays eager on the CPU, under ``NaiveEngine``, when its graph has
-a ``Custom`` node (user Python runs every step), and when it draws random
-numbers and this PyTorch cannot register a generator with a graph; the
+a ``Custom`` node (user Python runs every step), when it draws random
+numbers and this PyTorch cannot register a generator with a graph, and
+when it draws random numbers under ``MXNET_BACKWARD_DO_MIRROR`` (the
+recompute replays the generator's state, which a capture cannot read); a
+monitored module's step stays eager too (``Module.install_monitor``); the
 caller keeps eager paths of its own for collectives (the sp step) and
 ``make_train_step(donate=False)``.  Each such choice counts
 ``compile.capture_skipped`` and logs its reason.  A capture that fails
@@ -23,7 +26,8 @@ raises; nothing falls back to the eager step.
 Counters, as in the reference: a capture counts ``compile.traces`` and
 its host seconds ``compile.warmup_secs``; a replay ``executor.cache_hits``.
 The kernel launches and ``instrument`` counters the body counts while it
-is recorded (``instrument.recording``, on the capturing thread) are
+is recorded (``instrument.recording``, on the capturing thread and on
+the autograd thread that runs its backward) are
 applied on each replay instead, so launches per step mean the same
 captured or eager.
 
@@ -38,7 +42,7 @@ import time
 
 import torch
 
-from . import engine, instrument
+from . import config, engine, instrument
 from .base import MXNetError
 
 __all__ = ['pad_to_bucket', 'sig_key', 'batch_sig', 'fingerprint',
@@ -129,9 +133,10 @@ def _graph_generators():
 def capture_skip_reason(device, program=None, is_train=True):
     """Why a step on ``device`` running ``program`` stays eager, or None
     when it is captured: 'NaiveEngine', 'cpu', 'Custom' (a graph with a
-    Custom node runs user Python every step) or 'random' (a node draws
+    Custom node runs user Python every step), 'random' (a node draws
     random numbers and this PyTorch cannot register the device generator
-    with a graph)."""
+    with a graph) or 'random under the mirror' (a node draws random
+    numbers in a training step under ``MXNET_BACKWARD_DO_MIRROR``)."""
     if not engine.capture_enabled():
         return 'NaiveEngine'
     if torch.device(device).type != 'cuda':
@@ -139,8 +144,11 @@ def capture_skip_reason(device, program=None, is_train=True):
     if program is not None:
         if any(n.op == 'Custom' for n in program.topo_nodes()):
             return 'Custom'
-        if random_nodes(program, is_train) and not _graph_generators():
-            return 'random'
+        if random_nodes(program, is_train):
+            if not _graph_generators():
+                return 'random'
+            if is_train and config.get('MXNET_BACKWARD_DO_MIRROR'):
+                return 'random under the mirror'
     return None
 
 
@@ -270,7 +278,7 @@ class CapturedStep(object):
             graph.register_generator_state(g)
         err, outs = None, None
         try:
-            with instrument.recording() as self._counts, \
+            with instrument.recording(capture=True) as self._counts, \
                     torch.cuda.graph(graph, pool=self.pool,
                                      stream=self._side_stream(),
                                      capture_error_mode='thread_local'):

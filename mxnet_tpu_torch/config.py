@@ -35,6 +35,21 @@ _register('MXNET_ENGINE_TYPE', 'ThreadedEnginePerDevice', str,
           'step, LM train step and served bucket forward once per batch '
           'signature and replays it (env_var.md:8). Consumed at import '
           'by engine.set_engine_type.')
+# -- backward mirroring (executor.mirror_wrap) -------------------------------
+_register('MXNET_BACKWARD_DO_MIRROR', False, _bool,
+          'Trade compute for memory in backward (env_var.md:56-60; '
+          'graph_executor.cc:199-216 mirror pass).  Every differentiated '
+          'forward (the executor\'s, the fused train step\'s, the '
+          'sequence-parallel step\'s) runs under non-reentrant '
+          'torch.utils.checkpoint, which recomputes activations during '
+          'backward instead of keeping them in device memory.  '
+          'MXNET_BACKWARD_MIRROR_POLICY picks what is kept.')
+_register('MXNET_BACKWARD_MIRROR_POLICY', 'dots', str,
+          "Remat policy under MXNET_BACKWARD_DO_MIRROR: 'dots' keeps "
+          "matmul/conv outputs and recomputes cheap elementwise ops "
+          "(closest to the reference mirror, which re-runs activation/"
+          "BN-type nodes); 'nothing' rematerializes everything "
+          "(the most memory saved, the forward run twice).")
 # -- fit: fused step, checkpoints --------------------------------------------
 _register('MXTPU_FUSED_FIT', True, _bool,
           'Module.fit runs forward, backward and every update as one fused '

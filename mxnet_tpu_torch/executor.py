@@ -20,17 +20,34 @@ autograd, with each argument whose ``grad_req`` is not ``'null'`` as a
 leaf; ``backward`` then differentiates the recorded graph with zero head
 gradients — loss layers (``SoftmaxOutput``) inject their own, as in the
 reference — and writes the gradients into ``grad_dict`` (``'write'``
-replaces, ``'add'`` accumulates).  Gradients of the monitor, mirror and group2ctx paths of
-the JAX executor are not ported.
+replaces, ``'add'`` accumulates).
+
+A monitored executor (:meth:`Executor.set_monitor_callback`, installed
+by ``monitor.Monitor``) runs every forward on the ORIGINAL symbol, not
+the pass pipeline's program, so taps key on the original node names
+(``mxnet_tpu/executor.py:369-401``): each node output whose name matches
+the pattern goes to the callback, the aux updates are applied once, and
+no autograd graph is left pending.  Its ``backward`` then runs the
+training forward again on the fused program, with grad, discarding that
+run's aux updates, as the reference's monitored step runs its fused
+``fwd_bwd``.
+
+``MXNET_BACKWARD_DO_MIRROR`` (:func:`mirror_wrap`) wraps every
+differentiated forward — this executor's, the fused train step's and the
+sequence-parallel step's — in non-reentrant
+``torch.utils.checkpoint``: activations are recomputed in backward
+instead of kept.  The group2ctx path of the JAX executor is not ported.
 """
 from __future__ import annotations
 
+import functools
+import re
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
-from . import instrument
+from . import config, instrument
 from .base import MXNetError, resolve_dtype
 from .context import Context
 from .ndarray import NDArray, zeros as nd_zeros
@@ -39,9 +56,11 @@ from .symbol import Symbol
 __all__ = ['Executor', 'simple_bind']
 
 
-def _build_graph_fn(symbol: Symbol, is_train: bool):
+def _build_graph_fn(symbol: Symbol, is_train: bool, monitor_re=None):
     """The function ``(arg_values, aux_values) -> (outputs,
-    aux_updates)`` over name -> tensor dicts; ``is_train`` is fixed."""
+    aux_updates)`` over name -> tensor dicts; ``is_train`` is fixed.
+    With ``monitor_re`` (a compiled pattern) it returns a third value:
+    the node outputs whose names match, by name."""
     nodes = symbol.topo_nodes()
     out_entries = symbol._outputs
 
@@ -49,6 +68,7 @@ def _build_graph_fn(symbol: Symbol, is_train: bool):
            aux_values: Dict[str, torch.Tensor]):
         entry_vals: Dict[Tuple[int, int], torch.Tensor] = {}
         aux_updates: Dict[str, torch.Tensor] = {}
+        monitored: Dict[str, torch.Tensor] = {}
         # ops with no input (constants, samplers) are made on the device
         # the graph runs on
         dev = next((v.device for v in list(arg_values.values())
@@ -68,7 +88,10 @@ def _build_graph_fn(symbol: Symbol, is_train: bool):
                 dict(node.attrs, ctx=dev)
             try:
                 outs, aux_upd = op.apply(attrs, ins, is_train, None)
-            except Exception as e:
+            except RuntimeError as e:
+                # a CUDA error under capture (a host sync) names its node;
+                # other exceptions pass untouched (the mirror's recompute
+                # stops early by raising one through here)
                 if dev is not None and dev.type == 'cuda' and \
                         torch.cuda.is_current_stream_capturing():
                     raise MXNetError(
@@ -77,6 +100,10 @@ def _build_graph_fn(symbol: Symbol, is_train: bool):
                 raise
             for j, o in enumerate(outs):
                 entry_vals[(id(node), j)] = o
+            if monitor_re is not None:
+                for j, oname in enumerate(node.output_names()):
+                    if monitor_re.match(oname):
+                        monitored[oname] = outs[j]
             if aux_upd:
                 # op-local aux names -> graph variable names
                 n_main = len(op.input_names(node.attrs))
@@ -85,9 +112,87 @@ def _build_graph_fn(symbol: Symbol, is_train: bool):
                     var_node = node.inputs[n_main + aux_nms.index(
                         local_name)][0]
                     aux_updates[var_node.name] = val
-        return [entry_vals[(id(n), x)] for n, x in out_entries], aux_updates
+        outputs = [entry_vals[(id(n), x)] for n, x in out_entries]
+        if monitor_re is not None:
+            return outputs, aux_updates, monitored
+        return outputs, aux_updates
 
     return fn
+
+
+def mirror_policy():
+    """``MXNET_BACKWARD_MIRROR_POLICY`` when ``MXNET_BACKWARD_DO_MIRROR``
+    is on ('dots' or 'nothing'), else None."""
+    if not config.get('MXNET_BACKWARD_DO_MIRROR'):
+        return None
+    name = config.get('MXNET_BACKWARD_MIRROR_POLICY')
+    if name not in ('dots', 'nothing'):
+        raise MXNetError('MXNET_BACKWARD_MIRROR_POLICY must be '
+                         "'dots' or 'nothing', got %r" % name)
+    return name
+
+
+def _saved_under_dots():
+    """The aten ops whose outputs 'dots' keeps: the matmuls and the
+    convolution (the JAX policy keeps ``dot_general`` and
+    ``conv_general_dilated``).  A kernel's ``autograd.Function`` is not
+    among them (a ``pallas_call`` is not in the JAX set either): its
+    forward runs again in the recompute."""
+    aten = torch.ops.aten
+    return [aten.mm.default, aten.addmm.default, aten.bmm.default,
+            aten.convolution.default]
+
+
+def _replaying(f, generators):
+    """``f`` whose second and later calls (the recompute) draw what its
+    first call drew from ``generators``: their states are reset to the
+    first call's for the rerun and put back after it."""
+    first = []
+
+    def run(*args):
+        if not first:
+            first.append([(g, g.get_state()) for g in generators])
+            return f(*args)
+        after = [(g, g.get_state()) for g in generators]
+        for g, state in first[0]:
+            g.set_state(state)
+        try:
+            return f(*args)
+        finally:
+            for g, state in after:
+                g.set_state(state)
+    return run
+
+
+def mirror_wrap(f, generators=()):
+    """Apply the ``MXNET_BACKWARD_DO_MIRROR`` memory/compute trade to a
+    differentiated forward ``f`` (reference mirror pass,
+    ``graph_executor.cc:199-216``; ``mxnet_tpu/executor.py:106``): each
+    call runs ``f`` under non-reentrant ``torch.utils.checkpoint``, which
+    keeps no activation and runs ``f`` again in backward.  Policy
+    'nothing' keeps nothing; 'dots' keeps the outputs of the matmuls and
+    convolutions (a selective checkpoint) and recomputes the rest.  The
+    ops draw from the port's own generators, not torch's global RNG, so
+    ``preserve_rng_state`` is off and ``generators`` (those ``f`` draws
+    from) are replayed for the recompute.  Returns ``f`` itself when the
+    mirror is off."""
+    policy = mirror_policy()
+    if policy is None:
+        return f
+    from torch.utils.checkpoint import (
+        checkpoint, create_selective_checkpoint_contexts, noop_context_fn)
+    if policy == 'dots':
+        context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                       _saved_under_dots())
+    else:
+        context_fn = noop_context_fn
+
+    def wrapped(*args):
+        instrument.inc('executor.mirrored_forwards')
+        return checkpoint(_replaying(f, generators), *args,
+                          use_reentrant=False, preserve_rng_state=False,
+                          context_fn=context_fn)
+    return wrapped
 
 
 def _grad_req_map(grad_req, arg_names):
@@ -133,6 +238,10 @@ class Executor:
         self._capture = False
         self._capture_pool = None
         self._forward_graph = None
+        self._monitor_callback = None
+        self._monitor_pattern = None
+        self._monitored_fns = {}
+        self._draws = None          # does the training program sample
 
     @staticmethod
     def _normalize(values, names, what, allow_none=False, partial_ok=False):
@@ -175,15 +284,23 @@ class Executor:
         return fn
 
     def _run_with_grad(self):
-        """A training forward under autograd: ``(outputs, aux_updates,
-        leaves)``, the leaves being the differentiated arguments."""
+        """A training forward under autograd (and the mirror):
+        ``(outputs, aux_updates, leaves)``, the leaves being the
+        differentiated arguments."""
+        from . import compile_cache, random
         args = {k: v.handle for k, v in self.arg_dict.items()}
         aux = {k: v.handle for k, v in self.aux_dict.items()}
         leaves = {}
         for n in self._grad_names:
             leaves[n] = args[n] = args[n].detach().requires_grad_(True)
+        if self._draws is None:
+            self._draws = bool(compile_cache.random_nodes(
+                self._program_symbol(True)))
+        gens = [random.generator(self._ctx.torch_device)] \
+            if self._draws else []
         with torch.enable_grad():
-            outs, aux_updates = self._graph_fn(True)(args, aux)
+            outs, aux_updates = mirror_wrap(self._graph_fn(True),
+                                            gens)(args, aux)
         return outs, aux_updates, leaves
 
     def forward(self, is_train=False, **kwargs):
@@ -197,6 +314,8 @@ class Executor:
                 raise MXNetError('unknown argument %s' % k)
             self.arg_dict[k][:] = v
         self._pending = None
+        if self._monitor_callback is not None:
+            return self._forward_monitored(is_train)
         if not is_train and self._capture:
             outs, aux_updates = self._inference_graph().run(), {}
         elif is_train and self._grad_names:
@@ -212,6 +331,39 @@ class Executor:
         self.outputs = [NDArray(o.detach(), self._ctx) for o in outs]
         instrument.inc('executor.forwards')
         return self.outputs
+
+    def set_monitor_callback(self, callback, pattern=None):
+        """Tap every forward: ``callback(name, NDArray)`` for each node
+        output whose name matches ``pattern`` (a compiled regex; every
+        output without one), as ``mxnet_tpu/executor.py:755`` does."""
+        self._monitor_callback = callback
+        self._monitor_pattern = pattern
+
+    def _forward_monitored(self, is_train):
+        """A forward of the ORIGINAL symbol with its matching node outputs
+        handed to the monitor callback; no autograd graph is left pending
+        (``backward`` runs the fused program's training forward again)."""
+        pattern = self._monitor_pattern or re.compile('.*')
+        key = (bool(is_train), pattern.pattern)
+        fn = self._monitored_fns.get(key)
+        if fn is None:
+            fn = self._monitored_fns[key] = _build_graph_fn(
+                self._symbol, is_train, monitor_re=pattern)
+        args = {k: v.handle for k, v in self.arg_dict.items()}
+        aux = {k: v.handle for k, v in self.aux_dict.items()}
+        with torch.no_grad():
+            outs, aux_updates, monitored = fn(args, aux)
+        for name, val in aux_updates.items():
+            self.aux_dict[name]._set_data(val)
+        self.outputs = [NDArray(o, self._ctx) for o in outs]
+        instrument.inc('executor.forwards')
+        for name, val in monitored.items():
+            self._monitor_callback(name, NDArray(val, self._ctx))
+        return self.outputs
+
+    def debug_str(self):
+        """The bound symbol's node list (``mxnet_tpu/executor.py:804``)."""
+        return self._symbol.debug_str()
 
     def enable_capture(self, pool=None):
         """Run inference forwards through a CUDA graph (on the card, by

@@ -11,7 +11,10 @@ The kernel wrappers count their launches here too (:func:`count_launch`).
 Inside :func:`recording` the counts a thread makes are kept apart and
 applied later, as often as wanted (:func:`apply_counts`): a CUDA graph
 capture runs the step's host code once and launches nothing, and each
-replay of the graph is a step.
+replay of the graph is a step.  A capture's recording also takes the
+counts of any other thread whose current stream is capturing: the
+autograd engine runs a captured backward (and a mirrored forward's
+recompute in it) on its device thread.
 """
 from __future__ import annotations
 
@@ -77,12 +80,27 @@ class Histogram(object):
 
 
 _recorder = threading.local()
+_capture = [None]       # the recording of the CUDA graph capture under way
+
+
+def _recording_for(key, n):
+    """Add to this thread's recording, or to the capture's when this
+    thread's current stream is capturing; False when neither records."""
+    rec = getattr(_recorder, 'counts', None)
+    if rec is None:
+        rec = _capture[0]
+        if rec is None:
+            return False
+        import torch
+        if not torch.cuda.is_current_stream_capturing():
+            return False
+    with _lock:
+        rec[key] = rec.get(key, 0) + n
+    return True
 
 
 def inc(name, n=1):
-    rec = getattr(_recorder, 'counts', None)
-    if rec is not None:
-        rec[name] = rec.get(name, 0) + n
+    if _recording_for(name, n):
         return
     with _lock:
         _counters[name] = _counters.get(name, 0) + n
@@ -91,23 +109,26 @@ def inc(name, n=1):
 def count_launch(kernel, route=None):
     """One launch of ``kernel``, a wrapper with a ``launches`` count (and,
     with ``route``, a ``launches_by_route`` dict)."""
-    rec = getattr(_recorder, 'counts', None)
-    if rec is not None:
-        rec[kernel, route] = rec.get((kernel, route), 0) + 1
-        return
-    apply_counts({(kernel, route): 1})
+    if not _recording_for((kernel, route), 1):
+        apply_counts({(kernel, route): 1})
 
 
 @contextlib.contextmanager
-def recording():
+def recording(capture=False):
     """Counter increments and kernel launches this thread counts inside
-    the block go into the yielded dict instead of the registry."""
+    the block go into the yielded dict instead of the registry; with
+    ``capture`` (a CUDA graph capture on this thread), so do those of
+    threads whose current stream is capturing."""
     prev = getattr(_recorder, 'counts', None)
     _recorder.counts = rec = {}
+    if capture:
+        _capture[0] = rec
     try:
         yield rec
     finally:
         _recorder.counts = prev
+        if capture:
+            _capture[0] = None
 
 
 def apply_counts(rec):

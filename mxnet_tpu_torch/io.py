@@ -2,13 +2,31 @@
 ``DataIter`` and ``NDArrayIter`` (``:29-112``, ``:564-692``; reference
 ``python/mxnet/io.py``), with the reference's last-batch semantics
 (``pad`` wraps around to the start, ``discard`` drops the tail,
-``roll_over`` carries it into the next epoch), and the double-buffered
-device feed ``DeviceFeedIter`` (``:191-358``) of the sync-free fit loop.
-Each delivered batch counts ``io.batches`` once.
+``roll_over`` carries it into the next epoch), the double-buffered
+device feed ``DeviceFeedIter`` (``:191-358``) of the sync-free fit loop,
+``ResizeIter`` (``:114``), ``PrefetchingIter`` (``:359``), and the
+readers of the upstream MNIST examples, ``MNISTIter`` (idx files,
+``:694``) and ``CSVIter`` (``:747``).  Each delivered batch counts
+``io.batches`` once.
+
+``PrefetchingIter`` runs one producer thread per underlying iterator
+(the reference pushes its fetches on the native engine, which the port
+does not have), each with at most one fetch outstanding: the reference's
+double buffering.  The threads are daemons; ``close()`` stops them,
+joining each with a timeout, and ``__del__`` stops them without waiting,
+so an iterator abandoned mid-epoch never holds up the interpreter's exit
+(the reference's ``__del__`` waits on the engine, ROADMAP Queue 3).  At
+exit the producer threads still running are stopped and joined before
+the interpreter finalizes: a daemon thread stopped inside a torch call
+would abort the process.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
+import queue
+import struct
+import threading
 from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 
@@ -17,9 +35,11 @@ import torch
 
 from . import instrument
 from . import ndarray as nd
+from .base import MXNetError
 from .ndarray import NDArray, array
 
-__all__ = ['DataBatch', 'DataIter', 'NDArrayIter', 'DeviceFeedIter']
+__all__ = ['DataBatch', 'DataIter', 'NDArrayIter', 'DeviceFeedIter',
+           'ResizeIter', 'PrefetchingIter', 'MNISTIter', 'CSVIter']
 
 
 class DataBatch(object):
@@ -79,6 +99,79 @@ class DataIter(object):
 
     def getpad(self):
         pass
+
+    def provide_signature(self):
+        """``{name: (shape, dtype_str)}`` over data and label: what the
+        warm start captures against.  The base reads ``provide_data`` /
+        ``provide_label`` and assumes float32 (``NDArrayIter`` knows its
+        dtypes)."""
+        sig = {}
+        try:
+            for name, shape in list(self.provide_data or []) + \
+                    list(self.provide_label or []):
+                sig[name] = (tuple(shape), 'float32')
+        except (AttributeError, TypeError, ValueError):
+            return {}
+        return sig
+
+
+class ResizeIter(DataIter):
+    """``data_iter`` resized to ``size`` batches per epoch, restarting it
+    when it runs out (reference io.py:138)."""
+
+    _counts_io_batches = False      # the wrapped iterator counts
+
+    def __init__(self, data_iter, size, reset_internal=True):
+        super().__init__()
+        self.data_iter = data_iter
+        self.size = size
+        self.reset_internal = reset_internal
+        self.cur = 0
+        self.current_batch = None
+        self.provide_data = data_iter.provide_data
+        self.provide_label = data_iter.provide_label
+        self.batch_size = data_iter.batch_size
+
+    def reset(self):
+        self.cur = 0
+        if self.reset_internal:
+            self.data_iter.reset()
+
+    def iter_next(self):
+        if self.cur == self.size:
+            return False
+        try:
+            self.current_batch = self.data_iter.next()
+        except StopIteration:
+            self.data_iter.reset()
+            self.current_batch = self.data_iter.next()
+        self.cur += 1
+        return True
+
+    def getdata(self):
+        return self.current_batch.data
+
+    def getlabel(self):
+        return self.current_batch.label
+
+    def getindex(self):
+        return self.current_batch.index
+
+    def getpad(self):
+        return self.current_batch.pad
+
+
+def _silence(it):
+    """Turn off ``io.batches`` counting along ``it``'s delegation chain
+    (``_inner`` of the readers, ``data_iter`` of the wrappers); returns
+    ``[(iterator, old flag)]``."""
+    out, seen = [], set()
+    while it is not None and id(it) not in seen:
+        seen.add(id(it))
+        out.append((it, getattr(it, '_counts_io_batches', True)))
+        it._counts_io_batches = False
+        it = getattr(it, '_inner', None) or getattr(it, 'data_iter', None)
+    return out
 
 
 def _init_data(data, allow_empty, default_name):
@@ -154,6 +247,19 @@ class NDArrayIter(DataIter):
     def provide_label(self):
         return [(k, tuple([self.batch_size] + list(v.shape[1:])))
                 for k, v in self.label]
+
+    def provide_signature(self):
+        """The batch signature with the sources' own dtypes."""
+        sig = {}
+        for (_, arr), (name, shape) in zip(self.data + self.label,
+                                           self.provide_data +
+                                           self.provide_label):
+            sig[name] = (tuple(shape), str(arr.dtype).replace('torch.', ''))
+        return sig
+
+    def hard_reset(self):
+        """Rewind to the first batch, ignoring ``roll_over``."""
+        self.cursor = -self.batch_size
 
     def reset(self):
         if self.last_batch_handle == 'roll_over' and \
@@ -238,14 +344,7 @@ class DeviceFeedIter(DataIter):
         self._place_label = place_label or place_data
         self.batch_size = getattr(data_iter, 'batch_size', 0)
         self.current_batch = None
-        self._silenced = []
-        it, seen = data_iter, set()
-        while it is not None and id(it) not in seen:
-            seen.add(id(it))
-            self._silenced.append(
-                (it, getattr(it, '_counts_io_batches', True)))
-            it._counts_io_batches = False
-            it = getattr(it, 'data_iter', None)
+        self._silenced = _silence(data_iter)
         device = torch.device(device) if device is not None else None
         self._stream = torch.cuda.Stream(device) \
             if device is not None and device.type == 'cuda' else None
@@ -350,3 +449,299 @@ class DeviceFeedIter(DataIter):
         pool = getattr(self, '_pool', None)
         if pool is not None:
             pool.shutdown(wait=False)
+
+
+_RUNNING = set()        # the producers whose threads are alive
+_RUNNING_LOCK = threading.Lock()
+
+
+def _stop_producers():
+    """At exit: stop every producer thread still running and wait for it
+    (briefly) while the interpreter can still run it."""
+    with _RUNNING_LOCK:
+        running = list(_RUNNING)
+    for p in running:
+        p.stop()
+    for p in running:
+        p.join(5.0)
+
+
+class _Producer(object):
+    """One daemon thread fetching from one iterator, a fetch at a time:
+    ``request()`` asks for the next batch, ``result()`` waits for it (a
+    ``DataBatch``, None at the end, or the exception the fetch raised)."""
+
+    def __init__(self, it, place, name):
+        self._it = it
+        self._place = place
+        self._requests = queue.Queue()
+        self._results = queue.Queue()
+        self._thread = threading.Thread(target=self._run, name=name,
+                                        daemon=True)
+        with _RUNNING_LOCK:
+            if not _RUNNING:
+                atexit.unregister(_stop_producers)
+                atexit.register(_stop_producers)
+            _RUNNING.add(self)
+        self._thread.start()
+
+    def _run(self):
+        try:
+            while self._requests.get():
+                try:
+                    batch = self._it.next()
+                    if self._place is not None:
+                        batch = _place_batch(batch, self._place)
+                except StopIteration:
+                    batch = None
+                except BaseException as e:     # raised in the consumer
+                    batch = e
+                self._results.put(batch)
+        finally:
+            with _RUNNING_LOCK:
+                _RUNNING.discard(self)
+
+    def request(self):
+        self._requests.put(True)
+
+    def result(self):
+        return self._results.get()
+
+    def put(self, item):
+        self._results.put(item)
+
+    def stop(self):
+        self._requests.put(False)
+
+    def join(self, timeout):
+        self._thread.join(timeout)
+        return not self._thread.is_alive()
+
+
+class PrefetchingIter(DataIter):
+    """Prefetch over one or more iterators, merging their batches into one
+    (reference io.py:359, C++ ``PrefetcherIter``, ``iter_prefetcher.h``).
+
+    Each iterator has its own producer thread, so fetches are serialised
+    per iterator and run in parallel across them; the next fetch is asked
+    for when the previous batch is consumed (at most one outstanding).
+    ``rename_data`` / ``rename_label`` (one name -> name dict per
+    iterator) rename the provided descriptors.  ``device_place`` (the
+    executor group's ``_place_data``) also stages each batch onto the
+    device from the producer thread; without it the batches stay on the
+    host, as ``Module.fit``'s device feed expects.  Call :meth:`close`
+    when done (``__del__`` stops the threads without waiting)."""
+
+    def __init__(self, iters, rename_data=None, rename_label=None,
+                 device_place=None):
+        super().__init__()
+        if not isinstance(iters, list):
+            iters = [iters]
+        self.n_iter = len(iters)
+        if self.n_iter == 0:
+            raise MXNetError('PrefetchingIter needs at least one iterator')
+        self.iters = iters
+        # n inner batches merge into one delivered batch: this wrapper
+        # counts io.batches, the iterators it owns do not
+        for it in iters:
+            _silence(it)
+        self.rename_data = rename_data
+        self.rename_label = rename_label
+        self.batch_size = self.provide_data[0][1][0]
+        self.current_batch = None
+        self.next_batch = [None] * self.n_iter
+        self._closed = False
+        self._producers = [_Producer(it, device_place,
+                                     'mxtpu-prefetch-%d' % i)
+                           for i, it in enumerate(iters)]
+        for p in self._producers:
+            p.request()
+
+    @staticmethod
+    def _renamed(descs, renames):
+        if renames is None:
+            return sum([list(d) for d in descs], [])
+        return sum([[(r[n], s) for n, s in d]
+                    for r, d in zip(renames, descs)], [])
+
+    @property
+    def provide_data(self):
+        return self._renamed([i.provide_data for i in self.iters],
+                             self.rename_data)
+
+    @property
+    def provide_label(self):
+        return self._renamed([i.provide_label for i in self.iters],
+                             self.rename_label)
+
+    def reset(self):
+        """Drain each iterator's outstanding fetch, reset them all and
+        start again."""
+        for p in self._producers:
+            p.result()
+        for it in self.iters:
+            it.reset()
+        for p in self._producers:
+            p.request()
+
+    def iter_next(self):
+        # every slot is drained first, so one failing iterator cannot
+        # leave the others' results queued
+        items = [p.result() for p in self._producers]
+        exc = next((x for x in items if isinstance(x, BaseException)),
+                   None)
+        if exc is not None:
+            if self.n_iter == 1:
+                # one stream: fetch a replacement so the caller can retry
+                self._producers[0].request()
+            else:
+                # the streams cannot be realigned: end the epoch (reset()
+                # drains these sentinels and starts every stream again)
+                for p in self._producers:
+                    p.put(None)
+            raise exc
+        self.next_batch = items
+        if items[0] is None:
+            if any(b is not None for b in items):
+                raise MXNetError('PrefetchingIter: the iterators ran out '
+                                 'at different batches')
+            for p in self._producers:       # for reset() to drain
+                p.put(None)
+            return False
+        if any(b.pad != items[0].pad for b in items):
+            raise MXNetError('PrefetchingIter: the iterators\' batches '
+                             'differ in padding')
+        self.current_batch = DataBatch(
+            sum([b.data for b in items], []),
+            sum([b.label for b in items], []), items[0].pad,
+            items[0].index)
+        for p in self._producers:
+            p.request()
+        return True
+
+    def getdata(self):
+        return self.current_batch.data
+
+    def getlabel(self):
+        return self.current_batch.label
+
+    def getindex(self):
+        return self.current_batch.index
+
+    def getpad(self):
+        return self.current_batch.pad
+
+    def close(self, timeout=10.0):
+        """Stop the producer threads, each joined within ``timeout``
+        seconds (a fetch in flight finishes first); True when all have
+        stopped."""
+        if self._closed:
+            return True
+        self._closed = True
+        for p in self._producers:
+            p.stop()
+        return all([p.join(timeout) for p in self._producers])
+
+    def __del__(self):
+        # never blocks: the daemon threads get their stop request
+        if not getattr(self, '_closed', True):
+            self._closed = True
+            for p in self._producers:
+                p.stop()
+
+
+def _read_idx(path):
+    """An idx file (big-endian magic: two zero bytes, the type byte 0x08
+    for uint8, the number of dims, then each dim) as a uint8 array."""
+    import gzip
+    opener = gzip.open if path.endswith('.gz') else open
+    with opener(path, 'rb') as f:
+        zero, dtype, dims = struct.unpack('>HBB', f.read(4))
+        if zero != 0 or dtype != 0x08:
+            raise MXNetError('%s is not a uint8 idx file (magic %#06x, '
+                             'type %#04x)' % (path, zero, dtype))
+        shape = struct.unpack('>%dI' % dims, f.read(4 * dims))
+        return np.frombuffer(f.read(), dtype=np.uint8).reshape(shape)
+
+
+class MNISTIter(DataIter):
+    """MNIST idx-format reader (C++ ``src/io/iter_mnist.cc:241-248``):
+    images scaled to [0, 1] as float32, shaped (N, 1, 28, 28) or flat
+    (N, 784) with ``flat``; labels float32; with ``shuffle`` the rows are
+    permuted once by ``numpy.random.RandomState(seed)``.  The last batch
+    wraps around to the start (``pad``)."""
+
+    def __init__(self, image='train-images-idx3-ubyte',
+                 label='train-labels-idx1-ubyte', batch_size=128,
+                 shuffle=True, flat=False, silent=False, seed=0,
+                 input_shape=None, **kwargs):
+        super().__init__()
+        images = _read_idx(image).astype(np.float32) / 255.0
+        labels = _read_idx(label).astype(np.float32)
+        if flat:
+            images = images.reshape(images.shape[0], -1)
+        else:
+            images = images.reshape(images.shape[0], 1, images.shape[1],
+                                    images.shape[2])
+        if shuffle:
+            perm = np.random.RandomState(seed).permutation(images.shape[0])
+            images, labels = images[perm], labels[perm]
+        self._inner = NDArrayIter(images, labels, batch_size,
+                                  shuffle=False, last_batch_handle='pad')
+        self.batch_size = batch_size
+
+    @property
+    def provide_data(self):
+        return self._inner.provide_data
+
+    @property
+    def provide_label(self):
+        return self._inner.provide_label
+
+    def reset(self):
+        self._inner.reset()
+
+    def next(self):
+        return self._inner.next()
+
+    def iter_next(self):
+        return self._inner.iter_next()
+
+
+class CSVIter(DataIter):
+    """CSV reader (C++ ``src/io/iter_csv.cc:131-140``): rows of
+    ``data_csv`` reshaped to ``data_shape``, labels from ``label_csv``
+    (zeros without one); ``round_batch`` pads the last batch by wrapping
+    around, else drops it."""
+
+    def __init__(self, data_csv, data_shape, label_csv=None,
+                 label_shape=(1,), batch_size=128, round_batch=True,
+                 **kwargs):
+        super().__init__()
+        data = np.loadtxt(data_csv, delimiter=',', dtype=np.float32)
+        data = data.reshape((-1,) + tuple(data_shape))
+        if label_csv is not None:
+            label = np.loadtxt(label_csv, delimiter=',', dtype=np.float32)
+            label = label.reshape((-1,) + tuple(label_shape))
+            if tuple(label_shape) == (1,):
+                label = label.reshape(-1)
+        else:
+            label = np.zeros((data.shape[0],), dtype=np.float32)
+        self._inner = NDArrayIter(
+            data, label, batch_size,
+            last_batch_handle='pad' if round_batch else 'discard')
+        self.batch_size = batch_size
+
+    @property
+    def provide_data(self):
+        return self._inner.provide_data
+
+    @property
+    def provide_label(self):
+        return self._inner.provide_label
+
+    def reset(self):
+        self._inner.reset()
+
+    def next(self):
+        return self._inner.next()

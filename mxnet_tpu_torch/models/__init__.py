@@ -1,17 +1,19 @@
 """Model zoo of the port: the symbol constructors ported so far, by name
 as in ``mxnet_tpu/models/__init__.py``."""
-from . import lenet, mlp
+from . import alexnet, lenet, mlp
 from . import resnet
 from . import transformer_lm
 
 _MODELS = {
+    'alexnet': alexnet.get_symbol,
     'lenet': lenet.get_symbol,
     'mlp': mlp.get_symbol,
     'resnet': resnet.get_symbol,
     'transformer_lm': transformer_lm.get_symbol,
 }
 
-__all__ = ['lenet', 'mlp', 'resnet', 'transformer_lm', 'get_symbol', 'list_models']
+__all__ = ['alexnet', 'lenet', 'mlp', 'resnet', 'transformer_lm',
+           'get_symbol', 'list_models']
 
 
 def get_symbol(name, **kwargs):

@@ -28,9 +28,12 @@ last), atomically, after the window has drained; with ``auto_resume``
 (default: the ``MXTPU_AUTO_RESUME`` knob) it first restarts from the
 newest loadable checkpoint above ``begin_epoch`` (``checkpoint.resumes``;
 the parameters only: the update count and optimizer state start again,
-as in the reference).  The JAX package's other planes around the loop
-(elastic membership, health sentinels, goodput accounting, monitors,
-mesh) are not ported; asking for them raises.
+as in the reference).  ``fit(monitor=...)`` installs the monitor after
+bind (a monitored module trains through the per-parameter loop, eagerly)
+and calls its ``tic``/``toc_print`` around every step, as the reference
+does.  The JAX package's other planes around the loop (elastic
+membership, health sentinels, goodput accounting, mesh) are not ported;
+asking for them raises.
 """
 from __future__ import annotations
 
@@ -221,7 +224,7 @@ class BaseModule(object):
             auto_resume=None, warm_start=None, mesh=None, partition=None):
         """Train (reference base_module.py:369-503)."""
         assert num_epoch is not None, 'please specify number of epochs'
-        unported = {'monitor': monitor, 'mesh': mesh, 'partition': partition}
+        unported = {'mesh': mesh, 'partition': partition}
         asked = sorted(k for k, v in unported.items() if v)
         if asked:
             raise NotImplementedError('fit(%s=...) is not ported to '
@@ -247,6 +250,8 @@ class BaseModule(object):
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
+        if monitor is not None:
+            self.install_monitor(monitor)
         self.init_params(initializer=initializer, arg_params=arg_params,
                          aux_params=aux_params, allow_missing=allow_missing,
                          force_init=force_init)
@@ -276,7 +281,7 @@ class BaseModule(object):
                              batch_end_callback, eval_end_callback,
                              eval_batch_end_callback, begin_epoch,
                              num_epoch, window, checkpoint_prefix,
-                             checkpoint_period)
+                             checkpoint_period, monitor)
         finally:
             self._window = None
             # hand the caller's iterator back in a clean state (the feed
@@ -288,16 +293,21 @@ class BaseModule(object):
                     validation_metric, epoch_end_callback,
                     batch_end_callback, eval_end_callback,
                     eval_batch_end_callback, begin_epoch, num_epoch,
-                    window, checkpoint_prefix=None, checkpoint_period=1):
+                    window, checkpoint_prefix=None, checkpoint_period=1,
+                    monitor=None):
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()
             eval_metric.reset()
             for nbatch, data_batch in enumerate(train_data):
+                if monitor is not None:
+                    monitor.tic()
                 metric_on_device = self._fit_step(data_batch, eval_metric)
                 window.admit(self._step_ticket())
                 instrument.inc('fit.batches')
                 if not metric_on_device:
                     self.update_metric(eval_metric, data_batch.label)
+                if monitor is not None:
+                    monitor.toc_print()
                 if batch_end_callback is not None:
                     params = BatchEndParam(epoch=epoch, nbatch=nbatch,
                                            eval_metric=eval_metric,
@@ -385,8 +395,7 @@ class BaseModule(object):
         assert not states and not value
 
     def install_monitor(self, mon):
-        raise NotImplementedError('monitors (monitor.py) are not ported to '
-                                  'mxnet_tpu_torch yet')
+        raise NotImplementedError()
 
     def bind(self, data_shapes, label_shapes=None, for_training=True,
              inputs_need_grad=False, force_rebind=False, shared_module=None,

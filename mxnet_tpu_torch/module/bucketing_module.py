@@ -20,9 +20,10 @@ start.
 ``work_load_list`` is taken for the reference's signature and unused
 (one device).  Bucketed
 training is float32, as in the reference (whose BucketingModule takes no
-``compute_dtype``).  ``install_monitor``, ``get_input_grads`` and the
-mesh (``_set_parallel``) are not ported (Module lacks them too) and
-raise.
+``compute_dtype``).  ``install_monitor`` taps every bucket's module, the
+buckets bound later included (each trains through the loop then; the
+reference taps only the buckets bound at the call).  The
+mesh (``_set_parallel``) is not ported and raises.
 """
 from __future__ import annotations
 
@@ -34,12 +35,6 @@ from .base_module import BaseModule
 from .module import Module
 
 __all__ = ['BucketingModule']
-
-
-def _unported(what):
-    return NotImplementedError('BucketingModule.%s is not ported to '
-                               'mxnet_tpu_torch yet (ROADMAP Queue 1, '
-                               'item 3)' % what)
 
 
 class BucketingModule(BaseModule):
@@ -62,12 +57,14 @@ class BucketingModule(BaseModule):
         # tuple; bound and warmed at fit start
         self._declared_bucket_keys = list(bucket_keys or [])
         self._warm_eager = False
+        self._monitor = None
 
     def _reset_bind(self):
         self.binded = False
         self._buckets = {}
         self._curr_module = None
         self._curr_bucket_key = None
+        self._monitor = None
 
     @property
     def data_names(self):
@@ -167,6 +164,8 @@ class BucketingModule(BaseModule):
             module._pool_owner = default
             if self.optimizer_initialized:
                 module.borrow_optimizer(default)
+            if self._monitor is not None:
+                module.install_monitor(self._monitor)
             self._buckets[bucket_key] = module
         self._curr_module = self._buckets[bucket_key]
         self._curr_bucket_key = bucket_key
@@ -289,10 +288,21 @@ class BucketingModule(BaseModule):
         self._curr_module.update_metric(eval_metric, labels)
 
     def get_input_grads(self, merge_multi_context=True):
-        raise _unported('get_input_grads')
+        """The current bucket's input gradients
+        (bucketing_module.py:300)."""
+        assert self.binded and self.params_initialized and \
+            self.inputs_need_grad
+        return self._curr_module.get_input_grads(merge_multi_context)
 
     def install_monitor(self, mon):
-        raise _unported('install_monitor')
+        """Tap every bucket's module, and each bucket bound later
+        (bucketing_module.py:319)."""
+        assert self.binded
+        self._monitor = mon
+        for mod in self._buckets.values():
+            mod.install_monitor(mon)
 
     def _set_parallel(self, mesh, partition=None):
-        raise _unported('_set_parallel (a mesh)')
+        raise NotImplementedError('BucketingModule._set_parallel (a mesh) '
+                                  'is not ported to mxnet_tpu_torch yet '
+                                  '(ROADMAP Queue 1, item 8)')

@@ -214,6 +214,11 @@ class DataParallelExecutorGroup(object):
     def update_metric(self, eval_metric, labels):
         eval_metric.update(labels, self.get_outputs())
 
+    def install_monitor(self, mon):
+        """(executor_group.py:287)"""
+        for exe in self.execs:
+            mon.install(exe)
+
 
 class _Bound(object):
     """A group-like holder of one executor: what ``reshape`` binds the

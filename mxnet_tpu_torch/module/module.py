@@ -46,8 +46,11 @@ step's own tensors, not in the ``Updater``: ``save_optimizer_states``
 first copies it out (``_sync_fused_states_to_updater``, after the step
 window drains), and ``load_optimizer_states`` copies the loaded values
 INTO those tensors (``_overlay_updater_states``), so the module's graphs
-stay valid.  ``MXTPU_FUSED_FIT=0`` trains through the ``Updater`` loop.
-kvstores, context lists, monitors and meshes are not ported.
+stay valid.  ``MXTPU_FUSED_FIT=0`` trains through the ``Updater`` loop, and so does a
+module with a monitor installed (``install_monitor``, as
+``mxnet_tpu/module/module.py:604-606`` does): its step stays eager, by
+rule, counted in ``compile.capture_skipped``.  kvstores, context lists
+and meshes are not ported.
 """
 from __future__ import annotations
 
@@ -422,6 +425,17 @@ class Module(BaseModule):
     def update_metric(self, eval_metric, labels):
         self._exec_group.update_metric(eval_metric, labels)
 
+    def install_monitor(self, mon):
+        """Tap the executor's forwards (module.py:1110).  The fused step
+        is dropped: a monitored module trains through the loop (forward,
+        backward, update), eagerly."""
+        assert self.binded
+        self._fused = None
+        self._fused_unavailable = True
+        self._drop_graphs()
+        self._exec_group.install_monitor(mon)
+        compile_cache.note_skip('fit_step', 'monitor')
+
     # -- fused fit path ----------------------------------------------------
     def _device_metric(self, eval_metric):
         """The metric to fold into the fused step, or None for the
@@ -443,7 +457,15 @@ class Module(BaseModule):
         metric folded in when it has a device form (returns True then).
         Falls back to ``forward_backward(); update()`` when the step
         cannot be built (non-functional optimizer, a ``grad_req`` other
-        than 'write', inputs that need gradients)."""
+        than 'write', inputs that need gradients, a monitor installed).
+
+        Under an lr scheduler the two forms differ at a schedule
+        boundary: the fused step moves every update count first and then
+        reads ``host_lr()``, while the loop reads each parameter's lr
+        before its count moves, so the first parameter of the boundary
+        step takes the old lr (the reference documents the same,
+        ``mxnet_tpu/module/module.py:608-611``).  So "captured equals the
+        loop bit for bit" holds only without a scheduler."""
         metric = self._device_metric(eval_metric)
         if self._fused is not None and not self._adopt_metric(metric):
             self._fused = None          # rebuilt below, state kept
@@ -537,6 +559,8 @@ class Module(BaseModule):
             return
         if not (self.binded and self.params_initialized and
                 self.optimizer_initialized):
+            return
+        if self._exec_group.execs[0]._monitor_callback is not None:
             return
         if self.inputs_need_grad or \
                 self._exec_group.grad_req_spec != 'write':

@@ -1,13 +1,19 @@
-"""Neural-network layer operators of the ResNet and transformer-LM paths.
+"""Neural-network layer operators.
 
 The port of ``mxnet_tpu/ops/nn.py``: FullyConnected (``:49-76``),
-Convolution (``_conv_apply``, ``:90-162``), Pooling (``:325-378``),
-Activation (``:385-390``), LeakyReLU (``:393-445``), softmax /
-log_softmax / SoftmaxActivation (``:447-458``), SoftmaxOutput with its
-injected loss gradient (``:468-548``), BatchNorm with its shared stats
-step (``:645-726``), InstanceNorm (``:741-756``), Dropout (``:800-814``),
-Concat (``:821-831``), SliceChannel (``:834-849``), Embedding
-(``:857-871``) and FlashAttention (``:985-1032``).  The random draws of
+Convolution (``_conv_apply``, ``:90-162``), Deconvolution (``:165-230``),
+Pooling (``:325-378``), Activation (``:385-390``), LeakyReLU
+(``:393-445``), softmax / log_softmax / SoftmaxActivation (``:447-458``),
+SoftmaxOutput with its injected loss gradient (``:468-548``), the
+regression outputs and SVMOutput (``:551-636``), BatchNorm with its
+shared stats step and its CuDNNBatchNorm alias (``:645-735``),
+InstanceNorm (``:741-756``), L2Normalization and LRN (``:759-797``),
+Dropout (``:800-814``), Concat (``:821-831``), SliceChannel
+(``:834-849``), Embedding (``:857-871``), UpSampling and Crop
+(``:878-920``), the Sequence ops (``:923-967``), FlashAttention
+(``:985-1032``) and ``softmax_cross_entropy``
+(``mxnet_tpu/ops/vision.py:227``).  The loss layers' backward ignores the
+head gradient and injects its own, as in the reference.  The random draws of
 rrelu and Dropout come from the per-device ``torch.Generator`` of
 ``random.py`` (the JAX ops take a key).
 Gradients come from ``torch.autograd``.  NCHW in and out,
@@ -131,6 +137,64 @@ register('Convolution', _conv_apply,
                         'cudnn_tune': None, 'cudnn_off': False,
                         'layout': None},
          hint='convolution')
+
+
+# ---------------------------------------------------------------------------
+# Deconvolution — the transposed convolution; weight (in_channels,
+# num_filter / num_group, *kernel), the layout of torch's conv_transpose
+# ---------------------------------------------------------------------------
+
+def _deconv_apply(attrs, inputs, is_train, rng):
+    data, weight = inputs[0], inputs[1]
+    kernel = tuple(attrs['kernel'])
+    nd = len(kernel)
+    if nd not in (1, 2):
+        raise NotImplementedError('Deconvolution: %d-D kernels are not '
+                                  'ported' % nd)
+    stride = _tup(attrs.get('stride'), nd)
+    pad = _tup(attrs.get('pad'), nd, default=0)
+    adj = _tup(attrs.get('adj'), nd, default=0)
+    dilate = _tup(attrs.get('dilate'), nd)
+    tshape = attrs.get('target_shape')
+    if tshape:
+        # the pad that makes the output target_shape (deconvolution-inl.h)
+        tshape = _tup(tshape, nd)
+        pad = tuple(((data.shape[2 + i] - 1) * stride[i]
+                     + dilate[i] * (kernel[i] - 1) + 1 + adj[i]
+                     - tshape[i]) // 2 for i in range(nd))
+    deconv = F.conv_transpose2d if nd == 2 else F.conv_transpose1d
+    # out = (in - 1) * stride - 2 * pad + dilate * (k - 1) + 1 + adj
+    out = deconv(data, weight, None, stride, pad, adj,
+                 int(attrs.get('num_group', 1)), dilate)
+    if not bool(attrs.get('no_bias', True)):
+        out = out + inputs[2].reshape((1, -1) + (1,) * nd)
+    return [out], {}
+
+
+def _deconv_complete(attrs, in_shapes):
+    kernel = tuple(attrs['kernel'])
+    num_filter = int(attrs['num_filter'])
+    groups = int(attrs.get('num_group', 1))
+    data_shape = in_shapes[0]
+    if data_shape is not None:
+        _complete(in_shapes, 1,
+                  (data_shape[1], num_filter // groups) + kernel)
+    if not attrs.get('no_bias', True):
+        _complete(in_shapes, 2, (num_filter,))
+    return in_shapes
+
+
+register('Deconvolution', _deconv_apply,
+         input_names=lambda attrs: (['data', 'weight']
+                                    if attrs.get('no_bias', True)
+                                    else ['data', 'weight', 'bias']),
+         num_outputs=lambda attrs: 1,
+         complete_shapes=_deconv_complete,
+         attr_defaults={'no_bias': True, 'num_group': 1, 'stride': None,
+                        'pad': None, 'adj': None, 'dilate': None,
+                        'target_shape': None, 'workspace': 1024,
+                        'cudnn_tune': None, 'layout': None},
+         hint='deconvolution')
 
 
 # ---------------------------------------------------------------------------
@@ -362,6 +426,91 @@ alias('Softmax', 'SoftmaxOutput')
 
 
 # ---------------------------------------------------------------------------
+# Regression outputs and SVMOutput (regression_output-inl.h,
+# svm_output-inl.h): the forward is the link function (identity for SVM),
+# the backward the loss gradient, the head gradient ignored
+# ---------------------------------------------------------------------------
+
+class _LossFn(torch.autograd.Function):
+    """``link(data)`` forward; backward ``grad(out, label, attrs)``."""
+
+    @staticmethod
+    def forward(ctx, d, label, link, grad, attrs):
+        out = link(d)
+        ctx.save_for_backward(out, label)
+        ctx.grad, ctx.attrs = grad, attrs
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        return (ctx.grad(out, label, ctx.attrs).to(out.dtype), None, None,
+                None, None)
+
+
+def _regression_grad(diff):
+    def grad(out, label, attrs):
+        # divided by the outputs per sample, as regression_output-inl.h
+        num = float(math.prod(out.shape[1:])) if out.ndim > 1 else 1.0
+        return diff(out, label.reshape(out.shape)) * (
+            float(attrs.get('grad_scale', 1.0)) / num)
+    return grad
+
+
+def _regression_complete(attrs, in_shapes):
+    if in_shapes[0] is not None and in_shapes[1] is None:
+        in_shapes[1] = tuple(in_shapes[0])
+    return in_shapes
+
+
+for _name, _link, _diff in (
+        ('LinearRegressionOutput', torch.clone, lambda o, l: o - l),
+        ('MAERegressionOutput', torch.clone,
+         lambda o, l: torch.sign(o - l)),
+        ('LogisticRegressionOutput', torch.sigmoid, lambda o, l: o - l)):
+    register(_name, lambda attrs, inputs, is_train, rng, _l=_link,
+             _g=_regression_grad(_diff): (
+                 [_LossFn.apply(inputs[0], inputs[1], _l, _g, attrs)], {}),
+             input_names=lambda attrs: ['data', 'label'],
+             num_outputs=lambda attrs: 1,
+             complete_shapes=_regression_complete,
+             attr_defaults={'grad_scale': 1.0}, hint=_name.lower())
+
+
+def _svm_grad(d, label, attrs):
+    from .tensor import _one_hot
+    margin = float(attrs.get('margin', 1.0))
+    reg_coef = float(attrs.get('regularization_coefficient', 1.0))
+    lab = _one_hot(label, d.shape[1], dtype=d.dtype)
+    score_correct = torch.sum(d * lab, dim=1, keepdim=True)
+    if bool(attrs.get('use_linear', False)):
+        viol = ((d - score_correct + margin) > 0).to(d.dtype)
+    else:
+        viol = torch.maximum(d - score_correct + margin,
+                             torch.zeros_like(d))
+    viol = viol * (1.0 - lab)
+    return reg_coef * (viol - lab * torch.sum(viol, dim=1, keepdim=True))
+
+
+def _svm_complete(attrs, in_shapes):
+    if in_shapes[0] is not None and in_shapes[1] is None:
+        in_shapes[1] = (in_shapes[0][0],)
+    return in_shapes
+
+
+register('SVMOutput',
+         lambda attrs, inputs, is_train, rng: (
+             [_LossFn.apply(inputs[0], inputs[1], torch.clone,
+                            _svm_grad, attrs)], {}),
+         input_names=lambda attrs: ['data', 'label'],
+         num_outputs=lambda attrs: 1,
+         complete_shapes=_svm_complete,
+         attr_defaults={'margin': 1.0, 'regularization_coefficient': 1.0,
+                        'use_linear': False},
+         hint='svmoutput')
+
+
+# ---------------------------------------------------------------------------
 # BatchNorm.  Aux moving stats are functional: updates are returned and
 # written back by the executor.
 # ---------------------------------------------------------------------------
@@ -434,6 +583,14 @@ register('BatchNorm', _batch_norm_apply,
          attr_defaults={'eps': 1e-3, 'momentum': 0.9, 'fix_gamma': True,
                         'use_global_stats': False, 'output_mean_var': False},
          hint='batchnorm')
+register('CuDNNBatchNorm', _batch_norm_apply,
+         input_names=lambda attrs: ['data', 'gamma', 'beta'],
+         num_outputs=lambda attrs: 1,
+         aux_names=lambda attrs: ['moving_mean', 'moving_var'],
+         complete_shapes=_bn_complete,
+         attr_defaults={'eps': 1e-3, 'momentum': 0.9, 'fix_gamma': True,
+                        'use_global_stats': False},
+         hint='cudnnbatchnorm')
 
 
 # ---------------------------------------------------------------------------
@@ -459,6 +616,48 @@ register('InstanceNorm', _instance_norm_apply,
          num_outputs=lambda attrs: 1,
          complete_shapes=_bn_complete,
          attr_defaults={'eps': 1e-3}, hint='instancenorm')
+
+
+# ---------------------------------------------------------------------------
+# L2Normalization (l2_normalization-inl.h) and LRN (lrn-inl.h)
+# ---------------------------------------------------------------------------
+
+def _l2_normalization(x, eps=1e-10, mode='instance'):
+    if mode == 'instance':
+        norm = torch.sqrt(torch.sum(torch.square(x.reshape(x.shape[0], -1)),
+                                    dim=1) + eps)
+        return x / norm.reshape((-1,) + (1,) * (x.ndim - 1))
+    if mode == 'channel':
+        return x / torch.sqrt(torch.sum(torch.square(x), dim=1,
+                                        keepdim=True) + eps)
+    if mode == 'spatial':
+        axes = tuple(range(2, x.ndim))
+        return x / torch.sqrt(torch.sum(torch.square(x), dim=axes,
+                                        keepdim=True) + eps)
+    raise ValueError('L2Normalization: unknown mode %r' % (mode,))
+
+
+register_simple('L2Normalization', _l2_normalization,
+                attr_defaults={'eps': 1e-10, 'mode': 'instance'},
+                hint='l2normalization')
+
+
+def _lrn(x, nsize=5, alpha=1e-4, beta=0.75, knorm=2.0):
+    """``x / (knorm + alpha / nsize * sum of x^2 over a window of nsize
+    channels, zero beyond the edges) ** beta``."""
+    nsize = int(nsize)
+    half = nsize // 2
+    channels = x.shape[1]
+    sq = F.pad(torch.square(x), [0, 0] * (x.ndim - 2) + [half, half])
+    ssum = sq.narrow(1, 0, channels)
+    for j in range(1, nsize):
+        ssum = ssum + sq.narrow(1, j, channels)
+    return x / torch.pow(knorm + (alpha / nsize) * ssum, beta)
+
+
+register_simple('LRN', _lrn,
+                attr_defaults={'nsize': 5, 'alpha': 1e-4, 'beta': 0.75,
+                               'knorm': 2.0}, hint='lrn')
 
 
 # ---------------------------------------------------------------------------
@@ -545,6 +744,125 @@ register('Embedding', _embedding_apply,
          num_outputs=lambda attrs: 1,
          complete_shapes=_embedding_complete,
          attr_defaults={'dtype': 'float32'}, hint='embedding')
+
+
+# ---------------------------------------------------------------------------
+# UpSampling (upsampling-inl.h) and Crop (crop-inl.h)
+# ---------------------------------------------------------------------------
+
+def _upsampling_apply(attrs, inputs, is_train, rng):
+    # as the JAX op: only the first input is upsampled (ROADMAP Queue 3)
+    scale = int(attrs.get('scale', 2))
+    data = inputs[0]
+    if attrs.get('sample_type', 'nearest') == 'nearest':
+        out = torch.repeat_interleave(
+            torch.repeat_interleave(data, scale, dim=2), scale, dim=3)
+    else:
+        # half-pixel centres, the edge pixel repeated: jax.image.resize's
+        # 'bilinear' when it enlarges
+        out = F.interpolate(data, scale_factor=scale, mode='bilinear',
+                            align_corners=False)
+    return [out], {}
+
+
+register('UpSampling', _upsampling_apply,
+         input_names=lambda attrs: ['arg%d' % i for i in
+                                    range(int(attrs.get('num_args', 1)))],
+         num_outputs=lambda attrs: 1,
+         attr_defaults={'num_args': 1, 'scale': 2, 'sample_type': 'nearest',
+                        'num_filter': 0}, hint='upsampling')
+
+
+def _crop_apply(attrs, inputs, is_train, rng):
+    data = inputs[0]
+    offset = _tup(attrs.get('offset'), 2, default=0)
+    if len(inputs) == 2:
+        th, tw = inputs[1].shape[2], inputs[1].shape[3]
+    else:
+        th, tw = _tup(attrs['h_w'], 2)
+    h, w = data.shape[2], data.shape[3]
+    if bool(attrs.get('center_crop', False)):
+        y0, x0 = (h - th) // 2, (w - tw) // 2
+    else:
+        y0, x0 = offset
+    return [data[:, :, y0:y0 + th, x0:x0 + tw]], {}
+
+
+register('Crop', _crop_apply,
+         input_names=lambda attrs: (['data', 'crop_like']
+                                    if int(attrs.get('num_args', 1)) == 2
+                                    else ['data']),
+         num_outputs=lambda attrs: 1,
+         attr_defaults={'num_args': 1, 'offset': (0, 0), 'h_w': (0, 0),
+                        'center_crop': False}, hint='crop')
+
+
+# ---------------------------------------------------------------------------
+# Sequence ops (sequence_last/mask/reverse-inl.h), layout (T, N, ...)
+# ---------------------------------------------------------------------------
+
+def _lengths(inputs, attrs, t, n, device):
+    if bool(attrs.get('use_sequence_length', False)) and len(inputs) > 1:
+        return inputs[1].to(torch.int64)
+    return torch.full((n,), t, dtype=torch.int64, device=device)
+
+
+def _along_time(index, data):
+    """``index`` (rows, N) broadcast over data's trailing dims, for a
+    gather along dim 0."""
+    return index.reshape(index.shape + (1,) * (data.ndim - 2)).expand(
+        (index.shape[0],) + tuple(data.shape[1:]))
+
+
+def _sequence_last_apply(attrs, inputs, is_train, rng):
+    data = inputs[0]
+    t, n = data.shape[0], data.shape[1]
+    idx = torch.clamp(_lengths(inputs, attrs, t, n, data.device) - 1, 0,
+                      t - 1)
+    return [torch.gather(data, 0, _along_time(idx[None], data))[0]], {}
+
+
+def _sequence_mask_apply(attrs, inputs, is_train, rng):
+    data = inputs[0]
+    t, n = data.shape[0], data.shape[1]
+    lengths = _lengths(inputs, attrs, t, n, data.device)
+    keep = torch.arange(t, device=data.device)[:, None] < lengths[None, :]
+    keep = keep.reshape((t, n) + (1,) * (data.ndim - 2))
+    value = torch.full((), float(attrs.get('value', 0.0)), dtype=data.dtype,
+                       device=data.device)
+    return [torch.where(keep, data, value)], {}
+
+
+def _sequence_reverse_apply(attrs, inputs, is_train, rng):
+    data = inputs[0]
+    t, n = data.shape[0], data.shape[1]
+    lengths = _lengths(inputs, attrs, t, n, data.device)[None, :]
+    steps = torch.arange(t, device=data.device)[:, None]
+    src = torch.where(steps < lengths, lengths - 1 - steps, steps)
+    return [torch.gather(data, 0, _along_time(src, data))], {}
+
+
+for _name, _fn in (('SequenceLast', _sequence_last_apply),
+                   ('SequenceMask', _sequence_mask_apply),
+                   ('SequenceReverse', _sequence_reverse_apply)):
+    register(_name, _fn,
+             input_names=lambda attrs: (
+                 ['data', 'sequence_length']
+                 if attrs.get('use_sequence_length', False) else ['data']),
+             num_outputs=lambda attrs: 1,
+             attr_defaults={'use_sequence_length': False, 'value': 0.0},
+             hint=_name.lower())
+
+
+def _softmax_cross_entropy(data, label):
+    from .tensor import _one_hot
+    hot = _one_hot(label, data.shape[-1], dtype=data.dtype)
+    return -torch.sum(torch.log_softmax(data, dim=-1) * hot,
+                      dim=-1).sum().reshape((1,))
+
+
+register_simple('softmax_cross_entropy', _softmax_cross_entropy, ninputs=2,
+                input_names=['data', 'label'])
 
 
 # ---------------------------------------------------------------------------

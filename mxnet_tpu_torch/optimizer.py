@@ -7,8 +7,12 @@ functional form the fused train step applies (``make_functional`` ->
 ``FunctionalOptimizer``).
 
 The imperative ``update`` of SGD, Adam and RMSProp calls the update ops
-of ``ops/optim.py``, which write the weight and state in place; the
-others compose ``nd.*`` arithmetic, as in the reference.  SGD, NAG,
+of ``ops/optim.py``, which write the weight and state in place; NAG's and
+AdaGrad's run their functional step on the bound tensors; the others
+compose ``nd.*`` arithmetic, as in the reference.  Every loop computes
+in the state's dtype and writes the weight back in its own (a float16
+weight stays float16, under ``multi_precision`` too; the reference
+promotes it, ``mxnet_tpu/optimizer.py:51-62``).  SGD, NAG,
 Adam, AdaGrad and RMSProp also have a functional form: the JAX update is
 pure, here ``FunctionalOptimizer.update`` updates the f32 master weights
 and the optimizer state IN PLACE (same arithmetic, same order), which
@@ -376,16 +380,10 @@ class NAG(SGD):
         lr = self._get_lr(index)
         wd = self._get_wd(index)
         self._update_count(index)
-        grad = _nd_rescale_clip(self, grad)
-        if state is not None:
-            mom = state
-            mom *= self.momentum
-            grad += wd * weight
-            mom += grad
-            grad += self.momentum * mom
-            weight += -lr * grad
-        else:
-            weight += -lr * (grad + wd * weight)
+        w = weight.handle
+        with torch.no_grad():
+            self._nag_step(w, grad.handle.to(w.dtype),
+                           None if state is None else state.handle, lr, wd)
 
     def _nag_step(self, w, g, mom, lr, wd):
         g = _rescale_clip(self, g)
@@ -416,7 +414,8 @@ class DCASGD(Optimizer):
     def create_state(self, index, weight):
         if self.momentum == 0.0:
             return (None, weight.copy())
-        return (zeros(weight.shape, weight.context), weight.copy())
+        return (zeros(weight.shape, weight.context,
+                      dtype=self._state_dtype(weight)), weight.copy())
 
     def update(self, index, weight, grad, state):
         lr = self._get_lr(index)
@@ -433,7 +432,8 @@ class DCASGD(Optimizer):
             mom = -lr * (grad + wd * weight + self.lamda
                          * grad * grad * (weight - previous_weight))
         previous_weight[:] = weight
-        weight += mom
+        # rebound, not written in place: previous_weight shares the tensor
+        weight._set_data((weight + mom).handle.to(weight.handle.dtype))
 
 
 @register
@@ -452,7 +452,8 @@ class SGLD(Optimizer):
         grad = _nd_rescale_clip(self, grad)
         noise = _random.normal(0, math.sqrt(lr), shape=weight.shape,
                                ctx=weight.context)
-        weight += (- lr / 2 * (grad + wd * weight)) + noise
+        weight._set_data((weight + (- lr / 2 * (grad + wd * weight))
+                          + noise).handle.to(weight.handle.dtype))
 
 
 @register
@@ -529,11 +530,10 @@ class AdaGrad(Optimizer):
         lr = self._get_lr(index)
         wd = self._get_wd(index)
         self._update_count(index)
-        grad = _nd_rescale_clip(self, grad)
-        history = state
-        history += grad * grad
-        weight += -lr * (grad / nd.sqrt(history + self.float_stable_eps)
-                         + wd * weight)
+        w = weight.handle
+        with torch.no_grad():
+            self._adagrad_step(w, grad.handle.to(w.dtype), state.handle, lr,
+                               wd)
 
     def _adagrad_step(self, w, g, history, lr, wd):
         g = _rescale_clip(self, g)

@@ -97,8 +97,8 @@ def make_sp_train_step(symbol, mesh, optimizer_update, seq_axis='seq',
     its rank's slice.  The outputs are the rank's own rows: its block of
     the JAX step's dim-0 shard-blocked output.  As in the JAX version, no
     fuse pass runs and auxiliary states raise."""
-    from .. import compile_cache
-    from ..executor import _build_graph_fn
+    from .. import compile_cache, random
+    from ..executor import _build_graph_fn, mirror_wrap
     from .train_step import index_inputs
     if symbol.list_auxiliary_states():
         raise NotImplementedError(
@@ -112,6 +112,7 @@ def make_sp_train_step(symbol, mesh, optimizer_update, seq_axis='seq',
     # eager, by rule
     compile_cache.note_skip('sp_train_step', 'collectives')
     graph_fn = _build_graph_fn(symbol, True)
+    draws = bool(compile_cache.random_nodes(symbol))
     group = mesh.get_group(seq_axis)
     n = dist.get_world_size(group)
     rank = dist.get_rank(group)
@@ -126,12 +127,19 @@ def make_sp_train_step(symbol, mesh, optimizer_update, seq_axis='seq',
     def step(params, opt_state, batch, rng=None):
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in params.items()}
-        merged = {k: cast(v) for k, v in leaves.items()}
-        for k, v in batch.items():
-            v = _local(v, specs.get(k, 1), rank, n, k)
-            merged[k] = cast(v) if k in data_names else v
+
+        def forward(leaves):
+            merged = {k: cast(v) for k, v in leaves.items()}
+            for k, v in batch.items():
+                v = _local(v, specs.get(k, 1), rank, n, k)
+                merged[k] = cast(v) if k in data_names else v
+            return graph_fn(merged, {})
+
+        gens = [random.generator(next(iter(params.values())).device)] \
+            if draws else []
+        # the mirror's recompute runs in backward, inside the sp scope
         with torch.enable_grad(), sp_scope(group, attn_mode):
-            outs, _ = graph_fn(merged, {})
+            outs, _ = mirror_wrap(forward, gens)(leaves)
             heads = [o for o in outs if o.requires_grad]
             if heads:
                 torch.autograd.backward(

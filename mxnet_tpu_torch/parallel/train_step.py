@@ -17,6 +17,10 @@ that replays it on the card (one graph per batch signature), the
 counterpart of the JAX package's compiled program.  On the CPU, and
 under ``NaiveEngine``, the same body runs eagerly.
 
+Under ``MXNET_BACKWARD_DO_MIRROR`` the forward (the casts and the graph)
+runs inside ``executor.mirror_wrap``: its activations are recomputed in
+backward, the BN aux updates still taken once from the first run.
+
 Under ``compute_dtype`` (bf16 mixed precision) the parameters and the
 batch entries named in ``data_names`` are cast for the forward and
 backward; labels, master weights and optimizer state stay f32, and the
@@ -34,7 +38,9 @@ import functools
 
 import torch
 
-from ..executor import _build_graph_fn
+from .. import random
+from ..compile_cache import random_nodes
+from ..executor import _build_graph_fn, mirror_wrap
 from ..symbol import Symbol
 
 __all__ = ['make_fit_step', 'make_train_step', 'make_eval_step',
@@ -117,6 +123,7 @@ class FitStep(object):
         self.metric_label = metric_label
         self.metric_count = None    # instances the metric counts per step
         self.kernels = graph_kernels(self.program)
+        self._draws = bool(random_nodes(self.program))
 
     def _cast(self, v):
         return v.to(self._dtype) if self._dtype is not None and \
@@ -128,12 +135,18 @@ class FitStep(object):
         cast = self._cast
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in params.items()}
-        merged = {k: cast(v) for k, v in frozen.items()}
-        merged.update({k: cast(v) for k, v in leaves.items()})
-        merged.update({k: (cast(v) if k in self._data_names else v)
-                       for k, v in batch.items()})
+
+        def forward(leaves):
+            merged = {k: cast(v) for k, v in frozen.items()}
+            merged.update({k: cast(v) for k, v in leaves.items()})
+            merged.update({k: (cast(v) if k in self._data_names else v)
+                           for k, v in batch.items()})
+            return self._graph_fn(merged, aux)
+
+        gens = [random.generator(next(iter(batch.values())).device)] \
+            if self._draws else []
         with torch.enable_grad():
-            outs, aux_upd = self._graph_fn(merged, aux)
+            outs, aux_upd = mirror_wrap(forward, gens)(leaves)
             heads = [o for o in outs if o.requires_grad]
             if heads:
                 torch.autograd.backward(
@@ -164,7 +177,7 @@ class FitStep(object):
         that real step, and stays eager where
         ``compile_cache.capture_skip_reason`` says so.  The caller adds
         the metric's host count (:attr:`metric_count`) per step."""
-        from .. import compile_cache, random
+        from .. import compile_cache
         device = next(iter(batch.values())).device
         if self.metric is not None:
             self.metric._accumulators(device)

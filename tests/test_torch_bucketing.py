@@ -242,11 +242,76 @@ def test_fit_through_the_iterator_matches_jax(arg):
     assert moved > 1e-4
 
 
+def _fc_gen(pkg):
+    """A bucketed graph whose data is a float input: every bucket shares
+    the one (3, 1) weight."""
+    def sym_gen(key):
+        data = pkg.sym.Variable('data')
+        flat = pkg.sym.Reshape(data, shape=(-1, 1), name='flat')
+        fc = pkg.sym.FullyConnected(flat, num_hidden=3, name='fc')
+        label = pkg.sym.Reshape(pkg.sym.Variable('softmax_label'),
+                                shape=(-1,), name='flat_label')
+        return (pkg.sym.SoftmaxOutput(fc, label, name='softmax'),
+                ('data',), ('softmax_label',))
+    return sym_gen
+
+
 @pytest.mark.parametrize('method', ['get_input_grads', 'install_monitor'])
 def test_unported_bucketing_methods_raise(arg, method):
+    """Both methods match the JAX package: ``get_input_grads`` gives the
+    current bucket's data gradient (bound with ``inputs_need_grad``) over
+    alternating buckets, and ``install_monitor`` taps the bound buckets
+    (tests/test_torch_monitor.py covers the taps).  What still raises is
+    the mesh, in the port only."""
+    r = np.random.RandomState(6)
+    weight = r.randn(3, 1).astype(np.float32)
+    got = {}
+    for pkg in (tmx, mx):
+        mod = pkg.mod.BucketingModule(_fc_gen(pkg), default_bucket_key=6,
+                                      context=pkg.cpu())
+        mod.bind([('data', (2, 6))], [('softmax_label', (2, 6))],
+                 inputs_need_grad=True)
+        mod.init_params(arg_params={'fc_weight': pkg.nd.array(weight),
+                                    'fc_bias': pkg.nd.zeros((3,))})
+        mod.init_optimizer(optimizer_params=OPT)
+        if method == 'install_monitor':
+            # the reference taps only the buckets bound at the call
+            mod.switch_bucket(4, [('data', (2, 4))],
+                              [('softmax_label', (2, 4))])
+            mon = pkg.monitor.Monitor(1, pattern='fc.*')
+            mod.install_monitor(mon)
+        out = []
+        for step, key in enumerate((6, 4, 6)):
+            rs = np.random.RandomState(step)
+            batch = pkg.io.DataBatch(
+                [pkg.nd.array(rs.randn(2, key).astype(np.float32))],
+                [pkg.nd.array(rs.randint(0, 3, (2, key)).astype(
+                    np.float32))], bucket_key=key,
+                provide_data=[('data', (2, key))],
+                provide_label=[('softmax_label', (2, key))])
+            if method == 'install_monitor':
+                mon.tic()
+            mod.forward_backward(batch)
+            mod.update()
+            if method == 'install_monitor':
+                out.append([(n, v) for _, n, v in mon.toc()])
+            else:
+                out.append(mod.get_input_grads()[0].asnumpy())
+        got[pkg] = out
+    for t, j in zip(got[tmx], got[mx]):
+        if method == 'install_monitor':
+            # the tap, then the output of each tapped executor that ran
+            assert [n for n, _ in t] == [n for n, _ in j]
+            assert [n for n, _ in t][:2] == ['fc_output', 'softmax_output']
+            np.testing.assert_allclose(
+                [float(v) for _, v in t], [float(v) for _, v in j],
+                rtol=1e-5)
+        else:
+            assert t.shape == j.shape
+            np.testing.assert_allclose(t, j, rtol=1e-5, atol=1e-7)
     mod = _module(tmx, tlm, arg)
     with pytest.raises(NotImplementedError, match='Queue 1'):
-        getattr(mod, method)(None)
+        mod._set_parallel(None)
 
 
 # ---------------------------------------------------------------------------

@@ -420,6 +420,40 @@ def test_recorded_counts_apply_per_replay():
     assert tmx.instrument.counter_value('test.capture_counter') == c0 + 7
 
 
+@pytest.mark.parametrize('capturing', [True, False])
+def test_capture_recording_takes_a_capturing_threads_counts(monkeypatch,
+                                                            capturing):
+    """A capture's recording also takes the launches of another thread
+    whose current stream is capturing (the autograd thread that runs the
+    captured backward, a mirrored forward's recompute in it); a thread
+    that is not capturing counts as before."""
+    import threading
+    from mxnet_tpu_torch.ops import fused
+    k = fused.fused_scale_bias_dot
+    seen = threading.local()
+    monkeypatch.setattr(torch.cuda, 'is_current_stream_capturing',
+                        lambda: getattr(seen, 'capturing', False))
+    n0 = k.launches
+
+    def backward_thread():
+        seen.capturing = capturing
+        tmx.instrument.count_launch(k, 'sm90')
+
+    with tmx.instrument.recording(capture=True) as rec:
+        tmx.instrument.count_launch(k, 'sm90')
+        t = threading.Thread(target=backward_thread)
+        t.start()
+        t.join(timeout=30)
+        assert not t.is_alive()
+    assert rec == {(k, 'sm90'): 2 if capturing else 1}
+    assert k.launches == n0 + (0 if capturing else 1)
+    with tmx.instrument.recording() as plain:
+        t = threading.Thread(target=backward_thread)
+        t.start()
+        t.join(timeout=30)
+    assert plain == {}
+
+
 def test_lr_tensor_matches_float_lr():
     """The functional update with the lr in a 0-dim tensor equals the
     one with the same lr as a float (the captured step's form)."""

@@ -39,7 +39,8 @@ def test_import_leaves_jax_out():
             'mxnet_tpu_torch.model, mxnet_tpu_torch.resilience, '
             'mxnet_tpu_torch.ops.optim, mxnet_tpu_torch.models.lenet, '
             'mxnet_tpu_torch.module.sequential_module, '
-            'mxnet_tpu_torch.module.python_module; '
+            'mxnet_tpu_torch.module.python_module, '
+            'mxnet_tpu_torch.monitor, mxnet_tpu_torch.models.alexnet; '
             'bad = sorted(m for m in sys.modules if m == "jax" or '
             'm.startswith("jax.") or m == "mxnet_tpu" or '
             'm.startswith("mxnet_tpu.")); print(bad); '

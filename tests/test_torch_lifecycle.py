@@ -229,3 +229,66 @@ def test_checkpoints_at_depth_two_on_the_card(dev, tmp_path, monkeypatch):
     assert os.path.exists(str(tmp_path / 'd2-symbol.json'))
     for key in (1, 2, 'states'):
         _close(got[2][key], got[1][key], 'depth 2 against 1, %s' % key)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('policy', ['nothing', 'dots'])
+def test_mirrored_captured_step_matches_unmirrored(dev, policy,
+                                                   monkeypatch):
+    """MXNET_BACKWARD_DO_MIRROR on the captured fit step (bf16 over f32
+    masters, cuDNN deterministic): the step is captured and replayed,
+    #1 and #4 launch twice per step (the recompute runs their forward
+    again), and the parameters equal the unmirrored run's, bit for bit
+    under 'nothing' and within the train-parity bound under 'dots'."""
+    monkeypatch.setattr(torch.backends.cudnn, 'deterministic', True)
+    sym, arg, aux, x, y = _case()
+    opt, params = OPTIMIZERS[0]
+    before = _launches()
+    off = _fit(sym, arg, aux, x, y, opt, params, dtype=torch.bfloat16)
+    mid = _launches()
+    monkeypatch.setenv('MXNET_BACKWARD_DO_MIRROR', '1')
+    monkeypatch.setenv('MXNET_BACKWARD_MIRROR_POLICY', policy)
+    mirrored = _fit(sym, arg, aux, x, y, opt, params, dtype=torch.bfloat16)
+    after = _launches()
+    (graph,) = mirrored._graphs.values()
+    assert graph.captured and graph.replays == 3
+    for k in before:
+        assert after[k][0] - mid[k][0] == 2 * (mid[k][0] - before[k][0]), k
+    got, want = _numpy(mirrored.get_params()[0]), _numpy(off.get_params()[0])
+    if policy == 'nothing':
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    else:
+        _close(got, want, 'dots')
+
+
+@pytest.mark.cuda
+def test_monitored_step_runs_no_fused_forward(dev):
+    """A monitored narrow ResNet step on the card (aggressive fuse): its
+    tapped forward runs the original symbol (no fused kernel), its
+    backward runs the fused program's training forward again (#1, #4),
+    and nothing is captured."""
+    from mxnet_tpu_torch.ops import fused, fused_conv
+    sym, arg, aux, x, y = _case()
+    mod = tmx.Module(sym, context=tmx.gpu(0))
+    it = tmx.io.NDArrayIter(x, y, batch_size=8)
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(arg_params={k: tmx.nd.array(v) for k, v in arg.items()},
+                    aux_params={k: tmx.nd.array(v) for k, v in aux.items()})
+    mod.init_optimizer(optimizer_params=dict(OPTIMIZERS[0][1]))
+    mon = tmx.monitor.Monitor(1, pattern='.*conv.*')
+    mod.install_monitor(mon)
+    batch = next(iter(it))
+    d0 = fused.fused_scale_bias_dot.launches
+    c0 = fused_conv.fused_scale_bias_conv3x3.launches
+    mon.tic()
+    mod.forward(batch, is_train=True)
+    assert (fused.fused_scale_bias_dot.launches,
+            fused_conv.fused_scale_bias_conv3x3.launches) == (d0, c0)
+    mod.backward()
+    mod.update()
+    torch.cuda.synchronize()
+    assert fused.fused_scale_bias_dot.launches > d0
+    assert fused_conv.fused_scale_bias_conv3x3.launches > c0
+    taps = mon.toc()
+    assert len(taps) > 1 and mod._graphs == {} and mod._fused is None

@@ -451,3 +451,67 @@ def test_states_pickles_name_each_package_class():
     data = _trained_updater(tmx).get_states()
     assert b'mxnet_tpu_torch.ndarray' in data
     assert data.count(b'mxnet_tpu.ndarray') == 0
+
+
+# ---------------------------------------------------------------------------
+# the Updater loop keeps a low-precision weight's dtype
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('name,kw', [
+    ('nag', {'momentum': 0.9, 'wd': 1e-3, 'multi_precision': True}),
+    ('adagrad', {'wd': 1e-3, 'multi_precision': True}),
+])
+def test_float16_weight_loop_equals_functional_form(name, kw):
+    """A float16 weight through three ``Updater`` steps stays float16 and
+    equals the port's functional form on the same tensors bit for bit
+    (under ``multi_precision`` the state is float32).  On the parent the
+    loop rebound the weight to the promoted float32 sum."""
+    params, grads = _steps(n=3)
+    topt = _opt(tmx, name, kw)
+    upd = tmx.optimizer.get_updater(topt)
+    w = {k: tmx.nd.array(v.astype(np.float16)) for k, v in params.items()}
+    fopt = _opt(tmx, name, kw)
+    idx = {k: i for i, k in enumerate(NAMES)}
+    fo = fopt.make_functional(NAMES, idx)
+    tp = {k: torch.from_numpy(v.astype(np.float16)) for k, v in
+          params.items()}
+    ts = fo.init(tp)
+    for g in grads:
+        for i, k in enumerate(NAMES):
+            upd(i, tmx.nd.array(g[k]), w[k])
+            fopt._update_count(i)
+        fo.update(tp, {k: torch.from_numpy(v) for k, v in g.items()}, ts,
+                  fopt.host_lr())
+    for i, k in enumerate(NAMES):
+        assert w[k].dtype == torch.float16, (k, w[k].dtype)
+        assert upd.states[i].dtype == torch.float32
+        np.testing.assert_array_equal(w[k].asnumpy(), tp[k].numpy(),
+                                      err_msg=k)
+
+
+@pytest.mark.parametrize('name,kw', [
+    ('dcasgd', {'momentum': 0.9, 'wd': 1e-3}),
+    ('dcasgd', {'momentum': 0.9, 'wd': 1e-3, 'multi_precision': True}),
+    ('sgld', {'wd': 1e-3}),
+])
+def test_float16_weight_stays_float16_in_imperative_loops(name, kw):
+    """DCASGD and SGLD have no functional form: a float16 weight stays
+    float16 through three steps and follows the float32 weight's run of
+    the same loop (SGLD's noise from the same seeded generator) within
+    float16 rounding (atol 4e-3: three steps of half an ulp at |w| < 4)."""
+    params, grads = _steps(n=3)
+    out = {}
+    for dtype in (np.float16, np.float32):
+        tmx.random.seed(11)
+        upd = tmx.optimizer.get_updater(_opt(tmx, name, kw))
+        w = {k: tmx.nd.array(v.astype(dtype)) for k, v in params.items()}
+        with tmx.cpu():
+            for g in grads:
+                for i, k in enumerate(NAMES):
+                    upd(i, tmx.nd.array(g[k].astype(dtype)), w[k])
+        out[dtype] = w
+    for k in NAMES:
+        assert out[np.float16][k].dtype == torch.float16, k
+        np.testing.assert_allclose(
+            out[np.float16][k].asnumpy().astype(np.float32),
+            out[np.float32][k].asnumpy(), rtol=0, atol=4e-3, err_msg=k)

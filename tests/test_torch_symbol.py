@@ -154,3 +154,137 @@ def test_compose_and_attrs_match_jax():
     assert t.get_internals().list_outputs() == \
         j.get_internals().list_outputs()
     assert json.loads(t.tojson()) == json.loads(j.tojson())
+
+
+# ---------------------------------------------------------------------------
+# Symbol features: partial shape inference, types, eval, children,
+# debug_str, pickling, maximum / minimum / pow
+# ---------------------------------------------------------------------------
+
+def _partial_cases(pkg):
+    """(symbol, known shapes) pairs that need the constraint pass or stay
+    partly unknown."""
+    s = pkg.sym
+    data = s.Variable('data')
+    fc = s.FullyConnected(data, num_hidden=8, name='fc')
+    a, b = s.Variable('a'), s.Variable('b')
+    conv = s.Convolution(s.Variable('img'), kernel=(3, 3), num_filter=4,
+                         pad=(1, 1), name='conv')
+    cat = s.Concat(s.Variable('x'), s.Variable('y'), dim=1, name='cat')
+    split = s.SliceChannel(s.Variable('z'), num_outputs=2, axis=1,
+                           name='split')
+    two = s.FullyConnected(s.Variable('u') + s.Variable('v'), num_hidden=3,
+                           name='two')
+    return [
+        (fc, {'data': (0, 5)}),
+        (fc, {}),
+        (a + b, {'a': (2, 3)}),
+        (s.Activation(a * b, act_type='relu'), {'b': (4, 0)}),
+        (conv, {'img': (0, 2, 6, 6)}),
+        (cat, {'x': (2, 3), 'y': (2, 5)}),
+        (s.Group([split[0], split[1]]), {'z': (2, 6)}),
+        (two, {'u': (5, 7)}),
+    ]
+
+
+@pytest.mark.parametrize('case', range(8))
+def test_infer_shape_partial_matches_jax(case):
+    """infer_shape_partial through the constraint pass (elementwise
+    merges, FullyConnected, Convolution, Concat, SliceChannel) and with
+    inputs left unknown: the same (arg, out, aux) shapes as the JAX
+    package, and infer_shape's answer alike (None or raising)."""
+    tsym, known = _partial_cases(tmx)[case]
+    jsym, _ = _partial_cases(mx)[case]
+    assert tsym.infer_shape_partial(**known) == \
+        jsym.infer_shape_partial(**known)
+    try:
+        want = jsym.infer_shape(**known)
+    except mx.MXNetError:
+        with pytest.raises(tmx.MXNetError):
+            tsym.infer_shape(**known)
+    else:
+        assert tsym.infer_shape(**known) == want
+
+
+def test_infer_shape_completes_a_zero_dim_from_an_output():
+    """An unknown input dim (0) filled through an elementwise op from the
+    other operand, in both packages."""
+    for pkg in (tmx, mx):
+        a, b = pkg.sym.Variable('a'), pkg.sym.Variable('b')
+        args, outs, _ = (a + b).infer_shape(a=(0, 4), b=(3, 4))
+        assert args == [(3, 4), (3, 4)] and outs == [(3, 4)]
+
+
+def _type_name(t):
+    return None if t is None else str(t).replace('torch.', '').replace(
+        "<class 'numpy.", '').replace("'>", '')
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'float16'])
+def test_infer_type_matches_jax(dtype):
+    names = {}
+    for pkg in (tmx, mx):
+        net = pkg.sym.FullyConnected(pkg.sym.Variable('data'), num_hidden=4,
+                                     name='fc')
+        net = pkg.sym.SoftmaxOutput(pkg.sym.Activation(net,
+                                                       act_type='relu'))
+        names[pkg] = [[_type_name(t) for t in ts]
+                      for ts in net.infer_type(data=dtype)]
+    assert names[tmx] == names[mx]
+    assert names[tmx][0][0] == dtype
+
+
+def test_eval_children_debug_str_match_jax():
+    r = np.random.RandomState(0)
+    x, y = r.randn(2, 3).astype(np.float32), r.randn(2, 3).astype(np.float32)
+    res = {}
+    for pkg in (tmx, mx):
+        a, b = pkg.sym.Variable('a'), pkg.sym.Variable('b')
+        net = pkg.sym.Activation(pkg.sym._plus(pkg.sym._mul(a, b,
+                                                            name='prod'),
+                                               a, name='sum'),
+                                 act_type='tanh', name='act')
+        out = net.eval(ctx=pkg.cpu(), a=pkg.nd.array(x), b=pkg.nd.array(y))
+        kids = net.get_children()
+        res[pkg] = (out[0].asnumpy(), kids.list_outputs(),
+                    a.get_children(), net.debug_str())
+    np.testing.assert_allclose(res[tmx][0], res[mx][0], rtol=1e-6)
+    np.testing.assert_allclose(res[tmx][0], np.tanh(x * y + x), rtol=1e-6)
+    assert res[tmx][1] == res[mx][1] and res[tmx][2] is None
+    assert res[tmx][3] == res[mx][3]
+    assert 'Activation act inputs=[' in res[tmx][3]
+    with pytest.raises(NotImplementedError):
+        tmx.sym.Variable('a').grad(['a'])
+
+
+def test_symbols_pickle_and_deepcopy():
+    import copy
+    import pickle
+    net = torch_resnet.get_symbol(num_classes=10, num_layers=20,
+                                  image_shape=(3, 32, 32))
+    for other in (pickle.loads(pickle.dumps(net)), copy.deepcopy(net)):
+        assert other.tojson() == net.tojson()
+        assert other.infer_shape(data=(2, 3, 32, 32)) == \
+            net.infer_shape(data=(2, 3, 32, 32))
+    deep = copy.deepcopy(net)
+    deep.get_internals()[3]._outputs[0][0].name = 'renamed'
+    assert 'renamed' not in net.tojson()
+
+
+@pytest.mark.parametrize('fn', ['maximum', 'minimum', 'pow'])
+def test_module_maximum_minimum_pow_match_jax(fn):
+    r = np.random.RandomState(1)
+    x = (r.rand(2, 3) + 0.5).astype(np.float32)
+    y = (r.rand(1, 3) + 0.5).astype(np.float32)
+    outs = {}
+    for pkg in (tmx, mx):
+        f = getattr(pkg.sym, fn)
+        a, b = pkg.sym.Variable('a'), pkg.sym.Variable('b')
+        args = {'a': pkg.nd.array(x), 'b': pkg.nd.array(y)}
+        outs[pkg] = [s.eval(ctx=pkg.cpu(), **{k: v for k, v in args.items()
+                                              if k in s.list_arguments()}
+                            )[0].asnumpy()
+                     for s in (f(a, b), f(a, 1.2), f(0.9, a))]
+        outs[pkg].append(f(2.0, 3.0))
+    for t, j in zip(outs[tmx], outs[mx]):
+        np.testing.assert_allclose(t, j, rtol=1e-6)
