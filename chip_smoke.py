@@ -15,8 +15,8 @@ Phases, each printing one JSON line; any failure exits nonzero:
                   main path gives it (shapes read from the fused graphs at
                   32 rows), held against its plain PyTorch version with
                   TF32 off, timed on the device with CUDA events (median
-                  of 50, L2 evicted before each launch) beside its plain
-                  version, its bound, the nearest single PyTorch call
+                  of 20 after 5, L2 evicted before each launch) beside its
+                  plain version, its bound, the nearest single PyTorch call
                   (library_ms) and its host cost per call.  fused_bn_relu:
                   float32 max abs error <= 1e-6, bfloat16 within one ulp.
                   fused_scale_bias_dot / fused_scale_bias_conv3x3: f32 and
@@ -199,7 +199,7 @@ graphs held), and peak allocated and reserved device memory.
                   Custom-headed step stays eager by rule (user Python
                   runs every step).
 12b. optim-train — the training lifecycle, optimizers: the train phase's
-                  model, data and bf16 compute, OPTIM_STEPS (3) captured
+                  model, data and bf16 compute, OPTIM_STEPS (2) captured
                   steps under each of SGD with momentum, NAG, Adam,
                   AdaGrad and centered RMSProp (counts zeroed just before,
                   read just after: 36 + 16 sm90 and 2 fused_bn_relu per
@@ -285,16 +285,61 @@ graphs held), and peak allocated and reserved device memory.
                   layers (nz 100, ngf 64, 4x4, stride 2, 4 -> 64 pixels,
                   batch 64) and at examples/fcn_xs.py's 2x upsampling (21
                   classes) with its Crop; UpSampling x2 nearest and
-                  bilinear at (32, 256, 56, 56); LRN at (32, 96, 55, 55);
+                  bilinear at (8, 256, 56, 56); LRN at (32, 96, 55, 55);
                   L2Normalization (channel) at (32, 512, 38, 38);
                   CuDNNBatchNorm; SequenceLast / SequenceMask /
                   SequenceReverse at (512, 16, 512) with lengths; the
                   regression outputs and SVMOutput at (32, 1000);
-                  softmax_cross_entropy at (8192, 32000).  Max abs error
+                  softmax_cross_entropy at (2048, 32000).  Max abs error
                   against rtol 1e-4 of the largest |CPU value| per tensor
                   (exact for Crop and the Sequence ops), and ms.
+12k. lstm-ptb   — the PTB LSTM (BASELINE config 4): the JAX package's
+                  bench leg (bench.py:914-955: lstm_lm, V=10000, E=H=200,
+                  2 layers, T=35, 32 rows, f32, SGD lr 0.1 momentum 0.9,
+                  its RandomState(0) draws) through make_train_step, 22
+                  steps captured (words/s from the last 20) and 3 under
+                  NaiveEngine (parameters bit for bit), one f32 step at 2
+                  rows on the card against the CPU; then BucketingModule(
+                  lstm_lm.sym_gen_bucketing(...)).fit over a
+                  BucketSentenceIter of seeded sentences in the example's
+                  buckets 10-60 (3 batches each), captured and eager:
+                  per bucket step ms and unpadded words/s.  The RNN op is
+                  cuDNN through torch (no Pallas kernel in the JAX op).
+12l. ssd        — SSD (BASELINE config 5): ssd-vgg16 (20 classes), saved
+                  with model.save_checkpoint and served by predictor.load
+                  at 8 x 3 x 300 x 300 (7308 anchors, pow2 buckets
+                  captured by warm_buckets), 10 forwards captured and under
+                  NaiveEngine (bit for bit; one multibox_nms launch a
+                  forward); Predictor.reshape to one row against a fresh
+                  Predictor (bit for bit); multibox_nms on the served
+                  forward's own rows against its plain loop (row for
+                  row), both timed, its bound from the IoU tests this
+                  run's rows need; a per-class case off the path.
+                  ssd-train: Module.fit on ssd-vgg16-train, 8 rows,
+                  seeded boxes, f32, 4 steps captured and eager, the
+                  example's lr over the localisation loss's valid count
+                  (MakeLoss does not normalize it, as in the JAX op).
+12m. zoo-train  — Inception-v3 (32 x 299 x 299: #2 84 and #4 10 launches
+                  a step) and VGG-16 (32 x 224 x 224: #3 2 a step) through
+                  Module.fit in bf16, captured against NaiveEngine.
+12n. zoo-eval   — make_eval_step forwards at 32 rows in bf16:
+                  Inception-v3 under MXTPU_FUSE=safe and =aggressive (its
+                  conv+BN pairs folded), VGG-16; one captured served
+                  forward of 8 rows of inception-bn, googlenet (256 x 256),
+                  resnext-50 and inception-resnet-v2 against eager.
+12o. zoo-kernels — #2, #4 and #3 at every shape the Inception-v3 and
+                  VGG-16 training graphs give them (bf16), and #2 at every
+                  shape the four served classifiers' inference graphs give
+                  it at 8 rows (f32), against their plain versions by the
+                  checks of phase 3.  tail-ops: the
+                  12 ops of this slice on the card against the CPU at a
+                  user's shapes (the PTB LSTM's RNN, lstm_ocr's CTC, an
+                  STN, Fast R-CNN's ROIPooling, FlowNetC's Correlation, a
+                  sparse autoencoder, SSD's heads).
 13. capture     — the cuda tests of tests/test_torch_capture.py and
-                  tests/test_torch_lifecycle.py in a child pytest; the
+                  tests/test_torch_lifecycle.py in a child pytest, started
+                  before phase 2 (it runs while this process builds) and
+                  waited for before phase 3 times the card; the
                   lifecycle ones: each optimizer's captured narrow-ResNet
                   step against NaiveEngine and the Updater loop;
                   load_optimizer_states into a module that holds graphs
@@ -324,6 +369,7 @@ launch_host_us), and the result line {"ok": true,
 without the mxnet_tpu_torch package beside it, the script exits nonzero
 and prints no result.
 """
+import atexit
 import gc
 import json
 import os
@@ -393,7 +439,7 @@ LIFECYCLE_CHECKS = tuple(
     'test_monitored_step_runs_no_fused_forward')
 # optim-train: each optimizer's captured ResNet step beside NaiveEngine and
 # the Updater loop (MXTPU_FUSED_FIT=0), OPTIM_STEPS steps from one state
-OPTIM_STEPS = 3
+OPTIM_STEPS = 2
 OPTIMIZERS = (
     ('sgd', SGD_MOMENTUM),
     ('nag', SGD_MOMENTUM),
@@ -419,7 +465,14 @@ N_CLIENTS = 4
 SEED = 0
 
 
+_START = time.monotonic()
+
+
 def log(obj):
+    """One JSON line; a phase's line also carries ``at_s``, the seconds
+    since the script started (the whole run has a time budget)."""
+    if 'phase' in obj:
+        obj = dict(obj, at_s=time.monotonic() - _START)
     print(json.dumps(obj), flush=True)
 
 
@@ -438,12 +491,16 @@ def nvidia_smi():
     return out.stdout.strip().splitlines()[0]
 
 
-def bn_relu_shapes(mx, symbol, batch):
+def bn_relu_shapes(mx, symbol, batch, image=IMAGE):
     """Counter of the input shapes the fused BN-ReLU nodes of the
-    aggressive inference graph receive at ``batch`` rows."""
+    aggressive inference graph receive at ``batch`` rows of ``image``."""
+    # parameter shapes from the unfused graph: a fused epilogue node does
+    # not complete its inputs' shapes (:func:`graph_kernel_shapes`)
+    arg_shapes, _, _ = symbol.infer_shape(data=(batch,) + image)
     prog = mx.fuse.apply_fuse_passes(symbol, False, 'aggressive')
     internals = prog.get_internals()
-    _, out_shapes, _ = internals.infer_shape(data=(batch,) + IMAGE)
+    _, out_shapes, _ = internals.infer_shape(
+        **dict(zip(symbol.list_arguments(), arg_shapes)))
     shape_of = dict(zip(internals.list_outputs(), out_shapes))
     shapes = Counter()
     for n in prog.topo_nodes():
@@ -453,7 +510,10 @@ def bn_relu_shapes(mx, symbol, batch):
     return shapes
 
 
-def cuda_ms_each(torch, fns, flush, reps=50, warmup=10):
+# a device time is the median of 20 runs after 5 warm-up runs, a host
+# time the median of 50 calls: enough for a median, and the whole script
+# has a time budget
+def cuda_ms_each(torch, fns, flush, reps=20, warmup=5):
     """Median device time (ms) of each of ``fns`` from CUDA events, the
     functions launched in turns, run after run, so that all see the same
     card state.  Before each run a read of ``flush`` (larger than the 50 MB
@@ -462,7 +522,8 @@ def cuda_ms_each(torch, fns, flush, reps=50, warmup=10):
     while the host enqueues every run, so the events bracket device work
     only and not the host's Python/launch overhead (see :func:`host_us`)."""
     torch.cuda.synchronize()
-    torch.cuda._sleep(200_000_000)
+    # ~1 ms of spin (at 1.98 GHz) for each run the host enqueues behind it
+    torch.cuda._sleep(2_000_000 * (warmup + reps) * len(fns))
     pairs = [[] for _ in fns]
     for _ in range(warmup + reps):
         for fn, runs in zip(fns, pairs):
@@ -478,12 +539,12 @@ def cuda_ms_each(torch, fns, flush, reps=50, warmup=10):
             for runs in pairs]
 
 
-def cuda_ms(torch, fn, flush, reps=50, warmup=10):
+def cuda_ms(torch, fn, flush, reps=20, warmup=5):
     """Median device time (ms) of ``fn`` (:func:`cuda_ms_each`)."""
     return cuda_ms_each(torch, (fn,), flush, reps, warmup)[0]
 
 
-def host_us(torch, fn, reps=200):
+def host_us(torch, fn, reps=50):
     """Median host time of one ``fn`` call (us): the wrapper's checks,
     allocation and launch, without waiting for the device."""
     times = []
@@ -545,13 +606,13 @@ def check_bn_relu(torch, fused, shape, dtype, gen, flush):
             'bytes': nbytes}
 
 
-def train_kernel_shapes(mx, symbol, batch):
+def train_kernel_shapes(mx, symbol, batch, image=IMAGE):
     """The shapes the aggressive TRAINING graph gives each kernel at
-    ``batch`` rows, read from the graph: Counters of dot (M, K, N), conv
-    (N, H, W, C, F, stride) and BN-ReLU input shapes."""
+    ``batch`` rows of ``image``, read from the graph: Counters of dot (M,
+    K, N), conv (N, H, W, C, F, stride) and BN-ReLU input shapes."""
     prog = mx.fuse.apply_fuse_passes(symbol, True, 'aggressive')
     internals = prog.get_internals()
-    _, out_shapes, _ = internals.infer_shape(data=(batch,) + IMAGE)
+    _, out_shapes, _ = internals.infer_shape(data=(batch,) + image)
     shape_of = dict(zip(internals.list_outputs(), out_shapes))
     dots, convs, bn_relus = Counter(), Counter(), Counter()
     for n in prog.topo_nodes():
@@ -1844,29 +1905,43 @@ def serve_phase(mx, torch, server, symbol, params, data, rng, fused,
             **memory(torch)}
 
 
-def capture_checks():
-    """The capture phase: the card tests of tests/test_torch_capture.py,
-    in a child pytest.  Each holds one behaviour of whole-step capture
-    against the eager run of the same steps (an lr schedule changes the
-    captured update at step 3; a warm-started fit equals a cold one and
-    the step window reaches two steps in flight; alternating buckets
-    share one set of parameters and keep their outputs; a served
-    forward's arrays survive the next forward; set_params drops the
-    graphs and the next step trains the new values; random nodes,
-    host syncs and Custom nodes).  Returns {test: outcome} and the
-    seconds taken; raises unless every test ran and passed."""
+def start_capture_checks():
+    """Start the capture phase's child pytest: the card tests of
+    tests/test_torch_capture.py and tests/test_torch_lifecycle.py.  It
+    runs while this process starts and builds the kernels (the child
+    builds what it reaches first itself; each build renames its library
+    into place) and ends before any phase times the card
+    (:func:`capture_checks`)."""
     import tempfile
-    import xml.etree.ElementTree as ET
     root = os.path.dirname(os.path.abspath(__file__))
-    t0 = time.monotonic()
-    with tempfile.TemporaryDirectory() as tmp:
-        report = os.path.join(tmp, 'capture.xml')
-        proc = subprocess.run(
-            [sys.executable, '-m', 'pytest', 'tests/test_torch_capture.py',
-             'tests/test_torch_lifecycle.py',
-             '-m', 'cuda', '-q', '--noconftest', '-p', 'no:cacheprovider',
-             '--junitxml', report], cwd=root, capture_output=True,
-            text=True, timeout=600)
+    tmp = tempfile.TemporaryDirectory()
+    report = os.path.join(tmp.name, 'capture.xml')
+    proc = subprocess.Popen(
+        [sys.executable, '-m', 'pytest', 'tests/test_torch_capture.py',
+         'tests/test_torch_lifecycle.py',
+         '-m', 'cuda', '-q', '--noconftest', '-p', 'no:cacheprovider',
+         '--durations=0', '--junitxml', report], cwd=root,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, tmp, report, time.monotonic()
+
+
+def capture_checks(started):
+    """The capture phase: waits for :func:`start_capture_checks`'s child.
+    Each test holds one behaviour of whole-step capture against the eager
+    run of the same steps (an lr schedule changes the captured update at
+    step 3; a warm-started fit equals a cold one and the step window
+    reaches two steps in flight; alternating buckets share one set of
+    parameters and keep their outputs; a served forward's arrays survive
+    the next forward; set_params drops the graphs and the next step
+    trains the new values; random nodes, host syncs and Custom nodes).
+    Returns {test: outcome}, the child's seconds and each test's seconds
+    (pytest's durations, setup and call); raises unless every test ran
+    and passed."""
+    import xml.etree.ElementTree as ET
+    proc, tmp, report, t0 = started
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+        seconds = time.monotonic() - t0
         cases = {}
         if os.path.exists(report):
             for case in ET.parse(report).getroot().iter('testcase'):
@@ -1875,13 +1950,27 @@ def capture_checks():
                     if child.tag in ('failure', 'error', 'skipped'):
                         outcome = child.tag
                 cases[case.get('name')] = outcome
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        tmp.cleanup()
+    durations = Counter()
+    for line in stdout.splitlines():
+        parts = line.split()
+        if len(parts) == 3 and parts[0].endswith('s') and \
+                parts[1] in ('setup', 'call', 'teardown'):
+            try:
+                durations[parts[2].split('::')[-1]] += float(parts[0][:-1])
+            except ValueError:
+                pass
     missing = [n for n in CAPTURE_CHECKS + LIFECYCLE_CHECKS
                if cases.get(n) != 'passed']
     if proc.returncode != 0 or missing:
-        print(proc.stdout[-6000:], proc.stderr[-2000:], file=sys.stderr)
+        print(stdout[-6000:], stderr[-2000:], file=sys.stderr)
         raise AssertionError('capture: pytest rc %d, not passed: %s'
                              % (proc.returncode, missing or cases))
-    return cases, time.monotonic() - t0
+    return cases, seconds, dict(durations.most_common())
 
 
 def train_module(mx, torch, symbol, arg, aux, data, labels, ctx, dtype,
@@ -3565,38 +3654,57 @@ def alexnet_train(mx, torch, models, convert, flush):
     return out
 
 
-def _op_case(torch, name, attrs, inputs, diff, flush, exact=False):
-    """One op forward and backward on the card and on the CPU (f32, TF32
-    off) from the same inputs and a seeded cotangent: max abs error of
-    the outputs and the gradients against ``rtol * max|CPU value|``
-    (exact when ``exact``), and the card's forward + backward ms."""
-    from mxnet_tpu_torch.ops import get_op
-    op = get_op(name)
-    attrs = op.canon_attrs(attrs)
-    cot_rng = np.random.default_rng(SEED + 11)
-
-    def run(dev, cots=None):
-        args = [torch.from_numpy(a).to(dev) for a in inputs]
-        for i in diff:
-            args[i].requires_grad_(True)
-        outs = op.apply(attrs, args, True, None)[0]
-        if cots is None:
-            cots = [cot_rng.standard_normal(tuple(o.shape)).astype(np.float32)
-                    for o in outs]
+def _op_run(torch, op, attrs, inputs, diff, dev, cots=None):
+    """``op`` forward (and backward) on ``dev``; without ``cots`` the
+    cotangents are drawn from a seeded generator at the outputs' shapes.
+    Returns the outputs, the gradients, the cotangents and the
+    arguments on the device."""
+    args = [torch.from_numpy(a).to(dev) for a in inputs]
+    for i in diff:
+        args[i].requires_grad_(True)
+    outs = op.apply(attrs, args, True, None)[0]
+    if cots is None:
+        cot_rng = np.random.default_rng(SEED + 11)
+        cots = [cot_rng.standard_normal(tuple(o.shape)).astype(np.float32)
+                for o in outs]
+    if diff:
         torch.autograd.backward(outs, [torch.from_numpy(c).to(dev)
                                        for c in cots])
-        return ([o.detach().cpu().numpy() for o in outs],
-                [args[i].grad.cpu().numpy() for i in diff], cots, args, outs)
+    return ([o.detach().cpu().numpy() for o in outs],
+            [args[i].grad.cpu().numpy() for i in diff], cots, args)
 
-    host_outs, host_grads, cots, _, _ = run(torch.device('cpu'))
-    card_outs, card_grads, _, args, outs = run(torch.device('cuda', 0), cots)
+
+def op_cpu_half(torch, spec):
+    """The CPU half of an op case ``spec`` (name, attrs, inputs, diff,
+    exact): its outputs, gradients and cotangents."""
+    from mxnet_tpu_torch.ops import get_op
+    name, attrs, inputs, diff, _ = spec
+    op = get_op(name)
+    outs, grads, cots, _ = _op_run(torch, op, op.canon_attrs(attrs), inputs,
+                                   diff, torch.device('cpu'))
+    return outs, grads, cots
+
+
+def _op_case(torch, phase, spec, host, flush):
+    """One op ``spec`` forward and backward on the card against its CPU
+    half ``host`` (f32, TF32 off): max abs error of the outputs and the
+    gradients against ``rtol * max|CPU value|`` (exact when the spec
+    says so), and the card's forward + backward ms.  With no ``diff``
+    (an op without a gradient) the forward alone."""
+    from mxnet_tpu_torch.ops import get_op
+    name, attrs, inputs, diff, exact = spec
+    op = get_op(name)
+    attrs = op.canon_attrs(attrs)
+    host_outs, host_grads, cots = host
+    card_outs, card_grads, _, args = _op_run(
+        torch, op, attrs, inputs, diff, torch.device('cuda', 0), cots)
     rtol = 0.0 if exact else 1e-4
     err, bound = 0.0, 0.0
     worst_rel = 0.0
     for got, want in zip(card_outs + card_grads, host_outs + host_grads):
         if got.shape != want.shape:
-            raise AssertionError('nn-ops %s: shape %s against %s'
-                                 % (name, got.shape, want.shape))
+            raise AssertionError('%s %s: shape %s against %s'
+                                 % (phase, name, got.shape, want.shape))
         e = float(np.max(np.abs(got - want)))
         b = rtol * float(np.max(np.abs(want)))
         err, bound = max(err, e), max(bound, b)
@@ -3607,27 +3715,66 @@ def _op_case(torch, name, attrs, inputs, diff, flush, exact=False):
     def fwd_bwd():
         xs = [a.detach().requires_grad_(a.requires_grad) for a in args]
         ys = op.apply(attrs, xs, True, None)[0]
-        torch.autograd.backward(ys, cots_dev)
+        if diff:
+            torch.autograd.backward(ys, cots_dev)
     ms = cuda_ms(torch, fwd_bwd, flush, reps=10, warmup=3)
     return {'op': name, 'shapes': [list(a.shape) for a in inputs],
             'max_abs_err': err, 'bound': bound,
             'tolerance': 'exact' if exact else
             'rtol 1e-4 of the largest |CPU value| per tensor',
-            'ms_fwd_bwd': ms, 'within': worst_rel == 0.0}
+            'ms_fwd_bwd' if diff else 'ms_fwd': ms,
+            'within': worst_rel == 0.0}
 
 
-def nn_ops(torch, flush):
-    """nn-ops: each op this slice adds, forward and backward on the card
-    against the same call on the CPU, at a real user's shapes."""
+_OP_CASES = {}      # phase -> (specs, their CPU halves)
+
+
+def op_cpu_halves(torch):
+    """nn-ops' and tail-ops' specs and their CPU halves, made once: main
+    makes them while the capture child runs (torch on all but two of
+    the host's threads, which the child keeps)."""
+    if _OP_CASES:
+        return _OP_CASES
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(threads - 2, 1))
+    try:
+        for phase, specs in (('nn-ops', nn_op_specs()),
+                             ('tail-ops', tail_op_specs(torch))):
+            _OP_CASES[phase] = (specs, [op_cpu_half(torch, spec)
+                                        for spec in specs])
+    finally:
+        torch.set_num_threads(threads)
+    return _OP_CASES
+
+
+def run_op_cases(torch, phase, flush):
+    """``phase``'s op cases on the card against their CPU halves; the
+    cases and the failures."""
+    specs, hosts = op_cpu_halves(torch)[phase]
+    cases = [_op_case(torch, phase, spec, host, flush)
+             for spec, host in zip(specs, hosts)]
+    failures = ['%s %s %s: max abs err %g beyond %g'
+                % (phase, c['op'], c['shapes'], c['max_abs_err'], c['bound'])
+                for c in cases if not c['within']]
+    return cases, failures
+
+
+def nn_op_specs():
+    """nn-ops: Deconvolution, Crop, UpSampling, LRN, L2Normalization,
+    CuDNNBatchNorm, the Sequence ops, the regression outputs, SVMOutput
+    and softmax_cross_entropy, forward and backward on the card against
+    the same call on the CPU, at a real user's shapes: the specs (name,
+    attrs, inputs, diff, exact)."""
     rng = np.random.default_rng(SEED + 9)
 
     def n(*shape, scale=1.0):
         return (rng.standard_normal(shape) * scale).astype(np.float32)
 
-    def ints(*shape):
-        return rng.integers(-3, 4, shape).astype(np.float32)
+    specs = []
 
-    cases = []
+    def case(name, attrs, inputs, diff, exact=False):
+        specs.append((name, attrs, inputs, diff, exact))
+
     # DCGAN's generator (examples/train_dcgan.py) at the upstream widths:
     # nz 100, ngf 64, 4x4 kernels, 4 -> 64 pixels, batch 64
     dcgan = [((64, 100, 1, 1), 512, (1, 1), (0, 0)),
@@ -3636,54 +3783,967 @@ def nn_ops(torch, flush):
              ((64, 128, 16, 16), 64, (2, 2), (1, 1)),
              ((64, 64, 32, 32), 3, (2, 2), (1, 1))]
     for shape, nf, stride, pad in dcgan:
-        cases.append(_op_case(torch, 'Deconvolution', {
+        case('Deconvolution', {
             'kernel': (4, 4), 'stride': stride, 'pad': pad,
             'num_filter': nf, 'no_bias': True},
-            [n(*shape), n(shape[1], nf, 4, 4, scale=0.05)], (0, 1), flush))
+            [n(*shape), n(shape[1], nf, 4, 4, scale=0.05)], (0, 1))
     # examples/fcn_xs.py's 2x upsampling and its Crop, VOC's 21 classes
-    cases.append(_op_case(torch, 'Deconvolution', {
+    case('Deconvolution', {
         'kernel': (4, 4), 'stride': (2, 2), 'pad': (1, 1), 'num_filter': 21,
         'no_bias': True}, [n(8, 21, 125, 125), n(21, 21, 4, 4, scale=0.1)],
-        (0, 1), flush))
-    cases.append(_op_case(torch, 'Crop', {'num_args': 2},
-                          [n(8, 21, 250, 250), n(8, 21, 248, 248)], (0,),
-                          flush, exact=True))
+        (0, 1))
+    case('Crop', {'num_args': 2}, [n(8, 21, 250, 250), n(8, 21, 248, 248)],
+         (0,), exact=True)
     for sample in ('nearest', 'bilinear'):
         # nearest's forward copies; its backward sums 4 values a pixel
-        cases.append(_op_case(torch, 'UpSampling', {
+        # (8 rows: the CPU's side takes seconds at 32)
+        case('UpSampling', {
             'scale': 2, 'sample_type': sample, 'num_filter': 256},
-            [n(32, 256, 56, 56)], (0,), flush))
-    cases.append(_op_case(torch, 'LRN', {'nsize': 5, 'alpha': 1e-4,
-                                         'beta': 0.75, 'knorm': 2.0},
-                          [np.abs(n(32, 96, 55, 55, scale=4.0))], (0,),
-                          flush))
-    cases.append(_op_case(torch, 'L2Normalization', {'mode': 'channel'},
-                          [n(32, 512, 38, 38)], (0,), flush))
-    cases.append(_op_case(torch, 'CuDNNBatchNorm', {'fix_gamma': False},
-                          [n(32, 64, 56, 56), n(64), n(64), n(64),
-                           np.abs(n(64)) + 0.5], (0, 1, 2), flush))
+            [n(8, 256, 56, 56)], (0,))
+    case('LRN', {'nsize': 5, 'alpha': 1e-4, 'beta': 0.75, 'knorm': 2.0},
+         [np.abs(n(32, 96, 55, 55, scale=4.0))], (0,))
+    case('L2Normalization', {'mode': 'channel'}, [n(32, 512, 38, 38)],
+         (0,))
+    case('CuDNNBatchNorm', {'fix_gamma': False},
+         [n(32, 64, 56, 56), n(64), n(64), n(64), np.abs(n(64)) + 0.5],
+         (0, 1, 2))
     lengths = rng.integers(1, 513, 16).astype(np.float32)
     for name, attrs in (('SequenceLast', {}), ('SequenceMask',
                                                {'value': -1.0}),
                         ('SequenceReverse', {})):
-        cases.append(_op_case(torch, name,
-                              dict(attrs, use_sequence_length=True),
-                              [n(512, 16, 512), lengths], (0,), flush,
-                              exact=True))
+        case(name, dict(attrs, use_sequence_length=True),
+             [n(512, 16, 512), lengths], (0,), exact=True)
     label = rng.integers(0, 1000, 32).astype(np.float32)
     for name in ('LinearRegressionOutput', 'MAERegressionOutput',
                  'LogisticRegressionOutput'):
-        cases.append(_op_case(torch, name, {}, [n(32, 1000), n(32, 1000)],
-                              (0,), flush))
-    cases.append(_op_case(torch, 'SVMOutput', {}, [n(32, 1000), label], (0,),
-                          flush))
-    cases.append(_op_case(torch, 'softmax_cross_entropy', {},
-                          [n(8192, 32000), rng.integers(0, 32000, 8192)
-                           .astype(np.float32)], (0,), flush))
-    failures = ['nn-ops %s %s: max abs err %g beyond %g'
-                % (c['op'], c['shapes'], c['max_abs_err'], c['bound'])
-                for c in cases if not c['within']]
-    return cases, failures
+        case(name, {}, [n(32, 1000), n(32, 1000)], (0,))
+    case('SVMOutput', {}, [n(32, 1000), label], (0,))
+    # the LM's head at 4 x 512 tokens (at 16 x 512 the CPU's side and
+    # the draws take ~10 s), drawn in float32
+    case('softmax_cross_entropy', {},
+         [rng.standard_normal((2048, 32000), dtype=np.float32),
+          rng.integers(0, 32000, 2048).astype(np.float32)], (0,))
+    return specs
+
+
+# ---------------------------------------------------------------------------
+# The three BASELINE configurations of the JAX package that the port could
+# not run before: the PTB LSTM (RNN op, cells, BucketingModule), SSD (the
+# MultiBox ops and the multibox_nms kernel, predictor.load and reshape) and
+# the zoo (Inception-v3 and VGG-16 training and inference, four more
+# served classifiers); kernels #2, #3, #4 at the shapes these graphs give
+# them; the last 12 ops on the card against the CPU
+# ---------------------------------------------------------------------------
+
+LSTM_PTB = dict(vocab_size=10000, num_embed=200, num_hidden=200,
+                num_layers=2)
+LSTM_T, LSTM_ROWS = 35, 32
+LSTM_WARMUP, LSTM_STEPS = 2, 20        # the bench leg's 20 timed steps
+LSTM_BUCKETS = (10, 20, 30, 40, 50, 60)    # example/rnn/lstm_bucketing.py
+LSTM_PER_BUCKET = 96                   # 3 batches of 32 per bucket
+LSTM_OPT = {'learning_rate': 0.1, 'momentum': 0.9}
+SSD_CLASSES, SSD_ROWS, SSD_IMAGE = 20, 8, (3, 300, 300)
+SSD_ANCHORS = 7308                     # tests/test_ssd.py:3
+SSD_FORWARDS = 10
+SSD_TRAIN_STEPS = 4
+SSD_OPT = {'learning_rate': 0.004, 'momentum': 0.9, 'wd': 5e-4}
+SSD_VARIANCES = (0.1, 0.1, 0.2, 0.2)
+NMS_OPS_PER_PAIR = 16   # 2 max, 2 min, 4 sub, 2 clamp, 3 mul, add, div, cmp
+DETECTION_INPUTS = ('cls_prob_output', 'multibox_loc_pred_output',
+                    'multibox_anchors_output')
+INCEPTION_IMAGE = (3, 299, 299)
+ZOO_STEPS = 4                          # captured Module.fit steps
+ZOO_OPT = {'learning_rate': 0.01, 'momentum': 0.9, 'wd': 1e-4}
+ZOO_EVALS = 5                          # make_eval_step forwards
+ZOO_SERVE_ROWS = 8
+# googlenet at 256: the reference's graph ends in a 0 x 0 pool at 224
+ZOO_SERVE = (('inception-bn', (3, 224, 224)), ('googlenet', (3, 256, 256)),
+             ('resnext-50', (3, 224, 224)),
+             ('inception-resnet-v2', (3, 299, 299)))
+
+
+def deterministic(torch, on):
+    """cuDNN's deterministic algorithms (captured against eager must be
+    bit for bit) with TF32 off, or back to the defaults."""
+    torch.backends.cudnn.deterministic = on
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = not on
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def lstm_bench_draws(symbol):
+    """The LSTM bench leg's draws (bench.py:914-955): N(0, 0.05²) for every
+    parameter from RandomState(0) in list_arguments order, then the token
+    ids and labels of its one batch."""
+    dshape = (LSTM_ROWS, LSTM_T)
+    arg_shapes, _, _ = symbol.infer_shape(data=dshape, softmax_label=dshape)
+    rng = np.random.RandomState(0)
+    params = {n: rng.normal(0, 0.05, size=s).astype(np.float32)
+              for n, s in zip(symbol.list_arguments(), arg_shapes)
+              if n not in ('data', 'softmax_label')}
+    v = LSTM_PTB['vocab_size']
+    batch = {'data': rng.randint(0, v, dshape).astype(np.float32),
+             'softmax_label': rng.randint(0, v, dshape).astype(np.float32)}
+    return params, batch
+
+
+def lstm_steps(mx, torch, ts, symbol, params, batch, steps, naive=False,
+               rows=LSTM_ROWS, dev='cuda', snap_at=None):
+    """``steps`` make_train_step steps (SGD lr 0.1 momentum 0.9, f32) from
+    ``params`` on one batch, as the bench leg runs them: the parameters
+    after, each step's host ms (ending in a synchronise), the parameters
+    after ``snap_at`` steps, the last step's cross-entropy and the graphs."""
+    set_engine(mx, naive)
+    try:
+        p = {k: torch.from_numpy(v.copy()).to(dev) for k, v in params.items()}
+        b = {k: torch.from_numpy(v[:rows]).to(dev) for k, v in batch.items()}
+        step = ts.make_train_step(
+            symbol, ts.make_sgd_momentum(lr=0.1, momentum=0.9, wd=0.0,
+                                         rescale_grad=1.0 / rows),
+            ('data', 'softmax_label'))
+        state = ts.sgd_momentum_init(p)
+        times, snap = [], None
+        for i in range(steps):
+            t0 = time.perf_counter()
+            outs, p, _, state = step(p, {}, state, b)
+            if dev == 'cuda':
+                torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if i + 1 == snap_at:
+                snap = {k: v.cpu().numpy().copy() for k, v in p.items()}
+        ce = cross_entropy(torch, outs[0], b['softmax_label'])
+        return ({k: v.cpu().numpy() for k, v in p.items()}, times, snap, ce,
+                graph_report(c for c, _ in step.graphs.values()))
+    finally:
+        set_engine(mx, False)
+
+
+def lstm_corpus(seed):
+    """Random sentences of token ids, LSTM_PER_BUCKET in each bucket's
+    length range (1-10, 11-20, ..., 51-60), shuffled."""
+    rng = np.random.RandomState(seed)
+    sentences, low = [], 1
+    for b in LSTM_BUCKETS:
+        for n in rng.randint(low, b + 1, LSTM_PER_BUCKET):
+            sentences.append(list(rng.randint(1, LSTM_PTB['vocab_size'],
+                                              n)))
+        low = b + 1
+    rng.shuffle(sentences)
+    return sentences
+
+
+def lstm_bucket_fit(mx, torch, models, params, sentences, naive):
+    """``BucketingModule(lstm_lm.sym_gen_bucketing(...)).fit`` on the card
+    over a BucketSentenceIter of ``sentences`` (the example's buckets,
+    padding -1), one epoch, SGD lr 0.1 momentum 0.9, f32: the module, its
+    timed steps and the fit's wall seconds."""
+    import contextlib
+    import random
+    set_engine(mx, naive)
+    try:
+        mod = mx.mod.BucketingModule(
+            models.lstm_lm.sym_gen_bucketing(**LSTM_PTB),
+            default_bucket_key=max(LSTM_BUCKETS), context=mx.gpu(0))
+        random.seed(SEED)
+        np.random.seed(SEED)
+        with contextlib.redirect_stdout(sys.stderr):
+            it = mx.rnn.BucketSentenceIter(sentences, LSTM_ROWS,
+                                           buckets=list(LSTM_BUCKETS))
+        steps = timed_steps(torch, mod, ())
+        t0 = time.monotonic()
+        mod.fit(it, num_epoch=1, eval_metric='acc', optimizer='sgd',
+                optimizer_params=dict(LSTM_OPT),
+                arg_params={k: mx.nd.array(v) for k, v in params.items()})
+        torch.cuda.synchronize()
+        return mod, steps, time.monotonic() - t0
+    finally:
+        set_engine(mx, False)
+
+
+def lstm_ptb(mx, torch, models, ts):
+    """lstm-ptb: the PTB LSTM (BASELINE config 4) through make_train_step
+    (the bench leg) captured and eager, one f32 step against the CPU, and
+    BucketingModule.fit over the example's buckets captured and eager."""
+    deterministic(torch, True)
+    symbol = models.get_symbol('lstm_lm', seq_len=LSTM_T, **LSTM_PTB)
+    params, batch = lstm_bench_draws(symbol)
+    fresh_memory(torch)
+    total = LSTM_WARMUP + LSTM_STEPS
+    cap, cap_s, cap_snap, ce, graphs = lstm_steps(
+        mx, torch, ts, symbol, params, batch, total, snap_at=EAGER_STEPS)
+    cap_mem = memory(torch)
+    fresh_memory(torch)
+    eager, eager_s, _, _, egraphs = lstm_steps(
+        mx, torch, ts, symbol, params, batch, EAGER_STEPS, naive=True)
+    step_ms = statistics.median(cap_s[LSTM_WARMUP:]) * 1e3
+    for k, v in cap.items():
+        if not np.all(np.isfinite(v)):
+            raise AssertionError('lstm-ptb: parameter %s not finite' % k)
+    if not np.isfinite(ce) or not all(g['captured'] for g in graphs):
+        raise AssertionError('lstm-ptb: cross-entropy %s, graphs %s'
+                             % (ce, graphs))
+    parity = compare_params('lstm-ptb, captured against eager', cap_snap,
+                            eager)
+    # one f32 step at 2 rows on the card and on the CPU
+    card, _, _, _, _ = lstm_steps(mx, torch, ts, symbol, params, batch, 1,
+                                  rows=PARITY_ROWS)
+    host, _, _, _, _ = lstm_steps(mx, torch, ts, symbol, params, batch, 1,
+                                  rows=PARITY_ROWS, dev='cpu')
+    cpu_parity = compare_params('lstm-ptb, card against the CPU', card, host)
+    train = {'model': 'lstm_lm', **LSTM_PTB, 'seq_len': LSTM_T,
+             'rows': LSTM_ROWS, 'dtype': 'float32',
+             'optimizer': 'sgd lr 0.1 momentum 0.9',
+             'step_ms': [t * 1e3 for t in cap_s],
+             'step_ms_median_after_warmup': step_ms,
+             'words_per_s': LSTM_ROWS * LSTM_T / step_ms * 1e3,
+             'eager_step_ms': [t * 1e3 for t in eager_s],
+             'eager_step_ms_median': statistics.median(eager_s) * 1e3,
+             'cross_entropy_last': ce, 'ln_vocab': float(np.log(
+                 LSTM_PTB['vocab_size'])),
+             'graphs': graphs, 'eager_graphs': egraphs, **cap_mem,
+             'captured_against_eager': parity,
+             'card_against_cpu': {'rows': PARITY_ROWS, **cpu_parity}}
+    # BucketingModule.fit over the example's buckets
+    sentences = lstm_corpus(SEED + 21)
+    fits = {}
+    for mode in ('captured', 'eager'):
+        fresh_memory(torch)
+        mod, steps, fit_s = lstm_bucket_fit(mx, torch, models, params,
+                                            sentences, mode == 'eager')
+        fits[mode] = (numpy_params(mod), steps, fit_s, memory(torch),
+                      graph_report(g for m in mod._buckets.values()
+                                   for g in m._graphs.values()))
+        del mod
+    per_bucket = {}
+    for s in fits['captured'][1]:
+        per_bucket.setdefault(s['bucket'], []).append(s)
+    buckets = {}
+    for b, ss in sorted(per_bucket.items()):
+        ms = statistics.median(x['ms'] for x in ss[1:] or ss)
+        buckets[b] = {'steps': len(ss), 'step_ms': [x['ms'] for x in ss],
+                      'step_ms_median_after_first': ms,
+                      'unpadded_words_per_s': statistics.mean(
+                          x['real_tokens'] for x in ss) / ms * 1e3,
+                      'padded_words_per_s': LSTM_ROWS * b / ms * 1e3}
+    bgraphs = fits['captured'][4]
+    if not bgraphs or not all(g['captured'] for g in bgraphs):
+        raise AssertionError('lstm-ptb: bucket steps not captured: %s'
+                             % bgraphs)
+    bparity = compare_params('lstm-ptb buckets, captured against eager',
+                             fits['captured'][0], fits['eager'][0])
+    deterministic(torch, False)
+    return train, {'buckets': buckets, 'fit_s': fits['captured'][2],
+                   'eager_fit_s': fits['eager'][2],
+                   'eager_step_ms': [s['ms'] for s in fits['eager'][1]],
+                   'graphs': bgraphs, **fits['captured'][3],
+                   'captured_against_eager': bparity}
+
+
+def ssd_labels(rng, rows):
+    """Ground truth as tests/test_ssd.py:19-30 builds it: (rows, 4, 5) of
+    (class, xmin, ymin, xmax, ymax) in [0, 1], 1-3 boxes an image, the
+    rest -1."""
+    labels = np.full((rows, 4, 5), -1.0, np.float32)
+    for i in range(rows):
+        for j in range(int(rng.integers(1, 4))):
+            x0, y0 = rng.uniform(0.0, 0.6, 2)
+            w, h = rng.uniform(0.15, 0.4, 2)
+            labels[i, j] = [rng.integers(0, SSD_CLASSES), x0, y0,
+                            min(x0 + w, 1.0), min(y0 + h, 1.0)]
+    return labels
+
+
+def ssd_params(convert, symbol, shapes):
+    arg, aux = convert.random_params(symbol, shapes, SEED)
+    arg['relu4_3_scale'][:] = 20.0      # its Constant(20) init
+    return arg, aux
+
+
+def nms_pairs(rows, threshold, force):
+    """The (i, j) IoU tests the greedy scan makes on these rows: for each
+    row alive at its turn, the later rows still alive then (of its class
+    unless ``force``); a numpy replay of the scan, in float32."""
+    total = 0
+    for img in rows:
+        cls = img[:, 0].copy()
+        x0, y0, x1, y1 = (img[:, k] for k in range(2, 6))
+        area = (x1 - x0) * (y1 - y0)
+        for i in range(len(cls)):
+            if cls[i] < 0:
+                continue
+            j = np.arange(i + 1, len(cls))
+            live = cls[j] >= 0
+            if not force:
+                live &= cls[j] == cls[i]
+            j = j[live]
+            total += len(j)
+            w = np.maximum(np.minimum(x1[j], x1[i])
+                           - np.maximum(x0[j], x0[i]), 0)
+            h = np.maximum(np.minimum(y1[j], y1[i])
+                           - np.maximum(y0[j], y0[i]), 0)
+            inter = w * h
+            union = area[j] + area[i] - inter
+            iou = np.where(union > 0, inter / np.where(union > 0, union, 1),
+                           0)
+            cls[j[iou >= threshold]] = -1
+    return total
+
+
+def nms_case(mx, torch, mb, symbol, params, images, flush):
+    """multibox_nms on the served forward's own rows: the detection inputs
+    of the deploy graph at SSD_ROWS images (an eager Predictor over its
+    internals), ordered as MultiBoxDetection orders them; the kernel
+    against its plain version row for row, both timed, and the bound."""
+    inner = symbol.get_internals()
+    group = mx.sym.Group([inner[n] for n in DETECTION_INPUTS])
+    pred = mx.Predictor(group.tojson(), params,
+                        {'data': (SSD_ROWS,) + SSD_IMAGE})
+    pred.forward(data=images)
+    cls_prob, loc, anchors = (o.handle for o in pred._out_arrays)
+    rows = mb.detection_rows(cls_prob.float(), loc.float(),
+                             anchors.reshape(-1, 4).float(), 0.01, True,
+                             SSD_VARIANCES)
+    n0 = mb.multibox_nms.launches
+    got = mb.multibox_nms(rows, 0.5, True)
+    if mb.multibox_nms.launches != n0 + 1:
+        raise AssertionError('multibox_nms did not launch')
+    # the plain loop (~12 launches a row, seconds) runs once: timed by
+    # events and by the host clock, and its rows are the comparison's
+    flush.sum()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    want = mb.multibox_nms_plain(rows, 0.5, True)
+    end.record()
+    torch.cuda.synchronize()
+    plain_host_s = time.perf_counter() - t0
+    plain_ms = start.elapsed_time(end)
+    equal = bool(torch.equal(got, want))
+    host_rows = rows.cpu().numpy()
+    pairs = nms_pairs(host_rows, 0.5, True)
+    nbytes = rows.numel() * 4 + rows.shape[0] * rows.shape[1] * 4
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    op_ms = pairs * NMS_OPS_PER_PAIR / FP32_FLOPS * 1e3
+    ms = cuda_ms(torch, lambda: mb.multibox_nms(rows, 0.5, True), flush,
+                 reps=20, warmup=3)
+    kept = int((got[..., 0] >= 0).sum())
+    case = {'shape': list(rows.shape), 'nms_threshold': 0.5,
+            'force_suppress': True, 'equal_to_plain': equal,
+            'max_abs_err': float((got - want).abs().max()),
+            'kept_rows': kept, 'valid_rows': int((got[..., 1] >= 0).sum()),
+            'iou_pairs': pairs, 'ms': ms, 'plain_ms': plain_ms,
+            'plain_host_s': plain_host_s,
+            'host_us': host_us(torch, lambda: mb.multibox_nms(rows, 0.5,
+                                                              True), 20),
+            'bound_ms': max(byte_ms, op_ms),
+            'bound_by': 'bytes' if byte_ms >= op_ms else 'operations',
+            'bytes': nbytes, 'flops': pairs * NMS_OPS_PER_PAIR,
+            'library_ms': None}
+    # per-class suppression, off the path, on the 1000 best rows of two of
+    # the images (the plain loop takes ~0.4 ms a row; the shared-memory
+    # opt-in past 12288 rows: tests/test_torch_cuda.py)
+    r = rows[:2, :1000].contiguous()
+    g, w = mb.multibox_nms(r, 0.5, False), mb.multibox_nms_plain(r, 0.5,
+                                                                  False)
+    extra = [{'shape': list(r.shape), 'force_suppress': False,
+              'equal_to_plain': bool(torch.equal(g, w)),
+              'kept_rows': int((g[..., 0] >= 0).sum())}]
+    del pred
+    return case, extra
+
+
+def ssd_serve(mx, torch, models, convert, mb, tmp, flush):
+    """ssd serving: the deploy graph saved with model.save_checkpoint,
+    served through predictor.load (pow2 buckets to SSD_ROWS, each captured
+    by warm_buckets), SSD_FORWARDS forwards of SSD_ROWS images captured
+    and under NaiveEngine; Predictor.reshape to one row against a fresh
+    Predictor; multibox_nms on the served forward's rows."""
+    deterministic(torch, True)
+    symbol = models.get_symbol('ssd-vgg16', num_classes=SSD_CLASSES)
+    shape = (SSD_ROWS,) + SSD_IMAGE
+    arg, aux = ssd_params(convert, symbol, {'data': shape})
+    prefix = os.path.join(tmp, 'ssd-vgg16')
+    mx.model.save_checkpoint(prefix, 0, symbol,
+                             {k: mx.nd.array(v) for k, v in arg.items()},
+                             {k: mx.nd.array(v) for k, v in aux.items()})
+    rng = np.random.default_rng(SEED + 31)
+    batches = [rng.random(shape, dtype=np.float32)
+               for _ in range(SSD_FORWARDS)]
+    served = {}
+    for mode in ('eager', 'captured'):
+        set_engine(mx, mode == 'eager')
+        fresh_memory(torch)
+        try:
+            t0 = time.perf_counter()
+            pred = mx.predictor.load(prefix, 0, {'data': shape})
+            # the served path's pow2 buckets, each captured
+            pred._pad_to_bucket = True
+            warm = pred.warm_buckets(SSD_ROWS)
+            load_s = time.perf_counter() - t0
+            n0 = mb.multibox_nms.launches
+            times, outs = [], []
+            for b in batches:
+                t0 = time.perf_counter()
+                pred.forward(data=b)
+                outs.append(pred.get_output(0))
+                times.append(time.perf_counter() - t0)
+            launches = mb.multibox_nms.launches - n0
+            graphs = graph_report(e._forward_graph for e in
+                                  pred._bucket_execs.values()
+                                  if getattr(e, '_forward_graph', None))
+            served[mode] = {'outs': outs, 'pred': pred,
+                            'report': {
+                                'load_and_warm_s': load_s,
+                                'buckets': warm,
+                                'forward_ms': [t * 1e3 for t in times],
+                                'forward_ms_p50': float(np.median(times))
+                                * 1e3,
+                                'images_per_s': SSD_ROWS
+                                / float(np.median(times)),
+                                'multibox_nms_launches': launches,
+                                'graphs': graphs, **memory(torch)}}
+        finally:
+            set_engine(mx, False)
+    cap, eager = served['captured'], served['eager']
+    out = cap['outs'][0]
+    if out.shape != (SSD_ROWS, SSD_ANCHORS, 6) or \
+            not np.all(np.isfinite(out)):
+        raise AssertionError('ssd: detections of shape %s, finite %s'
+                             % (out.shape, np.all(np.isfinite(out))))
+    bitwise = all(np.array_equal(a, b) for a, b in
+                  zip(cap['outs'], eager['outs']))
+    if not bitwise:
+        raise AssertionError('ssd: captured detections differ from eager')
+    if cap['report']['multibox_nms_launches'] != SSD_FORWARDS or \
+            eager['report']['multibox_nms_launches'] != SSD_FORWARDS:
+        raise AssertionError('ssd: multibox_nms launched %d / %d times in %d '
+                             'forwards' % (cap['report'][
+                                 'multibox_nms_launches'], eager['report'][
+                                 'multibox_nms_launches'], SSD_FORWARDS))
+    if not all(g['captured'] for g in cap['report']['graphs']):
+        raise AssertionError('ssd: buckets not captured: %s'
+                             % cap['report']['graphs'])
+    # Predictor.reshape to one row against a fresh Predictor
+    pred = cap['pred']
+    pred.reshape({'data': (1,) + SSD_IMAGE})
+    one = batches[1][:1]
+    pred.forward(data=one)
+    got = pred.get_output(0)
+    fresh = mx.predictor.load(prefix, 0, {'data': (1,) + SSD_IMAGE})
+    fresh._pad_to_bucket = True
+    fresh.forward(data=one)
+    want = fresh.get_output(0)
+    if got.shape != (1, SSD_ANCHORS, 6) or not np.array_equal(got, want):
+        raise AssertionError('ssd: reshape to one row differs from a fresh '
+                             'Predictor (max abs %g)'
+                             % float(np.max(np.abs(got - want))))
+    reshape = {'rows': 1, 'bitwise_equal_to_fresh': True,
+               'kept': int((got[..., 0] >= 0).sum())}
+    del pred, fresh, served
+    params = convert.params_from_numpy(arg, aux, 'cuda:0')
+    case, extra = nms_case(mx, torch, mb, symbol, params, batches[0], flush)
+    if not case['equal_to_plain'] or not all(e['equal_to_plain']
+                                             for e in extra):
+        raise AssertionError('multibox_nms disagrees with its plain version: '
+                             '%s %s' % (case, extra))
+    first = cap['report']
+    deterministic(torch, False)
+    return {'model': 'ssd-vgg16', 'classes': SSD_CLASSES,
+            'image': list(SSD_IMAGE), 'rows': SSD_ROWS,
+            'anchors': SSD_ANCHORS, 'forwards': SSD_FORWARDS,
+            'served_through': 'predictor.load(prefix, 0, {data: ...}), '
+                              'its pow2 buckets on',
+            'kept_per_image': float((out[..., 0] >= 0).sum() / SSD_ROWS),
+            **first, 'eager': eager['report'],
+            'captured_equals_eager_bitwise': bitwise,
+            'reshape': reshape}, case, extra
+
+
+def ssd_metric(mx):
+    """The SSD example's training metric, on the host: the cross-entropy
+    of cls_prob at the assigned classes (rows with cls_target -1 left
+    out) and the mean smooth-L1 localisation loss per assigned row."""
+
+    class MultiBoxMetric(mx.metric.EvalMetric):
+        def __init__(self):
+            super().__init__('multibox')
+
+        def reset(self):
+            self.ce, self.loc, self.n = 0.0, 0.0, 0
+
+        def update(self, labels, preds):
+            prob, loc, target = (p.asnumpy() for p in preds[:3])
+            t = target.astype(np.int64)
+            valid = t >= 0
+            p = np.take_along_axis(prob, np.maximum(t, 0)[:, None],
+                                   axis=1)[:, 0]
+            self.ce += float(-np.log(np.maximum(p[valid], 1e-30)).mean())
+            self.loc += float(loc.sum() / max(valid.sum(), 1))
+            self.n += 1
+
+        def get(self):
+            return (['cross-entropy', 'smooth-l1'],
+                    [self.ce / max(self.n, 1), self.loc / max(self.n, 1)])
+
+    return MultiBoxMetric()
+
+
+def ssd_valid_counts(mx, symbol, shapes, arg, aux, images, labels):
+    """Each batch's count of localisation-loss entries above MakeLoss's
+    valid_thresh (0): what upstream MXNet's normalization='valid'
+    divides that loss's gradient by.  The JAX op, and so the port,
+    injects grad_scale undivided."""
+    exe = symbol.simple_bind(mx.gpu(0), grad_req='null', **shapes)
+    for k, v in list(arg.items()) + list(aux.items()):
+        (exe.arg_dict if k in exe.arg_dict else exe.aux_dict)[k][:] = v
+    counts = []
+    for i in range(0, len(images), SSD_ROWS):
+        exe.arg_dict['data'][:] = images[i:i + SSD_ROWS]
+        exe.arg_dict['label'][:] = labels[i:i + SSD_ROWS]
+        loc_loss = exe.forward(is_train=False)[1].asnumpy()
+        counts.append(int((loc_loss > 0).sum()))
+    del exe
+    return counts
+
+
+def ssd_train(mx, torch, models, convert):
+    """ssd training: Module.fit on ssd-vgg16-train at SSD_ROWS x 300 x 300
+    with seeded boxes, f32 (cuDNN deterministic, TF32 off), SGD momentum
+    0.9 wd 5e-4 (the SSD example's), SSD_TRAIN_STEPS steps captured and
+    under NaiveEngine from the same state.  The example's lr 0.004
+    assumes the localisation loss normalized by its valid count, which
+    MakeLoss ignores here as in the JAX op: the lr is 0.004 over the
+    largest count of the run's batches, so no step moves the
+    localisation head further than the example's would."""
+    deterministic(torch, True)
+    symbol = models.get_symbol('ssd-vgg16-train', num_classes=SSD_CLASSES)
+    shapes = {'data': (SSD_ROWS,) + SSD_IMAGE, 'label': (SSD_ROWS, 4, 5)}
+    arg, aux = ssd_params(convert, symbol, shapes)
+    rng = np.random.default_rng(SEED + 33)
+    n = SSD_TRAIN_STEPS * SSD_ROWS
+    images = rng.random((n,) + SSD_IMAGE, dtype=np.float32)
+    labels = ssd_labels(rng, n)
+    counts = ssd_valid_counts(mx, symbol, shapes, arg, aux, images, labels)
+    opt = dict(SSD_OPT, learning_rate=SSD_OPT['learning_rate']
+               / max(max(counts), 1))
+    runs = {}
+    for mode in ('captured', 'eager'):
+        set_engine(mx, mode == 'eager')
+        fresh_memory(torch)
+        try:
+            times, last = [], [time.perf_counter()]
+
+            def tick(_):
+                torch.cuda.synchronize()
+                now = time.perf_counter()
+                times.append(now - last[0])
+                last[0] = time.perf_counter()
+
+            metric = ssd_metric(mx)
+            mod = mx.mod.Module(symbol, data_names=('data',),
+                                label_names=('label',), context=mx.gpu(0))
+            mod.fit(mx.io.NDArrayIter(images, labels, batch_size=SSD_ROWS,
+                                      label_name='label'),
+                    num_epoch=1, eval_metric=metric, optimizer='sgd',
+                    optimizer_params=dict(opt),
+                    arg_params={k: mx.nd.array(v) for k, v in arg.items()},
+                    aux_params={k: mx.nd.array(v) for k, v in aux.items()},
+                    batch_end_callback=tick)
+            runs[mode] = (numpy_params(mod), times,
+                          dict(zip(*metric.get())),
+                          graph_report(mod._graphs.values()), memory(torch))
+            del mod
+        finally:
+            set_engine(mx, False)
+    params, times, loss, graphs, mem = runs['captured']
+    moved = max(float(np.max(np.abs(params[k] - v))) for k, v in arg.items())
+    if not all(np.all(np.isfinite(v)) for v in params.values()) or \
+            moved <= 0 or not all(np.isfinite(v) for v in loss.values()):
+        raise AssertionError('ssd-train: loss %s, max |dw| %g' % (loss,
+                                                                  moved))
+    if len(graphs) != 1 or not graphs[0]['captured']:
+        raise AssertionError('ssd-train: not captured: %s' % graphs)
+    parity = compare_params('ssd-train, captured against eager', params,
+                            runs['eager'][0])
+    deterministic(torch, False)
+    return {'model': 'ssd-vgg16-train', 'rows': SSD_ROWS,
+            'image': list(SSD_IMAGE), 'steps': SSD_TRAIN_STEPS,
+            'dtype': 'float32', 'optimizer': 'sgd lr 0.004 / %d momentum '
+            '0.9 wd 5e-4' % max(max(counts), 1),
+            'loc_valid_counts': counts, 'step_ms': [t * 1e3 for t in times],
+            'step_ms_median_after_first': statistics.median(times[1:]) * 1e3,
+            'images_per_s': SSD_ROWS / statistics.median(times[1:]),
+            'loss': loss, 'graphs': graphs, **mem,
+            'eager_step_ms': [t * 1e3 for t in runs['eager'][1]],
+            'captured_against_eager': parity}
+
+
+_AHEAD = {}         # what the zoo phases make on the host, made once
+
+
+def ahead(key, make):
+    """``make()``, once per ``key``: main makes these while the capture
+    child runs (:func:`zoo_ahead`)."""
+    if key not in _AHEAD:
+        _AHEAD[key] = make()
+    return _AHEAD[key]
+
+
+def zoo_model(models, convert, name, image, rows=BATCH):
+    """``name``'s symbol (1000 classes) and random parameters at ``rows``
+    rows of ``image``, shared by zoo-train and zoo-eval (32 rows) or
+    made for zoo-serve (ZOO_SERVE_ROWS)."""
+    def make():
+        symbol = models.get_symbol(name, num_classes=1000)
+        arg, aux = convert.random_params(symbol, {'data': (rows,) + image},
+                                         SEED)
+        return symbol, arg, aux
+    return ahead(('model', name, image, rows), make)
+
+
+def zoo_train_shapes(mx, models):
+    """Inception-v3's training kernel shapes at 32 rows (dots, convs,
+    BN-ReLUs) and VGG-16's FullyConnected epilogues."""
+    def make():
+        inception = models.get_symbol('inception-v3', num_classes=1000)
+        vgg = models.get_symbol('vgg16', num_classes=1000)
+        return (train_kernel_shapes(mx, inception, BATCH, INCEPTION_IMAGE),
+                graph_kernel_shapes(mx, vgg, {'data': (BATCH,) + IMAGE})[0])
+    return ahead('zoo-train-shapes', make)
+
+
+def zoo_ahead(mx, models, convert):
+    """The zoo phases' host work, made ahead: parameters and shapes."""
+    for name, image in (('inception-v3', INCEPTION_IMAGE),
+                        ('vgg16', IMAGE)):
+        zoo_model(models, convert, name, image)
+    for name, image in ZOO_SERVE:
+        zoo_model(models, convert, name, image, ZOO_SERVE_ROWS)
+    zoo_train_shapes(mx, models)
+
+
+def zoo_train(mx, torch, models, convert, name, image, kernels, expected):
+    """Module.fit of ``name`` (1000 classes, 32 rows of ``image``) in bf16
+    over f32 masters, SGD lr 0.01 momentum 0.9 wd 1e-4 (VGG-16 has no
+    BatchNorm: at the ResNet phases' 0.05 it diverges from He-scaled
+    weights): ZOO_STEPS steps captured, then EAGER_STEPS from the
+    same state under NaiveEngine; launches per step by kernel must be
+    ``expected`` in both."""
+    symbol, arg, aux = zoo_model(models, convert, name, image)
+    rng = np.random.default_rng(SEED + 41)
+    images = rng.standard_normal((ZOO_STEPS * BATCH,) + image,
+                                 dtype=np.float32)
+    labels = rng.integers(0, 1000, ZOO_STEPS * BATCH).astype(np.float32)
+    fresh_memory(torch)
+    counts0 = launch_counts(kernels)
+    mx.random.seed(SEED)        # VGG's Dropout: the same draws both runs
+    mod, step_s, snap = train_module(mx, torch, symbol, arg, aux, images,
+                                     labels, mx.gpu(0), torch.bfloat16,
+                                     BATCH, snap_at=EAGER_STEPS,
+                                     optimizer_params=ZOO_OPT)
+    cap = step_report(step_s, counts0, kernels, torch)
+    metric = dict(mod._fused_metric.get_name_value())
+    graphs = graph_report(mod._graphs.values())
+    del mod
+    fresh_memory(torch)
+    counts0 = launch_counts(kernels)
+    set_engine(mx, True)
+    mx.random.seed(SEED)
+    try:
+        emod, estep_s = train_module(
+            mx, torch, symbol, arg, aux, images[:EAGER_STEPS * BATCH],
+            labels[:EAGER_STEPS * BATCH], mx.gpu(0), torch.bfloat16, BATCH,
+            optimizer_params=ZOO_OPT)
+    finally:
+        set_engine(mx, False)
+    eager = step_report(estep_s, counts0, kernels, torch)
+    eparams = numpy_params(emod)
+    del emod
+    got = {k: v['all'] for k, v in cap['launches_per_step'].items()}
+    if got != expected:
+        raise AssertionError('%s: launches per step %s, expected %s'
+                             % (name, got, expected))
+    if not np.isfinite(metric['cross-entropy']) or len(graphs) != 1 or \
+            not graphs[0]['captured']:
+        raise AssertionError('%s: cross-entropy %s, graphs %s'
+                             % (name, metric['cross-entropy'], graphs))
+    report = compare_runs('zoo %s' % name, cap, eager, snap, eparams,
+                          EAGER_STEPS)
+    ms = cap['step_ms_median_after_first']
+    return {'model': name, 'image': list(image), 'rows': BATCH,
+            'dtype': 'bfloat16 over float32 masters',
+            'steps': ZOO_STEPS, 'images_per_s': BATCH / ms * 1e3,
+            'cross_entropy': metric['cross-entropy'], 'graphs': graphs,
+            **report}
+
+
+def zoo_eval(mx, torch, models, convert, ts, name, image, fuse, kernels):
+    """make_eval_step forwards of ``name`` at 32 rows in bf16 under
+    MXTPU_FUSE=``fuse``, captured: ms per forward, images/s, launches per
+    forward; the first captured forward against an eager one."""
+    symbol, arg, aux = zoo_model(models, convert, name, image)
+    data = np.random.default_rng(SEED + 43).standard_normal(
+        (BATCH,) + image, dtype=np.float32)
+    os.environ['MXTPU_FUSE'] = fuse
+    outs = {}
+    try:
+        for mode in ('eager', 'captured'):
+            set_engine(mx, mode == 'eager')
+            try:
+                p = {k: torch.from_numpy(v).cuda() for k, v in arg.items()}
+                a = {k: torch.from_numpy(v).cuda() for k, v in aux.items()}
+                b = {'data': torch.from_numpy(data).cuda(),
+                     'softmax_label': torch.zeros(BATCH).cuda()}
+                step = ts.make_eval_step(symbol,
+                                         compute_dtype=torch.bfloat16)
+                step(p, a, b)       # captures on the card
+                counts0 = launch_counts(kernels)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(ZOO_EVALS):
+                    last = step(p, a, b)[0]
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) / ZOO_EVALS * 1e3
+                outs[mode] = (last.float().cpu().numpy(), {
+                    'forward_ms': ms, 'images_per_s': BATCH / ms * 1e3,
+                    'launches_per_forward': {
+                        k: v['all'] for k, v in launches_per_step(
+                            counts0, launch_counts(kernels),
+                            ZOO_EVALS).items()},
+                    'graphs': graph_report(c for c, _ in
+                                           step.graphs.values())})
+            finally:
+                set_engine(mx, False)
+    finally:
+        os.environ['MXTPU_FUSE'] = 'aggressive'
+    got, want = outs['captured'][0], outs['eager'][0]
+    if got.shape != (BATCH, 1000) or not np.all(np.isfinite(got)):
+        raise AssertionError('%s eval: output %s' % (name, got.shape))
+    rows = np.abs(got.sum(axis=1) - 1.0).max()
+    if not np.array_equal(got, want) or rows > 2e-2:
+        raise AssertionError('%s eval (%s): captured against eager max abs '
+                             '%g, row sums off by %g'
+                             % (name, fuse, float(np.abs(got - want).max()),
+                                rows))
+    return {'model': name, 'fuse': fuse, 'image': list(image),
+            'rows': BATCH, 'dtype': 'bfloat16', 'forwards': ZOO_EVALS,
+            **outs['captured'][1], 'eager': outs['eager'][1],
+            'captured_equals_eager_bitwise': True,
+            'max_row_sum_error': float(rows)}
+
+
+def zoo_serve(mx, torch, models, convert, bn_relu):
+    """One captured served forward of ZOO_SERVE_ROWS rows of each of
+    ZOO_SERVE's models (a pad_to_bucket Predictor: its first forward
+    records the bucket's graph, the second replays it) against a
+    NaiveEngine Predictor: finite, equal, probability rows summing
+    to 1; ``bn_relu`` (fused_bn_relu) launches by model."""
+    out = []
+    for name, image in ZOO_SERVE:
+        n0 = bn_relu.launches
+        shape = (ZOO_SERVE_ROWS,) + image
+        symbol, arg, aux = zoo_model(models, convert, name, image,
+                                     ZOO_SERVE_ROWS)
+        params = convert.params_from_numpy(arg, aux, 'cuda:0')
+        data = np.random.default_rng(SEED + 47).standard_normal(
+            shape, dtype=np.float32)
+        got = {}
+        for mode in ('eager', 'captured'):
+            set_engine(mx, mode == 'eager')
+            try:
+                pred = mx.Predictor(symbol.tojson(), params, {'data': shape},
+                                    pad_to_bucket=True)
+                if mode == 'captured':
+                    pred.forward(data=data)     # warm-up, then the capture
+                t0 = time.perf_counter()
+                pred.forward(data=data)
+                got[mode] = (pred.get_output(0),
+                             (time.perf_counter() - t0) * 1e3,
+                             graph_report([pred._bucket_execs[
+                                 ZOO_SERVE_ROWS]._forward_graph]))
+                del pred
+            finally:
+                set_engine(mx, False)
+        prob, ms, graphs = got['captured']
+        sums = np.abs(prob.sum(axis=1) - 1.0).max()
+        if prob.shape != (ZOO_SERVE_ROWS, 1000) or \
+                not np.all(np.isfinite(prob)) or sums > 1e-4 or \
+                not np.array_equal(prob, got['eager'][0]) or \
+                not graphs[0]['captured'] or graphs[0]['replays'] != 1:
+            raise AssertionError('zoo serve %s: shape %s, row sums off by %g,'
+                                 ' captured against eager max abs %g, %s'
+                                 % (name, prob.shape, sums, float(np.abs(
+                                     prob - got['eager'][0]).max()), graphs))
+        out.append({'model': name, 'image': list(image),
+                    'rows': ZOO_SERVE_ROWS, 'forward_ms': ms,
+                    'eager_forward_ms': got['eager'][1],
+                    'max_row_sum_error': float(sums),
+                    'captured_equals_eager_bitwise': True,
+                    'graphs': graphs,
+                    'fused_bn_relu_launches': bn_relu.launches - n0})
+    return out
+
+
+def zoo_kernels(mx, torch, fused, fused_conv, models, gen, flush, served_zoo):
+    """#2, #4 and #3 at every shape Inception-v3's and VGG-16's aggressive
+    training graphs give them at 32 rows (bf16, the path's dtype), and
+    #2 at every shape the inference graph of each served model that
+    launched it (``served_zoo``, zoo_serve's report) gives it at
+    ZOO_SERVE_ROWS rows (f32, the served path's dtype), each against its
+    plain version by the existing checks."""
+    (dots, convs, bn_relus), epis = zoo_train_shapes(mx, models)
+    if dots or sum(convs.values()) != 10 or sum(bn_relus.values()) != 84:
+        raise AssertionError('inception-v3 training: %d 1x1, %d 3x3, %d '
+                             'BN-ReLU kernel nodes (expected 0, 10, 84)'
+                             % (sum(dots.values()), sum(convs.values()),
+                                sum(bn_relus.values())))
+    if sum(epis.values()) != 2:
+        raise AssertionError('vgg16: %d FullyConnected epilogue kernels '
+                             '(expected 2)' % sum(epis.values()))
+    served, served_by = {}, {}     # shape -> {model: launches a forward}
+    for run in served_zoo:
+        if not run['fused_bn_relu_launches']:
+            continue
+        name, image = run['model'], tuple(run['image'])
+        shapes = bn_relu_shapes(mx, models.get_symbol(name, num_classes=1000),
+                                ZOO_SERVE_ROWS, image)
+        if not shapes:
+            raise AssertionError('zoo serve %s: %d fused_bn_relu launches, '
+                                 'none in its graph' % (
+                                     name, run['fused_bn_relu_launches']))
+        served_by[name] = sum(shapes.values())
+        for shape, per_forward in shapes.items():
+            served.setdefault(shape, {})[name] = per_forward
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bn_cases, conv_cases, epi_cases = [], [], []
+    for shape, per_step in sorted(bn_relus.items()):
+        case = check_bn_relu(torch, fused, shape, torch.bfloat16, gen, flush)
+        case.update(model='inception-v3', launches_per_step=per_step)
+        bn_cases.append(case)
+    served_cases = []
+    for shape, per_model in sorted(served.items()):
+        case = check_bn_relu(torch, fused, shape, torch.float32, gen, flush)
+        case.update(models=per_model,
+                    launches_per_forward=sum(per_model.values()))
+        served_cases.append(case)
+    for shape, per_step in sorted(convs.items()):
+        case = check_conv(torch, fused_conv, shape, torch.bfloat16, gen,
+                          flush)
+        case.update(model='inception-v3', launches_per_step=per_step)
+        conv_cases.append(case)
+    for (m, k, n, bias, relu, clip), per_step in sorted(epis.items()):
+        case = check_epilogue(torch, fused, (m, k, n), bias, relu,
+                              (0.0, 6.0) if clip else None, torch.bfloat16,
+                              gen, flush)
+        case.update(model='vgg16', launches_per_step=per_step)
+        epi_cases.append(case)
+    torch.backends.cudnn.allow_tf32 = True
+    return bn_cases, served_cases, served_by, conv_cases, epi_cases
+
+
+def tail_op_specs(torch):
+    """tail-ops: the 12 ops this slice adds, forward (and backward where
+    the op has one) on the card against the same call on the CPU, at a
+    real user's shapes: the specs."""
+    from mxnet_tpu_torch.ops import multibox as mb
+    rng = np.random.default_rng(SEED + 51)
+
+    def n(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    specs = []
+
+    def case(name, attrs, inputs, diff, exact=False):
+        specs.append((name, attrs, inputs, diff, exact))
+
+    # the PTB LSTM's RNN op (T, N, E) and a bidirectional GRU
+    from mxnet_tpu_torch.ops.rnn_op import rnn_param_size
+    for mode, bi in (('lstm', False), ('gru', True)):
+        size = rnn_param_size(mode, 200, 200, 2, bi)
+        case('RNN', {
+            'mode': mode, 'state_size': 200, 'num_layers': 2,
+            'bidirectional': bi, 'state_outputs': True},
+            [n(LSTM_T, LSTM_ROWS, 200), n(size, scale=0.07)], (0, 1))
+    # example/warpctc/lstm_ocr.py: 80 steps, 32 rows, 11 symbols, 4 labels
+    labels = rng.integers(1, 11, (32, 4)).astype(np.float32)
+    case('ctc_loss', {}, [n(80, 32, 11), labels], (0,))
+    case('WarpCTC', {'label_length': 4, 'input_length': 80},
+         [n(80 * 32, 11), labels.reshape(-1)], (0,))
+    # a spatial transformer over 28 x 28 digits, 64 rows
+    theta = np.tile(np.array([0.9, -0.1, 0.05, 0.1, 0.85, -0.05],
+                             np.float32), (64, 1)) + n(64, 6, scale=0.05)
+    case('GridGenerator', {
+        'transform_type': 'affine', 'target_shape': (28, 28)}, [theta], (0,))
+    grid = np.clip(n(64, 2, 28, 28, scale=0.6), -1.1, 1.1)
+    case('BilinearSampler', {}, [n(64, 1, 28, 28), grid], (0, 1))
+    case('SpatialTransformer', {
+        'target_shape': (28, 28)}, [n(64, 1, 28, 28), theta], (0, 1))
+    # Fast R-CNN: VGG16 conv5_3 of a 600 x 800 image, 64 rois, 7 x 7
+    rois = np.zeros((64, 5), np.float32)
+    xy = rng.uniform(0, 500, (64, 2))
+    wh = rng.uniform(32, 300, (64, 2))
+    rois[:, 1:3], rois[:, 3:5] = xy, xy + wh
+    case('ROIPooling', {
+        'pooled_size': (7, 7), 'spatial_scale': 1.0 / 16},
+        [n(1, 512, 38, 50), rois], (0,))
+    # FlowNetC's correlation: conv3 features, displacement 20, stride 2
+    case('Correlation', {
+        'max_displacement': 20, 'stride2': 2, 'pad_size': 20},
+        [n(2, 256, 48, 64), n(2, 256, 48, 64)], (0, 1))
+    # a sparse autoencoder's sigmoid layer
+    case('IdentityAttachKLSparseReg', {
+        'sparseness_target': 0.05, 'penalty': 1e-3},
+        [rng.uniform(0.01, 0.99, (128, 1000)).astype(np.float32),
+         rng.uniform(0.0, 0.2, 1000).astype(np.float32)], (0,))
+    # SSD's heads at 300 x 300, 8 images, 21 classes; the target and the
+    # detection over the 10 x 10 head's 600 anchors (the CPU's side of
+    # the detection is the plain NMS loop, ~1 ms a row)
+    anchors = mb.multibox_prior(torch.zeros(1, 1, 10, 10),
+                                sizes=(0.38, 0.461),
+                                ratios=(1, 2, 0.5, 3, 1. / 3),
+                                clip=True).numpy()
+    # not exact: CUDA divides by a scalar as a multiply by its reciprocal
+    case('MultiBoxPrior', {
+        'sizes': (0.2, 0.276), 'ratios': (1, 2, 0.5, 3, 1. / 3),
+        'clip': True}, [n(8, 1024, 19, 19)], ())
+    a = anchors.shape[1]
+    # class 1's logit decides every anchor's background-free score, its
+    # values far apart: negative mining ranks the same anchors on both
+    # devices (ulp-close scores could swap places)
+    cls_pred = np.zeros((8, 21, a), np.float32)
+    cls_pred[:, 1] = rng.permutation(8 * a).reshape(8, a) * 1e-3
+    case('MultiBoxTarget', {
+        'overlap_threshold': 0.5, 'negative_mining_ratio': 3,
+        'negative_mining_thresh': 0.5},
+        [anchors, ssd_labels(rng, 8), cls_pred], ())
+    prob = np.exp(cls_pred - cls_pred.max(1, keepdims=True))
+    prob = (prob / prob.sum(1, keepdims=True)).astype(np.float32)
+    # zero offsets decode to the anchors exactly (exp(0) = 1) on both
+    # devices, so the kernel and the plain loop test the same boxes
+    case('MultiBoxDetection', {
+        'nms_threshold': 0.5, 'force_suppress': True},
+        [prob, np.zeros((8, a * 4), np.float32), anchors], (),
+        exact=True)
+    return specs
+
+
+def nms_summary(case, launches):
+    """The kernels-line entry of multibox_nms."""
+    return {'name': 'multibox_nms', 'route': 'cuda',
+            'source': 'mxnet_tpu_torch/csrc/multibox_nms.cu',
+            'replaces': 'mxnet_tpu/ops/multibox.py:279 (the fori_loop of '
+                        'MultiBoxDetection; no pl.pallas_call)',
+            'launches': sum(launches.values()),
+            'launches_by_path': launches,
+            'max_abs_err': case['max_abs_err'], 'ms': case['ms'],
+            'plain_ms': case['plain_ms'], 'bound_ms': case['bound_ms'],
+            'bound_by': case['bound_by'], 'library_ms': None,
+            'per': 'one served forward of %d images, %d anchors'
+                   % (SSD_ROWS, SSD_ANCHORS),
+            'host_us': case['host_us'], 'case': case}
 
 
 def main():
@@ -3711,6 +4771,11 @@ def main():
               'from the root of a checkout' % e, file=sys.stderr)
         return 1
     os.environ['MXTPU_FUSE'] = 'aggressive'
+    # 13. capture starts first: its child pytest runs while this process
+    # starts and builds, and ends before phase 3 times the card
+    capture_child = start_capture_checks()
+    atexit.register(lambda: capture_child[0].poll() is None and
+                    capture_child[0].kill())
     sqr_prop = register_user_ops(mx)
 
     # -- 1. device ---------------------------------------------------------
@@ -3733,10 +4798,23 @@ def main():
          'spilling': [r['function'] for r in sm90_report
                       if r.get('spill_stores') or r.get('spill_loads')]})
 
-    # -- 3. kernels: each against its plain version ------------------------
+    # -- 13. capture: whole-step capture's behaviours on the card ----------
+    # while its child runs, the host's work of later phases: graph
+    # shapes, the zoo's parameters, the op cases' CPU halves
+    t0 = time.monotonic()
     symbol = resnet.get_symbol(num_classes=1000, num_layers=50,
                                image_shape=IMAGE)
     path = bn_relu_shapes(mx, symbol, BATCH)
+    resnet_train_shapes = train_kernel_shapes(mx, symbol, BATCH)
+    zoo_ahead(mx, models, convert)
+    op_cpu_halves(torch)
+    ahead_s = time.monotonic() - t0
+    checks, capture_s, durations = capture_checks(capture_child)
+    log({'phase': 'capture', 'checks': checks, 'seconds': capture_s,
+         'test_seconds': durations, 'host_work_meanwhile_s': ahead_s,
+         'source': 'tests/test_torch_capture.py (cuda)'})
+
+    # -- 3. kernels: each against its plain version ------------------------
     if sum(path.values()) != 17:
         raise AssertionError('expected 17 BN-ReLU nodes on the ResNet-50 '
                              'inference path, found %s' % dict(path))
@@ -3760,7 +4838,7 @@ def main():
                        fused.fused_bn_relu_plain(xu, su, bu)):
         raise AssertionError('fused_bn_relu: unaligned view disagrees')
     # the training path, read from the aggressive training graph
-    dots, convs, train_bn_relus = train_kernel_shapes(mx, symbol, BATCH)
+    dots, convs, train_bn_relus = resnet_train_shapes
     if sum(dots.values()) != 36 or sum(convs.values()) != 16:
         raise AssertionError('expected 36 1x1 and 16 3x3 _bn_relu_conv '
                              'nodes in ResNet-50 v2 training, found %s / %s'
@@ -3995,6 +5073,7 @@ def main():
     fresh_memory(torch)
     counts0 = launch_counts(all_kernels)
     set_engine(mx, True)
+    mx.random.seed(SEED)
     try:
         emod, estep_s = train_module(
             mx, torch, symbol, arg, aux, images[:EAGER_STEPS * BATCH],
@@ -4448,7 +5527,7 @@ def main():
     t0 = time.monotonic()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    op_cases, failures = nn_ops(torch, flush)
+    op_cases, failures = run_op_cases(torch, 'nn-ops', flush)
     torch.backends.cudnn.allow_tf32 = True
     del flush
     log({'phase': 'nn-ops', 'tf32': False, 'cases': op_cases,
@@ -4456,10 +5535,87 @@ def main():
     if failures:
         raise AssertionError('; '.join(failures))
 
-    # -- 13. capture: whole-step capture's behaviours on the card ----------
-    checks, capture_s = capture_checks()
-    log({'phase': 'capture', 'checks': checks, 'seconds': capture_s,
-         'source': 'tests/test_torch_capture.py (cuda)'})
+    # -- 12k-12o. the PTB LSTM, SSD, the zoo, the last ops ----------------
+    from mxnet_tpu_torch.ops import multibox as mb
+    t0 = time.monotonic()
+    lstm_report, lstm_buckets = lstm_ptb(mx, torch, models, ts)
+    log({'phase': 'lstm-ptb', 'train_step': lstm_report,
+         'bucketing_module': {'buckets_declared': list(LSTM_BUCKETS),
+                              'rows': LSTM_ROWS, **lstm_buckets},
+         'kernels': 'none (the RNN op is cuDNN through torch; no Pallas '
+                    'kernel in the JAX package)',
+         'seconds': time.monotonic() - t0})
+    flush = torch.ones(32 << 20, device='cuda')    # 128 MiB
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.monotonic()
+        ssd_report, nms, nms_extra = ssd_serve(mx, torch, models, convert,
+                                               mb, tmp, flush)
+        log({'phase': 'ssd', 'serve': ssd_report, 'multibox_nms': nms,
+             'multibox_nms_off_path': nms_extra,
+             'seconds': time.monotonic() - t0})
+    t0 = time.monotonic()
+    nms0 = mb.multibox_nms.launches
+    ssd_train_report = ssd_train(mx, torch, models, convert)
+    ssd_train_nms = mb.multibox_nms.launches - nms0
+    log({'phase': 'ssd-train', **ssd_train_report,
+         'multibox_nms_launches': ssd_train_nms,
+         'seconds': time.monotonic() - t0})
+    nms_launches = {'ssd-serve': ssd_report['multibox_nms_launches']}
+    t0 = time.monotonic()
+    zoo_kernel_set = (fused.fused_bn_relu, fused.fused_dot_epilogue,
+                      fused.fused_scale_bias_dot,
+                      fused_conv.fused_scale_bias_conv3x3)
+    zoo_launches = {}
+    zoo_runs = []
+    for name, image, expected in (
+            ('inception-v3', INCEPTION_IMAGE,
+             {'fused_bn_relu': 84, 'fused_scale_bias_conv3x3': 10}),
+            ('vgg16', IMAGE, {'fused_dot_epilogue': 2})):
+        counts0 = launch_counts(zoo_kernel_set)
+        zoo_runs.append(zoo_train(mx, torch, models, convert, name, image,
+                                  zoo_kernel_set, expected))
+        after = launch_counts(zoo_kernel_set)
+        for k, (n_after, _) in after.items():
+            zoo_launches.setdefault(k, {})[name] = n_after - counts0[k][0]
+    log({'phase': 'zoo-train', 'runs': zoo_runs,
+         'launches': zoo_launches, 'seconds': time.monotonic() - t0})
+    t0 = time.monotonic()
+    counts0 = launch_counts(zoo_kernel_set)
+    zoo_evals = [zoo_eval(mx, torch, models, convert, ts, name, image, fuse,
+                          zoo_kernel_set)
+                 for name, image, fuse in (
+                     ('inception-v3', INCEPTION_IMAGE, 'safe'),
+                     ('inception-v3', INCEPTION_IMAGE, 'aggressive'),
+                     ('vgg16', IMAGE, 'aggressive'))]
+    eval_launches = {k: n - counts0[k][0] for k, (n, _) in
+                     launch_counts(zoo_kernel_set).items()}
+    counts0 = launch_counts(zoo_kernel_set)
+    served_zoo = zoo_serve(mx, torch, models, convert, fused.fused_bn_relu)
+    serve_launches = {k: n - counts0[k][0] for k, (n, _) in
+                      launch_counts(zoo_kernel_set).items()}
+    log({'phase': 'zoo-eval', 'eval_step': zoo_evals, 'served': served_zoo,
+         'launches': {'eval_step': eval_launches, 'served': serve_launches},
+         'seconds': time.monotonic() - t0})
+    t0 = time.monotonic()
+    zoo_bn, zoo_served_bn, served_by, zoo_conv, zoo_epi = zoo_kernels(
+        mx, torch, fused, fused_conv, models, gen, flush, served_zoo)
+    log({'phase': 'zoo-kernels', 'tf32': False,
+         'fused_bn_relu_cases': zoo_bn,
+         'fused_bn_relu_served_cases': zoo_served_bn,
+         'fused_bn_relu_served_nodes': served_by,
+         'fused_scale_bias_conv3x3_cases': zoo_conv,
+         'fused_dot_epilogue_cases': zoo_epi,
+         'seconds': time.monotonic() - t0})
+    t0 = time.monotonic()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tail_cases, failures = run_op_cases(torch, 'tail-ops', flush)
+    torch.backends.cudnn.allow_tf32 = True
+    del flush
+    log({'phase': 'tail-ops', 'tf32': False, 'cases': tail_cases,
+         'seconds': time.monotonic() - t0, 'failures': failures})
+    if failures:
+        raise AssertionError('; '.join(failures))
 
     # -- summary -------------------------------------------------------------
     on_path = [c for c in cases if c['launches_per_forward']]
@@ -4471,7 +5627,9 @@ def main():
         + train_launches['fused_bn_relu']
         + optim_launches['fused_bn_relu'] + ckpt_launches['fused_bn_relu']
         + ff_bn_relu + mirror_launches['fused_bn_relu']
-        + monitor_launches['fused_bn_relu'],
+        + monitor_launches['fused_bn_relu']
+        + sum(zoo_launches['fused_bn_relu'].values())
+        + serve_launches['fused_bn_relu'],
         'launches_by_path': {'serve': launches['fused_bn_relu'],
                              'train': train_launches['fused_bn_relu'],
                              'optim-train': optim_launches['fused_bn_relu'],
@@ -4480,7 +5638,10 @@ def main():
                              'feedforward': ff_bn_relu,
                              'mirror-train': mirror_launches['fused_bn_relu'],
                              'monitor-fit':
-                                 monitor_launches['fused_bn_relu']},
+                                 monitor_launches['fused_bn_relu'],
+                             'zoo-train':
+                                 sum(zoo_launches['fused_bn_relu'].values()),
+                             'zoo-serve': serve_launches['fused_bn_relu']},
         'max_abs_err': max(c['max_abs_err'] for c in on_path),
         # the 17 launches of one 32-row forward: per-shape medians summed
         'ms': sum(c['ms'] * c['launches_per_forward'] for c in on_path),
@@ -4496,7 +5657,8 @@ def main():
                         for c in cases),
         'train_bound_ms': sum(c['bound_ms'] * c.get('launches_per_step', 0)
                               for c in cases),
-        'cases': cases}
+        'cases': cases, 'zoo_shapes': zoo_bn,
+        'zoo_serve_shapes': zoo_served_bn}
     lm_per = 'one %d-row LM training step forward, bfloat16' % LM_BATCH
     kernels = [
         summary,
@@ -4511,7 +5673,8 @@ def main():
                          'mirror-train':
                              mirror_launches['fused_scale_bias_dot'],
                          'monitor-fit':
-                             monitor_launches['fused_scale_bias_dot']},
+                             monitor_launches['fused_scale_bias_dot'],
+                         'zoo-serve': serve_launches['fused_scale_bias_dot']},
                         'torch.matmul on the normalized input'),
          **route_summary(dot_cases, {'train': train_routes,
                                      'custom-train': custom_routes})},
@@ -4526,10 +5689,15 @@ def main():
                          'mirror-train':
                              mirror_launches['fused_scale_bias_conv3x3'],
                          'monitor-fit':
-                             monitor_launches['fused_scale_bias_conv3x3']},
+                             monitor_launches['fused_scale_bias_conv3x3'],
+                         'zoo-train': sum(zoo_launches[
+                             'fused_scale_bias_conv3x3'].values()),
+                         'zoo-serve':
+                             serve_launches['fused_scale_bias_conv3x3']},
                         'F.conv2d on the normalized input'),
          **route_summary(conv_cases, {'train': train_conv_routes,
-                                      'custom-train': custom_conv_routes})},
+                                      'custom-train': custom_conv_routes}),
+         'zoo_shapes': zoo_conv},
         {**gemm_summary('fused_dot_epilogue', 'mxnet_tpu_torch/csrc/'
                         'fused_dot_epilogue.cu',
                         'mxnet_tpu/ops/pallas_fused.py:328', epi_cases,
@@ -4540,12 +5708,17 @@ def main():
                          'mirror-train':
                              mirror_launches['fused_dot_epilogue'],
                          'mnist-lenet': mnist_launches,
-                         'alexnet-train': alexnet_launches},
+                         'alexnet-train': alexnet_launches,
+                         'zoo-train': sum(zoo_launches[
+                             'fused_dot_epilogue'].values()),
+                         'zoo-eval': eval_launches['fused_dot_epilogue'],
+                         'zoo-serve': serve_launches['fused_dot_epilogue']},
                         'torch.addmm (product and bias, no relu)', lm_per),
          **route_summary(epi_cases, {
              'lm-train': lm_routes,
              'bucket-train': bucket_routes['fused_dot_epilogue']}),
-         'bucket_shapes': bucket_summary(bucket_epi)},
+         'bucket_shapes': bucket_summary(bucket_epi),
+         'zoo_shapes': zoo_epi},
         {**gemm_summary('flash_attention', 'mxnet_tpu_torch/csrc/'
                         'flash_attention.cu',
                         'mxnet_tpu/ops/pallas_attention.py:197', att_cases,
@@ -4561,7 +5734,8 @@ def main():
              'bucket-train': bucket_routes['flash_attention'],
              'sp': sp_launches}, 'mma'),
          'bucket_shapes': bucket_summary(bucket_att)},
-        rtc_summary(rtc_cases, custom_launches['rtc'])]
+        rtc_summary(rtc_cases, custom_launches['rtc']),
+        nms_summary(nms, nms_launches)]
     print(smi, flush=True)
     log({'kernels': kernels})
     log({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,

@@ -21,7 +21,7 @@ from .ndarray import NDArray
 
 __all__ = ['InitDesc', 'Initializer', 'Load', 'Mixed', 'Zero', 'One',
            'Constant', 'Uniform', 'Normal', 'Orthogonal', 'Xavier',
-           'MSRAPrelu', 'Bilinear', 'create']
+           'MSRAPrelu', 'Bilinear', 'FusedRNN', 'create']
 
 
 class InitDesc(str):
@@ -73,6 +73,12 @@ class Initializer(object):
             self._init_zero(name, arr)
         elif name.endswith('moving_var'):
             self._init_one(name, arr)
+        elif 'begin_state' in name:
+            self._init_zero(name, arr)
+        elif name.endswith('parameters'):
+            # a fused RNN's packed blob (FusedRNNCell): one weight init
+            # over the whole blob, or FusedRNN per gate matrix
+            self._init_weight(name, arr)
         else:
             self._init_default(name, arr)
 
@@ -268,6 +274,35 @@ class Bilinear(Initializer):
 
     def _init_weight(self, name, arr):
         self._init_bilinear(name, arr)
+
+
+class FusedRNN(Initializer):
+    """Initialize a fused RNN's packed blob gate matrix by gate matrix
+    with ``init``, biases with its bias rule
+    (``mxnet_tpu/initializer.py:272``)."""
+
+    def __init__(self, init, num_hidden, num_layers, mode,
+                 bidirectional=False):
+        if isinstance(init, str):
+            klass, kwargs = json.loads(init)
+            init = _INIT_REGISTRY[klass.lower()](**kwargs)
+        self._init = init
+        self._num_hidden = num_hidden
+        self._num_layers = num_layers
+        self._mode = mode
+        self._bidirectional = bidirectional
+
+    def _init_weight(self, _, arr):
+        from .rnn.rnn_cell import FusedRNNCell
+        cell = FusedRNNCell(self._num_hidden, self._num_layers,
+                            self._mode, self._bidirectional)
+        args = cell.unpack_weights({cell._parameter.name: arr})
+        for name in args:
+            if name.split('_')[-1].endswith('weight'):
+                self._init._init_weight(name, args[name])
+            else:
+                self._init._init_bias(name, args[name])
+        arr[:] = cell.pack_weights(args)[cell._parameter.name]
 
 
 _INIT_REGISTRY = {

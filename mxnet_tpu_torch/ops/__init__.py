@@ -9,6 +9,10 @@ from . import fused  # noqa: F401
 from . import fused_conv  # noqa: F401
 from . import attention  # noqa: F401
 from . import optim  # noqa: F401
+from . import rnn_op  # noqa: F401
+from . import vision  # noqa: F401
+from . import multibox  # noqa: F401
+from . import ctc  # noqa: F401
 
 __all__ = ['get_op', 'list_ops', 'register', 'register_simple', 'alias',
            'OpDef']

@@ -12,7 +12,9 @@ and the libraries it links: the sm90 routes of the GEMM, convolution and
 attention kernels link the CUDA driver API (``cuTensorMapEncodeTiled``,
 ``cuTensorMapEncodeIm2col``), ``csrc/rtc.cu`` (the NVRTC
 bridge, whose entry points ``rtc.py`` binds itself from
-:func:`library`) NVRTC and the driver API; libcuda comes from the
+:func:`library`) NVRTC and the driver API; ``csrc/multibox_nms.cu``
+(SSD's greedy NMS, a kernel the JAX package computes in a loop) links
+nothing; libcuda comes from the
 toolkit's stubs at link time and the installed one at run time.
 Nothing here runs at import: the CPU tests import every module on hosts
 without ``nvcc``.
@@ -102,6 +104,10 @@ KERNELS = {
                                        _I, _F, _I, _I, _P)},
         _DRIVER),
     'rtc': Kernel('rtc.cu', {}, ('-lnvrtc', '-lcuda')),
+    'multibox_nms': Kernel('multibox_nms.cu', {
+        # rows (in place), batch, anchors, threshold, force_suppress,
+        # stream
+        'mxtpu_multibox_nms': (_P, _LL, _LL, _F, _I, _P)}),
 }
 
 build_seconds = {}      # kernel name -> wall seconds of its nvcc run

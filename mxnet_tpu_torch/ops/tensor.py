@@ -129,10 +129,14 @@ register_simple('_CrossDeviceCopy', lambda x: x)
 
 def _clip(x, a_min=None, a_max=None):
     # jnp.clip is maximum-then-minimum: ties split the gradient 0.5/0.5
+    # (the bounds filled on the device: a graph capture refuses a copy
+    # from the host)
     if a_min is not None:
-        x = torch.maximum(x, x.new_tensor(float(a_min)))
+        x = torch.maximum(x, torch.full((), float(a_min), dtype=x.dtype,
+                                        device=x.device))
     if a_max is not None:
-        x = torch.minimum(x, x.new_tensor(float(a_max)))
+        x = torch.minimum(x, torch.full((), float(a_max), dtype=x.dtype,
+                                        device=x.device))
     return x
 
 
@@ -175,8 +179,9 @@ alias('elemwise_div', '_div')
 def _s(x, scalar):
     """``scalar`` as a 0-d tensor on x's device: it promotes as a JAX weak
     type does (an int array with a float scalar gives float32, a float16
-    array stays float16)."""
-    return torch.tensor(float(scalar), device=x.device)
+    array stays float16).  A fill on the device, not a copy from the
+    host, so a CUDA graph can capture it."""
+    return torch.full((), float(scalar), device=x.device)
 
 
 for _name, _fn in [

@@ -16,7 +16,11 @@ into the bucket's pinned host staging and from there into the graph's
 input on the card, and ``forward`` returns copies of the graph's
 outputs, which a later forward does not overwrite.
 
-The tensor-parallel ``mesh=`` path of the JAX Predictor is not ported.
+:meth:`Predictor.reshape` rebinds at new input shapes and drops the
+bucket executors and the graphs the old shapes captured; the module's
+:func:`load` builds a Predictor from ``prefix-symbol.json`` and
+``prefix-%04d.params``.  The tensor-parallel ``mesh=`` path of the JAX
+Predictor is not ported.
 """
 from __future__ import annotations
 
@@ -33,7 +37,7 @@ from .base import MXNetError
 from .context import Context
 from .ndarray import NDArray
 
-__all__ = ['Predictor']
+__all__ = ['Predictor', 'load']
 
 
 def _note_pad_waste(rows, bucket):
@@ -267,3 +271,30 @@ class Predictor(object):
             return NDArray(out.handle[:self._valid_rows],
                            out.context).asnumpy()
         return out.asnumpy()
+
+    def reshape(self, input_shapes):
+        """(MXPredReshape) Rebind at ``input_shapes``
+        (``mxnet_tpu/predictor.py:491``): the parameters stay shared, the
+        bucket executors, their captured graphs and their staging
+        buffers are dropped, and the next forward builds what the new
+        shapes need."""
+        self._executor = self._executor.reshape(**input_shapes)
+        self._input_shapes = {k: tuple(v) for k, v in input_shapes.items()}
+        self._bucket_execs = {}
+        self._graph_pool = None
+        self._staging = {}
+        self._out_arrays = None
+        self._valid_rows = None
+        self._active_bucket = None
+        self._batch_inputs = self._infer_batch_inputs()
+
+
+def load(prefix, epoch, input_shapes, dev_type='gpu', dev_id=0):
+    """A Predictor from checkpoint files, ``prefix-symbol.json`` and
+    ``prefix-%04d.params`` (``mxnet_tpu/predictor.py:506``, the
+    predict-api flow).  Like :class:`Predictor` it serves on the card
+    unless ``dev_type='cpu'`` (the JAX package's default is the CPU)."""
+    with open('%s-symbol.json' % prefix) as f:
+        sym_json = f.read()
+    params = nd.load('%s-%04d.params' % (prefix, epoch))
+    return Predictor(sym_json, params, input_shapes, dev_type, dev_id)

@@ -406,7 +406,13 @@ def _pmerge(a, b):
 
 
 def _var_attr_shape(n):
-    sattr = n.attrs.get('__shape__') or n.attrs.get('shape')
+    """A variable's declared shape: its ``__shape__`` attr, or the one a
+    symbol JSON carried (``load_json`` keeps a variable's attributes in
+    ``_extra_attr``; the JAX package's loader drops it, ROADMAP Queue
+    3)."""
+    extra = getattr(n, '_extra_attr', None) or {}
+    sattr = n.attrs.get('__shape__') or n.attrs.get('shape') or \
+        extra.get('__shape__')
     if not sattr:
         return None
     return tuple(sattr) if not isinstance(sattr, str) \

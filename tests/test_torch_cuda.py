@@ -748,3 +748,110 @@ def test_bucketing_module_on_gpu_matches_cpu(dev, monkeypatch):
     for k in arg:
         np.testing.assert_allclose(params['gpu'][k], params['cpu'][k],
                                    rtol=1e-3, atol=1e-5, err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# multibox_nms: SSD's greedy NMS (csrc/multibox_nms.cu)
+# ---------------------------------------------------------------------------
+
+def _nms_rows(dev, batch, hw, classes=21, ties=False, seed=0):
+    from mxnet_tpu_torch.ops import multibox as mb
+    g = torch.Generator(device=dev).manual_seed(seed)
+    anchors = mb.multibox_prior(torch.zeros(1, 1, hw, hw, device=dev),
+                                sizes=(0.1, 0.141), ratios=(1, 2, 0.5),
+                                clip=True)[0]
+    a = anchors.shape[0]
+    logits = torch.randn(batch, classes, a, generator=g, device=dev) * 2
+    if ties:
+        logits[:, :, 1::2] = logits[:, :, 0:a - 1:2]
+    prob = torch.softmax(logits, 1)
+    loc = torch.randn(batch, a * 4, generator=g, device=dev) * 0.3
+    return mb.detection_rows(prob, loc, anchors, 0.01, True,
+                             (0.1, 0.1, 0.2, 0.2))
+
+
+@pytest.mark.parametrize('force', [True, False], ids=['force', 'per_class'])
+@pytest.mark.parametrize('case', ['ssd_300', 'ties', 'past_48k_smem'])
+def test_multibox_nms_matches_plain(case, force, dev):
+    """Row for row against the plain loop: SSD's 300 x 300 anchor count
+    (7308 as 38 x 38 x 5 + ...; here 38 x 38 x 4 = 5776 rows a image, 8
+    images), exact score ties (the stable order decides), and 19600 rows
+    (78 KB of class ids: the kernel's dynamic shared memory opt-in)."""
+    from mxnet_tpu_torch.ops import multibox as mb
+    hw = {'ssd_300': 38, 'ties': 20, 'past_48k_smem': 70}[case]
+    rows = _nms_rows(dev, 8 if case != 'past_48k_smem' else 2, hw,
+                     ties=case == 'ties')
+    before = mb.multibox_nms.launches
+    got = mb.multibox_nms(rows, 0.45, force)
+    torch.cuda.synchronize()
+    assert mb.multibox_nms.launches == before + 1
+    want = mb.multibox_nms_plain(rows, 0.45, force)
+    assert torch.equal(got, want)
+    assert 0 < int((got[..., 0] >= 0).sum()) < int((rows[..., 0] >= 0)
+                                                   .sum())
+    # the input rows are untouched
+    assert torch.equal(rows, _nms_rows(dev, rows.shape[0], hw,
+                                       ties=case == 'ties'))
+
+
+def test_multibox_nms_rejects_what_it_cannot_take(dev):
+    from mxnet_tpu_torch.ops import multibox as mb
+    with pytest.raises(ValueError, match='at most'):
+        mb.multibox_nms(torch.zeros(1, mb.NMS_MAX_ANCHORS + 1, 6,
+                                    device=dev), 0.5, True)
+    with pytest.raises(TypeError):
+        mb.multibox_nms(torch.zeros(1, 8, 6, device=dev,
+                                    dtype=torch.bfloat16), 0.5, True)
+
+
+def test_multibox_detection_op_on_card_matches_cpu(dev):
+    """The MultiBoxDetection op on card tensors (the kernel) against the
+    same op on the CPU (the plain loop), from the same probabilities and
+    zero offsets (the boxes are the anchors on both devices)."""
+    from mxnet_tpu_torch.ops import get_op
+    from mxnet_tpu_torch.ops import multibox as mb
+    anchors = mb.multibox_prior(torch.zeros(1, 1, 19, 19), sizes=(0.2, 0.3),
+                                ratios=(1, 2, 0.5), clip=True)
+    a = anchors.shape[1]
+    prob = torch.softmax(torch.randn(4, 21, a, generator=torch.Generator()
+                                     .manual_seed(3)) * 2, 1)
+    loc = torch.zeros(4, a * 4)
+    op = get_op('MultiBoxDetection')
+    attrs = op.canon_attrs({'nms_threshold': 0.5, 'force_suppress': False})
+    host = op.apply(attrs, [prob, loc, anchors], False, None)[0][0]
+    before = mb.multibox_nms.launches
+    card = op.apply(attrs, [prob.to(dev), loc.to(dev), anchors.to(dev)],
+                    False, None)[0][0]
+    assert mb.multibox_nms.launches == before + 1
+    assert torch.equal(card.cpu(), host)
+
+
+def test_scalar_ops_and_multibox_prior_capture(dev):
+    """Ops that make a tensor from a Python scalar (``_maximum_scalar``,
+    ``clip``'s bounds, ``MultiBoxPrior``'s box sizes) fill it on the
+    device: a host-to-device copy cannot run inside a CUDA graph
+    capture."""
+    from mxnet_tpu_torch.ops import get_op
+    mx_op, prior = get_op('_maximum_scalar'), get_op('MultiBoxPrior')
+    clip = get_op('clip')
+    x = torch.randn(4, 8, 5, 5, device=dev)
+
+    def body():
+        y = mx_op.apply(mx_op.canon_attrs({'scalar': 0.25}), [x], False,
+                        None)[0][0]
+        a = prior.apply(prior.canon_attrs({'sizes': (0.2, 0.3),
+                                           'ratios': (1, 2, 0.5)}),
+                        [x], False, None)[0][0]
+        c = clip.apply(clip.canon_attrs({'a_min': -0.5, 'a_max': 0.5}),
+                       [x], False, None)[0][0]
+        return y, a, c
+
+    want = body()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        got = body()
+    g.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

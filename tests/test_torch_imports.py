@@ -40,7 +40,16 @@ def test_import_leaves_jax_out():
             'mxnet_tpu_torch.ops.optim, mxnet_tpu_torch.models.lenet, '
             'mxnet_tpu_torch.module.sequential_module, '
             'mxnet_tpu_torch.module.python_module, '
-            'mxnet_tpu_torch.monitor, mxnet_tpu_torch.models.alexnet; '
+            'mxnet_tpu_torch.monitor, mxnet_tpu_torch.models.alexnet, '
+            'mxnet_tpu_torch.ops.rnn_op, mxnet_tpu_torch.ops.ctc, '
+            'mxnet_tpu_torch.ops.vision, mxnet_tpu_torch.ops.multibox, '
+            'mxnet_tpu_torch.rnn.rnn_cell, mxnet_tpu_torch.models.ssd, '
+            'mxnet_tpu_torch.models.lstm_lm, mxnet_tpu_torch.models.vgg, '
+            'mxnet_tpu_torch.models.inception_v3, '
+            'mxnet_tpu_torch.models.inception_bn, '
+            'mxnet_tpu_torch.models.googlenet, '
+            'mxnet_tpu_torch.models.resnext, '
+            'mxnet_tpu_torch.models.inception_resnet_v2; '
             'bad = sorted(m for m in sys.modules if m == "jax" or '
             'm.startswith("jax.") or m == "mxnet_tpu" or '
             'm.startswith("mxnet_tpu.")); print(bad); '
@@ -93,6 +102,9 @@ def test_gpu_entry_points_raise_without_cuda(monkeypatch, tmp_path):
                               {'fc1_bias': tmx.nd.zeros((10,))}, {})
     with pytest.raises(tmx.MXNetError, match='CUDA'):
         tmx.mod.Module.load(prefix, 1)
+    # predictor.load serves on the card too (the JAX default is the CPU)
+    with pytest.raises(tmx.MXNetError, match='CUDA'):
+        tmx.predictor.load(prefix, 1, {'data': (1, 3, 64, 64)})
     gen = tmx.models.transformer_lm.sym_gen_bucketing(
         vocab_size=10, num_embed=8, num_heads=2, num_layers=1, max_seq_len=4)
     with pytest.raises(tmx.MXNetError, match='CUDA'):

@@ -234,3 +234,79 @@ def test_batcher_stop_without_drain_fails_queued():
             b.submit({'x': np.ones((1, 2), np.float32)})
     finally:
         gate.set()
+
+
+# ---------------------------------------------------------------------------
+# Predictor.reshape and predictor.load
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('bucketed', [False, True], ids=['exact', 'bucket'])
+def test_reshape_equals_a_fresh_predictor(model, aggressive, bucketed):
+    """Reshaping to 1 row, then to 3, gives what a Predictor built at each
+    shape gives, bit for bit; the bucket executors of the old shapes are
+    dropped and the parameter arrays stay shared."""
+    sym_json, arg, aux, data = model
+    params = convert.params_from_numpy(arg, aux, 'cpu')
+    pred = tmx.Predictor(sym_json, params, {'data': SHAPE}, dev_type='cpu',
+                         pad_to_bucket=bucketed)
+    pred.forward(data=data)
+    weight = pred._executor.arg_dict['fc1_weight']
+    for rows in (1, 3):
+        pred.reshape({'data': (rows,) + SHAPE[1:]})
+        assert pred._bucket_execs == {} and pred._out_arrays is None
+        assert pred._executor.arg_dict['fc1_weight'] is weight
+        fresh = tmx.Predictor(sym_json, params, {'data': (rows,) + SHAPE[1:]},
+                              dev_type='cpu', pad_to_bucket=bucketed)
+        pred.forward(data=data[:rows])
+        fresh.forward(data=data[:rows])
+        got, want = pred.get_output(0), fresh.get_output(0)
+        assert got.shape == (rows, 10)
+        np.testing.assert_array_equal(got, want)
+
+
+def test_reshape_matches_jax(model, aggressive):
+    sym_json, arg, aux, data = model
+    params = {'arg:' + k: mx.nd.array(v) for k, v in arg.items()}
+    params.update({'aux:' + k: mx.nd.array(v) for k, v in aux.items()})
+    jpred = JaxPredictor(sym_json, params, {'data': SHAPE})
+    tpred = tmx.Predictor(sym_json, convert.params_from_numpy(arg, aux, 'cpu'),
+                          {'data': SHAPE}, dev_type='cpu')
+    for p in (jpred, tpred):
+        p.reshape({'data': (2,) + SHAPE[1:]})
+        p.forward(data=data[:2])
+    np.testing.assert_allclose(tpred.get_output(0), jpred.get_output(0),
+                               rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize('writer', ['port', 'jax'])
+def test_load_reads_a_checkpoint_of_either_package(model, aggressive,
+                                                   tmp_path, writer):
+    """predictor.load(prefix, epoch, ...) over prefix-symbol.json and
+    prefix-0003.params written by the port's model.save_checkpoint or by
+    the JAX package's nd.save; against a Predictor built from the same
+    arrays, bit for bit, and against the JAX package's load."""
+    sym_json, arg, aux, data = model
+    prefix = str(tmp_path / 'net')
+    if writer == 'port':
+        tmx.model.save_checkpoint(
+            prefix, 3, tmx.sym.load_json(sym_json),
+            {k: tmx.nd.array(v) for k, v in arg.items()},
+            {k: tmx.nd.array(v) for k, v in aux.items()})
+    else:
+        with open(prefix + '-symbol.json', 'w') as f:
+            f.write(sym_json)
+        saved = {'arg:' + k: mx.nd.array(v) for k, v in arg.items()}
+        saved.update({'aux:' + k: mx.nd.array(v) for k, v in aux.items()})
+        mx.nd.save(prefix + '-0003.params', saved)
+    loaded = tmx.predictor.load(prefix, 3, {'data': SHAPE}, dev_type='cpu')
+    direct = tmx.Predictor(sym_json, convert.params_from_numpy(arg, aux,
+                                                               'cpu'),
+                           {'data': SHAPE}, dev_type='cpu')
+    for p in (loaded, direct):
+        p.forward(data=data)
+    np.testing.assert_array_equal(loaded.get_output(0), direct.get_output(0))
+    from mxnet_tpu import predictor as jax_predictor
+    jpred = jax_predictor.load(prefix, 3, {'data': SHAPE})
+    jpred.forward(data=data)
+    np.testing.assert_allclose(loaded.get_output(0), jpred.get_output(0),
+                               rtol=1e-4, atol=1e-5)

@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
-"""Where the time of a served ResNet-50 v2 forward goes, on the GPU, in
-the PyTorch port (mxnet_tpu_torch).
+"""Where the time of a served ResNet-50 v2 (or SSD) forward goes, on the
+GPU, in the PyTorch port (mxnet_tpu_torch).
 
     python3 tools/torch_profile_serving.py [--rows 32] [--iters 20]
+    python3 tools/torch_profile_serving.py --model ssd-vgg16 --rows 8
 
-Builds full-width ResNet-50 v2 (1000 classes, 3x224x224) with random
-weights from a numpy seed and a serving Predictor (pow2 buckets) for
+Builds full-width ResNet-50 v2 (1000 classes, 3x224x224), or SSD-VGG16
+(20 classes, 3x300x300, 7308 anchors; relu4_3_scale at its Constant(20)
+init), with random weights from a numpy seed and a serving Predictor
+(pow2 buckets) for
 three modes: MXTPU_FUSE=off and =aggressive built under NaiveEngine (op
 by op, the request uploaded from pageable memory), and aggressive
 captured (the bucket's forward one CUDA graph, the request staged
@@ -34,6 +37,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 # kernel-name fragments -> class, first match wins
 _CLASSES = (('bn_relu_kernel', 'fused_bn_relu'),
+            ('nms_kernel', 'multibox_nms'),
             ('dotsrc', 'fused_scale_bias_dot'),
             ('convsrc', 'fused_scale_bias_conv3x3'),
             # the sm90 routes: gemm_sm90<..., hook> instantiations
@@ -127,6 +131,8 @@ def profile_window(torch, run, iters, unit='forward'):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('--model', choices=('resnet', 'ssd-vgg16'),
+                    default='resnet')
     ap.add_argument('--rows', type=int, default=32)
     ap.add_argument('--iters', type=int, default=20)
     ap.add_argument('--seed', type=int, default=0)
@@ -141,9 +147,15 @@ def main():
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    shape = (args.rows, 3, 224, 224)
-    symbol = resnet.get_symbol(num_classes=1000, num_layers=50)
+    if args.model == 'ssd-vgg16':
+        shape = (args.rows, 3, 300, 300)
+        symbol = mx.models.get_symbol('ssd-vgg16', num_classes=20)
+    else:
+        shape = (args.rows, 3, 224, 224)
+        symbol = resnet.get_symbol(num_classes=1000, num_layers=50)
     arg, aux = convert.random_params(symbol, {'data': shape}, args.seed)
+    if 'relu4_3_scale' in arg:
+        arg['relu4_3_scale'][:] = 20.0
     params = convert.params_from_numpy(arg, aux, 'cuda:0')
     data = np.random.default_rng(args.seed + 1).standard_normal(
         shape, dtype=np.float32)
@@ -167,7 +179,8 @@ def main():
         times[mode].append(_time_forwards(torch, preds[mode], data,
                                           args.iters))
     for (fuse, engine), runs in times.items():
-        print(json.dumps({'phase': 'forward', 'fuse': fuse,
+        print(json.dumps({'phase': 'forward', 'model': args.model,
+                          'fuse': fuse,
                           'engine': engine, 'rows': args.rows, 'card': smi,
                           'host_ms': [h for h, _ in runs],
                           'device_event_ms': [d for _, d in runs]}),
@@ -175,7 +188,8 @@ def main():
     for (fuse, engine), pred in preds.items():
         print(json.dumps(dict(profile_window(
             torch, lambda: pred.forward(data=data), max(5, args.iters // 4)),
-            fuse=fuse, engine=engine, card=smi, rows=args.rows)),
+            model=args.model, fuse=fuse, engine=engine, card=smi,
+            rows=args.rows)),
             flush=True)
     return 0
 

@@ -7,6 +7,8 @@ port (mxnet_tpu_torch).
     python3 tools/torch_profile_training.py --model resnet_custom_head
     python3 tools/torch_profile_training.py --model transformer_lm_bucket \
         [--bucket 200]
+    python3 tools/torch_profile_training.py --model lstm_lm [--rows 32]
+    python3 tools/torch_profile_training.py --model inception_v3 [--rows 32]
 
 ``resnet``: full-width ResNet-50 v2 (1000 classes, 3x224x224) trained
 with Module.fit (bf16 compute, SGD lr 0.05 momentum 0.9 wd 1e-4).
@@ -20,7 +22,12 @@ chip_smoke.py's bucket-train runs it, mod.BucketingModule over
 sym_gen_bucketing (positional table of 512 rows) in float32 with TF32
 off, SGD lr 0.01 momentum 0.9, one bucket's fit step (``--bucket``, a
 sequence length up to 512; the batch's last position padded with -1).
-Random weights and data from numpy seeds,
+``lstm_lm``: the JAX package's PTB LSTM bench leg (bench.py:914-955:
+V=10000, E=H=200, 2 layers, T=35) through parallel.make_train_step in
+float32 (TF32 off), SGD lr 0.1 momentum 0.9, N(0, 0.05²) weights.
+``inception_v3``: Inception-v3 (1000 classes, 3x299x299) trained with
+Module.fit as ``resnet`` is, at lr 0.01.  Random weights and data from
+numpy seeds,
 MXTPU_FUSE=aggressive.  For each ``--engine`` (default both, eager
 first): the step built under ``NaiveEngine`` (op by op) or captured (one
 CUDA graph, replayed), two warm-up steps, then ``--steps`` more fused
@@ -108,6 +115,55 @@ def lm_step(mx, torch, rows, seed):
     return run
 
 
+def lstm_step(mx, torch, rows, seed):
+    """The PTB LSTM bench leg's train step after two warm-up steps."""
+    import chip_smoke
+    from mxnet_tpu_torch.parallel import train_step as ts
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    symbol = mx.models.get_symbol('lstm_lm', seq_len=chip_smoke.LSTM_T,
+                                  **chip_smoke.LSTM_PTB)
+    arg, batch = chip_smoke.lstm_bench_draws(symbol)
+    dev = torch.device('cuda', 0)
+    params = {k: torch.from_numpy(v).to(dev) for k, v in arg.items()}
+    state = ts.sgd_momentum_init(params)
+    batch = {k: torch.from_numpy(v[:rows]).to(dev) for k, v in batch.items()}
+    step = ts.make_train_step(
+        symbol, ts.make_sgd_momentum(lr=0.1, momentum=0.9, wd=0.0,
+                                     rescale_grad=1.0 / rows),
+        ('data', 'softmax_label'))
+
+    def run():
+        step(params, {}, state, batch)
+    for _ in range(2):
+        run()
+    return run
+
+
+def inception_step(mx, torch, rows, seed):
+    """Inception-v3's Module.fit step (bf16) after two warm-up steps."""
+    from mxnet_tpu_torch import convert
+    shape = (rows, 3, 299, 299)
+    symbol = mx.models.get_symbol('inception-v3', num_classes=1000)
+    arg, aux = convert.random_params(symbol, {'data': shape}, seed)
+    rng = np.random.default_rng(seed + 1)
+    images = rng.standard_normal((2 * rows,) + shape[1:], dtype=np.float32)
+    labels = rng.integers(0, 1000, 2 * rows).astype(np.float32)
+    it = mx.io.NDArrayIter(images, labels, batch_size=rows)
+    mod = mx.mod.Module(symbol, context=mx.gpu(0),
+                        compute_dtype=torch.bfloat16)
+    mod.fit(it, num_epoch=1, optimizer='sgd',
+            optimizer_params={'learning_rate': 0.01, 'momentum': 0.9,
+                              'wd': 1e-4},
+            arg_params={k: mx.nd.array(v) for k, v in arg.items()},
+            aux_params={k: mx.nd.array(v) for k, v in aux.items()})
+    it.reset()
+    batch = next(it)
+    metric = mx.metric.create('acc')
+    mod._fit_step(batch, metric)
+    return lambda: mod._fit_step(batch, metric)
+
+
 def bucket_step(mx, torch, rows, seed, bucket):
     """The bucketed LM's fit step at ``bucket`` after two warm-up steps."""
     import chip_smoke
@@ -143,7 +199,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--model', choices=('resnet', 'transformer_lm',
                                         'resnet_custom_head',
-                                        'transformer_lm_bucket'),
+                                        'transformer_lm_bucket', 'lstm_lm',
+                                        'inception_v3'),
                     default='resnet')
     ap.add_argument('--bucket', type=int, default=200,
                     help='transformer_lm_bucket: the bucket (sequence '
@@ -170,6 +227,7 @@ def main():
     custom = args.model == 'resnet_custom_head'
     rows = args.rows or (16 if lm else 32)
     bucketed = args.model == 'transformer_lm_bucket'
+    f32 = custom or bucketed or args.model == 'lstm_lm'
     counters = (fused.fused_bn_relu, fused.fused_scale_bias_dot,
                 fused_conv.fused_scale_bias_conv3x3,
                 fused.fused_dot_epilogue, attention.flash_attention,
@@ -179,7 +237,11 @@ def main():
     for engine in engines:
         mx.engine.set_engine_type('NaiveEngine' if engine == 'eager' else
                                   'ThreadedEnginePerDevice')
-        if bucketed:
+        if args.model == 'lstm_lm':
+            run = lstm_step(mx, torch, rows, args.seed)
+        elif args.model == 'inception_v3':
+            run = inception_step(mx, torch, rows, args.seed)
+        elif bucketed:
             run = bucket_step(mx, torch, rows, args.seed, args.bucket)
         elif lm:
             run = lm_step(mx, torch, rows, args.seed)
@@ -190,8 +252,8 @@ def main():
         out = profile_window(torch, run, args.steps, unit='step')
         out.update(card=smi, model=args.model, rows=rows, engine=engine,
                    bucket=args.bucket if bucketed else None,
-                   compute_dtype='float32' if custom or bucketed
-                   else 'bfloat16', fuse='aggressive',
+                   compute_dtype='float32' if f32 else 'bfloat16',
+                   fuse='aggressive',
                    port_kernel_launches_per_step={
                        k.__name__: (k.launches - b) / args.steps
                        for k, b in zip(counters, before) if k.launches > b})
