@@ -8,7 +8,10 @@ Phases, each printing one JSON line; any failure exits nonzero:
 
 1. device       — the card (torch and nvidia-smi).
 2. build        — nvcc builds every kernel of csrc/ for sm_90a, in
-                  parallel (one nvcc per source); then one line with
+                  parallel (one nvcc per source, started from a thread
+                  while this process does the host work of later phases:
+                  graph shapes, the zoo's parameters, the op cases' CPU
+                  halves); then one line with
                   ptxas's registers and spills of every sm90
                   instantiation (gemm_sm90<...>, flash_fwd_sm90<D>).
 3. kernels      — each kernel's wrapper on card tensors at every shape its
@@ -107,6 +110,39 @@ graphs held), and peak allocated and reserved device memory.
                   from 4 client threads.  Launch counts are zeroed just
                   before and read just after; fused_bn_relu must launch
                   17 times per forward.
+4b. fleet       — the serving fleet on one card: ModelServer serves the
+                  serve phase's ResNet-50 v2 (f32, TF32 off, cuDNN
+                  deterministic, pow2 buckets to 32 rows captured by every
+                  replica before it serves) from 1, 2 and 4 replicas, each
+                  its own Predictor on its own CUDA stream: 256 requests
+                  of 1-8 rows from 16 client threads per count (images/s,
+                  p50/p99, graphs held = replicas x buckets, reserved
+                  memory, fused_bn_relu by replica: 17 per forward, every
+                  flush on its replica's stream); at 2 replicas 25%
+                  interactive 1-row and 75% batch 8-row requests (p99 by
+                  lane), then 64 8-row requests with a deadline of half a
+                  flush (the dropped ones counted and never executed);
+                  at 2 and 4 replicas the count's traffic runs again
+                  under torch.profiler: the card's busy share is the
+                  union of its kernel intervals over that run's wall
+                  (at 1 replica, where replays never overlap, it is
+                  modelled from each bucket's replay time); under
+                  traffic scale_up 2 -> 3, reload_model to a second
+                  parameter set and scale_down; under traffic, at 2
+                  replicas, MXTPU_FAULTS wedges serve.execute.r1 and the
+                  supervisor quarantines r1, replays its flush once and
+                  attaches a captured replacement (detect->repair ms);
+                  then two more reloads at one replica (reserved memory
+                  flat).  Each request's rows carry tags, so every flush
+                  of the changes and the wedge is rebuilt row for row
+                  and run through one one-replica Predictor holding the
+                  parameter set that served it: every response bit for
+                  bit (and, for information, 16 responses alone at their
+                  own bucket: the f32 difference between buckets).
+                  fused_bn_relu runs at every bucket's shapes here (the
+                  warm-ups, and the flushes of 1-32 rows): each of those
+                  shapes, read from the graph, is held against
+                  fused_bn_relu_plain (max abs err 1e-6, f32).
 5. parity       — 4 rows through a served Predictor captured with TF32
                   off (a graph keeps the library kernels chosen when it
                   was recorded) and through a CPU Predictor: rtol 1e-3,
@@ -563,8 +599,10 @@ def bf16_ulp(v):
     return np.exp2(np.floor(np.log2(a)) - 7).astype(np.float32)
 
 
-def check_bn_relu(torch, fused, shape, dtype, gen, flush):
-    """One fused_bn_relu case on the card: error vs plain, times, bound."""
+def bn_relu_error(torch, fused, shape, dtype, gen):
+    """fused_bn_relu against fused_bn_relu_plain at ``shape`` on the card:
+    ((x, scale, bias), max abs err, tolerance); raises past the
+    tolerance."""
     dev = torch.device('cuda', 0)
     c = shape[1]
     x = torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -590,6 +628,13 @@ def check_bn_relu(torch, fused, shape, dtype, gen, flush):
         raise AssertionError('fused_bn_relu %s %s disagrees with its plain '
                              'version: max abs err %g (tolerance %s)'
                              % (shape, dtype, err, tol))
+    return (x, s, b), err, tol
+
+
+def check_bn_relu(torch, fused, shape, dtype, gen, flush):
+    """One fused_bn_relu case on the card: error vs plain, times, bound."""
+    (x, s, b), err, tol = bn_relu_error(torch, fused, shape, dtype, gen)
+    c = shape[1]
     ms = cuda_ms(torch, lambda: fused.fused_bn_relu(x, s, b), flush)
     plain_ms = cuda_ms(torch, lambda: fused.fused_bn_relu_plain(x, s, b),
                        flush)
@@ -1903,6 +1948,614 @@ def serve_phase(mx, torch, server, symbol, params, data, rng, fused,
                                    predictor._bucket_execs.values()
                                    if e._forward_graph is not None),
             **memory(torch)}
+
+
+# -- 4b. fleet: replicas on their own streams, lanes, deadlines, changes ----
+FLEET_REPLICAS = (1, 2, 4)
+FLEET_REQUESTS = 256
+FLEET_CLIENTS = 16
+FLEET_BURST = 64            # 8-row requests, all submitted at once
+FLEET_CHANGE_CLIENTS = 4
+FLEET_THINK_S = 0.08        # between a change client's requests
+FLEET_WEDGE_S = 1.0         # how long the injected wedge holds r1
+FLEET_WEDGE_MS = 400.0      # the supervisor's no-progress threshold
+FLEET_CROSS = 16           # responses also run alone, for information
+
+
+FLEET_TAG_SCALE = 8192.0     # tag t rides as t / 8192, exact in float32
+
+
+class FleetProbe(object):
+    """The fleet phase's instrumentation (host side only): each Predictor
+    built while it is open carries the label of the parameter set being
+    served (``label``), and each bucketed forward is logged as (the tags
+    in pixel [0, 0, 0] of its rows, its bucket, its Predictor's label,
+    the current CUDA stream, the Predictor's id)."""
+
+    def __init__(self, mx, torch):
+        cls = mx.predictor.Predictor
+        self._cls, self._init, self._fwd = (cls, cls.__init__,
+                                            cls._forward_bucketed)
+        self.label, self.on, self.records = 'A', True, []
+        self._lock = threading.Lock()
+        probe = self
+
+        def init(pred, *a, **kw):
+            probe._init(pred, *a, **kw)
+            pred.fleet_label = probe.label
+
+        def forward(pred, kwargs):
+            outs = probe._fwd(pred, kwargs)
+            if probe.on:
+                tags = np.asarray(kwargs['data'])[:, 0, 0, 0]
+                rec = (tuple(int(round(t * FLEET_TAG_SCALE)) for t in tags),
+                       pred._active_bucket,
+                       getattr(pred, 'fleet_label', None),
+                       torch.cuda.current_stream().cuda_stream, id(pred))
+                with probe._lock:
+                    probe.records.append(rec)
+            return outs
+        cls.__init__, cls._forward_bucketed = init, forward
+
+    def close(self):
+        self._cls.__init__ = self._init
+        self._cls._forward_bucketed = self._fwd
+
+    def first_by_tag(self):
+        """tag -> the first forward that carried it (a seized flush's
+        abandoned forward, if any, comes later than its replay's)."""
+        out = {}
+        with self._lock:
+            for rec in self.records:
+                for t in rec[0]:
+                    out.setdefault(t, rec)
+        return out
+
+
+class FleetTraffic(object):
+    """Requests of the fleet phase: ``rows`` images of a seeded pool,
+    each row's pixel [0, 0, 0] replaced by a unique tag (request id * 8 +
+    row + 1, scaled by 1 / FLEET_TAG_SCALE) so every forward names the
+    requests it carried."""
+
+    def __init__(self, server, pool):
+        self.server, self.pool = server, pool
+        self._uid = iter(range(1, 1 << 20))
+        self._lock = threading.Lock()
+
+    def rows_of(self, uid, rows):
+        start = (uid * 7) % (len(self.pool) - 8)
+        x = self.pool[start:start + rows].copy()
+        x[:, 0, 0, 0] = (uid * 8 + np.arange(1, rows + 1)) / FLEET_TAG_SCALE
+        return x
+
+    def new(self, rows):
+        with self._lock:
+            uid = next(self._uid)
+        return uid, self.rows_of(uid, rows)
+
+    def run(self, specs=None, clients=FLEET_CLIENTS, stop=None, seed=0,
+            think_s=0.0):
+        """Start ``clients`` threads sending ``specs`` ((rows, lane) each,
+        client k taking every clients-th) or, with ``stop``, random 1-8
+        row batch-lane requests until it is set; :meth:`wait` takes what
+        this returns and gives ([(uid, rows, lane, latency s, output)],
+        wall s)."""
+        results = []
+
+        def client(k):
+            rng = np.random.default_rng(seed + k)
+            i = k
+            while True:
+                if stop is not None:
+                    if stop.is_set():
+                        return
+                    rows, lane = int(rng.integers(1, 9)), None
+                elif i < len(specs):
+                    rows, lane = specs[i]
+                    i += clients
+                else:
+                    return
+                uid, x = self.new(rows)
+                t0 = time.monotonic()
+                try:
+                    out = self.server.predict('fleet', timeout=300,
+                                              priority=lane, data=x)[0]
+                except Exception as e:        # noqa: BLE001 - reported
+                    out = '%s: %s' % (type(e).__name__, e)
+                results.append((uid, rows, lane, time.monotonic() - t0,
+                                out))
+                if think_s:
+                    time.sleep(think_s)
+
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(clients)]
+        t0 = time.monotonic()
+        for t in threads:
+            t.start()
+        return threads, t0, results
+
+    def wait(self, started, timeout=600):
+        threads, t0, results = started
+        for t in threads:
+            t.join(timeout=timeout)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError('fleet: a client hung')
+        failed = [r for r in results if isinstance(r[4], str)]
+        if failed:
+            raise AssertionError('fleet: %d requests failed, first %s'
+                                 % (len(failed), failed[0][4]))
+        return results, time.monotonic() - t0
+
+
+def fleet_graphs(entry):
+    """Captured graphs the fleet holds (replicas x buckets when whole)."""
+    return sum(1 for rep in entry.replicas
+               for e in rep.predictor._bucket_execs.values()
+               if e._forward_graph is not None and e._forward_graph.captured)
+
+
+def fleet_check_graphs(entry, step, buckets):
+    n = fleet_graphs(entry)
+    if n != len(entry.replicas) * buckets:
+        raise AssertionError('fleet %s: %d graphs held for %d replicas x %d '
+                             'buckets' % (step, n, len(entry.replicas),
+                                          buckets))
+    return n
+
+
+def fleet_bn_relu(entry):
+    """fused_bn_relu launches each live replica's graphs have replayed:
+    {replica: launches}."""
+    return {rep.rid: sum(e._forward_graph.replays *
+                         e._forward_graph.launches.get('fused_bn_relu', 0)
+                         for e in rep.predictor._bucket_execs.values()
+                         if e._forward_graph is not None)
+            for rep in entry.replicas}
+
+
+def fleet_latency(results, lane=None):
+    lat = np.array([r[3] for r in results
+                    if lane is None or r[2] == lane]) * 1e3
+    return {'p50_ms': float(np.percentile(lat, 50)),
+            'p99_ms': float(np.percentile(lat, 99)), 'requests': len(lat)}
+
+
+def fleet_sane(results):
+    for uid, rows, _, _, out in results:
+        if out.shape != (rows, 1000) or not np.all(np.isfinite(out)) or \
+                not np.allclose(out.sum(axis=1), 1.0, atol=1e-4):
+            raise AssertionError('fleet: bad response %d, shape %s'
+                                 % (uid, out.shape))
+
+
+def fleet_throughput(mx, torch, fused, server, traffic, probe, rng):
+    """Serve FLEET_REQUESTS requests of 1-8 rows from FLEET_CLIENTS
+    threads at each replica count: images/s, p50/p99, graphs held,
+    reserved memory, fused_bn_relu per replica, and each replica's
+    flushes on its own stream; at 2 and more replicas the same requests
+    again under the profiler (:func:`fleet_trace`)."""
+    entry = server._entry('fleet')
+    buckets = BATCH.bit_length()
+    sizes = [int(v) for v in rng.integers(1, 9, size=FLEET_REQUESTS)]
+    out = []
+    for n in FLEET_REPLICAS:
+        t0 = time.monotonic()
+        while len(entry.replicas) < n:
+            server.scale_up('fleet')
+        scale_s = time.monotonic() - t0
+        graphs = fleet_check_graphs(entry, 'at %d replicas' % n, buckets)
+        before = fleet_bn_relu(entry)
+        reset_launches(fused.fused_bn_relu)
+        del probe.records[:]
+        results, wall = traffic.wait(traffic.run(
+            [(r, None) for r in sizes]))
+        torch.cuda.synchronize()
+        fleet_sane(results)
+        per_rep = {rid: k - before.get(rid, 0)
+                   for rid, k in fleet_bn_relu(entry).items()}
+        total = fused.fused_bn_relu.launches
+        forwards = len(probe.records)
+        if total == 0 or total != 17 * forwards or \
+                sum(per_rep.values()) != total:
+            raise AssertionError('fleet: fused_bn_relu launched %d times in '
+                                 '%d forwards, by replica %s'
+                                 % (total, forwards, per_rep))
+        streams = {}
+        for rec in probe.records:
+            streams.setdefault(rec[4], set()).add(rec[3])
+        own = {id(rep.predictor): rep.stream.cuda_stream
+               for rep in entry.replicas}
+        if any(s != {own[p]} for p, s in streams.items()) or \
+                len(set(own.values())) != n:
+            raise AssertionError('fleet: flushes off their replica streams')
+        flushed = Counter(rec[1] for rec in probe.records)
+        out.append({'replicas': n, 'scale_s': scale_s,
+                    'images_per_s': sum(sizes) / wall, 'wall_s': wall,
+                    **fleet_latency(results), 'forwards': forwards,
+                    'graphs_held': graphs,
+                    'reserved_bytes': torch.cuda.memory_reserved(),
+                    'fused_bn_relu_launches': total,
+                    'fused_bn_relu_by_replica': per_rep,
+                    'replicas_flushed': len(streams),
+                    'flushes_by_bucket': dict(sorted(flushed.items()))})
+        if n > 1:
+            out[-1]['traced'] = fleet_trace(torch, traffic, sizes)
+    # a model, not a measurement: each bucket's replay time alone, times
+    # the step's flushes at that bucket, over its wall time.  Concurrent
+    # replays contend, so past one replica it is not the busy share
+    device_ms = fleet_replay_ms(torch, entry.replicas[0])
+    for step in out:
+        need = sum(device_ms[b] * k
+                   for b, k in step['flushes_by_bucket'].items())
+        step['device_busy_share_modelled'] = need / (step['wall_s'] * 1e3)
+    return out, device_ms
+
+
+def fleet_trace(torch, traffic, sizes):
+    """The same requests again under torch.profiler: the card's busy time
+    is the union of its kernel intervals (copies apart), over the run's
+    wall time (clients started to the last response, synchronised)."""
+    from torch.profiler import ProfilerActivity, profile
+    t_trace = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results, _ = traffic.wait(traffic.run([(r, None) for r in sizes]))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    fleet_sane(results)
+    t0 = time.perf_counter()
+    kernels, copies = [], []
+    # the raw records: building the profiler's event tree for ~25k kernels
+    # takes seconds
+    for evt in prof.profiler.kineto_results.events():
+        start, end = evt.start_ns(), evt.end_ns()
+        if evt.device_type() != torch.autograd.DeviceType.CUDA or \
+                end <= start:
+            continue
+        name = evt.name().lower()
+        (copies if name.startswith(('memcpy', 'memset')) else
+         kernels).append((start / 1e3, end / 1e3))
+    out = {'wall_s': wall_ms / 1e3,
+           'images_per_s': sum(sizes) / wall_ms * 1e3,
+           **fleet_latency(results), 'kernels': len(kernels),
+           'copies': len(copies)}
+    if not kernels:
+        out['device_busy_share'] = 'not measured'
+        out['reason'] = 'the profiler recorded no device events'
+        return out
+    busy = union_us(kernels) / 1e3
+    out.update(device_busy_ms=busy, device_busy_share=busy / wall_ms,
+               copy_ms=union_us(copies) / 1e3,
+               kernel_span_ms=(max(e for _, e in kernels) -
+                               min(s for s, _ in kernels)) / 1e3,
+               parse_s=time.perf_counter() - t0,
+               trace_s=time.perf_counter() - t_trace)
+    return out
+
+
+def union_us(spans):
+    """Total length of the union of ``(start, end)`` intervals."""
+    total, cur_s, cur_e = 0, None, None
+    for s, e in sorted(spans):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return total + (cur_e - cur_s if cur_e is not None else 0)
+
+
+def fleet_replay_ms(torch, rep, reps=10):
+    """Device ms of one replay of each bucket's graph of replica ``rep``,
+    on its stream, by CUDA events (median of ``reps``)."""
+    out = {}
+    with torch.cuda.stream(rep.stream):
+        for bucket, exe in sorted(rep.predictor._bucket_execs.items()):
+            cap = exe._forward_graph
+            times = []
+            for _ in range(reps):
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                t0.record()
+                cap.graph.replay()
+                t1.record()
+                t1.synchronize()
+                times.append(t0.elapsed_time(t1))
+            out[bucket] = statistics.median(times)
+    return out
+
+
+def fleet_lanes(mx, torch, server, traffic, probe, rng, instrument):
+    """At 2 replicas: 25% interactive 1-row and 75% batch 8-row requests,
+    p99 by lane; then FLEET_BURST 8-row requests at once whose deadline
+    is half a 32-row flush: the dropped ones are counted, typed, and
+    never reach a forward."""
+    entry = server._entry('fleet')
+    lanes = rng.random(FLEET_REQUESTS) < 0.25
+    specs = [(1, 'interactive') if i else (8, 'batch') for i in lanes]
+    results, wall = traffic.wait(traffic.run(specs))
+    fleet_sane(results)
+    report = {'replicas': len(entry.replicas), 'wall_s': wall,
+              'interactive': fleet_latency(results, 'interactive'),
+              'batch': fleet_latency(results, 'batch'),
+              'preempt_flushes':
+                  instrument.counter_value('serving.preempt_flushes'),
+              'starvation_flushes':
+                  instrument.counter_value('serving.starvation_flushes')}
+    flush_ms = instrument.histogram(
+        'serving.execute_secs').quantile(0.5) * 1e3
+    deadline_ms = flush_ms / 2
+    drops0 = instrument.counter_value('serving.deadline_drops')
+    del probe.records[:]
+    burst = [traffic.new(8) for _ in range(FLEET_BURST)]
+    futs = [(uid, server.submit('fleet', deadline_ms=deadline_ms, data=x))
+            for uid, x in burst]
+    dropped, served = [], 0
+    for uid, f in futs:
+        try:
+            f.result(timeout=300)
+            served += 1
+        except mx.serving.DeadlineExceededError:
+            dropped.append(uid)
+    executed = probe.first_by_tag()
+    ran_dead = [u for u in dropped if u * 8 + 1 in executed]
+    counted = instrument.counter_value('serving.deadline_drops') - drops0
+    if not dropped or counted != len(dropped) or ran_dead:
+        raise AssertionError('fleet: deadline burst dropped %d (counted %d), '
+                             '%d of them executed'
+                             % (len(dropped), counted, len(ran_dead)))
+    report['deadline_burst'] = {'requests': FLEET_BURST, 'rows': 8,
+                                'deadline_ms': deadline_ms,
+                                'flush_p50_ms': flush_ms,
+                                'dropped': len(dropped), 'served': served,
+                                'dropped_executed': 0}
+    return report
+
+
+def fleet_oracle(mx, torch, symbol_json, params, traffic, results, probe):
+    """Every response against a one-replica Predictor holding the
+    parameter set that served it (copied into its bound arrays, which its
+    graphs read), fed the same rows: each flush that delivered a
+    response is rebuilt from its rows' tags (the same requests in the
+    same order, so the same bucket) and run through the oracle, and each
+    response must equal its rows of the oracle's output bit for bit.
+    Beside that, for information, FLEET_CROSS responses whose flush rode
+    a larger bucket than the request alone would are run alone (their own
+    bucket): the largest max |diff| / max |oracle| there, the f32
+    difference between buckets that the check above does not rely on."""
+    from mxnet_tpu_torch.compile_cache import pad_to_bucket
+    probe.on = False
+    first = probe.first_by_tag()
+    rows_of = {r[0]: r[1] for r in results}
+    flushes = {}
+    for uid, rows, _, _, out in results:
+        rec = first[uid * 8 + 1]
+        flushes.setdefault(id(rec), (rec, []))[1].append((uid, rows, out))
+    top = max(rec[1] for rec, _ in flushes.values())
+    # a copy: the oracle's arrays are written when the label changes
+    pred = mx.Predictor(symbol_json, {k: v.copy() for k, v in
+                                      params['A'].items()},
+                        {'data': (BATCH,) + IMAGE}, pad_to_bucket=True)
+    pred.warm_buckets(top)
+    held, checked, cross, worst = 'A', 0, 0, 0.0
+    for rec, served in sorted(flushes.values(), key=lambda f: f[0][2]):
+        tags, bucket, label = rec[0], rec[1], rec[2]
+        if label != held:
+            pred._executor.copy_params_from(
+                {k[4:]: v for k, v in params[label].items()
+                 if k.startswith('arg:')},
+                {k[4:]: v for k, v in params[label].items()
+                 if k.startswith('aux:')})
+            held = label
+        uids = [(t - 1) // 8 for t in tags if (t - 1) % 8 == 0]
+        merged = np.concatenate([traffic.rows_of(u, rows_of[u])
+                                 for u in uids])
+        offsets = dict(zip(uids, np.cumsum(
+            [0] + [rows_of[u] for u in uids[:-1]])))
+        if [t - 1 for t in tags] != [u * 8 + r for u in uids
+                                     for r in range(rows_of[u])] or \
+                pad_to_bucket(len(merged)) != bucket:
+            raise AssertionError('fleet: a flush of %d rows that rode '
+                                 'bucket %d is not whole requests'
+                                 % (len(merged), bucket))
+        pred.forward(data=merged)
+        want = pred.get_output(0)
+        for uid, rows, out in served:
+            ref = want[offsets[uid]:offsets[uid] + rows]
+            if not np.array_equal(out, ref):
+                raise AssertionError(
+                    'fleet: response %d (%d rows, bucket %d, parameters %s, '
+                    'stream %x) differs from the oracle\'s forward of its '
+                    'flush: max abs diff %g, max |oracle| %g'
+                    % (uid, rows, bucket, label, rec[3],
+                       float(np.max(np.abs(out - ref))),
+                       float(np.max(np.abs(ref)))))
+            checked += 1
+            if cross < FLEET_CROSS and bucket != pad_to_bucket(rows):
+                pred.forward(data=traffic.rows_of(uid, rows))
+                alone = pred.get_output(0)
+                worst = max(worst, float(np.max(np.abs(out - alone)) /
+                                         np.max(np.abs(alone))))
+                cross += 1
+    probe.on = True
+    return {'responses': len(results), 'flushes': len(flushes),
+            'labels': sorted({rec[2] for rec, _ in flushes.values()}),
+            'bit_equal': checked, 'cross_bucket_cases': cross,
+            'cross_bucket_max_rel': worst}
+
+
+def fleet_bn_relu_cases(torch, fused, paths):
+    """fused_bn_relu against its plain version at every shape the fleet's
+    graphs give it: each bucket's BN-ReLU input shapes (f32)."""
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 6)
+    cases = []
+    for bucket, shapes in sorted(paths.items()):
+        for shape, per_forward in sorted(shapes.items()):
+            _, err, tol = bn_relu_error(torch, fused, shape, torch.float32,
+                                        gen)
+            cases.append({'bucket': bucket, 'shape': list(shape),
+                          'launches_per_forward': per_forward,
+                          'max_abs_err': err, 'tolerance': tol})
+    return cases
+
+
+def fleet_phase(mx, torch, fused, instrument, convert, symbol, arg, aux,
+                data, bn_relu_paths):
+    """4b. fleet (see the module docstring).  ``bn_relu_paths``: bucket ->
+    the fused_bn_relu input shapes of the graph at that many rows."""
+    t_phase = time.monotonic()
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    shapes = {'data': (BATCH,) + IMAGE}
+    arg_b, aux_b = convert.random_params(symbol, shapes, SEED + 2)
+    params = {'A': convert.params_from_numpy(arg, aux, 'cuda:0'),
+              'B': convert.params_from_numpy(arg_b, aux_b, 'cuda:0')}
+    symbol_json = symbol.tojson()
+    buckets = BATCH.bit_length()
+    rng = np.random.default_rng(SEED + 3)
+    probe = FleetProbe(mx, torch)
+    fresh_memory(torch)
+    instrument.reset_metrics()
+    server = mx.serving.ModelServer(max_delay_ms=2.0, max_batch=BATCH)
+    report = {'model': 'resnet-50 v2', 'classes': 1000,
+              'image': list(IMAGE), 'max_batch': BATCH, 'buckets': buckets,
+              'fuse': 'aggressive', 'tf32': False,
+              'cudnn_deterministic': True}
+    try:
+        t0 = time.monotonic()
+        server.load_model('fleet', symbol_json=symbol_json,
+                          params=params['A'], input_shapes=shapes,
+                          replicas=1)
+        report['load_s'] = time.monotonic() - t0
+        entry = server._entry('fleet')
+        fleet_check_graphs(entry, 'after load', buckets)
+        traffic = FleetTraffic(server, data)
+        report['throughput'], report['replay_ms_by_bucket'] = \
+            fleet_throughput(mx, torch, fused, server, traffic, probe, rng)
+        fleet_bn = sum(s['fused_bn_relu_launches']
+                       for s in report['throughput'])
+        while len(entry.replicas) > 2:
+            server.scale_down('fleet')
+        fleet_check_graphs(entry, 'after scale_down to 2', buckets)
+        instrument.reset_metrics()
+        report['lanes'] = fleet_lanes(mx, torch, server, traffic, probe,
+                                      rng, instrument)
+        report['at_s_lanes'] = time.monotonic() - t_phase
+
+        # changes under traffic: scale_up 2 -> 3, reload to B, scale_down
+        del probe.records[:]
+        stop = threading.Event()
+        started = traffic.run(clients=FLEET_CHANGE_CLIENTS, stop=stop,
+                              seed=SEED + 4, think_s=FLEET_THINK_S)
+        changes = {}
+        t0 = time.monotonic()
+        changes['scale_up'] = server.scale_up('fleet')
+        changes['scale_up_s'] = time.monotonic() - t0
+        fleet_check_graphs(entry, 'after scale_up to 3', buckets)
+        probe.label = 'B'
+        t0 = time.monotonic()
+        server.reload_model('fleet', symbol_json=symbol_json,
+                            params=params['B'])
+        changes['reload_s'] = time.monotonic() - t0
+        fleet_check_graphs(entry, 'after reload', buckets)
+        reserved = [torch.cuda.memory_reserved()]
+        t0 = time.monotonic()
+        changes['scale_down'] = server.scale_down('fleet')
+        changes['scale_down_s'] = time.monotonic() - t0
+        fleet_check_graphs(entry, 'after scale_down to 2', buckets)
+        stop.set()
+        changed, wall = traffic.wait(started)
+        fleet_sane(changed)
+        changes.update(requests=len(changed), wall_s=wall)
+        report['changes'] = changes
+
+        # quarantine and replace: wedge serve.execute.r1 under traffic
+        sup = server.supervise('fleet', wedge_ms=FLEET_WEDGE_MS,
+                               interval_s=0.05)
+        replays0 = instrument.counter_value('serving.replays')
+        stop = threading.Event()
+        started = traffic.run(clients=FLEET_CHANGE_CLIENTS, stop=stop,
+                              seed=SEED + 5, think_s=FLEET_THINK_S)
+        time.sleep(0.1)
+        mx.resilience.set_faults('serve.execute.r1:after:1:wedge:%g'
+                                 % FLEET_WEDGE_S)
+        t_end = time.monotonic() + 60
+        while not any(e['action'] == 'replace' for e in sup.events) and \
+                time.monotonic() < t_end:
+            time.sleep(0.02)
+        time.sleep(0.3)                      # serve on after the repair
+        stop.set()
+        wedged, wall = traffic.wait(started)
+        fleet_sane(wedged)
+        mx.resilience.clear_faults()
+        zombie = entry.batcher._zombies.get(1)
+        if zombie is not None:
+            zombie.join(timeout=60)
+        evs = {e['action']: e for e in sup.events}
+        if 'quarantine' not in evs or 'replace' not in evs or \
+                evs['quarantine']['replica'] != 1:
+            raise AssertionError('fleet: no quarantine and replacement of '
+                                 'r1: %s' % sup.events)
+        replays = instrument.counter_value('serving.replays') - replays0
+        if replays < 1:
+            raise AssertionError('fleet: the wedged flush was not replayed')
+        fleet_check_graphs(entry, 'after the replacement', buckets)
+        report['quarantine'] = {
+            'wedge_s': FLEET_WEDGE_S, 'wedge_ms_threshold': FLEET_WEDGE_MS,
+            'detected': evs['quarantine']['reason'],
+            'inflight': evs['quarantine'].get('inflight'),
+            'replayed': replays,
+            'detect_to_repair_ms': evs['replace']['recovery_s'] * 1e3,
+            'replacement': evs['replace']['replacement'],
+            'replicas': len(entry.replicas),
+            'abandoned_flushes':
+                instrument.counter_value('serving.abandoned_flushes'),
+            'requests': len(wedged), 'wall_s': wall,
+            **fleet_latency(wedged)}
+
+        # two more reloads, at one replica: reserved memory stays flat
+        server.scale_down('fleet')
+        reserved.append(torch.cuda.memory_reserved())
+        for label in ('A', 'B'):
+            probe.label = label
+            server.reload_model('fleet', symbol_json=symbol_json,
+                                params=params[label])
+            reserved.append(torch.cuda.memory_reserved())
+        per_replica = (report['throughput'][-1]['reserved_bytes'] -
+                       report['throughput'][0]['reserved_bytes']) / 3.0
+        report['reload_reserved_bytes'] = {
+            'after_reload_1_at_3_replicas': reserved[0],
+            'at_1_replica_before_reloads_2_3': reserved[1],
+            'after_reload_2': reserved[2], 'after_reload_3': reserved[3],
+            'one_replica_bytes': per_replica}
+        if reserved[3] - reserved[1] > per_replica:
+            raise AssertionError('fleet: reserved memory grew by %d bytes '
+                                 'across reloads (one fleet: %d)'
+                                 % (reserved[3] - reserved[1],
+                                    per_replica))
+        fleet_check_graphs(entry, 'after the reloads', buckets)
+        report['oracle'] = fleet_oracle(mx, torch, symbol_json, params,
+                                        traffic, changed + wedged, probe)
+        report['graphs_held'] = fleet_graphs(entry)
+        report['bn_relu_cases'] = fleet_bn_relu_cases(torch, fused,
+                                                      bn_relu_paths)
+    finally:
+        probe.close()
+        mx.resilience.clear_faults()
+        server.close(drain=False, timeout=60)
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = prev
+    report['seconds'] = time.monotonic() - t_phase
+    return report, fleet_bn
 
 
 def start_capture_checks():
@@ -4785,30 +5438,44 @@ def main():
          'nvidia_smi': smi, 'torch': torch.__version__,
          'cuda': torch.version.cuda, 'python': sys.version.split()[0]})
 
-    # -- 2. build ----------------------------------------------------------
-    t0 = time.monotonic()
-    _kernels.build()
+    # -- 2. build, in a thread: nvcc runs in processes of its own ------------
+    t0 = t_build = time.monotonic()
+    built = {}
+
+    def build():
+        try:
+            _kernels.build()
+        except BaseException as e:        # noqa: BLE001 - raised below
+            built['error'] = e
+        built['seconds'] = time.monotonic() - t_build
+    builder = threading.Thread(target=build)
+    builder.start()
+
+    # -- 13. capture: whole-step capture's behaviours on the card ----------
+    # while its child runs and the kernels build, the host's work of later
+    # phases: graph shapes, the zoo's parameters, the op cases' CPU halves
+    symbol = resnet.get_symbol(num_classes=1000, num_layers=50,
+                               image_shape=IMAGE)
+    path = bn_relu_shapes(mx, symbol, BATCH)
+    fleet_bn_paths = {1 << k: (path if 1 << k == BATCH else
+                               bn_relu_shapes(mx, symbol, 1 << k))
+                      for k in range(BATCH.bit_length())}
+    resnet_train_shapes = train_kernel_shapes(mx, symbol, BATCH)
+    zoo_ahead(mx, models, convert)
+    op_cpu_halves(torch)
+    ahead_s = time.monotonic() - t0
+    builder.join()
+    if 'error' in built:
+        raise built['error']
     ptxas = {n: [ln.strip() for ln in log_.splitlines()
                  if 'registers' in ln or 'spill' in ln]
              for n, log_ in _kernels.build_logs.items()}
-    log({'phase': 'build', 'seconds': time.monotonic() - t0,
+    log({'phase': 'build', 'seconds': built['seconds'],
          'nvcc_seconds': _kernels.build_seconds, 'ptxas': ptxas})
     sm90_report = ptxas_sm90(_kernels.build_logs)
     log({'phase': 'ptxas-sm90', 'instantiations': sm90_report,
          'spilling': [r['function'] for r in sm90_report
                       if r.get('spill_stores') or r.get('spill_loads')]})
-
-    # -- 13. capture: whole-step capture's behaviours on the card ----------
-    # while its child runs, the host's work of later phases: graph
-    # shapes, the zoo's parameters, the op cases' CPU halves
-    t0 = time.monotonic()
-    symbol = resnet.get_symbol(num_classes=1000, num_layers=50,
-                               image_shape=IMAGE)
-    path = bn_relu_shapes(mx, symbol, BATCH)
-    resnet_train_shapes = train_kernel_shapes(mx, symbol, BATCH)
-    zoo_ahead(mx, models, convert)
-    op_cpu_halves(torch)
-    ahead_s = time.monotonic() - t0
     checks, capture_s, durations = capture_checks(capture_child)
     log({'phase': 'capture', 'checks': checks, 'seconds': capture_s,
          'test_seconds': durations, 'host_work_meanwhile_s': ahead_s,
@@ -4996,6 +5663,12 @@ def main():
     np.testing.assert_allclose(card, ref, rtol=1e-3, atol=1e-7)
     if not top1:
         raise AssertionError('top-1 differs between the card and the CPU')
+
+    # -- 4b. fleet: 1, 2 and 4 replicas, lanes, deadlines, changes, repair --
+    fleet_report, fleet_bn = fleet_phase(mx, torch, fused, instrument,
+                                         convert, symbol, arg, aux, data,
+                                         fleet_bn_paths)
+    log({'phase': 'fleet', **fleet_report})
 
     # -- 6. train: the second main path ----------------------------------
     prog = mx.fuse.apply_fuse_passes(symbol, True, 'aggressive')
@@ -5629,8 +6302,9 @@ def main():
         + ff_bn_relu + mirror_launches['fused_bn_relu']
         + monitor_launches['fused_bn_relu']
         + sum(zoo_launches['fused_bn_relu'].values())
-        + serve_launches['fused_bn_relu'],
+        + serve_launches['fused_bn_relu'] + fleet_bn,
         'launches_by_path': {'serve': launches['fused_bn_relu'],
+                             'fleet': fleet_bn,
                              'train': train_launches['fused_bn_relu'],
                              'optim-train': optim_launches['fused_bn_relu'],
                              'checkpoint-resume':
@@ -5642,7 +6316,10 @@ def main():
                              'zoo-train':
                                  sum(zoo_launches['fused_bn_relu'].values()),
                              'zoo-serve': serve_launches['fused_bn_relu']},
-        'max_abs_err': max(c['max_abs_err'] for c in on_path),
+        'max_abs_err': max(c['max_abs_err'] for c in
+                           on_path + fleet_report['bn_relu_cases']),
+        # every bucket's shapes, checked in the fleet phase
+        'fleet_cases': fleet_report['bn_relu_cases'],
         # the 17 launches of one 32-row forward: per-shape medians summed
         'ms': sum(c['ms'] * c['launches_per_forward'] for c in on_path),
         'plain_ms': sum(c['plain_ms'] * c['launches_per_forward']

@@ -31,13 +31,22 @@ the autograd thread that runs its backward) are
 applied on each replay instead, so launches per step mean the same
 captured or eager.
 
+Captures and their eager warm-ups run one at a time process-wide, on
+one stream per device that only capture code holds
+(:func:`capture_stream`), so a serving replica's replays and the feed's
+copies, each on a stream of its own, never land in a graph being
+recorded.  Cached device memory is given back only through
+:func:`release_memory`, which waits for any capture under way.
+
 The persistent cache and the warmup manifest of the reference
 (``mxnet_tpu/compile_cache.py:85-300``) are not ported.
 """
 from __future__ import annotations
 
+import gc
 import hashlib
 import logging
+import threading
 import time
 
 import torch
@@ -47,7 +56,8 @@ from .base import MXNetError
 
 __all__ = ['pad_to_bucket', 'sig_key', 'batch_sig', 'fingerprint',
            'warm_start', 'capture_skip_reason', 'random_nodes',
-           'CapturedStep', 'snapshot', 'step_tensors']
+           'CapturedStep', 'snapshot', 'step_tensors', 'capture_stream',
+           'release_memory']
 
 # ops that draw from the device generator: name -> does this node draw
 _DRAWS = {
@@ -187,6 +197,66 @@ def snapshot(tensors, generators=()):
     return restore
 
 
+# Captures, their eager warm-ups and releases of cached device memory
+# never run at once, process-wide: the caching allocator cannot release
+# blocks while a graph is recorded (``torch.cuda.graph`` empties the
+# cache as it starts), and every capture shares its device's one stream.
+_capture_lock = threading.RLock()
+_capture_streams = {}           # device index -> the capture stream
+
+
+def capture_stream(device):
+    """The stream every capture, and its eager warm-up, on ``device``
+    runs on: made once per device, outside PyTorch's stream pool.
+    ``torch.cuda.Stream()`` deals out a small pool round-robin, so a
+    pooled capture stream can be another thread's current stream (a
+    serving replica's, the feed's), whose work would then land in the
+    graph being recorded ("Cannot prepare for replay during capturing
+    stage").  Callers hold the capture lock."""
+    device = torch.device(device)
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    stream = _capture_streams.get(index)
+    if stream is None:
+        import ctypes
+        lib = ctypes.CDLL('libcuda.so.1')
+        lib.cuStreamCreate.argtypes = [ctypes.POINTER(ctypes.c_void_p),
+                                       ctypes.c_uint]
+        lib.cuStreamCreate.restype = ctypes.c_int
+        handle = ctypes.c_void_p()
+        with torch.cuda.device(index):
+            # a runtime call makes the device's primary context current
+            # on this thread: the driver call creates the stream there
+            torch.cuda.current_stream().query()
+            err = lib.cuStreamCreate(ctypes.byref(handle), 1)  # NON_BLOCKING
+        if err:
+            raise MXNetError('cuStreamCreate failed (CUDA driver error %d)'
+                             % err)
+        stream = _capture_streams[index] = torch.cuda.ExternalStream(
+            handle.value, device=torch.device('cuda', index))
+    return stream
+
+
+def _own_blas_workspace():
+    """Drop cuBLAS's cached workspaces (one per handle and stream) before
+    a warm-up or capture on the capture stream.  Kept, every graph one
+    thread records there would bake in the same workspace, and replicas
+    replaying such graphs at once would race on it; dropped, the next
+    cuBLAS call allocates one, inside the graph's own pool when
+    capturing.  Callers hold the capture lock."""
+    torch._C._cuda_clearCublasWorkspaces()
+
+
+def release_memory():
+    """Give the card back the cached memory no live tensor holds (the
+    pools of dropped graphs too), after any capture under way."""
+    if not torch.cuda.is_initialized():
+        return
+    gc.collect()
+    with _capture_lock:
+        torch.cuda.empty_cache()
+
+
 class CapturedStep(object):
     """One step over fixed buffers, replayed from a CUDA graph.
 
@@ -198,15 +268,16 @@ class CapturedStep(object):
     with a reason the step only ever runs eagerly.
 
     :meth:`run` is a fit step: the first call runs the body eagerly on
-    the capture's side stream — a real step that is also the warm-up —
+    the capture stream — a real step that is also the warm-up —
     and then records the graph (recording runs no kernel); later calls
     replay it.  Before any real step (a warm start) the caller runs
     :meth:`warm_up` inside :func:`snapshot` / restore, then
     :meth:`capture`.
 
     Graphs of one module share a memory ``pool`` (they replay on one
-    stream, never at once).  A graph's temporaries may then lie under
-    another graph's outputs, so with ``copy_outputs`` the body's outputs
+    stream, never at once; each serving replica's Predictor has its
+    own).  A graph's temporaries may then lie under another graph's
+    outputs, so with ``copy_outputs`` the body's outputs
     are copied into buffers allocated outside the pool, which no other
     graph's replay can touch.  Captures use ``capture_error_mode=
     'thread_local'``: the feed's worker and serving's client threads
@@ -229,7 +300,6 @@ class CapturedStep(object):
         self.launches = {}          # kernel name -> launches per replay
         self._counts = {}           # what one replay counts
         self._out_meta = None
-        self._stream = None
         if skip is not None:
             note_skip(name, skip)
 
@@ -243,21 +313,19 @@ class CapturedStep(object):
         return len(tensors) == len(self.bindings) and \
             all(a is b for a, b in zip(tensors, self.bindings))
 
-    def _side_stream(self):
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(self.device)
-        return self._stream
-
     def warm_up(self):
-        """Run the body once, eagerly: on the card on the capture's side
-        stream (ordered after, and before, the current stream's work)."""
+        """Run the body once, eagerly: on the card on the capture stream
+        (ordered after, and before, the current stream's work)."""
         if self.skip is not None:
             return self.body()
-        s, cur = self._side_stream(), torch.cuda.current_stream(self.device)
-        s.wait_stream(cur)
-        with torch.cuda.stream(s):
-            outs = self.body()
-        cur.wait_stream(s)
+        with _capture_lock:
+            s = capture_stream(self.device)
+            cur = torch.cuda.current_stream(self.device)
+            _own_blas_workspace()
+            s.wait_stream(cur)
+            with torch.cuda.stream(s):
+                outs = self.body()
+            cur.wait_stream(s)
         self._out_meta = [(tuple(o.shape), o.dtype) for o in outs]
         return outs
 
@@ -270,17 +338,22 @@ class CapturedStep(object):
                              % (self.name, self.skip))
         if self._out_meta is None:
             raise MXNetError('%s: warm_up() before capture()' % self.name)
+        with _capture_lock:
+            self._capture()
+
+    def _capture(self):
         t0 = time.perf_counter()
         ext = [torch.empty(s, dtype=d, device=self.device)
                for s, d in self._out_meta] if self.copy_outputs else None
         graph = torch.cuda.CUDAGraph()
         for g in self.generators:
             graph.register_generator_state(g)
+        _own_blas_workspace()
         err, outs = None, None
         try:
             with instrument.recording(capture=True) as self._counts, \
                     torch.cuda.graph(graph, pool=self.pool,
-                                     stream=self._side_stream(),
+                                     stream=capture_stream(self.device),
                                      capture_error_mode='thread_local'):
                 try:
                     outs = self.body()

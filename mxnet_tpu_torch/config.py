@@ -115,8 +115,47 @@ _register('MXTPU_SERVE_REQUEST_TIMEOUT', 30.0, float,
           'Seconds a blocking ModelServer.predict() waits for its '
           'response before raising TimeoutError.')
 _register('MXTPU_SERVE_DRAIN_TIMEOUT', 30.0, float,
-          'Seconds an unload/close waits for queued requests to drain '
-          'before shedding what is left.')
+          'Bound (seconds) on serving drains: unload_model(drain=True), '
+          'close() and ModelServer.drain() stop waiting on worker joins '
+          'past it and fail what is left (queued, and in flight on a '
+          'wedged replica) with typed errors instead of hanging.')
+_register('MXTPU_SERVE_REPLICAS', 1, int,
+          'Default replica count per loaded model (load_model replicas= '
+          'overrides): N replicas, each its own Predictor (own graphs, '
+          'own graph memory pool, own parameter copy) on its own CUDA '
+          'stream, serve one shared admission queue, one coalescing '
+          'worker each.  Replica slot s runs on device (dev_id + s) mod '
+          'the device count: on one card every replica shares it.')
+_register('MXTPU_SERVE_DEADLINE_MS', 0.0, float,
+          'Default per-request deadline (milliseconds) for '
+          'ModelServer.submit(): a request still queued past it is '
+          'dropped at coalesce time, never executed, and fails with '
+          'DeadlineExceededError (serving.deadline_drops; kept out of '
+          'the latency histograms).  0 = no deadline; per-call '
+          'deadline_ms= overrides.')
+_register('MXTPU_SERVE_SUPERVISE', False, _bool,
+          'Enable replica supervision (serving/supervisor.py) for every '
+          'loaded model: a worker wedged past MXTPU_SERVE_WEDGE_MS, or '
+          'dead on an exception, is quarantined, its in-flight requests '
+          're-queued once at the head of their lane, and a warmed '
+          '(captured) replacement attached before the quarantined one is '
+          'torn down.  Off: no supervision thread.')
+_register('MXTPU_SERVE_WEDGE_MS', 5000.0, float,
+          'No-progress threshold (milliseconds) for replica supervision: '
+          'a flush in flight this long is declared wedged.  Keep it well '
+          'above the slowest legitimate flush.')
+_register('MXTPU_SERVE_SUPERVISE_INTERVAL', 0.2, float,
+          'Supervisor poll period (seconds).  <= 0: no poll thread '
+          '(tick() can still be driven by hand).')
+# -- fault injection (resilience.py) -----------------------------------------
+_register('MXTPU_FAULTS', '', str,
+          'Fault-injection plan (resilience.py grammar: '
+          'site:action[:arg[:arg2]] joined by ";"; the serving fleet\'s '
+          'sites are serve.execute.r<id>, serve.flush.r<id> and '
+          'serve.worker.r<id>).  Unset: every fault hook is a single '
+          'flag check.')
+_register('MXTPU_FAULTS_SEED', 0, int,
+          'RNG seed for MXTPU_FAULTS coin flips (deterministic chaos).')
 
 
 def get(name):

@@ -485,6 +485,11 @@ class Executor:
         arg_shapes, _, aux_shapes = self._symbol.infer_shape(**kwargs)
         if arg_shapes is None:
             raise MXNetError('Insufficient argument shapes provided.')
+        return self.rebind(arg_shapes, aux_shapes)
+
+    def rebind(self, arg_shapes, aux_shapes):
+        """:meth:`reshape` at already inferred shapes (in ``arg_names``
+        and ``aux_names`` order)."""
         new_args, new_grads, new_aux = {}, {}, {}
         for name, shape in zip(self.arg_names, arg_shapes):
             old = self.arg_dict[name]

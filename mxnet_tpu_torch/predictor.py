@@ -14,7 +14,10 @@ share a memory pool): :meth:`Predictor.warm_buckets` captures every
 bucket up to a batch size before the first request, a request is copied
 into the bucket's pinned host staging and from there into the graph's
 input on the card, and ``forward`` returns copies of the graph's
-outputs, which a later forward does not overwrite.
+outputs, which a later forward does not overwrite.  Inferred shapes
+are remembered by (symbol JSON, input shapes): another Predictor of the
+same model at the same buckets (a serving replica, a reload) binds
+without inferring them again.
 
 :meth:`Predictor.reshape` rebinds at new input shapes and drops the
 bucket executors and the graphs the old shapes captured; the module's
@@ -26,6 +29,7 @@ from __future__ import annotations
 
 import os
 import tempfile
+import threading
 
 import numpy as np
 import torch
@@ -61,6 +65,33 @@ def _split_params(params):
     return arg_params, aux_params
 
 
+# (symbol JSON, input shapes) -> (arg shapes, aux shapes): the replicas
+# and reloads of a served model bind one graph at the same buckets, and
+# shape inference is most of a Predictor's host build time
+_SHAPES = {}
+_SHAPES_MAX = 256
+_shapes_lock = threading.Lock()
+
+
+def _infer_shapes(symbol, key, shapes):
+    """``(arg_shapes, aux_shapes)`` of ``symbol`` at input ``shapes``
+    (None when they cannot be inferred), remembered under the symbol's
+    JSON ``key``."""
+    k = (key, tuple(sorted(shapes.items())))
+    with _shapes_lock:
+        hit = _SHAPES.get(k)
+    if hit is None:
+        arg_shapes, _, aux_shapes = symbol.infer_shape(**shapes)
+        if arg_shapes is None:
+            return None
+        hit = (list(arg_shapes), list(aux_shapes))
+        with _shapes_lock:
+            if len(_SHAPES) >= _SHAPES_MAX:
+                del _SHAPES[next(iter(_SHAPES))]
+            _SHAPES[k] = hit
+    return hit
+
+
 def _on(value, ctx):
     if isinstance(value, NDArray):
         return value.as_in_context(ctx)
@@ -76,15 +107,25 @@ class Predictor(object):
     CPU.  (The JAX package's default is ``'cpu'``; the difference is
     deliberate.)  ``param_raw_bytes_or_dict`` is ``.params`` file bytes
     or a dict of NDArrays, tensors or numpy arrays keyed ``arg:name`` /
-    ``aux:name`` (or bare argument names).
+    ``aux:name`` (or bare argument names).  ``output_keys`` names the
+    internal outputs to serve instead of the symbol's own
+    (MXPredCreatePartialOut).
     """
 
     def __init__(self, symbol_json_str, param_raw_bytes_or_dict,
                  input_shapes, dev_type='gpu', dev_id=0,
-                 pad_to_bucket=False):
+                 output_keys=None, pad_to_bucket=False):
         symbol = sym_mod.load_json(symbol_json_str) \
             if isinstance(symbol_json_str, str) else symbol_json_str
+        if output_keys:
+            # MXPredCreatePartialOut: serve the named internal outputs
+            internals = symbol.get_internals()
+            symbol = sym_mod.Group([
+                internals[k if k.endswith('_output') else k + '_output']
+                for k in output_keys])
         self._symbol = symbol
+        self._shape_key = symbol_json_str if isinstance(
+            symbol_json_str, str) and not output_keys else symbol.tojson()
         self._ctx = Context(dev_type, dev_id)
         self._ctx.torch_device      # raises now when the device is absent
 
@@ -106,9 +147,10 @@ class Predictor(object):
         self._active_bucket = None
         self._valid_rows = None
 
-        arg_shapes, _, aux_shapes = symbol.infer_shape(**self._input_shapes)
-        if arg_shapes is None:
+        inferred = _infer_shapes(symbol, self._shape_key, self._input_shapes)
+        if inferred is None:
             raise MXNetError('cannot infer shapes from %s' % input_shapes)
+        arg_shapes, aux_shapes = inferred
         args = {}
         for name, shape in zip(symbol.list_arguments(), arg_shapes):
             if name in self._input_shapes or (
@@ -167,7 +209,10 @@ class Predictor(object):
             shapes = {name: ((bucket,) + tuple(shape[1:])
                              if name in self._batch_inputs else shape)
                       for name, shape in self._input_shapes.items()}
-            exe = self._executor.reshape(**shapes)
+            inferred = _infer_shapes(self._symbol, self._shape_key, shapes)
+            if inferred is None:
+                raise MXNetError('Insufficient argument shapes provided.')
+            exe = self._executor.rebind(*inferred)
             if self._ctx.device_type == 'gpu':
                 if self._graph_pool is None:
                     self._graph_pool = torch.cuda.graph_pool_handle()

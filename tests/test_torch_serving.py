@@ -126,7 +126,7 @@ def test_model_server_coalesces_into_one_bucket(model, aggressive):
         f3 = server.submit('resnet', data=data[1:4])
         got = np.concatenate([f1.result(timeout=60)[0],
                               f3.result(timeout=60)[0]])
-        assert server._entry('resnet')[1].last_flush_rows == 4
+        assert server._entry('resnet').batcher.last_flush_rows == 4
         direct.forward(data=data)
         np.testing.assert_allclose(got, direct.get_output(0), rtol=1e-5,
                                    atol=1e-6)
@@ -228,8 +228,8 @@ def test_batcher_stop_without_drain_fails_queued():
         with pytest.raises(tmx.MXNetError):
             queued.result(timeout=30)
         gate.set()
-        b._worker.join(timeout=30)
-        assert not b._worker.is_alive()
+        b._zombies[0].join(timeout=30)
+        assert not b._zombies[0].is_alive()
         with pytest.raises(tmx.MXNetError):
             b.submit({'x': np.ones((1, 2), np.float32)})
     finally:
