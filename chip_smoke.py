@@ -122,11 +122,11 @@ graphs held), and peak allocated and reserved device memory.
                   interactive 1-row and 75% batch 8-row requests (p99 by
                   lane), then 64 8-row requests with a deadline of half a
                   flush (the dropped ones counted and never executed);
-                  at 2 and 4 replicas the count's traffic runs again
-                  under torch.profiler: the card's busy share is the
-                  union of its kernel intervals over that run's wall
-                  (at 1 replica, where replays never overlap, it is
-                  modelled from each bucket's replay time); under
+                  at 2 replicas the count's traffic runs again under
+                  torch.profiler: the card's busy share is the union of
+                  its kernel intervals over that run's wall (at 1 and
+                  4 replicas it is modelled from each bucket's replay
+                  time); under
                   traffic scale_up 2 -> 3, reload_model to a second
                   parameter set and scale_down; under traffic, at 2
                   replicas, MXTPU_FAULTS wedges serve.execute.r1 and the
@@ -143,6 +143,46 @@ graphs held), and peak allocated and reserved device memory.
                   warm-ups, and the flushes of 1-32 rows): each of those
                   shapes, read from the graph, is held against
                   fused_bn_relu_plain (max abs err 1e-6, f32).
+4c. autoscale   — the fleet's control and attribution planes: the same
+                  model from one replica under
+                  ModelServer.autoscale(slo_p99_ms=30, interval_s=0.25,
+                  max_replicas=3, brownout=True, up_after=2,
+                  down_after=3) with servewatch on (slow threshold = the
+                  SLO) and a flight recorder in a temp dir.  Heavy load
+                  (until brownout level 1 lands, 8-11 s on an H100, at
+                  most 16 s; 16 clients, 75% batch 8-row / 25% interactive
+                  1-row; a shed client backs off 20 ms), the same load
+                  for 2 s more from level 1 (the brownout stage), then
+                  light (2 interactive 1-row clients, 20 ms apart, 6 s
+                  and on until the fleet is back at one replica).  The
+                  decision
+                  log must show scale_up to 3, brownout level >= 1
+                  (batch sheds counted), the ladder back to level 0 and
+                  scale_down to 1, in that order; after every decision
+                  (and its actuation) the graphs held = replicas x
+                  buckets of the configured cap.  Reported: the log
+                  (action, reason, windowed p99, replicas, max_batch,
+                  level, ms since the start), ms from the first breach
+                  window to the new replica's first flush, images/s and
+                  p99 by lane and sheds per stage (a request belongs to
+                  the stage it ended in; the brownout stage also split
+                  by the ladder's level when each request ended),
+                  fused_bn_relu by replica (17 a
+                  forward, plus each capture's eager warm-up).  Every
+                  delivered request's six servewatch spans sum to its
+                  e2e span exactly; the median execute span at 32 rows
+                  is at least a 32-row replay alone; the dumped trace
+                  passes tools/check_trace.py (a subprocess); every
+                  line of render_prometheus() parses, and an exemplar of
+                  serving_e2e_secs names a request whose postmortem was
+                  committed; postmortems committed and dropped, and each
+                  dump's ms.  Every response against the one-replica
+                  oracle (fleet's, its parameters copied back), bit for
+                  bit at its bucket.  Then fleet's
+                  2-replica traffic (256 requests of 1-8 rows, 16
+                  clients) with servewatch off, then on: images/s, p99
+                  and postmortem ms; a drain commits through the flight
+                  recorder.
 5. parity       — 4 rows through a served Predictor captured with TF32
                   off (a graph keeps the library kernels chosen when it
                   was recorded) and through a CPU Predictor: rtol 1e-3,
@@ -235,11 +275,13 @@ graphs held), and peak allocated and reserved device memory.
                   Custom-headed step stays eager by rule (user Python
                   runs every step).
 12b. optim-train — the training lifecycle, optimizers: the train phase's
-                  model, data and bf16 compute, OPTIM_STEPS (2) captured
+                  model cut in depth to one bottleneck unit per stage
+                  (OPTIM_UNITS; every width kept), its data and bf16
+                  compute, OPTIM_STEPS (2) captured
                   steps under each of SGD with momentum, NAG, Adam,
                   AdaGrad and centered RMSProp (counts zeroed just before,
-                  read just after: 36 + 16 sm90 and 2 fused_bn_relu per
-                  step), then the same steps from the same state under
+                  read just after: 12 + 4 sm90 and 2 fused_bn_relu per
+                  step, as read from its graph), then the same steps from the same state under
                   NaiveEngine (launches per step by kernel and route
                   equal, parameters within train-parity's bound), then in
                   float32 (TF32 off) captured and through the Updater loop
@@ -474,8 +516,10 @@ LIFECYCLE_CHECKS = tuple(
     'test_mirrored_captured_step_matches_unmirrored[dots]',
     'test_monitored_step_runs_no_fused_forward')
 # optim-train: each optimizer's captured ResNet step beside NaiveEngine and
-# the Updater loop (MXTPU_FUSED_FIT=0), OPTIM_STEPS steps from one state
+# the Updater loop (MXTPU_FUSED_FIT=0), OPTIM_STEPS steps from one state,
+# on ResNet-50 v2's four stages at full width cut to one unit each (depth)
 OPTIM_STEPS = 2
+OPTIM_UNITS = [1, 1, 1, 1]
 OPTIMIZERS = (
     ('sgd', SGD_MOMENTUM),
     ('nag', SGD_MOMENTUM),
@@ -1970,7 +2014,8 @@ class FleetProbe(object):
     built while it is open carries the label of the parameter set being
     served (``label``), and each bucketed forward is logged as (the tags
     in pixel [0, 0, 0] of its rows, its bucket, its Predictor's label,
-    the current CUDA stream, the Predictor's id)."""
+    the current CUDA stream, the Predictor's id, the monotonic time it
+    returned)."""
 
     def __init__(self, mx, torch):
         cls = mx.predictor.Predictor
@@ -1991,7 +2036,8 @@ class FleetProbe(object):
                 rec = (tuple(int(round(t * FLEET_TAG_SCALE)) for t in tags),
                        pred._active_bucket,
                        getattr(pred, 'fleet_label', None),
-                       torch.cuda.current_stream().cuda_stream, id(pred))
+                       torch.cuda.current_stream().cuda_stream, id(pred),
+                       time.monotonic())
                 with probe._lock:
                     probe.records.append(rec)
             return outs
@@ -2133,8 +2179,8 @@ def fleet_throughput(mx, torch, fused, server, traffic, probe, rng):
     """Serve FLEET_REQUESTS requests of 1-8 rows from FLEET_CLIENTS
     threads at each replica count: images/s, p50/p99, graphs held,
     reserved memory, fused_bn_relu per replica, and each replica's
-    flushes on its own stream; at 2 and more replicas the same requests
-    again under the profiler (:func:`fleet_trace`)."""
+    flushes on its own stream; at 2 replicas the same requests again
+    under the profiler (:func:`fleet_trace`)."""
     entry = server._entry('fleet')
     buckets = BATCH.bit_length()
     sizes = [int(v) for v in rng.integers(1, 9, size=FLEET_REQUESTS)]
@@ -2179,7 +2225,7 @@ def fleet_throughput(mx, torch, fused, server, traffic, probe, rng):
                     'fused_bn_relu_by_replica': per_rep,
                     'replicas_flushed': len(streams),
                     'flushes_by_bucket': dict(sorted(flushed.items()))})
-        if n > 1:
+        if n == 2:
             out[-1]['traced'] = fleet_trace(torch, traffic, sizes)
     # a model, not a measurement: each bucket's replay time alone, times
     # the step's flushes at that bucket, over its wall time.  Concurrent
@@ -2316,17 +2362,26 @@ def fleet_lanes(mx, torch, server, traffic, probe, rng, instrument):
     return report
 
 
-def fleet_oracle(mx, torch, symbol_json, params, traffic, results, probe):
+FLEET_ORACLE_CHUNK = 64      # oracle forwards in flight before one check
+
+
+def fleet_oracle(mx, torch, symbol_json, params, traffic, results, probe,
+                 pred=None):
     """Every response against a one-replica Predictor holding the
     parameter set that served it (copied into its bound arrays, which its
     graphs read), fed the same rows: each flush that delivered a
     response is rebuilt from its rows' tags (the same requests in the
     same order, so the same bucket) and run through the oracle, and each
-    response must equal its rows of the oracle's output bit for bit.
-    Beside that, for information, FLEET_CROSS responses whose flush rode
-    a larger bucket than the request alone would are run alone (their own
-    bucket): the largest max |diff| / max |oracle| there, the f32
-    difference between buckets that the check above does not rely on."""
+    response must equal its rows of the oracle's output bit for bit.  The
+    oracle's outputs stay on the card until FLEET_ORACLE_CHUNK flushes
+    have been run, then come back in one copy, so the host builds the
+    next flush while the card runs the last.  Beside that, for
+    information, FLEET_CROSS responses whose flush rode a larger bucket
+    than the request alone would are run alone (their own bucket): the
+    largest max |diff| / max |oracle| there, the f32 difference between
+    buckets that the check above does not rely on.  ``pred``: an oracle
+    an earlier call returned (the parameters are copied in before its
+    first flush).  Returns (report, the oracle Predictor)."""
     from mxnet_tpu_torch.compile_cache import pad_to_bucket
     probe.on = False
     first = probe.first_by_tag()
@@ -2336,15 +2391,41 @@ def fleet_oracle(mx, torch, symbol_json, params, traffic, results, probe):
         rec = first[uid * 8 + 1]
         flushes.setdefault(id(rec), (rec, []))[1].append((uid, rows, out))
     top = max(rec[1] for rec, _ in flushes.values())
-    # a copy: the oracle's arrays are written when the label changes
-    pred = mx.Predictor(symbol_json, {k: v.copy() for k, v in
-                                      params['A'].items()},
-                        {'data': (BATCH,) + IMAGE}, pad_to_bucket=True)
+    held = None
+    if pred is None:
+        # a copy: the oracle's arrays are written when the label changes
+        pred = mx.Predictor(symbol_json, {k: v.copy() for k, v in
+                                          params['A'].items()},
+                            {'data': (BATCH,) + IMAGE}, pad_to_bucket=True)
+        held = 'A'
     pred.warm_buckets(top)
-    held, checked, cross, worst = 'A', 0, 0, 0.0
+    checked, cross, worst = 0, 0, 0.0
+    pending = []
+
+    def check():
+        """The pending flushes' responses against the oracle's rows."""
+        got = torch.cat([t for t, _ in pending]).cpu().numpy()
+        at = 0
+        for t, (rec, bucket, label, offsets, served) in pending:
+            want = got[at:at + len(t)]
+            at += len(t)
+            for uid, rows, out in served:
+                ref = want[offsets[uid]:offsets[uid] + rows]
+                if not np.array_equal(out, ref):
+                    raise AssertionError(
+                        'fleet: response %d (%d rows, bucket %d, parameters '
+                        '%s, stream %x) differs from the oracle\'s forward '
+                        'of its flush: max abs diff %g, max |oracle| %g'
+                        % (uid, rows, bucket, label, rec[3],
+                           float(np.max(np.abs(out - ref))),
+                           float(np.max(np.abs(ref)))))
+        del pending[:]
+
     for rec, served in sorted(flushes.values(), key=lambda f: f[0][2]):
         tags, bucket, label = rec[0], rec[1], rec[2]
         if label != held:
+            if pending:
+                check()
             pred._executor.copy_params_from(
                 {k[4:]: v for k, v in params[label].items()
                  if k.startswith('arg:')},
@@ -2362,18 +2443,12 @@ def fleet_oracle(mx, torch, symbol_json, params, traffic, results, probe):
             raise AssertionError('fleet: a flush of %d rows that rode '
                                  'bucket %d is not whole requests'
                                  % (len(merged), bucket))
-        pred.forward(data=merged)
-        want = pred.get_output(0)
+        # the forward's outputs are its own copies on the card
+        out0 = pred.forward(data=merged)[0].handle[:len(merged)]
+        pending.append((out0, (rec, bucket, label, offsets, served)))
+        if len(pending) == FLEET_ORACLE_CHUNK:
+            check()
         for uid, rows, out in served:
-            ref = want[offsets[uid]:offsets[uid] + rows]
-            if not np.array_equal(out, ref):
-                raise AssertionError(
-                    'fleet: response %d (%d rows, bucket %d, parameters %s, '
-                    'stream %x) differs from the oracle\'s forward of its '
-                    'flush: max abs diff %g, max |oracle| %g'
-                    % (uid, rows, bucket, label, rec[3],
-                       float(np.max(np.abs(out - ref))),
-                       float(np.max(np.abs(ref)))))
             checked += 1
             if cross < FLEET_CROSS and bucket != pad_to_bucket(rows):
                 pred.forward(data=traffic.rows_of(uid, rows))
@@ -2381,11 +2456,13 @@ def fleet_oracle(mx, torch, symbol_json, params, traffic, results, probe):
                 worst = max(worst, float(np.max(np.abs(out - alone)) /
                                          np.max(np.abs(alone))))
                 cross += 1
+    if pending:
+        check()
     probe.on = True
     return {'responses': len(results), 'flushes': len(flushes),
             'labels': sorted({rec[2] for rec, _ in flushes.values()}),
             'bit_equal': checked, 'cross_bucket_cases': cross,
-            'cross_bucket_max_rel': worst}
+            'cross_bucket_max_rel': worst}, pred
 
 
 def fleet_bn_relu_cases(torch, fused, paths):
@@ -2542,8 +2619,8 @@ def fleet_phase(mx, torch, fused, instrument, convert, symbol, arg, aux,
                                  % (reserved[3] - reserved[1],
                                     per_replica))
         fleet_check_graphs(entry, 'after the reloads', buckets)
-        report['oracle'] = fleet_oracle(mx, torch, symbol_json, params,
-                                        traffic, changed + wedged, probe)
+        report['oracle'], oracle = fleet_oracle(
+            mx, torch, symbol_json, params, traffic, changed + wedged, probe)
         report['graphs_held'] = fleet_graphs(entry)
         report['bn_relu_cases'] = fleet_bn_relu_cases(torch, fused,
                                                       bn_relu_paths)
@@ -2555,7 +2632,520 @@ def fleet_phase(mx, torch, fused, instrument, convert, symbol, arg, aux,
          torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.deterministic) = prev
     report['seconds'] = time.monotonic() - t_phase
-    return report, fleet_bn
+    return report, fleet_bn, oracle
+
+
+# -- 4c. autoscale: the windowed-p99 autoscaler with brownout, servewatch ----
+AUTO_SLO_MS = 30.0
+AUTO_INTERVAL_S = 0.25
+AUTO_MAX_REPLICAS = 3
+AUTO_HEAVY_MAX_S = 16.0      # heavy runs until brownout level 1 lands
+AUTO_BROWNOUT_S = 2.0        # the heavy load held on from level 1
+AUTO_HEAVY_CLIENTS = 16
+AUTO_LIGHT_S = 6.0           # and on until the fleet is back at one replica
+AUTO_LIGHT_MAX_S = 14.0
+AUTO_LIGHT_CLIENTS = 2
+AUTO_LIGHT_THINK_S = 0.02    # between a light client's requests
+AUTO_SHED_BACKOFF_S = 0.02   # a shed client backs off before it retries
+AUTO_POLL_S = 0.05
+AUTO_BN_RELU = 17            # fused_bn_relu launches of one served forward
+# one Prometheus sample line: name, labels, value, then an optional
+# OpenMetrics exemplar
+_PROM_NUM = r'(?:[-+]?[0-9]*\.?[0-9]+(?:[eE][-+]?[0-9]+)?|NaN|[-+]Inf)'
+_PROM_LABEL = r'[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\\n]|\\.)*"'
+PROM_LINE = (r'^(?:# TYPE [a-zA-Z_:][a-zA-Z0-9_:]* '
+             r'(?:counter|gauge|histogram)'
+             r'|[a-zA-Z_:][a-zA-Z0-9_:]*(?:\{%s(?:,%s)*\})? %s'
+             r'(?: # \{request_id="[^"]*"\} %s)?)$'
+             % (_PROM_LABEL, _PROM_LABEL, _PROM_NUM, _PROM_NUM))
+
+
+def auto_clients(mx, server, traffic, clients, stop, seed, interactive,
+                 think_s=0.0):
+    """Closed-loop clients until ``stop``: each request is interactive
+    1-row with probability ``interactive``, else batch-lane 8-row.  A
+    shed (ServerOverloadedError) is recorded and backed off.  Returns
+    (threads, results); a result is (uid, rows, lane, latency s, output
+    or 'shed', monotonic time done)."""
+    results = []
+
+    def client(k):
+        rng = np.random.default_rng(seed + k)
+        while not stop.is_set():
+            lane = 'interactive' if rng.random() < interactive else 'batch'
+            rows = 1 if lane == 'interactive' else 8
+            uid, x = traffic.new(rows)
+            t0 = time.monotonic()
+            try:
+                out = server.predict('fleet', timeout=300, priority=lane,
+                                     data=x)[0]
+            except mx.serving.ServerOverloadedError:
+                out = 'shed'
+            except Exception as e:        # noqa: BLE001 - reported
+                out = '%s: %s' % (type(e).__name__, e)
+            t1 = time.monotonic()
+            results.append((uid, rows, lane, t1 - t0, out, t1))
+            if isinstance(out, str):
+                time.sleep(AUTO_SHED_BACKOFF_S)
+            elif think_s:
+                time.sleep(think_s)
+
+    threads = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(clients)]
+    for t in threads:
+        t.start()
+    return threads, results
+
+
+def auto_join(threads, results):
+    for t in threads:
+        t.join(timeout=300)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError('autoscale: a client hung')
+    failed = [r for r in results if isinstance(r[4], str) and r[4] != 'shed']
+    if failed:
+        raise AssertionError('autoscale: %d requests failed, first %s'
+                             % (len(failed), failed[0][4]))
+
+
+def auto_stage(results, wall):
+    """images/s served and p50/p99 by lane of one stage's requests."""
+    served = [r for r in results if not isinstance(r[4], str)]
+    out = {'wall_s': wall, 'requests': len(results),
+           'served': len(served),
+           'shed': sum(1 for r in results if isinstance(r[4], str)),
+           'images_per_s': sum(r[1] for r in served) / wall}
+    for lane in ('interactive', 'batch'):
+        if any(r[2] == lane for r in served):
+            out[lane] = fleet_latency([r[:5] for r in served], lane)
+    return out
+
+
+def auto_levels(log, t0, results, start, end):
+    """The brownout stage split by the ladder's level in force when each
+    request ended (the decision log's level changes, ``ms`` after the
+    phase's monotonic ``t0``): {'level_<n>': auto_stage over the time
+    spent at that level}."""
+    changes = [(t0 + e['ms'] / 1e3, e['level']) for e in log
+               if e.get('level') is not None]
+
+    def level_at(t):
+        return ([lv for tc, lv in changes if tc <= t] or [0])[-1]
+    cuts = [start] + [tc for tc, _ in changes if start < tc < end] + [end]
+    walls = Counter()
+    for a, b in zip(cuts, cuts[1:]):
+        walls[level_at(a)] += b - a
+    return {'level_%d' % lv: auto_stage(
+        [r for r in results if start < r[5] <= end and level_at(r[5]) == lv],
+        wall) for lv, wall in sorted(walls.items())}
+
+
+class AutoMonitor(object):
+    """Polls the autoscaler's decision log from the main thread: after
+    each decision (and its actuation thread, if any) the graphs the fleet
+    holds must be replicas x buckets of the configured cap."""
+
+    def __init__(self, sc, entry, buckets, t0_wall):
+        self.sc, self.entry, self.buckets = sc, entry, buckets
+        self.t0_wall = t0_wall
+        self.seen = 0
+        self.after = []
+        self.rid_of = {}
+        self.note_replicas()
+
+    def note_replicas(self):
+        for rep in list(self.entry.replicas):
+            self.rid_of.setdefault(id(rep.predictor), rep.rid)
+
+    def poll(self):
+        self.note_replicas()
+        evs = list(self.sc.events)
+        while self.seen < len(evs):
+            ev = evs[self.seen]
+            self.seen += 1
+            w = self.sc._watches.get('fleet')
+            act = w.actuating if w is not None else None
+            if act is not None:
+                act.join(timeout=120)
+                if act.is_alive():
+                    raise AssertionError('autoscale: an actuation hung')
+            self.note_replicas()
+            self.after.append({
+                'action': ev['action'], 'replicas': len(self.entry.replicas),
+                'graphs': fleet_check_graphs(self.entry, 'after %s'
+                                             % ev['action'], self.buckets)})
+
+    def log(self):
+        return [{'action': e['action'], 'reason': e['reason'],
+                 'p99_ms': e.get('p99_ms'), 'replicas': e.get('replicas'),
+                 'max_batch': e.get('max_batch'), 'level': e.get('level'),
+                 'ms': (e['t'] - self.t0_wall) * 1e3}
+                for e in self.sc.events]
+
+
+def auto_order(log):
+    """The stepped load's story, in order: scale_up to the ceiling,
+    brownout level >= 1, the ladder back to level 0 (max batch restored
+    first where it was shrunk), scale_down to one replica."""
+    idx = {}
+    for i, e in enumerate(log):
+        a = e['action']
+        if a == 'scale_up' and e['replicas'] == AUTO_MAX_REPLICAS:
+            idx.setdefault('scale_up_max', i)
+        if a == 'brownout' and (e['level'] or 0) >= 1 and \
+                'scale_up_max' in idx:
+            idx.setdefault('brownout', i)
+            idx.pop('brownout_off', None)
+            idx.pop('scale_down_1', None)
+        if a == 'brownout' and e['level'] == 0 and 'brownout' in idx:
+            idx['brownout_off'] = i
+        if a == 'scale_down' and e['replicas'] == 1 and \
+                'brownout_off' in idx:
+            idx.setdefault('scale_down_1', i)
+    missing = [k for k in ('scale_up_max', 'brownout', 'brownout_off',
+                           'scale_down_1') if k not in idx]
+    if missing:
+        raise AssertionError('autoscale: the decision log lacks %s: %s'
+                             % (missing, [(e['action'], e['replicas'],
+                                           e['level'], round(e['ms']))
+                                          for e in log]))
+    return idx
+
+
+def prom_check(instrument, servewatch, text):
+    """Every line of the exposition parses; returns (bad lines, a
+    serving_e2e_secs exemplar request id whose postmortem was committed
+    or None)."""
+    import re
+    line_re = re.compile(PROM_LINE)
+    bad, found = [], None
+    for line in text.splitlines():
+        if not line_re.match(line):
+            bad.append(line)
+            continue
+        if found is None and line.startswith('mxtpu_serving_e2e_secs_bucket') \
+                and '# {request_id="' in line:
+            rid = line.split('request_id="', 1)[1].split('"', 1)[0]
+            pm = servewatch.postmortem_for(rid)
+            if pm is not None and pm['path'] and os.path.exists(pm['path']):
+                found = (rid, pm['path'], pm['kind'])
+    return bad, found
+
+
+def auto_chains(events, buckets):
+    """Per delivered request its six servewatch bucket spans (us) and
+    e2e; the flush bucket each rode."""
+    flush_bucket, reqs = {}, {}
+    for e in events:
+        name, args = e['name'], e.get('args') or {}
+        if name == 'serve.flush':
+            flush_bucket[args['flush']] = args.get('bucket')
+        elif name == 'serve.request':
+            r = reqs.setdefault(args['req'], {})
+            r['e2e'], r['flush'] = e['dur'], args['flush']
+        elif name.startswith('serve.req.'):
+            reqs.setdefault(args['req'], {})[name[len('serve.req.'):]] = \
+                e['dur']
+    broken = [rid for rid, r in reqs.items()
+              if 'e2e' not in r or any(b not in r for b in buckets)
+              or sum(r[b] for b in buckets) != r['e2e']]
+    return reqs, flush_bucket, broken
+
+
+def autoscale_phase(mx, torch, fused, instrument, convert, symbol, arg, aux,
+                    data, oracle):
+    """4c. autoscale (see the module docstring).  ``oracle``: the fleet
+    phase's oracle Predictor."""
+    import shutil
+    import tempfile
+    servewatch = mx.serving.servewatch
+    t_phase = time.monotonic()
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    shapes = {'data': (BATCH,) + IMAGE}
+    params = {'A': convert.params_from_numpy(arg, aux, 'cuda:0')}
+    symbol_json = symbol.tojson()
+    buckets = BATCH.bit_length()
+    flight_dir = tempfile.mkdtemp(prefix='autoscale-flight-')
+    probe = FleetProbe(mx, torch)
+    fresh_memory(torch)
+    instrument.reset_metrics()
+    instrument.set_metrics(True)
+    instrument.clear_trace()
+    servewatch.reset()
+    servewatch.set_enabled(True)
+    servewatch.set_slow_ms(AUTO_SLO_MS)
+    recorder = mx.health.install_flight_recorder(flight_dir)
+    dump_ms = []
+    dump = recorder.dump
+
+    def timed_dump(reason, extra=None):
+        t0 = time.perf_counter()
+        try:
+            return dump(reason, extra=extra)
+        finally:
+            dump_ms.append((time.perf_counter() - t0) * 1e3)
+    recorder.dump = timed_dump
+    server = mx.serving.ModelServer(max_delay_ms=2.0, max_batch=BATCH)
+    stops = []
+    report = {'model': 'resnet-50 v2', 'classes': 1000,
+              'image': list(IMAGE), 'max_batch': BATCH, 'buckets': buckets,
+              'fuse': 'aggressive', 'tf32': False,
+              'cudnn_deterministic': True, 'slo_p99_ms': AUTO_SLO_MS,
+              'interval_s': AUTO_INTERVAL_S,
+              'max_replicas': AUTO_MAX_REPLICAS, 'brownout': True,
+              'up_after': 2, 'down_after': 3}
+    try:
+        t0 = time.monotonic()
+        server.load_model('fleet', symbol_json=symbol_json,
+                          params=params['A'], input_shapes=shapes,
+                          replicas=1)
+        report['load_s'] = time.monotonic() - t0
+        entry = server._entry('fleet')
+        traffic = FleetTraffic(server, data)
+        sc = server.autoscale('fleet', slo_p99_ms=AUTO_SLO_MS,
+                              interval_s=AUTO_INTERVAL_S, min_replicas=1,
+                              max_replicas=AUTO_MAX_REPLICAS, brownout=True,
+                              up_after=2, down_after=3, start=False)
+        windows = []
+        windowed = sc._windowed
+
+        def read_window(w):
+            out = windowed(w)
+            windows.append((time.monotonic(), out[0], out[1], out[2],
+                            entry.batcher.queued_rows()))
+            return out
+        sc._windowed = read_window
+        reset_launches(fused.fused_bn_relu)
+        del probe.records[:]
+        captures0 = instrument.counter_value('compile.traces')
+        t0_wall, t0 = time.time(), time.monotonic()
+        mon = AutoMonitor(sc, entry, buckets, t0_wall)
+        sc.start()
+        prom = {}
+
+        def watch_until(t_end, done=None, t_max=None):
+            while True:
+                mon.poll()
+                if 'exemplar' not in prom and \
+                        instrument.counter_value('serving.postmortems'):
+                    bad, found = prom_check(instrument, servewatch,
+                                            instrument.render_prometheus())
+                    prom['bad_lines'] = bad[:5]
+                    if bad:
+                        raise AssertionError('autoscale: Prometheus lines '
+                                             'do not parse: %s' % bad[:3])
+                    if found is not None:
+                        prom['exemplar'] = found
+                now = time.monotonic()
+                if now >= t_end and (done is None or done() or
+                                     now >= t_max):
+                    return
+                time.sleep(AUTO_POLL_S)
+
+        # heavy: 16 clients, 75% batch 8-row and 25% interactive 1-row
+        stop = threading.Event()
+        stops.append(stop)
+        heavy = auto_clients(mx, server, traffic, AUTO_HEAVY_CLIENTS, stop,
+                             SEED + 7, 0.25)
+        batcher = entry.batcher
+        watch_until(t0, lambda: batcher.shed_batch, t0 + AUTO_HEAVY_MAX_S)
+        t_b = time.monotonic()
+        # brownout: the same load, held on for a fixed span from level 1
+        watch_until(t_b + AUTO_BROWNOUT_S)
+        stop.set()
+        auto_join(*heavy)
+        t1 = time.monotonic()
+        report['heavy'] = auto_stage([r for r in heavy[1] if r[5] <= t_b],
+                                     t_b - t0)
+        report['brownout'] = auto_stage(
+            [r for r in heavy[1] if r[5] > t_b], t1 - t_b)
+        report['brownout_start_ms'] = (t_b - t0) * 1e3
+        report['heavy_end_ms'] = (t1 - t0) * 1e3
+        # light: 2 clients of interactive 1-row requests
+        stop = threading.Event()
+        stops.append(stop)
+        light = auto_clients(mx, server, traffic, AUTO_LIGHT_CLIENTS, stop,
+                             SEED + 8, 1.0, AUTO_LIGHT_THINK_S)
+
+        def settled():
+            w = sc._watches.get('fleet')
+            return len(entry.replicas) == 1 and not batcher.shed_batch and \
+                batcher.max_batch == batcher.configured_max_batch and \
+                (w is None or w.actuating is None or
+                 not w.actuating.is_alive())
+        watch_until(t1 + AUTO_LIGHT_S, settled, t1 + AUTO_LIGHT_MAX_S)
+        stop.set()
+        auto_join(*light)
+        t2 = time.monotonic()
+        sc.stop()
+        mon.poll()
+        report['light'] = auto_stage(light[1], t2 - t1)
+        report['light_end_ms'] = (t2 - t0) * 1e3
+        auto_bn = fused.fused_bn_relu.launches
+        torch.cuda.synchronize()
+
+        log = mon.log()
+        report['decisions'] = log
+        report['brownout_by_level'] = auto_levels(log, t0, heavy[1], t_b, t1)
+        report['graphs_after_decisions'] = mon.after
+        order = auto_order(log)
+        report['order'] = order
+        sheds = instrument.counter_value('serving.brownout_sheds')
+        if not sheds:
+            raise AssertionError('autoscale: brownout shed nothing: %s'
+                                 % [(e['action'], e['replicas'], e['level'],
+                                     round(e['ms'])) for e in log])
+        report['brownout_sheds'] = sheds
+        # the tick's breach evidence: the windowed p99 over the SLO (on a
+        # window of 5 or more), sheds, or a backlog past one batch
+        breach = [t for t, p99, n, shed, rows in windows
+                  if (n >= 5 and p99 > AUTO_SLO_MS) or shed or rows > BATCH]
+        new_ids = [pid for pid, rid in mon.rid_of.items() if rid == 1]
+        first_flush = min(rec[5] for rec in probe.records
+                          if rec[4] in new_ids)
+        report['first_breach_ms'] = (breach[0] - t0) * 1e3
+        report['breach_to_new_replica_flush_ms'] = \
+            (first_flush - breach[0]) * 1e3
+        report['windows'] = len(windows)
+
+        # #2: 17 a forward on every replica, plus the eager warm-up before
+        # each capture of a new replica's buckets (a capture launches
+        # nothing; its replays count)
+        forwards = Counter(rec[4] for rec in probe.records)
+        warmups = instrument.counter_value('compile.traces') - captures0
+        by_replica = Counter()
+        for pid, n in forwards.items():
+            by_replica['r%s' % mon.rid_of.get(pid, '?')] += AUTO_BN_RELU * n
+        if auto_bn != AUTO_BN_RELU * (sum(forwards.values()) + warmups):
+            raise AssertionError('autoscale: fused_bn_relu launched %d '
+                                 'times in %d forwards and %d warm-ups'
+                                 % (auto_bn, sum(forwards.values()),
+                                    warmups))
+        report['fused_bn_relu'] = {
+            'launches': auto_bn, 'forwards': sum(forwards.values()),
+            'by_replica': dict(by_replica),
+            'warmup_launches': AUTO_BN_RELU * warmups,
+            'replicas_built': instrument.counter_value('serving.scale_ups')}
+
+        # attribution: every delivered request's six buckets sum to e2e
+        served = [r for r in heavy[1] + light[1]
+                  if not isinstance(r[4], str)]
+        events = instrument.trace_events()
+        reqs, flush_bucket, broken = auto_chains(events, servewatch.BUCKETS)
+        if broken or len(reqs) != len(served):
+            raise AssertionError('autoscale: %d of %d requests traced, %d '
+                                 'chains do not sum to e2e'
+                                 % (len(reqs), len(served), len(broken)))
+        ex32 = [r['execute'] for r in reqs.values()
+                if flush_bucket.get(r['flush']) == BATCH]
+        replay_ms = fleet_replay_ms(torch, entry.replicas[0])
+        tables = servewatch.budget_tables()
+        ledger = max(abs(sum(t[b]['sum'] for b in servewatch.BUCKETS) -
+                         t['e2e']['sum']) / max(t['e2e']['sum'], 1e-30)
+                     for t in tables.values())
+        trace_path = os.path.join(flight_dir, 'autoscale_trace.json')
+        n_events = instrument.dump_trace(trace_path)
+        rc = subprocess.call(
+            [sys.executable, os.path.join(os.path.dirname(
+                os.path.abspath(__file__)), 'tools', 'check_trace.py'),
+             trace_path], timeout=300)
+        if rc != 0:
+            raise AssertionError('autoscale: tools/check_trace.py rejected '
+                                 'the trace (rc %d)' % rc)
+        if not ex32 or statistics.median(ex32) / 1e3 < replay_ms[BATCH]:
+            raise AssertionError('autoscale: the median execute bucket at '
+                                 '%d rows (%s ms over %d requests) is under '
+                                 'its replay alone (%.3f ms)'
+                                 % (BATCH, statistics.median(ex32) / 1e3
+                                    if ex32 else None, len(ex32),
+                                    replay_ms[BATCH]))
+        bad, found = prom_check(instrument, servewatch,
+                                instrument.render_prometheus())
+        if bad or 'exemplar' not in prom:
+            raise AssertionError('autoscale: Prometheus: %d bad lines, '
+                                 'exemplar with a postmortem: %s'
+                                 % (len(bad), prom.get('exemplar')))
+        shares = {b: statistics.median(
+            r[b] / max(r['e2e'], 1) for r in reqs.values())
+            for b in servewatch.BUCKETS}
+        report['attribution'] = {
+            'requests_traced': len(reqs), 'chains_exact': len(reqs),
+            'budget_ledger_max_rel': ledger,
+            'bucket_median_share': shares,
+            'execute_%d_rows' % BATCH: {
+                'requests': len(ex32),
+                'median_ms': statistics.median(ex32) / 1e3,
+                'replay_alone_ms': replay_ms[BATCH]},
+            'trace_events': n_events, 'check_trace_rc': rc,
+            'prometheus_exemplar': prom['exemplar'],
+            'postmortems': instrument.counter_value('serving.postmortems'),
+            'postmortems_dropped':
+                instrument.counter_value('serving.postmortems_dropped'),
+            'postmortem_dump_ms': {
+                'count': len(dump_ms),
+                'median': statistics.median(dump_ms) if dump_ms else None,
+                'max': max(dump_ms) if dump_ms else None}}
+
+        # every response of the phase against the one-replica oracle
+        t3 = time.monotonic()
+        report['checks_s'] = t3 - t2
+        report['oracle'], _ = fleet_oracle(
+            mx, torch, symbol_json, params, traffic,
+            [r[:5] for r in served], probe, oracle)
+        report['oracle_s'] = time.monotonic() - t3
+
+        # the plane's cost: fleet's 2-replica traffic, servewatch off / on
+        sc.unwatch('fleet')
+        while len(entry.replicas) < 2:
+            server.scale_up('fleet')
+        rng = np.random.default_rng(SEED + 9)
+        sizes = [int(v) for v in rng.integers(1, 9, size=FLEET_REQUESTS)]
+        runs = []
+        for mode in ('off', 'on'):
+            servewatch.set_enabled(mode == 'on')
+            servewatch.reset()
+            pm0 = instrument.counter_value('serving.postmortems')
+            n_dumps = len(dump_ms)
+            results, wall = traffic.wait(traffic.run(
+                [(r, None) for r in sizes]))
+            fleet_sane(results)
+            runs.append({'servewatch': mode, 'replicas': 2,
+                         'images_per_s': sum(sizes) / wall, 'wall_s': wall,
+                         **fleet_latency(results),
+                         'postmortems': instrument.counter_value(
+                             'serving.postmortems') - pm0,
+                         'dump_ms_total': sum(dump_ms[n_dumps:])})
+        report['servewatch_cost'] = runs
+        probe.on = False
+        snap = server.drain(timeout=60, reason='autoscale')
+        if not snap['flight_path'] or \
+                not os.path.exists(snap['flight_path']):
+            raise AssertionError('autoscale: drain committed no flight '
+                                 'record')
+        report['drain'] = {'flight_record': os.path.basename(
+            snap['flight_path']), 'drain_secs': snap['drain_secs']}
+    finally:
+        for stop in stops:
+            stop.set()
+        probe.close()
+        server.close(drain=False, timeout=60)
+        servewatch.set_enabled(False)
+        servewatch.set_slow_ms(0.0)
+        servewatch.reset()
+        mx.health._recorder = None
+        instrument.set_profiling(False)
+        instrument.clear_trace()
+        shutil.rmtree(flight_dir, ignore_errors=True)
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = prev
+    report['seconds'] = time.monotonic() - t_phase
+    return report, auto_bn
 
 
 def start_capture_checks():
@@ -5461,6 +6051,14 @@ def main():
                                bn_relu_shapes(mx, symbol, 1 << k))
                       for k in range(BATCH.bit_length())}
     resnet_train_shapes = train_kernel_shapes(mx, symbol, BATCH)
+    optim_symbol = resnet.resnet(
+        units=OPTIM_UNITS, num_stages=4,
+        filter_list=[64, 256, 512, 1024, 2048], num_classes=1000,
+        image_shape=IMAGE, bottle_neck=True)
+    optim_arg, optim_aux = convert.random_params(
+        optim_symbol, {'data': (BATCH,) + IMAGE}, SEED)
+    optim_dots, optim_convs, optim_bn_relus = train_kernel_shapes(
+        mx, optim_symbol, BATCH)
     zoo_ahead(mx, models, convert)
     op_cpu_halves(torch)
     ahead_s = time.monotonic() - t0
@@ -5665,10 +6263,17 @@ def main():
         raise AssertionError('top-1 differs between the card and the CPU')
 
     # -- 4b. fleet: 1, 2 and 4 replicas, lanes, deadlines, changes, repair --
-    fleet_report, fleet_bn = fleet_phase(mx, torch, fused, instrument,
-                                         convert, symbol, arg, aux, data,
-                                         fleet_bn_paths)
+    fleet_report, fleet_bn, oracle = fleet_phase(
+        mx, torch, fused, instrument, convert, symbol, arg, aux, data,
+        fleet_bn_paths)
     log({'phase': 'fleet', **fleet_report})
+
+    # -- 4c. autoscale: windowed p99, brownout, servewatch, postmortems ------
+    auto_report, auto_bn = autoscale_phase(mx, torch, fused, instrument,
+                                           convert, symbol, arg, aux, data,
+                                           oracle)
+    del oracle
+    log({'phase': 'autoscale', **auto_report})
 
     # -- 6. train: the second main path ----------------------------------
     prog = mx.fuse.apply_fuse_passes(symbol, True, 'aggressive')
@@ -6097,14 +6702,19 @@ def main():
     resnet_expected = {'fused_scale_bias_dot': 36,
                        'fused_scale_bias_conv3x3': 16,
                        'fused_bn_relu': bn_relu_nodes}
+    optim_expected = {
+        'fused_scale_bias_dot': sum(optim_dots.values()),
+        'fused_scale_bias_conv3x3': sum(optim_convs.values()),
+        'fused_bn_relu': sum(optim_bn_relus.values())}
     t0 = time.monotonic()
     optim_report, optim_launches, failures = optim_train(
-        mx, torch, symbol, arg, aux, images, labels, resnet_kernels,
-        resnet_expected)
-    log({'phase': 'optim-train', 'model': 'resnet-50 v2', 'batch': BATCH,
+        mx, torch, optim_symbol, optim_arg, optim_aux, images, labels,
+        resnet_kernels, optim_expected)
+    log({'phase': 'optim-train', 'model': 'resnet v2, resnet-50\'s stages '
+         'at full width, units %s' % OPTIM_UNITS, 'batch': BATCH,
          'steps': OPTIM_STEPS, 'compute_dtype': 'bfloat16 (f32 masters); '
          'f32 for captured-vs-loop', 'launches': optim_launches,
-         'launches_per_step': resnet_expected,
+         'launches_per_step': optim_expected,
          'seconds': time.monotonic() - t0, 'optimizers': optim_report,
          'failures': failures})
     if failures:
@@ -6302,9 +6912,9 @@ def main():
         + ff_bn_relu + mirror_launches['fused_bn_relu']
         + monitor_launches['fused_bn_relu']
         + sum(zoo_launches['fused_bn_relu'].values())
-        + serve_launches['fused_bn_relu'] + fleet_bn,
+        + serve_launches['fused_bn_relu'] + fleet_bn + auto_bn,
         'launches_by_path': {'serve': launches['fused_bn_relu'],
-                             'fleet': fleet_bn,
+                             'fleet': fleet_bn, 'autoscale': auto_bn,
                              'train': train_launches['fused_bn_relu'],
                              'optim-train': optim_launches['fused_bn_relu'],
                              'checkpoint-resume':

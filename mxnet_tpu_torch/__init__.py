@@ -46,6 +46,7 @@ from . import operator, rtc
 from . import (callback, initializer, io, lr_scheduler, metric, module,
                optimizer, parallel, resilience, rnn)
 from . import model, monitor
+from . import detector, health
 from . import initializer as init
 from . import module as mod
 from . import optimizer as opt
@@ -65,5 +66,6 @@ __all__ = ['MXNetError', 'Context', 'cpu', 'gpu', 'current_context',
            'fuse', 'ops', 'config', 'instrument', 'Module', 'module', 'mod',
            'io', 'metric', 'optimizer', 'lr_scheduler', 'initializer',
            'opt', 'init', 'callback', 'random', 'parallel', 'rnn',
-           'engine', 'model', 'FeedForward', 'resilience', 'monitor']
+           'engine', 'model', 'FeedForward', 'resilience', 'monitor',
+           'detector', 'health']
 

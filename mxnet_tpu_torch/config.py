@@ -147,6 +147,79 @@ _register('MXTPU_SERVE_WEDGE_MS', 5000.0, float,
 _register('MXTPU_SERVE_SUPERVISE_INTERVAL', 0.2, float,
           'Supervisor poll period (seconds).  <= 0: no poll thread '
           '(tick() can still be driven by hand).')
+_register('MXTPU_SERVE_SLO_MS', 0.0, float,
+          'Serving p99 latency SLO (milliseconds) the replica autoscaler '
+          'holds (ModelServer.autoscale default; 0 = no default, '
+          'autoscale() then needs an explicit slo_p99_ms).  The '
+          'autoscaler reads WINDOWED p99 (instrument.HistogramWindow '
+          'deltas of the serving histograms), never lifetime aggregates.')
+_register('MXTPU_SERVE_MAX_REPLICAS', 4, int,
+          'Autoscaler ceiling on replicas per model.  At the ceiling the '
+          'controller shrinks the max batch (or, with brownout, climbs '
+          'its ladder) instead of adding replicas.')
+_register('MXTPU_SERVE_SCALE_INTERVAL', 1.0, float,
+          'Autoscaler control-loop period (seconds): each tick reads one '
+          'windowed p99 / queue / shed sample per watched model and '
+          'applies at most one hysteresis-gated decision (every decision '
+          'logged as an event).  <= 0: no control thread (tick() can '
+          'still be driven by hand).')
+_register('MXTPU_SERVE_BROWNOUT', False, _bool,
+          "Default for the autoscaler's graceful-brownout ladder "
+          '(watch(brownout=...)): under sustained breach AT capacity the '
+          'fleet degrades in order (shed the batch lane, shrink '
+          'max_batch, serve the smallest bucket) before interactive '
+          'traffic is ever shed; each rung is a logged, hysteresis-gated '
+          'decision (serving.brownout_level gauge).')
+_register('MXTPU_SERVEWATCH', False, _bool,
+          'Enable the request-attribution plane (serving/servewatch.py): '
+          'every admitted request gets a request id and an exclusive-'
+          'bucket span chain (admission_wait / lane_wait / coalesce_wait '
+          '/ pad / execute / slice_deliver summing to e2e exactly) '
+          'recorded as serving.req.* histograms, flush composition '
+          'records, latency-histogram exemplars (request id per le= '
+          'bucket, in the Prometheus exposition too) and tail '
+          'postmortems (MXTPU_SERVE_TRACE_SLOW_MS).  Implies metrics; '
+          'spawns no threads.  Off: every hook is a single flag check.')
+_register('MXTPU_SERVE_TRACE_SLOW_MS', 0.0, float,
+          'Tail-forensics threshold (milliseconds): under '
+          'MXTPU_SERVEWATCH, a request whose e2e latency breaches it (or '
+          'that is shed, errored, replayed or deadline-dropped) commits '
+          'a durable flight-record postmortem naming its span chain, the '
+          'flush it rode, the queue depths at admission and the '
+          'autoscaler decisions inside its window (needs '
+          'MXTPU_FLIGHT_RECORDER).  0 = only sheds/errors/replays/'
+          'deadline drops commit postmortems.')
+_register('MXTPU_SERVE_POSTMORTEM_CAP', 64, int,
+          'Upper bound on per-request postmortems committed per process '
+          '(servewatch): under sustained overload every request '
+          'breaches, and unbounded dumps would become their own tail '
+          'source.  Past the cap serving.postmortems_dropped counts '
+          'what was suppressed.')
+# -- observability (instrument.py, health.py) --------------------------------
+_register('MXTPU_PROFILE', False, _bool,
+          'Enable the instrument.py span tracer (Chrome-trace spans: the '
+          'serving flush, servewatch request chains, decision instants; '
+          'dump with instrument.dump_trace).  Implies metrics.  Off: '
+          'every span is a no-op.')
+_register('MXTPU_METRICS', True, _bool,
+          'Record the instrument.py metrics registry (counters, gauges, '
+          'timers, histograms; instrument.metrics_snapshot).  On by '
+          'default in the port (the reference defaults to off): the '
+          'launch and capture counters of a card run are always wanted.  '
+          '0 turns it off unless MXTPU_PROFILE implies it.')
+_register('MXTPU_FLIGHT_RECORDER', '', str,
+          'Directory for the crash flight recorder (health.py): a bounded '
+          'ring of recent spans plus a metrics snapshot, dumped '
+          'atomically (resilience.atomic_replace) on exit, SIGTERM/'
+          'SIGABRT, every MXTPU_FAULTS-injected kill, a serving drain '
+          'and each servewatch postmortem.  Installing it turns span '
+          'tracing on.  Unset: nothing installed.')
+_register('MXTPU_FLIGHT_RECORDER_RING', 256, int,
+          'How many recent spans a flight-recorder dump keeps (the tail '
+          'across all thread buffers, read without draining them).')
+_register('MXTPU_FLIGHT_RECORDER_EVERY', 8, int,
+          'Write-ahead flight-recorder cadence: FlightRecorder.tick() '
+          'dumps every N calls.')
 # -- fault injection (resilience.py) -----------------------------------------
 _register('MXTPU_FAULTS', '', str,
           'Fault-injection plan (resilience.py grammar: '

@@ -8,16 +8,26 @@ Predictors whose buckets replay CUDA graphs.
   coalescing at flush boundaries), per-lane admission bounds
   (:class:`ServerOverloadedError`), request deadlines
   (:class:`DeadlineExceededError`), drain and SIGTERM drain.
+- :class:`ReplicaAutoscaler` — the closed-loop controller holding the
+  WINDOWED p99 at an SLO (``server.autoscale(name, slo_p99_ms=...)``):
+  scale replicas up/down, shrink/restore the max batch, and with
+  brownout shed the batch lane before interactive traffic sheds; every
+  decision logged as an event.
+- :mod:`~mxnet_tpu_torch.serving.servewatch` — the request-attribution
+  plane (``MXTPU_SERVEWATCH``): per-request span chains whose six
+  exclusive buckets sum to e2e, flush composition records, histogram
+  exemplars and capped tail postmortems through the flight recorder.
 - :class:`FleetSupervisor` — the detect→repair loop
   (``server.supervise(name)`` / ``MXTPU_SERVE_SUPERVISE``): a wedged or
   dead replica is quarantined, its in-flight requests replayed once
   (:class:`ReplicaQuarantinedError` on a second displacement), and a
   warmed replacement attached before the tear-down.
 
-The reference's ``ReplicaAutoscaler`` (with brownout) and
-``servewatch`` are not ported yet.  Importing this package starts
-nothing: threads exist only per constructed server.
+Importing this package starts nothing: threads exist only per
+constructed server (and per autoscaler or supervisor it enrolls).
 """
+from . import servewatch
+from .autoscaler import ReplicaAutoscaler
 from .batcher import (DeadlineExceededError, DynamicBatcher,
                       ReplicaQuarantinedError, ServerOverloadedError,
                       LANE_BATCH, LANE_INTERACTIVE)
@@ -26,5 +36,6 @@ from .supervisor import FleetSupervisor
 
 __all__ = ['ModelServer', 'DynamicBatcher', 'ServerOverloadedError',
            'DeadlineExceededError', 'ReplicaQuarantinedError',
-           'ModelNotFoundError', 'FleetSupervisor',
+           'ModelNotFoundError', 'ReplicaAutoscaler',
+           'FleetSupervisor', 'servewatch',
            'LANE_BATCH', 'LANE_INTERACTIVE']

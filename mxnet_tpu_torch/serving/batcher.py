@@ -42,17 +42,21 @@ flush (:meth:`dead_workers`); the supervisor seizes a wedged flush
 (:class:`ReplicaQuarantinedError`).  The fault sites ``serve.worker.r<id>``
 and ``serve.flush.r<id>`` are kept (``resilience.fault_point``).
 
-Every stage lands in the instrument registry: ``serving.queue_wait_secs``
-/ ``serving.execute_secs`` / ``serving.e2e_secs`` histograms, both the
-model-wide series and labeled per-replica / per-lane ones
-(``serving.e2e_secs|lane=interactive,model=m,replica=0``), and the
-``serving.requests`` / ``batched_requests`` / ``flushes`` counters.
+**Brownout.** With :attr:`shed_batch` set (the autoscaler's first
+brownout rung) the batch lane sheds at admission
+(``serving.brownout_sheds``) while the interactive lane keeps serving;
+:attr:`max_batch` may be shrunk below :attr:`configured_max_batch`, the
+cap replicas warm to.
 
-Not ported yet: the request-attribution plane's calls
-(``servewatch``: admission stamps, flush records, exemplars) and the
-flush span, which wait for the observability planes; brownout's
-batch-lane shedding (``shed_batch``) and ``queued_rows``, which come
-with the autoscaler that sets and reads them.
+Every stage lands in the instrument registry: ``serving.queue_wait_secs``
+/ ``serving.execute_secs`` / ``serving.e2e_secs`` histograms (the e2e
+ones with request-id exemplars under servewatch), both the model-wide
+series and labeled per-replica / per-lane ones
+(``serving.e2e_secs|lane=interactive,model=m,replica=0``), the
+``serving.requests`` / ``batched_requests`` / ``flushes`` counters and,
+under profiling, a ``serving.flush[<model>]`` span around each execute.
+With servewatch on, each request is stamped at admission and finished
+against its flush's composition record (:mod:`.servewatch`).
 """
 from __future__ import annotations
 
@@ -66,6 +70,7 @@ import numpy as np
 
 from .. import config, instrument, resilience
 from ..base import MXNetError
+from . import servewatch
 
 __all__ = ['DynamicBatcher', 'ServerOverloadedError',
            'DeadlineExceededError', 'ReplicaQuarantinedError',
@@ -97,7 +102,10 @@ class ReplicaQuarantinedError(MXNetError):
 
 
 class _Request(object):
+    # t_submit/t_admit/admit_depths are stamped by servewatch.admit when
+    # the plane is on; req_id is always set (None: not traced)
     __slots__ = ('inputs', 'rows', 'future', 't_enqueue', 'lane',
+                 'req_id', 't_submit', 't_admit', 'admit_depths',
                  'deadline', 'replayed')
 
     def __init__(self, inputs, rows, lane):
@@ -106,6 +114,7 @@ class _Request(object):
         self.future = Future()
         self.t_enqueue = time.monotonic()
         self.lane = lane
+        self.req_id = None
         self.deadline = None      # monotonic drop-dead instant, or None
         self.replayed = False     # re-queued once by a quarantine
 
@@ -133,6 +142,9 @@ class DynamicBatcher(object):
                           if max_delay_ms is None else max_delay_ms) / 1e3
         self.max_batch = int(config.get('MXTPU_SERVE_MAX_BATCH')
                              if max_batch is None else max_batch)
+        # the CONFIGURED cap: the autoscaler shrinks and restores
+        # max_batch, but warm-ups and the restore target speak this
+        self.configured_max_batch = self.max_batch
         self.max_queue = int(config.get('MXTPU_SERVE_MAX_QUEUE')
                              if max_queue is None else max_queue)
         # the starvation valve: past this wait one batch flush goes ahead
@@ -155,6 +167,8 @@ class DynamicBatcher(object):
         # flush is in flight; rid -> the exception its worker died of
         self._inflight = {}
         self._dead = {}
+        # brownout level 1: the batch lane sheds at admission
+        self.shed_batch = False
         self.default_deadline_ms = float(
             config.get('MXTPU_SERVE_DEADLINE_MS'))
         # labeled metric names, built once so a flush builds no strings
@@ -174,7 +188,10 @@ class DynamicBatcher(object):
         its Future.  ``priority`` is ``'interactive'`` or
         ``'batch'``/None.  ``deadline_ms`` (None: the default; 0: none)
         bounds the wait in the queue.  Sheds with
-        :class:`ServerOverloadedError` when the lane is full."""
+        :class:`ServerOverloadedError` when the lane is full, or (the
+        batch lane) while :attr:`shed_batch` is set."""
+        sw = servewatch.enabled()
+        t_submit = time.monotonic() if sw else 0.0
         if priority in (None, LANE_BATCH):
             lane, q = LANE_BATCH, self._queue
         elif priority == LANE_INTERACTIVE:
@@ -197,14 +214,35 @@ class DynamicBatcher(object):
         with self._cond:
             if not self._running:
                 raise MXNetError('model %r is unloaded' % self.name)
+            if lane == LANE_BATCH and self.shed_batch:
+                # POLICY sheds stay out of the per-lane shed_total series
+                # the autoscaler reads as breach evidence, or sustained
+                # batch load would hold the breach up and the ladder
+                # could never come down
+                instrument.inc('serving.shed_total')
+                instrument.inc('serving.brownout_sheds')
+                instrument.inc('serving.brownout_sheds|model=%s'
+                               % self.name)
+                if sw:
+                    servewatch.note_shed(self.name, lane, len(q),
+                                         self.depth())
+                raise ServerOverloadedError(
+                    'model %r batch lane browned out; shedding'
+                    % self.name)
             if len(q) >= self.max_queue:
                 instrument.inc('serving.shed_total')
                 instrument.inc('serving.shed_total|model=%s,lane=%s'
                                % (self.name, lane))
+                if sw:
+                    servewatch.note_shed(self.name, lane, len(q),
+                                         self.depth())
                 raise ServerOverloadedError(
                     'model %r %s lane full (%d requests); shedding'
                     % (self.name, lane, len(q)))
             q.append(req)
+            if sw:
+                req.t_submit = t_submit
+                servewatch.admit(req, self.name, len(q), self.depth())
             instrument.inc('serving.requests')
             instrument.set_gauge('serving.queue_depth', self.depth())
             self._cond.notify_all()
@@ -214,6 +252,13 @@ class DynamicBatcher(object):
         """Queued requests across both lanes (read unlocked: an
         introspection number)."""
         return len(self._queue) + len(self._hi)
+
+    def queued_rows(self):
+        """Queued ROWS across both lanes, the unit ``max_batch`` speaks
+        (the autoscaler's backlog signal)."""
+        with self._lock:
+            return sum(r.rows for r in self._queue) + \
+                sum(r.rows for r in self._hi)
 
     def pause(self):
         """Hold flushing; requests keep queueing under admission
@@ -520,6 +565,8 @@ class DynamicBatcher(object):
         instrument.inc('serving.deadline_drops')
         instrument.inc('serving.deadline_drops|model=%s,lane=%s'
                        % (self.name, req.lane))
+        if servewatch.enabled() and req.req_id is not None:
+            servewatch.note_deadline(self.name, req, now)
         if not req.future.cancelled():
             req.future.set_exception(DeadlineExceededError(
                 'model %r request waited %.1f ms, past its %.1f ms '
@@ -588,7 +635,10 @@ class DynamicBatcher(object):
 
     def _flush(self, batch, replica, execute, exec_name, flush_name,
                token=None):
+        # t_start is the chain's "taken" boundary: the batch was popped
+        # just before this call
         t_start = time.monotonic()
+        sw = servewatch.enabled() and batch[0].req_id is not None
         lane = batch[0].lane
         qwait_name = self._lane_qwait[lane]
         for req in batch:
@@ -601,6 +651,7 @@ class DynamicBatcher(object):
         instrument.inc('serving.flushes')
         instrument.inc(flush_name)
         instrument.inc('serving.batched_requests', len(batch))
+        t_exec0 = 0.0
         try:
             if resilience.faults_on():
                 # 'serve.flush.r<id>': a 'wedge' holds the flush in
@@ -612,8 +663,21 @@ class DynamicBatcher(object):
                                            and k not in self.batch_inputs)
                     else np.concatenate([r.inputs[k] for r in batch]))
                 for k in batch[0].inputs}
-            outs = execute(merged, rows)
-            dt = time.monotonic() - t_start
+            if sw:
+                t_exec0 = time.monotonic()   # host merge done
+            with instrument.span('serving.flush[%s]' % self.name,
+                                 cat='serving',
+                                 args={'rows': rows,
+                                       'requests': len(batch),
+                                       'model': self.name,
+                                       'replica': replica,
+                                       'lane': lane}):
+                # on the card execute() returns after the host copy-out,
+                # which waits on the replica's stream: t_exec1 closes the
+                # device time
+                outs = execute(merged, rows)
+            t_exec1 = time.monotonic()
+            dt = t_exec1 - t_start
             instrument.observe_hist('serving.execute_secs', dt)
             instrument.observe_hist(exec_name, dt)
         except Exception as e:            # noqa: BLE001 - fail the batch
@@ -625,6 +689,10 @@ class DynamicBatcher(object):
             _log.warning('serving: model %r flush of %d rows on replica '
                          '%r failed: %s', self.name, rows, replica, e)
             instrument.inc('serving.errors', len(batch))
+            if sw:
+                servewatch.note_error(self.name, lane, replica, batch,
+                                      self.max_delay, t_start,
+                                      t_exec0 or t_start, e)
             for req in batch:
                 if not req.future.cancelled():
                     req.future.set_exception(e)
@@ -634,6 +702,9 @@ class DynamicBatcher(object):
             instrument.inc('serving.abandoned_flushes')
             return
         t_done = time.monotonic()
+        frec = servewatch.open_flush(
+            self.name, lane, replica, batch, rows, self.max_delay,
+            t_start, t_exec0, t_exec1, execute) if sw else None
         e2e_name = self._lane_e2e.get((lane, replica))
         if e2e_name is None:
             e2e_name = self._lane_e2e[(lane, replica)] = (
@@ -647,7 +718,12 @@ class DynamicBatcher(object):
                       else o for o in outs]
             off += req.rows
             e2e = t_done - req.t_enqueue
-            instrument.observe_hist('serving.e2e_secs', e2e)
-            instrument.observe_hist(e2e_name, e2e)
+            instrument.observe_hist('serving.e2e_secs', e2e,
+                                    exemplar=req.req_id)
+            instrument.observe_hist(e2e_name, e2e, exemplar=req.req_id)
+            if frec is not None:
+                servewatch.deliver(frec, req, time.monotonic())
             if not req.future.cancelled():
                 req.future.set_result(sliced)
+        if frec is not None:
+            servewatch.close_flush(frec)

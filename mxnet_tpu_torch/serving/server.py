@@ -44,12 +44,19 @@ behind ONE shared admission queue with per-replica
   :class:`ServerOverloadedError`; deadlines drop requests typed
   (:class:`DeadlineExceededError`); latencies land in ``serving.*_secs``
   histograms, model-wide and labeled per replica and lane.
+- **Autoscaling**: :meth:`autoscale` enrolls a model with the
+  :class:`~mxnet_tpu_torch.serving.autoscaler.ReplicaAutoscaler`, which
+  holds its windowed p99 at an SLO (scale up/down, shrink/restore the
+  max batch, brownout).  Every replica warms to the batcher's
+  CONFIGURED cap, so one built while the autoscaler has the batch
+  shrunk still captures every bucket a restore brings back.
 - **Supervision**: :meth:`supervise` enrolls a model with the
   :class:`~mxnet_tpu_torch.serving.supervisor.FleetSupervisor`.
+- **Attribution**: with servewatch on, :meth:`drain` commits its
+  snapshot, the servewatch rings included, through the flight recorder.
 
-Not ported yet: :meth:`autoscale` and the tensor-parallel ``mesh=`` /
-``partition=`` replicas raise :class:`MXNetError` naming what they wait
-for (the autoscaler with brownout, and the distributed plane).
+Not ported yet: the tensor-parallel ``mesh=`` / ``partition=`` replicas
+raise :class:`MXNetError` naming the distributed plane they wait for.
 """
 from __future__ import annotations
 
@@ -62,12 +69,13 @@ import time
 import numpy as np
 import torch
 
-from .. import compile_cache, config, instrument, resilience
+from .. import compile_cache, config, health, instrument, resilience
 from .. import model as model_mod
 from .. import ndarray as nd
 from ..base import MXNetError
 from ..context import Context
 from ..predictor import Predictor
+from . import servewatch
 from .batcher import (DeadlineExceededError, DynamicBatcher,
                       ReplicaQuarantinedError, ServerOverloadedError)
 
@@ -76,9 +84,6 @@ __all__ = ['ModelServer', 'ModelNotFoundError', 'ServerOverloadedError',
 
 _log = logging.getLogger('mxnet_tpu_torch.serving')
 
-_AUTOSCALE_LATER = ('the replica autoscaler (with brownout) is not ported '
-                    'yet; it comes with the windowed histogram reads '
-                    '(ROADMAP Queue 1 item 6)')
 _MESH_LATER = ('tensor-parallel replicas (mesh=/partition=) need the '
                'distributed plane (ROADMAP Queue 1 item 8)')
 
@@ -140,13 +145,23 @@ class ModelServer(object):
         self._models = {}
         self._lock = threading.Lock()
         self._closed = False
+        self._autoscaler = None
         self._supervisor = None
 
     # -- replica devices ----------------------------------------------------
 
+    def _capacity_for(self, entry):
+        """Replica capacity from an entry in hand (the autoscaler passes
+        the one it holds, so no registry lookup races an unload).  The
+        port serves unsharded models only, and those have no ceiling:
+        replicas past the device count share devices round-robin."""
+        return 1 << 30
+
     def replica_capacity(self, name):
-        """The autoscaler's replica ceiling: not ported yet."""
-        raise MXNetError(_AUTOSCALE_LATER)
+        """How many replicas the local devices can hold for ``name``
+        (the autoscaler's hard ceiling).  Unsharded models are unbounded
+        here; the autoscaler's ``max_replicas`` is the cap that governs."""
+        return self._capacity_for(self._entry(name))
 
     def _replica_context(self, slot):
         """The Context of replica slot ``slot``: the server's device for
@@ -315,7 +330,9 @@ class ModelServer(object):
             """Batcher hook: the merged batch through THIS replica's
             current Predictor, on the replica's stream.  The replica lock
             orders the flush against a reload's swap: the Predictor read
-            here serves the whole batch."""
+            here serves the whole batch.  ``last_info`` names the bucket
+            the batch rode and a signature for it (servewatch's flush
+            record)."""
             with rep.lock:
                 if resilience.faults_on():
                     # 'serve.execute.r<id>', inside the lock, so an
@@ -325,15 +342,24 @@ class ModelServer(object):
                 predictor = rep.predictor
                 with _on_stream(rep.stream):
                     predictor.forward(**inputs)
-                    return [predictor.get_output(i)
+                    outs = [predictor.get_output(i)
                             for i in range(predictor.num_outputs)]
+                bucket = getattr(predictor, '_active_bucket', None)
+            if bucket is not None:
+                _execute.last_info = (
+                    bucket, '%s[b=%d]' % (type(predictor).__name__,
+                                          bucket))
+            return outs
+        _execute.last_info = None
         return _execute
 
     def _warm_rows(self, entry=None):
-        """The rows every replica warms to: the batcher's cap (the
-        server's max_batch before the batcher exists)."""
+        """The rows every replica warms to: the batcher's CONFIGURED cap
+        (the server's max_batch before the batcher exists), not the live
+        one, which the autoscaler may have shrunk: a replica built then
+        must still hold every bucket a restore brings back."""
         if entry is not None and entry.batcher is not None:
-            return entry.batcher.max_batch
+            return entry.batcher.configured_max_batch
         return int(config.get('MXTPU_SERVE_MAX_BATCH')
                    if self._max_batch is None else self._max_batch)
 
@@ -459,9 +485,12 @@ class ModelServer(object):
         replica's requests fail with :class:`ReplicaQuarantinedError`."""
         with self._lock:
             entry = self._models.pop(name, None)
+            sc = self._autoscaler
             sup = self._supervisor
         if entry is None:
             raise ModelNotFoundError('no model %r' % name)
+        if sc is not None:
+            sc.unwatch(name)
         if sup is not None:
             sup.unwatch(name)
         with entry.admin_lock:
@@ -542,15 +571,41 @@ class ModelServer(object):
             raise ModelNotFoundError('no model %r' % name)
         return entry
 
-    # -- autoscaling (not ported yet) -----------------------------------------
+    # -- autoscaling --------------------------------------------------------
 
     def autoscale(self, name, slo_p99_ms=None, interval_s=None, **kw):
-        """The closed-loop replica autoscaler: not ported yet."""
-        raise MXNetError(_AUTOSCALE_LATER)
+        """Enroll ``name`` with the closed-loop replica autoscaler (one
+        per server, made and started on first use).  ``slo_p99_ms``
+        defaults to ``MXTPU_SERVE_SLO_MS``, ``interval_s`` to
+        ``MXTPU_SERVE_SCALE_INTERVAL``; ``kw`` goes to
+        :meth:`ReplicaAutoscaler.watch`.  Raises without the metrics
+        plane, whose histograms are the controller's only input.
+        Returns the autoscaler (its :attr:`events` are the decision
+        log)."""
+        from .autoscaler import ReplicaAutoscaler
+        self._entry(name)
+        if not instrument.metrics_enabled():
+            raise MXNetError(
+                'autoscale needs the metrics plane: set MXTPU_METRICS=1 '
+                'or instrument.set_metrics(True) before enrolling')
+        if slo_p99_ms is None:
+            slo_p99_ms = float(config.get('MXTPU_SERVE_SLO_MS'))
+        if slo_p99_ms <= 0:
+            raise MXNetError('autoscale needs slo_p99_ms > 0 (or '
+                             'MXTPU_SERVE_SLO_MS set)')
+        with self._lock:
+            if self._autoscaler is None:
+                self._autoscaler = ReplicaAutoscaler(
+                    self, interval_s=interval_s)
+            sc = self._autoscaler
+        if interval_s is not None:
+            sc.interval_s = float(interval_s)
+        sc.watch(name, slo_p99_ms=slo_p99_ms, **kw)
+        return sc
 
     @property
     def autoscaler(self):
-        raise MXNetError(_AUTOSCALE_LATER)
+        return self._autoscaler
 
     # -- supervision --------------------------------------------------------
 
@@ -625,8 +680,12 @@ class ModelServer(object):
         with self._lock:
             self._closed = True
             names = list(self._models)
+            sc = self._autoscaler
+            self._autoscaler = None
             sup = self._supervisor
             self._supervisor = None
+        if sc is not None:
+            sc.stop()
         if sup is not None:
             sup.stop()
         for name in names:
@@ -637,22 +696,22 @@ class ModelServer(object):
 
     def drain(self, timeout=None, reason='drain'):
         """Bounded graceful drain, the SIGTERM path: stops admission and
-        the supervisor, flushes every model's lanes within ONE shared
-        ``timeout`` (default ``MXTPU_SERVE_DRAIN_TIMEOUT``; requests left
-        in flight on a wedged replica fail typed past it) and returns the
-        snapshot ``{'reason', 'models', 'stats', 'drain_secs',
-        'autoscaler_events', 'supervisor_events', 'flight_path'}``.
-
-        Two parts of the reference's snapshot wait for the observability
-        planes: the servewatch rings are left out, and ``flight_path`` is
-        None, the reference's own branch when no flight recorder is
-        installed (``mxnet_tpu/serving/server.py:786-793``)."""
+        the control threads (autoscaler, supervisor), flushes every
+        model's lanes within ONE shared ``timeout`` (default
+        ``MXTPU_SERVE_DRAIN_TIMEOUT``; requests left in flight on a
+        wedged replica fail typed past it), then commits the snapshot
+        ``{'reason', 'models', 'stats', 'drain_secs',
+        'autoscaler_events', 'supervisor_events', 'servewatch',
+        'flight_path'}`` through the flight recorder (installed from
+        ``MXTPU_FLIGHT_RECORDER`` if need be; ``flight_path`` is None
+        when there is none) and returns it."""
         if timeout is None:
             timeout = float(config.get('MXTPU_SERVE_DRAIN_TIMEOUT'))
         t0 = time.monotonic()
         t_end = t0 + max(0.0, float(timeout))
         with self._lock:
             names = list(self._models)
+            sc = self._autoscaler
             sup = self._supervisor
         snap = {
             'reason': reason,
@@ -663,10 +722,26 @@ class ModelServer(object):
         self.close(drain=True,
                    timeout=max(0.0, t_end - time.monotonic()))
         snap['drain_secs'] = time.monotonic() - t0
-        snap['autoscaler_events'] = []
+        # the rings survive close(): read them after, so repairs and
+        # postmortems of the drain itself are in
+        snap['autoscaler_events'] = list(sc.events) if sc is not None \
+            else []
         snap['supervisor_events'] = list(sup.events) if sup is not None \
             else []
-        snap['flight_path'] = None
+        snap['servewatch'] = {
+            'decisions': servewatch.decisions(),
+            'supervision': servewatch.supervision_events(),
+            'flushes': servewatch.flushes(),
+            'postmortems': servewatch.postmortems(),
+        }
+        rec = health.flight_recorder()
+        if rec is None:
+            rec = health.install_flight_recorder()
+        if rec is not None:
+            rec.dump('serve-%s' % reason, extra=snap)
+            snap['flight_path'] = rec.durable_path('serve-%s' % reason)
+        else:
+            snap['flight_path'] = None
         instrument.inc('serving.drains')
         return snap
 

@@ -29,12 +29,11 @@ reload or unload can race the repair):
    thread lives).
 
 Every transition is a logged event (:attr:`events`), an
-``instrument.decision('supervisor', ...)``, and counted
-(``serving.quarantines``, ``serving.replays``, the
-``serving.replica_recovery_secs`` gauge).  Nothing runs unless a model
-is watched (``ModelServer.supervise`` or ``MXTPU_SERVE_SUPERVISE=1``).
-The reference's servewatch supervision ring waits for the observability
-planes.
+``instrument.decision('supervisor', ...)``, an entry of servewatch's
+supervision ring, and counted (``serving.quarantines``,
+``serving.replays``, the ``serving.replica_recovery_secs`` gauge).
+Nothing runs unless a model is watched (``ModelServer.supervise`` or
+``MXTPU_SERVE_SUPERVISE=1``).
 """
 from __future__ import annotations
 
@@ -43,6 +42,7 @@ import threading
 import time
 
 from .. import config, instrument
+from . import servewatch
 from .batcher import ReplicaQuarantinedError
 
 __all__ = ['FleetSupervisor']
@@ -337,6 +337,11 @@ class FleetSupervisor(object):
         ev.update(extra)
         self.events.append(ev)
         del self.events[:-EVENTS_CAP]
+        with self._lock:
+            state = dict(w.states)
+        # servewatch keeps its own ring, so a replayed request's
+        # postmortem can name the quarantine that displaced it
+        servewatch.note_supervision(ev, state)
         # the unified decision timeline: quarantine/replace/replay all
         # land as typed decision events the chronicle journals
         instrument.decision('supervisor', action, reason=reason,

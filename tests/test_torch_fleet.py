@@ -11,8 +11,8 @@ own (``tests/test_serving_fleet.py``: the shared queue, scale-down
 drains and the last-replica guard, a scale-up into a freed slot, a
 reload of every replica, lane preemption and the starvation valve,
 per-lane admission bounds, prebuilt-count validation, unload dropping
-every labeled series; the autoscaler's and the mesh's cases wait for
-their modules).  One real-model case serves a narrow ResNet v2 from two
+every labeled series; the autoscaler's cases are in
+``test_torch_autoscale.py``, the mesh's wait for their module).  One real-model case serves a narrow ResNet v2 from two
 port replicas against the JAX Predictor, rtol 1e-5, atol 1e-7.
 """
 import threading
@@ -480,21 +480,25 @@ def test_unload_drops_every_labeled_series():
 
 
 def test_autoscale_and_mesh_wait_for_their_modules():
+    """The autoscaler has landed (autoscale, autoscaler and
+    replica_capacity answer, and the export lists are equal); the
+    tensor-parallel replicas still raise, naming ROADMAP item 8."""
     server, _ = _stub_server(TORCH, n=1)
     try:
-        for call in (lambda: server.autoscale('s', slo_p99_ms=5.0),
-                     lambda: server.autoscaler,
-                     lambda: server.replica_capacity('s'),
-                     lambda: server.load_model('m', predictor=_Stub(),
+        assert server.autoscaler is None
+        assert server.replica_capacity('s') == 1 << 30
+        sc = server.autoscale('s', slo_p99_ms=5.0, interval_s=0,
+                              start=False)
+        assert server.autoscaler is sc and sc.watched() == ['s']
+        for call in (lambda: server.load_model('m', predictor=_Stub(),
                                                input_shapes=dict(SHAPES),
                                                mesh='1x1'),
                      lambda: server.reload_model('s', partition='auto')):
-            with pytest.raises(tmx.MXNetError, match='item [68]'):
+            with pytest.raises(tmx.MXNetError, match='item 8'):
                 call()
     finally:
         server.close(drain=False, timeout=WAIT)
-    assert set(j_serving.__all__) - set(t_serving.__all__) == {
-        'ReplicaAutoscaler', 'servewatch'}
+    assert set(j_serving.__all__) == set(t_serving.__all__)
 
 
 def test_gpu_server_refuses_unwarmed_replicas():

@@ -10,7 +10,11 @@ while the other replica replays, and every response during and after the
 capture equals the single replica's response to the same rows at the
 same bucket, bit for bit (TF32 off, cuDNN deterministic).  Two graphs
 one thread recorded on the capture stream replay at once on two streams
-and stay exact (each holds its own cuBLAS workspace).
+and stay exact (each holds its own cuBLAS workspace).  A ``tick()``-driven
+autoscaler ``scale_up`` captures a third replica under traffic with every
+response exact; after ``shrink_batch`` -> ``reload_model`` ->
+``restore_batch`` a full flush at the configured cap replays a graph
+captured before it (the reload warmed to the cap, not the shrunk batch).
 """
 import threading
 import time
@@ -193,3 +197,87 @@ def test_graphs_one_thread_captured_replay_at_once_exactly(dev, mkn):
         t.join(timeout=WAIT)
     assert not any(t.is_alive() for t in threads)
     assert [int(x) for x in bad] == [0, 0]
+
+
+def _bucket_replays(server, name, bucket):
+    return sum(rep.predictor._bucket_execs[bucket]._forward_graph.replays
+               for rep in server._entry(name).replicas)
+
+
+def test_autoscaled_scale_up_and_restore_replay_captured_graphs(dev):
+    sym_json, params, data = _model()
+    cap = 8
+    server = ModelServer(max_delay_ms=0, max_batch=cap)
+    try:
+        server.load_model('m', symbol_json=sym_json, params=params,
+                          input_shapes={'data': SHAPE}, replicas=2)
+        buckets = cap.bit_length()
+        assert _graphs(server, 'm') == 2 * buckets
+        # 2-row requests, each flushed alone (bucket 2) before traffic
+        want = [server.predict('m', data=data[2 * i:2 * i + 2],
+                               timeout=WAIT)[0] for i in range(32)]
+        sc = server.autoscale('m', slo_p99_ms=1e-6, interval_s=0,
+                              up_after=1, down_after=1, min_samples=1,
+                              cooldown_s=0, max_replicas=3, start=False)
+        sc.async_actuation = False
+        stop = threading.Event()
+        got, errors = [], []
+
+        def client(k):
+            i = k
+            while not stop.is_set():
+                j = i % 32
+                try:
+                    got.append((j, server.predict(
+                        'm', data=data[2 * j:2 * j + 2], timeout=WAIT)[0]))
+                except Exception as e:     # noqa: BLE001 - reported
+                    errors.append(repr(e))
+                    return
+                i += 4
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(4)]
+        for t in threads:
+            t.start()
+        t_end = time.monotonic() + WAIT
+        while len(got) < 8 and time.monotonic() < t_end:
+            time.sleep(0.01)
+        n0 = len(got)
+        evs = sc.tick()
+        during = len(got) - n0
+        assert [e['action'] for e in evs] == ['scale_up'], evs
+        assert server.replica_count('m') == 3
+        assert _graphs(server, 'm') == 3 * buckets
+        n1, t_end = len(got), time.monotonic() + WAIT
+        while len(got) < n1 + 8 and not errors and \
+                time.monotonic() < t_end:
+            time.sleep(0.01)
+        # at max_replicas a breach shrinks the batch
+        assert [e['action'] for e in sc.tick()] == ['shrink_batch']
+        batcher = server._entry('m').batcher
+        assert batcher.max_batch == cap // 2
+        stop.set()
+        for t in threads:
+            t.join(timeout=WAIT)
+        assert not errors and not any(t.is_alive() for t in threads)
+        assert during > 0, 'no request was served during the capture'
+        for j, out in got:
+            np.testing.assert_array_equal(out, want[j])
+        # a reload while shrunk captures every bucket up to the cap
+        server.reload_model('m', symbol_json=sym_json, params=params)
+        assert _graphs(server, 'm') == 3 * buckets
+        sc._watches['m'].slo_p99_ms = 1e6
+        for i in range(4):
+            server.predict('m', data=data[2 * i:2 * i + 2], timeout=WAIT)
+        assert [e['action'] for e in sc.tick()] == ['restore_batch']
+        assert batcher.max_batch == cap
+        before = _bucket_replays(server, 'm', cap)
+        out = server.predict('m', data=data[:cap], timeout=WAIT)[0]
+        assert _bucket_replays(server, 'm', cap) == before + 1
+        assert _graphs(server, 'm') == 3 * buckets
+        ref = tmx.Predictor(sym_json, params, {'data': SHAPE},
+                            pad_to_bucket=True)
+        ref.warm_buckets(cap)
+        ref.forward(data=data[:cap])
+        np.testing.assert_array_equal(out, ref.get_output(0))
+    finally:
+        server.close(timeout=WAIT)
