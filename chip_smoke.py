@@ -392,7 +392,12 @@ graphs held), and peak allocated and reserved device memory.
                   Predictor (bit for bit); multibox_nms on the served
                   forward's own rows against its plain loop (row for
                   row), both timed, its bound from the IoU tests this
-                  run's rows need; a per-class case off the path.
+                  run's rows need; each of its two kernels (the masks,
+                  the scan) timed from torch.profiler's records and
+                  counted in one traced served forward, phase A's words
+                  against the plain transcription's, the workspace
+                  bytes and the pairs phase A tests (from the rows); a
+                  per-class case off the path.
                   ssd-train: Module.fit on ssd-vgg16-train, 8 rows,
                   seeded boxes, f32, 4 steps captured and eager, the
                   example's lr over the localisation loss's valid count
@@ -2279,6 +2284,25 @@ def fleet_trace(torch, traffic, sizes):
                                min(s for s, _ in kernels)) / 1e3,
                parse_s=time.perf_counter() - t0,
                trace_s=time.perf_counter() - t_trace)
+    return out
+
+
+def kernel_records(torch, fn, names):
+    """Run ``fn`` under torch.profiler: for each of ``names``, the device
+    durations (ms) of the kernels whose names contain it."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {n: [] for n in names}
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        for n in names:
+            if n in evt.name():
+                out[n].append((evt.end_ns() - evt.start_ns()) / 1e6)
     return out
 
 
@@ -5091,6 +5115,7 @@ SSD_FORWARDS = 10
 SSD_TRAIN_STEPS = 4
 SSD_OPT = {'learning_rate': 0.004, 'momentum': 0.9, 'wd': 5e-4}
 SSD_VARIANCES = (0.1, 0.1, 0.2, 0.2)
+NMS_KERNELS = ('nms_masks', 'nms_scan')   # csrc/multibox_nms.cu
 NMS_OPS_PER_PAIR = 16   # 2 max, 2 min, 4 sub, 2 clamp, 3 mul, add, div, cmp
 DETECTION_INPUTS = ('cls_prob_output', 'multibox_loc_pred_output',
                     'multibox_anchors_output')
@@ -5366,17 +5391,44 @@ def nms_case(mx, torch, mb, symbol, params, images, flush):
     equal = bool(torch.equal(got, want))
     host_rows = rows.cpu().numpy()
     pairs = nms_pairs(host_rows, 0.5, True)
-    nbytes = rows.numel() * 4 + rows.shape[0] * rows.shape[1] * 4
+    nbytes = rows.numel() * 4 * 2          # the rows read, the output written
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     op_ms = pairs * NMS_OPS_PER_PAIR / FP32_FLOPS * 1e3
     ms = cuda_ms(torch, lambda: mb.multibox_nms(rows, 0.5, True), flush,
                  reps=20, warmup=3)
+    # each kernel's device time from torch.profiler's records of 20 more
+    # calls (each after an L2 flush), and phase A's words from a call into
+    # a zeroed workspace against the plain transcription's, every word
+    for _ in range(3):
+        mb.multibox_nms(rows, 0.5, True)
+
+    def timed():
+        for _ in range(20):
+            flush.sum()
+            mb.multibox_nms(rows, 0.5, True)
+    phase = kernel_records(torch, timed, NMS_KERNELS)
+    phase_ms = {n: statistics.median(v) if v else 'not measured'
+                for n, v in phase.items()}
+    ws = torch.zeros(mb.nms_workspace_shape(*rows.shape[:2]),
+                     dtype=torch.int64, device=rows.device)
+    ws = mb._nms_launch(rows, 0.5, True, ws=ws)[1]
+    words_equal = bool(torch.equal(ws, mb.nms_masks_plain(rows, 0.5, True)))
+    # derived from this run's rows, not counted: phase A tests every valid
+    # row against the 64 rows of each column block from its own on
+    valid_rows = host_rows[:, :, 0] >= 0
+    row_block = np.arange(rows.shape[1]) // mb.NMS_BLOCK
+    words = mb.nms_words(rows.shape[1])
+    phase_a_pairs = int((valid_rows * (words - row_block)).sum()
+                        * mb.NMS_BLOCK)
     kept = int((got[..., 0] >= 0).sum())
     case = {'shape': list(rows.shape), 'nms_threshold': 0.5,
             'force_suppress': True, 'equal_to_plain': equal,
+            'phase_a_words_equal_to_plain': words_equal,
             'max_abs_err': float((got - want).abs().max()),
             'kept_rows': kept, 'valid_rows': int((got[..., 1] >= 0).sum()),
             'iou_pairs': pairs, 'ms': ms, 'plain_ms': plain_ms,
+            'phase_ms': phase_ms, 'phase_a_pairs_from_rows': phase_a_pairs,
+            'workspace_bytes': ws.numel() * ws.element_size(),
             'plain_host_s': plain_host_s,
             'host_us': host_us(torch, lambda: mb.multibox_nms(rows, 0.5,
                                                               True), 20),
@@ -5385,8 +5437,8 @@ def nms_case(mx, torch, mb, symbol, params, images, flush):
             'bytes': nbytes, 'flops': pairs * NMS_OPS_PER_PAIR,
             'library_ms': None}
     # per-class suppression, off the path, on the 1000 best rows of two of
-    # the images (the plain loop takes ~0.4 ms a row; the shared-memory
-    # opt-in past 12288 rows: tests/test_torch_cuda.py)
+    # the images (the plain loop takes ~0.4 ms a row; 19,600 rows and the
+    # edge cases: tests/test_torch_cuda.py)
     r = rows[:2, :1000].contiguous()
     g, w = mb.multibox_nms(r, 0.5, False), mb.multibox_nms_plain(r, 0.5,
                                                                   False)
@@ -5436,7 +5488,18 @@ def ssd_serve(mx, torch, models, convert, mb, tmp, flush):
             graphs = graph_report(e._forward_graph for e in
                                   pred._bucket_execs.values()
                                   if getattr(e, '_forward_graph', None))
-            served[mode] = {'outs': outs, 'pred': pred,
+            traced = None
+            if mode == 'captured':
+                # one more served forward under torch.profiler: the NMS
+                # kernels its graph replay ran, counted by name
+                recs = kernel_records(
+                    torch, lambda: pred.forward(data=batches[0]),
+                    NMS_KERNELS)
+                if not np.array_equal(pred.get_output(0), outs[0]):
+                    raise AssertionError('ssd: the traced forward differs '
+                                         'from the first')
+                traced = {n: len(v) for n, v in recs.items()}
+            served[mode] = {'outs': outs, 'pred': pred, 'traced': traced,
                             'report': {
                                 'load_and_warm_s': load_s,
                                 'buckets': warm,
@@ -5487,8 +5550,16 @@ def ssd_serve(mx, torch, models, convert, mb, tmp, flush):
     del pred, fresh, served
     params = convert.params_from_numpy(arg, aux, 'cuda:0')
     case, extra = nms_case(mx, torch, mb, symbol, params, batches[0], flush)
-    if not case['equal_to_plain'] or not all(e['equal_to_plain']
-                                             for e in extra):
+    case['kernels_per_served_forward'] = traced = cap['traced']
+    if any(traced.values()) and set(traced.values()) != {1}:
+        raise AssertionError('ssd: a traced served forward ran the NMS '
+                             'kernels %s times, not once each' % traced)
+    if not any(traced.values()):
+        case['kernels_per_served_forward'] = 'not measured: the profiler ' \
+            'recorded no NMS kernel'
+    if not case['equal_to_plain'] or \
+            not case['phase_a_words_equal_to_plain'] or \
+            not all(e['equal_to_plain'] for e in extra):
         raise AssertionError('multibox_nms disagrees with its plain version: '
                              '%s %s' % (case, extra))
     first = cap['report']
@@ -5981,6 +6052,10 @@ def nms_summary(case, launches):
                         'MultiBoxDetection; no pl.pallas_call)',
             'launches': sum(launches.values()),
             'launches_by_path': launches,
+            'kernels_per_call': case['kernels_per_served_forward'],
+            'phase_ms': case['phase_ms'],
+            'workspace_bytes': case['workspace_bytes'],
+            'phase_a_pairs_from_rows': case['phase_a_pairs_from_rows'],
             'max_abs_err': case['max_abs_err'], 'ms': case['ms'],
             'plain_ms': case['plain_ms'], 'bound_ms': case['bound_ms'],
             'bound_by': case['bound_by'], 'library_ms': None,

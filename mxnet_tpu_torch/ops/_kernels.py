@@ -105,9 +105,9 @@ KERNELS = {
         _DRIVER),
     'rtc': Kernel('rtc.cu', {}, ('-lnvrtc', '-lcuda')),
     'multibox_nms': Kernel('multibox_nms.cu', {
-        # rows (in place), batch, anchors, threshold, force_suppress,
-        # stream
-        'mxtpu_multibox_nms': (_P, _LL, _LL, _F, _I, _P)}),
+        # rows, out, workspace, batch, anchors, threshold,
+        # force_suppress, stream
+        'mxtpu_multibox_nms': (_P, _P, _P, _LL, _LL, _F, _I, _P)}),
 }
 
 build_seconds = {}      # kernel name -> wall seconds of its nvcc run

@@ -8,12 +8,15 @@ step can be captured in a CUDA graph.  The JAX ops ``vmap`` over the
 batch; here the batch is a leading dimension.  The sequential parts run
 as loops of fixed length: MultiBoxTarget's bipartite matching over the
 label slots (the JAX ``fori_loop``), and MultiBoxDetection's greedy NMS,
-which on the card is one hand-written CUDA kernel
-(:func:`multibox_nms`, ``csrc/multibox_nms.cu``; the JAX op's
+which on the card is a hand-written CUDA kernel in two phases
+(:func:`multibox_nms`, ``csrc/multibox_nms.cu``: IoU bitmasks over the
+whole card, then a blocked scan per image; the JAX op's
 ``fori_loop(0, num_anchors, nms_step, rows)`` at
 ``mxnet_tpu/ops/multibox.py:279`` would be ~12 launches per anchor
 here).  Its plain version, the JAX loop transcribed, runs on CPU tensors
-and is what the tests and ``chip_smoke.py`` hold the kernel against.
+and is what the tests and ``chip_smoke.py`` hold the kernel against;
+:func:`nms_masks_plain` and :func:`nms_scan_plain` transcribe the
+kernel's two phases, the oracle of each.
 
 As in the reference the outputs carry no gradient, and MultiBoxTarget
 stores the evident intent of the upstream threshold stage (a float
@@ -32,7 +35,8 @@ from ..instrument import count_launch as _count
 from . import _kernels
 from .registry import register, register_simple
 
-__all__ = ['multibox_prior', 'multibox_nms', 'multibox_nms_plain']
+__all__ = ['multibox_prior', 'multibox_nms', 'multibox_nms_plain',
+           'nms_masks_plain', 'nms_scan_plain']
 
 NEG_INF = -1e30
 
@@ -289,52 +293,179 @@ def multibox_nms_plain(rows, nms_threshold, force_suppress):
     return rows
 
 
-def _nms_launch(rows, nms_threshold, force_suppress):
+# the kernel's row blocks: 64 rows, a 64-bit word of mask bits each
+NMS_BLOCK = 64
+# the scan's two shared-memory bitmaps hold 908 words (7.3 KB each)
+NMS_MAX_ANCHORS = 908 * NMS_BLOCK
+# phase A's grid has the images in its y dimension
+NMS_MAX_IMAGES = 65535
+# bit k of a word as an int64 (bit 63 is the sign): a sum of distinct
+# weights packs bits into a word without overflow
+_BIT_WEIGHTS = [1 << k for k in range(63)] + [-(1 << 63)]
+
+
+def nms_words(num_anchors):
+    """Words a row of the kernel's masks: ceil(anchors / 64)."""
+    return -(-num_anchors // NMS_BLOCK)
+
+
+def nms_workspace_shape(batch, num_anchors):
+    """The kernel's workspace, int64 words: per image the mask rows, the
+    valid words, then 64 rows' worth holding the diagonal words a row
+    block at a time (:func:`nms_masks_plain`)."""
+    return (batch, num_anchors + 1 + NMS_BLOCK, nms_words(num_anchors))
+
+
+def nms_masks_plain(rows, nms_threshold, force_suppress):
+    """Phase A of ``csrc/multibox_nms.cu`` transcribed, over rows [B, A, 6]
+    as :func:`multibox_nms_plain` takes them: the int64 words of the
+    kernel's workspace, [B, A + 65, W], W = ceil(A / 64).  Bit k of word
+    [b, i, cb] says that row i would suppress row j = 64 cb + k: j > i,
+    both rows valid at the start (class id >= 0), the same class at the
+    start (any class under ``force_suppress``) and IoU(i, j) >=
+    ``nms_threshold``, the IoU computed as :func:`multibox_nms_plain`
+    computes it.  Row A holds the valid words (bit k of word w: row 64 w
+    + k is valid); rows A + 1 on, read as one flat run, the diagonal
+    words [i, i // 64] in row order.  The words the kernel leaves
+    unwritten (those of a row block with no valid row) have no bit set
+    here."""
+    b, a = rows.shape[:2]
+    w = nms_words(a)
+    dev = rows.device
+    cls = rows[:, :, 0]
+    valid = cls >= 0
+    key = torch.where(valid, 0.0, -1.0) if force_suppress else cls
+    area = torch.prod(rows[:, :, 4:6] - rows[:, :, 2:4], -1)
+    col = torch.arange(a, device=dev)
+    weights = torch.tensor(_BIT_WEIGHTS, dtype=torch.int64, device=dev)
+
+    def pack(bits):                      # [..., A] bool -> [..., W] int64
+        full = torch.zeros(bits.shape[:-1] + (w * NMS_BLOCK,),
+                           dtype=torch.int64, device=dev)
+        full[..., :a] = bits.to(torch.int64)
+        return (full.reshape(bits.shape[:-1] + (w, NMS_BLOCK))
+                * weights).sum(-1)
+
+    out = torch.zeros(nms_workspace_shape(b, a), dtype=torch.int64,
+                      device=dev)
+    for r0 in range(0, a, NMS_BLOCK):
+        r1 = min(r0 + NMS_BLOCK, a)
+        row = rows[:, r0:r1, None]                              # [B, n, 1, 6]
+        lt = torch.maximum(rows[:, None, :, 2:4], row[..., 2:4])
+        rb = torch.minimum(rows[:, None, :, 4:6], row[..., 4:6])
+        inter = torch.prod(torch.clamp_min(rb - lt, 0.0), -1)   # [B, n, A]
+        union = area[:, None, :] + area[:, r0:r1, None] - inter
+        pos = union > 0
+        iou = torch.where(pos, inter / torch.where(pos, union, 1.0), 0.0)
+        bits = valid[:, r0:r1, None] & valid[:, None, :] \
+            & (key[:, r0:r1, None] == key[:, None, :]) \
+            & (col > col[r0:r1, None]) & (iou >= nms_threshold)
+        out[:, r0:r1] = pack(bits)
+    out[:, a] = pack(valid)
+    diag = torch.zeros((b, w * NMS_BLOCK), dtype=torch.int64, device=dev)
+    diag[:, :a] = out[:, col, col // NMS_BLOCK]
+    out[:, a + 1:] = diag.reshape(b, NMS_BLOCK, w)
+    return out
+
+
+def nms_scan_plain(rows, masks):
+    """Phase B of ``csrc/multibox_nms.cu`` transcribed: the blocked greedy
+    scan over the words of :func:`nms_masks_plain` (or of the kernel's
+    phase A).  For each row block in order, its valid rows not yet removed
+    are resolved one by one (a kept row removes the later rows of its
+    diagonal word; the kernel resolves them in rounds, to the same rows),
+    then every kept row's words are ORed into the removed bitmap of the
+    later row blocks.  Returns new rows whose removed valid
+    rows have class id -1, as :func:`multibox_nms_plain` does."""
+    b, a = rows.shape[:2]
+    words = masks.cpu().numpy().view(np.uint64)                 # [B, A+65, W]
+    w = words.shape[2]
+    drop = np.zeros((b, w * NMS_BLOCK), bool)
+    for img in range(b):
+        m = words[img]
+        removed = np.zeros(w, np.uint64)
+        for rb in range(w):
+            valid = int(m[a, rb])
+            cand = valid & ~int(removed[rb])
+            kept = 0
+            while cand:
+                k = (cand & -cand).bit_length() - 1
+                kept |= 1 << k
+                cand &= ~(int(m[rb * NMS_BLOCK + k, rb]) | (1 << k))
+            if kept and rb + 1 < w:
+                ks = [rb * NMS_BLOCK + k for k in range(NMS_BLOCK)
+                      if kept >> k & 1]
+                removed[rb + 1:] |= np.bitwise_or.reduce(m[ks, rb + 1:],
+                                                         axis=0)
+            gone = valid & ~kept
+            drop[img, rb * NMS_BLOCK:(rb + 1) * NMS_BLOCK] = \
+                [gone >> k & 1 for k in range(NMS_BLOCK)]
+    drop = torch.from_numpy(drop[:, :a]).to(rows.device)
     out = rows.clone()
-    if out.numel() == 0:
-        return out
+    out[:, :, 0] = torch.where(drop, -1.0, rows[:, :, 0])
+    return out
+
+
+def _check_rows(rows, name):
+    if not isinstance(rows, torch.Tensor) or rows.ndim != 3 or \
+            rows.shape[2] != 6:
+        raise ValueError('%s: rows must be a (batch, anchors, 6) tensor'
+                         % name)
+    if rows.dtype != torch.float32:
+        raise TypeError('%s: rows must be float32, got %s'
+                        % (name, rows.dtype))
+    if not rows.is_contiguous():
+        raise ValueError('%s: rows must be contiguous' % name)
+    if rows.device.type == 'cuda' and (
+            rows.shape[1] > NMS_MAX_ANCHORS or
+            rows.shape[0] > NMS_MAX_IMAGES):
+        raise ValueError('%s: %d images of %d anchors; the kernel holds at '
+                         'most %d images of %d' % (
+                             name, rows.shape[0], rows.shape[1],
+                             NMS_MAX_IMAGES, NMS_MAX_ANCHORS))
+    if rows.device.type not in ('cuda', 'cpu', 'meta'):
+        raise MXNetError('%s: unsupported device %s' % (name, rows.device))
+
+
+def _nms_launch(rows, nms_threshold, force_suppress, ws=None):
+    """Launch the kernel's two phases on card rows into new rows, with
+    workspace ``ws`` (an uninitialised one if None; the check of phase A
+    passes a zeroed one, so the words phase A leaves unwritten read 0).
+    Returns (out, ws)."""
+    b, a = rows.shape[:2]
+    out = torch.empty_like(rows)
+    if ws is None:
+        # from the graph's pool under capture; phase A writes every word
+        # phase B reads
+        ws = torch.empty(nms_workspace_shape(b, a), dtype=torch.int64,
+                         device=rows.device)
+    if rows.numel() == 0:
+        return out, ws
     fn = _kernels.load('multibox_nms')
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device).cuda_stream
-        err = fn(out.data_ptr(), out.shape[0], out.shape[1],
+    with torch.cuda.device(rows.device):
+        stream = torch.cuda.current_stream(rows.device).cuda_stream
+        err = fn(rows.data_ptr(), out.data_ptr(), ws.data_ptr(), b, a,
                  float(nms_threshold), int(bool(force_suppress)), stream)
     if err:
         raise MXNetError('multibox_nms: kernel launch failed: %s (CUDA '
                          'error %d)' % (_kernels.error_string(
                              'multibox_nms', err), err))
     _count(multibox_nms)
-    return out
-
-
-# one block holds an image's class ids in shared memory (227 KB a block)
-NMS_MAX_ANCHORS = 232448 // 4
+    return out, ws
 
 
 def multibox_nms(rows, nms_threshold, force_suppress):
     """Greedy NMS over score-ordered detection rows [B, A, 6] (float32,
     contiguous); returns new rows whose suppressed entries have class id
-    -1.  A CUDA tensor runs ``csrc/multibox_nms.cu`` (one thread block
-    per image; ``multibox_nms.launches`` counts its launches), a CPU
-    tensor :func:`multibox_nms_plain`."""
-    if not isinstance(rows, torch.Tensor) or rows.ndim != 3 or \
-            rows.shape[2] != 6:
-        raise ValueError('multibox_nms: rows must be a (batch, anchors, 6) '
-                         'tensor')
-    if rows.dtype != torch.float32:
-        raise TypeError('multibox_nms: rows must be float32, got %s'
-                        % rows.dtype)
-    if not rows.is_contiguous():
-        raise ValueError('multibox_nms: rows must be contiguous')
+    -1.  A CUDA tensor runs ``csrc/multibox_nms.cu`` (two kernels: the
+    IoU masks over the card, then one scan block per image;
+    ``multibox_nms.launches`` counts one a call), a CPU tensor
+    :func:`multibox_nms_plain`."""
+    _check_rows(rows, 'multibox_nms')
     if rows.device.type == 'cuda':
-        if rows.shape[1] > NMS_MAX_ANCHORS:
-            raise ValueError('multibox_nms: %d anchors; the kernel holds at '
-                             'most %d' % (rows.shape[1], NMS_MAX_ANCHORS))
-        return _nms_launch(rows, nms_threshold, force_suppress)
+        return _nms_launch(rows, nms_threshold, force_suppress)[0]
     if rows.device.type == 'meta':
         return rows.clone()
-    if rows.device.type != 'cpu':
-        raise MXNetError('multibox_nms: unsupported device %s'
-                         % rows.device)
     return multibox_nms_plain(rows, nms_threshold, force_suppress)
 
 

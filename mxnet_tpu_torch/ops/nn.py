@@ -220,9 +220,11 @@ def _pooling_apply(attrs, inputs, is_train, rng):
             return [torch.amax(data, dim=axes, keepdim=True)], {}
         if pool_type == 'avg':
             return [torch.mean(data, dim=axes, keepdim=True)], {}
+        # upstream MXNet's global sum; the JAX op returns the mean here
+        # (ROADMAP, reference deviations)
         return [torch.sum(data, dim=axes, keepdim=True)], {}
-    if nd != 2:
-        raise NotImplementedError('Pooling: only 2-D windows are ported')
+    if nd not in (1, 2, 3):
+        raise NotImplementedError('Pooling: %d-D windows' % nd)
     kernel = _tup(attrs['kernel'], nd)
     stride = _tup(attrs.get('stride'), nd)
     pad = _tup(attrs.get('pad'), nd, default=0)
@@ -235,13 +237,21 @@ def _pooling_apply(attrs, inputs, is_train, rng):
                               stride[i], convention)
         needed = (out_d - 1) * stride[i] + kernel[i] - data.shape[2 + i]
         widths += [pad[i], max(needed - pad[i], pad[i])]
+    padded = F.pad(data, widths, value=float('-inf') if pool_type == 'max'
+                   else 0.0)
+    if nd == 1:
+        # torch's 1-D average pool has no divisor_override: a 1-D window
+        # pools as a 2-D one over a unit leading dimension
+        padded, kernel, stride = padded[:, :, None], (1,) + kernel, \
+            (1,) + stride
     if pool_type == 'max':
-        padded = F.pad(data, widths, value=float('-inf'))
-        return [F.max_pool2d(padded, kernel, stride)], {}
-    padded = F.pad(data, widths, value=0.0)
-    divisor = 1 if pool_type == 'sum' else None
-    return [F.avg_pool2d(padded, kernel, stride,
-                         divisor_override=divisor)], {}
+        pool = F.max_pool3d if len(kernel) == 3 else F.max_pool2d
+        out = pool(padded, kernel, stride)
+    else:
+        pool = F.avg_pool3d if len(kernel) == 3 else F.avg_pool2d
+        out = pool(padded, kernel, stride,
+                   divisor_override=1 if pool_type == 'sum' else None)
+    return [out[:, :, 0] if nd == 1 else out], {}
 
 
 register('Pooling', _pooling_apply,

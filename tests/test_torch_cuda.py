@@ -771,15 +771,15 @@ def _nms_rows(dev, batch, hw, classes=21, ties=False, seed=0):
 
 
 @pytest.mark.parametrize('force', [True, False], ids=['force', 'per_class'])
-@pytest.mark.parametrize('case', ['ssd_300', 'ties', 'past_48k_smem'])
+@pytest.mark.parametrize('case', ['ssd_300', 'ties', 'large'])
 def test_multibox_nms_matches_plain(case, force, dev):
     """Row for row against the plain loop: SSD's 300 x 300 anchor count
     (7308 as 38 x 38 x 5 + ...; here 38 x 38 x 4 = 5776 rows a image, 8
     images), exact score ties (the stable order decides), and 19600 rows
-    (78 KB of class ids: the kernel's dynamic shared memory opt-in)."""
+    (307 mask words a row, 48 MB of workspace an image)."""
     from mxnet_tpu_torch.ops import multibox as mb
-    hw = {'ssd_300': 38, 'ties': 20, 'past_48k_smem': 70}[case]
-    rows = _nms_rows(dev, 8 if case != 'past_48k_smem' else 2, hw,
+    hw = {'ssd_300': 38, 'ties': 20, 'large': 70}[case]
+    rows = _nms_rows(dev, 8 if case != 'large' else 2, hw,
                      ties=case == 'ties')
     before = mb.multibox_nms.launches
     got = mb.multibox_nms(rows, 0.45, force)
@@ -794,10 +794,113 @@ def test_multibox_nms_matches_plain(case, force, dev):
                                        ties=case == 'ties'))
 
 
+def _nms_edge_rows(case, a=200, batch=2, seed=4):
+    """Score-ordered rows over ``a`` random anchors (numpy-seeded, made on
+    the CPU): ``ties`` repeats every other anchor's logits; ``unordered``
+    shuffles the rows (-1 rows among valid ones, scores out of order);
+    ``all_invalid`` has no score above its threshold; ``threshold_1``
+    pairs identical boxes (IoU exactly 1)."""
+    from mxnet_tpu_torch.ops import multibox as mb
+    rng = np.random.default_rng(seed)
+    centre = rng.random((a, 2))
+    side = rng.uniform(0.05, 0.4, (a, 2))
+    if case == 'threshold_1':
+        centre[1::2], side[1::2] = centre[0:a - 1:2], side[0:a - 1:2]
+    anchors = np.concatenate([centre - side / 2, centre + side / 2],
+                             1).clip(0, 1).astype(np.float32)
+    logits = rng.standard_normal((batch, 5, a)) * 2
+    if case == 'ties':
+        logits[:, :, 1::2] = logits[:, :, 0:a - 1:2]
+    prob = torch.softmax(torch.from_numpy(logits.astype(np.float32)), 1)
+    loc = torch.from_numpy((rng.standard_normal((batch, a * 4)) * 0.3)
+                           .astype(np.float32))
+    if case == 'threshold_1':
+        loc.zero_()
+    rows = mb.detection_rows(
+        prob, loc, torch.from_numpy(anchors),
+        {'all_invalid': 1.5, 'unordered': 0.3}.get(case, 0.01), True,
+        (0.1, 0.1, 0.2, 0.2))
+    if case == 'unordered':
+        rows = rows[:, torch.from_numpy(rng.permutation(a))].contiguous()
+    return rows
+
+
+def _phase_a_words(rows, thr, force):
+    """Phase A's words from one call of the kernel into a zeroed workspace
+    (phase B only reads them; the words phase A leaves unwritten read 0,
+    as in :func:`nms_masks_plain`)."""
+    from mxnet_tpu_torch.ops import multibox as mb
+    ws = torch.zeros(mb.nms_workspace_shape(*rows.shape[:2]),
+                     dtype=torch.int64, device=rows.device)
+    return mb._nms_launch(rows, thr, force, ws=ws)[1]
+
+
+@pytest.mark.parametrize('force', [True, False], ids=['force', 'per_class'])
+@pytest.mark.parametrize('case', ['a1', 'a63', 'a64', 'a65', 'ties',
+                                  'unordered', 'all_invalid', 'threshold_1'])
+def test_multibox_nms_edge_cases_match_plain(case, force, dev):
+    """Anchor counts around the 64-row blocks and the edge cases of the
+    two-phase design, row for row against the plain loop; phase A's
+    words against :func:`nms_masks_plain`'s, every word."""
+    from mxnet_tpu_torch.ops import multibox as mb
+    host = _nms_edge_rows(case, a={'a1': 1, 'a63': 63, 'a64': 64,
+                                  'a65': 65}.get(case, 200))
+    thr = 1.0 if case == 'threshold_1' else 0.45
+    rows = host.to(dev)
+    got = mb.multibox_nms(rows, thr, force)
+    words = _phase_a_words(rows, thr, force)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), mb.multibox_nms_plain(host, thr, force))
+    assert torch.equal(words.cpu(), mb.nms_masks_plain(host, thr, force))
+    assert torch.equal(words, mb.nms_masks_plain(rows, thr, force))
+
+
+@pytest.mark.parametrize('force', [True, False], ids=['force', 'per_class'])
+def test_multibox_nms_phase_a_words_match_plain(force, dev):
+    """Phase A's words at SSD's anchor count on the card against the plain
+    transcription run on the same card rows, and the plain scan over the
+    kernel's words against the kernel's rows."""
+    from mxnet_tpu_torch.ops import multibox as mb
+    rows = _nms_rows(dev, 4, 38)
+    words = _phase_a_words(rows, 0.45, force)
+    want = mb.nms_masks_plain(rows, 0.45, force)
+    assert torch.equal(words, want)
+    assert torch.equal(mb.nms_scan_plain(rows, words).cpu(),
+                       mb.multibox_nms(rows, 0.45, force).cpu())
+
+
+def test_multibox_nms_captured_replay_equals_eager(dev):
+    """The op captured in a CUDA graph (its workspace from the graph's
+    pool, both kernels on the capture stream): replays over new rows
+    equal eager calls on them, bit for bit."""
+    from mxnet_tpu_torch.ops import multibox as mb
+    first, second = _nms_rows(dev, 4, 38), _nms_rows(dev, 4, 38, seed=1)
+    static = first.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        mb.multibox_nms(static, 0.45, True)        # builds, warms
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = mb.multibox_nms(static, 0.45, True)
+    for rows in (second, first):
+        static.copy_(rows)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, mb.multibox_nms(rows, 0.45, True))
+    assert not torch.equal(mb.multibox_nms(first, 0.45, True),
+                           mb.multibox_nms(second, 0.45, True))
+
+
 def test_multibox_nms_rejects_what_it_cannot_take(dev):
     from mxnet_tpu_torch.ops import multibox as mb
     with pytest.raises(ValueError, match='at most'):
         mb.multibox_nms(torch.zeros(1, mb.NMS_MAX_ANCHORS + 1, 6,
+                                    device=dev), 0.5, True)
+    # past the images phase A's grid y dimension holds (1.5 MB of rows)
+    with pytest.raises(ValueError, match='at most'):
+        mb.multibox_nms(torch.zeros(mb.NMS_MAX_IMAGES + 1, 1, 6,
                                     device=dev), 0.5, True)
     with pytest.raises(TypeError):
         mb.multibox_nms(torch.zeros(1, 8, 6, device=dev,

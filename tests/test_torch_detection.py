@@ -173,6 +173,118 @@ def test_nms_rejects_what_the_kernel_cannot_take():
 
 
 # ---------------------------------------------------------------------------
+# the kernel's two phases, transcribed (nms_masks_plain, nms_scan_plain)
+# ---------------------------------------------------------------------------
+
+_NMS_KW = dict(clip=True, variances=(0.1, 0.1, 0.2, 0.2))
+
+
+def _nms_detection_inputs(a, batch, seed, ties=False, duplicates=False):
+    """Detection inputs over ``a`` random anchors (centres uniform, sides
+    0.05-0.4): class probabilities of 4 classes and background, box
+    offsets.  ``ties`` repeats every other anchor's logits (exact score
+    ties); ``duplicates`` makes anchors come in identical pairs with zero
+    offsets (boxes whose IoU is exactly 1)."""
+    rng = np.random.default_rng(seed)
+    centre = rng.random((a, 2))
+    side = rng.uniform(0.05, 0.4, (a, 2))
+    if duplicates:
+        centre[1::2], side[1::2] = centre[0:a - 1:2], side[0:a - 1:2]
+    anchors = np.concatenate([centre - side / 2, centre + side / 2],
+                             1).clip(0, 1).astype(np.float32)
+    logits = rng.standard_normal((batch, 5, a)) * 2
+    if ties:
+        logits[:, :, 1::2] = logits[:, :, 0:a - 1:2]
+    prob = np.exp(logits - logits.max(1, keepdims=True))
+    prob = (prob / prob.sum(1, keepdims=True)).astype(np.float32)
+    loc = (rng.standard_normal((batch, a * 4)) * 0.3).astype(np.float32)
+    if duplicates:
+        loc[:] = 0
+    return prob, loc, anchors
+
+
+def _two_phase_nms(rows, nms_threshold, force):
+    """The two transcribed phases held against the plain loop, row for
+    row; returns their rows."""
+    masks = tmb.nms_masks_plain(rows, nms_threshold, force)
+    assert masks.shape == (rows.shape[0], rows.shape[1] + 65,
+                           -(-rows.shape[1] // 64))
+    got = tmb.nms_scan_plain(rows, masks)
+    assert torch.equal(got, tmb.multibox_nms_plain(rows, nms_threshold,
+                                                   force))
+    return got
+
+
+def _nms_against_jax(inputs, threshold, nms_threshold, force):
+    """Detection rows of the port through the two phases, against the
+    JAX op's ``_detect_one`` (its ordering and fori_loop): class ids
+    bit-exact, the rest to float32 rounding."""
+    prob, loc, anchors = inputs
+    want = np.stack([np.asarray(jmb._detect_one(
+        jnp.asarray(p), jnp.asarray(l), jnp.asarray(anchors),
+        threshold=threshold, nms_threshold=nms_threshold,
+        force_suppress=force, **_NMS_KW)) for p, l in zip(prob, loc)])
+    rows = tmb.detection_rows(torch.from_numpy(prob), torch.from_numpy(loc),
+                              torch.from_numpy(anchors), threshold,
+                              **_NMS_KW)
+    got = _two_phase_nms(rows, nms_threshold, force).numpy()
+    np.testing.assert_array_equal(got[..., 0], want[..., 0])
+    np.testing.assert_allclose(got[..., 1:], want[..., 1:], rtol=1e-5,
+                               atol=1e-6)
+    return rows.numpy(), got
+
+
+@pytest.mark.parametrize('force', [True, False], ids=['force', 'per_class'])
+@pytest.mark.parametrize('a', [1, 63, 64, 65, 7308])
+def test_nms_two_phases_match_plain_and_the_jax_loop(a, force):
+    """Anchor counts around the kernel's 64-row blocks, and SSD's 7308
+    at 300 x 300 (one image)."""
+    rows, got = _nms_against_jax(
+        _nms_detection_inputs(a, 1 if a > 1000 else 3, a), 0.01, 0.45,
+        force)
+    valid, kept = (rows[..., 0] >= 0).sum(), (got[..., 0] >= 0).sum()
+    if a == 1:
+        assert kept == valid == 3
+    else:
+        assert 0 < kept < valid
+
+
+@pytest.mark.parametrize('force', [True, False], ids=['force', 'per_class'])
+@pytest.mark.parametrize('case', ['ties', 'unordered', 'all_invalid',
+                                  'threshold_1'])
+def test_nms_two_phases_edge_cases(case, force):
+    """Exact score ties (the stable order decides); -1 rows among valid
+    ones and scores out of order (a caller need not order the rows: the
+    plain loop alone, as the JAX op always sorts); no valid row; an IoU
+    threshold of 1.0 (only identical boxes suppress)."""
+    if case == 'unordered':
+        prob, loc, anchors = _nms_detection_inputs(300, 2, 5)
+        rows = tmb.detection_rows(
+            torch.from_numpy(prob), torch.from_numpy(loc),
+            torch.from_numpy(anchors), 0.3, **_NMS_KW)
+        perm = torch.from_numpy(np.random.default_rng(6).permutation(300))
+        rows = rows[:, perm].contiguous()
+        valid = rows[..., 0] >= 0
+        assert valid[:, :150].any() and (~valid[:, :150]).any()
+        got = _two_phase_nms(rows, 0.45, force)
+        assert 0 < int((got[..., 0] >= 0).sum()) < int(valid.sum())
+        return
+    inputs = _nms_detection_inputs(
+        200, 2, 4, ties=case == 'ties', duplicates=case == 'threshold_1')
+    rows, got = _nms_against_jax(
+        inputs, 1.5 if case == 'all_invalid' else 0.01,
+        1.0 if case == 'threshold_1' else 0.45, force)
+    valid, kept = (rows[..., 0] >= 0).sum(), (got[..., 0] >= 0).sum()
+    if case == 'all_invalid':
+        assert valid == kept == 0
+    elif case == 'threshold_1':
+        # at most one of each identical pair goes
+        assert valid - valid // 2 <= kept < valid
+    else:
+        assert 0 < kept < valid
+
+
+# ---------------------------------------------------------------------------
 # the SSD graphs
 # ---------------------------------------------------------------------------
 

@@ -37,7 +37,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 # kernel-name fragments -> class, first match wins
 _CLASSES = (('bn_relu_kernel', 'fused_bn_relu'),
-            ('nms_kernel', 'multibox_nms'),
+            ('nms_masks', 'multibox_nms'), ('nms_scan', 'multibox_nms'),
             ('dotsrc', 'fused_scale_bias_dot'),
             ('convsrc', 'fused_scale_bias_conv3x3'),
             # the sm90 routes: gemm_sm90<..., hook> instantiations
