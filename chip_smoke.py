@@ -342,6 +342,36 @@ graphs held), and peak allocated and reserved device memory.
                   step at PARITY_ROWS rows on the card and on the CPU:
                   stats within rtol 1e-3, parameters within
                   train-parity's bound.
+12g2. observe-fit — the training observability planes on the train
+                  phase's configuration (ResNet-50 v2, 32 rows, bf16,
+                  captured, SGD), OBS_STEPS steps per run from the same
+                  weights and batches, every run with cuDNN deterministic
+                  and TF32 off: sentinels off, then warn (parameters bit
+                  for bit equal, launches 36/2/16 a step in both,
+                  health.host_syncs 0, metric.host_syncs equal; perfwatch
+                  on in both, so the sentinels' cost is the difference of
+                  the replays' mean device ms (perf.phase.dispatch), shown
+                  beside the step ms medians after warm-up and held to no
+                  bound); the fit.step fault site under
+                  MXTPU_FAULTS='fit.step:delay:1.0:0.05', perfwatch on
+                  (the median step grows by 45-60 ms); skip_update with a NaN pixel in
+                  batch OBS_BAD (nan_steps 1, first = last = OBS_BAD;
+                  parameters, optimizer state and aux after that step bit
+                  for bit those after the step before; later steps
+                  finite); abort on the same batch (TrainingDivergedError
+                  (OBS_BAD, OBS_BAD, 1) and a flight record whose 'health'
+                  key is filled); three planes (no chronicle), for their
+                  step ms; then all four: the step's FLOPs (counted over
+                  the warm-up before the capture) against the symbol's
+                  analytic count of its convolutions and dots (equal),
+                  MFU against the H100's 989 TFLOP/s at the replays'
+                  device ms (perf.phase.dispatch, CUDA events) and at the
+                  synchronised step, the perf.phase.* times, the top
+                  memory-ledger entries, the goodput buckets (productive
+                  + buckets, the ledger's wall by construction, within 2%
+                  of the fit's wall timed by the script), the chronicle's
+                  journal
+                  samples and detector verdicts.
 12h. mnist-lenet — MNISTIter over idx files written to a temporary
                   directory (60,000 seeded 28x28 images, MNIST's
                   training-set size; nothing downloaded): LeNet
@@ -419,8 +449,9 @@ graphs held), and peak allocated and reserved device memory.
                   user's shapes (the PTB LSTM's RNN, lstm_ocr's CTC, an
                   STN, Fast R-CNN's ROIPooling, FlowNetC's Correlation, a
                   sparse autoencoder, SSD's heads).
-13. capture     — the cuda tests of tests/test_torch_capture.py and
-                  tests/test_torch_lifecycle.py in a child pytest, started
+13. capture     — the cuda tests of tests/test_torch_capture.py,
+                  tests/test_torch_lifecycle.py and
+                  tests/test_torch_observe_cuda.py in a child pytest, started
                   before phase 2 (it runs while this process builds) and
                   waited for before phase 3 times the card; the
                   lifecycle ones: each optimizer's captured narrow-ResNet
@@ -443,6 +474,9 @@ graphs held), and peak allocated and reserved device memory.
                   drops the graphs and the next step trains the new
                   values; random nodes draw anew per replay; a host sync
                   raises naming its node; a Custom graph stays eager.
+                  The observability ones: skip_update restores a captured
+                  step bit for bit, the probe only reads, abort raises at
+                  the drain, perfwatch counts the step before its capture.
 
 Then the card's nvidia-smi line, the kernels summary line (the entries of
 the GEMM, conv and attention kernels also carry path_route,
@@ -520,6 +554,23 @@ LIFECYCLE_CHECKS = tuple(
     'test_mirrored_captured_step_matches_unmirrored[nothing]',
     'test_mirrored_captured_step_matches_unmirrored[dots]',
     'test_monitored_step_runs_no_fused_forward')
+# ... and of tests/test_torch_observe_cuda.py (the observability planes)
+OBSERVE_CHECKS = (
+    'test_captured_skip_update_restores_the_step_bit_for_bit',
+    'test_captured_probe_only_reads',
+    'test_captured_abort_raises_at_the_drain',
+    'test_perfwatch_on_the_captured_step') + tuple(
+    'test_each_wrapper_reports_its_analytic_flops[%s]' % k
+    for k in ('fused_scale_bias_dot', 'fused_dot_epilogue',
+              'fused_scale_bias_conv3x3', 'flash_attention',
+              'fused_bn_relu'))
+# observe-fit: steps per run, the batch that carries a NaN pixel, the
+# fault plan of the fit.step site and the step growth it must show (ms)
+OBS_STEPS = 10
+OBS_BAD = 4
+OBS_FAULT = 'fit.step:delay:1.0:0.05'
+OBS_FAULT_MS = (45.0, 60.0)
+OBS_CHRONICLE_MS = 100
 # optim-train: each optimizer's captured ResNet step beside NaiveEngine and
 # the Updater loop (MXTPU_FUSED_FIT=0), OPTIM_STEPS steps from one state,
 # on ResNet-50 v2's four stages at full width cut to one unit each (depth)
@@ -3185,7 +3236,7 @@ def start_capture_checks():
     report = os.path.join(tmp.name, 'capture.xml')
     proc = subprocess.Popen(
         [sys.executable, '-m', 'pytest', 'tests/test_torch_capture.py',
-         'tests/test_torch_lifecycle.py',
+         'tests/test_torch_lifecycle.py', 'tests/test_torch_observe_cuda.py',
          '-m', 'cuda', '-q', '--noconftest', '-p', 'no:cacheprovider',
          '--durations=0', '--junitxml', report], cwd=root,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
@@ -3231,7 +3282,7 @@ def capture_checks(started):
                 durations[parts[2].split('::')[-1]] += float(parts[0][:-1])
             except ValueError:
                 pass
-    missing = [n for n in CAPTURE_CHECKS + LIFECYCLE_CHECKS
+    missing = [n for n in CAPTURE_CHECKS + LIFECYCLE_CHECKS + OBSERVE_CHECKS
                if cases.get(n) != 'passed']
     if proc.returncode != 0 or missing:
         print(stdout[-6000:], stderr[-2000:], file=sys.stderr)
@@ -4715,6 +4766,373 @@ def monitor_fit(mx, torch, symbol, arg, aux, images, labels, kernels):
             failures.append(failure)
     finally:
         torch.backends.cudnn.deterministic = False
+    return out, failures, launches
+
+
+class knobs(object):
+    """Environment knobs set for a block and restored after it."""
+
+    def __init__(self, **env):
+        self.env = {k: str(v) for k, v in env.items()}
+
+    def __enter__(self):
+        self.old = {k: os.environ.get(k) for k in self.env}
+        os.environ.update(self.env)
+
+    def __exit__(self, *exc):
+        for k, v in self.old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        return False
+
+
+def obs_state(mod, torch):
+    """Host copies of a module's parameters, aux and fused optimizer
+    state (after a synchronise)."""
+    torch.cuda.synchronize()
+    args, auxs = mod.get_params()
+    state = {}
+    for k, v in mod._fused_opt_state.items():
+        ts = [t for t in (v if isinstance(v, (list, tuple)) else [v])
+              if t is not None]
+        for i, t in enumerate(ts):
+            state['%s.%d' % (k, i)] = t.detach().cpu().numpy()
+    return ({k: v.asnumpy() for k, v in args.items()},
+            {k: v.asnumpy() for k, v in auxs.items()}, state)
+
+
+def obs_fit(mx, torch, symbol, arg, aux, images, labels, kernels,
+            callbacks=(), epoch_end=None):
+    """One observe-fit run: a Module bound, initialized from ``arg``/
+    ``aux`` and given SGD before ``fit`` (so the fit's own wall time is
+    the goodput ledger's), then ``fit`` over OBS_STEPS bf16 batches, a
+    synchronise after each.  Returns the module (None when fit raised),
+    the host seconds of each step, the fit's wall seconds, launches per
+    step and the exception fit raised, if any."""
+    times = []
+    last = [time.perf_counter()]
+
+    def tick(_):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        times.append(now - last[0])
+        last[0] = time.perf_counter()
+
+    it = mx.io.NDArrayIter(images, labels, batch_size=BATCH)
+    mod = mx.mod.Module(symbol, context=mx.gpu(0),
+                        compute_dtype=torch.bfloat16)
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(arg_params={k: mx.nd.array(v) for k, v in arg.items()},
+                    aux_params={k: mx.nd.array(v) for k, v in aux.items()})
+    mod.init_optimizer(optimizer='sgd', optimizer_params=dict(SGD_MOMENTUM))
+    counts0 = launch_counts(kernels)
+    raised = None
+    t0 = time.perf_counter()
+    try:
+        mod.fit(it, num_epoch=1, eval_metric=['acc', 'ce'],
+                batch_end_callback=[tick] + list(callbacks),
+                epoch_end_callback=epoch_end)
+    except Exception as e:          # noqa: BLE001 - the caller checks it
+        raised = e
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    per_step = launches_per_step(counts0, launch_counts(kernels),
+                                 max(1, len(times)))
+    return mod, times, wall, per_step, raised
+
+
+def obs_median_ms(times):
+    return statistics.median(times[TRAIN_WARMUP:]) * 1e3
+
+
+def observe_fit(mx, torch, symbol, arg, aux, images, labels, kernels,
+                expected, tmp):
+    """observe-fit: the four training observability planes on the train
+    phase's configuration (see the module docstring, 12g2).  Returns the
+    report, the failures and the launches of #1, #2 and #4 in the
+    phase."""
+    from mxnet_tpu_torch import (chronicle, health, instrument, iowatch,
+                                 perfwatch, resilience)
+    images = images[:OBS_STEPS * BATCH].copy()
+    labels = labels[:OBS_STEPS * BATCH]
+    out, failures = {}, []
+    counts_phase = launch_counts(kernels)
+    want = {k: {'all': float(v)} for k, v in expected.items()}
+
+    def per_kernel(per_step):
+        return {k: per_step.get(k, {}).get('all') for k in expected}
+
+    def check_launches(run, per_step):
+        got = per_kernel(per_step)
+        if got != {k: v['all'] for k, v in want.items()}:
+            failures.append('observe-fit %s: launches per step %s, '
+                            'expected %s' % (run, got, expected))
+        return got
+
+    def dispatch_device_ms():
+        """The mean device ms of the run's replays: perf.phase.dispatch,
+        each replay between two CUDA events on the stream (the
+        histogram's p50 is a log-bucket estimate; the mean is exact)."""
+        h = instrument.metrics_snapshot().get('histograms', {}).get(
+            'perf.phase.dispatch', {})
+        return h['sum'] / h['count'] * 1e3 if h.get('count') else None
+
+    # -- sentinels off, warn, and the fault site: cuDNN deterministic, and
+    # perfwatch on in each, so each run's replays are timed on the card ------
+    deterministic(torch, True)
+    runs = {}
+    for run, env in (('off', {'MXTPU_HEALTH_SENTINELS': '0'}),
+                     ('warn', {'MXTPU_HEALTH_SENTINELS': '1',
+                               'MXTPU_HEALTH_ACTION': 'warn'})):
+        fresh_memory(torch)
+        instrument.reset_metrics()
+        perfwatch.clear_executables()
+        perfwatch.ledger_reset()
+        h0 = instrument.counter_value('health.host_syncs')
+        m0 = instrument.counter_value('metric.host_syncs')
+        with knobs(MXTPU_PERFWATCH=1, **env):
+            mod, times, wall, per_step, raised = obs_fit(
+                mx, torch, symbol, arg, aux, images, labels, kernels)
+        perfwatch.set_enabled(False)
+        if raised is not None:
+            raise raised
+        runs[run] = {
+            'step_ms': [t * 1e3 for t in times],
+            'step_ms_median_after_warmup': obs_median_ms(times),
+            'dispatch_device_ms_mean': dispatch_device_ms(),
+            'launches_per_step': check_launches(run, per_step),
+            'health_host_syncs':
+                instrument.counter_value('health.host_syncs') - h0,
+            'metric_host_syncs':
+                instrument.counter_value('metric.host_syncs') - m0,
+            'fit_s': wall, 'params': numpy_params(mod)}
+        del mod
+    off, warn = runs['off'], runs['warn']
+    same = all(np.array_equal(warn['params'][k], v)
+               for k, v in off['params'].items())
+    if not same:
+        failures.append('observe-fit: parameters differ between sentinels '
+                        'off and warn')
+    if warn['health_host_syncs'] != 0:
+        failures.append('observe-fit: health.host_syncs %d under warn'
+                        % warn['health_host_syncs'])
+    if warn['metric_host_syncs'] != off['metric_host_syncs']:
+        failures.append('observe-fit: metric.host_syncs %d under warn, %d '
+                        'off' % (warn['metric_host_syncs'],
+                                 off['metric_host_syncs']))
+    for r in runs.values():
+        r.pop('params')
+    dev_cost = (warn['dispatch_device_ms_mean']
+                - off['dispatch_device_ms_mean']
+                if off['dispatch_device_ms_mean'] is not None and
+                warn['dispatch_device_ms_mean'] is not None else None)
+    # the sentinels' cost is reported, not held to a bound: the device
+    # ms of a replay is the measure, the host-synchronised step's median
+    # is shown beside it
+    out['sentinels'] = {'off': off, 'warn': warn,
+                        'params_bitwise_equal': same,
+                        'warn_cost_device_ms': dev_cost,
+                        'warn_cost_step_ms':
+                            warn['step_ms_median_after_warmup']
+                            - off['step_ms_median_after_warmup']}
+
+    fresh_memory(torch)
+    resilience.set_faults(OBS_FAULT)
+    try:
+        with knobs(MXTPU_PERFWATCH=1):
+            _, times, _, per_step, raised = obs_fit(
+                mx, torch, symbol, arg, aux, images, labels, kernels)
+    finally:
+        perfwatch.set_enabled(False)
+        resilience.clear_faults()
+    if raised is not None:
+        raise raised
+    grown = obs_median_ms(times) - off['step_ms_median_after_warmup']
+    if not OBS_FAULT_MS[0] <= grown <= OBS_FAULT_MS[1]:
+        failures.append('observe-fit: the fit.step delay grew the median '
+                        'step by %.2f ms, not %s' % (grown, OBS_FAULT_MS))
+    out['fault'] = {'plan': OBS_FAULT, 'step_ms': [t * 1e3 for t in times],
+                    'step_ms_median_after_warmup': obs_median_ms(times),
+                    'growth_ms': grown, 'expected_ms': list(OBS_FAULT_MS),
+                    'launches_per_step': per_kernel(per_step)}
+
+    # -- skip_update and abort on a NaN pixel in batch OBS_BAD --------------
+    bad = images.copy()
+    bad[OBS_BAD * BATCH + 1, 1, IMAGE[1] // 2, IMAGE[2] // 3] = np.nan
+    fresh_memory(torch)
+    snaps, values = {}, []
+
+    def snap(param):
+        if param.nbatch in (OBS_BAD - 1, OBS_BAD):
+            snaps[param.nbatch] = obs_state(param.locals['self'], torch)
+    with knobs(MXTPU_HEALTH_SENTINELS=1, MXTPU_HEALTH_ACTION='skip_update'):
+        mod, times, _, per_step, raised = obs_fit(
+            mx, torch, symbol, arg, aux, bad, labels, kernels,
+            callbacks=[snap],
+            epoch_end=lambda *a: values.append(health.last_values()))
+    if raised is not None:
+        raise raised
+    restored = {}
+    for part, before, after in zip(('params', 'aux', 'optimizer_state'),
+                                   snaps[OBS_BAD - 1], snaps[OBS_BAD]):
+        restored[part] = all(np.array_equal(after[k], v)
+                             for k, v in before.items())
+    final = obs_state(mod, torch)
+    finite = all(np.all(np.isfinite(v)) for part in final
+                 for v in part.values())
+    del mod, snaps, final
+    vals = values[0] if values else {}
+    if not all(restored.values()) or not finite or \
+            (vals.get('nan_steps'), vals.get('first_bad_step'),
+             vals.get('last_bad_step')) != (1, OBS_BAD, OBS_BAD):
+        failures.append('observe-fit skip_update: restored %s, finite %s, '
+                        'health %s' % (restored, finite, vals))
+    out['skip_update'] = {'bad_batch': OBS_BAD, 'health': vals,
+                          'bitwise_restored': restored,
+                          'finite_after': finite,
+                          'step_ms_median_after_warmup':
+                              obs_median_ms(times),
+                          'launches_per_step': per_kernel(per_step)}
+
+    fresh_memory(torch)
+    rec_dir = os.path.join(tmp, 'flightrec')
+    health.install_flight_recorder(rec_dir)
+    try:
+        with knobs(MXTPU_HEALTH_SENTINELS=1, MXTPU_HEALTH_ACTION='abort'):
+            _, times, _, _, raised = obs_fit(
+                mx, torch, symbol, arg, aux, bad, labels, kernels,
+                callbacks=[mx.callback.Speedometer(BATCH, 1)])
+    finally:
+        health._recorder = None
+        instrument.set_profiling(False)
+    record = {}
+    path = os.path.join(rec_dir, 'flightrec-rank0.json')
+    if os.path.exists(path):
+        with open(path) as f:
+            record = json.load(f)
+    got = (getattr(raised, 'first_bad_step', None),
+           getattr(raised, 'last_bad_step', None),
+           getattr(raised, 'nan_steps', None))
+    if not isinstance(raised, health.TrainingDivergedError) or \
+            got != (OBS_BAD, OBS_BAD, 1) or \
+            record.get('reason') != 'diverged' or \
+            (record.get('health') or {}).get('nan_steps') != 1:
+        failures.append('observe-fit abort: raised %r, range %s, flight '
+                        'record %s' % (raised, got, {
+                            k: record.get(k) for k in ('reason', 'health')}))
+    out['abort'] = {'raised': type(raised).__name__, 'range': list(got),
+                    'message': str(raised), 'steps_run': len(times),
+                    'flight_record': {'reason': record.get('reason'),
+                                      'health': record.get('health')}}
+
+    # -- the planes: three of them, then all four (the chronicle's sampler
+    # thread too); the same cuDNN settings as the runs above ------------------
+    planes = dict(MXTPU_HEALTH_SENTINELS=1, MXTPU_HEALTH_ACTION='warn',
+                  MXTPU_PERFWATCH=1, MXTPU_IOWATCH=1)
+    fresh_memory(torch)
+    with knobs(**planes):
+        _, times, _, per_step, raised = obs_fit(
+            mx, torch, symbol, arg, aux, images, labels, kernels)
+    if raised is not None:
+        raise raised
+    check_launches('three planes', per_step)
+    out['three_planes'] = {'step_ms': [t * 1e3 for t in times],
+                           'step_ms_median_after_warmup':
+                               obs_median_ms(times)}
+    fresh_memory(torch)
+    jdir = os.path.join(tmp, 'chronicle')
+    instrument.reset_metrics()
+    perfwatch.clear_executables()
+    perfwatch.ledger_reset()
+    with knobs(MXTPU_CHRONICLE=jdir,
+               MXTPU_CHRONICLE_EVERY_MS=OBS_CHRONICLE_MS, **planes):
+        mod, times, wall, per_step, raised = obs_fit(
+            mx, torch, symbol, arg, aux, images, labels, kernels)
+        chronicle.stop()
+    perfwatch.set_enabled(False)
+    iowatch.set_enabled(False)
+    deterministic(torch, False)
+    if raised is not None:
+        raise raised
+    check_launches('four planes', per_step)
+    snap_ = instrument.metrics_snapshot()
+    rows = [r for r in perfwatch.executables() if r['kind'] == 'fit_step']
+    analytic = perfwatch.analytic_step_flops(
+        symbol, {'data': (BATCH,) + IMAGE, 'softmax_label': (BATCH,)})
+    flops = rows[0]['flops'] if rows else 0
+    if len(rows) != 1 or flops != analytic:
+        failures.append('observe-fit perfwatch: step FLOPs %s, analytic %d'
+                        % ([r['flops'] for r in rows], analytic))
+    step_ms = obs_median_ms(times)
+    hists = snap_.get('histograms', {})
+    phases = {k: {q: hists[k].get(q) for q in ('count', 'sum', 'p50',
+                                                'p99')}
+              for k in hists if k.startswith('perf.phase.')}
+    dispatch = phases.get('perf.phase.dispatch', {})
+    # the replays' device seconds, each between two events on the stream
+    # (the histogram's p50 is a log-bucket estimate; the mean is exact)
+    device_s = dispatch['sum'] / dispatch['count'] \
+        if dispatch.get('count') else None
+    peak = perfwatch.peak_flops(torch.device('cuda', 0))
+    out['perfwatch'] = {
+        'flops_per_step': flops, 'analytic_flops_per_step': analytic,
+        'aten_flops': rows[0]['aten_flops'] if rows else None,
+        'kernel_flops': rows[0]['kernel_flops'] if rows else None,
+        'peak_flops': peak,
+        'mfu_at_step_ms': flops / (step_ms / 1e3) / peak,
+        'dispatch_device_ms_mean': device_s * 1e3 if device_s else None,
+        'mfu_at_dispatch_device_ms': (flops / device_s / peak
+                                      if device_s else None),
+        'perf_mfu_gauge': snap_['gauges'].get('perf.mfu'),
+        'steps_per_sec_gauge': snap_['gauges'].get('perf.steps_per_sec'),
+        'step_ms_median_after_warmup': step_ms,
+        'phases': phases,
+        'graph_pool_bytes': rows[0]['pool_bytes'] if rows else None,
+        'ledger_top': perfwatch.ledger_top(5),
+        'device_memory': perfwatch.ledger_stats()['device'],
+        'launches_per_step': per_kernel(per_step)}
+    # the ledger defines productive time as its wall less the buckets, so
+    # productive + buckets equals the ledger's wall by construction; what
+    # can fail is that sum against the fit's own wall, timed here
+    gp = iowatch.goodput_snapshot()
+    total = gp.get('productive_secs', 0.0) + sum(gp.get('buckets',
+                                                       {}).values())
+    ledger_wall = gp.get('wall_secs', 0.0)
+    if not ledger_wall or abs(total - wall) > 0.02 * wall:
+        failures.append('observe-fit iowatch: buckets sum %.4f s, fit wall '
+                        '%.4f s' % (total, wall))
+    out['iowatch'] = {'fit_wall_s': wall, 'ledger_wall_s': ledger_wall,
+                      'sum_s': total, 'sum_less_fit_wall_s': total - wall,
+                      'fraction': gp.get('fraction'),
+                      'productive_s': gp.get('productive_secs'),
+                      'buckets_s': gp.get('buckets'),
+                      'events': gp.get('events')}
+    samples, verdicts = 0, []
+    for name in sorted(os.listdir(jdir)) if os.path.isdir(jdir) else []:
+        if name.startswith('journal-'):
+            with open(os.path.join(jdir, name)) as f:
+                for line in f:
+                    try:
+                        rec = json.loads(line)
+                    except ValueError:
+                        continue
+                    if rec.get('kind') == 'sample':
+                        samples += 1
+                    elif rec.get('kind') == 'decision' and \
+                            rec['ev'].get('subsystem') == 'chronicle':
+                        verdicts.append((rec['ev'].get('action'),
+                                         rec['ev'].get('series')))
+    if not samples:
+        failures.append('observe-fit chronicle: the journal holds no '
+                        'sample')
+    out['chronicle'] = {'every_ms': OBS_CHRONICLE_MS, 'samples': samples,
+                        'detector_verdicts': verdicts,
+                        'detectors': sorted(chronicle.default_detectors())}
+    del mod
+    launches = {k: n - counts_phase[k][0]
+                for k, (n, _) in launch_counts(kernels).items()}
     return out, failures, launches
 
 
@@ -6843,6 +7261,18 @@ def main():
          'failures': failures})
     if failures:
         raise AssertionError('; '.join(failures))
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory() as tmp:
+        observe_report, failures, observe_launches = observe_fit(
+            mx, torch, symbol, arg, aux, images, labels, resnet_kernels,
+            resnet_expected, tmp)
+    log({'phase': 'observe-fit', 'model': 'resnet-50 v2', 'batch': BATCH,
+         'steps': OBS_STEPS, 'compute_dtype': 'bfloat16',
+         'optimizer': 'sgd lr 0.05 momentum 0.9 wd 1e-4',
+         'launches': observe_launches, 'seconds': time.monotonic() - t0,
+         **observe_report, 'failures': failures})
+    if failures:
+        raise AssertionError('; '.join(failures))
     # the MLP's and AlexNet's FullyConnected -> relu chains run #3
     epi0 = fused.fused_dot_epilogue.launches
     with tempfile.TemporaryDirectory() as tmp:
@@ -6986,6 +7416,7 @@ def main():
         + optim_launches['fused_bn_relu'] + ckpt_launches['fused_bn_relu']
         + ff_bn_relu + mirror_launches['fused_bn_relu']
         + monitor_launches['fused_bn_relu']
+        + observe_launches['fused_bn_relu']
         + sum(zoo_launches['fused_bn_relu'].values())
         + serve_launches['fused_bn_relu'] + fleet_bn + auto_bn,
         'launches_by_path': {'serve': launches['fused_bn_relu'],
@@ -6998,6 +7429,8 @@ def main():
                              'mirror-train': mirror_launches['fused_bn_relu'],
                              'monitor-fit':
                                  monitor_launches['fused_bn_relu'],
+                             'observe-fit':
+                                 observe_launches['fused_bn_relu'],
                              'zoo-train':
                                  sum(zoo_launches['fused_bn_relu'].values()),
                              'zoo-serve': serve_launches['fused_bn_relu']},
@@ -7036,6 +7469,8 @@ def main():
                              mirror_launches['fused_scale_bias_dot'],
                          'monitor-fit':
                              monitor_launches['fused_scale_bias_dot'],
+                         'observe-fit':
+                             observe_launches['fused_scale_bias_dot'],
                          'zoo-serve': serve_launches['fused_scale_bias_dot']},
                         'torch.matmul on the normalized input'),
          **route_summary(dot_cases, {'train': train_routes,
@@ -7052,6 +7487,8 @@ def main():
                              mirror_launches['fused_scale_bias_conv3x3'],
                          'monitor-fit':
                              monitor_launches['fused_scale_bias_conv3x3'],
+                         'observe-fit':
+                             observe_launches['fused_scale_bias_conv3x3'],
                          'zoo-train': sum(zoo_launches[
                              'fused_scale_bias_conv3x3'].values()),
                          'zoo-serve':

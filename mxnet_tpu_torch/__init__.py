@@ -46,7 +46,7 @@ from . import operator, rtc
 from . import (callback, initializer, io, lr_scheduler, metric, module,
                optimizer, parallel, resilience, rnn)
 from . import model, monitor
-from . import detector, health
+from . import chronicle, detector, health, iowatch, perfwatch
 from . import initializer as init
 from . import module as mod
 from . import optimizer as opt
@@ -67,5 +67,5 @@ __all__ = ['MXNetError', 'Context', 'cpu', 'gpu', 'current_context',
            'io', 'metric', 'optimizer', 'lr_scheduler', 'initializer',
            'opt', 'init', 'callback', 'random', 'parallel', 'rnn',
            'engine', 'model', 'FeedForward', 'resilience', 'monitor',
-           'detector', 'health']
+           'detector', 'health', 'iowatch', 'perfwatch', 'chronicle']
 

@@ -55,14 +55,33 @@ class Speedometer(object):
     With the fused step's device metrics, the ``get_name_value()`` call
     here is the only host sync of the steady-state fit loop: the metric
     drains its device accumulators exactly at these log points (and at
-    epoch end).  Samples/sec uses the monotonic clock."""
+    epoch end).  Samples/sec uses the monotonic clock.
 
-    def __init__(self, batch_size, frequent=50):
+    ``health=True`` appends a health column (grad norm and non-finite
+    step count from the ``MXTPU_HEALTH_SENTINELS`` probe).  It reads ONLY
+    the values the metric drain above already brought to the host (the
+    sentinel state rides that same transfer), so the column adds no host
+    sync (empty when no fit with sentinels is active)."""
+
+    def __init__(self, batch_size, frequent=50, health=False):
         self.batch_size = batch_size
         self.frequent = frequent
+        self.health = health
         self.init = False
         self.tic = 0
         self.last_count = 0
+
+    def _health_column(self):
+        """The drained sentinel values as a log suffix (host mirrors
+        only)."""
+        if not self.health:
+            return ''
+        from . import health as _health
+        vals = _health.last_values()
+        if not vals:
+            return ''
+        return '\tgrad_norm=%.4g\tnan_steps=%d' \
+            % (vals['grad_norm'], vals['nan_steps'])
 
     def __call__(self, param):
         count = param.nbatch
@@ -78,15 +97,18 @@ class Speedometer(object):
         speed = self.frequent * self.batch_size / \
             (time.monotonic() - self.tic)
         if param.eval_metric is not None:
+            # drain FIRST (the loop's host sync point), so the health
+            # column reads this tick's values
             name_value = param.eval_metric.get_name_value()
             param.eval_metric.reset()
+            health_col = self._health_column()
             for name, value in name_value:
                 logging.info('Epoch[%d] Batch [%d]\tSpeed: %.2f '
-                             'samples/sec\tTrain-%s=%f', param.epoch, count,
-                             speed, name, value)
+                             'samples/sec\tTrain-%s=%f%s', param.epoch,
+                             count, speed, name, value, health_col)
         else:
-            logging.info('Iter[%d] Batch [%d]\tSpeed: %.2f samples/sec',
-                         param.epoch, count, speed)
+            logging.info('Iter[%d] Batch [%d]\tSpeed: %.2f samples/sec%s',
+                         param.epoch, count, speed, self._health_column())
         self.tic = time.monotonic()
 
 

@@ -25,6 +25,8 @@ raises; nothing falls back to the eager step.
 
 Counters, as in the reference: a capture counts ``compile.traces`` and
 its host seconds ``compile.warmup_secs``; a replay ``executor.cache_hits``.
+The goodput ledger (``iowatch``) charges each recording to its
+``compile`` bucket.
 The kernel launches and ``instrument`` counters the body counts while it
 is recorded (``instrument.recording``, on the capturing thread and on
 the autograd thread that runs its backward) are
@@ -51,7 +53,7 @@ import time
 
 import torch
 
-from . import config, engine, instrument
+from . import config, engine, instrument, iowatch
 from .base import MXNetError
 
 __all__ = ['pad_to_bucket', 'sig_key', 'batch_sig', 'fingerprint',
@@ -298,6 +300,8 @@ class CapturedStep(object):
         self.capture_ms = None
         self.replays = 0
         self.launches = {}          # kernel name -> launches per replay
+        self.cost = None            # perfwatch's accounting row, once made
+        self.pool_bytes = None      # measured by capture(measure=True)
         self._counts = {}           # what one replay counts
         self._out_meta = None
         if skip is not None:
@@ -329,17 +333,28 @@ class CapturedStep(object):
         self._out_meta = [(tuple(o.shape), o.dtype) for o in outs]
         return outs
 
-    def capture(self):
+    def capture(self, measure=False):
         """Record the graph (after a :meth:`warm_up`).  Raises on a
         failed capture, naming the graph node where the interpreter
-        knows it."""
+        knows it.  With ``measure`` the bytes the device reserved for the
+        graph's pool are kept in :attr:`pool_bytes` (the cache is emptied
+        first, as the recording itself does on entry)."""
         if self.skip is not None:
             raise MXNetError('%s stays eager (%s); it is never captured'
                              % (self.name, self.skip))
         if self._out_meta is None:
             raise MXNetError('%s: warm_up() before capture()' % self.name)
-        with _capture_lock:
+        # the goodput ledger charges the recording to 'compile'
+        with _capture_lock, iowatch.account('compile'):
+            if measure:
+                gc.collect()
+                torch.cuda.synchronize(self.device)
+                torch.cuda.empty_cache()
+                reserved = torch.cuda.memory_reserved(self.device)
             self._capture()
+            if measure:
+                self.pool_bytes = \
+                    torch.cuda.memory_reserved(self.device) - reserved
 
     def _capture(self):
         t0 = time.perf_counter()

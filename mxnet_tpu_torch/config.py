@@ -219,7 +219,75 @@ _register('MXTPU_FLIGHT_RECORDER_RING', 256, int,
           'across all thread buffers, read without draining them).')
 _register('MXTPU_FLIGHT_RECORDER_EVERY', 8, int,
           'Write-ahead flight-recorder cadence: FlightRecorder.tick() '
-          'dumps every N calls.')
+          'dumps every N calls (one call per metric drain).')
+# -- training-health plane (health.py) ---------------------------------------
+_register('MXTPU_HEALTH_SENTINELS', False, _bool,
+          'Fold on-device health sentinels into the fused fit step '
+          '(health.py): a global non-finite flag over the outputs and '
+          'gradients, the global gradient norm and the update-to-weight '
+          'ratio, folded into fixed device buffers a captured step '
+          'updates in place and read at the existing Speedometer/epoch-'
+          'end metric drains: no extra host sync in steady state '
+          '(health.host_syncs stays 0).')
+_register('MXTPU_HEALTH_ACTION', 'warn', str,
+          "What a detected non-finite step triggers at the next drain: "
+          "'warn' logs; 'skip_update' additionally masks the step on the "
+          "device so parameters, optimizer state, aux and the metric stay "
+          "bit for bit at their values before the bad step; 'abort' "
+          "raises health.TrainingDivergedError carrying the offending step "
+          "range (and dumps the flight recorder when installed).")
+# -- performance-attribution plane (perfwatch.py) ----------------------------
+_register('MXTPU_PERFWATCH', False, _bool,
+          'Enable the performance-attribution plane (perfwatch.py): the '
+          'FLOPs of each captured step signature (perf.* and xla.* '
+          'gauges), live MFU, step phases timed by CUDA events '
+          '(perf.phase.*) and the memory ledger (mem.* gauges, one entry '
+          'per graph pool).  Implies metrics.  Off: every hook is a '
+          'single flag check.')
+_register('MXTPU_STEP_SAMPLE', 0, int,
+          'Fully synchronise every Nth fit step to measure its latency '
+          '(perf.step_latency histogram, perf.host_syncs counter, a '
+          'perf.step span): exactly ceil(nbatch/N) extra syncs per epoch, '
+          'metric.host_syncs untouched.  0 = never.  Requires '
+          'MXTPU_PERFWATCH.')
+_register('MXTPU_PEAK_FLOPS', 0.0, float,
+          'Override the card peak FLOP/s used as the perf.mfu '
+          'denominator.  0 = the entry of perfwatch.PEAKS for the '
+          'card\'s name (unknown names fall back to the H100, a CPU host '
+          'to a nominal host figure).')
+# -- input-pipeline & goodput plane (iowatch.py) -----------------------------
+_register('MXTPU_IOWATCH', False, _bool,
+          'Enable the input-pipeline & goodput attribution plane '
+          '(iowatch.py): per-stage iterator histograms '
+          '(iowatch.stage.feed_wait/window_wait/...), rolling '
+          'iowatch.samples_per_sec/bytes_per_sec throughput, and the '
+          'goodput ledger: every second of Module.fit wall clock '
+          'attributed into exclusive buckets (productive step, '
+          'input_stall, compile, metric_drain, checkpoint, barrier, '
+          'recovery, eval, health_skipped), published as goodput.* '
+          'gauges.  Implies metrics.  Off: every hook is a single flag '
+          'check.')
+# -- chronicle plane (chronicle.py) ------------------------------------------
+_register('MXTPU_CHRONICLE', '', str,
+          'Enable the chronicle plane (chronicle.py) and name its journal '
+          'directory: a background sampler scrapes the metrics registry '
+          'every MXTPU_CHRONICLE_EVERY_MS into an append-only JSONL '
+          'journal (counters as deltas and rates, gauges as values, '
+          'histograms as cumulative-bucket vectors), segment-rotated '
+          'under the MXTPU_CHRONICLE_MAX_MB ring bound with atomic '
+          'commits, runs the online anomaly detectors and records every '
+          'instrument.decision() event.  Implies metrics.  Empty (the '
+          'default): off, no thread.')
+_register('MXTPU_CHRONICLE_EVERY_MS', 500, int,
+          'Chronicle sampler period in milliseconds.')
+_register('MXTPU_CHRONICLE_MAX_MB', 64, int,
+          'Ring bound (MiB) on the chronicle journal directory: past it '
+          'the oldest closed segments are deleted.')
+_register('MXTPU_CHRONICLE_DETECT', True, _bool,
+          'Run the chronicle plane\'s online anomaly detectors (median/'
+          'MAD baselines with hysteresis over perf.steps_per_sec, '
+          'goodput.fraction, serving e2e p99, queue depth, the '
+          'mem.live_bytes slope).  Off: the journal still records.')
 # -- fault injection (resilience.py) -----------------------------------------
 _register('MXTPU_FAULTS', '', str,
           'Fault-injection plan (resilience.py grammar: '

@@ -19,7 +19,7 @@ from collections import deque
 
 import torch
 
-from . import instrument
+from . import instrument, iowatch, perfwatch
 
 __all__ = ['set_engine_type', 'get_engine_type', 'capture_enabled', 'sync',
            'wait_for_var', 'wait_for_all', 'set_bulk_size', 'StepWindow']
@@ -109,9 +109,16 @@ class StepWindow(object):
 
     @staticmethod
     def _wait(ticket):
-        instrument.inc('engine.window_waits')
-        if isinstance(ticket, torch.cuda.Event):
-            ticket.synchronize()
+        # iowatch.stage.window_wait is the device-bound signal: a fat
+        # window_wait with a thin feed_wait means the card is the
+        # bottleneck; the wait stays in the goodput ledger's productive
+        # remainder (the card is training).  Host-timed: the wait is
+        # the host's.
+        with perfwatch.phase('window_wait'), \
+                iowatch.stage('window_wait'):
+            instrument.inc('engine.window_waits')
+            if isinstance(ticket, torch.cuda.Event):
+                ticket.synchronize()
 
     def admit(self, ticket):
         """Register a just-launched step; blocks (on the OLDEST step)

@@ -1,21 +1,38 @@
-"""The crash flight recorder — the ``FlightRecorder`` half of
-``mxnet_tpu/health.py``.
+"""Training-health plane — on-device sentinels, divergence actions and
+the crash flight recorder; the port of ``mxnet_tpu/health.py``.
 
-A bounded ring of recent spans (the instrument thread buffers, read
-without draining them) plus a metrics snapshot, the recent decision
-events and the dropped-span totals, committed atomically
-(``resilience.atomic_replace``) so a crash mid-dump leaves the previous
-record intact.  :func:`install_flight_recorder` (``MXTPU_FLIGHT_RECORDER
-=<dir>``) turns span tracing on and dumps from atexit, SIGTERM/SIGABRT
-(chained to the previous handlers) and every ``MXTPU_FAULTS``-injected
-kill (``resilience.on_kill``); the serving plane dumps through it on a
-drain and for each servewatch postmortem.
+- **On-device sentinels** (``MXTPU_HEALTH_SENTINELS``): probes folded
+  into the fused fit step by ``parallel.train_step.make_fit_step`` — a
+  global non-finite flag over the outputs and gradients, the global
+  gradient norm and the update-to-weight ratio.  The reference threads
+  them through its compiled program as donated device scalars; here they
+  fold IN PLACE into two fixed device buffers per device (int32
+  ``(steps, nan_steps, first_bad, last_bad)`` and float32 ``(grad_norm,
+  update_ratio)``), which a captured step's graph holds and every replay
+  updates, so nothing is read back per step.  The host reads them only at
+  the existing metric drains: ``metric.EvalMetric._drain_device`` takes
+  them into its one batched copy (:func:`_piggyback_take` /
+  :func:`_piggyback_apply`), so ``health.host_syncs`` stays 0 in steady
+  state.  ``MXTPU_HEALTH_ACTION`` picks what a detected bad step
+  triggers: ``warn`` (log), ``skip_update`` (the step is masked on the
+  device: parameters, optimizer state, aux and the metric stay bit for
+  bit at their values before it) or ``abort`` (raise
+  :class:`TrainingDivergedError` with the offending step range).
+- **Flight recorder** (``MXTPU_FLIGHT_RECORDER=<dir>``): a bounded ring
+  of recent spans (the instrument thread buffers, read without draining
+  them) plus a metrics snapshot, the recent decision events, the
+  dropped-span totals, the active monitor's values (``'health'``) and
+  the goodput ledger (``'goodput'``), committed atomically
+  (``resilience.atomic_replace``) from atexit, SIGTERM/SIGABRT (chained
+  to the previous handlers), every ``MXTPU_FAULTS``-injected kill
+  (``resilience.on_kill``), a :class:`TrainingDivergedError`, and as a
+  write-ahead snapshot every ``MXTPU_FLIGHT_RECORDER_EVERY`` drains.  It
+  is installed on first use or by :func:`install_flight_recorder`, not
+  at import as in the reference.
 
-The record's ``'health'`` key holds ``{}``: the training sentinels that
-fill it in the reference (``HealthMonitor``) are not ported yet, and
-``{}`` is the reference's own value when no monitor is active.  There is
-no ``'goodput'`` key either, the reference's branch when no goodput
-ledger exists (its input-pipeline plane is not ported yet).
+The cross-rank hooks of the reference (``note_skew``,
+``note_cluster_alert``, ``cluster_diverged_error``) need the kvstore and
+come with it.
 """
 from __future__ import annotations
 
@@ -28,13 +45,363 @@ import signal
 import threading
 import time
 
-from . import config, instrument, resilience
+import torch
 
-__all__ = ['FlightRecorder', 'flight_recorder', 'dump_flight',
-           'install_flight_recorder']
+from . import config, instrument, resilience
+from .base import MXNetError
+
+__all__ = [
+    'TrainingDivergedError', 'HealthMonitor', 'FlightRecorder',
+    'sentinels_on', 'health_action',
+    'activate', 'deactivate', 'active_monitor', 'fold_key', 'last_values',
+    'all_finite_tree', 'l2_norm_tree', 'update_ratio',
+    'init_state', 'fold_state',
+    'install_flight_recorder', 'flight_recorder', 'dump_flight',
+]
 
 _log = logging.getLogger('mxnet_tpu_torch.health')
 
+_ACTIONS = ('warn', 'skip_update', 'abort')
+
+# the wire form of the configured action (the health.action_level gauge)
+_ACTION_LEVEL = {'warn': 0, 'skip_update': 1, 'abort': 2}
+
+
+class TrainingDivergedError(MXNetError):
+    """Raised (under ``MXTPU_HEALTH_ACTION=abort``) when the on-device
+    sentinels saw a non-finite output or gradient.  Carries the
+    offending step range in fused-step indices (0-based, monotonic
+    across epochs within one ``fit``)."""
+
+    def __init__(self, first_bad_step, last_bad_step, nan_steps,
+                 grad_norm=float('nan')):
+        self.first_bad_step = int(first_bad_step)
+        self.last_bad_step = int(last_bad_step)
+        self.nan_steps = int(nan_steps)
+        self.grad_norm = float(grad_norm)
+        super().__init__(
+            'training diverged: non-finite loss/gradients in %d step(s), '
+            'steps %d..%d (last grad_norm=%.4g)'
+            % (self.nan_steps, self.first_bad_step, self.last_bad_step,
+               self.grad_norm))
+
+
+def sentinels_on():
+    return bool(config.get('MXTPU_HEALTH_SENTINELS'))
+
+
+def health_action():
+    action = str(config.get('MXTPU_HEALTH_ACTION')).strip().lower()
+    if action not in _ACTIONS:
+        raise ValueError('MXTPU_HEALTH_ACTION must be one of %s, got %r'
+                         % (_ACTIONS, action))
+    return action
+
+
+# ---------------------------------------------------------------------------
+# Probes on tensors (run inside the fused step, recorded by its graph)
+# ---------------------------------------------------------------------------
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    out = []
+    for t in tree or ():
+        out.extend(_leaves(t))
+    return out
+
+
+def _floating(tree):
+    return [t for t in _leaves(tree) if t.is_floating_point()]
+
+
+def all_finite_tree(tree):
+    """0-dim bool tensor: every element of every floating leaf is finite.
+    The largest magnitude of each leaf (``_foreach_norm`` of order inf,
+    which propagates NaN) is checked, never a sum of squares: finite
+    large values whose squares overflow are still finite."""
+    leaves = [t for t in _floating(tree) if t.numel()]
+    if not leaves:
+        return torch.ones((), dtype=torch.bool)
+    peaks = torch._foreach_norm(leaves, float('inf'))
+    return torch.isfinite(torch.stack([p.float() for p in peaks])).all()
+
+
+def l2_norm_tree(tree):
+    """Global L2 norm over every floating leaf, in float32."""
+    leaves = [t.float() for t in _floating(tree) if t.numel()]
+    if not leaves:
+        return torch.zeros((), dtype=torch.float32)
+    return torch.linalg.vector_norm(
+        torch.stack(torch._foreach_norm(leaves, 2)))
+
+
+def update_ratio(old_params, new_params):
+    """``||new - old|| / (||old|| + 1e-12)`` over the parameters — the
+    update-to-weight ratio, the classic learning-rate health signal."""
+    new, old = _floating(new_params), _floating(old_params)
+    delta = torch._foreach_sub([t.float() for t in new],
+                               [t.float() for t in old]) if new else []
+    return l2_norm_tree(delta) / (l2_norm_tree(old) + 1e-12)
+
+
+def init_state(device=None):
+    """Fresh health state: int32 ``(steps, nan_steps, first_bad,
+    last_bad)`` (first/last start at -1) and float32 ``(grad_norm,
+    update_ratio)``."""
+    return (torch.tensor([0, 0, -1, -1], dtype=torch.int32, device=device),
+            torch.zeros(2, dtype=torch.float32, device=device))
+
+
+def fold_state(state, ok, grad_norm, ratio):
+    """One step's fold of the probe results into ``state``, IN PLACE
+    (the buffers a captured step holds); returns ``state``."""
+    ints, floats = state
+    bad = torch.logical_not(ok)
+    steps, first = ints[0], ints[2]
+    new = torch.stack([
+        steps + 1,
+        ints[1] + bad.to(torch.int32),
+        torch.where(torch.logical_and(bad, first < 0), steps, first),
+        torch.where(bad, steps, ints[3])])
+    ints.copy_(new)
+    floats.copy_(torch.stack([grad_norm.float().reshape(()),
+                              ratio.float().reshape(())]))
+    return state
+
+
+# ---------------------------------------------------------------------------
+# Host-side monitor
+# ---------------------------------------------------------------------------
+
+# one health state per device for the life of the process: captured
+# steps hold their addresses, and each fit's monitor resets them in place
+_buffers = {}
+
+
+def _device_buffers(device):
+    device = torch.device(device)
+    if device.type == 'cuda' and device.index is None:
+        device = torch.device('cuda', torch.cuda.current_device())
+    buf = _buffers.get(device)
+    if buf is None:
+        buf = _buffers[device] = init_state(device)
+    return buf
+
+
+class HealthMonitor(object):
+    """One fit's health accumulator.  :meth:`device_state` hands the fused
+    step the device's state buffers (reset in place on this monitor's
+    first call); :meth:`set_device_state` marks them pending after a
+    step.  Draining rides the metric drain (``metric.EvalMetric.
+    _drain_device`` copies these tensors in the SAME transfer), so
+    steady-state fits pay no extra host sync; a standalone :meth:`drain`
+    counts ``health.host_syncs``."""
+
+    def __init__(self, action='warn'):
+        assert action in _ACTIONS, action
+        self.action = action
+        self._dev = None
+        self._dirty = False
+        # drained host mirrors (Speedometer's health column reads these
+        # without ever touching the device)
+        self.steps = 0
+        self.nan_steps = 0
+        self.first_bad_step = -1
+        self.last_bad_step = -1
+        self.grad_norm = 0.0
+        self.update_ratio = 0.0
+        self._nan_reported = 0
+        self._warned_unfused = False
+
+    def warn_unfused(self):
+        """Called by the fit loop when a step takes the non-fused path:
+        the sentinels only ride the fused step, so a configured
+        skip_update/abort would silently never fire — say so, once per
+        fit."""
+        if self._warned_unfused:
+            return
+        self._warned_unfused = True
+        _log.warning(
+            'mxtpu health: MXTPU_HEALTH_SENTINELS is on but this fit is '
+            'not using the fused train step (monitor, non-functional '
+            'optimizer, or MXTPU_FUSED_FIT=0) — the on-device probe is '
+            'INACTIVE and MXTPU_HEALTH_ACTION=%r will not fire',
+            self.action)
+
+    # -- the fused-step side ------------------------------------------------
+    def device_state(self, device):
+        """The state buffers on ``device``; the first call of this monitor
+        resets them to :func:`init_state`'s values, in place."""
+        buf = _device_buffers(device)
+        if self._dev is not buf:
+            self._dev = buf
+            with torch.no_grad():
+                for t, f in zip(buf, init_state(buf[0].device)):
+                    t.copy_(f)
+        return buf
+
+    def set_device_state(self, state):
+        self._dev = state
+        self._dirty = True
+
+    def pending_arrays(self):
+        """Device tensors awaiting a drain (empty when no step ran since
+        the last apply)."""
+        if self._dev is None or not self._dirty:
+            return []
+        return list(self._dev)
+
+    # -- the drain side -----------------------------------------------------
+    def apply_drained(self, values):
+        """Fold the drained values (``steps, nan_steps, first_bad,
+        last_bad, grad_norm, update_ratio`` as host numbers) into the host
+        mirrors and the instrument registry.  Returns the number of NEW
+        bad steps since the previous apply."""
+        steps, nans, first, last, gnorm, ratio = values
+        self.steps = int(steps)
+        self.nan_steps = int(nans)
+        self.first_bad_step = int(first)
+        self.last_bad_step = int(last)
+        self.grad_norm = float(gnorm)
+        self.update_ratio = float(ratio)
+        self._dirty = False
+        if instrument.metrics_enabled():
+            instrument.set_gauge('health.grad_norm', self.grad_norm)
+            instrument.set_gauge('health.update_ratio', self.update_ratio)
+            instrument.set_gauge('health.steps', self.steps)
+            instrument.set_gauge('health.action_level',
+                                 _ACTION_LEVEL.get(self.action, 0))
+            # materialize the counter even on all-clear drains so a
+            # postmortem snapshot always carries health.*
+            instrument.counter('health.nan_steps')
+        delta = self.nan_steps - self._nan_reported
+        if delta > 0:
+            instrument.inc('health.nan_steps', delta)
+        self._nan_reported = self.nan_steps
+        return delta
+
+    def act(self, new_bad):
+        """Apply the configured divergence action for ``new_bad`` newly
+        drained bad steps (no-op when 0)."""
+        if new_bad <= 0:
+            return
+        reason = 'non-finite loss/gradients in %d step(s), steps %d..%d' \
+            % (new_bad, self.first_bad_step, self.last_bad_step)
+        if self.action == 'abort':
+            instrument.decision('health', 'abort', severity='error',
+                                reason=reason, nan_steps=self.nan_steps)
+            dump_flight('diverged')
+            raise TrainingDivergedError(self.first_bad_step,
+                                        self.last_bad_step,
+                                        self.nan_steps, self.grad_norm)
+        skipped = ' — update(s) skipped on the device' \
+            if self.action == 'skip_update' else ''
+        instrument.decision(
+            'health',
+            'skip_update' if self.action == 'skip_update' else 'warn',
+            severity='warn', reason=reason, nan_steps=self.nan_steps)
+        _log.warning(
+            'mxtpu health: non-finite loss/gradients in %d step(s), '
+            'steps %d..%d (grad_norm=%.4g)%s', new_bad,
+            self.first_bad_step, self.last_bad_step, self.grad_norm,
+            skipped)
+
+    def drain(self):
+        """Standalone drain (NOT the steady-state path): copies the
+        pending state itself and counts ``health.host_syncs``."""
+        arrays = self.pending_arrays()
+        if not arrays:
+            return
+        from . import iowatch
+        with iowatch.account('metric_drain'):
+            values = _read(arrays)
+        instrument.inc('health.host_syncs')
+        self.act(self.apply_drained(values))
+
+    def values(self):
+        """Drained host mirrors as a plain dict — safe to read anywhere,
+        never touches the device."""
+        return {'steps': self.steps, 'nan_steps': self.nan_steps,
+                'first_bad_step': self.first_bad_step,
+                'last_bad_step': self.last_bad_step,
+                'grad_norm': self.grad_norm,
+                'update_ratio': self.update_ratio}
+
+
+def _read(arrays):
+    """Host values of the state tensors, in one transfer."""
+    return torch.cat([a.double().reshape(-1) for a in arrays]).cpu() \
+        .tolist()
+
+
+_active = None            # the fitting module's monitor, or None
+
+
+def activate():
+    """Install a fresh monitor for the duration of one ``fit`` (called
+    by ``BaseModule.fit``; None with sentinels off)."""
+    global _active
+    _active = HealthMonitor(health_action()) if sentinels_on() else None
+    return _active
+
+
+def deactivate():
+    global _active
+    _active = None
+
+
+def active_monitor():
+    return _active
+
+
+def fold_key():
+    """Identity of the health computation folded into the fused step
+    (None = no sentinels): a toggle between fits rebuilds the step."""
+    return _active.action if _active is not None else None
+
+
+def last_values():
+    """The active monitor's drained values ({} when no fit is running
+    with sentinels on).  Reads host mirrors only."""
+    return _active.values() if _active is not None else {}
+
+
+# -- the metric-drain piggyback (called from metric._drain_device) -----------
+
+_EMPTY = ()
+
+
+def _piggyback_take():
+    """Tensors the metric drain copies in ITS transfer (empty when no
+    monitor is active or nothing ran since the last apply)."""
+    mon = _active
+    if mon is None:
+        return _EMPTY
+    return mon.pending_arrays()
+
+
+def _piggyback_apply(taken, values=None):
+    """After the metric's transfer: apply the drained health values (no
+    transfer of its own, no ``health.host_syncs``) and tick the flight
+    recorder's write-ahead cadence.  May raise
+    :class:`TrainingDivergedError`."""
+    rec = _recorder
+    if rec is not None:
+        rec.tick()
+    if not taken:
+        return
+    mon = _active
+    if mon is None:
+        return
+    mon.act(mon.apply_drained(values))
+
+
+# ---------------------------------------------------------------------------
+# Flight recorder
+# ---------------------------------------------------------------------------
 
 class FlightRecorder(object):
     """Bounded postmortem recorder: the last ``ring`` spans plus a
@@ -107,7 +474,16 @@ class FlightRecorder(object):
                        'pid': os.getpid(),
                        'rank': self.rank,
                        'drains': self._drains,
-                       'health': {}}
+                       'health': last_values()}
+                try:
+                    # where the run's wall clock went, up to this
+                    # instant: the postmortem's goodput leg
+                    from . import iowatch
+                    gp = iowatch.goodput_snapshot()
+                    if gp:
+                        doc['goodput'] = gp
+                except Exception:        # noqa: BLE001
+                    pass
                 if extra is not None:
                     doc[str(reason)] = extra
                 doc.update(self._collect())

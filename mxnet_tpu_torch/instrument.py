@@ -186,6 +186,9 @@ class _NullSpan(object):
 
 
 _NULL_SPAN = _NullSpan()
+# the shared disabled-path context of every plane (health, iowatch,
+# perfwatch): one instance, nothing allocated when a plane is off
+NULL_CTX = _NULL_SPAN
 
 
 class _Span(object):

@@ -7,7 +7,10 @@ device feed ``DeviceFeedIter`` (``:191-358``) of the sync-free fit loop,
 ``ResizeIter`` (``:114``), ``PrefetchingIter`` (``:359``), and the
 readers of the upstream MNIST examples, ``MNISTIter`` (idx files,
 ``:694``) and ``CSVIter`` (``:747``).  Each delivered batch counts
-``io.batches`` once.
+``io.batches`` once and is noted by the input-pipeline plane
+(``iowatch.note_batch``); the time the fit thread waits for a batch is
+the goodput ledger's ``input_stall``, the feed's wait also the
+``feed_wait`` stage.
 
 ``PrefetchingIter`` runs one producer thread per underlying iterator
 (the reference pushes its fetches on the native engine, which the port
@@ -34,7 +37,9 @@ import numpy as np
 import torch
 
 from . import instrument
+from . import iowatch as _iowatch
 from . import ndarray as nd
+from . import perfwatch as _perfwatch
 from .base import MXNetError
 from .ndarray import NDArray, array
 
@@ -74,12 +79,19 @@ class DataIter(object):
         pass
 
     def next(self):
-        if self.iter_next():
-            batch = DataBatch(data=self.getdata(), label=self.getlabel(),
-                              pad=self.getpad(), index=self.getindex())
-            if self._counts_io_batches:
-                instrument.inc('io.batches')
-            return batch
+        # time spent producing the next batch on the consuming (fit)
+        # thread is input-pipeline time: the goodput ledger charges it
+        # to input_stall (a no-op off the fit thread or with it off)
+        with instrument.span('io.next', cat='io'), \
+                _iowatch.account('input_stall'):
+            if self.iter_next():
+                batch = DataBatch(data=self.getdata(),
+                                  label=self.getlabel(),
+                                  pad=self.getpad(), index=self.getindex())
+                if self._counts_io_batches:
+                    instrument.inc('io.batches')
+                    _iowatch.note_batch(batch)
+                return batch
         raise StopIteration
 
     def __next__(self):
@@ -311,11 +323,13 @@ def _place_batch(batch, place_data, place_label=None):
             staged.append(NDArray(placed))
         return staged
 
-    return DataBatch(stage(batch.data, place_data),
-                     stage(batch.label, place_label), pad=batch.pad,
-                     index=batch.index, bucket_key=batch.bucket_key,
-                     provide_data=batch.provide_data,
-                     provide_label=batch.provide_label)
+    # one device_stage sample per batch (data and label together)
+    with _iowatch.stage('device_stage'):
+        return DataBatch(stage(batch.data, place_data),
+                         stage(batch.label, place_label), pad=batch.pad,
+                         index=batch.index, bucket_key=batch.bucket_key,
+                         provide_data=batch.provide_data,
+                         provide_label=batch.provide_label)
 
 
 class DeviceFeedIter(DataIter):
@@ -404,8 +418,16 @@ class DeviceFeedIter(DataIter):
             return False
         if self._pending is None:
             self._prime()               # first request after a reset
-        pending, self._pending = self._pending, None
-        batch = pending.result()        # re-raises producer errors
+        # occupancy: 1 = the staged batch was already waiting (the feed
+        # keeps up); 0 = the consumer outran the feed (input-bound)
+        if _iowatch.enabled():
+            _iowatch.set_depth('feed_ready',
+                               1.0 if self._pending.done() else 0.0)
+        with _perfwatch.phase('feed_wait'), \
+                _iowatch.stage('feed_wait'), \
+                _iowatch.account('input_stall'):
+            pending, self._pending = self._pending, None
+            batch = pending.result()    # re-raises producer errors
         if batch is None:
             self._exhausted = True
             return False
@@ -416,10 +438,13 @@ class DeviceFeedIter(DataIter):
     def next(self):
         # the staged batch itself: bucket_key, provide_* and ready_event
         # must survive the wrap
-        if self.iter_next():
-            if self._counts_io_batches:
-                instrument.inc('io.batches')
-            return self.current_batch
+        with instrument.span('io.next', cat='io'), \
+                _iowatch.account('input_stall'):
+            if self.iter_next():
+                if self._counts_io_batches:
+                    instrument.inc('io.batches')
+                    _iowatch.note_batch(self.current_batch)
+                return self.current_batch
         raise StopIteration
 
     def getdata(self):

@@ -76,6 +76,12 @@ class EvalMetric(object):
             acc.zero_()
         self._dev_sum = acc
         self._dev_inst = None
+        # instances of health-skipped steps the host count overstates
+        # (a float64 device scalar, made by a skip_update fused step)
+        held = getattr(self, '_dev_held', None)
+        if held is not None:
+            held.zero_()
+        self._dev_held = held
 
     # -- on-device accumulation --------------------------------------------
     def device_capable(self):
@@ -112,6 +118,28 @@ class EvalMetric(object):
         step and its graphs keep adding into the same tensors."""
         self._drain_device()
         self._dev_sum, other._dev_sum = other._dev_sum, None
+        self._dev_held = getattr(other, '_dev_held', None)
+        other._dev_held = None
+
+    def _held(self, device):
+        """The held-back instance count on ``device``, made (zero) if
+        absent: a skip_update step captures its address."""
+        device = torch.device(device)
+        if getattr(self, '_dev_held', None) is not None and \
+                self._dev_held.device != device:
+            self._drain_device()
+            self._dev_held = None
+        if getattr(self, '_dev_held', None) is None:
+            self._dev_held = torch.zeros((), dtype=torch.float64,
+                                         device=device)
+        return self._dev_held
+
+    def _hold_back(self, bad, count):
+        """A health-skipped step (``bad``, a 0-dim bool tensor) does not
+        count: its ``count`` instances, which the host adds per step, are
+        held back on the device and subtracted at the drain."""
+        if count:
+            self._held(bad.device).add_(bad.double() * count)
 
     def _fold_device(self, label, pred):
         """The device half of :meth:`device_fold`: the batch's sum added
@@ -135,18 +163,47 @@ class EvalMetric(object):
     def _drain_device(self):
         """Fold the device accumulators into the host sums and zero
         them in place: THE host sync of the device-metric path, one per
-        drain however many accumulators are pending."""
+        drain however many accumulators are pending.  The active health
+        monitor's state rides the SAME transfer
+        (``health._piggyback_take``), so a fit with sentinels on pays no
+        extra sync: ``health.host_syncs`` counts only a drain health
+        forced on its own (no metric state pending)."""
+        from . import health as _health
         pending = self._take_device_state()
-        if not pending:
+        extra = _health._piggyback_take()
+        if not pending and not extra:
             return
-        flat = torch.cat([s.double().reshape(-1)
-                          for _, s, _ in pending]).cpu().tolist()
-        instrument.inc('metric.host_syncs')
+        from . import iowatch as _iowatch
+        from . import perfwatch as _perfwatch
+        held = [m._dev_held for m, _, _ in pending
+                if getattr(m, '_dev_held', None) is not None]
+        parts = [s for _, s, _ in pending] + held + list(extra)
+        # the goodput ledger charges the transfer to metric_drain: one
+        # ledger event per counted host sync
+        with _perfwatch.phase('metric_drain'), \
+                _iowatch.account('metric_drain'):
+            flat = torch.cat([t.double().reshape(-1) for t in parts]) \
+                .cpu().tolist()
+        if pending:
+            instrument.inc('metric.host_syncs')
+        else:
+            instrument.inc('health.host_syncs')
+        i = sum(s.numel() for _, s, _ in pending)
+        held_values = dict(zip(map(id, held), flat[i:i + len(held)]))
+        health_values = flat[i + len(held):]
         i = 0
         for metric, acc, n in pending:
+            if getattr(metric, '_dev_held', None) is not None:
+                n -= int(round(held_values[id(metric._dev_held)]))
+                metric._dev_held.zero_()
             metric._apply_drained(flat[i:i + acc.numel()], n)
             i += acc.numel()
             acc.zero_()
+        # everything recorded before the transfer has completed
+        _perfwatch.harvest()
+        # applied last: the divergence action may raise, and the metric
+        # sums above must land first
+        _health._piggyback_apply(extra, health_values)
 
     def _apply_drained(self, values, n):
         """Fold one drained accumulator (its values, as floats) and the
@@ -223,6 +280,13 @@ class CompositeEvalMetric(EvalMetric):
     def _take_accumulators(self, other):
         for metric, theirs in zip(self.metrics, other.metrics):
             metric._take_accumulators(theirs)
+
+    def _held(self, device):
+        return [m._held(device) for m in self.metrics]
+
+    def _hold_back(self, bad, count):
+        for metric, k in zip(self.metrics, count):
+            metric._hold_back(bad, k)
 
     def _fold_device(self, label, pred):
         return [m._fold_device(label, pred) for m in self.metrics]

@@ -31,9 +31,18 @@ the parameters only: the update count and optimizer state start again,
 as in the reference).  ``fit(monitor=...)`` installs the monitor after
 bind (a monitored module trains through the per-parameter loop, eagerly)
 and calls its ``tic``/``toc_print`` around every step, as the reference
-does.  The JAX package's other planes around the loop (elastic
-membership, health sentinels, goodput accounting, mesh) are not ported;
-asking for them raises.
+does.
+
+The observability planes ride the loop as in the reference
+(``base_module.py:307-383``): ``fit`` activates a fresh health monitor
+(``MXTPU_HEALTH_SENTINELS``; its probe rides the fused step, and a step
+that takes the per-parameter loop with sentinels on warns once that the
+probe is inactive), re-reads the performance plane (``MXTPU_PERFWATCH``,
+``MXTPU_STEP_SAMPLE``), opens the goodput ledger (``MXTPU_IOWATCH``:
+each step inside ``traced_dispatch``, checkpoints and evaluation in
+their buckets, the ledger closed in a ``finally``), and starts the
+chronicle (``MXTPU_CHRONICLE``).  Elastic membership and ``mesh=`` /
+``partition=`` are not ported; asking for a mesh raises.
 """
 from __future__ import annotations
 
@@ -44,9 +53,13 @@ from collections import namedtuple
 import torch
 
 from .. import config as _config
+from .. import chronicle as _chronicle
+from .. import health as _health
 from .. import instrument
 from .. import io as _io
+from .. import iowatch as _iowatch
 from .. import metric as _metric
+from .. import perfwatch as _perfwatch
 from ..engine import StepWindow
 
 __all__ = ['BaseModule', 'BatchEndParam']
@@ -101,6 +114,10 @@ class BaseModule(object):
         step also accumulated ``eval_metric`` (the caller then skips the
         host-side ``update_metric``); ``Module`` overrides it with the
         fused step."""
+        mon = _health.active_monitor()
+        if mon is not None:
+            # the sentinels ride the fused step only: say so, once a fit
+            mon.warn_unfused()
         self.forward_backward(data_batch)
         self.update()
         return False
@@ -261,11 +278,51 @@ class BaseModule(object):
             validation_metric = eval_metric
         if not isinstance(eval_metric, _metric.EvalMetric):
             eval_metric = _metric.create(eval_metric)
+        # the planes (reference base_module.py:307-330): a fresh health
+        # monitor, active before the warm start so the warmed step folds
+        # the same probe; the performance plane's knobs; the chronicle;
+        # the goodput ledger, opened on this thread (None when another
+        # fit's ledger is live: this fit then neither owns nor closes it)
+        _health.activate()
+        try:
+            _perfwatch.activate_fit()
+            _chronicle.refresh()
+            gp_token = _iowatch.activate_fit()
+        except BaseException:
+            _health.deactivate()
+            raise
+        try:
+            try:
+                self._fit_planned(train_data, eval_data, eval_metric,
+                                  validation_metric, epoch_end_callback,
+                                  batch_end_callback, eval_end_callback,
+                                  eval_batch_end_callback, begin_epoch,
+                                  num_epoch, warm_start, checkpoint_prefix,
+                                  checkpoint_period, monitor)
+            finally:
+                # the skipped-step totals reach the ledger before the
+                # monitor is torn down, from the fit that owns the ledger
+                if gp_token is not None:
+                    _iowatch.note_health(_health.active_monitor())
+                _health.deactivate()
+                _perfwatch.harvest()
+        finally:
+            if gp_token is not None:
+                _iowatch.goodput_end(gp_token)
+
+    def _fit_planned(self, train_data, eval_data, eval_metric,
+                     validation_metric, epoch_end_callback,
+                     batch_end_callback, eval_end_callback,
+                     eval_batch_end_callback, begin_epoch, num_epoch,
+                     warm_start, checkpoint_prefix, checkpoint_period,
+                     monitor):
         if warm_start is None:
             warm_start = _config.get('MXTPU_WARM_START')
         if warm_start or getattr(self, '_warm_eager', False):
             from .. import compile_cache
-            compile_cache.warm_start(self, eval_metric, data_iter=train_data)
+            with _iowatch.account('compile'):
+                compile_cache.warm_start(self, eval_metric,
+                                         data_iter=train_data)
         window = StepWindow(_config.get('MXTPU_ASYNC_DEPTH'))
         feed = None
         if _config.get('MXTPU_DEVICE_FEED') and \
@@ -301,8 +358,22 @@ class BaseModule(object):
             for nbatch, data_batch in enumerate(train_data):
                 if monitor is not None:
                     monitor.tic()
-                metric_on_device = self._fit_step(data_batch, eval_metric)
+                # MXTPU_STEP_SAMPLE: every Nth step fully syncs after its
+                # launch for an honest step latency (perf.step_latency)
+                sampled = _perfwatch.sample_tick()
+                if sampled:
+                    samp_t0 = time.perf_counter()
+                    samp_ts = time.time_ns() // 1000
+                # a step that captured a graph spent its time compiling:
+                # the goodput ledger charges it to 'compile'
+                with _iowatch.traced_dispatch():
+                    metric_on_device = self._fit_step(data_batch,
+                                                      eval_metric)
                 window.admit(self._step_ticket())
+                if sampled:
+                    with _iowatch.account('metric_drain'):
+                        _perfwatch.sample_sync(self._step_ticket(),
+                                               samp_t0, samp_ts)
                 instrument.inc('fit.batches')
                 if not metric_on_device:
                     self.update_metric(eval_metric, data_batch.label)
@@ -324,16 +395,19 @@ class BaseModule(object):
             if checkpoint_prefix and ((epoch + 1) % checkpoint_period == 0
                                       or epoch + 1 == num_epoch):
                 from ..model import save_checkpoint
-                save_checkpoint(checkpoint_prefix, epoch + 1, self.symbol,
-                                arg_params_, aux_params_)
+                with _iowatch.account('checkpoint'):
+                    save_checkpoint(checkpoint_prefix, epoch + 1,
+                                    self.symbol, arg_params_, aux_params_)
             if epoch_end_callback is not None:
                 for callback in _as_list(epoch_end_callback):
                     callback(epoch, self.symbol, arg_params_, aux_params_)
             if eval_data:
-                res = self.score(eval_data, validation_metric,
-                                 score_end_callback=eval_end_callback,
-                                 batch_end_callback=eval_batch_end_callback,
-                                 epoch=epoch)
+                with _iowatch.account('eval'):
+                    res = self.score(
+                        eval_data, validation_metric,
+                        score_end_callback=eval_end_callback,
+                        batch_end_callback=eval_batch_end_callback,
+                        epoch=epoch)
                 for name, val in res:
                     self.logger.info('Epoch[%d] Validation-%s=%f', epoch,
                                      name, val)

@@ -58,8 +58,10 @@ import logging
 
 import torch
 
-from .. import compile_cache, instrument
+from .. import compile_cache, instrument, resilience
 from .. import config as _config
+from .. import health as _health
+from .. import perfwatch as _perfwatch
 from .. import random as _random
 from .. import optimizer as opt
 from ..base import MXNetError, resolve_dtype
@@ -129,6 +131,10 @@ class Module(BaseModule):
         self._fused_opt_state = None
         self._fused_metric = None
         self._lr_t = None
+        # the health probe folded into the fused step (None: none) and
+        # the fit's monitor whose state buffers the step folds into
+        self._fused_health_key = None
+        self._health_ref = None
         self._drop_graphs()
 
     def _drop_graphs(self):
@@ -454,10 +460,19 @@ class Module(BaseModule):
     def _fit_step(self, data_batch, eval_metric=None):
         """One fit-loop step: forward + backward + every parameter update
         through the fused step (``mxnet_tpu/module/module.py:593``), the
-        metric folded in when it has a device form (returns True then).
-        Falls back to ``forward_backward(); update()`` when the step
-        cannot be built (non-functional optimizer, a ``grad_req`` other
-        than 'write', inputs that need gradients, a monitor installed).
+        metric folded in when it has a device form (returns True then)
+        and, with ``MXTPU_HEALTH_SENTINELS``, the health probe.  Falls
+        back to ``forward_backward(); update()`` when the step cannot be
+        built (non-functional optimizer, a ``grad_req`` other than
+        'write', inputs that need gradients, a monitor installed).
+
+        The probe is baked into the step, as the reference bakes it into
+        its program (``mxnet_tpu/module/module.py:618-653``): a sentinel
+        toggle or another action between fits rebuilds the step (its
+        graphs dropped, the optimizer state kept); the same action under
+        a fresh monitor reuses the step and its graphs, which fold into
+        the device's health buffers (``health.HealthMonitor.
+        device_state``).
 
         Under an lr scheduler the two forms differ at a schedule
         boundary: the fused step moves every update count first and then
@@ -467,6 +482,7 @@ class Module(BaseModule):
         ``mxnet_tpu/module/module.py:608-611``).  So "captured equals the
         loop bit for bit" holds only without a scheduler."""
         metric = self._device_metric(eval_metric)
+        self._sync_health_key()
         if self._fused is not None and not self._adopt_metric(metric):
             self._fused = None          # rebuilt below, state kept
         elif self._fused is not None and \
@@ -478,8 +494,16 @@ class Module(BaseModule):
         if self._fused is None:
             super()._fit_step(data_batch)
             return False
+        self._health_ref = _health.active_monitor()
         self._run_fused(data_batch)
         return metric is not None
+
+    def _sync_health_key(self):
+        """Drop a fused step whose folded probe is not the active
+        monitor's (rebuilt by the caller with the state kept)."""
+        if self._fused is not None and \
+                _health.fold_key() != self._fused_health_key:
+            self._fused = None
 
     def _adopt_metric(self, metric):
         """Whether the fused step serves ``metric``: it is the step's own,
@@ -514,12 +538,14 @@ class Module(BaseModule):
         metric = None
         if eval_metric is not None:
             metric = self._device_metric(_metric.create(eval_metric))
+        self._sync_health_key()
         if self._fused is not None and not self._adopt_metric(metric):
             self._fused = None
         if self._fused is None and not self._fused_unavailable:
             self._try_build_fused(metric)
         if self._fused is None:
             return
+        self._health_ref = _health.active_monitor()
         if self._context[0].device_type == 'gpu':
             from ..ops import _kernels
             for name in self._fused.kernels:
@@ -532,24 +558,60 @@ class Module(BaseModule):
         cap = self._step_graph(*buffers)
         if cap.skip is None and not cap.captured:
             self._warm_step(cap)
-            cap.capture()
 
     def _warm_step(self, cap):
-        """Run ``cap``'s step once and undo it: parameters, aux,
-        optimizer state, the metric's accumulators and the device
-        generator are written back as they were (the update counts are
-        the host's and never move)."""
+        """Run ``cap``'s step once, undo it, and capture it: parameters,
+        aux, optimizer state, the metric's accumulators, the health state
+        and the device generator are written back as they were (the
+        update counts are the host's and never move)."""
         params, frozen, aux, batch = self._fused_buffers()
         device = next(iter(batch.values())).device
         tensors = compile_cache.step_tensors(params, aux,
-                                             self._fused_opt_state)
+                                             self._fused_opt_state,
+                                             self._health_state(device))
         if self._fused_metric is not None:
             tensors += self._fused_metric._accumulators(device)
+            if self._fused_health_key == 'skip_update':
+                tensors += compile_cache.step_tensors(
+                    self._fused_metric._held(device))
         gens = [_random.generator(device)] if compile_cache.random_nodes(
             self._fused.program) else []
         restore = compile_cache.snapshot(tensors, gens)
-        cap.warm_up()
+        self._first_step(cap, compile_cache.batch_sig(batch))
         restore()
+
+    def _first_step(self, cap, sig):
+        """The first step of a signature: the eager warm-up and, on the
+        card, the capture.  With the performance plane on, the step's
+        FLOPs are counted over the warm-up (never inside the capture)
+        and its graph pool's reserved bytes become one ledger entry."""
+        if not _perfwatch.capture_on():
+            outs = cap.warm_up()
+            if cap.skip is None:
+                cap.capture()
+            return outs
+        with _perfwatch.count_flops() as fc:
+            outs = cap.warm_up()
+        if cap.skip is None:
+            cap.capture(measure=True)
+        pool = cap.pool_bytes or 0
+        cost = {'flops': fc.flops, 'aten_flops': fc.aten_flops,
+                'kernel_flops': fc.kernel_flops, 'pool_bytes': pool}
+        cap.cost = _perfwatch.register_executable(
+            'fit_step', self._perf_key(sig), cost) or cost
+        if pool > 0:
+            _perfwatch.ledger_alloc('graph_pool', cap, nbytes=pool)
+        return outs
+
+    def _perf_key(self, sig):
+        return (compile_cache.fingerprint(self._symbol), sig)
+
+    def _health_state(self, device):
+        """The health buffers the fused step folds into on ``device``
+        (None without a folded probe)."""
+        if self._fused_health_key is None or self._health_ref is None:
+            return None
+        return self._health_ref.device_state(device)
 
     def _try_build_fused(self, metric=None):
         """(``mxnet_tpu/module/module.py:662-731``)"""
@@ -576,11 +638,14 @@ class Module(BaseModule):
         self._functional_opt = functional
         self._fused_trainable = trainable
         self._fused_frozen = frozen
+        hkey = _health.fold_key()
         self._fused = make_fit_step(
             self._symbol, functional, data_names=self._data_names,
             compute_dtype=self._compute_dtype, metric=metric,
-            metric_label=self._label_names[0] if metric else None)
+            metric_label=self._label_names[0] if metric else None,
+            health_action=hkey)
         self._fused_metric = metric
+        self._fused_health_key = hkey
         if self._fused_opt_state is None:
             self._fused_opt_state = functional.init(
                 {n: exec_.arg_dict[n].handle for n in trainable})
@@ -615,13 +680,15 @@ class Module(BaseModule):
         made on a miss (or when its tensors were rebound)."""
         sig = compile_cache.batch_sig(batch)
         cap = self._graphs.get(sig)
+        health = self._health_state(next(iter(batch.values())).device)
         if cap is None or not cap.holds(compile_cache.step_tensors(
                 params, frozen, aux, batch, self._fused_opt_state,
-                self._lr_t)):
+                self._lr_t, health)):
             pool = self._family_pool() if self._lr_t.is_cuda else None
             cap = self._graphs[sig] = self._fused.capture(
                 params, frozen, aux, self._fused_opt_state, batch,
-                self._lr_t, pool=pool, copy_outputs=True)
+                self._lr_t, pool=pool, copy_outputs=True,
+                health_state=health)
         return cap
 
     def _run_fused(self, data_batch):
@@ -629,14 +696,40 @@ class Module(BaseModule):
         group = self._exec_group
         exec_ = group.execs[0]
         group.load_batch(data_batch)
-        cap = self._step_graph(*self._fused_buffers())
+        buffers = self._fused_buffers()
+        sig = compile_cache.batch_sig(buffers[3])
+        cap = self._step_graph(*buffers)
         for idx, name in enumerate(self._param_names):
             if name in exec_.grad_dict:
                 self._optimizer._update_count(idx)
         self._lr_t.fill_(self._optimizer.host_lr())
-        outs = cap.run()
+        if resilience.faults_on():
+            # the straggler fault site: MXTPU_FAULTS='fit.step:delay:P:S'
+            # slows this process's step cadence
+            resilience.fault_point('fit.step')
+        # perf.phase.dispatch times the steps that replay (or, eager,
+        # rerun) a signature; perf.phase.capture its first
+        first = not cap.captured and cap.cost is None
+        try:
+            with _perfwatch.phase('capture' if first else 'dispatch',
+                                  cap.device):
+                outs = self._first_step(cap, sig) if first else cap.run()
+        except Exception as exc:
+            # an out-of-memory error becomes a postmortem
+            _perfwatch.on_error(exc, 'fit_step', self._perf_key(sig))
+            raise
+        health = self._health_state(cap.device)
+        if health is not None:
+            self._health_ref.set_device_state(health)
         if self._fused_metric is not None:
             self._fused_metric._fold_count(self._fused.metric_count)
         instrument.inc('module.fused_steps')
+        if _perfwatch.capture_on():
+            if not cap.captured:
+                for o in outs:
+                    _perfwatch.ledger_alloc('fit.outputs', o)
+            rows = data_batch.data[0].shape[0] if data_batch.data else 0
+            _perfwatch.note_step('fit_step', self._perf_key(sig), rows,
+                                 cap.device)
         exec_.outputs = [NDArray(o, exec_._ctx) for o in outs]
         self._params_dirty = True

@@ -46,7 +46,7 @@ import torch
 
 from ..base import MXNetError
 from . import _kernels
-from .fused import _count, _raise_launch, _sm_count
+from .fused import _count, _flops, _raise_launch, _sm_count
 
 __all__ = ['flash_attention', 'flash_attention_plain', 'NEG_INF',
            'MAX_HEAD_DIM', 'attention_route', 'ROUTES']
@@ -105,6 +105,14 @@ def flash_attention_plain(q, k, v, scale, causal):
     l = torch.sum(p, dim=-1, keepdim=True)
     o = torch.einsum('bts,bsd->btd', p / l, v.float())
     return o.to(q.dtype), (m + torch.log(l))[..., 0]
+
+
+def flash_attention_flops(q, k):
+    """The FLOPs of one launch as FlopCounterMode counts the plain
+    version: its two dense products, 4·BH·Tq·Tk·D (a causal mask is not
+    discounted)."""
+    bh, tq, d = q.shape
+    return 4 * bh * tq * k.shape[1] * d
 
 
 def _check(q, k, v):
@@ -167,6 +175,7 @@ def _launch(q, k, v, scale, causal, route=None):
     if err:
         _raise_launch('flash_attention', err)
     _count(flash_attention, route)
+    _flops(flash_attention_flops(q, k))
     return o, lse
 
 

@@ -46,6 +46,7 @@ import torch
 
 from ..base import MXNetError
 from ..instrument import count_launch as _count
+from ..perfwatch import note_kernel_flops as _flops
 from . import _kernels
 from .registry import register_simple
 
@@ -283,6 +284,12 @@ def fused_scale_bias_dot_plain(x, w, scale, bias, relu=False):
     return torch.matmul(xa.float(), w.float().contiguous()).to(x.dtype)
 
 
+def fused_scale_bias_dot_flops(x, w):
+    """The FLOPs of one launch as FlopCounterMode counts the plain
+    version: its product, 2·M·N·K (the affine is elementwise)."""
+    return 2 * x.shape[0] * w.shape[1] * x.shape[1]
+
+
 def _dot_check(x, w, scale=None, bias=None):
     """scale and bias None: check x and w only."""
     name = 'fused_scale_bias_dot'
@@ -347,6 +354,7 @@ def _dot_launch(x, w, scale, bias, relu, route=None):
     if err:
         _raise_launch(name, err)
     _count(fused_scale_bias_dot, route)
+    _flops(fused_scale_bias_dot_flops(x, w))
     return y
 
 
@@ -421,6 +429,12 @@ def fused_dot_epilogue_plain(x, w, bias=None, relu=False, clip=None):
     return y.to(x.dtype)
 
 
+def fused_dot_epilogue_flops(x, w):
+    """The FLOPs of one launch as FlopCounterMode counts the plain
+    version: its product, 2·M·N·K (the epilogue is elementwise)."""
+    return 2 * x.shape[0] * w.shape[1] * x.shape[1]
+
+
 def _epi_check(x, w, bias):
     name = 'fused_dot_epilogue'
     _check_dtype(name, x)
@@ -477,6 +491,7 @@ def _epi_launch(x, w, bias, relu, clip, route=None):
     if err:
         _raise_launch(name, err)
     _count(fused_dot_epilogue, route)
+    _flops(fused_dot_epilogue_flops(x, w))
     return y
 
 

@@ -34,7 +34,8 @@ from torch.nn import grad as nn_grad
 
 from . import _kernels
 from .fused import (_DTYPE_CODE, ROUTES, _check_dtype, _check_vec, _count,
-                    _device_kind, _raise_launch, _sm90_plan, _sm_count)
+                    _device_kind, _flops, _raise_launch, _sm90_plan,
+                    _sm_count)
 
 __all__ = ['fused_scale_bias_conv3x3', 'fused_scale_bias_conv3x3_plain',
            'conv3x3_out_hw', 'conv3x3_route', 'conv_route',
@@ -103,6 +104,14 @@ def fused_scale_bias_conv3x3_plain(x, w, scale, bias, stride=1, relu=True):
     return y.permute(0, 2, 3, 1).to(x.dtype)
 
 
+def fused_scale_bias_conv3x3_flops(x, w, stride=1):
+    """The FLOPs of one launch as FlopCounterMode counts the plain
+    version's convolution: 2·N·OH·OW·F·C·9."""
+    n, h, wd, c = x.shape
+    oh, ow = conv3x3_out_hw(h, wd, stride)
+    return 2 * n * oh * ow * w.shape[3] * c * 9
+
+
 def _check(x, w, scale, bias, stride):
     _check_dtype(_NAME, x)
     if x.ndim != 4:
@@ -159,6 +168,7 @@ def _launch(x, w, scale, bias, stride, relu, route=None):
     if err:
         _raise_launch(_NAME, err)
     _count(fused_scale_bias_conv3x3, route)
+    _flops(fused_scale_bias_conv3x3_flops(x, w, stride))
     return y
 
 

@@ -29,8 +29,22 @@ graph reads only as an index (:func:`index_inputs`: token ids into an
 ``Embedding``) is never cast: bf16 holds integers exactly only up to 256
 (the JAX package casts them, a recorded reference fault).
 
-Not ported: shardings (a mesh) and health sentinels; asking for them
-raises.
+With ``health_action`` (``MXTPU_HEALTH_SENTINELS``) the body also runs
+the health probe of ``mxnet_tpu/parallel/train_step.py:151-175``
+(``health.py``): ``ok`` (every element of the raw outputs and the
+gradients finite, before any masking), the global gradient norm in f32
+and the update-to-weight ratio, folded in place into the health state
+buffers.  Under ``'skip_update'`` a non-finite step is undone on the
+device: the parameters, optimizer state, aux and the metric's
+accumulators are copied (one flat copy per dtype) before aux is written,
+and after the update every one of them is replaced by
+``torch.where(ok, new, old)`` — a select, never a product with a mask (a
+NaN times zero is NaN) — so a skipped step leaves them bit for bit as
+they were; the metric's host instance count is held back by the step's
+count on the device (``EvalMetric._hold_back``).  No host read, no
+branch: a captured step does all of it in its graph.
+
+Not ported: shardings (a mesh); asking for them raises.
 """
 from __future__ import annotations
 
@@ -38,8 +52,9 @@ import functools
 
 import torch
 
+from .. import health as _health
 from .. import random
-from ..compile_cache import random_nodes
+from ..compile_cache import random_nodes, step_tensors
 from ..executor import _build_graph_fn, mirror_wrap
 from ..symbol import Symbol
 
@@ -111,7 +126,7 @@ class FitStep(object):
     body over fixed buffers in a ``compile_cache.CapturedStep``."""
 
     def __init__(self, symbol, functional_opt, data_names, compute_dtype,
-                 metric, metric_label):
+                 metric, metric_label, health_action=None):
         from ..fuse import apply_fuse_passes
         self.program = apply_fuse_passes(symbol, True)
         self._graph_fn = _build_graph_fn(self.program, True)
@@ -124,14 +139,17 @@ class FitStep(object):
         self.metric_count = None    # instances the metric counts per step
         self.kernels = graph_kernels(self.program)
         self._draws = bool(random_nodes(self.program))
+        self.health_action = health_action
 
     def _cast(self, v):
         return v.to(self._dtype) if self._dtype is not None and \
             v.is_floating_point() else v
 
-    def body(self, params, frozen, aux, opt_state, batch, lr_t):
-        """Forward, backward, every update and the metric's device fold;
-        returns the outputs."""
+    def body(self, params, frozen, aux, opt_state, batch, lr_t,
+             health_state=None):
+        """Forward, backward, every update, the metric's device fold and,
+        with a ``health_action``, the health probe folded into
+        ``health_state``; returns the outputs."""
         cast = self._cast
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in params.items()}
@@ -153,44 +171,119 @@ class FitStep(object):
                     heads, [torch.zeros_like(o) for o in heads])
         grads = {k: (v.grad if v.grad is not None else torch.zeros_like(v))
                  for k, v in leaves.items()}
+        outs = [o.detach() for o in outs]
+        probe = None
+        if self.health_action is not None:
+            probe = self._probe_before(params, aux, opt_state, outs, grads,
+                                       batch)
         with torch.no_grad():
             for k, v in aux_upd.items():
                 aux[k].copy_(v)
         self._opt.update(params, grads, opt_state, lr_t)
-        outs = [o.detach() for o in outs]
         if self.metric is not None:
             self.metric_count = self.metric._fold_device(
                 batch[self.metric_label], outs[0])
+        if probe is not None:
+            self._probe_after(probe, params, health_state)
         return outs
 
-    def __call__(self, params, frozen, aux, opt_state, batch, lr_t):
-        outs = self.body(params, frozen, aux, opt_state, batch, lr_t)
+    def _probe_before(self, params, aux, opt_state, outs, grads, batch):
+        """The probe's half before any state is written: ``ok`` over the
+        raw outputs and gradients, the gradient norm, and flat copies of
+        what the step may have to restore (everything under
+        'skip_update', else the parameters for the update ratio)."""
+        with torch.no_grad():
+            ok = _health.all_finite_tree((outs, grads))
+            gnorm = _health.l2_norm_tree(grads)
+            kept = list(params.values())
+            if self.health_action == 'skip_update':
+                kept += step_tensors(opt_state, aux)
+                if self.metric is not None:
+                    device = next(iter(batch.values())).device
+                    kept += self.metric._accumulators(device)
+            return ok, gnorm, _FlatCopy(kept)
+
+    def _probe_after(self, probe, params, health_state):
+        ok, gnorm, saved = probe
+        with torch.no_grad():
+            old = saved.views()[:len(params)]
+            ratio = _health.update_ratio(old, list(params.values()))
+            if self.health_action == 'skip_update':
+                saved.restore_unless(ok)
+                if self.metric is not None:
+                    self.metric._hold_back(torch.logical_not(ok),
+                                           self.metric_count)
+            _health.fold_state(health_state, ok, gnorm, ratio)
+
+    def __call__(self, params, frozen, aux, opt_state, batch, lr_t,
+                 health_state=None):
+        outs = self.body(params, frozen, aux, opt_state, batch, lr_t,
+                         health_state)
         if self.metric is not None:
             self.metric._fold_count(self.metric_count)
         return outs
 
     def capture(self, params, frozen, aux, opt_state, batch, lr_t,
-                pool=None, copy_outputs=False, name='fit_step'):
+                pool=None, copy_outputs=False, name='fit_step',
+                health_state=None):
         """A ``CapturedStep`` of :meth:`body` over these buffers (name ->
         tensor dicts; ``lr_t`` a 0-dim tensor the caller fills before
-        each step).  It records its graph on its first ``run()``, after
-        that real step, and stays eager where
+        each step; ``health_state`` the health buffers with a
+        ``health_action``).  It records its graph on its first ``run()``,
+        after that real step, and stays eager where
         ``compile_cache.capture_skip_reason`` says so.  The caller adds
         the metric's host count (:attr:`metric_count`) per step."""
         from .. import compile_cache
         device = next(iter(batch.values())).device
         if self.metric is not None:
             self.metric._accumulators(device)
+            if self.health_action == 'skip_update':
+                self.metric._held(device)
         skip = compile_cache.capture_skip_reason(device, self.program)
         gens = [random.generator(device)] if skip is None and \
             compile_cache.random_nodes(self.program) else []
         return compile_cache.CapturedStep(
             name, lambda: self.body(params, frozen, aux, opt_state, batch,
-                                    lr_t),
+                                    lr_t, health_state),
             device, compile_cache.step_tensors(params, frozen, aux, batch,
-                                               opt_state, lr_t),
+                                               opt_state, lr_t,
+                                               health_state),
             pool=pool, copy_outputs=copy_outputs, skip=skip,
             generators=gens)
+
+
+class _FlatCopy(object):
+    """Copies of ``tensors``, one flat tensor per dtype (one copy kernel
+    each, not one per tensor), and the select that puts them back."""
+
+    def __init__(self, tensors):
+        self.tensors = list(tensors)
+        groups = {}
+        for i, t in enumerate(self.tensors):
+            groups.setdefault(t.dtype, []).append(i)
+        self.groups = [(idx, torch.cat([self.tensors[i].reshape(-1)
+                                        for i in idx]))
+                       for idx in groups.values()]
+
+    def _split(self, idx, flat):
+        parts = flat.split([self.tensors[i].numel() for i in idx])
+        return [p.view(self.tensors[i].shape) for i, p in zip(idx, parts)]
+
+    def views(self):
+        """The copies, shaped as the tensors, in their order."""
+        out = [None] * len(self.tensors)
+        for idx, flat in self.groups:
+            for i, v in zip(idx, self._split(idx, flat)):
+                out[i] = v
+        return out
+
+    def restore_unless(self, ok):
+        """Every tensor becomes ``torch.where(ok, now, copy)``."""
+        for idx, flat in self.groups:
+            now = torch.cat([self.tensors[i].reshape(-1) for i in idx])
+            torch._foreach_copy_([self.tensors[i] for i in idx],
+                                 self._split(idx, torch.where(ok, now,
+                                                              flat)))
 
 
 def make_fit_step(symbol: Symbol, functional_opt, data_names=(),
@@ -206,15 +299,22 @@ def make_fit_step(symbol: Symbol, functional_opt, data_names=(),
 
     With ``metric`` (an ``EvalMetric`` with a device form) the step folds
     ``metric.device_fold(batch[metric_label], outputs[0])`` — deltas from
-    the UNCAST label — so the fit loop never syncs on the metric."""
+    the UNCAST label — so the fit loop never syncs on the metric.
+
+    With ``health_action`` ('warn', 'skip_update' or 'abort') the step
+    takes a ``health_state`` argument after ``lr_t`` (``health.
+    HealthMonitor.device_state``) and folds the health probe into it;
+    under 'skip_update' a non-finite step leaves every state it would
+    write as it was (the module docstring)."""
     if shardings is not None:
         raise NotImplementedError('make_fit_step: sharded (mesh) steps are '
                                   'not ported to mxnet_tpu_torch yet')
-    if health_action is not None:
-        raise NotImplementedError('make_fit_step: health sentinels are not '
-                                  'ported to mxnet_tpu_torch yet')
+    if health_action is not None and \
+            health_action not in _health._ACTIONS:
+        raise ValueError('make_fit_step: health_action must be one of %s, '
+                         'got %r' % (_health._ACTIONS, health_action))
     return FitStep(symbol, functional_opt, data_names, compute_dtype,
-                   metric, metric_label)
+                   metric, metric_label, health_action)
 
 
 class _PlainUpdate(object):

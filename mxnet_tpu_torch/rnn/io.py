@@ -1,6 +1,8 @@
 """Bucketed sequence iterator — the port's copy of ``mxnet_tpu/rnn/io.py``
-(reference ``python/mxnet/rnn/io.py:61``), over the port's ``nd``.  The
-JAX module's ``iowatch`` accounting is not ported."""
+(reference ``python/mxnet/rnn/io.py:61``), over the port's ``nd``.  Each
+batch is produced inside an ``io.next`` span, counts ``io.batches`` and
+is noted by the input-pipeline plane (``iowatch.note_batch``), as in the
+JAX module."""
 from __future__ import annotations
 
 import bisect
@@ -8,6 +10,8 @@ import random
 
 import numpy as np
 
+from .. import instrument
+from .. import iowatch as _iowatch
 from .. import ndarray as nd
 from ..io import DataBatch, DataIter
 
@@ -107,11 +111,17 @@ class BucketSentenceIter(DataIter):
     def next(self):
         if self.curr_idx == len(self.idx):
             raise StopIteration
-        i, j = self.idx[self.curr_idx]
-        self.curr_idx += 1
-        data = self.nddata[i][j:j + self.batch_size]
-        label = self.ndlabel[i][j:j + self.batch_size]
-        return DataBatch([data], [label], pad=0,
-                         bucket_key=self.buckets[i],
-                         provide_data=[(self.data_name, data.shape)],
-                         provide_label=[(self.label_name, label.shape)])
+        with instrument.span('io.next', cat='io'):
+            i, j = self.idx[self.curr_idx]
+            self.curr_idx += 1
+            data = self.nddata[i][j:j + self.batch_size]
+            label = self.ndlabel[i][j:j + self.batch_size]
+            batch = DataBatch([data], [label], pad=0,
+                              bucket_key=self.buckets[i],
+                              provide_data=[(self.data_name, data.shape)],
+                              provide_label=[(self.label_name,
+                                              label.shape)])
+            if self._counts_io_batches:
+                instrument.inc('io.batches')
+                _iowatch.note_batch(batch)
+            return batch

@@ -38,6 +38,7 @@ from mxnet_tpu import serving as j_serving
 from mxnet_tpu.serving import servewatch as j_servewatch
 from mxnet_tpu_torch import health as t_health
 from mxnet_tpu_torch import instrument as t_instrument
+from mxnet_tpu_torch import iowatch as t_iowatch
 from mxnet_tpu_torch import resilience as t_resilience
 from mxnet_tpu_torch import serving as t_serving
 from mxnet_tpu_torch.serving import servewatch as t_servewatch
@@ -71,11 +72,13 @@ def _reset(pkg):
 @pytest.fixture(autouse=True)
 def _plane_on(monkeypatch):
     """Servewatch on with metrics; every process-global toggle, ring and
-    recorder is left as found.  The JAX package's goodput ledger (a fit
-    run earlier in this process leaves its snapshot, which its flight
-    records embed) is out of the way for the test."""
+    recorder is left as found.  Both packages' goodput ledgers (a fit
+    run earlier in this process leaves its snapshot, which flight
+    records embed) are out of the way for the test."""
     monkeypatch.setattr(j_iowatch, '_ledger', None)
     monkeypatch.setattr(j_iowatch, '_last_snapshot', None)
+    monkeypatch.setattr(t_iowatch, '_ledger', None)
+    monkeypatch.setattr(t_iowatch, '_last_snapshot', None)
     was = [(p, p.instrument.profiling_enabled(),
             p.instrument.metrics_enabled()) for p in (JAX, TORCH)]
     for p, _, _ in was:
