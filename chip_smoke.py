@@ -263,17 +263,23 @@ graphs held), and peak allocated and reserved device memory.
                   optimizer in float32, with SoftmaxOutput replaced by a
                   Custom head (op_type 'softmax_rtc', user code in this
                   file) whose operator pushes two Rtc kernels on the card.
-                  Counts zeroed just before fit and read just after: 2 Rtc
-                  launches per step and the training graph's counts of the
-                  other kernels (fused_scale_bias_dot and
-                  fused_scale_bias_conv3x3 on the simt route).  Loss and
-                  parameters finite, parameters moved; step ms, images/s,
-                  peak device memory.
+                  The step is captured in segments (one forward graph,
+                  the user's forward and backward between the replays,
+                  one backward-and-update graph), with cuDNN
+                  deterministic; then the same steps under NaiveEngine.
+                  Counts zeroed just before each fit and read just after:
+                  2 Rtc launches per step and the training graph's counts
+                  of the other kernels (fused_scale_bias_dot and
+                  fused_scale_bias_conv3x3 on the simt route), the user's
+                  forward and backward once a step; parameters bit for
+                  bit captured against NaiveEngine.  Loss and parameters
+                  finite, parameters moved; step ms both ways, images/s,
+                  peak device memory, each stage's ms; and the step ms of
+                  one more captured run under the cuDNN setting of the
+                  other phases (not deterministic), run first.
 12. custom-parity — one f32 step of that model at 2 rows on the card (Rtc
                   head) and on the CPU (nd.* head, the same Custom op's
-                  CPU operator), under train-parity's bound.  The
-                  Custom-headed step stays eager by rule (user Python
-                  runs every step).
+                  CPU operator), under train-parity's bound.
 12b. optim-train — the training lifecycle, optimizers: the train phase's
                   model cut in depth to one bottleneck unit per stage
                   (OPTIM_UNITS; every width kept), its data and bf16
@@ -544,7 +550,12 @@ CAPTURE_CHECKS = (
     'test_set_params_drops_the_graphs',
     'test_dropout_draws_a_new_mask_on_each_replay',
     'test_host_sync_under_capture_raises_naming_the_node',
-    'test_custom_graph_stays_eager')
+    'test_custom_graph_is_captured_in_segments[before_head]',
+    'test_custom_graph_is_captured_in_segments[mid]')
+# ... and of tests/test_torch_warm_cuda.py (warm starts across processes)
+WARM_CHECKS = (
+    'test_rtc_cubin_store_across_processes',
+    'test_warm_start_captures_the_manifest_signatures_off_the_hot_path')
 # ... and of tests/test_torch_lifecycle.py (optimizers, .states, depth 2)
 LIFECYCLE_CHECKS = tuple(
     'test_captured_optimizer_matches_eager_and_loop[%s]' % o
@@ -1910,6 +1921,371 @@ def launches_per_step(before, after, steps):
     return out
 
 
+def custom_stage_profile(torch, cap):
+    """Where the captured Custom-headed step spends its time: the step
+    replayed CUSTOM_PROFILE_REPLAYS more times (after the run it was
+    compared on), each stage bracketed by CUDA events (device ms of
+    each graph and of the user's Rtc pushes) and by the host's clock
+    (host us to issue it).  Medians, by stage."""
+    names = []
+    for i, st in enumerate(cap.stages):
+        if hasattr(st, 'graph'):
+            names.append('%d graph' % i)
+        else:       # FitStep.stages.<locals>.custom_fwd.<locals>.run
+            qual = getattr(st, '__qualname__', 'host')
+            names.append('%d %s' % (i, qual.rsplit('.<locals>.', 1)[0]
+                                    .rsplit('.', 1)[-1]))
+    dev_ms = {n: [] for n in names}
+    host_us = {n: [] for n in names}
+    for _ in range(CUSTOM_PROFILE_REPLAYS):
+        evs = [torch.cuda.Event(enable_timing=True)
+               for _ in range(len(cap.stages) + 1)]
+        evs[0].record()
+        for i, st in enumerate(cap.stages):
+            t0 = time.perf_counter()
+            if hasattr(st, 'graph'):
+                st.graph.replay()
+            else:
+                st()
+            host_us[names[i]].append((time.perf_counter() - t0) * 1e6)
+            evs[i + 1].record()
+        torch.cuda.synchronize()
+        for i, n in enumerate(names):
+            dev_ms[n].append(evs[i].elapsed_time(evs[i + 1]))
+    return {n: {'device_ms': statistics.median(dev_ms[n]),
+                'host_us': statistics.median(host_us[n])} for n in names}
+
+
+WARM_LM_BATCHES = 16        # the bucketed LM's epoch, cut (4 per bucket)
+WARM_RESNET_STEPS = 4       # the Custom-headed ResNet's fit
+WARM_CHILD_TIMEOUT = 300    # seconds, each child process
+
+
+def _digest(params):
+    """sha256 of every parameter's bytes, by name: equal digests are
+    parameters equal bit for bit."""
+    import hashlib
+    h = hashlib.sha256()
+    for k in sorted(params):
+        h.update(k.encode())
+        h.update(np.ascontiguousarray(params[k]).tobytes())
+    return h.hexdigest()
+
+
+_WARM_COUNTERS = ('compile.traces', 'compile.warmup_traces', 'rtc.compiles',
+                  'compile.cache_hits', 'compile.cache_misses')
+
+
+def _warm_counters(instrument):
+    snap = instrument.metrics_snapshot()
+    out = {k: snap['counters'].get(k, 0) for k in _WARM_COUNTERS}
+    saved = snap['timers'].get('compile.time_saved_secs') or {}
+    out['compile.time_saved_secs'] = saved.get('total_sec', 0.0)
+    # captures' host seconds on the hot path, whole warm-ups' in a warm
+    # start
+    secs = (snap.get('histograms') or {}).get('compile.warmup_secs') or {}
+    out['compile.warmup_secs'] = secs.get('sum', 0.0)
+    return out
+
+
+def _warm_fit(mx, torch, instrument, iowatch, fit):
+    """Run ``fit()`` (a Module or BucketingModule fit whose first step is
+    timed by ``fit``'s own wrapper) and report what a warm start
+    changes: captures on the hot path and in the warm start, Rtc
+    compiles, cubin store hits and the compile seconds they saved, the
+    first batch's host ms, the fit's wall seconds, the goodput fraction
+    and its compile seconds, the parameters' digest."""
+    before = _warm_counters(instrument)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    mod, first_ms = fit()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    after = _warm_counters(instrument)
+    good = iowatch.goodput_snapshot()
+    params = numpy_params(mod)
+    if not all(np.all(np.isfinite(v)) for v in params.values()):
+        raise AssertionError('warm-start: parameters not finite')
+    return {'hot_path_captures': after['compile.traces']
+            - before['compile.traces'],
+            'warmup_traces': after['compile.warmup_traces']
+            - before['compile.warmup_traces'],
+            'rtc_compiles': after['rtc.compiles'] - before['rtc.compiles'],
+            'cache_hits': after['compile.cache_hits']
+            - before['compile.cache_hits'],
+            'cache_misses': after['compile.cache_misses']
+            - before['compile.cache_misses'],
+            'time_saved_secs': after['compile.time_saved_secs']
+            - before['compile.time_saved_secs'],
+            'capture_or_warmup_secs': after['compile.warmup_secs']
+            - before['compile.warmup_secs'],
+            'capture_ms': sum(c.capture_ms or 0.0 for c in
+                              _module_steps(mod)),
+            'first_batch_host_ms': first_ms, 'fit_wall_s': wall,
+            'goodput_fraction': good.get('fraction'),
+            'goodput_compile_s': (good.get('buckets') or {}).get('compile'),
+            'goodput_wall_s': good.get('wall_secs'),
+            'params_sha256': _digest(params)}
+
+
+def _module_steps(mod):
+    """The captured steps a Module or BucketingModule holds."""
+    mods = getattr(mod, '_buckets', None) or {None: mod}
+    return [c for m in mods.values() for c in m._graphs.values()]
+
+
+def _first_step_timer(torch, mod):
+    """Wrap ``mod``'s fit step: the first step's host ms (ending in a
+    device synchronise) goes into the returned list."""
+    first, inner = [], mod._fit_step
+
+    def step(data_batch, eval_metric=None):
+        t0 = time.perf_counter()
+        handled = inner(data_batch, eval_metric)
+        if not first:
+            torch.cuda.synchronize()
+            first.append((time.perf_counter() - t0) * 1e3)
+        return handled
+    mod._fit_step = step
+    return first
+
+
+def warm_child():
+    """One process of the warm-start phase (``--warm-child``): the
+    bucketed LM of path 5 and the Custom-headed ResNet-50 v2 of path 4,
+    each fit once over the ``MXTPU_COMPILE_CACHE`` its parent set (with
+    ``MXTPU_WARM_START`` in the warm process).  Prints one JSON line."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import convert, instrument, iowatch, models
+    from mxnet_tpu_torch.models import resnet
+    os.environ['MXTPU_FUSE'] = 'aggressive'
+    os.environ['MXTPU_IOWATCH'] = '1'     # each fit re-reads the knob
+    iowatch.refresh()
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    register_user_ops(mx)
+    out = {'warm_start': bool(os.environ.get('MXTPU_WARM_START'))}
+
+    # the bucketed LM: buckets 128/200/320/512, f32, 16 batches
+    lm_arg, _ = convert.random_params(
+        lm_symbol(models), {'data': (BUCKET_ROWS, max(BUCKETS)),
+                            'softmax_label': (BUCKET_ROWS, max(BUCKETS))},
+        SEED, init='normal')
+    sentences = bucket_corpus(SEED + 5, BUCKET_ROWS * WARM_LM_BATCHES
+                              // len(BUCKETS))
+
+    def lm_fit():
+        mod = mx.mod.BucketingModule(bucket_gen(models),
+                                     default_bucket_key=max(BUCKETS),
+                                     context=mx.gpu(0))
+        first = _first_step_timer(torch, mod)
+        mod.fit(bucket_iter(mx, sentences, BUCKET_ROWS), num_epoch=1,
+                eval_metric='acc', optimizer='sgd',
+                optimizer_params={'learning_rate': 0.01, 'momentum': 0.9},
+                arg_params={k: mx.nd.array(v) for k, v in lm_arg.items()})
+        out['lm_buckets_bound'] = sorted(mod._buckets)
+        return mod, first[0]
+    out['lm'] = _warm_fit(mx, torch, instrument, iowatch, lm_fit)
+    del lm_arg
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the Custom-headed ResNet-50 v2: f32, 32 rows, a few steps
+    csym = custom_symbol(mx, resnet)
+    arg, aux = convert.random_params(csym, {'data': (BATCH,) + IMAGE}, SEED)
+    rng = np.random.default_rng(SEED + 11)
+    images = rng.standard_normal((BATCH * WARM_RESNET_STEPS,) + IMAGE,
+                                 dtype=np.float32)
+    labels = rng.integers(0, 1000, BATCH * WARM_RESNET_STEPS) \
+        .astype(np.float32)
+
+    def resnet_fit():
+        mod = mx.mod.Module(csym, context=mx.gpu(0))
+        first = _first_step_timer(torch, mod)
+        mod.fit(mx.io.NDArrayIter(images, labels, batch_size=BATCH),
+                num_epoch=1, eval_metric='acc', optimizer='sgd',
+                optimizer_params=dict(SGD_MOMENTUM),
+                arg_params={k: mx.nd.array(v) for k, v in arg.items()},
+                aux_params={k: mx.nd.array(v) for k, v in aux.items()})
+        (cap,) = mod._graphs.values()
+        out['resnet_step'] = {'kind': type(cap).__name__,
+                              'captured': cap.captured,
+                              'graphs': len(getattr(cap, 'graphs', []))}
+        return mod, first[0]
+    out['resnet'] = _warm_fit(mx, torch, instrument, iowatch, resnet_fit)
+    log(out)
+    return 0
+
+
+def warm_start_phase():
+    """warm-start: :func:`warm_child` twice, cold then warm, over one
+    ``MXTPU_COMPILE_CACHE`` temporary directory, each bounded by
+    WARM_CHILD_TIMEOUT.  The warm LM takes no capture on the hot path
+    and as many in its warm start as the cold one took on it; the warm
+    ResNet compiles no Rtc module (its 2 cubins are store hits); each
+    model's parameters are bit for bit the cold process's."""
+    import tempfile
+    runs = {}
+    with tempfile.TemporaryDirectory() as cache:
+        for mode in ('cold', 'warm'):
+            env = dict(os.environ, MXTPU_COMPILE_CACHE=cache,
+                       CUBLAS_WORKSPACE_CONFIG=':4096:8')
+            env.pop('MXTPU_WARM_START', None)
+            if mode == 'warm':
+                env['MXTPU_WARM_START'] = '1'
+            t0 = time.monotonic()
+            done = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), '--warm-child'],
+                env=env, capture_output=True, text=True,
+                timeout=WARM_CHILD_TIMEOUT)
+            if done.returncode != 0:
+                print(done.stdout[-4000:], done.stderr[-6000:],
+                      file=sys.stderr)
+                raise AssertionError('warm-start: the %s child exited %d'
+                                     % (mode, done.returncode))
+            runs[mode] = json.loads(done.stdout.strip().splitlines()[-1])
+            runs[mode]['process_s'] = time.monotonic() - t0
+        files = sorted(os.listdir(cache))
+        cubins = len(os.listdir(os.path.join(cache, 'rtc'))) \
+            if 'rtc' in files else 0
+        with open(os.path.join(cache, 'manifest.json')) as f:
+            kinds = Counter(e['kind'] for e in json.load(f)['traces'])
+    cold, warm = runs['cold'], runs['warm']
+    failures = []
+    if warm['lm']['hot_path_captures'] != 0 or \
+            warm['lm']['warmup_traces'] != cold['lm']['hot_path_captures'] \
+            or cold['lm']['hot_path_captures'] != len(BUCKETS):
+        failures.append('LM captures: cold %d on the hot path, warm %d on '
+                        'the hot path and %d in its warm start'
+                        % (cold['lm']['hot_path_captures'],
+                           warm['lm']['hot_path_captures'],
+                           warm['lm']['warmup_traces']))
+    if warm['resnet']['rtc_compiles'] != 0 or \
+            warm['resnet']['cache_hits'] != 2 or \
+            cold['resnet']['rtc_compiles'] != 2:
+        failures.append('ResNet Rtc: cold %d compiles, warm %d compiles and '
+                        '%d cache hits' % (cold['resnet']['rtc_compiles'],
+                                           warm['resnet']['rtc_compiles'],
+                                           warm['resnet']['cache_hits']))
+    for model in ('lm', 'resnet'):
+        if cold[model]['params_sha256'] != warm[model]['params_sha256']:
+            failures.append('%s: the warm process\'s parameters are not the '
+                            'cold one\'s bit for bit' % model)
+    if warm['resnet_step'] != {'kind': 'StagedStep', 'captured': True,
+                               'graphs': 2}:
+        failures.append('ResNet step: %s' % warm['resnet_step'])
+    if failures:
+        raise AssertionError('warm-start: ' + '; '.join(failures))
+    return {'lm': {'model': 'transformer_lm (full width), BucketingModule',
+                   'buckets': list(BUCKETS), 'rows': BUCKET_ROWS,
+                   'batches': WARM_LM_BATCHES, 'dtype': 'float32',
+                   'precompile_buckets': False,
+                   'cold': cold['lm'], 'warm': warm['lm'],
+                   'warm_buckets_bound': warm['lm_buckets_bound']},
+            'resnet': {'model': 'resnet-50 v2, Custom softmax_rtc head',
+                       'rows': BATCH, 'steps': WARM_RESNET_STEPS,
+                       'dtype': 'float32', 'cold': cold['resnet'],
+                       'warm': warm['resnet'], 'step': warm['resnet_step']},
+            'cache_files': files, 'cubins_stored': cubins,
+            'manifest_kinds': dict(kinds),
+            'cold_process_s': cold['process_s'],
+            'warm_process_s': warm['process_s'],
+            'params_bit_for_bit': True}
+
+
+NATIVE_ABANDON_CHILDREN = 10
+NATIVE_ABANDON_TIMEOUT = 60     # seconds, each
+
+
+def abandon_child(index):
+    """One child of the native-engine phase (``--abandon-child``): three
+    PrefetchingIters on the native engine, one batch taken from each, a
+    fetch in flight (a slow iterator), abandoned (on odd indices one of
+    them collected first), then the process exits."""
+    import mxnet_tpu_torch as mx
+
+    class Slow(mx.io.NDArrayIter):
+        def next(self):
+            time.sleep(0.05)
+            return super().next()
+    x = np.zeros((256, 3), np.float32)
+    its = [mx.io.PrefetchingIter([Slow(x, batch_size=4),
+                                  mx.io.NDArrayIter({'b': x}, batch_size=4)])
+           for _ in range(3)]
+    for it in its:
+        it.next()
+    if index % 2:
+        del its[0]
+    print('abandoned %d' % index, flush=True)
+    return 0
+
+
+def native_engine_phase(mx, torch, models, convert, tmp):
+    """native-engine: mnist-lenet's PrefetchingIter epoch (the idx files
+    mnist_lenet wrote in ``tmp``) on the native engine with its profiler
+    on (the fetches it ran and their ms), then NATIVE_ABANDON_CHILDREN
+    child processes that abandon PrefetchingIters mid-epoch and exit:
+    each must exit 0 within NATIVE_ABANDON_TIMEOUT seconds."""
+    img, lab = os.path.join(tmp, 'images-idx3-ubyte'), \
+        os.path.join(tmp, 'labels-idx1-ubyte')
+    lenet = models.get_symbol('lenet', num_classes=10)
+    arg, _ = convert.random_params(lenet, {'data': (MNIST_BATCH, 1, 28, 28)},
+                                   SEED)
+    eng = mx.engine.native_engine()
+    eng.set_profiling(True)
+    run = epoch_report(
+        mx, torch, lenet, arg,
+        lambda: mx.io.PrefetchingIter(mx.io.MNISTIter(
+            image=img, label=lab, batch_size=MNIST_BATCH, shuffle=True,
+            seed=SEED)), False, MNIST_IMAGES)
+    eng.set_profiling(False)
+    trace = os.path.join(tmp, 'engine.json')
+    eng.dump_profile(trace)
+    with open(trace) as f:
+        events = [e for e in json.load(f)['traceEvents']
+                  if e['name'].startswith('prefetch_')]
+    if len(events) < MNIST_IMAGES // MNIST_BATCH:
+        raise AssertionError('native-engine: %d prefetch ops ran for an '
+                             'epoch of %d batches' % (
+                                 len(events), MNIST_IMAGES // MNIST_BATCH))
+    children = []
+    for wave in (range(0, 5), range(5, NATIVE_ABANDON_CHILDREN)):
+        procs = [(i, time.monotonic(), subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), '--abandon-child',
+             str(i)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, env=dict(os.environ, CUDA_VISIBLE_DEVICES='')))
+            for i in wave]
+        for i, t0, p in procs:
+            try:
+                out, err = p.communicate(timeout=NATIVE_ABANDON_TIMEOUT)
+                rc = p.returncode
+            except subprocess.TimeoutExpired:
+                p.kill()
+                out, err = p.communicate()
+                rc = 'timeout'
+            children.append({'child': i, 'rc': rc,
+                             'seconds': time.monotonic() - t0,
+                             'abandoned': 'abandoned %d' % i in out})
+            if rc != 0 or 'abandoned %d' % i not in out:
+                print(err[-3000:], file=sys.stderr)
+    bad = [c for c in children if c['rc'] != 0 or not c['abandoned']]
+    if bad:
+        raise AssertionError('native-engine: children that did not exit 0 '
+                             'within %d s: %s' % (NATIVE_ABANDON_TIMEOUT,
+                                                  bad))
+    return {'engine': 'NativeEngine (csrc/host/engine.cc)',
+            'workers': int(mx.config.get('MXNET_CPU_WORKER_NTHREADS')),
+            'images': MNIST_IMAGES, 'batch': MNIST_BATCH, 'model': 'lenet',
+            **run, 'prefetch_ops': len(events),
+            'prefetch_op_ms_median': statistics.median(
+                e['dur'] / 1e3 for e in events),
+            'abandon_children': children,
+            'abandon_max_s': max(c['seconds'] for c in children)}
+
+
 def graph_report(caps):
     """Each captured step a path holds: whether it was captured (or the
     rule that kept it eager), its capture's host ms, its replays and the
@@ -3237,7 +3613,7 @@ def start_capture_checks():
     proc = subprocess.Popen(
         [sys.executable, '-m', 'pytest', 'tests/test_torch_capture.py',
          'tests/test_torch_lifecycle.py', 'tests/test_torch_observe_cuda.py',
-         '-m', 'cuda', '-q', '--noconftest', '-p', 'no:cacheprovider',
+         'tests/test_torch_warm_cuda.py', '-m', 'cuda', '-q', '--noconftest', '-p', 'no:cacheprovider',
          '--durations=0', '--junitxml', report], cwd=root,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     return proc, tmp, report, time.monotonic()
@@ -3251,7 +3627,9 @@ def capture_checks(started):
     reaches two steps in flight; alternating buckets share one set of
     parameters and keep their outputs; a served forward's arrays survive
     the next forward; set_params drops the graphs and the next step
-    trains the new values; random nodes, host syncs and Custom nodes).
+    trains the new values; random nodes, host syncs, a Custom step
+    captured in segments; the cubin store across processes and a warm
+    start from the manifest, tests/test_torch_warm_cuda.py).
     Returns {test: outcome}, the child's seconds and each test's seconds
     (pytest's durations, setup and call); raises unless every test ran
     and passed."""
@@ -3283,7 +3661,7 @@ def capture_checks(started):
             except ValueError:
                 pass
     missing = [n for n in CAPTURE_CHECKS + LIFECYCLE_CHECKS + OBSERVE_CHECKS
-               if cases.get(n) != 'passed']
+               + WARM_CHECKS if cases.get(n) != 'passed']
     if proc.returncode != 0 or missing:
         print(stdout[-6000:], stderr[-2000:], file=sys.stderr)
         raise AssertionError('capture: pytest rc %d, not passed: %s'
@@ -3945,6 +4323,8 @@ SOFTMAX_RTOL = 1e-5
 LM_HEAD = (8192, 32000)     # the LM's logits at 16 x 512 tokens (off-path)
 CUSTOM_PARITY_ROWS = 2
 _SOFTMAX_KERNELS = {}
+USER_CALLS = {'forward': 0, 'backward': 0}     # softmax_rtc on the card
+CUSTOM_PROFILE_REPLAYS = 10     # custom-train's per-stage timing
 
 
 def rtc_block(n):
@@ -3992,9 +4372,11 @@ def register_user_ops(mx):
     class RtcSoftmax(mx.operator.CustomOp):
         # Rtc.push swaps its result into out_data / in_grad: a 'write'
         def forward(self, is_train, req, in_data, out_data, aux):
+            USER_CALLS['forward'] += 1
             push_softmax(mx, in_data[0], out_data[0])
 
         def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            USER_CALLS['backward'] += 1
             push_softmax_grad(mx, out_data[0], in_data[1], in_grad[0])
 
     class NdSoftmax(mx.operator.CustomOp):
@@ -7086,40 +7468,77 @@ def main():
     # -- 10. imperative: nd.* on the card and on the CPU ------------------
     log({'phase': 'imperative', **imperative(mx, sqr_prop)})
 
-    # -- 11. custom-train: the fourth main path ----------------------------
+    # -- 11. custom-train: the fourth main path, captured in segments -----
     csym = custom_symbol(mx, resnet)
     dots, convs, bn_relus = train_kernel_shapes(mx, csym, BATCH)
     expected = {'fused_scale_bias_dot': sum(dots.values()),
                 'fused_scale_bias_conv3x3': sum(convs.values()),
                 'fused_bn_relu': sum(bn_relus.values()), 'rtc': 2}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for k in (fused.fused_bn_relu, fused.fused_scale_bias_dot,
-              fused_conv.fused_scale_bias_conv3x3, mx.rtc.Rtc):
-        reset_launches(k)
-    t0 = time.monotonic()
-    mod, step_s = train_module(mx, torch, csym, arg, aux, images, labels,
-                               mx.gpu(0), None, BATCH)
-    torch.cuda.synchronize()
-    fit_s = time.monotonic() - t0
-    custom_launches = {
-        'fused_scale_bias_dot': fused.fused_scale_bias_dot.launches,
-        'fused_scale_bias_conv3x3':
-            fused_conv.fused_scale_bias_conv3x3.launches,
-        'fused_bn_relu': fused.fused_bn_relu.launches,
-        'rtc': mx.rtc.Rtc.launches}
+    custom_kernels = (fused.fused_bn_relu, fused.fused_scale_bias_dot,
+                      fused_conv.fused_scale_bias_conv3x3, mx.rtc.Rtc)
+    # captured against NaiveEngine must be bit for bit: cuDNN's
+    # deterministic algorithms for the convolutions it runs.  A captured
+    # run under the setting the other phases keep comes first, for a
+    # step time comparable with theirs
+    cudnn_det = torch.backends.cudnn.deterministic
+    custom_runs = {}
+    for key, naive, det in (('earlier_cudnn', False, cudnn_det),
+                            (False, False, True), (True, True, True)):
+        torch.backends.cudnn.deterministic = det
+        fresh_memory(torch)
+        for k in custom_kernels:
+            reset_launches(k)
+        USER_CALLS.update(forward=0, backward=0)
+        set_engine(mx, naive)
+        try:
+            t0 = time.monotonic()
+            mod, step_s = train_module(mx, torch, csym, arg, aux, images,
+                                       labels, mx.gpu(0), None, BATCH)
+            torch.cuda.synchronize()
+            fit_s = time.monotonic() - t0
+        finally:
+            set_engine(mx, False)
+        custom_runs[key] = {
+            'mod': mod, 'step_s': step_s, 'fit_s': fit_s,
+            'user_calls': dict(USER_CALLS),
+            'peak_memory_bytes': torch.cuda.max_memory_allocated(),
+            'launches': {
+                'fused_scale_bias_dot': fused.fused_scale_bias_dot.launches,
+                'fused_scale_bias_conv3x3':
+                    fused_conv.fused_scale_bias_conv3x3.launches,
+                'fused_bn_relu': fused.fused_bn_relu.launches,
+                'rtc': mx.rtc.Rtc.launches},
+            'routes': (dict(fused.fused_scale_bias_dot.launches_by_route),
+                       dict(fused_conv.fused_scale_bias_conv3x3
+                            .launches_by_route))}
+        if key == 'earlier_cudnn':
+            # its graphs' memory goes before the next run's peak
+            del mod, custom_runs[key]['mod']
+    torch.backends.cudnn.deterministic = cudnn_det
+    captured_run, naive_run = custom_runs[False], custom_runs[True]
+    earlier_run = custom_runs.pop('earlier_cudnn')
+    mod, step_s, fit_s = (captured_run['mod'], captured_run['step_s'],
+                          captured_run['fit_s'])
+    custom_launches = captured_run['launches']
+    custom_routes, custom_conv_routes = captured_run['routes']
     steps = len(step_s)
-    for name, per_step in expected.items():
-        if custom_launches[name] != per_step * steps or steps != \
-                TRAIN_BATCHES:
-            raise AssertionError('custom-train: %s launched %d times in %d '
-                                 'steps (expected %d each)'
-                                 % (name, custom_launches[name], steps,
-                                    per_step))
+    for run_name, run in (('captured', captured_run),
+                          ('NaiveEngine', naive_run)):
+        for name, per_step in expected.items():
+            if run['launches'][name] != per_step * len(run['step_s']) or \
+                    len(run['step_s']) != TRAIN_BATCHES:
+                raise AssertionError(
+                    'custom-train (%s): %s launched %d times in %d steps '
+                    '(expected %d each)' % (run_name, name,
+                                            run['launches'][name],
+                                            len(run['step_s']), per_step))
+        if run['user_calls'] != {'forward': TRAIN_BATCHES,
+                                 'backward': TRAIN_BATCHES}:
+            raise AssertionError('custom-train (%s): the user\'s code ran '
+                                 '%s in %d steps' % (run_name,
+                                                     run['user_calls'],
+                                                     TRAIN_BATCHES))
     # float32 keeps the SIMT routes
-    custom_routes = dict(fused.fused_scale_bias_dot.launches_by_route)
-    custom_conv_routes = dict(
-        fused_conv.fused_scale_bias_conv3x3.launches_by_route)
     for name, routes in (('fused_scale_bias_dot', custom_routes),
                          ('fused_scale_bias_conv3x3', custom_conv_routes)):
         if routes['simt'] != custom_launches[name]:
@@ -7138,27 +7557,68 @@ def main():
         raise AssertionError('custom-train did not move: loss %s, max |dw| '
                              '%g' % (metric['cross-entropy'], moved))
     step_ms = statistics.median(step_s[TRAIN_WARMUP:]) * 1e3
+    naive_ms = statistics.median(naive_run['step_s'][TRAIN_WARMUP:]) * 1e3
     custom_graphs = graph_report(mod._graphs.values())
-    if [g['skip'] for g in custom_graphs] != ['Custom']:
-        raise AssertionError('custom-train: the Custom-headed step must stay '
-                             'eager by rule: %s' % custom_graphs)
+    (ccap,) = mod._graphs.values()
+    stage_kinds = ['graph' if hasattr(st, 'graph') else 'host'
+                   for st in getattr(ccap, 'stages', [])]
+    if type(ccap).__name__ != 'StagedStep' or ccap.skip is not None or \
+            not ccap.captured or \
+            stage_kinds != ['graph', 'host', 'host', 'graph'] or \
+            ccap.replays != TRAIN_BATCHES - 1:
+        raise AssertionError('custom-train: the Custom-headed step must be '
+                             'captured in segments (one forward graph, the '
+                             'head\'s forward and backward, one backward-'
+                             'and-update graph): %s %s' % (stage_kinds,
+                                                            custom_graphs))
+    naive_params = numpy_params(naive_run['mod'])
+    captured_params = numpy_params(mod)
+    differ = sorted(k for k in captured_params
+                    if not np.array_equal(captured_params[k],
+                                          naive_params[k]))
+    if differ:
+        raise AssertionError('custom-train: captured and NaiveEngine '
+                             'parameters differ in %d tensors, e.g. %s'
+                             % (len(differ), differ[:3]))
+    custom_profile = custom_stage_profile(torch, ccap)
     log({'phase': 'custom-train', 'model': 'resnet-50 v2', 'classes': 1000,
          'image': list(IMAGE), 'batch': BATCH, 'steps': steps,
          'head': 'Custom softmax_rtc (Rtc softmax_fwd / softmax_bwd)',
          'compute_dtype': 'float32', 'fuse': 'aggressive',
          'tf32_conv': torch.backends.cudnn.allow_tf32,
+         'cudnn_deterministic': True,
          'optimizer': 'sgd lr 0.05 momentum 0.9 wd 1e-4',
+         'capture': 'in segments: %s' % stage_kinds,
+         'segments': 2, 'graphs': len(ccap.graphs),
+         'user_calls_per_step': {
+             k: v / steps for k, v in captured_run['user_calls'].items()},
          'launches': custom_launches, 'launches_per_step': expected,
+         'naive_launches': naive_run['launches'],
          'fused_scale_bias_dot_launches_by_route': custom_routes,
          'fused_scale_bias_conv3x3_launches_by_route': custom_conv_routes,
          'fit_s': fit_s, 'step_ms': [t * 1e3 for t in step_s],
          'step_ms_median_after_warmup': step_ms,
+         'naive_fit_s': naive_run['fit_s'],
+         'naive_step_ms': [t * 1e3 for t in naive_run['step_s']],
+         'naive_step_ms_median_after_warmup': naive_ms,
+         'captured_over_naive': step_ms / naive_ms,
+         'earlier_cudnn_deterministic': cudnn_det,
+         'earlier_cudnn_step_ms': [t * 1e3 for t in earlier_run['step_s']],
+         'earlier_cudnn_step_ms_median_after_warmup': statistics.median(
+             earlier_run['step_s'][TRAIN_WARMUP:]) * 1e3,
+         'params_bit_for_bit_vs_naive': True,
+         'stage_profile': custom_profile,
          'images_per_s': BATCH / step_ms * 1e3,
-         'peak_memory_bytes': torch.cuda.max_memory_allocated(),
+         'peak_memory_bytes': captured_run['peak_memory_bytes'],
+         'naive_peak_memory_bytes': naive_run['peak_memory_bytes'],
          'train_cross_entropy': metric['cross-entropy'],
          'train_accuracy': metric['accuracy'], 'max_param_change': moved,
-         'graphs': custom_graphs})
-    del mod, trained
+         'graphs_report': custom_graphs})
+    del mod, trained, ccap, custom_runs, captured_run, naive_run
+
+    # -- 11b. warm-start: two processes over one compile cache -------------
+    fresh_memory(torch)
+    log({'phase': 'warm-start', **warm_start_phase()})
 
     # -- 12. custom-parity: one f32 step, Rtc head vs nd.* head ------------
     stepped = {}
@@ -7282,6 +7742,12 @@ def main():
         log({'phase': 'mnist-lenet', 'seconds': time.monotonic() - t0,
              'launches': {'fused_dot_epilogue': mnist_launches},
              **mnist_report})
+        t0 = time.monotonic()
+        epi0 = fused.fused_dot_epilogue.launches
+        native_report = native_engine_phase(mx, torch, models, convert, tmp)
+        mnist_launches += fused.fused_dot_epilogue.launches - epi0
+        log({'phase': 'native-engine', 'seconds': time.monotonic() - t0,
+             **native_report})
     flush = torch.ones(32 << 20, device='cuda')    # 128 MiB
     t0 = time.monotonic()
     epi0 = fused.fused_dot_epilogue.launches
@@ -7543,4 +8009,8 @@ def main():
 
 
 if __name__ == '__main__':
+    if sys.argv[1:2] == ['--warm-child']:
+        sys.exit(warm_child())
+    if sys.argv[1:2] == ['--abandon-child']:
+        sys.exit(abandon_child(int(sys.argv[2])))
     sys.exit(main())

@@ -12,21 +12,27 @@ per (bucket, batch signature) and replayed.  A replay launches the same
 hand-written kernels as the eager step, without the host's per-op work.
 
 Capture is decided by a rule, before any attempt (:func:`capture_skip_reason`):
-a step stays eager on the CPU, under ``NaiveEngine``, when its graph has
-a ``Custom`` node (user Python runs every step), when it draws random
-numbers and this PyTorch cannot register a generator with a graph, and
-when it draws random numbers under ``MXNET_BACKWARD_DO_MIRROR`` (the
-recompute replays the generator's state, which a capture cannot read); a
+a step stays eager on the CPU, under ``NaiveEngine``, when it draws
+random numbers and this PyTorch cannot register a generator with a
+graph, and when it draws random numbers, or has a ``Custom`` node, under
+``MXNET_BACKWARD_DO_MIRROR`` (the recompute replays the generator's
+state, and would run the user's code again, inside one autograd call); a
 monitored module's step stays eager too (``Module.install_monitor``); the
 caller keeps eager paths of its own for collectives (the sp step) and
 ``make_train_step(donate=False)``.  Each such choice counts
 ``compile.capture_skipped`` and logs its reason.  A capture that fails
 raises; nothing falls back to the eager step.
 
-Counters, as in the reference: a capture counts ``compile.traces`` and
-its host seconds ``compile.warmup_secs``; a replay ``executor.cache_hits``.
-The goodput ledger (``iowatch``) charges each recording to its
-``compile`` bucket.
+A step whose graph has ``Custom`` nodes is captured in segments
+(:class:`StagedStep`): the user's Python runs eagerly between the
+replays of the graphs around it, once per step, as ``jax.pure_callback``
+runs it inside the reference's compiled program.
+
+Counters, as in the reference: a capture counts ``compile.traces``
+(``instrument.count_trace``: ``compile.warmup_traces`` in a warm
+start's :func:`warmup`) and its host seconds ``compile.warmup_secs``; a replay
+``executor.cache_hits``.  The goodput ledger (``iowatch``) charges each
+recording on the fit thread to its ``compile`` bucket.
 The kernel launches and ``instrument`` counters the body counts while it
 is recorded (``instrument.recording``, on the capturing thread and on
 the autograd thread that runs its backward) are
@@ -40,14 +46,33 @@ copies, each on a stream of its own, never land in a graph being
 recorded.  Cached device memory is given back only through
 :func:`release_memory`, which waits for any capture under way.
 
-The persistent cache and the warmup manifest of the reference
-(``mxnet_tpu/compile_cache.py:85-300``) are not ported.
+Warm starts across processes (``mxnet_tpu/compile_cache.py:85-340``),
+all of it off unless ``MXTPU_COMPILE_CACHE`` names a directory
+(:func:`ensure_persistent_cache`; unset, nothing is created: no
+directory, no file):
+
+- the **warmup manifest**, ``<dir>/manifest.json``: the batch signature
+  of every step a process first builds (``Module`` records ``fit_step``
+  entries, the executor ``forward`` / ``fwd_bwd`` ones for the
+  inventory) in the reference's form, deduplicated, capped at
+  :data:`MANIFEST_CAP` and committed through
+  ``resilience.atomic_replace``; ``perfwatch`` files each signature's
+  counted FLOPs beside them (``step_cost`` rows).  A warm start
+  (``Module._warm_start``) captures every ``fit_step`` signature of its
+  fingerprint and meta (:func:`warmup`) on the calling thread, before
+  the first batch;
+- the **cubin store**, ``<dir>/rtc/``: the NVRTC output of ``mx.rtc``
+  (:func:`cubin_load` / :func:`cubin_store`), so a later process loads
+  its runtime kernels instead of compiling them.  A CUDA graph cannot
+  be saved; a warm process records its graphs again, off the hot path.
 """
 from __future__ import annotations
 
 import gc
 import hashlib
+import json
 import logging
+import os
 import threading
 import time
 
@@ -58,8 +83,22 @@ from .base import MXNetError
 
 __all__ = ['pad_to_bucket', 'sig_key', 'batch_sig', 'fingerprint',
            'warm_start', 'capture_skip_reason', 'random_nodes',
-           'CapturedStep', 'snapshot', 'step_tensors', 'capture_stream',
-           'release_memory']
+           'CapturedStep', 'StagedStep', 'snapshot', 'step_tensors',
+           'capture_stream', 'release_memory',
+           'ensure_persistent_cache', 'cache_dir', 'manifest_path',
+           'jsonable', 'manifest_entries', 'record_entry',
+           'warmup', 'cubin_key', 'cubin_load',
+           'cubin_store', 'custom_nodes', 'reference_names']
+
+MANIFEST_NAME = 'manifest.json'
+# bound the manifest so a churn of shapes (what pad_to_bucket exists to
+# prevent) cannot grow it without limit
+MANIFEST_CAP = 512
+RTC_DIR = 'rtc'
+
+_lock = threading.Lock()
+_cache_dir = None           # the installed directory, or None
+_manifest = None            # its _Manifest once installed
 
 # ops that draw from the device generator: name -> does this node draw
 _DRAWS = {
@@ -107,6 +146,234 @@ def fingerprint(symbol):
     return fp
 
 
+# ---------------------------------------------------------------------------
+# Persistent cache: the directory, the manifest, the cubin store
+# ---------------------------------------------------------------------------
+
+def ensure_persistent_cache():
+    """Install the ``MXTPU_COMPILE_CACHE`` directory (idempotent; the knob
+    is read again until it is installed, so one exported after import
+    still takes).  Returns the directory, or None when the knob is
+    unset."""
+    global _cache_dir, _manifest
+    if _cache_dir is not None:
+        return _cache_dir
+    d = config.get('MXTPU_COMPILE_CACHE')
+    if not d:
+        return None
+    with _lock:
+        if _cache_dir is None:
+            os.makedirs(d, exist_ok=True)
+            _manifest = _Manifest(os.path.join(d, MANIFEST_NAME))
+            _cache_dir = d
+    return _cache_dir
+
+
+def cache_dir():
+    return _cache_dir
+
+
+def manifest_path():
+    return None if _cache_dir is None else \
+        os.path.join(_cache_dir, MANIFEST_NAME)
+
+
+_PORT_PREFIX = __name__.split('.')[0] + '.'
+_REFERENCE_PREFIX = 'mxnet_tpu.'
+
+
+def reference_names(value):
+    """``value`` with every string that names one of this package's
+    modules written as the reference package's module of the same
+    path: a metric's fold key in a manifest entry reads as the
+    reference writes it, so one manifest serves both packages."""
+    if isinstance(value, (list, tuple)):
+        return type(value)(reference_names(v) for v in value)
+    if isinstance(value, str) and value.startswith(_PORT_PREFIX):
+        return _REFERENCE_PREFIX + value[len(_PORT_PREFIX):]
+    return value
+
+
+def jsonable(value):
+    """The form a value takes after a JSON round trip (tuples become
+    lists, keys strings, anything else its ``str``): manifest entries
+    are compared in this form."""
+    if isinstance(value, (list, tuple)):
+        return [jsonable(v) for v in value]
+    if isinstance(value, dict):
+        return {str(k): jsonable(v) for k, v in value.items()}
+    if isinstance(value, (str, int, float, bool)) or value is None:
+        return value
+    return str(value)
+
+
+class _Manifest(object):
+    """The signatures on disk: a JSON document of deduplicated entries,
+    committed atomically, so a kill mid-write never leaves a truncated
+    file for the next warm start to trust."""
+
+    def __init__(self, path):
+        self.path = path
+        self._lock = threading.Lock()
+        self._entries = None
+        self._keys = None
+
+    @staticmethod
+    def _entry_key(entry):
+        return hashlib.sha1(
+            json.dumps(entry, sort_keys=True).encode()).hexdigest()
+
+    def _load(self):
+        if self._entries is not None:
+            return
+        entries = []
+        try:
+            with open(self.path) as f:
+                doc = json.load(f)
+            if isinstance(doc, dict) and isinstance(doc.get('traces'), list):
+                entries = doc['traces']
+        except (OSError, ValueError):
+            entries = []
+        self._entries = entries
+        self._keys = {self._entry_key(e) for e in entries}
+
+    def record(self, entry):
+        """Append one entry unless it is there already or the manifest is
+        full; True when it was added."""
+        with self._lock:
+            self._load()
+            key = self._entry_key(entry)
+            if key in self._keys or len(self._entries) >= MANIFEST_CAP:
+                return False
+            self._keys.add(key)
+            self._entries.append(entry)
+            self._flush()
+            return True
+
+    def _flush(self):
+        from . import resilience
+        doc = {'version': 1, 'traces': self._entries}
+        with resilience.atomic_replace(self.path) as tmp:
+            with open(tmp, 'w') as f:
+                json.dump(doc, f, indent=1, sort_keys=True)
+        instrument.set_gauge('compile.manifest_entries', len(self._entries))
+
+    def entries(self, kind=None, fp=None):
+        with self._lock:
+            self._load()
+            return [e for e in self._entries
+                    if (kind is None or e.get('kind') == kind)
+                    and (fp is None or e.get('fp') == fp)]
+
+
+def manifest_entries(kind=None, fp=None):
+    """The recorded entries (of ``kind`` and fingerprint ``fp``); empty
+    when no directory is installed."""
+    if _manifest is None:
+        return []
+    return _manifest.entries(kind, fp)
+
+
+def record_entry(entry):
+    """Record one JSON-able entry; False (a no-op) when no directory is
+    installed or the entry is known.  Never raises: a manifest that
+    cannot be written costs a warm start, not the step."""
+    if _manifest is None:
+        return False
+    try:
+        return _manifest.record(jsonable(entry))
+    except (OSError, TypeError, ValueError):
+        return False
+
+
+def cubin_key(source, name, capability, nvrtc_version):
+    """The cubin store's key: a sha256 of the generated source, the
+    kernel name, the device's compute capability and NVRTC's version."""
+    h = hashlib.sha256()
+    for part in (source, name, '%d.%d' % tuple(capability),
+                 '%d.%d' % tuple(nvrtc_version)):
+        h.update(part.encode())
+        h.update(b'\0')
+    return h.hexdigest()
+
+
+_CUBIN_MAGIC = b'MXCUBIN1'
+
+
+def _cubin_path(key):
+    return os.path.join(_cache_dir, RTC_DIR, key + '.cubin')
+
+
+def cubin_load(key):
+    """The stored cubin of ``key``, or None.  Only with a directory
+    installed.  A hit counts ``compile.cache_hits``
+    and observes the compile seconds it saves
+    (``compile.time_saved_secs``); a miss, a file cut short or one that
+    does not parse included, counts ``compile.cache_misses``."""
+    if ensure_persistent_cache() is None:
+        return None
+    try:
+        with open(_cubin_path(key), 'rb') as f:
+            blob = f.read()
+        head = len(_CUBIN_MAGIC) + 16
+        if len(blob) < head or not blob.startswith(_CUBIN_MAGIC):
+            raise ValueError('not a stored cubin')
+        size = int.from_bytes(blob[len(_CUBIN_MAGIC):head - 8], 'little')
+        secs = int.from_bytes(blob[head - 8:head], 'little') / 1e9
+        data = blob[head:]
+        if len(data) != size or size == 0:
+            raise ValueError('stored cubin cut short')
+    except (OSError, ValueError):
+        instrument.inc('compile.cache_misses')
+        return None
+    instrument.inc('compile.cache_hits')
+    instrument.observe('compile.time_saved_secs', secs)
+    return data
+
+
+def cubin_store(key, data, compile_secs):
+    """Write a cubin under ``key`` (atomically: a reader sees the old
+    file or the whole new one); a no-op without a directory."""
+    if ensure_persistent_cache() is None:
+        return False
+    from . import resilience
+    path = _cubin_path(key)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    blob = _CUBIN_MAGIC + len(data).to_bytes(8, 'little') + \
+        int(compile_secs * 1e9).to_bytes(8, 'little') + bytes(data)
+    try:
+        with resilience.atomic_replace(path) as tmp:
+            with open(tmp, 'wb') as f:
+                f.write(blob)
+    except OSError:
+        return False
+    return True
+
+
+# ---------------------------------------------------------------------------
+# Warm-ups off the hot path
+# ---------------------------------------------------------------------------
+
+def warmup(label, build):
+    """Run ``build`` (a warm-up-and-capture thunk) on the calling thread,
+    before the first batch, and return what it returns.  The captures it
+    takes count ``compile.warmup_traces``, not ``compile.traces`` (they
+    are off the hot path); its wall seconds go to
+    ``compile.warmup_secs``.  The reference runs its jobs on a pool
+    (``mxnet_tpu/compile_cache.py:302-338``): an XLA compile reads no
+    state, but a warm-up here is a real step on the module's own
+    parameters, metric and health buffers, undone after, so it runs
+    where every other reader of them runs."""
+    t0 = time.perf_counter()
+    try:
+        with instrument.trace_redirect('compile.warmup_traces'), \
+                instrument.span('compile.warmup[%s]' % label, cat='compile'):
+            return build()
+    finally:
+        instrument.observe_hist('compile.warmup_secs',
+                                time.perf_counter() - t0)
+
+
 def warm_start(module, eval_metric=None, data_iter=None):
     """Entry point of ``fit(warm_start=True)``: the module's
     ``_warm_start`` hook (``Module``, ``BucketingModule``) with the batch
@@ -117,6 +384,7 @@ def warm_start(module, eval_metric=None, data_iter=None):
     hook = getattr(module, '_warm_start', None)
     if hook is None:
         return
+    ensure_persistent_cache()
     sig = None
     if data_iter is not None:
         try:
@@ -142,20 +410,30 @@ def _graph_generators():
     return hasattr(torch.cuda.CUDAGraph, 'register_generator_state')
 
 
+def custom_nodes(program):
+    """The ``Custom`` nodes of ``program``, in topological order."""
+    return [n for n in program.topo_nodes()
+            if not n.is_variable and n.op == 'Custom']
+
+
 def capture_skip_reason(device, program=None, is_train=True):
     """Why a step on ``device`` running ``program`` stays eager, or None
-    when it is captured: 'NaiveEngine', 'cpu', 'Custom' (a graph with a
-    Custom node runs user Python every step), 'random' (a node draws
-    random numbers and this PyTorch cannot register the device generator
-    with a graph) or 'random under the mirror' (a node draws random
-    numbers in a training step under ``MXNET_BACKWARD_DO_MIRROR``)."""
+    when it is captured (a graph with ``Custom`` nodes in segments,
+    :class:`StagedStep`): 'NaiveEngine', 'cpu', 'Custom under the
+    mirror' (a training step under ``MXNET_BACKWARD_DO_MIRROR``, whose
+    recompute would run the user's code inside the backward), 'random'
+    (a node draws random numbers and this PyTorch cannot register the
+    device generator with a graph) or 'random under the mirror' (a node
+    draws random numbers in a training step under
+    ``MXNET_BACKWARD_DO_MIRROR``)."""
     if not engine.capture_enabled():
         return 'NaiveEngine'
     if torch.device(device).type != 'cuda':
         return 'cpu'
     if program is not None:
-        if any(n.op == 'Custom' for n in program.topo_nodes()):
-            return 'Custom'
+        if is_train and config.get('MXNET_BACKWARD_DO_MIRROR') and \
+                custom_nodes(program):
+            return 'Custom under the mirror'
         if random_nodes(program, is_train):
             if not _graph_generators():
                 return 'random'
@@ -392,8 +670,11 @@ class CapturedStep(object):
                 self.launches[name] = self.launches.get(name, 0) + n
         secs = time.perf_counter() - t0
         self.capture_ms = secs * 1e3
-        instrument.inc('compile.traces')
-        instrument.observe_hist('compile.warmup_secs', secs)
+        # in a warm start the whole warm-up's seconds are observed
+        # (warmup), not each capture's
+        if instrument.trace_redirected() is None:
+            instrument.observe_hist('compile.warmup_secs', secs)
+        instrument.count_trace()
 
     def replay(self):
         self.graph.replay()
@@ -406,6 +687,146 @@ class CapturedStep(object):
         """One step: the replay once captured, else the body (the first
         call on the card also records the graph)."""
         if self.graph is not None:
+            return self.replay()
+        outs = self.warm_up()
+        if self.skip is None:
+            self.capture()
+        return outs
+
+
+class StagedStep(object):
+    """A step whose graph has ``Custom`` nodes, captured in segments.
+
+    ``stages`` is a list of ``('graph', body)`` and ``('host', fn)``:
+    each graph body reads and writes fixed buffers and becomes one
+    :class:`CapturedStep` (intermediate bodies return ``[]``); each host
+    function is the user's code of a ``Custom`` node (its forward or its
+    backward), which runs eagerly, on the caller's current stream, and
+    copies what it produced into the fixed buffers the next graph reads.
+    The last stage returns the step's outputs (with ``copy_outputs``
+    copied out of the pool when it is a graph).
+
+    :meth:`run` as for :class:`CapturedStep`: the first call runs every
+    stage eagerly (the real step, on the capture stream) and then
+    records each graph in order (recording runs no kernel and calls no
+    user code); later calls replay the graphs with the host stages
+    between them.  Every graph shares ``pool``: a graph's buffers that
+    a later stage reads stay referenced, so no later recording reuses
+    them, and everything replays on one stream in recording order.  With
+    ``skip`` the stages only ever run eagerly."""
+
+    def __init__(self, name, stages, device, bindings=(), pool=None,
+                 copy_outputs=False, skip=None, generators=()):
+        self.name = name
+        self.device = torch.device(device)
+        self.bindings = list(bindings)
+        self.skip = skip
+        self.stages = []
+        last = len(stages) - 1
+        for i, (kind, fn) in enumerate(stages):
+            if kind == 'graph':
+                self.stages.append(CapturedStep(
+                    '%s.graph%d' % (name, i), fn, device, pool=pool,
+                    copy_outputs=copy_outputs and i == last,
+                    generators=generators))
+            elif kind == 'host':
+                self.stages.append(fn)
+            else:
+                raise MXNetError('%s: unknown stage kind %r' % (name, kind))
+        self.outputs = None
+        self.replays = 0
+        self.cost = None
+        self.pool_bytes = None
+        if skip is not None:
+            note_skip(name, skip)
+
+    @property
+    def graphs(self):
+        return [s for s in self.stages if isinstance(s, CapturedStep)]
+
+    @property
+    def captured(self):
+        return self.skip is None and all(g.graph is not None
+                                         for g in self.graphs)
+
+    @property
+    def launches(self):
+        out = {}
+        for g in self.graphs:
+            for k, n in g.launches.items():
+                out[k] = out.get(k, 0) + n
+        return out
+
+    @property
+    def capture_ms(self):
+        ms = [g.capture_ms for g in self.graphs]
+        return None if None in ms else sum(ms)
+
+    def holds(self, tensors):
+        return len(tensors) == len(self.bindings) and \
+            all(a is b for a, b in zip(tensors, self.bindings))
+
+    def _eager(self):
+        outs = None
+        for st in self.stages:
+            if isinstance(st, CapturedStep):
+                outs = st.body()
+                st._out_meta = [(tuple(o.shape), o.dtype) for o in outs]
+            else:
+                outs = st()
+        return outs
+
+    def warm_up(self):
+        """Every stage once, eagerly: on the card on the capture stream."""
+        if self.skip is not None:
+            return self._eager()
+        with _capture_lock:
+            s = capture_stream(self.device)
+            cur = torch.cuda.current_stream(self.device)
+            _own_blas_workspace()
+            s.wait_stream(cur)
+            with torch.cuda.stream(s):
+                outs = self._eager()
+            cur.wait_stream(s)
+        return outs
+
+    def capture(self, measure=False):
+        """Record every graph, in stage order (after a :meth:`warm_up`)."""
+        if self.skip is not None:
+            raise MXNetError('%s stays eager (%s); it is never captured'
+                             % (self.name, self.skip))
+        with _capture_lock, iowatch.account('compile'):
+            if measure:
+                gc.collect()
+                torch.cuda.synchronize(self.device)
+                torch.cuda.empty_cache()
+                reserved = torch.cuda.memory_reserved(self.device)
+            for g in self.graphs:
+                if g._out_meta is None:
+                    raise MXNetError('%s: warm_up() before capture()'
+                                     % self.name)
+                g._capture()
+            if measure:
+                self.pool_bytes = \
+                    torch.cuda.memory_reserved(self.device) - reserved
+
+    def replay(self):
+        outs = None
+        for st in self.stages:
+            if isinstance(st, CapturedStep):
+                st.graph.replay()
+                st.replays += 1
+                instrument.apply_counts(st._counts)
+                outs = st.outputs
+            else:
+                outs = st()
+        self.replays += 1
+        instrument.inc('executor.cache_hits')
+        self.outputs = outs
+        return outs
+
+    def run(self):
+        if self.captured:
             return self.replay()
         outs = self.warm_up()
         if self.skip is None:

@@ -35,6 +35,10 @@ _register('MXNET_ENGINE_TYPE', 'ThreadedEnginePerDevice', str,
           'step, LM train step and served bucket forward once per batch '
           'signature and replays it (env_var.md:8). Consumed at import '
           'by engine.set_engine_type.')
+_register('MXNET_CPU_WORKER_NTHREADS', os.cpu_count() or 4, int,
+          'Worker threads of the host-side dependency engine '
+          '(env_var.md:10; engine.NativeEngine, csrc/host/engine.cc), '
+          'which runs PrefetchingIter\'s fetches.')
 # -- backward mirroring (executor.mirror_wrap) -------------------------------
 _register('MXNET_BACKWARD_DO_MIRROR', False, _bool,
           'Trade compute for memory in backward (env_var.md:56-60; '
@@ -94,6 +98,19 @@ _register('MXTPU_WARM_START', False, _bool,
           'step for the bound batch signature (a warm-up step whose '
           'effects are undone), so the first batch pays none of that.  '
           'Same as fit(warm_start=True).')
+_register('MXTPU_COMPILE_CACHE', '', str,
+          'Directory of the persistent compile cache and the warmup '
+          'manifest (compile_cache.py).  What persists are the NVRTC '
+          'cubins of mx.rtc.Rtc (<dir>/rtc/, keyed by source, kernel '
+          'name, compute capability and NVRTC version: a later process '
+          'loads them instead of compiling, compile.cache_hits) and the '
+          'batch signatures of every captured step (<dir>/manifest.json: '
+          'fit_step entries a warm start captures again before the '
+          'first batch, and each signature\'s counted '
+          'FLOPs).  A CUDA graph itself cannot be saved: a warm process '
+          'still records its graphs, off the hot path.  The nvcc kernel '
+          'libraries persist in build/mxnet_tpu_torch/ regardless.  '
+          'Unset: no directory, no file.')
 _register('MXTPU_PRECOMPILE_BUCKETS', False, _bool,
           'BucketingModule binds, warms and (on the card) captures every '
           'bucket declared via bucket_keys=[...] at fit start instead of '

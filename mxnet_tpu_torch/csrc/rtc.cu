@@ -110,6 +110,11 @@ int mxtpu_rtc_compile(const char* src, const char* name, const char* arch,
 
 void mxtpu_rtc_free_cubin(char* cubin) { std::free(cubin); }
 
+// NVRTC's version, part of the key of a stored cubin.
+int mxtpu_nvrtc_version(int* major, int* minor) {
+  return static_cast<int>(nvrtcVersion(major, minor));
+}
+
 // Load `cubin` into the primary context of CUDA device `device` (retained
 // here, released by mxtpu_rtc_free) and look up `name` in it.  The
 // calling thread's current context is left as it was.

@@ -13,7 +13,10 @@ Inference forwards run under ``torch.no_grad()``.  An executor with
 its inference forward through a CUDA graph of its graph function
 (``compile_cache.CapturedStep``), recorded at its first forward and
 replayed while its argument and aux arrays hold the same tensors; its
-``outputs`` are then the graph's, overwritten by the next forward.
+``outputs`` are then the graph's, overwritten by the next forward.  A
+program with ``Custom`` nodes is cut at them (:class:`SegmentPlan`,
+:func:`staged_forward`): a graph per segment, the user's forward run
+eagerly between their replays.
 
 A training forward of an executor with gradient buffers runs under
 autograd, with each argument whose ``grad_req`` is not ``'null'`` as a
@@ -56,12 +59,68 @@ from .symbol import Symbol
 __all__ = ['Executor', 'simple_bind']
 
 
+def _value_of(src, x, entry_vals, arg_values, aux_values):
+    if src.is_variable:
+        if src.name in arg_values:
+            return arg_values[src.name]
+        if src.name in aux_values:
+            return aux_values[src.name]
+        raise MXNetError('unbound variable %s' % src.name)
+    return entry_vals[(id(src), x)]
+
+
+def _run_nodes(nodes, entry_vals, arg_values, aux_values, is_train, dev,
+               aux_updates, monitor_re=None, monitored=None):
+    """Evaluate the operator nodes ``nodes`` (topological order) into
+    ``entry_vals`` ((id(node), output index) -> tensor); variables are
+    read from ``arg_values`` / ``aux_values`` by name, and the aux
+    updates the nodes make go into ``aux_updates`` by graph name."""
+    for node in nodes:
+        op = node.opdef()
+        ins = [_value_of(n, x, entry_vals, arg_values, aux_values)
+               for n, x in node.inputs]
+        attrs = node.attrs if ins or dev is None else \
+            dict(node.attrs, ctx=dev)
+        try:
+            outs, aux_upd = op.apply(attrs, ins, is_train, None)
+        except RuntimeError as e:
+            # a CUDA error under capture (a host sync) names its node;
+            # other exceptions pass untouched (the mirror's recompute
+            # stops early by raising one through here)
+            if dev is not None and dev.type == 'cuda' and \
+                    torch.cuda.is_current_stream_capturing():
+                raise MXNetError(
+                    'node %r (op %s) cannot run inside a CUDA graph '
+                    'capture: %s' % (node.name, node.op, e)) from e
+            raise
+        for j, o in enumerate(outs):
+            entry_vals[(id(node), j)] = o
+        if monitor_re is not None:
+            for j, oname in enumerate(node.output_names()):
+                if monitor_re.match(oname):
+                    monitored[oname] = outs[j]
+        if aux_upd:
+            # op-local aux names -> graph variable names
+            n_main = len(op.input_names(node.attrs))
+            aux_nms = op.aux_names(node.attrs)
+            for local_name, val in aux_upd.items():
+                var_node = node.inputs[n_main + aux_nms.index(local_name)][0]
+                aux_updates[var_node.name] = val
+
+
+def _device_of(arg_values, aux_values):
+    # ops with no input (constants, samplers) are made on the device the
+    # graph runs on
+    return next((v.device for v in list(arg_values.values())
+                 + list(aux_values.values())), None)
+
+
 def _build_graph_fn(symbol: Symbol, is_train: bool, monitor_re=None):
     """The function ``(arg_values, aux_values) -> (outputs,
     aux_updates)`` over name -> tensor dicts; ``is_train`` is fixed.
     With ``monitor_re`` (a compiled pattern) it returns a third value:
     the node outputs whose names match, by name."""
-    nodes = symbol.topo_nodes()
+    nodes = [n for n in symbol.topo_nodes() if not n.is_variable]
     out_entries = symbol._outputs
 
     def fn(arg_values: Dict[str, torch.Tensor],
@@ -69,55 +128,171 @@ def _build_graph_fn(symbol: Symbol, is_train: bool, monitor_re=None):
         entry_vals: Dict[Tuple[int, int], torch.Tensor] = {}
         aux_updates: Dict[str, torch.Tensor] = {}
         monitored: Dict[str, torch.Tensor] = {}
-        # ops with no input (constants, samplers) are made on the device
-        # the graph runs on
-        dev = next((v.device for v in list(arg_values.values())
-                    + list(aux_values.values())), None)
-        for node in nodes:
-            if node.is_variable:
-                if node.name in arg_values:
-                    entry_vals[(id(node), 0)] = arg_values[node.name]
-                elif node.name in aux_values:
-                    entry_vals[(id(node), 0)] = aux_values[node.name]
-                else:
-                    raise MXNetError('unbound variable %s' % node.name)
-                continue
-            op = node.opdef()
-            ins = [entry_vals[(id(n), x)] for n, x in node.inputs]
-            attrs = node.attrs if ins or dev is None else \
-                dict(node.attrs, ctx=dev)
-            try:
-                outs, aux_upd = op.apply(attrs, ins, is_train, None)
-            except RuntimeError as e:
-                # a CUDA error under capture (a host sync) names its node;
-                # other exceptions pass untouched (the mirror's recompute
-                # stops early by raising one through here)
-                if dev is not None and dev.type == 'cuda' and \
-                        torch.cuda.is_current_stream_capturing():
-                    raise MXNetError(
-                        'node %r (op %s) cannot run inside a CUDA graph '
-                        'capture: %s' % (node.name, node.op, e)) from e
-                raise
-            for j, o in enumerate(outs):
-                entry_vals[(id(node), j)] = o
-            if monitor_re is not None:
-                for j, oname in enumerate(node.output_names()):
-                    if monitor_re.match(oname):
-                        monitored[oname] = outs[j]
-            if aux_upd:
-                # op-local aux names -> graph variable names
-                n_main = len(op.input_names(node.attrs))
-                aux_nms = op.aux_names(node.attrs)
-                for local_name, val in aux_upd.items():
-                    var_node = node.inputs[n_main + aux_nms.index(
-                        local_name)][0]
-                    aux_updates[var_node.name] = val
-        outputs = [entry_vals[(id(n), x)] for n, x in out_entries]
+        _run_nodes(nodes, entry_vals, arg_values, aux_values, is_train,
+                   _device_of(arg_values, aux_values), aux_updates,
+                   monitor_re, monitored)
+        outputs = [_value_of(n, x, entry_vals, arg_values, aux_values)
+                   for n, x in out_entries]
         if monitor_re is not None:
             return outputs, aux_updates, monitored
         return outputs, aux_updates
 
     return fn
+
+
+class SegmentPlan(object):
+    """A program cut at its ``Custom`` nodes, for a step captured in
+    segments (``compile_cache.StagedStep``).
+
+    ``pieces`` alternate ``('seg', nodes)`` and ``('custom', node)``,
+    beginning and ending with a segment (either may be empty): segment
+    ``i`` holds the operator nodes between two ``Custom`` nodes in
+    topological order.  An entry ((id(node), output index)) that one
+    piece makes and a later one reads, or that is a program output, is
+    an *export* of its piece; a segment reads the entries it does not
+    make as its ``inputs``.  The user's code runs between the segments'
+    graphs, as ``jax.pure_callback`` runs it in the reference."""
+
+    def __init__(self, symbol):
+        self.symbol = symbol
+        pieces, cur = [], []
+        self._nodes = {id(n): n for n in symbol.topo_nodes()}
+        for node in symbol.topo_nodes():
+            if node.is_variable:
+                continue
+            if node.op == 'Custom':
+                pieces += [('seg', cur), ('custom', node)]
+                cur = []
+            else:
+                cur.append(node)
+        pieces.append(('seg', cur))
+        self.pieces = pieces
+        piece_of = {}
+        for i, (kind, x) in enumerate(pieces):
+            for n in (x if kind == 'seg' else [x]):
+                piece_of[id(n)] = i
+        self.piece_of = piece_of
+        self.outputs = list(symbol._outputs)
+        self.inputs = [[] for _ in pieces]       # per segment, ordered
+        self.variables = [[] for _ in pieces]    # names a segment reads
+        self.exports = [[] for _ in pieces]      # ordered keys
+        self.consumers = {}                      # key -> [(piece, pos)]
+        for i, (kind, x) in enumerate(pieces):
+            for n in (x if kind == 'seg' else [x]):
+                for pos, (src, j) in enumerate(n.inputs):
+                    if src.is_variable:
+                        if kind == 'seg' and \
+                                src.name not in self.variables[i]:
+                            self.variables[i].append(src.name)
+                        continue
+                    key = (id(src), j)
+                    owner = piece_of[id(src)]
+                    if owner != i:
+                        self._export(owner, key)
+                        self.consumers.setdefault(key, []).append(
+                            (i, pos if kind == 'custom' else None))
+                        if kind == 'seg' and key not in self.inputs[i]:
+                            self.inputs[i].append(key)
+        for src, j in self.outputs:
+            if not src.is_variable:
+                self._export(piece_of[id(src)], (id(src), j))
+
+    def _export(self, piece, key):
+        if key not in self.exports[piece]:
+            self.exports[piece].append(key)
+
+    @property
+    def customs(self):
+        return [(i, x) for i, (k, x) in enumerate(self.pieces)
+                if k == 'custom']
+
+    def nodes(self, i):
+        return self.pieces[i][1]
+
+    def node_by_id(self, node_id):
+        return self._nodes[node_id]
+
+    def run_segment(self, i, arg_values, aux_values, inputs, is_train):
+        """Segment ``i`` on ``inputs`` (key -> tensor): its exports (key ->
+        tensor) and its aux updates."""
+        entry_vals = dict(inputs)
+        aux_updates = {}
+        _run_nodes(self.nodes(i), entry_vals, arg_values, aux_values,
+                   is_train, _device_of(arg_values, aux_values),
+                   aux_updates)
+        return {k: entry_vals[k] for k in self.exports[i]}, aux_updates
+
+
+def staged_forward(plan, args, aux, is_train=False):
+    """The stages of a forward through ``plan`` without gradients, over
+    the fixed ``args`` / ``aux`` dicts (``args`` may be a function that
+    returns the dict, called inside each stage: casts of the fixed
+    tensors): a graph per non-empty segment, the user's forward of each
+    ``Custom`` node between them (its outputs copied into buffers the
+    next segment reads).  The last stage returns the program's
+    outputs."""
+    from .operator import custom_forward
+    state = {}
+    get_args = args if callable(args) else (lambda: args)
+
+    def value(src, j):
+        if src.is_variable:
+            a = get_args()
+            return a[src.name] if src.name in a else aux[src.name]
+        key = (id(src), j)
+        owner = plan.piece_of[id(src)]
+        if plan.pieces[owner][0] == 'custom':
+            return state['cin', owner][j]
+        return state['seg', owner][key]
+
+    def segment(i):
+        def run():
+            ins = {k: value(plan.node_by_id(k[0]), k[1])
+                   for k in plan.inputs[i]}
+            with torch.no_grad():
+                state['seg', i], _ = plan.run_segment(i, get_args(), aux,
+                                                      ins, is_train)
+            return []
+        return run
+
+    def custom(i):
+        node = plan.pieces[i][1]
+
+        def run():
+            ins = [value(src, j) for src, j in node.inputs]
+            outs, _ = custom_forward(node.attrs, ins, is_train)
+            _copy_into(state, ('cin', i), outs)
+            return []
+        return run
+
+    def outputs():
+        return [value(src, j) for src, j in plan.outputs]
+
+    stages = []
+    for i, (kind, x) in enumerate(plan.pieces):
+        if kind == 'custom':
+            stages.append(('host', custom(i)))
+        elif x:
+            stages.append(('graph', segment(i)))
+    if stages[-1][0] == 'graph':
+        seg = stages[-1][1]
+        stages[-1] = ('graph', lambda: (seg(), outputs())[1])
+    else:
+        last = stages[-1][1]
+        stages[-1] = ('host', lambda: (last(), outputs())[1])
+    return stages
+
+
+def _copy_into(state, slot, tensors):
+    """Copy ``tensors`` into the fixed buffers ``state[slot]`` (made, outside
+    any graph's pool, at the first call)."""
+    bufs = state.get(slot)
+    if bufs is None:
+        bufs = state[slot] = [torch.empty_like(t) for t in tensors]
+    with torch.no_grad():
+        for b, t in zip(bufs, tensors):
+            b.copy_(t)
+    return bufs
 
 
 def mirror_policy():
@@ -242,6 +417,7 @@ class Executor:
         self._monitor_pattern = None
         self._monitored_fns = {}
         self._draws = None          # does the training program sample
+        self._recorded = set()      # manifest kinds recorded (inventory)
 
     @staticmethod
     def _normalize(values, names, what, allow_none=False, partial_ok=False):
@@ -316,6 +492,7 @@ class Executor:
         self._pending = None
         if self._monitor_callback is not None:
             return self._forward_monitored(is_train)
+        self._record(is_train)
         if not is_train and self._capture:
             outs, aux_updates = self._inference_graph().run(), {}
         elif is_train and self._grad_names:
@@ -331,6 +508,26 @@ class Executor:
         self.outputs = [NDArray(o.detach(), self._ctx) for o in outs]
         instrument.inc('executor.forwards')
         return self.outputs
+
+    def _record(self, is_train):
+        """File the program this forward runs in the warmup manifest, once
+        per kind, as the reference's traces do: ``'fwd_bwd'`` for a
+        forward with gradients, else ``'forward'`` with ``is_train`` (an
+        inventory: nothing replays them)."""
+        from . import compile_cache
+        grad = bool(is_train and self._grad_names)
+        kind = 'fwd_bwd' if grad else ('forward', bool(is_train))
+        if kind in self._recorded:
+            return
+        self._recorded.add(kind)
+        if compile_cache.ensure_persistent_cache() is None:
+            return
+        entry = {'kind': 'fwd_bwd' if grad else 'forward',
+                 'fp': compile_cache.fingerprint(
+                     self._program_symbol(is_train))}
+        if not grad:
+            entry['meta'] = {'is_train': bool(is_train)}
+        compile_cache.record_entry(entry)
 
     def set_monitor_callback(self, callback, pattern=None):
         """Tap every forward: ``callback(name, NDArray)`` for each node
@@ -381,16 +578,25 @@ class Executor:
         tensors = compile_cache.step_tensors(args, aux)
         cap = self._forward_graph
         if cap is None or not cap.holds(tensors):
-            fn = self._graph_fn(False)
-
-            def body():
-                with torch.no_grad():
-                    return fn(args, aux)[0]
+            program = self._program_symbol(False)
             device = self._ctx.torch_device
-            cap = self._forward_graph = compile_cache.CapturedStep(
-                'forward', body, device, tensors, pool=self._capture_pool,
-                skip=compile_cache.capture_skip_reason(
-                    device, self._program_symbol(False), is_train=False))
+            skip = compile_cache.capture_skip_reason(device, program,
+                                                     is_train=False)
+            if compile_cache.custom_nodes(program):
+                cap = compile_cache.StagedStep(
+                    'forward', staged_forward(SegmentPlan(program), args,
+                                              aux),
+                    device, tensors, pool=self._capture_pool, skip=skip)
+            else:
+                fn = self._graph_fn(False)
+
+                def body():
+                    with torch.no_grad():
+                        return fn(args, aux)[0]
+                cap = compile_cache.CapturedStep(
+                    'forward', body, device, tensors,
+                    pool=self._capture_pool, skip=skip)
+            self._forward_graph = cap
         return cap
 
     def backward(self, out_grads=None):

@@ -37,9 +37,12 @@ counts of any other thread whose current stream is capturing: the
 autograd engine runs a captured backward (and a mirrored forward's
 recompute in it) on its device thread.
 
-The reference's jit-trace counters (``count_trace``, ``count_traces``,
-``trace_redirect``) count JAX traces and have no counterpart: the port
-counts its graph captures in ``compile_cache``.
+A graph capture counts :func:`count_trace` (``compile.traces``), the
+counterpart of the reference's per-jit-trace counter.  Inside
+:func:`trace_redirect` (a warm start's ``compile_cache.warmup``) the
+captures of that thread count the redirect's name instead
+(``compile.warmup_traces``), so ``compile.traces`` stays the count of
+captures the fit loop paid for on its batches.
 """
 from __future__ import annotations
 
@@ -64,6 +67,7 @@ __all__ = [
     'hist_delta', 'hist_merge', 'HistogramWindow', 'HIST_EDGES',
     'inc', 'set_gauge', 'observe', 'observe_hist', 'timed', 'hist_span',
     'count_launch', 'recording', 'apply_counts',
+    'count_trace', 'trace_redirect', 'trace_redirected',
     'decision', 'recent_decisions', 'on_decision', 'remove_decision_sink',
     'metrics_snapshot', 'dump_metrics', 'reset_metrics',
     'render_prometheus', 'split_labeled_name', 'device_memory_stats',
@@ -750,6 +754,33 @@ def apply_counts(rec):
             kernel.launches += n
             if route is not None:
                 kernel.launches_by_route[route] += n
+
+
+_trace_tls = threading.local()
+
+
+@contextlib.contextmanager
+def trace_redirect(name):
+    """Route this thread's :func:`count_trace` to counter ``name`` inside
+    the block (nests; the previous target comes back after it)."""
+    prev = getattr(_trace_tls, 'name', None)
+    _trace_tls.name = name
+    try:
+        yield
+    finally:
+        _trace_tls.name = prev
+
+
+def trace_redirected():
+    """The counter this thread's captures count now, or None for
+    ``compile.traces``."""
+    return getattr(_trace_tls, 'name', None)
+
+
+def count_trace():
+    """One graph capture: ``compile.traces``, or the counter of the
+    thread's :func:`trace_redirect`."""
+    inc(getattr(_trace_tls, 'name', None) or 'compile.traces')
 
 
 # -- hot-path helpers: one flag check, nothing allocated when off -------------

@@ -25,11 +25,12 @@ would abort the process.
 """
 from __future__ import annotations
 
-import atexit
 import contextlib
 import queue
 import struct
+import sys
 import threading
+import weakref
 from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 
@@ -476,86 +477,39 @@ class DeviceFeedIter(DataIter):
             pool.shutdown(wait=False)
 
 
-_RUNNING = set()        # the producers whose threads are alive
-_RUNNING_LOCK = threading.Lock()
+_LIVE = weakref.WeakSet()       # the PrefetchingIters not closed yet
+_LIVE_LOCK = threading.Lock()
 
 
-def _stop_producers():
-    """At exit: stop every producer thread still running and wait for it
-    (briefly) while the interpreter can still run it."""
-    with _RUNNING_LOCK:
-        running = list(_RUNNING)
-    for p in running:
-        p.stop()
-    for p in running:
-        p.join(5.0)
-
-
-class _Producer(object):
-    """One daemon thread fetching from one iterator, a fetch at a time:
-    ``request()`` asks for the next batch, ``result()`` waits for it (a
-    ``DataBatch``, None at the end, or the exception the fetch raised)."""
-
-    def __init__(self, it, place, name):
-        self._it = it
-        self._place = place
-        self._requests = queue.Queue()
-        self._results = queue.Queue()
-        self._thread = threading.Thread(target=self._run, name=name,
-                                        daemon=True)
-        with _RUNNING_LOCK:
-            if not _RUNNING:
-                atexit.unregister(_stop_producers)
-                atexit.register(_stop_producers)
-            _RUNNING.add(self)
-        self._thread.start()
-
-    def _run(self):
-        try:
-            while self._requests.get():
-                try:
-                    batch = self._it.next()
-                    if self._place is not None:
-                        batch = _place_batch(batch, self._place)
-                except StopIteration:
-                    batch = None
-                except BaseException as e:     # raised in the consumer
-                    batch = e
-                self._results.put(batch)
-        finally:
-            with _RUNNING_LOCK:
-                _RUNNING.discard(self)
-
-    def request(self):
-        self._requests.put(True)
-
-    def result(self):
-        return self._results.get()
-
-    def put(self, item):
-        self._results.put(item)
-
-    def stop(self):
-        self._requests.put(False)
-
-    def join(self, timeout):
-        self._thread.join(timeout)
-        return not self._thread.is_alive()
+def _stop_prefetchers():
+    """At exit, before the engine is drained (``engine.
+    _shutdown_native_engine``): every open PrefetchingIter stops, so a
+    fetch pushed but not run yet returns at once."""
+    with _LIVE_LOCK:
+        live = list(_LIVE)
+    for it in live:
+        it._stopped[0] = True
 
 
 class PrefetchingIter(DataIter):
     """Prefetch over one or more iterators, merging their batches into one
     (reference io.py:359, C++ ``PrefetcherIter``, ``iter_prefetcher.h``).
 
-    Each iterator has its own producer thread, so fetches are serialised
-    per iterator and run in parallel across them; the next fetch is asked
-    for when the previous batch is consumed (at most one outstanding).
+    Each iterator has a variable of the native engine
+    (``engine.native_engine``, ``mxnet_tpu/io.py:401-445``), and each of
+    its fetches is pushed as an op that writes that variable: fetches
+    are serialised per iterator and run in parallel across them, on the
+    engine's worker threads (``MXNET_CPU_WORKER_NTHREADS``; under
+    ``NaiveEngine`` on the pushing thread); the next fetch is pushed
+    when the previous batch is consumed (at most one outstanding).
     ``rename_data`` / ``rename_label`` (one name -> name dict per
     iterator) rename the provided descriptors.  ``device_place`` (the
     executor group's ``_place_data``) also stages each batch onto the
-    device from the producer thread; without it the batches stay on the
-    host, as ``Module.fit``'s device feed expects.  Call :meth:`close`
-    when done (``__del__`` stops the threads without waiting)."""
+    device from the worker; without it the batches stay on the host, as
+    ``Module.fit``'s device feed expects.  Call :meth:`close` when done;
+    ``__del__`` stops the fetches without waiting, and at exit the
+    engine's hook stops every open one before it drains the engine (an
+    abandoned iterator never holds up the exit)."""
 
     def __init__(self, iters, rename_data=None, rename_label=None,
                  device_place=None):
@@ -575,12 +529,48 @@ class PrefetchingIter(DataIter):
         self.batch_size = self.provide_data[0][1][0]
         self.current_batch = None
         self.next_batch = [None] * self.n_iter
+        self._device_place = device_place
         self._closed = False
-        self._producers = [_Producer(it, device_place,
-                                     'mxtpu-prefetch-%d' % i)
-                           for i, it in enumerate(iters)]
-        for p in self._producers:
-            p.request()
+        # shared with the pushed fetches, which hold no reference to self
+        self._stopped = [False]
+        self._results = [queue.Queue() for _ in range(self.n_iter)]
+        from .engine import native_engine
+        self._engine = native_engine()
+        self._vars = [self._engine.new_var() for _ in range(self.n_iter)]
+        with _LIVE_LOCK:
+            _LIVE.add(self)
+        for i in range(self.n_iter):
+            self._push_fetch(i)
+
+    def _ensure_engine(self):
+        """Take the engine again if ``set_engine_type`` rebuilt it (the
+        old vars died with the old engine)."""
+        if not self._engine.alive:
+            from .engine import native_engine
+            self._engine = native_engine()
+            self._vars = [self._engine.new_var()
+                          for _ in range(self.n_iter)]
+
+    def _push_fetch(self, i):
+        it, place = self.iters[i], self._device_place
+        results, stopped = self._results[i], self._stopped
+
+        def fetch():
+            if stopped[0]:
+                results.put(None)
+                return
+            try:
+                batch = it.next()
+                if place is not None:
+                    batch = _place_batch(batch, place)
+            except StopIteration:
+                batch = None
+            except BaseException as e:     # raised in the consumer
+                batch = e
+            results.put(batch)
+        self._ensure_engine()
+        self._engine.push(fetch, mutable_vars=[self._vars[i]],
+                          name='prefetch_%d' % i)
 
     @staticmethod
     def _renamed(descs, renames):
@@ -602,36 +592,39 @@ class PrefetchingIter(DataIter):
     def reset(self):
         """Drain each iterator's outstanding fetch, reset them all and
         start again."""
-        for p in self._producers:
-            p.result()
+        for q in self._results:
+            q.get()
+        self._ensure_engine()
+        for v in self._vars:
+            self._engine.wait_for_var(v)
         for it in self.iters:
             it.reset()
-        for p in self._producers:
-            p.request()
+        for i in range(self.n_iter):
+            self._push_fetch(i)
 
     def iter_next(self):
         # every slot is drained first, so one failing iterator cannot
         # leave the others' results queued
-        items = [p.result() for p in self._producers]
+        items = [q.get() for q in self._results]
         exc = next((x for x in items if isinstance(x, BaseException)),
                    None)
         if exc is not None:
             if self.n_iter == 1:
                 # one stream: fetch a replacement so the caller can retry
-                self._producers[0].request()
+                self._push_fetch(0)
             else:
                 # the streams cannot be realigned: end the epoch (reset()
                 # drains these sentinels and starts every stream again)
-                for p in self._producers:
-                    p.put(None)
+                for q in self._results:
+                    q.put(None)
             raise exc
         self.next_batch = items
         if items[0] is None:
             if any(b is not None for b in items):
                 raise MXNetError('PrefetchingIter: the iterators ran out '
                                  'at different batches')
-            for p in self._producers:       # for reset() to drain
-                p.put(None)
+            for q in self._results:         # for reset() to drain
+                q.put(None)
             return False
         if any(b.pad != items[0].pad for b in items):
             raise MXNetError('PrefetchingIter: the iterators\' batches '
@@ -640,8 +633,8 @@ class PrefetchingIter(DataIter):
             sum([b.data for b in items], []),
             sum([b.label for b in items], []), items[0].pad,
             items[0].index)
-        for p in self._producers:
-            p.request()
+        for i in range(self.n_iter):
+            self._push_fetch(i)
         return True
 
     def getdata(self):
@@ -657,22 +650,37 @@ class PrefetchingIter(DataIter):
         return self.current_batch.pad
 
     def close(self, timeout=10.0):
-        """Stop the producer threads, each joined within ``timeout``
-        seconds (a fetch in flight finishes first); True when all have
-        stopped."""
+        """Stop prefetching: the fetch in flight of each iterator
+        finishes, each waited for within ``timeout`` seconds, and the
+        engine's variables are released.  True when all have finished."""
         if self._closed:
             return True
         self._closed = True
-        for p in self._producers:
-            p.stop()
-        return all([p.join(timeout) for p in self._producers])
+        self._stopped[0] = True
+        with _LIVE_LOCK:
+            _LIVE.discard(self)
+        if not self._engine.alive:
+            return True
+        done = all([self._engine.wait_for_var(v, timeout)
+                    for v in self._vars])
+        for v in self._vars:
+            self._engine.del_var(v)
+        return done
 
     def __del__(self):
-        # never blocks: the daemon threads get their stop request
-        if not getattr(self, '_closed', True):
-            self._closed = True
-            for p in self._producers:
-                p.stop()
+        # never waits on the engine: the pushed fetches see the stop
+        # flag, and the variables are freed once they have run
+        stopped = getattr(self, '_stopped', None)
+        if stopped is None or getattr(self, '_closed', True):
+            return
+        self._closed = True
+        stopped[0] = True
+        try:
+            if not sys.is_finalizing() and self._engine.alive:
+                for v in self._vars:
+                    self._engine.del_var(v)
+        except Exception:                   # noqa: BLE001
+            pass
 
 
 def _read_idx(path):

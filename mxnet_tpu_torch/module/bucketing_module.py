@@ -14,7 +14,8 @@ graphs share the default bucket's memory pool (they replay on one
 stream, never at once) and copy their outputs out of it, so a bucket's
 outputs survive another bucket's replay.  ``_warm_start`` under
 ``MXTPU_PRECOMPILE_BUCKETS`` captures every declared bucket at fit
-start.
+start, and with ``MXTPU_COMPILE_CACHE`` every bucket an earlier
+process's warmup manifest names.
 
 ``context`` defaults to ``gpu(0)``, as ``Module``'s does;
 ``work_load_list`` is taken for the reference's signature and unused
@@ -116,8 +117,8 @@ class BucketingModule(BaseModule):
         self._params_dirty = False
         self.params_initialized = True
 
-    def _new_module(self, bucket_key):
-        symbol, data_names, label_names = self._sym_gen(bucket_key)
+    def _new_module(self, bucket_key, made=None):
+        symbol, data_names, label_names = made or self._sym_gen(bucket_key)
         return Module(symbol, data_names, label_names, logger=self.logger,
                       context=self._context)
 
@@ -151,12 +152,15 @@ class BucketingModule(BaseModule):
             module.init_params(initializer=None, arg_params=params[0],
                                aux_params=params[1], force_init=True)
 
-    def switch_bucket(self, bucket_key, data_shapes, label_shapes=None):
-        """Switch to (bind if needed) a bucket (bucketing_module.py:189)."""
+    def switch_bucket(self, bucket_key, data_shapes, label_shapes=None,
+                      made=None):
+        """Switch to (bind if needed) a bucket (bucketing_module.py:189);
+        ``made``: what ``sym_gen(bucket_key)`` returned, when the caller
+        has it."""
         assert self.binded, 'call bind before switching bucket'
         if bucket_key not in self._buckets:
             default = self._buckets[self._default_bucket_key]
-            module = self._new_module(bucket_key)
+            module = self._new_module(bucket_key, made)
             module.bind(data_shapes, label_shapes,
                         self._curr_module.for_training,
                         self._curr_module.inputs_need_grad,
@@ -224,20 +228,74 @@ class BucketingModule(BaseModule):
         self.switch_bucket(curr_key, curr.data_shapes, curr.label_shapes)
 
     def _warm_start(self, eval_metric=None, data_sig=None):
-        """Warm every bound bucket and, under MXTPU_PRECOMPILE_BUCKETS,
-        every declared one: each builds its fused step on the shared
-        optimizer state and, on the card, captures its graph, so no
-        bucket pays that on its first batch."""
+        """Warm the default bucket first, then every bucket the warmup
+        manifest names (:meth:`_manifest_buckets`), every other bound
+        bucket and, under MXTPU_PRECOMPILE_BUCKETS, every declared one:
+        each builds its fused step on the shared optimizer state and, on
+        the card, captures its graph, on this thread before the first
+        batch (counted as ``compile.warmup_traces`` with
+        ``MXTPU_COMPILE_CACHE``), so no bucket pays that on its first
+        batch."""
         assert self.binded and self.params_initialized
         if self._declared_bucket_keys and \
                 _config.get('MXTPU_PRECOMPILE_BUCKETS'):
             self._bind_declared_buckets()
         default = self._buckets[self._default_bucket_key]
         default._warm_start(eval_metric)
+        named = self._manifest_buckets()
+        if named:
+            curr_key = self._curr_bucket_key
+            for key, made, dshapes, lshapes in named:
+                self.switch_bucket(key, dshapes, lshapes, made=made)
+            curr = self._buckets[curr_key]
+            self.switch_bucket(curr_key, curr.data_shapes, curr.label_shapes)
         for mod in self._buckets.values():
             if mod is not default:
                 mod._fused_opt_state = default._fused_opt_state
                 mod._warm_start(eval_metric)
+
+    def _manifest_buckets(self):
+        """The buckets not bound yet that the warmup manifest names:
+        ``(key, sym_gen(key), data_shapes, label_shapes)`` for each
+        ``fit_step`` entry whose batch shapes are the default bucket's
+        with the default key replaced by one int key (the convention of
+        :meth:`_derive_bucket_shapes`) and whose fingerprint is that
+        key's symbol's."""
+        from .. import compile_cache
+        key0 = self._default_bucket_key
+        if not isinstance(key0, int) or compile_cache.cache_dir() is None:
+            return []
+        default = self._buckets[key0]
+        dshapes = list(default.data_shapes)
+        lshapes = list(default.label_shapes or [])
+        found = {}
+        for entry in compile_cache.manifest_entries('fit_step'):
+            batch = entry.get('batch') or {}
+            if set(batch) != {n for n, _ in dshapes + lshapes}:
+                continue
+            keys, fits = set(), True
+            for name, shape in dshapes + lshapes:
+                got = [int(d) for d in batch[name][0]]
+                if len(got) != len(shape) or got[0] != shape[0]:
+                    fits = False
+                    break
+                for d, g in zip(shape[1:], got[1:]):
+                    if d == key0:
+                        keys.add(g)
+                    elif d != g:
+                        fits = False
+            if not fits or len(keys) != 1:
+                continue
+            key = keys.pop()
+            if key in self._buckets or key in found:
+                continue
+            made = self._sym_gen(key)
+            if compile_cache.fingerprint(made[0]) == entry.get('fp'):
+                found[key] = (key, made,
+                              self._derive_bucket_shapes(dshapes, key),
+                              self._derive_bucket_shapes(lshapes, key)
+                              if lshapes else None)
+        return list(found.values())
 
     def _device_place_fn(self):
         return self._curr_module._device_place_fn() if self.binded else None

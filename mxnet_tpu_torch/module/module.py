@@ -54,6 +54,7 @@ and meshes are not ported.
 """
 from __future__ import annotations
 
+import functools
 import logging
 
 import torch
@@ -138,8 +139,10 @@ class Module(BaseModule):
         self._drop_graphs()
 
     def _drop_graphs(self):
-        """Forget every captured step (a graph holds raw addresses)."""
+        """Forget every captured step (a graph holds raw addresses) and
+        the batch buffers of each signature."""
         self._graphs = {}
+        self._sig_batches = {}
 
     # -- persistence -------------------------------------------------------
     @staticmethod
@@ -523,14 +526,22 @@ class Module(BaseModule):
         return True
 
     def _warm_start(self, eval_metric=None, data_sig=None):
-        """Build the fused step before the first batch
-        (``mxnet_tpu/module/module.py:956``): the fuse passes, shape
-        inference and the graph function, on the card the kernel
-        libraries the graph launches (``nvcc`` at first use) and the
-        capture of the step for the bound batch signature, so the first
-        batch pays none of that.  ``data_sig`` is the iterator's
-        signature (``compile_cache.warm_start``); a batch of another
-        signature captures at its first step."""
+        """Build the fused step before the first batch and capture its
+        signatures (``mxnet_tpu/module/module.py:956-1090``): the fuse
+        passes, shape inference, the graph function and, on the card, the
+        kernel libraries the graph launches (``nvcc`` at first use); then
+        the warm-up and capture of each signature, on this thread: the
+        bound one and every ``fit_step`` entry of the warmup manifest
+        with this symbol's fingerprint and this step's meta (a signature
+        another process met, a last short batch).  A warm-up is a real
+        step on the module's parameters, metric and health buffers,
+        undone after, so it runs here, where every other reader of them
+        runs (the reference compiles on a pool; its compile reads no
+        state).  A signature other than the bound one gets batch buffers
+        of its own shapes.  With ``MXTPU_COMPILE_CACHE`` the captures
+        count ``compile.warmup_traces`` (``compile_cache.warmup``); what
+        a warm-up raises is raised here.  ``data_sig`` is the iterator's
+        signature (``compile_cache.warm_start``)."""
         from .. import metric as _metric
         if not (self.binded and self.params_initialized and
                 self.optimizer_initialized):
@@ -550,21 +561,80 @@ class Module(BaseModule):
             from ..ops import _kernels
             for name in self._fused.kernels:
                 _kernels.library(name)
-        buffers = self._fused_buffers()
-        if data_sig is not None and \
-                data_sig != compile_cache.batch_sig(buffers[3]):
+        batch = self._fused_buffers()[3]
+        bound = compile_cache.batch_sig(batch)
+        if data_sig is not None and data_sig != bound:
             self.logger.info('warm start: the iterator\'s signature is not '
                              'the bound one; its first batch captures')
-        cap = self._step_graph(*buffers)
-        if cap.skip is None and not cap.captured:
-            self._warm_step(cap)
+        sigs = {bound: None}
+        meta = self._fit_meta()
+        for entry in compile_cache.manifest_entries(
+                'fit_step', compile_cache.fingerprint(self._symbol)):
+            if entry.get('meta') != meta or not entry.get('batch'):
+                continue
+            shapes = {name: (tuple(sd[0]), str(sd[1]))
+                      for name, sd in entry['batch'].items()}
+            if set(shapes) == set(batch):
+                sigs.setdefault(compile_cache.sig_key(shapes), shapes)
+        self._warm_sigs = list(sigs)
+        for sig, shapes in sigs.items():
+            if compile_cache.cache_dir() is None:
+                self._warm_sig(sig, shapes)
+            else:
+                compile_cache.warmup(
+                    'fit_step', functools.partial(self._warm_sig, sig, shapes))
 
-    def _warm_step(self, cap):
+    def _warm_sig(self, sig, shapes):
+        """Warm up and capture ``sig``'s step (unless held already) over
+        its batch buffers: the bound ones, or buffers of ``shapes`` made
+        as the first batch of that signature would make them."""
+        params, frozen, aux, batch = self._fused_buffers()
+        if compile_cache.batch_sig(batch) != sig:
+            device = self._context[0].torch_device
+            batch = self._sig_batches.get(sig) or {
+                name: torch.zeros(shape, dtype=getattr(torch, dt),
+                                  device=device)
+                for name, (shape, dt) in shapes.items()}
+        cap = self._graphs.get(sig)
+        if cap is None or not cap.holds(self._step_tensors(params, frozen,
+                                                           aux, batch)):
+            cap = self._make_step(sig, params, frozen, aux, batch)
+        if cap.skip is None and not cap.captured:
+            self._warm_step(cap, batch)
+
+    def _fit_meta(self):
+        """The ``meta`` of this step's manifest entries, in the
+        reference's form (``mxnet_tpu/parallel/train_step.py:219-227``):
+        the metric's fold key (the port's module names written as the
+        reference's), the compute dtype, the health action, no mesh."""
+        metric = self._fused_metric
+        key = compile_cache.reference_names(metric.device_fold_key()) \
+            if metric is not None else None
+        dtype = compile_cache._dtype_name(self._compute_dtype) \
+            if self._compute_dtype is not None else None
+        return compile_cache.jsonable({'metric': key, 'compute_dtype': dtype,
+                                       'health': self._fused_health_key,
+                                       'mesh': None})
+
+    def _record_fit_step(self, batch):
+        """File ``batch``'s signature in the warmup manifest as a
+        ``'fit_step'`` entry (a no-op without ``MXTPU_COMPILE_CACHE``)."""
+        if compile_cache.ensure_persistent_cache() is None:
+            return
+        compile_cache.record_entry({
+            'kind': 'fit_step', 'fp': compile_cache.fingerprint(self._symbol),
+            'meta': self._fit_meta(),
+            'batch': {name: [list(v.shape), compile_cache._dtype_name(
+                v.dtype)] for name, v in batch.items()}})
+
+    def _warm_step(self, cap, batch=None):
         """Run ``cap``'s step once, undo it, and capture it: parameters,
         aux, optimizer state, the metric's accumulators, the health state
         and the device generator are written back as they were (the
-        update counts are the host's and never move)."""
-        params, frozen, aux, batch = self._fused_buffers()
+        update counts are the host's and never move).  ``batch``: the
+        step's batch buffers (the bound ones by default)."""
+        params, frozen, aux, bound = self._fused_buffers()
+        batch = bound if batch is None else batch
         device = next(iter(batch.values())).device
         tensors = compile_cache.step_tensors(params, aux,
                                              self._fused_opt_state,
@@ -577,30 +647,50 @@ class Module(BaseModule):
         gens = [_random.generator(device)] if compile_cache.random_nodes(
             self._fused.program) else []
         restore = compile_cache.snapshot(tensors, gens)
-        self._first_step(cap, compile_cache.batch_sig(batch))
+        self._first_step(cap, compile_cache.batch_sig(batch), batch)
         restore()
 
-    def _first_step(self, cap, sig):
+    def _first_step(self, cap, sig, batch):
         """The first step of a signature: the eager warm-up and, on the
-        card, the capture.  With the performance plane on, the step's
-        FLOPs are counted over the warm-up (never inside the capture)
-        and its graph pool's reserved bytes become one ledger entry."""
+        card, the capture; its signature goes into the warmup manifest.
+        With the performance plane on, the step's FLOPs are counted over
+        the warm-up (never inside the capture), or read from the
+        manifest's ``step_cost`` row a previous process filed, and its
+        graph pool's reserved bytes become one ledger entry."""
+        if not getattr(cap, 'recorded', False):
+            self._record_fit_step(batch)
+            cap.recorded = True
         if not _perfwatch.capture_on():
-            outs = cap.warm_up()
+            outs = self._warm_up(cap)
             if cap.skip is None:
                 cap.capture()
             return outs
-        with _perfwatch.count_flops() as fc:
-            outs = cap.warm_up()
+        key = self._perf_key(sig)
+        known = _perfwatch.manifest_flops('fit_step', key)
+        if known is None:
+            with _perfwatch.count_flops() as fc:
+                outs = self._warm_up(cap)
+            cost = {'flops': fc.flops, 'aten_flops': fc.aten_flops,
+                    'kernel_flops': fc.kernel_flops}
+        else:
+            outs = self._warm_up(cap)
+            cost = {'flops': known}
         if cap.skip is None:
             cap.capture(measure=True)
         pool = cap.pool_bytes or 0
-        cost = {'flops': fc.flops, 'aten_flops': fc.aten_flops,
-                'kernel_flops': fc.kernel_flops, 'pool_bytes': pool}
+        cost['pool_bytes'] = pool
         cap.cost = _perfwatch.register_executable(
-            'fit_step', self._perf_key(sig), cost) or cost
+            'fit_step', key, cost, file=known is None) or cost
         if pool > 0:
             _perfwatch.ledger_alloc('graph_pool', cap, nbytes=pool)
+        return outs
+
+    def _warm_up(self, cap):
+        """``cap``'s eager warm-up; the metric's host count of its batch
+        is kept with it (a replay runs no host code, and another
+        signature's step may have run the body since)."""
+        outs = cap.warm_up()
+        cap.metric_count = self._fused.metric_count
         return outs
 
     def _perf_key(self, sig):
@@ -675,26 +765,67 @@ class Module(BaseModule):
             owner._graph_pool = torch.cuda.graph_pool_handle()
         return owner._graph_pool
 
+    def _step_tensors(self, params, frozen, aux, batch):
+        health = self._health_state(next(iter(batch.values())).device)
+        return compile_cache.step_tensors(params, frozen, aux, batch,
+                                          self._fused_opt_state,
+                                          self._lr_t, health)
+
     def _step_graph(self, params, frozen, aux, batch):
         """The captured step of ``batch``'s signature over these buffers,
         made on a miss (or when its tensors were rebound)."""
         sig = compile_cache.batch_sig(batch)
         cap = self._graphs.get(sig)
-        health = self._health_state(next(iter(batch.values())).device)
-        if cap is None or not cap.holds(compile_cache.step_tensors(
-                params, frozen, aux, batch, self._fused_opt_state,
-                self._lr_t, health)):
-            pool = self._family_pool() if self._lr_t.is_cuda else None
-            cap = self._graphs[sig] = self._fused.capture(
-                params, frozen, aux, self._fused_opt_state, batch,
-                self._lr_t, pool=pool, copy_outputs=True,
-                health_state=health)
+        if cap is None or not cap.holds(self._step_tensors(params, frozen,
+                                                           aux, batch)):
+            cap = self._make_step(sig, params, frozen, aux, batch)
         return cap
+
+    def _make_step(self, sig, params, frozen, aux, batch):
+        """A new captured step of ``sig`` over these buffers, kept with
+        its batch buffers."""
+        health = self._health_state(next(iter(batch.values())).device)
+        pool = self._family_pool() if self._lr_t.is_cuda else None
+        cap = self._graphs[sig] = self._fused.capture(
+            params, frozen, aux, self._fused_opt_state, batch, self._lr_t,
+            pool=pool, copy_outputs=True, health_state=health)
+        self._sig_batches[sig] = batch
+        return cap
+
+    def _incoming_sig(self, data_batch):
+        """The batch signature ``data_batch`` will have once loaded (None
+        when its arrays do not match the bound inputs one to one)."""
+        group = self._exec_group
+        values = list(data_batch.data or [])
+        values += list(data_batch.label or []) if group.label_shapes else []
+        names = group.data_names + group.label_names
+        if len(values) != len(names):
+            return None
+        tensors = [group._host(v) for v in values]
+        return compile_cache.sig_key({
+            n: (tuple(t.shape), compile_cache._dtype_name(t.dtype))
+            for n, t in zip(names, tensors)})
+
+    def _use_sig_batch(self, data_batch):
+        """Before a batch is loaded: point the bound input arrays at its
+        signature's own batch buffers (those its graph reads), so
+        ``load_batch`` copies into them in place."""
+        if len(self._sig_batches) < 2:
+            return              # the bound buffers are the only ones
+        sig = self._incoming_sig(data_batch)
+        bufs = self._sig_batches.get(sig)
+        if bufs is None:
+            return
+        arg_dict = self._exec_group.execs[0].arg_dict
+        for name, buf in bufs.items():
+            if arg_dict[name].handle is not buf:
+                arg_dict[name]._set_data(buf)
 
     def _run_fused(self, data_batch):
         """(``mxnet_tpu/module/module.py:809``)"""
         group = self._exec_group
         exec_ = group.execs[0]
+        self._use_sig_batch(data_batch)
         group.load_batch(data_batch)
         buffers = self._fused_buffers()
         sig = compile_cache.batch_sig(buffers[3])
@@ -713,7 +844,8 @@ class Module(BaseModule):
         try:
             with _perfwatch.phase('capture' if first else 'dispatch',
                                   cap.device):
-                outs = self._first_step(cap, sig) if first else cap.run()
+                outs = self._first_step(cap, sig, buffers[3]) if first \
+                    else cap.run()
         except Exception as exc:
             # an out-of-memory error becomes a postmortem
             _perfwatch.on_error(exc, 'fit_step', self._perf_key(sig))
@@ -722,7 +854,7 @@ class Module(BaseModule):
         if health is not None:
             self._health_ref.set_device_state(health)
         if self._fused_metric is not None:
-            self._fused_metric._fold_count(self._fused.metric_count)
+            self._fused_metric._fold_count(cap.metric_count)
         instrument.inc('module.fused_steps')
         if _perfwatch.capture_on():
             if not cap.captured:

@@ -27,6 +27,10 @@ forward, not twice.  Head gradients reach the backward even when they
 are zeros (the fused step seeds zero cotangents), so a
 ``need_top_grad=False`` loss head injects its own gradient.
 
+A step captured on the card (``compile_cache.StagedStep``) makes the
+same user calls outside autograd, between the replays of its graphs:
+:func:`custom_forward` and :func:`custom_backward`, once each per step.
+
 Shape inference never runs user code on meta tensors: input shapes come
 from the prop's ``infer_shape`` (``complete_shapes``) and output shapes
 and dtypes from ``infer_shape`` again (``infer_outputs``), without
@@ -45,7 +49,8 @@ from .ndarray import NDArray
 from .ops.registry import register as _register_op
 
 __all__ = ['CustomOp', 'CustomOpProp', 'register', 'NDArrayOp', 'PythonOp',
-           'NumpyOp', 'get_all_registered_operators']
+           'NumpyOp', 'get_all_registered_operators', 'custom_forward',
+           'custom_backward']
 
 _CUSTOM_OP_PROPS: Dict[str, type] = {}
 
@@ -142,50 +147,62 @@ def _aliases_any(t, others):
     return any(o.untyped_storage().data_ptr() == ptr for o in others)
 
 
+def _user_forward(run, inputs):
+    """The user's forward on ``inputs`` (tensors): the outputs and what
+    :func:`_user_backward` needs."""
+    n_args = run['n_args']
+    ctx = run['ctx']
+    ins = [NDArray(t.detach(), ctx) for t in inputs[:n_args]]
+    auxs = [NDArray(t.detach(), ctx) for t in inputs[n_args:]]
+    dev = inputs[0].device
+    outs = [NDArray(torch.zeros(s, dtype=run['dtype'], device=dev), ctx)
+            for s in run['out_shapes']]
+    run['op'].forward(run['is_train'], ['write'] * len(outs), ins, outs,
+                      auxs)
+    results = []
+    for o, shape in zip(outs, run['out_shapes']):
+        t = o.handle
+        if tuple(t.shape) != tuple(shape):
+            raise MXNetError('Custom %s: output of shape %s, infer_shape '
+                             'said %s' % (run['op_type'],
+                                          tuple(t.shape), tuple(shape)))
+        # an output never aliases an input (autograd and the fused
+        # step's in-place updates need distinct storage)
+        results.append(t.clone() if _aliases_any(t, inputs) else t)
+    return results, (ins, auxs, outs)
+
+
+def _user_backward(run, saved, grads):
+    """The user's backward on the same operator, with the forward's
+    outputs: the gradient of every argument input."""
+    ins, auxs, outs = saved
+    ctx = run['ctx']
+    out_grad = [NDArray(g.contiguous(), ctx) for g in grads]
+    in_grad = [NDArray(torch.zeros_like(a.handle), ctx) for a in ins]
+    run['op'].backward(['write'] * len(in_grad), out_grad, ins, outs,
+                       in_grad, auxs)
+    return [g.handle for g in in_grad]
+
+
 class _CustomFunction(torch.autograd.Function):
     """The user's forward, and the user's backward on the same operator
     with the forward's outputs."""
 
     @staticmethod
     def forward(fctx, run, *inputs):
-        n_args = run['n_args']
-        ctx = run['ctx']
-        ins = [NDArray(t.detach(), ctx) for t in inputs[:n_args]]
-        auxs = [NDArray(t.detach(), ctx) for t in inputs[n_args:]]
-        dev = inputs[0].device
-        outs = [NDArray(torch.zeros(s, dtype=run['dtype'], device=dev), ctx)
-                for s in run['out_shapes']]
-        run['op'].forward(run['is_train'], ['write'] * len(outs), ins, outs,
-                          auxs)
-        results = []
-        for o, shape in zip(outs, run['out_shapes']):
-            t = o.handle
-            if tuple(t.shape) != tuple(shape):
-                raise MXNetError('Custom %s: output of shape %s, infer_shape '
-                                 'said %s' % (run['op_type'],
-                                              tuple(t.shape), tuple(shape)))
-            # an output never aliases an input (autograd and the fused
-            # step's in-place updates need distinct storage)
-            results.append(t.clone() if _aliases_any(t, inputs) else t)
+        results, saved = _user_forward(run, inputs)
         fctx.run = run
-        fctx.saved = (ins, auxs, outs)
+        fctx.saved = saved
         return tuple(results)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(fctx, *grads):
-        run = fctx.run
-        ins, auxs, outs = fctx.saved
-        ctx = run['ctx']
-        out_grad = [NDArray(g.contiguous(), ctx) for g in grads]
-        in_grad = [NDArray(torch.zeros_like(a.handle), ctx) for a in ins]
-        run['op'].backward(['write'] * len(in_grad), out_grad, ins, outs,
-                           in_grad, auxs)
-        return (None,) + tuple(g.handle for g in in_grad) + \
-            (None,) * len(auxs)
+        in_grads = _user_backward(fctx.run, fctx.saved, grads)
+        return (None,) + tuple(in_grads) + (None,) * len(fctx.saved[1])
 
 
-def _custom_apply(attrs, inputs, is_train, rng):
+def _make_run(attrs, inputs, is_train):
     prop = _make_prop(attrs)
     n_args = len(prop.list_arguments())
     in_shapes = [tuple(t.shape) for t in inputs[:n_args]]
@@ -193,11 +210,32 @@ def _custom_apply(attrs, inputs, is_train, rng):
     ctx = context_of(inputs[0].device)
     op = prop.create_operator(ctx, in_shapes,
                               [t.dtype for t in inputs[:n_args]])
-    run = {'op': op, 'op_type': attrs.get('op_type'), 'n_args': n_args,
-           'ctx': ctx, 'is_train': bool(is_train),
-           'dtype': inputs[0].dtype,
-           'out_shapes': [tuple(int(d) for d in s) for s in out_shapes]}
+    return {'op': op, 'op_type': attrs.get('op_type'), 'n_args': n_args,
+            'ctx': ctx, 'is_train': bool(is_train),
+            'dtype': inputs[0].dtype,
+            'out_shapes': [tuple(int(d) for d in s) for s in out_shapes]}
+
+
+def _custom_apply(attrs, inputs, is_train, rng):
+    run = _make_run(attrs, inputs, is_train)
     return list(_CustomFunction.apply(run, *inputs)), {}
+
+
+def custom_forward(attrs, inputs, is_train):
+    """A ``Custom`` node's forward outside autograd, as a step captured in
+    segments runs it between its graphs: ``(outputs, state)``, ``state``
+    for :func:`custom_backward`.  The same user calls as the node's
+    autograd form makes."""
+    run = _make_run(attrs, inputs, is_train)
+    outs, saved = _user_forward(run, inputs)
+    return outs, (run, saved)
+
+
+def custom_backward(state, grads):
+    """The user's backward of a :func:`custom_forward`: one gradient per
+    argument input."""
+    run, saved = state
+    return _user_backward(run, saved, grads)
 
 
 def _custom_input_names(attrs):

@@ -44,6 +44,13 @@ they were; the metric's host instance count is held back by the step's
 count on the device (``EvalMetric._hold_back``).  No host read, no
 branch: a captured step does all of it in its graph.
 
+A graph with ``Custom`` nodes is captured in segments
+(:meth:`FitStep.stages`, ``compile_cache.StagedStep``): a forward graph
+per segment, the user's forward and backward run eagerly between the
+replays, each segment's backward a graph of its own, the update and the
+metric in the last one.  Under ``MXNET_BACKWARD_DO_MIRROR`` such a step
+stays one eager piece (the mirror recomputes across the user's code).
+
 Not ported: shardings (a mesh); asking for them raises.
 """
 from __future__ import annotations
@@ -54,8 +61,9 @@ import torch
 
 from .. import health as _health
 from .. import random
-from ..compile_cache import random_nodes, step_tensors
-from ..executor import _build_graph_fn, mirror_wrap
+from ..compile_cache import custom_nodes, random_nodes, step_tensors
+from ..executor import (SegmentPlan, _build_graph_fn, _copy_into,
+                        mirror_policy, mirror_wrap, staged_forward)
 from ..symbol import Symbol
 
 __all__ = ['make_fit_step', 'make_train_step', 'make_eval_step',
@@ -140,6 +148,8 @@ class FitStep(object):
         self.kernels = graph_kernels(self.program)
         self._draws = bool(random_nodes(self.program))
         self.health_action = health_action
+        self.plan = SegmentPlan(self.program) \
+            if custom_nodes(self.program) else None
 
     def _cast(self, v):
         return v.to(self._dtype) if self._dtype is not None and \
@@ -172,6 +182,13 @@ class FitStep(object):
         grads = {k: (v.grad if v.grad is not None else torch.zeros_like(v))
                  for k, v in leaves.items()}
         outs = [o.detach() for o in outs]
+        return self._finish(params, aux, opt_state, batch, lr_t,
+                            health_state, outs, grads, aux_upd)
+
+    def _finish(self, params, aux, opt_state, batch, lr_t, health_state,
+                outs, grads, aux_upd):
+        """What follows the backward: the probe, the aux writes, every
+        update and the metric's fold; returns ``outs``."""
         probe = None
         if self.health_action is not None:
             probe = self._probe_before(params, aux, opt_state, outs, grads,
@@ -242,14 +259,210 @@ class FitStep(object):
         skip = compile_cache.capture_skip_reason(device, self.program)
         gens = [random.generator(device)] if skip is None and \
             compile_cache.random_nodes(self.program) else []
+        bindings = compile_cache.step_tensors(params, frozen, aux, batch,
+                                              opt_state, lr_t, health_state)
+        if self.staged and mirror_policy() is None:
+            return compile_cache.StagedStep(
+                name, self.stages(params, frozen, aux, opt_state, batch,
+                                  lr_t, health_state),
+                device, bindings, pool=pool, copy_outputs=copy_outputs,
+                skip=skip, generators=gens)
         return compile_cache.CapturedStep(
             name, lambda: self.body(params, frozen, aux, opt_state, batch,
                                     lr_t, health_state),
-            device, compile_cache.step_tensors(params, frozen, aux, batch,
-                                               opt_state, lr_t,
-                                               health_state),
-            pool=pool, copy_outputs=copy_outputs, skip=skip,
-            generators=gens)
+            device, bindings, pool=pool, copy_outputs=copy_outputs,
+            skip=skip, generators=gens)
+
+    @property
+    def staged(self):
+        """Whether the step is captured in segments (its graph has
+        ``Custom`` nodes)."""
+        return self.plan is not None
+
+    def stages(self, params, frozen, aux, opt_state, batch, lr_t,
+               health_state=None):
+        """:meth:`body` cut at the ``Custom`` nodes, as the stages of a
+        ``compile_cache.StagedStep``: for each segment a forward graph
+        (its autograd graph kept for the backward), the user's forward of
+        each ``Custom`` node between them, then, in reverse, each
+        segment's backward graph (``torch.autograd.grad`` over the
+        segment alone) with the user's backward between them, and after
+        the last backward what :meth:`_finish` does.  Adjacent graphs are
+        merged into one.  Run eagerly, stage by stage, it is the same
+        step as :meth:`body`.
+
+        Every value that crosses a cut lives in a fixed buffer: a
+        segment's exports and gradients in the graphs' pool (held by
+        ``st`` until the next replay writes them again), a ``Custom``
+        node's outputs and its input gradients in buffers made at the
+        first run, outside the pool, into which the user's results are
+        copied.  A gradient that reaches an entry from several consumers
+        is summed, later consumers first."""
+        from ..operator import custom_backward, custom_forward
+        plan = self.plan
+        pieces = plan.pieces
+        cast = self._cast
+        st = {}
+
+        def var(name, leaves):
+            if name in leaves:
+                return cast(leaves[name])
+            if name in params:
+                return cast(params[name])
+            if name in frozen:
+                return cast(frozen[name])
+            if name in batch:
+                v = batch[name]
+                return cast(v) if name in self._data_names else v
+            return aux[name]
+
+        def value(src, j):
+            """The forward value of an entry (detached) or variable."""
+            if src.is_variable:
+                return var(src.name, {})
+            owner = plan.piece_of[id(src)]
+            if pieces[owner][0] == 'custom':
+                return st['cin', owner][j]
+            return st['f', owner][2][(id(src), j)].detach()
+
+        def is_output(key):
+            return any((id(s), j) == key for s, j in plan.outputs)
+
+        def cotangent(owner, key, like):
+            """The gradient reaching entry ``key`` of piece ``owner``:
+            the zero head gradient when it is an output, and what each
+            later consumer gave back."""
+            parts = [torch.zeros_like(like)] if is_output(key) else []
+            for piece, pos in sorted(plan.consumers.get(key, ()),
+                                     reverse=True):
+                if pieces[piece][0] == 'custom':
+                    g = st.get(('cot', piece))
+                    g = g[pos] if g is not None else None
+                else:
+                    g = st['g', piece][1].get(key)
+                if g is not None:
+                    parts.append(g)
+            if not parts:
+                return torch.zeros_like(like)
+            total = parts[0]
+            for g in parts[1:]:
+                total = total + g
+            return total
+
+        def forward(i):
+            names = plan.variables[i]
+
+            def run():
+                with torch.enable_grad():
+                    leaves = {k: params[k].detach().requires_grad_(True)
+                              for k in names if k in params}
+                    ins = {}
+                    for key in plan.inputs[i]:
+                        t = value(plan.node_by_id(key[0]), key[1])
+                        ins[key] = t.detach().requires_grad_(
+                            t.is_floating_point())
+                    args = {k: var(k, leaves) for k in names
+                            if k not in aux}
+                    exports, aux_upd = plan.run_segment(i, args, aux, ins,
+                                                        True)
+                st['f', i] = (leaves, ins, exports)
+                st.setdefault('aux', {}).update(aux_upd)
+                return []
+            return run
+
+        def backward(i):
+            def run():
+                leaves, ins, exports = st['f', i]
+                heads, cots = [], []
+                for key, t in exports.items():
+                    if t.requires_grad:
+                        heads.append(t)
+                        cots.append(cotangent(i, key, t))
+                wrt = list(leaves.values()) + \
+                    [t for t in ins.values() if t.requires_grad]
+                grads = [None] * len(wrt)
+                if heads and wrt:
+                    grads = torch.autograd.grad(heads, wrt, cots,
+                                                allow_unused=True)
+                n = len(leaves)
+                st['g', i] = (dict(zip(leaves, grads[:n])),
+                              dict(zip([k for k, t in ins.items()
+                                        if t.requires_grad], grads[n:])))
+                return []
+            return run
+
+        def custom_fwd(i):
+            node = pieces[i][1]
+
+            def run():
+                ins = [value(src, j) for src, j in node.inputs]
+                outs, state = custom_forward(node.attrs, ins, True)
+                _copy_into(st, ('cin', i), outs)
+                st['c', i] = state
+            return run
+
+        def custom_bwd(i):
+            node = pieces[i][1]
+
+            def run():
+                outs = st['cin', i]
+                grads = [cotangent(i, (id(node), j), o)
+                         for j, o in enumerate(outs)]
+                in_grads = custom_backward(st['c', i], grads)
+                _copy_into(st, ('cot', i), in_grads)
+            return run
+
+        def finish():
+            grads = {}
+            for k, p in params.items():
+                parts = [st['g', i][0][k] for i in range(len(pieces) - 1,
+                                                         -1, -1)
+                         if ('g', i) in st and st['g', i][0].get(k)
+                         is not None]
+                for i, node in reversed(plan.customs):
+                    for pos, (src, _) in enumerate(node.inputs):
+                        if src.is_variable and src.name == k and \
+                                ('cot', i) in st:
+                            parts.append(st['cot', i][pos])
+                if not parts:
+                    grads[k] = torch.zeros_like(p)
+                    continue
+                g = parts[0]
+                for x in parts[1:]:
+                    g = g + x
+                grads[k] = g.to(p.dtype) if g.dtype != p.dtype else g
+            outs = [value(src, j) for src, j in plan.outputs]
+            return self._finish(params, aux, opt_state, batch, lr_t,
+                                health_state, outs, grads,
+                                st.get('aux', {}))
+
+        stages = []
+        for i, (kind, x) in enumerate(pieces):
+            if kind == 'custom':
+                stages.append(('host', custom_fwd(i)))
+            elif x:
+                stages.append(('graph', forward(i)))
+        for i in range(len(pieces) - 1, -1, -1):
+            kind, x = pieces[i]
+            if kind == 'custom':
+                stages.append(('host', custom_bwd(i)))
+            elif x:
+                stages.append(('graph', backward(i)))
+        stages.append(('graph', finish))
+        merged = []
+        for kind, fn in stages:
+            if merged and kind == 'graph' and merged[-1][0] == 'graph':
+                merged[-1] = ('graph', _chain(merged[-1][1], fn))
+            else:
+                merged.append((kind, fn))
+        return merged
+
+
+def _chain(a, b):
+    def run():
+        a()
+        return b()
+    return run
 
 
 class _FlatCopy(object):
@@ -438,11 +651,21 @@ def make_eval_step(symbol: Symbol, compute_dtype=None):
         with torch.no_grad():
             return graph_fn(merged, aux)[0]
 
-    table = _StepTable('eval_step', program, False,
-                       lambda static: compile_cache.CapturedStep(
-                           'eval_step', functools.partial(
-                               forward, state['params'], state['aux'],
-                               static), next(iter(static.values())).device))
+    def make(static):
+        device = next(iter(static.values())).device
+        if compile_cache.custom_nodes(program):
+            def args():
+                merged = {k: cast(v) for k, v in state['params'].items()}
+                merged.update({k: cast(v) for k, v in static.items()})
+                return merged
+            return compile_cache.StagedStep(
+                'eval_step', staged_forward(SegmentPlan(program), args,
+                                            state['aux']), device)
+        return compile_cache.CapturedStep(
+            'eval_step', functools.partial(forward, state['params'],
+                                           state['aux'], static), device)
+
+    table = _StepTable('eval_step', program, False, make)
     state = {}
 
     def step(params, aux, batch, rng=None):

@@ -263,12 +263,30 @@ _FIELDS = ('flops', 'aten_flops', 'kernel_flops', 'bytes_accessed',
            'pool_bytes', 'num_devices', 'global_flops')
 
 
-def register_executable(kind, key, cost, num_devices=1):
+def manifest_flops(kind, key):
+    """The FLOPs a previous process counted for this signature: the
+    ``step_cost`` row of the warmup manifest
+    (``compile_cache.record_entry``), or None."""
+    from . import compile_cache
+    if compile_cache.cache_dir() is None:
+        return None
+    k = _keystr(key)
+    for e in compile_cache.manifest_entries('step_cost'):
+        if e.get('program') == str(kind) and e.get('key') == k:
+            return float(e['flops'])
+    return None
+
+
+def register_executable(kind, key, cost, num_devices=1, file=True):
     """Record one step signature's accounting: ``cost`` a dict with
     ``flops`` (and optionally ``aten_flops``, ``kernel_flops``,
     ``pool_bytes``).  Publishes ``xla.<kind>[<key>].*`` gauges and stores
-    the row in :func:`executables`.  Never raises; returns the row, or
-    None when metrics are off."""
+    the row in :func:`executables`; with ``file`` (counted FLOPs) and a
+    warmup manifest it files a ``step_cost`` row there (the reference's
+    ``xla_cost`` row, ``mxnet_tpu/perfwatch.py:293``, less what the port
+    does not count), from which a later process takes the FLOPs without
+    counting them (:func:`manifest_flops`).  Never raises; returns the
+    row, or None when metrics are off."""
     if not instrument.metrics_enabled():
         return None
     try:
@@ -284,6 +302,12 @@ def register_executable(kind, key, cost, num_devices=1):
         for field in _FIELDS:
             instrument.set_gauge('%s.%s' % (stem, field), info[field])
         instrument.set_gauge('xla.executables', len(_executables))
+        if file:
+            from . import compile_cache
+            compile_cache.record_entry({
+                'kind': 'step_cost', 'program': info['kind'],
+                'key': info['key'], 'flops': info['flops'],
+                'num_devices': info['num_devices']})
         return info
     except Exception:        # noqa: BLE001 - accounting never raises
         return None

@@ -124,6 +124,8 @@ class Predictor(object):
                 internals[k if k.endswith('_output') else k + '_output']
                 for k in output_keys])
         self._symbol = symbol
+        # a served graph's Rtc kernels load from the cubin store
+        compile_cache.ensure_persistent_cache()
         self._shape_key = symbol_json_str if isinstance(
             symbol_json_str, str) and not output_keys else symbol.tojson()
         self._ctx = Context(dev_type, dev_id)

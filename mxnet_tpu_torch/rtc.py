@@ -50,6 +50,14 @@ reads and writes work on the tensors as on Pallas refs.  It runs on any
 device and is the plain version the tests hold the CUDA form against.
 ``Rtc.launches`` counts the CUDA launches; ``instrument`` counts the
 compiles (``rtc.compiles``) and their seconds (``rtc.compile_secs``).
+
+With ``MXTPU_COMPILE_CACHE`` each CUBIN is also stored under
+``<dir>/rtc/`` (``compile_cache.cubin_store``, keyed by the generated
+source, the kernel name, the device's compute capability and NVRTC's
+version), and a later process loads it there instead of compiling:
+``compile.cache_hits``, with the compile seconds it saved in
+``compile.time_saved_secs``; a missing, cut or unreadable file is a
+miss (``compile.cache_misses``), compiled and written again.
 """
 from __future__ import annotations
 
@@ -191,12 +199,21 @@ class _Shim:
         self.free.argtypes = [P, P, I]
         for fn in (self.compile, self.load, self.launch_record, self.free):
             fn.restype = I
+        self._version = lib.mxtpu_nvrtc_version
+        self._version.argtypes = [ctypes.POINTER(I), ctypes.POINTER(I)]
+        self._version.restype = I
         self.cuda_error = lib.mxtpu_cuda_error_string
         self.nvrtc_error = lib.mxtpu_nvrtc_error_string
         for fn in (self.cuda_error, self.nvrtc_error):
             fn.argtypes = [I]
             fn.restype = ctypes.c_char_p
         self.include_dir = str(_kernels.cuda_home() / 'include')
+
+    def nvrtc_version(self):
+        major, minor = ctypes.c_int(), ctypes.c_int()
+        if self._version(ctypes.byref(major), ctypes.byref(minor)):
+            raise MXNetError('nvrtcVersion failed')
+        return major.value, minor.value
 
 
 _shim = []
@@ -208,6 +225,27 @@ def _get_shim():
         if not _shim:
             _shim.append(_Shim())
         return _shim[0]
+
+
+def _cubin(shim, source, name, index):
+    """The CUBIN of ``source`` for device ``index``: with
+    ``MXTPU_COMPILE_CACHE`` the stored one when there is one
+    (``compile_cache.cubin_load``: a hit compiles nothing), else
+    compiled and stored for the next process."""
+    from . import compile_cache
+    key = None
+    if compile_cache.ensure_persistent_cache() is not None:
+        key = compile_cache.cubin_key(
+            source, name, torch.cuda.get_device_capability(index),
+            shim.nvrtc_version())
+        hit = compile_cache.cubin_load(key)
+        if hit is not None:
+            return hit
+    t0 = time.perf_counter()
+    data = _compile(shim, source, name)
+    if key is not None:
+        compile_cache.cubin_store(key, data, time.perf_counter() - t0)
+    return data
 
 
 def _compile(shim, source, name):
@@ -336,8 +374,8 @@ class Rtc(object):
             if plan is not None:
                 return plan
             shim = _get_shim()
-            cubin = _compile(shim, self.source(in_dtypes, out_dtypes),
-                             self.name)
+            cubin = _cubin(shim, self.source(in_dtypes, out_dtypes),
+                           self.name, index)
             ctx, module, function = (ctypes.c_void_p() for _ in range(3))
             err = shim.load(cubin, self.name.encode(), index,
                             ctypes.byref(ctx), ctypes.byref(module),

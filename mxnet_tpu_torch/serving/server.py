@@ -375,7 +375,10 @@ class ModelServer(object):
         """Build, and on the card capture, every pow2 bucket of
         ``predictor`` up to ``max_batch`` before it serves; a predictor
         without ``warm_buckets`` forwards zeros through each bucket.  A
-        failure raises."""
+        failure raises.  With ``MXTPU_COMPILE_CACHE`` the cubin store is
+        installed first, so a served graph's Rtc kernels load from it."""
+        from .. import compile_cache
+        compile_cache.ensure_persistent_cache()
         warm = getattr(predictor, 'warm_buckets', None)
         if warm is not None:
             warm(max_batch)

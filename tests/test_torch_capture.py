@@ -20,7 +20,8 @@ state, within chip_smoke.py's train-parity bound (rtol 1e-3, atol
 1e-5; captured and eager run the same kernels, so most come out
 bit-identical); launch counters advance per replay; random nodes draw
 anew on each replay; a host sync in a step raises naming the node; a
-rebinding drops the graphs; a Custom graph stays eager.
+rebinding drops the graphs; a Custom graph is captured in segments
+(``compile_cache.StagedStep``), bit for bit the eager step.
 """
 import importlib
 
@@ -148,15 +149,21 @@ def _custom_symbol():
     return tmx.sym.SoftmaxOutput(sq, name='softmax')
 
 
-def test_capture_skip_rule():
+def test_capture_skip_rule(monkeypatch):
     """Eager by rule, before any capture: the CPU, NaiveEngine, a Custom
-    node; a plain graph on a card device would be captured."""
+    node under the mirror; a plain graph on a card device would be
+    captured, and so would a Custom graph (in segments)."""
     plain = _narrow_resnet(tresnet)
     cuda = torch.device('cuda', 0)
     assert compile_cache.capture_skip_reason('cpu', plain) == 'cpu'
     assert compile_cache.capture_skip_reason(cuda, plain) is None
+    assert compile_cache.capture_skip_reason(cuda, _custom_symbol()) is None
+    monkeypatch.setenv('MXNET_BACKWARD_DO_MIRROR', '1')
     assert compile_cache.capture_skip_reason(cuda, _custom_symbol()) == \
-        'Custom'
+        'Custom under the mirror'
+    assert compile_cache.capture_skip_reason(
+        cuda, _custom_symbol(), is_train=False) is None
+    monkeypatch.delenv('MXNET_BACKWARD_DO_MIRROR')
     drop = tmx.sym.Dropout(tmx.sym.Variable('data'), p=0.5, name='drop')
     assert compile_cache.random_nodes(drop) == ['drop']
     assert compile_cache.random_nodes(drop, is_train=False) == []
@@ -761,18 +768,50 @@ def test_set_params_drops_the_graphs(dev):
     _close(got[0], got[1], 'param')
 
 
+def _custom_mid_symbol():
+    fc = tmx.sym.FullyConnected(tmx.sym.Variable('data'), num_hidden=8,
+                                name='fc')
+    sq = tmx.sym.Custom(tmx.sym.Activation(fc, act_type='tanh', name='t'),
+                        op_type='sqr_capture', name='sq')
+    fc2 = tmx.sym.FullyConnected(sq, num_hidden=8, name='fc2')
+    return tmx.sym.SoftmaxOutput(fc2, name='softmax')
+
+
 @pytest.mark.cuda
-def test_custom_graph_stays_eager(dev):
+@pytest.mark.parametrize('make', [_custom_symbol, _custom_mid_symbol],
+                         ids=['before_head', 'mid'])
+def test_custom_graph_is_captured_in_segments(dev, make):
+    """A Custom node before the loss head, and one deeper in the middle
+    of the graph: the fit step is captured in segments (three graphs:
+    the first segment's forward, the second's forward and backward, the
+    first's backward with the update; the user's code between them),
+    replayed after the first step, and its parameters are bit for bit
+    those of the eager (NaiveEngine) fit."""
     x = np.random.default_rng(0).standard_normal((12, 6)).astype(np.float32)
     y = np.random.default_rng(1).integers(0, 8, 12).astype(np.float32)
-    before = tmx.instrument.counter_value('compile.capture_skipped')
-    m = tmx.Module(_custom_symbol(), context=tmx.gpu(0))
-    m.fit(tmx.io.NDArrayIter(x, y, batch_size=4), num_epoch=1,
-          optimizer='sgd', optimizer_params=OPT)
-    (cap,) = m._graphs.values()
-    assert cap.skip == 'Custom' and not cap.captured
-    assert tmx.instrument.counter_value('compile.capture_skipped') == \
-        before + 1
+    arg = {k: v for k, v in convert.random_params(
+        make(), {'data': (4, 6)}, 0)[0].items()}
+    got = []
+    for naive in (False, True):
+        engine.set_engine_type('NaiveEngine' if naive else
+                               'ThreadedEnginePerDevice')
+        try:
+            m = tmx.Module(make(), context=tmx.gpu(0))
+            m.fit(tmx.io.NDArrayIter(x, y, batch_size=4), num_epoch=1,
+                  optimizer='sgd', optimizer_params=OPT,
+                  arg_params={k: tmx.nd.array(v) for k, v in arg.items()})
+        finally:
+            engine.set_engine_type('ThreadedEnginePerDevice')
+        (cap,) = m._graphs.values()
+        assert isinstance(cap, compile_cache.StagedStep)
+        if naive:
+            assert cap.skip == 'NaiveEngine' and not cap.captured
+        else:
+            assert cap.skip is None and cap.captured
+            assert len(cap.graphs) == 3 and cap.replays == 2
+        got.append({k: v.asnumpy() for k, v in m.get_params()[0].items()})
+    for k in got[0]:
+        assert np.array_equal(got[0][k], got[1][k]), k
 
 
 def _bucket_module(ctx, arg):

@@ -173,12 +173,29 @@ def test_abandoned_prefetching_iter_lets_the_process_exit(tmp_path):
 
 
 def test_close_joins_the_producers():
+    """close() returns after the fetch in flight has finished (on the
+    native engine's worker) and releases the engine's variables."""
+    import threading
+    import time
     x, _ = _arrays(16)
-    it = tmx.io.PrefetchingIter([tmx.io.NDArrayIter(x, batch_size=4)])
+    started, finished = threading.Semaphore(0), []
+
+    class Slow(tmx.io.NDArrayIter):
+        def next(self):
+            started.release()
+            time.sleep(0.2)
+            batch = super().next()
+            finished.append(1)
+            return batch
+
+    it = tmx.io.PrefetchingIter([Slow(x, batch_size=4)])
     it.next()
-    threads = [p._thread for p in it._producers]
+    assert started.acquire(timeout=10.0)       # the first fetch
+    assert started.acquire(timeout=10.0)       # the one now in flight
+    n = len(finished)
     assert it.close(timeout=10.0)
-    assert not any(t.is_alive() for t in threads)
+    assert len(finished) == n + 1
+    assert all(v.handle is None for v in it._vars)
     assert it.close()
 
 
