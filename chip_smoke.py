@@ -147,15 +147,21 @@ graphs held), and peak allocated and reserved device memory.
                   model from one replica under
                   ModelServer.autoscale(slo_p99_ms=30, interval_s=0.25,
                   max_replicas=3, brownout=True, up_after=2,
-                  down_after=3) with servewatch on (slow threshold = the
-                  SLO) and a flight recorder in a temp dir.  Heavy load
+                  down_after=3, down_frac=0.6) with servewatch on (slow
+                  threshold = the SLO) and a flight recorder in a temp
+                  dir.  A tick's p99 is read on quarter-decade histogram
+                  edges (10, 17.8 ms) from ~17 requests, so a clear test
+                  under 18 ms is one under the 17.8 ms edge; the default
+                  0.5 (15 ms) would ask every request to end under 10
+                  ms, 1.4x the light stage's p50.  Heavy load
                   (until brownout level 1 lands, 8-11 s on an H100, at
                   most 16 s; 16 clients, 75% batch 8-row / 25% interactive
                   1-row; a shed client backs off 20 ms), the same load
                   for 2 s more from level 1 (the brownout stage), then
                   light (2 interactive 1-row clients, 20 ms apart, 6 s
-                  and on until the fleet is back at one replica).  The
-                  decision
+                  and on until the fleet is back at one replica; its
+                  ticks are reported: how many, how many clear, the
+                  longest clear run, their p99s).  The decision
                   log must show scale_up to 3, brownout level >= 1
                   (batch sheds counted), the ladder back to level 0 and
                   scale_down to 1, in that order; after every decision
@@ -3099,6 +3105,7 @@ AUTO_LIGHT_CLIENTS = 2
 AUTO_LIGHT_THINK_S = 0.02    # between a light client's requests
 AUTO_SHED_BACKOFF_S = 0.02   # a shed client backs off before it retries
 AUTO_POLL_S = 0.05
+AUTO_DOWN_FRAC = 0.6         # a tick is clear under this x the SLO
 AUTO_BN_RELU = 17            # fused_bn_relu launches of one served forward
 # one Prometheus sample line: name, labels, value, then an optional
 # OpenMetrics exemplar
@@ -3234,10 +3241,33 @@ class AutoMonitor(object):
                 for e in self.sc.events]
 
 
-def auto_order(log):
+def auto_light_windows(windows, start, end):
+    """The light stage's ticks (``windows`` as ``autoscale_phase`` reads
+    them): how many, how many meet the scale-down law's clear test (5 or
+    more samples, p99 under AUTO_DOWN_FRAC of the SLO, no shed, at most a
+    quarter batch queued), the longest run of clear ticks, and the
+    windowed p99s of the ticks with 5 or more samples (ms: min, median,
+    max)."""
+    ticks = [w for w in windows if start < w[0] <= end]
+    clear = [n >= 5 and not shed and p99 < AUTO_DOWN_FRAC * AUTO_SLO_MS and
+             rows <= max(1, BATCH // 4) for _, p99, n, shed, rows in ticks]
+    run = longest = 0
+    for c in clear:
+        run = run + 1 if c else 0
+        longest = max(longest, run)
+    p99s = sorted(p99 for _, p99, n, _, _ in ticks if n >= 5)
+    return {'ticks': len(ticks), 'clear': sum(clear),
+            'longest_clear_run': longest,
+            'p99_ms': ([p99s[0], statistics.median(p99s), p99s[-1]]
+                       if p99s else None)}
+
+
+def auto_order(log, light=None):
     """The stepped load's story, in order: scale_up to the ceiling,
     brownout level >= 1, the ladder back to level 0 (max batch restored
-    first where it was shrunk), scale_down to one replica."""
+    first where it was shrunk), scale_down to one replica.  ``light``:
+    the light stage's ticks (``auto_light_windows``), named if the story
+    is incomplete."""
     idx = {}
     for i, e in enumerate(log):
         a = e['action']
@@ -3256,10 +3286,11 @@ def auto_order(log):
     missing = [k for k in ('scale_up_max', 'brownout', 'brownout_off',
                            'scale_down_1') if k not in idx]
     if missing:
-        raise AssertionError('autoscale: the decision log lacks %s: %s'
+        raise AssertionError('autoscale: the decision log lacks %s: %s; '
+                             'light stage ticks %s'
                              % (missing, [(e['action'], e['replicas'],
                                            e['level'], round(e['ms']))
-                                          for e in log]))
+                                          for e in log], light))
     return idx
 
 
@@ -3349,7 +3380,7 @@ def autoscale_phase(mx, torch, fused, instrument, convert, symbol, arg, aux,
               'cudnn_deterministic': True, 'slo_p99_ms': AUTO_SLO_MS,
               'interval_s': AUTO_INTERVAL_S,
               'max_replicas': AUTO_MAX_REPLICAS, 'brownout': True,
-              'up_after': 2, 'down_after': 3}
+              'up_after': 2, 'down_after': 3, 'down_frac': AUTO_DOWN_FRAC}
     try:
         t0 = time.monotonic()
         server.load_model('fleet', symbol_json=symbol_json,
@@ -3361,7 +3392,8 @@ def autoscale_phase(mx, torch, fused, instrument, convert, symbol, arg, aux,
         sc = server.autoscale('fleet', slo_p99_ms=AUTO_SLO_MS,
                               interval_s=AUTO_INTERVAL_S, min_replicas=1,
                               max_replicas=AUTO_MAX_REPLICAS, brownout=True,
-                              up_after=2, down_after=3, start=False)
+                              up_after=2, down_after=3,
+                              down_frac=AUTO_DOWN_FRAC, start=False)
         windows = []
         windowed = sc._windowed
 
@@ -3437,6 +3469,7 @@ def autoscale_phase(mx, torch, fused, instrument, convert, symbol, arg, aux,
         mon.poll()
         report['light'] = auto_stage(light[1], t2 - t1)
         report['light_end_ms'] = (t2 - t0) * 1e3
+        report['light_windows'] = auto_light_windows(windows, t1, t2)
         auto_bn = fused.fused_bn_relu.launches
         torch.cuda.synchronize()
 
@@ -3444,7 +3477,7 @@ def autoscale_phase(mx, torch, fused, instrument, convert, symbol, arg, aux,
         report['decisions'] = log
         report['brownout_by_level'] = auto_levels(log, t0, heavy[1], t_b, t1)
         report['graphs_after_decisions'] = mon.after
-        order = auto_order(log)
+        order = auto_order(log, report['light_windows'])
         report['order'] = order
         sheds = instrument.counter_value('serving.brownout_sheds')
         if not sheds:
@@ -3679,7 +3712,7 @@ def train_module(mx, torch, symbol, arg, aux, data, labels, ctx, dtype,
     parameters after that many steps."""
     times = []
     last = [time.perf_counter()]
-    on_card = ctx.device_type == 'gpu'
+    on_card = (ctx[0] if isinstance(ctx, list) else ctx).device_type == 'gpu'
     snap = {}
 
     def tick(_):
@@ -6864,6 +6897,542 @@ def nms_summary(case, launches):
             'host_us': case['host_us'], 'case': case}
 
 
+# -- the kvstore data plane (kv-local, kv-dist-sync, kv-dist-async) ------
+# full-width ResNet-50 v2, f32, MXTPU_FUSE=aggressive, SGD_MOMENTUM, TF32
+# off and cuDNN deterministic; KV_STEPS steps of BATCH rows per executor
+# (kv-local, kv-dist-sync), KV_ASYNC_STEPS per worker (kv-dist-async)
+KV_STEPS = 4
+KV_ASYNC_STEPS = 8
+KV_FAULT_STEPS = 4
+# the fault run: rank 1's client severs its 40th push frame (a step is
+# 161 pushes, one per parameter), then reconnects and replays
+KV_FAULT = 'client.send.push:after:40:sever'
+KV_CLUSTER_TIMEOUT = 240        # seconds, each launcher run
+KV_RTOL = 1e-5                  # against the slice arithmetic (-n 2)
+# kv-local against the one-context fit: at most this times the f32 noise
+# floor, the distance of a one-context fit over every batch's rows in
+# another order (the same arithmetic summed in another order)
+KV_NOISE_FACTOR = 2.0
+FEED_CAPTURE_CHILDREN = 6
+
+
+def kv_data(rows):
+    """The kv phases' images and labels: the same rows in every process."""
+    rng = np.random.default_rng(SEED + 19)
+    x = rng.standard_normal((rows,) + IMAGE, dtype=np.float32)
+    y = rng.integers(0, 1000, rows).astype(np.float32)
+    return x, y
+
+
+def kv_rows(batch, nranks, rank, steps):
+    """The rows of ``rank``'s part of each of ``steps`` global batches."""
+    per = batch // nranks
+    return np.concatenate([np.arange(b * batch + rank * per,
+                                     b * batch + (rank + 1) * per)
+                           for b in range(steps)])
+
+
+def kv_slice_oracle(mx, torch, symbol, arg, aux, x, y, batch, nslices,
+                    steps):
+    """What a dist_sync job of ``nslices`` processes computes, done by
+    hand in one: one one-context module per process's slice of every
+    batch over the same weights (each its own BatchNorm statistics, as
+    each worker process has), their gradients summed in slice order, the
+    Updater of the Module's SGD (rescale_grad 1 / batch) on the weights;
+    returns the weights."""
+    per = batch // nslices
+    mods = []
+    for _ in range(nslices):
+        m = mx.mod.Module(symbol, context=mx.gpu(0))
+        m.bind([('data', (per,) + IMAGE)], [('softmax_label', (per,))])
+        m.init_params(arg_params={k: mx.nd.array(v) for k, v in arg.items()},
+                      aux_params={k: mx.nd.array(v) for k, v in aux.items()})
+        mods.append(m)
+    names = mods[0]._param_names
+    upd = mx.optimizer.get_updater(mx.optimizer.create(
+        'sgd', rescale_grad=1.0 / batch,
+        param_idx2name=dict(enumerate(names)), **SGD_MOMENTUM))
+    weights = {k: mx.nd.array(v, ctx=mx.gpu(0)) for k, v in arg.items()}
+    for b in range(steps):
+        grads = {}
+        for s, m in enumerate(mods):
+            m._exec_group.set_params(weights, {})
+            lo = b * batch + s * per
+            m.forward_backward(mx.io.DataBatch(
+                [mx.nd.array(x[lo:lo + per])],
+                [mx.nd.array(y[lo:lo + per])]))
+            ex = m._exec_group.execs[0]
+            for n in names:
+                g = ex.grad_dict[n].handle
+                grads[n] = g.clone() if n not in grads else grads[n] + g
+        for i, n in enumerate(names):
+            upd(i, mx.nd.NDArray(grads[n]), weights[n])
+    torch.cuda.synchronize()
+    return {k: v.asnumpy() for k, v in weights.items()}
+
+
+def max_rel(got, want):
+    """The largest |got - want| / max|want| over the parameters."""
+    return max(float(np.max(np.abs(got[k] - want[k])) /
+                     max(float(np.max(np.abs(want[k]))), 1e-30))
+               for k in want)
+
+
+def kv_kernel_cases(torch, fused, fused_conv, mx, symbol, gen):
+    """The three kernels of the kv paths in float32 at their shapes: a
+    16-row executor's (kv-local's two executors), and the BN-ReLUs of a
+    32-row one (the dist workers'; their 1x1 and 3x3 convs at 32 rows are
+    the kernels phase's float32 cases)."""
+    flush = torch.ones(32 << 20, device='cuda')
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dots, convs, bn16 = train_kernel_shapes(mx, symbol, BATCH // 2)
+    _, _, bn32 = train_kernel_shapes(mx, symbol, BATCH)
+    out = {'fused_scale_bias_dot': [], 'fused_scale_bias_conv3x3': [],
+           'fused_bn_relu': []}
+    for mkn, per_exec in sorted(dots.items()):
+        case = check_dot(torch, fused, mkn, torch.float32, gen, flush)
+        case.update(rows=BATCH // 2, launches_per_executor_step=per_exec)
+        out['fused_scale_bias_dot'].append(case)
+    for shape, per_exec in sorted(convs.items()):
+        case = check_conv(torch, fused_conv, shape, torch.float32, gen,
+                          flush)
+        case.update(rows=BATCH // 2, launches_per_executor_step=per_exec)
+        out['fused_scale_bias_conv3x3'].append(case)
+    for rows, shapes in ((BATCH // 2, bn16), (BATCH, bn32)):
+        for shape, per_exec in sorted(shapes.items()):
+            case = check_bn_relu(torch, fused, shape, torch.float32, gen,
+                                 flush)
+            case.update(rows=rows, launches_per_executor_step=per_exec)
+            out['fused_bn_relu'].append(case)
+    for name, cases in out.items():
+        for c in cases:
+            if name != 'fused_bn_relu' and c['route'] != 'simt':
+                raise AssertionError('%s %s took the %s route'
+                                     % (name, c.get('mkn') or c.get('shape'),
+                                        c['route']))
+    torch.backends.cudnn.allow_tf32 = True
+    return out
+
+
+def kv_local(mx, torch, symbol, arg, aux, kernels, bn_relu_nodes):
+    """kv-local: Module(context=[gpu(0), gpu(0)]), 32 rows as 16 + 16,
+    kvstore 'local' then 'device', KV_STEPS steps each: launches per step
+    by kernel (counts zeroed just before each fit, read just after: two
+    executors, twice a one-context step's 36 / 16 / 2), step ms, and the
+    parameters against the one-context fit at 32 rows (the executors
+    share their BatchNorm statistics, so both take the whole batch's
+    step): within KV_NOISE_FACTOR times the f32 noise floor, measured
+    here as the distance from that fit of a one-context fit over every
+    batch's rows in another order (on ResNet-50 v2 four steps amplify a
+    summation order's rounding to about 1e-3; per-slice BatchNorm stood
+    at 1.44e-2)."""
+    deterministic(torch, True)
+    x, y = kv_data(BATCH * KV_STEPS)
+    fresh_memory(torch)
+    one, one_s = train_module(mx, torch, symbol, arg, aux, x, y, mx.gpu(0),
+                              None, BATCH, eval_metric='acc')
+    one_params = numpy_params(one)
+    del one
+    order = np.concatenate([b * BATCH + np.random.default_rng(
+        SEED + 20).permutation(BATCH) for b in range(KV_STEPS)])
+    fresh_memory(torch)
+    other, _ = train_module(mx, torch, symbol, arg, aux, x[order],
+                            y[order], mx.gpu(0), None, BATCH,
+                            eval_metric='acc')
+    noise = max_rel(numpy_params(other), one_params)
+    del other
+    expected = {'fused_scale_bias_dot': 2 * 36,
+                'fused_scale_bias_conv3x3': 2 * 16,
+                'fused_bn_relu': 2 * bn_relu_nodes}
+    runs, launches = {}, dict.fromkeys(expected, 0)
+    for kind in ('local', 'device'):
+        fresh_memory(torch)
+        for k in kernels:
+            reset_launches(k)
+        counts0 = launch_counts(kernels)
+        mod, step_s = train_module(mx, torch, symbol, arg, aux, x, y,
+                                   [mx.gpu(0), mx.gpu(0)], None, BATCH,
+                                   kvstore=kind, eval_metric='acc')
+        torch.cuda.synchronize()
+        got = numpy_params(mod)
+        per_step = launches_per_step(counts0, launch_counts(kernels),
+                                     len(step_s))
+        for name, n in expected.items():
+            if per_step.get(name, {}).get('all') != n:
+                raise AssertionError('kv-local %s: %s launched %s a step '
+                                     '(expected %d)' % (
+                                         kind, name, per_step.get(name), n))
+            launches[name] += n * len(step_s)
+        if len(mod._exec_group.execs) != 2 or mod._fused is not None or \
+                mod._kvstore is None or mod._kvstore.type != kind:
+            raise AssertionError('kv-local %s: not two executors through '
+                                 'the store' % kind)
+        rel = max_rel(got, one_params)
+        if not rel <= KV_NOISE_FACTOR * noise:
+            raise AssertionError('kv-local %s: parameters %.3g from the '
+                                 'one-context fit, past %g times the f32 '
+                                 'noise floor %.3g' % (kind, rel,
+                                                       KV_NOISE_FACTOR,
+                                                       noise))
+        runs[kind] = {
+            'step_ms': [t * 1e3 for t in step_s],
+            'step_ms_median_after_first':
+                statistics.median(step_s[1:]) * 1e3,
+            'launches_per_step': per_step,
+            'max_rel_vs_one_context_32_rows': rel,
+            **memory(torch)}
+        del mod
+    deterministic(torch, False)
+    return {'runs': runs, 'contexts': ['gpu(0)', 'gpu(0)'],
+            'rows': [BATCH // 2, BATCH // 2], 'steps': KV_STEPS,
+            'one_context_step_ms_median_after_first':
+                statistics.median(one_s[1:]) * 1e3,
+            'launches_per_step_expected': expected,
+            'noise_floor_max_rel': noise,
+            'noise_factor': KV_NOISE_FACTOR}, launches, one_params
+
+
+def kv_cluster(nworkers, mode, out_dir, extra_env=None):
+    """``tools/launch.py -n nworkers --launcher local`` over this script's
+    ``--kv-worker mode``; the process group is killed past
+    KV_CLUSTER_TIMEOUT.  Returns (wall s, the workers' reports)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    port = free_port_pair()
+    env = dict(os.environ)
+    env.pop('MXTPU_KV_SERVER_ADDR', None)
+    env.update(extra_env or {})
+    cmd = [sys.executable, os.path.join(root, 'tools', 'launch.py'),
+           '-n', str(nworkers), '--launcher', 'local', '--port', str(port),
+           '%s %s --kv-worker %s %s' % (sys.executable,
+                                        os.path.abspath(__file__), mode,
+                                        out_dir)]
+    t0 = time.monotonic()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, env=env,
+                            cwd=root, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=KV_CLUSTER_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        out, _ = proc.communicate()
+        raise AssertionError('kv cluster %s -n %d ran past %d s: %s'
+                             % (mode, nworkers, KV_CLUSTER_TIMEOUT,
+                                out[-2000:]))
+    wall = time.monotonic() - t0
+    if proc.returncode != 0:
+        raise AssertionError('kv cluster %s -n %d exited %d: %s'
+                             % (mode, nworkers, proc.returncode,
+                                out[-3000:]))
+    reports = []
+    for r in range(nworkers):
+        with open(os.path.join(out_dir, 'rank%d.json' % r)) as f:
+            reports.append(json.load(f))
+    return wall, reports
+
+
+def free_port_pair():
+    """A port the OS picked whose successor is free too (the launcher
+    puts the kv server on port + 1)."""
+    import socket
+    for _ in range(50):
+        with socket.socket() as a:
+            a.bind(('127.0.0.1', 0))
+            port = a.getsockname()[1]
+            with socket.socket() as b:
+                try:
+                    b.bind(('127.0.0.1', port + 1))
+                except OSError:
+                    continue
+            return port
+    raise AssertionError('no free port pair')
+
+
+def _timed_method(torch, owner, name, into):
+    """Wrap ``owner.name`` so each call's seconds, device synchronised
+    before and after, land in ``into[name]``."""
+    plain = getattr(owner, name)
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            return plain(*a, **k)
+        finally:
+            torch.cuda.synchronize()
+            into.setdefault(name, []).append(time.perf_counter() - t0)
+    setattr(owner, name, timed)
+
+
+def kv_worker(mode, out_dir):
+    """One worker of kv-dist-sync ('sync') or kv-dist-async ('async',
+    'async-fault'), started by tools/launch.py: Module.fit of the
+    full-width ResNet-50 v2 (f32, BATCH rows a step on this rank, the
+    card shared by every rank) through the store; writes rank<r>.json
+    (step ms by part, launches, kvstore counters, the server's applies on
+    rank 0) and, for 'sync', rank<r>.npz of the parameters."""
+    import hashlib
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import convert, instrument, kvstore, resilience
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.ops import fused, fused_conv
+    os.environ['MXTPU_FUSE'] = 'aggressive'
+    instrument.set_metrics(True)
+    deterministic(torch, True)
+    rank = int(os.environ['MXTPU_PROCESS_ID'])
+    nranks = int(os.environ['MXTPU_NUM_PROCESSES'])
+    steps = {'sync': KV_STEPS, 'async': KV_ASYNC_STEPS,
+             'async-fault': KV_FAULT_STEPS}[mode]
+    symbol = resnet.get_symbol(num_classes=1000, num_layers=50,
+                               image_shape=IMAGE)
+    arg, aux = convert.random_params(symbol, {'data': (BATCH,) + IMAGE},
+                                     SEED)
+    x, y = kv_data(BATCH * nranks * steps)
+    rows = kv_rows(BATCH * nranks, nranks, rank, steps)
+    if mode == 'async-fault' and rank == 1:
+        resilience.set_faults(KV_FAULT)
+    times = {}
+    store = kvstore.DistKVStore if mode == 'sync' else \
+        kvstore.DistAsyncKVStore
+    kernels = (fused.fused_scale_bias_dot,
+               fused_conv.fused_scale_bias_conv3x3, fused.fused_bn_relu)
+    pushed = [0]
+
+    def timed(name, plain):
+        """The store's ``name``, counting the keys pushed and timing the
+        step's list calls (the seeding pulls one key a call)."""
+        def run(self, key, *a, **k):
+            many = isinstance(key, (list, tuple))
+            if name == 'push':
+                pushed[0] += len(key) if many else 1
+            if not many:
+                return plain(self, key, *a, **k)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return plain(self, key, *a, **k)
+            finally:
+                torch.cuda.synchronize()
+                times.setdefault(name, []).append(time.perf_counter() - t0)
+        return run
+    store.push = timed('push', store.push)
+    store.pull = timed('pull', store.pull)
+    mod = mx.mod.Module(symbol, context=mx.gpu(0))
+    _timed_method(torch, mod, 'forward_backward', times)
+    steps_s, last = [], [0.0]
+
+    def tick(_):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        steps_s.append(now - last[0])
+        last[0] = now
+    counters = ('kvstore.retries', 'kvstore.reconnects',
+                'kvstore.push_replays', 'kvstore.push_bytes',
+                'kvstore.pull_bytes', 'kvstore.pushes', 'kvstore.pulls')
+    c0 = {k: instrument.counter_value(k) for k in counters}
+    for k in kernels:
+        reset_launches(k)
+    t0 = last[0] = time.perf_counter()
+    mod.fit(mx.io.NDArrayIter(x[rows], y[rows], batch_size=BATCH),
+            num_epoch=1, kvstore='dist_sync' if mode == 'sync'
+            else 'dist_async', optimizer='sgd', batch_end_callback=tick,
+            optimizer_params=dict(SGD_MOMENTUM), eval_metric='acc',
+            arg_params={k: mx.nd.array(v) for k, v in arg.items()},
+            aux_params={k: mx.nd.array(v) for k, v in aux.items()})
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {getattr(k, '__name__', str(k)): k.launches for k in kernels}
+    kv = mod._kvstore
+    params = numpy_params(mod)
+    digest = hashlib.sha256()
+    for k in sorted(params):
+        digest.update(params[k].tobytes())
+    report = {
+        'rank': rank, 'ranks': nranks, 'mode': mode, 'steps': steps,
+        'rows_per_step': BATCH, 'fit_s': fit_s, 'step_s': steps_s,
+        'images_per_s': steps * BATCH / fit_s,
+        'backend': getattr(kv, 'backend', None),
+        'launches': launches,
+        'ms': {k: [t * 1e3 for t in v] for k, v in times.items()},
+        'counters': {k: instrument.counter_value(k) - c0[k]
+                     for k in counters},
+        'keys_pushed': pushed[0], 'params_sha256': digest.hexdigest(),
+        'param_bytes': int(sum(v.nbytes for v in params.values()))}
+    if mode == 'sync':
+        np.savez(os.path.join(out_dir, 'rank%d.npz' % rank), **params)
+    else:
+        if rank == 0:
+            report['server_applied'] = kv._server.applied_pushes
+        resilience.clear_faults()
+        # every rank has read its counters before rank 0 stops the server
+        kv.barrier()
+        report['undelivered'] = kv.close()
+    if mode == 'sync' and nranks > 1:
+        import torch.distributed as dist
+        dist.barrier()
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, 'rank%d.json' % rank), 'w') as f:
+        json.dump(report, f)
+    print('kv worker %s rank %d of %d done' % (mode, rank, nranks),
+          flush=True)
+    return 0
+
+
+def _split(report, parts):
+    """Median ms of a step's parts from a worker report."""
+    return {p: statistics.median(report['ms'][p]) if report['ms'].get(p)
+            else None for p in parts}
+
+
+def kv_worker_launches(where, reps, bn_relu_nodes):
+    """Each worker's launches of #1, #4 and #2 against its steps times one
+    executor's 36 / 16 / ``bn_relu_nodes``; returns their sum by kernel."""
+    per_step = {'fused_scale_bias_dot': 36, 'fused_scale_bias_conv3x3': 16,
+                'fused_bn_relu': bn_relu_nodes}
+    total = {}
+    for r in reps:
+        for name, n in per_step.items():
+            got = r['launches'].get(name)
+            if got != n * r['steps']:
+                raise AssertionError(
+                    '%s rank %d: %s launched %s times in %d steps '
+                    '(expected %d)' % (where, r['rank'], name, got,
+                                       r['steps'], n * r['steps']))
+            total[name] = total.get(name, 0) + got
+    return total
+
+
+def kv_dist_sync(mx, torch, symbol, arg, aux, one_params, bn_relu_nodes,
+                 tmp):
+    """kv-dist-sync: tools/launch.py -n 1 (NCCL, one rank, so no
+    collective runs: the reference's one-process dist_sync) and -n 2
+    (both ranks on the one card: gloo over CUDA tensors), KV_STEPS steps
+    of BATCH rows a rank.  -n 1 is held against kv-local's one-context fit
+    at 32 rows (the same rows); the two -n 2 ranks must be bit for bit
+    equal, and equal the per-slice arithmetic of 64-row global batches
+    (kv_slice_oracle: each process normalises its own rows)."""
+    out, launches = {}, {}
+    for n in (1, 2):
+        d = os.path.join(tmp, 'kv-sync-%d' % n)
+        os.makedirs(d)
+        wall, reps = kv_cluster(n, 'sync', d)
+        params = [dict(np.load(os.path.join(d, 'rank%d.npz' % r)))
+                  for r in range(n)]
+        row = {'wall_s': wall, 'backend': reps[0]['backend'],
+               'launches': reps[0]['launches'],
+               'images_per_s_per_rank': [r['images_per_s'] for r in reps],
+               'step_ms_median': [_split(r, ('forward_backward', 'push',
+                                             'pull')) for r in reps],
+               'push_bytes_per_step': reps[0]['counters'][
+                   'kvstore.push_bytes'] / KV_STEPS,
+               'param_bytes': reps[0]['param_bytes']}
+        if n == 1:
+            row['max_rel_vs_one_context_fit'] = max_rel(params[0],
+                                                        one_params)
+            if not row['max_rel_vs_one_context_fit'] <= 1e-4:
+                raise AssertionError('kv-dist-sync -n 1: %.3g from the '
+                                     'one-context fit'
+                                     % row['max_rel_vs_one_context_fit'])
+        else:
+            if reps[0]['params_sha256'] != reps[1]['params_sha256']:
+                raise AssertionError('kv-dist-sync -n 2: the ranks differ')
+            x, y = kv_data(BATCH * 2 * KV_STEPS)
+            deterministic(torch, True)     # as in the workers
+            want = kv_slice_oracle(mx, torch, symbol, arg, aux, x, y,
+                                   2 * BATCH, 2, KV_STEPS)
+            deterministic(torch, False)
+            row['ranks_bit_for_bit'] = True
+            row['max_rel_vs_slice_arithmetic'] = max_rel(params[0], want)
+            row['bit_for_bit_vs_slice_arithmetic'] = all(
+                np.array_equal(params[0][k], want[k]) for k in want)
+            if not row['max_rel_vs_slice_arithmetic'] <= KV_RTOL:
+                raise AssertionError(
+                    'kv-dist-sync -n 2: %.3g from the per-slice arithmetic'
+                    % row['max_rel_vs_slice_arithmetic'])
+        out['n%d' % n] = row
+        for k, v in kv_worker_launches('kv-dist-sync -n %d' % n, reps,
+                                       bn_relu_nodes).items():
+            launches[k] = launches.get(k, 0) + v
+    return out, launches
+
+
+def kv_dist_async(bn_relu_nodes, tmp):
+    """kv-dist-async: tools/launch.py -n 2, two workers sharing the card,
+    KV_ASYNC_STEPS steps of BATCH rows each, rank 0 hosting the server;
+    then the fault run (KV_FAULT on rank 1, KV_FAULT_STEPS steps): the
+    server's applies must equal the pushes sent."""
+    out, launches = {}, {}
+    for mode in ('async', 'async-fault'):
+        d = os.path.join(tmp, 'kv-%s' % mode)
+        os.makedirs(d)
+        wall, reps = kv_cluster(2, mode, d)
+        steps = reps[0]['steps']
+        sent = sum(r['keys_pushed'] for r in reps)
+        applied = reps[0]['server_applied']
+        row = {
+            'wall_s': wall, 'steps': steps,
+            'images_per_s_per_worker': [r['images_per_s'] for r in reps],
+            'step_ms_median': [_split(r, ('forward_backward', 'push',
+                                          'pull')) for r in reps],
+            'push_mb_per_s': [r['counters']['kvstore.push_bytes'] / 1e6 /
+                              r['fit_s'] for r in reps],
+            'pull_mb_per_s': [r['counters']['kvstore.pull_bytes'] / 1e6 /
+                              r['fit_s'] for r in reps],
+            'pushes_sent': sent, 'server_applied': applied,
+            'retries': [r['counters']['kvstore.retries'] for r in reps],
+            'reconnects': [r['counters']['kvstore.reconnects']
+                           for r in reps],
+            'push_replays': [r['counters']['kvstore.push_replays']
+                             for r in reps],
+            'undelivered': [r['undelivered'] for r in reps],
+            'launches': [r['launches'] for r in reps]}
+        if applied != sent or any(row['undelivered']):
+            raise AssertionError('kv-dist-async %s: %d applied of %d sent, '
+                                 'undelivered %s' % (mode, applied, sent,
+                                                     row['undelivered']))
+        if mode == 'async' and any(row['retries']):
+            raise AssertionError('kv-dist-async: retries %s'
+                                 % row['retries'])
+        if mode == 'async-fault' and (row['reconnects'][1] < 1 or
+                                      row['push_replays'][1] < 1):
+            raise AssertionError('kv-dist-async fault run: no reconnect or '
+                                 'replay on rank 1: %s' % row)
+        for k, n in kv_worker_launches('kv-dist-async %s' % mode, reps,
+                                       bn_relu_nodes).items():
+            launches[k] = launches.get(k, 0) + n
+        out[mode] = row
+    return out, launches
+
+
+def feed_capture_phase():
+    """feed-capture: tools/torch_feed_capture.py --lever in
+    FEED_CAPTURE_CHILDREN child processes at once (3 small MLP fits each,
+    the feed on, the previous fit's module collected inside each
+    recording): 0 red."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, 'tools'))
+    try:
+        import torch_feed_capture
+    finally:
+        sys.path.pop(0)
+    t0 = time.monotonic()
+    summary = torch_feed_capture.run(
+        FEED_CAPTURE_CHILDREN, 3, FEED_CAPTURE_CHILDREN, False, True,
+        root=root, timeout=120, lever=True)
+    report = {'red': summary['red'], 'children': summary['children'],
+              'fits': summary['fits'], 'lever': True, 'feed': True,
+              'seconds': time.monotonic() - t0,
+              'graph_resets_in_capture': sum(
+                  r['graph_resets_in_capture'] for r in summary['runs']),
+              'errors': [r['error'] for r in summary['runs'] if r['error']]}
+    if summary['red']:
+        raise AssertionError('feed-capture: %d of %d children red: %s'
+                             % (summary['red'], summary['children'],
+                                report['errors']))
+    return report
+
+
 def main():
     try:
         import torch
@@ -7871,6 +8440,42 @@ def main():
     if failures:
         raise AssertionError('; '.join(failures))
 
+    # -- the kvstore data plane: context lists, dist_sync, dist_async ------
+    t0 = time.monotonic()
+    kv_kernel_set = (fused.fused_scale_bias_dot,
+                     fused_conv.fused_scale_bias_conv3x3,
+                     fused.fused_bn_relu)
+    kv_cases = kv_kernel_cases(
+        torch, fused, fused_conv, mx, symbol,
+        torch.Generator(device='cuda').manual_seed(SEED + 19))
+    kv_local_report, kv_local_launches, one_params = kv_local(
+        mx, torch, symbol, arg, aux, kv_kernel_set, bn_relu_nodes)
+    log({'phase': 'kv-local', 'model': 'resnet-50 v2', 'dtype': 'float32',
+         'tf32': False, 'cudnn_deterministic': True,
+         'launches': kv_local_launches, **kv_local_report,
+         'kernel_cases': kv_cases, 'seconds': time.monotonic() - t0})
+    import tempfile
+    with tempfile.TemporaryDirectory() as kv_tmp:
+        t0 = time.monotonic()
+        sync_report, sync_launches = kv_dist_sync(
+            mx, torch, symbol, arg, aux, one_params, bn_relu_nodes, kv_tmp)
+        log({'phase': 'kv-dist-sync', 'model': 'resnet-50 v2',
+             'dtype': 'float32', 'steps': KV_STEPS,
+             'rows_per_rank': BATCH, 'launcher': 'tools/launch.py --launcher'
+             ' local', 'launches': sync_launches, **sync_report,
+             'seconds': time.monotonic() - t0})
+        t0 = time.monotonic()
+        async_report, async_launches = kv_dist_async(bn_relu_nodes,
+                                                     kv_tmp)
+        log({'phase': 'kv-dist-async', 'model': 'resnet-50 v2',
+             'dtype': 'float32', 'workers': 2, 'rows_per_worker': BATCH,
+             'fault': KV_FAULT, 'launches': async_launches, **async_report,
+             'seconds': time.monotonic() - t0})
+    del one_params
+    log({'phase': 'feed-capture', **feed_capture_phase()})
+    kv_launches = {k: kv_local_launches.get(k, 0) + sync_launches.get(k, 0)
+                   + async_launches.get(k, 0) for k in kv_local_launches}
+
     # -- summary -------------------------------------------------------------
     on_path = [c for c in cases if c['launches_per_forward']]
     summary = {
@@ -7884,7 +8489,8 @@ def main():
         + monitor_launches['fused_bn_relu']
         + observe_launches['fused_bn_relu']
         + sum(zoo_launches['fused_bn_relu'].values())
-        + serve_launches['fused_bn_relu'] + fleet_bn + auto_bn,
+        + serve_launches['fused_bn_relu'] + fleet_bn + auto_bn
+        + kv_launches['fused_bn_relu'],
         'launches_by_path': {'serve': launches['fused_bn_relu'],
                              'fleet': fleet_bn, 'autoscale': auto_bn,
                              'train': train_launches['fused_bn_relu'],
@@ -7899,9 +8505,14 @@ def main():
                                  observe_launches['fused_bn_relu'],
                              'zoo-train':
                                  sum(zoo_launches['fused_bn_relu'].values()),
-                             'zoo-serve': serve_launches['fused_bn_relu']},
+                             'zoo-serve': serve_launches['fused_bn_relu'],
+                             'kv-local': kv_local_launches['fused_bn_relu'],
+                             'kv-dist-sync': sync_launches['fused_bn_relu'],
+                             'kv-dist-async':
+                                 async_launches['fused_bn_relu']},
         'max_abs_err': max(c['max_abs_err'] for c in
-                           on_path + fleet_report['bn_relu_cases']),
+                           on_path + fleet_report['bn_relu_cases']
+                           + kv_cases['fused_bn_relu']),
         # every bucket's shapes, checked in the fleet phase
         'fleet_cases': fleet_report['bn_relu_cases'],
         # the 17 launches of one 32-row forward: per-shape medians summed
@@ -7937,7 +8548,11 @@ def main():
                              monitor_launches['fused_scale_bias_dot'],
                          'observe-fit':
                              observe_launches['fused_scale_bias_dot'],
-                         'zoo-serve': serve_launches['fused_scale_bias_dot']},
+                         'zoo-serve': serve_launches['fused_scale_bias_dot'],
+                         'kv-local': kv_local_launches['fused_scale_bias_dot'],
+                         'kv-dist-sync': sync_launches['fused_scale_bias_dot'],
+                         'kv-dist-async':
+                             async_launches['fused_scale_bias_dot']},
                         'torch.matmul on the normalized input'),
          **route_summary(dot_cases, {'train': train_routes,
                                      'custom-train': custom_routes})},
@@ -7958,7 +8573,13 @@ def main():
                          'zoo-train': sum(zoo_launches[
                              'fused_scale_bias_conv3x3'].values()),
                          'zoo-serve':
-                             serve_launches['fused_scale_bias_conv3x3']},
+                             serve_launches['fused_scale_bias_conv3x3'],
+                         'kv-local':
+                             kv_local_launches['fused_scale_bias_conv3x3'],
+                         'kv-dist-sync':
+                             sync_launches['fused_scale_bias_conv3x3'],
+                         'kv-dist-async':
+                             async_launches['fused_scale_bias_conv3x3']},
                         'F.conv2d on the normalized input'),
          **route_summary(conv_cases, {'train': train_conv_routes,
                                       'custom-train': custom_conv_routes}),
@@ -8001,6 +8622,15 @@ def main():
          'bucket_shapes': bucket_summary(bucket_att)},
         rtc_summary(rtc_cases, custom_launches['rtc']),
         nms_summary(nms, nms_launches)]
+    # the kv paths' float32 shapes (a 16-row executor's, the dist
+    # workers' BN-ReLUs at 32 rows): their own cases, in the error too
+    for entry in kernels:
+        cases_kv = kv_cases.get(entry['name'])
+        if cases_kv:
+            entry['kv_cases'] = cases_kv
+            entry['max_abs_err'] = max(entry['max_abs_err'],
+                                       max(c['max_abs_err']
+                                           for c in cases_kv))
     print(smi, flush=True)
     log({'kernels': kernels})
     log({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,
@@ -8013,4 +8643,6 @@ if __name__ == '__main__':
         sys.exit(warm_child())
     if sys.argv[1:2] == ['--abandon-child']:
         sys.exit(abandon_child(int(sys.argv[2])))
+    if sys.argv[1:2] == ['--kv-worker']:
+        sys.exit(kv_worker(sys.argv[2], sys.argv[3]))
     sys.exit(main())

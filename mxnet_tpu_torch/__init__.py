@@ -13,7 +13,11 @@ sharded over ranks (``parallel.make_sp_train_step``, ring or Ulysses
 attention on ``torch.distributed``).  Users extend it
 as in the reference: the imperative ``nd.*`` layer over every registered
 op, Custom operators (``operator``) and runtime-compiled CUDA kernels
-(``rtc.Rtc``, on NVRTC).  Training runs the whole lifecycle: the
+(``rtc.Rtc``, on NVRTC).  Data-parallel training goes through the
+kvstore, as in the reference: a context list (one executor per context)
+over ``kv.create('local')``/``'device'``, and workers started by
+``tools/launch.py`` over ``'dist_sync'`` (``torch.distributed``) or
+``'dist_async'`` (the apply-on-arrival server).  Training runs the whole lifecycle: the
 reference's optimizers and their update ops, checkpoints of parameters
 and optimizer state, ``fit``'s per-epoch checkpoint and auto-resume,
 the checkpoint callbacks and the ``FeedForward`` estimator, with
@@ -46,6 +50,8 @@ from . import operator, rtc
 from . import (callback, initializer, io, lr_scheduler, metric, module,
                optimizer, parallel, resilience, rnn)
 from . import model, monitor
+from . import kvstore, kvstore_server
+from . import kvstore as kv
 from . import chronicle, detector, health, iowatch, perfwatch
 from . import initializer as init
 from . import module as mod
@@ -67,5 +73,6 @@ __all__ = ['MXNetError', 'Context', 'cpu', 'gpu', 'current_context',
            'io', 'metric', 'optimizer', 'lr_scheduler', 'initializer',
            'opt', 'init', 'callback', 'random', 'parallel', 'rnn',
            'engine', 'model', 'FeedForward', 'resilience', 'monitor',
-           'detector', 'health', 'iowatch', 'perfwatch', 'chronicle']
+           'detector', 'health', 'iowatch', 'perfwatch', 'chronicle',
+           'kv', 'kvstore', 'kvstore_server']
 

@@ -483,6 +483,35 @@ def snapshot(tensors, generators=()):
 # cache as it starts), and every capture shares its device's one stream.
 _capture_lock = threading.RLock()
 _capture_streams = {}           # device index -> the capture stream
+# graphs of dropped steps: destroyed only under the capture lock
+# (reap_graphs), never while another graph is being recorded
+_retired = []
+_recording = [0]                # recordings under way (under the lock)
+
+
+def reap_graphs():
+    """Destroy the graphs of dropped steps.  A ``CUDAGraph`` destroyed
+    while a graph is being recorded (its ``reset``: "operation not
+    permitted when stream is capturing") invalidates that recording; a
+    step dropped by a garbage collection that lands inside a capture, or
+    on another thread, would do just that.  So a dropped step's graph is
+    retired (``CapturedStep.__del__``) and destroyed here, under the
+    capture lock: at once when no recording is under way, else before
+    the next capture or at :func:`release_memory`."""
+    if not _retired:
+        return
+    with _capture_lock:
+        while _retired:
+            _retired.pop()
+
+
+def _before_recording(measure):
+    """Under the capture lock, before a recording: the retired graphs go
+    (after a collection, when the recording's pool will be measured, so
+    that the reading before it holds no pool that is about to go)."""
+    if measure:
+        gc.collect()
+    reap_graphs()
 
 
 def capture_stream(device):
@@ -534,6 +563,7 @@ def release_memory():
         return
     gc.collect()
     with _capture_lock:
+        reap_graphs()
         torch.cuda.empty_cache()
 
 
@@ -589,6 +619,22 @@ class CapturedStep(object):
     def captured(self):
         return self.graph is not None
 
+    def __del__(self):
+        graph = self.__dict__.get('graph')
+        if graph is None or _retired is None:
+            return
+        _retired.append(graph)          # destroyed by reap_graphs
+        del graph
+        # at once when no recording is under way: on this thread (a
+        # dropped step inside a recording's body) or on another (the
+        # lock is then held)
+        if not _recording[0] and _capture_lock.acquire(blocking=False):
+            try:
+                if not _recording[0]:
+                    reap_graphs()
+            finally:
+                _capture_lock.release()
+
     def holds(self, tensors):
         """True when ``tensors`` are (identically) the tensors the step
         was built over."""
@@ -624,8 +670,8 @@ class CapturedStep(object):
             raise MXNetError('%s: warm_up() before capture()' % self.name)
         # the goodput ledger charges the recording to 'compile'
         with _capture_lock, iowatch.account('compile'):
+            _before_recording(measure)
             if measure:
-                gc.collect()
                 torch.cuda.synchronize(self.device)
                 torch.cuda.empty_cache()
                 reserved = torch.cuda.memory_reserved(self.device)
@@ -643,6 +689,11 @@ class CapturedStep(object):
             graph.register_generator_state(g)
         _own_blas_workspace()
         err, outs = None, None
+        # no garbage collection inside the recording: what it frees (a
+        # dropped step's graph, an event) could call CUDA from this thread
+        gc_was = gc.isenabled()
+        gc.disable()
+        _recording[0] += 1
         try:
             with instrument.recording(capture=True) as self._counts, \
                     torch.cuda.graph(graph, pool=self.pool,
@@ -659,6 +710,10 @@ class CapturedStep(object):
         except Exception:                          # noqa: BLE001
             if err is None:
                 raise
+        finally:
+            _recording[0] -= 1
+            if gc_was:
+                gc.enable()
         if err is not None:
             raise MXNetError('%s: CUDA graph capture failed: %s'
                              % (self.name, err)) from err
@@ -796,8 +851,8 @@ class StagedStep(object):
             raise MXNetError('%s stays eager (%s); it is never captured'
                              % (self.name, self.skip))
         with _capture_lock, iowatch.account('compile'):
+            _before_recording(measure)
             if measure:
-                gc.collect()
                 torch.cuda.synchronize(self.device)
                 torch.cuda.empty_cache()
                 reserved = torch.cuda.memory_reserved(self.device)

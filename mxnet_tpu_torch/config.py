@@ -305,6 +305,84 @@ _register('MXTPU_CHRONICLE_DETECT', True, _bool,
           'MAD baselines with hysteresis over perf.steps_per_sec, '
           'goodput.fraction, serving e2e p99, queue depth, the '
           'mem.live_bytes slope).  Off: the journal still records.')
+# -- kvstore and the distributed launch (kvstore.py, kvstore_server.py,
+# parallel/collectives.py) -------------------------------------------------
+_register('MXNET_KVSTORE_BIGARRAY_BOUND', 1000 * 1000, int,
+          'Element count above which a dist_sync push key crosses '
+          'processes as its own collective; keys at or below it batch '
+          'into one flat all-reduce per push group '
+          '(kvstore.DistKVStore.push; env_var.md:47).')
+_register('MXTPU_COORDINATOR', '', str,
+          'host:port of rank 0, published by tools/launch.py: the '
+          'torch.distributed TCP rendezvous of dist_sync '
+          '(parallel.collectives.init_distributed).')
+_register('MXTPU_NUM_PROCESSES', 1, int,
+          'Number of worker processes in the job (tools/launch.py).')
+_register('MXTPU_PROCESS_ID', 0, int,
+          'This worker\'s rank (tools/launch.py).')
+_register('MXTPU_KV_SERVER_ADDR', '', str,
+          'host:port of the dist_async kv server, co-located with rank 0 '
+          '(tools/launch.py publishes it; unset, rank 0 binds a port the '
+          'OS picks and publishes it in its own environment).')
+_register('MXTPU_IS_RECOVERY', False, _bool,
+          'The launcher respawned this worker into a running job '
+          '(kvstore.DistAsyncKVStore.is_recovery).')
+_register('MXTPU_KV_RPC_TIMEOUT', 30.0, float,
+          'Per-attempt wait for an async-kvstore RPC reply before the '
+          'client retries (resilience.RetryPolicy; the ps-lite van '
+          'resend timeout).')
+_register('MXTPU_KV_OP_DEADLINE', 120.0, float,
+          'Total wall-clock budget for one async-kvstore operation '
+          'including all retries; exceeded => ConnectionError.')
+_register('MXTPU_KV_BARRIER_TIMEOUT', 300.0, float,
+          'Deadline for barrier(), client- and server-side: past it the '
+          'server replies an error instead of holding the worker '
+          '(kvstore_server._barrier_wait).')
+_register('MXTPU_KV_DEAD_TIMEOUT', 5.0, float,
+          'Heartbeat staleness (seconds) after which the server counts '
+          'a rank dead and excludes it from barrier accounting '
+          '(kvstore_dist.h:151-160 get_num_dead_node).')
+_register('MXTPU_KV_MAX_PENDING', 512, int,
+          'Max un-acked pushes a worker may buffer for crash replay '
+          'before push() applies backpressure (bounds replay memory).')
+_register('MXTPU_KV_RETRY_BASE', 0.05, float,
+          'First reconnect/retry backoff (seconds); doubles per attempt '
+          'up to MXTPU_KV_RETRY_MAX, scaled by MXTPU_KV_RETRY_JITTER.')
+_register('MXTPU_KV_RETRY_MAX', 2.0, float,
+          'Backoff ceiling (seconds) for kvstore retry/reconnect.')
+_register('MXTPU_KV_RETRY_JITTER', 0.25, float,
+          'Uniform jitter fraction added to each backoff delay '
+          '(decorrelates worker retry storms after a server restart).')
+_register('MXTPU_KV_RECONNECT_DEADLINE', 60.0, float,
+          'How long a client keeps redialing a lost kv server before '
+          'declaring the connection dead and failing pending ops.')
+_register('MXTPU_KV_SERVER_BACKING', '', str,
+          'Path the async kv server persists its store + replay '
+          'watermarks to (atomic commit per MXTPU_KV_SERVER_SYNC_EVERY '
+          'pushes); a restarted server restores from it so worker '
+          'replay completes training with no lost pushes.')
+_register('MXTPU_KV_SERVER_SYNC_EVERY', 1, int,
+          'Persist the server store every N applied pushes when '
+          'MXTPU_KV_SERVER_BACKING is set (1 = every push: exactly-once '
+          'replay; larger trades durability for throughput).')
+_register('MXTPU_ELASTIC', False, _bool,
+          'Arm the kv server\'s elastic membership plane (dead-rank '
+          'eviction, generation numbers, the join RPC).  The fit loop\'s '
+          'coordinator (elastic.py) is not ported yet; the server '
+          'reads the knob.')
+_register('MXTPU_TELEMETRY', True, _bool,
+          'Piggyback a compact metrics delta on the dist_async '
+          'heartbeat connection (protocol v2 extension, versioned and '
+          'ignored by old servers) so the kv server aggregates a '
+          'cluster-wide telemetry view (telemetry RPC, '
+          'kvstore.DistAsyncKVStore.telemetry).  Only active when the '
+          'metrics registry is on.')
+_register('MXTPU_TELEMETRY_DIR', '', str,
+          'Directory where the dist_async kv server serves the merged '
+          'cluster telemetry as cluster_status.json plus Prometheus '
+          'text exposition cluster_status.prom '
+          '(instrument.render_prometheus), rewritten atomically at '
+          'most once a second as worker deltas arrive.')
 # -- fault injection (resilience.py) -----------------------------------------
 _register('MXTPU_FAULTS', '', str,
           'Fault-injection plan (resilience.py grammar: '

@@ -610,13 +610,27 @@ class Executor:
         updates discarded."""
         if not self._grad_names:
             return
+        heads, leaves = self._backward_heads(out_grads)
+        if heads:
+            torch.autograd.backward([o for o, _ in heads],
+                                    [g for _, g in heads])
+        self._store_grads(leaves)
+
+    def _pend(self):
+        """Make sure a training forward's graph is pending (running the
+        forward again, its aux updates discarded, when none is)."""
+        if self._pending is None:
+            outs, _, leaves = self._run_with_grad()
+            self._pending = (outs, leaves)
+
+    def _backward_heads(self, out_grads):
+        """Take the pending graph: ``(heads, leaves)``, the heads being
+        the (output, head gradient) pairs to differentiate."""
         if not self.outputs:
             raise MXNetError('call forward(is_train=True) before backward()')
-        if self._pending is not None:
-            outs, leaves = self._pending
-            self._pending = None
-        else:
-            outs, _, leaves = self._run_with_grad()
+        self._pend()
+        outs, leaves = self._pending
+        self._pending = None
         if out_grads is None:
             cots = [torch.zeros_like(o) for o in outs]
         else:
@@ -627,10 +641,11 @@ class Executor:
             cots = [(g.handle if isinstance(g, NDArray)
                      else torch.as_tensor(g)).to(o.device, o.dtype)
                     for g, o in zip(out_grads, outs)]
-        heads = [(o, g) for o, g in zip(outs, cots) if o.requires_grad]
-        if heads:
-            torch.autograd.backward([o for o, _ in heads],
-                                    [g for _, g in heads])
+        return [(o, g) for o, g in zip(outs, cots) if o.requires_grad], \
+            leaves
+
+    def _store_grads(self, leaves):
+        """Write the leaves' gradients into ``grad_dict``."""
         for name in self._grad_names:
             g = leaves[name].grad
             if g is None:       # no path from this argument to an output

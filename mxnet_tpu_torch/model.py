@@ -10,7 +10,8 @@ atomic_replace`): a crash mid-save leaves the previous checkpoint, and
 ``FeedForward`` is the legacy estimator of MXNet 0.9 examples; it trains
 through ``Module.fit``.  Its ``ctx`` defaults to ``gpu(0)``, as
 ``Module``'s does: without a CUDA device it raises (pass ``ctx=cpu()``).
-``consensus_latest_checkpoint`` needs the kvstore and is not ported.
+``consensus_latest_checkpoint`` needs the elastic plane's checkpoint
+votes and is not ported yet.
 """
 from __future__ import annotations
 
@@ -226,16 +227,17 @@ class FeedForward(object):
             eval_end_callback=None, eval_batch_end_callback=None,
             checkpoint_prefix=None, checkpoint_period=1, auto_resume=None):
         """Train through ``Module.fit`` (model.py:262); the optimizer's
-        parameters are the constructor's extra keywords."""
+        parameters are the constructor's extra keywords.  A context list
+        (``ctx=[...]``) trains one executor per context, over slices
+        weighted by ``work_load_list``, through ``kvstore``."""
         from .module import Module
-        if work_load_list is not None and len(work_load_list) != 1:
-            raise NotImplementedError('FeedForward trains on one device')
         data = self._init_iter(X, y, is_train=True)
         eval_data = self._init_eval_iter(eval_data)
         self._module = Module(self.symbol,
                               data_names=[data.provide_data[0][0]],
                               label_names=_label_names(self.symbol),
-                              logger=logger or logging, context=self.ctx)
+                              logger=logger or logging, context=self.ctx,
+                              work_load_list=work_load_list)
         optimizer_params = dict(self.kwargs)
         optimizer_params['learning_rate'] = optimizer_params.pop(
             'learning_rate', 0.01)

@@ -1,6 +1,6 @@
-"""The Module API — the port of ``mxnet_tpu/module`` for one device:
-``BaseModule`` (fit/score/predict, checkpoints), ``Module`` and its
-executor group, ``BucketingModule`` (one Module per bucket over shared
+"""The Module API — the port of ``mxnet_tpu/module``: ``BaseModule``
+(fit/score/predict, checkpoints), ``Module`` and its executor group (one
+executor per context, gradients through the kvstore), ``BucketingModule`` (one Module per bucket over shared
 arrays), ``SequentialModule``, ``PythonModule`` and ``PythonLossModule``.
 The pipeline module is not ported."""
 from .base_module import BaseModule

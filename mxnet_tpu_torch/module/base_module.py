@@ -41,8 +41,16 @@ probe is inactive), re-reads the performance plane (``MXTPU_PERFWATCH``,
 ``MXTPU_STEP_SAMPLE``), opens the goodput ledger (``MXTPU_IOWATCH``:
 each step inside ``traced_dispatch``, checkpoints and evaluation in
 their buckets, the ledger closed in a ``finally``), and starts the
-chronicle (``MXTPU_CHRONICLE``).  Elastic membership and ``mesh=`` /
-``partition=`` are not ported; asking for a mesh raises.
+chronicle (``MXTPU_CHRONICLE``).
+
+With a store (``fit(kvstore=...)``, ``Module.init_optimizer``), a fit
+that unwinds with an error leaves it first (``kv.leave()``: the process
+stops heartbeating, so its peers' barriers exclude it), and a
+``dist_async`` fit ends in the store's barrier, which holds every live
+rank until all have flushed their pushes (rank 0 hosts the server).  The
+elastic coordinator (``mxnet_tpu/module/base_module.py:285``,
+``_elastic.activate_fit``) waits for ``elastic.py``, and ``mesh=`` /
+``partition=`` for the mesh; asking for a mesh raises.
 """
 from __future__ import annotations
 
@@ -293,12 +301,27 @@ class BaseModule(object):
             raise
         try:
             try:
-                self._fit_planned(train_data, eval_data, eval_metric,
-                                  validation_metric, epoch_end_callback,
-                                  batch_end_callback, eval_end_callback,
-                                  eval_batch_end_callback, begin_epoch,
-                                  num_epoch, warm_start, checkpoint_prefix,
-                                  checkpoint_period, monitor)
+                try:
+                    self._fit_planned(train_data, eval_data, eval_metric,
+                                      validation_metric, epoch_end_callback,
+                                      batch_end_callback, eval_end_callback,
+                                      eval_batch_end_callback, begin_epoch,
+                                      num_epoch, warm_start,
+                                      checkpoint_prefix, checkpoint_period,
+                                      monitor)
+                except BaseException:
+                    # an unwinding fit leaves the dist store first (stops
+                    # heartbeating): a failed-but-alive process must read
+                    # as dead to its peers, or their end-of-fit barrier
+                    # waits MXTPU_KV_BARRIER_TIMEOUT for it
+                    # (mxnet_tpu/module/base_module.py:366-375)
+                    kv = getattr(self, '_kvstore', None)
+                    if kv is not None and hasattr(kv, 'leave'):
+                        try:
+                            kv.leave()
+                        except Exception:       # noqa: BLE001
+                            pass
+                    raise
             finally:
                 # the skipped-step totals reach the ledger before the
                 # monitor is torn down, from the fit that owns the ledger
@@ -306,6 +329,20 @@ class BaseModule(object):
                     _iowatch.note_health(_health.active_monitor())
                 _health.deactivate()
                 _perfwatch.harvest()
+            # the end-of-fit rendezvous, dist_async only
+            # (mxnet_tpu/module/base_module.py:386-404): rank 0 hosts the
+            # server in-process, so a fast rank must not exit and tear it
+            # down under slower workers.  The barrier flushes this
+            # worker's pushes and holds every LIVE rank (dead ones are
+            # excluded by their heartbeats; the wait is bounded by
+            # MXTPU_KV_BARRIER_TIMEOUT).  dist_sync has no server to
+            # protect and its collective barrier excludes no dead rank,
+            # so it takes none.  Inside the ledger window: the wait is
+            # the 'barrier' bucket.
+            kv = getattr(self, '_kvstore', None)
+            kv_type = getattr(kv, 'type', '')
+            if kv is not None and 'dist' in kv_type and 'async' in kv_type:
+                kv.barrier()
         finally:
             if gp_token is not None:
                 _iowatch.goodput_end(gp_token)

@@ -17,14 +17,17 @@ outputs survive another bucket's replay.  ``_warm_start`` under
 start, and with ``MXTPU_COMPILE_CACHE`` every bucket an earlier
 process's warmup manifest names.
 
-``context`` defaults to ``gpu(0)``, as ``Module``'s does;
-``work_load_list`` is taken for the reference's signature and unused
-(one device).  Bucketed
+``context`` defaults to ``gpu(0)``, as ``Module``'s does; a context list
+and ``work_load_list`` go to every bucket's ``Module`` (one executor per
+context; a bucket's executor ``i`` shares the default bucket's executor
+``i``'s arrays).  A kvstore comes through ``init_optimizer``: the default
+bucket's module makes it, and every bucket borrows it with the optimizer
+(``Module.borrow_optimizer``).  Bucketed
 training is float32, as in the reference (whose BucketingModule takes no
 ``compute_dtype``).  ``install_monitor`` taps every bucket's module, the
 buckets bound later included (each trains through the loop then; the
 reference taps only the buckets bound at the call).  The
-mesh (``_set_parallel``) is not ported and raises.
+mesh (``_set_parallel``) is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -48,6 +51,7 @@ class BucketingModule(BaseModule):
         self._default_bucket_key = default_bucket_key
         self._sym_gen = sym_gen
         self._context = context
+        self._work_load_list = work_load_list
         self._buckets = {}
         self._curr_module = None
         self._curr_bucket_key = None
@@ -120,7 +124,8 @@ class BucketingModule(BaseModule):
     def _new_module(self, bucket_key, made=None):
         symbol, data_names, label_names = made or self._sym_gen(bucket_key)
         return Module(symbol, data_names, label_names, logger=self.logger,
-                      context=self._context)
+                      context=self._context,
+                      work_load_list=self._work_load_list)
 
     def bind(self, data_shapes, label_shapes=None, for_training=True,
              inputs_need_grad=False, force_rebind=False, shared_module=None,

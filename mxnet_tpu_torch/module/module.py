@@ -1,5 +1,5 @@
 """Module — symbol + executor group + optimizer wiring; the port of
-``mxnet_tpu/module/module.py`` for one device (reference
+``mxnet_tpu/module/module.py`` (reference
 ``python/mxnet/module/module.py:323-567``).
 
 ``context`` defaults to ``gpu(0)``: the port trains on the card unless
@@ -49,8 +49,22 @@ INTO those tensors (``_overlay_updater_states``), so the module's graphs
 stay valid.  ``MXTPU_FUSED_FIT=0`` trains through the ``Updater`` loop, and so does a
 module with a monitor installed (``install_monitor``, as
 ``mxnet_tpu/module/module.py:604-606`` does): its step stays eager, by
-rule, counted in ``compile.capture_skipped``.  kvstores, context lists
-and meshes are not ported.
+rule, counted in ``compile.capture_skipped``.
+
+kvstores (``mxnet_tpu/module/module.py:23-53, 441-575``): ``init_optimizer``
+makes the store (``_create_kvstore``: none for ``local``/``device`` on one
+context, ``update_on_kvstore`` unless a ``local`` store would hold an
+array of more than 16M elements), seeds it with the parameters
+(``_initialize_kvstore``) and, with ``update_on_kvstore``, hands it the
+optimizer; ``dist_sync`` rescales gradients by the global batch
+(``num_workers`` times the local one).  ``update`` is then one list-push
+of every executor's gradients and one list-pull, of the weights
+(``update_on_kvstore``) or of the summed gradients (the ``Updater`` runs
+here, one state per parameter and context, as upstream).  A context list
+(one executor per context, ``executor_group.py``) or a ``dist`` store
+trains through ``forward_backward(); update()``, not the fused step, as
+the reference does for a dist store (``mxnet_tpu/module/module.py:
+677-681``).  Meshes (``fit(mesh=)``) are not ported.
 """
 from __future__ import annotations
 
@@ -75,12 +89,44 @@ from .executor_group import DataParallelExecutorGroup
 __all__ = ['Module']
 
 
+def _create_kvstore(kvstore, num_device, arg_params):
+    """The store and ``update_on_kvstore`` (reference model.py:40-77)."""
+    update_on_kvstore = True
+    if kvstore is None:
+        kv = None
+    elif isinstance(kvstore, str):
+        if num_device == 1 and 'dist' not in kvstore:
+            kv = None
+        else:
+            from .. import kvstore as kvs
+            kv = kvs.create(kvstore)
+            if kvstore == 'local':
+                max_size = max(param.size for param in arg_params.values())
+                if max_size > 1024 * 1024 * 16:
+                    update_on_kvstore = False
+    else:
+        kv = kvstore
+    if kv is None:
+        update_on_kvstore = False
+    return (kv, update_on_kvstore)
+
+
+def _initialize_kvstore(kvstore, param_arrays, arg_params, param_names,
+                        update_on_kvstore):
+    """(reference model.py:79)"""
+    for idx, param_on_devs in enumerate(param_arrays):
+        kvstore.init(idx, arg_params[param_names[idx]])
+        if update_on_kvstore:
+            kvstore.pull(idx, param_on_devs, priority=-idx)
+
+
 class Module(BaseModule):
     """(reference module.py:323)"""
 
     def __init__(self, symbol, data_names=('data',),
                  label_names=('softmax_label',), logger=logging,
-                 context=None, fixed_param_names=None, compute_dtype=None):
+                 context=None, work_load_list=None, fixed_param_names=None,
+                 compute_dtype=None):
         super().__init__(logger=logger)
         self._compute_dtype = None if compute_dtype is None \
             else resolve_dtype(compute_dtype)
@@ -91,6 +137,12 @@ class Module(BaseModule):
         for c in context:
             c.torch_device      # raises now when the device is absent
         self._context = context
+        if work_load_list is None:
+            work_load_list = [1] * len(self._context)
+        if len(work_load_list) != len(self._context):
+            raise MXNetError('work_load_list has %d entries for %d contexts'
+                             % (len(work_load_list), len(self._context)))
+        self._work_load_list = list(work_load_list)
 
         self._symbol = symbol
         data_names = list(data_names) if data_names is not None else []
@@ -112,6 +164,8 @@ class Module(BaseModule):
         self._aux_params = None
         self._params_dirty = False
         self._optimizer = None
+        self._kvstore = None
+        self._update_on_kvstore = None
         self._updater = None
         self._preload_opt_states = None
         self._exec_group = None
@@ -181,9 +235,13 @@ class Module(BaseModule):
 
     def save_optimizer_states(self, fname):
         """Pickle the optimizer state (``Updater.get_states``), the fused
-        step's copied out first, committed atomically (module.py:1119)."""
+        step's copied out first, committed atomically (module.py:1119);
+        with ``update_on_kvstore``, the store's."""
         from .. import resilience
         assert self.optimizer_initialized
+        if self._update_on_kvstore:
+            self._kvstore.save_optimizer_states(fname)
+            return
         self._sync_fused_states_to_updater()
         with resilience.atomic_replace(fname) as tmp:
             with open(tmp, 'wb') as fout:
@@ -192,8 +250,11 @@ class Module(BaseModule):
     def load_optimizer_states(self, fname):
         """Load a ``.states`` file (either package's) into the Updater and,
         when the fused step has state, into its tensors in place
-        (module.py:1131)."""
+        (module.py:1131); with ``update_on_kvstore``, into the store's."""
         assert self.optimizer_initialized
+        if self._update_on_kvstore:
+            self._kvstore.load_optimizer_states(fname)
+            return
         with open(fname, 'rb') as f:
             self._updater.set_states(f.read())
         if self._fused_opt_state is not None:
@@ -333,7 +394,8 @@ class Module(BaseModule):
         self._exec_group = DataParallelExecutorGroup(
             self._symbol, self._context, self._data_shapes, self._label_shapes, self._param_names,
             for_training, inputs_need_grad, shared_group, logger=self.logger,
-            fixed_param_names=self._fixed_param_names, grad_req=grad_req)
+            fixed_param_names=self._fixed_param_names, grad_req=grad_req,
+            workload=self._work_load_list)
         if shared_module is not None:
             self.params_initialized = True
             self._arg_params = shared_module._arg_params
@@ -355,19 +417,19 @@ class Module(BaseModule):
     def init_optimizer(self, kvstore='local', optimizer='sgd',
                        optimizer_params=(('learning_rate', 0.01),),
                        force_init=False):
-        """(reference module.py:459).  On one device the reference uses
-        no kvstore for ``'local'``/``'device'``/None; a distributed store
-        is not ported."""
+        """(reference module.py:459; ``mxnet_tpu/module/module.py:
+        441-505`` without its mesh demotion)."""
         assert self.binded and self.params_initialized
         if self.optimizer_initialized and not force_init:
             self.logger.warning('optimizer already initialized, '
                                 'ignoring...')
             return
-        if kvstore is not None and not (isinstance(kvstore, str) and
-                                        'dist' not in kvstore):
-            raise NotImplementedError('kvstore %r is not ported to '
-                                      'mxnet_tpu_torch yet' % (kvstore,))
-        rescale_grad = 1.0 / self._exec_group.batch_size
+        (kvstore, update_on_kvstore) = _create_kvstore(
+            kvstore, len(self._context), self._arg_params)
+        batch_size = self._exec_group.batch_size
+        if kvstore and 'dist' in kvstore.type and '_sync' in kvstore.type:
+            batch_size *= kvstore.num_workers
+        rescale_grad = 1.0 / batch_size
         if isinstance(optimizer, str):
             idx2name = dict(enumerate(self._param_names))
             optimizer_params = dict(optimizer_params)
@@ -378,8 +440,23 @@ class Module(BaseModule):
         elif not isinstance(optimizer, opt.Optimizer):
             raise MXNetError('optimizer must be a name or an Optimizer')
         self._optimizer = optimizer
-        self._updater = opt.get_updater(optimizer)
+        self._kvstore = kvstore
+        self._update_on_kvstore = update_on_kvstore
+        self._updater = None
         self._reset_fused()
+        if kvstore:
+            # the initialized params seed the store
+            execs = self._exec_group.execs
+            _initialize_kvstore(
+                kvstore=kvstore,
+                param_arrays=[[e.arg_dict[n] for e in execs]
+                              for n in self._param_names],
+                arg_params=self._arg_params, param_names=self._param_names,
+                update_on_kvstore=update_on_kvstore)
+        if update_on_kvstore:
+            kvstore.set_optimizer(self._optimizer)
+        else:
+            self._updater = opt.get_updater(optimizer)
         self.optimizer_initialized = True
         if self._preload_opt_states is not None:
             self.load_optimizer_states(self._preload_opt_states)
@@ -392,6 +469,8 @@ class Module(BaseModule):
         module's to share."""
         assert shared_module.optimizer_initialized
         self._optimizer = shared_module._optimizer
+        self._kvstore = shared_module._kvstore
+        self._update_on_kvstore = shared_module._update_on_kvstore
         self._updater = shared_module._updater
         self.optimizer_initialized = True
         self._reset_fused()
@@ -410,16 +489,37 @@ class Module(BaseModule):
         self._exec_group.forward_backward(data_batch)
 
     def update(self):
-        """(reference module.py:551 -> model.py:88-131): the updater on
-        every parameter with a gradient."""
+        """(reference module.py:551 -> model.py:88-131).  With a store:
+        one list-push of every executor's gradients (a dist_sync store
+        reduces the whole group in one flat all-reduce,
+        ``collectives.allreduce_hosts_batch``) and one list-pull, of the
+        weights with ``update_on_kvstore``, else of the summed gradients,
+        which the ``Updater`` then applies on every executor (index
+        ``idx * num_device + k``, one state per context, as upstream's
+        ``_update_params``)."""
         assert self.binded and self.params_initialized and \
             self.optimizer_initialized
         self._params_dirty = True
-        exec_ = self._exec_group.execs[0]
-        for idx, name in enumerate(self._param_names):
-            if name in exec_.grad_dict:
-                self._updater(idx, exec_.grad_dict[name],
-                              exec_.arg_dict[name])
+        execs = self._exec_group.execs
+        live = [(idx, name) for idx, name in
+                enumerate(self._param_names) if name in execs[0].grad_dict]
+        idxs = [i for i, _ in live]
+        grads = [[e.grad_dict[n] for e in execs] for _, n in live]
+        kvstore = self._kvstore
+        with instrument.span('module.update', cat='executor'):
+            if self._update_on_kvstore:
+                kvstore.push(idxs, grads)
+                kvstore.pull(idxs, [[e.arg_dict[n] for e in execs]
+                                    for _, n in live])
+                return
+            if kvstore:
+                kvstore.push(idxs, grads)
+                kvstore.pull(idxs, grads)
+            num_device = len(execs)
+            for idx, name in live:
+                for k, e in enumerate(execs):
+                    self._updater(idx * num_device + k, e.grad_dict[name],
+                                  e.arg_dict[name])
 
     def get_outputs(self, merge_multi_context=True):
         assert self.binded and self.params_initialized
@@ -713,6 +813,12 @@ class Module(BaseModule):
                 self.optimizer_initialized):
             return
         if self._exec_group.execs[0]._monitor_callback is not None:
+            return
+        if len(self._exec_group.execs) > 1 or (
+                self._kvstore is not None and
+                'dist' in self._kvstore.type):
+            # one executor per context, or a dist store: gradients go
+            # through the store (mxnet_tpu/module/module.py:677-681)
             return
         if self.inputs_need_grad or \
                 self._exec_group.grad_req_spec != 'write':

@@ -24,8 +24,10 @@ package computes convolution and matmul outside any Pallas kernel
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -525,13 +527,40 @@ register('SVMOutput',
 # written back by the executor.
 # ---------------------------------------------------------------------------
 
+_shared = threading.local()
+
+
+@contextlib.contextmanager
+def shared_batch_stats(group, index):
+    """Inside the block, this thread's batch statistics are those of the
+    rows of every member of ``group`` (``index`` is this thread's member):
+    ``group.moments(index, x32, axes)`` gives the E[x] and E[x^2] of them
+    all (``executor_group``'s executors of one batch, whose JAX
+    counterpart is one program over the whole batch)."""
+    prev = getattr(_shared, 'member', None)
+    _shared.member = (group, index)
+    try:
+        yield
+    finally:
+        _shared.member = prev
+
+
+def _moments(x32, axes):
+    member = getattr(_shared, 'member', None)
+    if member is None:
+        return torch.mean(x32, dim=axes), torch.mean(x32 * x32, dim=axes)
+    group, index = member
+    return group.moments(index, x32, axes)
+
+
 def batch_norm_stats(data, moving_mean, moving_var, axes, momentum,
                      use_batch_stats):
     """Shared stats step: returns ``(mean, var, aux_updates)``.
 
     Batch statistics take the one-pass f32 E[x] / E[x^2] form of the
     JAX op, clamping the cancellation at zero; the gradient flows
-    through the batch mean and variance.  The moving statistics are
+    through the batch mean and variance (over the rows of a whole group
+    inside :func:`shared_batch_stats`).  The moving statistics are
     never differentiated (their updates are detached, as the JAX op's
     ``stop_gradient``), and are cast to the data dtype when used.  Also
     the stats step of the fused BN ops (fuse.py) — ONE copy, so fused
@@ -539,11 +568,11 @@ def batch_norm_stats(data, moving_mean, moving_var, axes, momentum,
     """
     if use_batch_stats:
         x32 = data.float()
-        mean32 = torch.mean(x32, dim=axes)
+        mean32, sq32 = _moments(x32, axes)
         # torch.maximum, not clamp: at a zero variance (a constant
         # channel) it splits the gradient 0.5/0.5 as jnp.maximum does
-        var32 = torch.maximum(torch.mean(x32 * x32, dim=axes)
-                              - mean32 * mean32, torch.zeros_like(mean32))
+        var32 = torch.maximum(sq32 - mean32 * mean32,
+                              torch.zeros_like(mean32))
         aux_updates = {
             'moving_mean': (momentum * moving_mean
                             + (1 - momentum) * mean32).detach(),

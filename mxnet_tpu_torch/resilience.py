@@ -12,7 +12,9 @@ serving fleet's supervision drills run.
             fleet fires 'serve.execute.r<id>' (inside the replica lock,
             before the forward), 'serve.flush.r<id>' (the batcher's
             flush) and 'serve.worker.r<id>' (the worker loop, a
-            thread_kill site).
+            thread_kill site).  The kv server and its client fire
+            'server.recv', 'server.apply', 'server.barrier',
+            'client.send' and 'client.recv' (``kvstore_server.py``).
     action  drop:P        ask the caller to drop, with probability P
             delay:P:SECS  sleep SECS with probability P
             sever:P       raise InjectedFault with probability P
@@ -26,8 +28,9 @@ serving fleet's supervision drills run.
                           instead (the worker dies, the process lives
                           to replace it)
 
-``MXTPU_FAULTS_SEED`` pins the coin flips.  The reference's
-``RetryPolicy`` belongs to the distributed plane and is not ported.
+``MXTPU_FAULTS_SEED`` pins the coin flips.  :class:`RetryPolicy`
+(``mxnet_tpu/resilience.py:89``) is the kv client's backoff: the same
+delay sequence as the reference's for the same seed.
 """
 from __future__ import annotations
 
@@ -40,10 +43,78 @@ import threading
 import time
 
 from . import config
+from . import iowatch
 
-__all__ = ['atomic_replace', 'faults_on', 'fault_point', 'set_faults',
+__all__ = ['RetryPolicy', 'atomic_replace', 'faults_on', 'fault_point', 'set_faults',
            'clear_faults', 'FaultPlan', 'InjectedFault', 'InjectedDeath',
            'on_kill']
+
+
+class RetryPolicy(object):
+    """Exponential backoff with jitter and a per-op deadline
+    (``mxnet_tpu/resilience.py:89``).
+
+    ``delay(attempt)`` for attempt 0, 1, 2, ... is
+    ``min(base * multiplier**attempt, max_delay)`` scaled by a uniform
+    jitter factor in ``[1, 1+jitter]``, drawn from a ``random.Random``
+    of ``seed``: the reference's sequence for the same seed."""
+
+    __slots__ = ('base', 'multiplier', 'max_delay', 'jitter',
+                 'deadline', 'max_retries', '_rng')
+
+    def __init__(self, base=0.05, multiplier=2.0, max_delay=2.0,
+                 jitter=0.25, deadline=120.0, max_retries=None, seed=None):
+        assert base >= 0 and multiplier >= 1.0 and max_delay >= base
+        assert jitter >= 0
+        self.base = float(base)
+        self.multiplier = float(multiplier)
+        self.max_delay = float(max_delay)
+        self.jitter = float(jitter)
+        self.deadline = float(deadline)
+        self.max_retries = max_retries
+        self._rng = random.Random(seed)
+
+    @classmethod
+    def from_env(cls, seed=None):
+        """From the ``MXTPU_KV_RETRY_*`` / ``MXTPU_KV_OP_DEADLINE``
+        knobs."""
+        return cls(base=config.get('MXTPU_KV_RETRY_BASE'),
+                   max_delay=config.get('MXTPU_KV_RETRY_MAX'),
+                   jitter=config.get('MXTPU_KV_RETRY_JITTER'),
+                   deadline=config.get('MXTPU_KV_OP_DEADLINE'),
+                   seed=seed)
+
+    def delay(self, attempt):
+        """Backoff before retry number ``attempt`` (0-based)."""
+        d = min(self.base * (self.multiplier ** attempt), self.max_delay)
+        if self.jitter:
+            d *= 1.0 + self._rng.uniform(0.0, self.jitter)
+        return d
+
+    def run(self, fn, retry_on=(OSError,), deadline=None, on_retry=None):
+        """Call ``fn`` until it returns, raising when the attempt budget
+        or the wall-clock deadline (seconds, default ``self.deadline``)
+        would be exceeded by the next backoff sleep.  ``on_retry(attempt,
+        exc)`` observes each retry."""
+        t_end = time.monotonic() + (self.deadline if deadline is None
+                                    else deadline)
+        attempt = 0
+        while True:
+            try:
+                return fn()
+            except retry_on as e:
+                if (self.max_retries is not None
+                        and attempt >= self.max_retries):
+                    raise
+                d = self.delay(attempt)
+                if time.monotonic() + d >= t_end:
+                    raise
+                if on_retry is not None:
+                    on_retry(attempt, e)
+                # a backoff sleep on the fit thread is recovery badput
+                with iowatch.account('recovery'):
+                    time.sleep(d)
+                attempt += 1
 
 
 def _process_umask():

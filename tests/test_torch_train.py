@@ -425,5 +425,5 @@ def test_fit_refuses_unported_options():
                             np.zeros(4, np.float32), batch_size=2)
     with pytest.raises(NotImplementedError, match='mesh'):
         m.fit(it, num_epoch=1, mesh='2x1')
-    with pytest.raises(NotImplementedError, match='kvstore'):
-        m.fit(it, num_epoch=1, kvstore='dist_sync')
+    with pytest.raises(NotImplementedError, match='partition'):
+        m.fit(it, num_epoch=1, partition='auto')
