@@ -489,6 +489,27 @@ graphs held), and peak allocated and reserved device memory.
                   The observability ones: skip_update restores a captured
                   step bit for bit, the probe only reads, abort raises at
                   the drain, perfwatch counts the step before its capture.
+14. mesh-fit    — the dp x tp product path in one process: ResNet-50 v2
+                  (bf16 over f32 masters, 32 rows, SGD momentum, cuDNN
+                  deterministic, MESH_STEPS captured steps) unmeshed, then
+                  fit(mesh='1x1', partition='auto'): parameters, aux and
+                  the metric bit for bit, #1/#4/#2 at 36/16/2 a step from
+                  replays, each fit's step ms; the '1x1' fit writes an
+                  MXTPU_COMPILE_CACHE's manifest, and the same fit in a
+                  second process with MXTPU_WARM_START warms from it: 0
+                  captures on its hot path, its parameters this one's.
+15. mesh-ranks  — ranks sharing the card on gloo (tools/launch.py over
+                  --mesh-worker): '2x1' replicated, '1x2' and '2x2' auto,
+                  ResNet-50 v2 f32 (TF32 off) over the global batch of 32
+                  rows, MESH_RANK_STEPS eager steps (see mesh_ranks: the
+                  launches of every rank, the parameters against a
+                  one-process '1x1' fit within the f32 noise floor measured
+                  in the same run, each rank's optimizer-state bytes, the
+                  step's collectives against the ring formula, '1x1' moving
+                  0 bytes, the step ms split into compute, reduce-scatter,
+                  all-gather and BatchNorm all-reduce).  The ranks' kernel
+                  shapes (f32 at 16 and 32 rows) are kv-local's and the
+                  kernels phase's cases.
 
 Then the card's nvidia-smi line, the kernels summary line (the entries of
 the GEMM, conv and attention kernels also carry path_route,
@@ -2202,7 +2223,7 @@ def warm_start_phase():
             'params_bit_for_bit': True}
 
 
-NATIVE_ABANDON_CHILDREN = 10
+NATIVE_ABANDON_CHILDREN = 5     # at once (the CPU tests run 10)
 NATIVE_ABANDON_TIMEOUT = 60     # seconds, each
 
 
@@ -2258,25 +2279,24 @@ def native_engine_phase(mx, torch, models, convert, tmp):
                              'epoch of %d batches' % (
                                  len(events), MNIST_IMAGES // MNIST_BATCH))
     children = []
-    for wave in (range(0, 5), range(5, NATIVE_ABANDON_CHILDREN)):
-        procs = [(i, time.monotonic(), subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), '--abandon-child',
-             str(i)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True, env=dict(os.environ, CUDA_VISIBLE_DEVICES='')))
-            for i in wave]
-        for i, t0, p in procs:
-            try:
-                out, err = p.communicate(timeout=NATIVE_ABANDON_TIMEOUT)
-                rc = p.returncode
-            except subprocess.TimeoutExpired:
-                p.kill()
-                out, err = p.communicate()
-                rc = 'timeout'
-            children.append({'child': i, 'rc': rc,
-                             'seconds': time.monotonic() - t0,
-                             'abandoned': 'abandoned %d' % i in out})
-            if rc != 0 or 'abandoned %d' % i not in out:
-                print(err[-3000:], file=sys.stderr)
+    procs = [(i, time.monotonic(), subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), '--abandon-child',
+         str(i)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=dict(os.environ, CUDA_VISIBLE_DEVICES='')))
+        for i in range(NATIVE_ABANDON_CHILDREN)]
+    for i, t0, p in procs:
+        try:
+            out, err = p.communicate(timeout=NATIVE_ABANDON_TIMEOUT)
+            rc = p.returncode
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out, err = p.communicate()
+            rc = 'timeout'
+        children.append({'child': i, 'rc': rc,
+                         'seconds': time.monotonic() - t0,
+                         'abandoned': 'abandoned %d' % i in out})
+        if rc != 0 or 'abandoned %d' % i not in out:
+            print(err[-3000:], file=sys.stderr)
     bad = [c for c in children if c['rc'] != 0 or not c['abandoned']]
     if bad:
         raise AssertionError('native-engine: children that did not exit 0 '
@@ -7093,10 +7113,12 @@ def kv_local(mx, torch, symbol, arg, aux, kernels, bn_relu_nodes):
             'noise_factor': KV_NOISE_FACTOR}, launches, one_params
 
 
-def kv_cluster(nworkers, mode, out_dir, extra_env=None):
+def kv_cluster(nworkers, mode, out_dir, extra_env=None, flag='--kv-worker',
+               argv=None):
     """``tools/launch.py -n nworkers --launcher local`` over this script's
-    ``--kv-worker mode``; the process group is killed past
-    KV_CLUSTER_TIMEOUT.  Returns (wall s, the workers' reports)."""
+    ``flag`` entry (``--kv-worker mode out_dir`` unless ``argv`` is given);
+    the process group is killed past KV_CLUSTER_TIMEOUT.  Returns (wall
+    s, the workers' reports)."""
     root = os.path.dirname(os.path.abspath(__file__))
     port = free_port_pair()
     env = dict(os.environ)
@@ -7104,9 +7126,8 @@ def kv_cluster(nworkers, mode, out_dir, extra_env=None):
     env.update(extra_env or {})
     cmd = [sys.executable, os.path.join(root, 'tools', 'launch.py'),
            '-n', str(nworkers), '--launcher', 'local', '--port', str(port),
-           '%s %s --kv-worker %s %s' % (sys.executable,
-                                        os.path.abspath(__file__), mode,
-                                        out_dir)]
+           ' '.join([sys.executable, os.path.abspath(__file__), flag]
+                    + list(argv or [mode, out_dir]))]
     t0 = time.monotonic()
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True, env=env,
@@ -7431,6 +7452,430 @@ def feed_capture_phase():
                              % (summary['red'], summary['children'],
                                 report['errors']))
     return report
+
+
+# -- the dp x tp mesh (mesh-fit, mesh-ranks) --------------------------------
+MESH_STEPS = 4              # mesh-fit: captured steps of each fit
+MESH_RANK_STEPS = 3         # mesh-ranks: eager steps of each job
+# one launch of ranks per world size, its meshes fit one after another
+MESH_RANKS = ((('2x1', 'replicated'), ('1x2', 'auto')),
+              (('2x2', 'auto'),))
+MESH_TIMEOUT = 300          # seconds, each launcher run and child
+
+
+def mesh_data(rows):
+    """The mesh phases' images and labels: the same rows in every
+    process."""
+    rng = np.random.default_rng(SEED + 23)
+    x = rng.standard_normal((rows,) + IMAGE, dtype=np.float32)
+    y = rng.integers(0, 1000, rows).astype(np.float32)
+    return x, y
+
+
+def mesh_fit_run(mx, torch, symbol, arg, aux, x, y, kernels, dtype=None,
+                 **fit_kw):
+    """One ``Module.fit`` of ``symbol`` at BATCH rows a global batch (SGD
+    lr 0.05 momentum 0.9 wd 1e-4, metrics acc and ce), a synchronise
+    after each step.  Returns the module, each step's host seconds, the
+    launches per step by kernel and the fit's launches by kernel (counts
+    zeroed just before the fit, read just after) and the metric's
+    reading."""
+    times, last = [], [0.0]
+
+    def tick(_):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        times.append(now - last[0])
+        last[0] = time.perf_counter()
+    for k in kernels:
+        reset_launches(k)
+    counts0 = launch_counts(kernels)
+    metric = mx.metric.create(['acc', 'ce'])
+    mod = mx.mod.Module(symbol, context=mx.gpu(0), compute_dtype=dtype)
+    last[0] = time.perf_counter()
+    mod.fit(mx.io.NDArrayIter(x, y, batch_size=BATCH), num_epoch=1,
+            eval_metric=metric, optimizer='sgd',
+            optimizer_params=dict(SGD_MOMENTUM), batch_end_callback=tick,
+            arg_params={k: mx.nd.array(v) for k, v in arg.items()},
+            aux_params={k: mx.nd.array(v) for k, v in aux.items()},
+            **fit_kw)
+    torch.cuda.synchronize()
+    counts = launch_counts(kernels)
+    per_step = launches_per_step(counts0, counts, len(times))
+    totals = {k: n - counts0[k][0] for k, (n, _) in counts.items()}
+    return mod, times, per_step, totals, metric.get_name_value()
+
+
+def mesh_state(mod):
+    args, auxs = mod.get_params()
+    out = {'arg:' + k: v.asnumpy() for k, v in args.items()}
+    out.update({'aux:' + k: v.asnumpy() for k, v in auxs.items()})
+    return out
+
+
+def mesh_launches_ok(per_step, expected):
+    return {k: per_step.get(k, {}).get('all') for k in expected} == \
+        {k: float(v) for k, v in expected.items()}
+
+
+def mesh_warm_child():
+    """The second process of mesh-fit's warm start
+    (``--mesh-warm-child``): the '1x1' fit of ResNet-50 v2 (bf16, BATCH
+    rows, MESH_STEPS steps) with ``MXTPU_WARM_START`` over the
+    ``MXTPU_COMPILE_CACHE`` whose manifest its parent's '1x1' fit wrote.
+    Prints one JSON line: the captures on the hot path and in the warm
+    start, the parameters' digest."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import compile_cache, convert, instrument
+    from mxnet_tpu_torch.models import resnet
+    os.environ['MXTPU_FUSE'] = 'aggressive'
+    deterministic(torch, True)
+    instrument.set_metrics(True)
+    symbol = resnet.get_symbol(num_classes=1000, num_layers=50,
+                               image_shape=IMAGE)
+    arg, aux = convert.random_params(symbol, {'data': (BATCH,) + IMAGE},
+                                     SEED)
+    x, y = mesh_data(BATCH * MESH_STEPS)
+    before = _warm_counters(instrument)
+    mod, times, _, _, _ = mesh_fit_run(
+        mx, torch, symbol, arg, aux, x, y, (), dtype=torch.bfloat16,
+        mesh='1x1', partition='auto')
+    after = _warm_counters(instrument)
+    metas = sorted({json.dumps(e.get('meta', {}).get('mesh'))
+                    for e in compile_cache.manifest_entries('fit_step')})
+    log({'warm_start': bool(os.environ.get('MXTPU_WARM_START')),
+         'hot_path_captures': after['compile.traces']
+         - before['compile.traces'],
+         'warmup_traces': after['compile.warmup_traces']
+         - before['compile.warmup_traces'],
+         'captured': all(c.captured for c in mod._graphs.values()),
+         'step_ms': [t * 1e3 for t in times], 'manifest_meshes': metas,
+         'params_sha256': _digest(mesh_state(mod))})
+    return 0
+
+
+def mesh_warm(cache, digest):
+    """The '1x1' fit again in a second process, with ``MXTPU_WARM_START``
+    over the ``MXTPU_COMPILE_CACHE`` (``cache``) this process's '1x1' fit
+    wrote: it takes no capture on the hot path and ends bit for bit where
+    this process's fit did (``digest``)."""
+    env = dict(os.environ, MXTPU_COMPILE_CACHE=cache, MXTPU_WARM_START='1')
+    t0 = time.monotonic()
+    done = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), '--mesh-warm-child'],
+        env=env, capture_output=True, text=True, timeout=MESH_TIMEOUT)
+    if done.returncode != 0:
+        print(done.stdout[-4000:], done.stderr[-6000:], file=sys.stderr)
+        raise AssertionError('mesh-fit: the warm child exited %d'
+                             % done.returncode)
+    warm = json.loads(done.stdout.strip().splitlines()[-1])
+    warm['process_s'] = time.monotonic() - t0
+    if warm['hot_path_captures'] != 0 or warm['warmup_traces'] < 1 or \
+            not warm['captured'] or warm['params_sha256'] != digest or \
+            warm['manifest_meshes'] != ['"dp=1,tp=1|auto"']:
+        raise AssertionError('mesh-fit warm start: %s (this process\'s '
+                             'digest %s)' % (warm, digest))
+    return warm
+
+
+def mesh_fit(mx, torch, symbol, arg, aux, kernels, expected, tmp):
+    """mesh-fit: ResNet-50 v2 (bf16 compute over f32 masters, BATCH rows,
+    MESH_STEPS captured steps, cuDNN deterministic) unmeshed, then
+    ``fit(mesh='1x1', partition='auto')``: parameters, aux and the metric
+    bit for bit, #1/#4/#2 at 36/16/2 a step from replays in both, each
+    fit's step ms.  The '1x1' fit runs over an ``MXTPU_COMPILE_CACHE``,
+    so this process is the warm start's cold one; then a second process
+    warms from its manifest (:func:`mesh_warm`)."""
+    from mxnet_tpu_torch import compile_cache
+    deterministic(torch, True)
+    x, y = mesh_data(BATCH * MESH_STEPS)
+    cache = os.path.join(tmp, 'mesh-cache')
+    runs, states, launches = {}, {}, dict.fromkeys(expected, 0)
+    for name, kw in (('unmeshed', {}),
+                     ('1x1', {'mesh': '1x1', 'partition': 'auto'})):
+        fresh_memory(torch)
+        if name == '1x1':
+            os.environ['MXTPU_COMPILE_CACHE'] = cache
+        try:
+            mod, times, per_step, totals, metric = mesh_fit_run(
+                mx, torch, symbol, arg, aux, x, y, kernels,
+                dtype=torch.bfloat16, **kw)
+        finally:
+            os.environ.pop('MXTPU_COMPILE_CACHE', None)
+        if name == '1x1' and compile_cache.cache_dir() != cache:
+            raise AssertionError('mesh-fit: the 1x1 fit wrote to the '
+                                 'compile cache %r, not %r'
+                                 % (compile_cache.cache_dir(), cache))
+        if not mesh_launches_ok(per_step, expected):
+            raise AssertionError('mesh-fit %s: launches per step %s, '
+                                 'expected %s' % (name, per_step, expected))
+        caps = list(mod._graphs.values())
+        if not caps or not all(c.captured for c in caps):
+            raise AssertionError('mesh-fit %s: the step was not captured: %s'
+                                 % (name, graph_report(caps)))
+        for k in expected:
+            launches[k] += totals[k]
+        states[name] = mesh_state(mod)
+        runs[name] = {'step_ms': [t * 1e3 for t in times],
+                      'step_ms_median_after_first':
+                          statistics.median(times[1:]) * 1e3,
+                      'launches_per_step': per_step, 'metric': metric,
+                      'graphs': graph_report(caps),
+                      'mesh_sig': mod._mesh_sig, **memory(torch)}
+        del mod
+    bad = [k for k in states['unmeshed']
+           if not np.array_equal(states['unmeshed'][k], states['1x1'][k])]
+    if bad or runs['unmeshed']['metric'] != runs['1x1']['metric']:
+        raise AssertionError('mesh-fit: 1x1 is not the unmeshed fit bit for '
+                             'bit: %d arrays differ (%s), metric %s vs %s'
+                             % (len(bad), bad[:4], runs['1x1']['metric'],
+                                runs['unmeshed']['metric']))
+    warm = mesh_warm(cache, _digest(states['1x1']))
+    deterministic(torch, False)
+    return {'runs': runs, 'bit_for_bit': True, 'warm_start': warm,
+            'steps': MESH_STEPS, 'rows': BATCH}, launches
+
+
+def mesh_worker(out_dir, cases):
+    """One rank of mesh-ranks (``--mesh-worker out_dir mesh:part,...``),
+    started by tools/launch.py, every rank on the one card (gloo): for
+    each case, Module.fit of ResNet-50 v2 (f32, TF32 off, cuDNN
+    deterministic) over the global batch of BATCH rows with that
+    ``mesh=``/``partition=``, MESH_RANK_STEPS eager steps, MXTPU_COMMWATCH
+    on.  Writes rank<r>.json (per case: step seconds, the last step's
+    collectives by kind with their seconds, launches, the resident
+    optimizer state by leaf)
+    and, on rank 0, <mesh>_<part>.npz of the parameters and aux."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import commwatch, convert
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.ops import fused, fused_conv
+    from mxnet_tpu_torch.parallel import collectives
+    os.environ['MXTPU_FUSE'] = 'aggressive'
+    os.environ['MXTPU_COMMWATCH'] = '1'
+    deterministic(torch, True)
+    backend = collectives.init_distributed()
+    rank, nranks = collectives.rank(), collectives.world_size()
+    symbol = resnet.get_symbol(num_classes=1000, num_layers=50,
+                               image_shape=IMAGE)
+    arg, aux = convert.random_params(symbol, {'data': (BATCH,) + IMAGE},
+                                     SEED)
+    x, y = mesh_data(BATCH * MESH_RANK_STEPS)
+    kernels = (fused.fused_scale_bias_dot,
+               fused_conv.fused_scale_bias_conv3x3, fused.fused_bn_relu)
+    report = {'rank': rank, 'ranks': nranks, 'backend': backend,
+              'cases': {}}
+    for case in cases.split(','):
+        mesh, partition = case.split(':')
+        commwatch.clear_programs()
+        t0 = time.perf_counter()
+        mod, times, _, totals, metric = mesh_fit_run(
+            mx, torch, symbol, arg, aux, x, y, kernels, mesh=mesh,
+            partition=partition)
+        fit_s = time.perf_counter() - t0
+        (row,) = commwatch.programs()
+        state = mesh_state(mod)
+        report['cases'][case] = {
+            'rank': rank, 'mesh': mesh, 'partition': partition,
+            'coords': list(mod._mesh_plan.mesh.coords),
+            'fit_s': fit_s, 'step_s': times, 'metric': metric,
+            'launches': totals,
+            'comm': row, 'tp_dims': mod._fused.zero.tp_dims,
+            'opt_leaf_bytes': {n: [t.numel() * t.element_size() for t in
+                                   (s if isinstance(s, tuple) else (s,))
+                                   if t is not None]
+                               for n, s in mod._fused_opt_state.items()},
+            'param_shapes': {n: list(v.shape) for n, v in arg.items()},
+            'params_sha256': _digest(state)}
+        if rank == 0:
+            np.savez(os.path.join(out_dir, '%s_%s.npz' % (mesh, partition)),
+                     **state)
+        del mod
+    collectives.host_barrier()
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    with open(os.path.join(out_dir, 'rank%d.json' % rank), 'w') as f:
+        json.dump(report, f)
+    print('mesh worker %s rank %d of %d done' % (cases, rank, nranks),
+          flush=True)
+    return 0
+
+
+def mesh_bn_payloads(mx, symbol):
+    """The BatchNorm statistics a training step all-reduces over dp: per
+    node of the aggressive training program that computes them
+    (BatchNorm, and the fused _bn_relu / _bn_relu_conv, one computation
+    each: a BatchNorm whose output feeds two fused convs is computed in
+    both), its sums of x and x^2 (8C bytes), once in the forward and once
+    more in the backward unless its input is the data (no gradient)."""
+    prog = mx.fuse.apply_fuse_passes(symbol, True, 'aggressive')
+    arg_shapes = dict(zip(prog.list_arguments(),
+                          prog.infer_shape(data=(BATCH,) + IMAGE)[0]))
+    out = []
+    for node in prog.topo_nodes():
+        if node.is_variable or node.op not in ('BatchNorm', '_bn_relu',
+                                               '_bn_relu_conv'):
+            continue
+        gamma = [src.name for src, _ in node.inputs if src.is_variable and
+                 src.name.endswith('_gamma')][0]
+        src0 = node.inputs[0][0]
+        out.append((8 * arg_shapes[gamma][0],
+                    not (src0.is_variable and src0.name == 'data')))
+    return out
+
+
+def mesh_ranks_case(mx, reps, state, one_state, noise, bn, expected, mesh,
+                    part):
+    """One mesh of mesh-ranks held (see :func:`mesh_ranks`): ``reps`` the
+    ranks' reports, ``state`` rank 0's parameters and aux.  Returns the
+    report row and the launches of #1/#4/#2 by kernel."""
+    axes = mx.parallel.mesh.parse_mesh_spec(mesh)
+    dp, tp = axes['dp'], axes['tp']
+    failures, launches = [], dict.fromkeys(expected, 0)
+    if len({r['params_sha256'] for r in reps}) != 1:
+        failures.append('the ranks\' parameters differ')
+    rel = max_rel(state, one_state)
+    if not rel <= KV_NOISE_FACTOR * noise:
+        failures.append('%.3g from the 1x1 fit, past %g times the f32 '
+                        'noise floor %.3g' % (rel, KV_NOISE_FACTOR, noise))
+    want_bn = sum(2.0 * (dp - 1) / dp * b * (2 if twice else 1)
+                  for b, twice in bn)
+    for r in reps:
+        steps = len(r['step_s'])
+        for k, n in expected.items():
+            if r['launches'].get(k) != n * steps:
+                failures.append('rank %d: %s launched %s in %d steps'
+                                % (r['rank'], k, r['launches'].get(k),
+                                   steps))
+            launches[k] += r['launches'].get(k, 0)
+        padded = sharded = 0
+        for name, shape in r['param_shapes'].items():
+            size = int(np.prod(shape))
+            owned = size // tp if r['tp_dims'][name] is not None else size
+            padded += -(-owned // dp) * dp * 4
+            sharded += size * 4 if r['tp_dims'][name] is not None else 0
+            if r['opt_leaf_bytes'][name] != [-(-owned // dp) * 4]:
+                failures.append('rank %d: %s holds %s optimizer bytes, '
+                                'expected %d of %d' % (
+                                    r['rank'], name,
+                                    r['opt_leaf_bytes'][name],
+                                    -(-owned // dp) * 4, size * 4))
+        kinds = r['comm']['collectives']
+        # the all-gathers: the ZeRO one over dp and the tp one
+        zero_wire = kinds.get('reduce-scatter', {}).get('wire_bytes', 0.0) \
+            + kinds.get('all-gather', {}).get('wire_bytes', 0.0) \
+            - sharded * (tp - 1) / tp
+        want_zero = 2.0 * (dp - 1) / dp * padded
+        got_bn = kinds.get('all-reduce', {}).get('wire_bytes', 0.0)
+        if abs(zero_wire - want_zero) > 1e-6 * max(want_zero, 1.0) or \
+                abs(got_bn - want_bn) > 1e-6 * max(want_bn, 1.0):
+            failures.append('rank %d: wire bytes a step: ZeRO %r (ring '
+                            'formula %r), BatchNorm %r (%r)'
+                            % (r['rank'], zero_wire, want_zero, got_bn,
+                               want_bn))
+    if failures:
+        raise AssertionError('mesh-ranks %s %s: %s'
+                             % (mesh, part, '; '.join(failures)))
+    split = []
+    for r in reps:
+        ms = statistics.median(r['step_s'][1:]) * 1e3
+        sec = {k: v['seconds'] * 1e3
+               for k, v in r['comm']['collectives'].items()}
+        split.append({'step_ms': ms,
+                      'reduce_scatter_ms': sec.get('reduce-scatter', 0.0),
+                      'all_gather_ms': sec.get('all-gather', 0.0),
+                      'bn_all_reduce_ms': sec.get('all-reduce', 0.0),
+                      'compute_ms': ms - sum(sec.values())})
+    return {'ranks': dp * tp,
+            'max_rel_vs_1x1': rel, 'split_median_after_first': split,
+            'bytes_per_step': reps[0]['comm']['wire_bytes_per_step'],
+            'zero_ring_formula_bytes': want_zero,
+            'bn_ring_formula_bytes': want_bn,
+            'opt_state_bytes_per_rank': [sum(sum(b) for b in
+                                             r['opt_leaf_bytes'].values())
+                                         for r in reps],
+            'collectives': reps[0]['comm']['collectives'],
+            'metric': reps[0]['metric'],
+            'coords': [r['coords'] for r in reps]}, launches
+
+
+def mesh_ranks(mx, torch, symbol, arg, aux, kernels, expected, tmp):
+    """mesh-ranks: ResNet-50 v2 f32 over meshes of ranks sharing the card
+    on gloo (tools/launch.py over ``--mesh-worker``), MESH_RANK_STEPS eager
+    steps of the global batch of BATCH rows each.  Held: every rank's
+    #1/#4/#2 launches (36/16/2 a rank step); every rank's parameters and
+    aux equal and within KV_NOISE_FACTOR times the f32 noise floor of a
+    one-process '1x1' eager fit over the same rows, the floor measured
+    here (the '1x1' fit over every batch's rows in another order); each
+    rank's resident optimizer state (1/dp of every leaf, 1/(dp*tp) of a
+    tp-sharded one); the step's collectives against the ring formula:
+    the ZeRO pair 2(dp-1)/dp of the padded owned parameter bytes, the tp
+    all-gather (tp-1)/tp of the tp-sharded bytes, the BatchNorm
+    all-reduces 2(dp-1)/dp of their payloads; '1x1' moves 0 bytes.  The
+    step ms split into compute, reduce-scatter, all-gather and the
+    BatchNorm all-reduce (commwatch times each collective with the card
+    synchronised around it)."""
+    from mxnet_tpu_torch import commwatch, instrument
+    deterministic(torch, True)
+    x, y = mesh_data(BATCH * MESH_RANK_STEPS)
+    set_engine(mx, True)
+    os.environ['MXTPU_COMMWATCH'] = '1'
+    try:
+        fresh_memory(torch)
+        one, one_s, one_launches, _, _ = mesh_fit_run(
+            mx, torch, symbol, arg, aux, x, y, kernels, mesh='1x1',
+            partition='auto')
+        one_bytes = instrument.metrics_snapshot()['gauges'].get(
+            'comm.bytes_per_step')
+    finally:
+        os.environ.pop('MXTPU_COMMWATCH')
+        commwatch.refresh()
+    if one_bytes != 0.0:
+        raise AssertionError('mesh-ranks: 1x1 moved %r bytes a step'
+                             % one_bytes)
+    one_state = mesh_state(one)
+    del one
+    order = np.concatenate([b * BATCH + np.random.default_rng(
+        SEED + 24).permutation(BATCH) for b in range(MESH_RANK_STEPS)])
+    fresh_memory(torch)
+    other, _, _, _, _ = mesh_fit_run(mx, torch, symbol, arg, aux,
+                                     x[order], y[order], kernels,
+                                     mesh='1x1')
+    noise = max_rel(mesh_state(other), one_state)
+    del other
+    set_engine(mx, False)
+    deterministic(torch, False)
+    bn = mesh_bn_payloads(mx, symbol)
+    out, launches = {}, dict.fromkeys(expected, 0)
+    for cases in MESH_RANKS:
+        (nranks,) = {int(np.prod(list(mx.parallel.mesh.parse_mesh_spec(
+            m).values()))) for m, _ in cases}
+        d = os.path.join(tmp, 'mesh-%d' % nranks)
+        os.makedirs(d)
+        spec = ','.join('%s:%s' % c for c in cases)
+        wall, reports = kv_cluster(nranks, 'mesh %s' % spec, d,
+                                   flag='--mesh-worker', argv=[d, spec])
+        for mesh, part in cases:
+            reps = [r['cases']['%s:%s' % (mesh, part)] for r in reports]
+            state = dict(np.load(os.path.join(d, '%s_%s.npz'
+                                              % (mesh, part))))
+            row, case_launches = mesh_ranks_case(
+                mx, reps, state, one_state, noise, bn, expected, mesh,
+                part)
+            row.update(wall_s=wall, backend=reports[0]['backend'],
+                       param_bytes=int(sum(v.nbytes for v in arg.values())))
+            out['%s_%s' % (mesh, part)] = row
+            for k, v in case_launches.items():
+                launches[k] += v
+    return {'steps': MESH_RANK_STEPS, 'rows': BATCH, 'dtype': 'float32',
+            'noise_floor_max_rel': noise, 'noise_factor': KV_NOISE_FACTOR,
+            'one_1x1_step_ms_median_after_first':
+                statistics.median(one_s[1:]) * 1e3,
+            'one_1x1_launches_per_step': one_launches,
+            'one_1x1_bytes_per_step': one_bytes,
+            'meshes': out}, launches
 
 
 def main():
@@ -8476,6 +8921,28 @@ def main():
     kv_launches = {k: kv_local_launches.get(k, 0) + sync_launches.get(k, 0)
                    + async_launches.get(k, 0) for k in kv_local_launches}
 
+    # -- the dp x tp mesh: '1x1' captured, then ranks on gloo ----------------
+    with tempfile.TemporaryDirectory() as mesh_tmp:
+        t0 = time.monotonic()
+        mesh_fit_report, mesh_fit_launches = mesh_fit(
+            mx, torch, symbol, arg, aux, resnet_kernels, resnet_expected,
+            mesh_tmp)
+        log({'phase': 'mesh-fit', 'model': 'resnet-50 v2', 'batch': BATCH,
+             'compute_dtype': 'bfloat16', 'optimizer': 'sgd lr 0.05 '
+             'momentum 0.9 wd 1e-4', 'launches': mesh_fit_launches,
+             **mesh_fit_report, 'seconds': time.monotonic() - t0})
+        t0 = time.monotonic()
+        mesh_ranks_report, mesh_ranks_launches = mesh_ranks(
+            mx, torch, symbol, arg, aux, resnet_kernels, resnet_expected,
+            mesh_tmp)
+        log({'phase': 'mesh-ranks', 'model': 'resnet-50 v2',
+             'launcher': 'tools/launch.py --launcher local, every rank on '
+             'the one card (gloo)', 'launches': mesh_ranks_launches,
+             **mesh_ranks_report, 'seconds': time.monotonic() - t0})
+    mesh_launches = {k: mesh_fit_launches.get(k, 0)
+                     + mesh_ranks_launches.get(k, 0)
+                     for k in resnet_expected}
+
     # -- summary -------------------------------------------------------------
     on_path = [c for c in cases if c['launches_per_forward']]
     summary = {
@@ -8490,7 +8957,7 @@ def main():
         + observe_launches['fused_bn_relu']
         + sum(zoo_launches['fused_bn_relu'].values())
         + serve_launches['fused_bn_relu'] + fleet_bn + auto_bn
-        + kv_launches['fused_bn_relu'],
+        + kv_launches['fused_bn_relu'] + mesh_launches['fused_bn_relu'],
         'launches_by_path': {'serve': launches['fused_bn_relu'],
                              'fleet': fleet_bn, 'autoscale': auto_bn,
                              'train': train_launches['fused_bn_relu'],
@@ -8509,7 +8976,10 @@ def main():
                              'kv-local': kv_local_launches['fused_bn_relu'],
                              'kv-dist-sync': sync_launches['fused_bn_relu'],
                              'kv-dist-async':
-                                 async_launches['fused_bn_relu']},
+                                 async_launches['fused_bn_relu'],
+                             'mesh-fit': mesh_fit_launches['fused_bn_relu'],
+                             'mesh-ranks':
+                                 mesh_ranks_launches['fused_bn_relu']},
         'max_abs_err': max(c['max_abs_err'] for c in
                            on_path + fleet_report['bn_relu_cases']
                            + kv_cases['fused_bn_relu']),
@@ -8552,7 +9022,10 @@ def main():
                          'kv-local': kv_local_launches['fused_scale_bias_dot'],
                          'kv-dist-sync': sync_launches['fused_scale_bias_dot'],
                          'kv-dist-async':
-                             async_launches['fused_scale_bias_dot']},
+                             async_launches['fused_scale_bias_dot'],
+                         'mesh-fit': mesh_fit_launches['fused_scale_bias_dot'],
+                         'mesh-ranks':
+                             mesh_ranks_launches['fused_scale_bias_dot']},
                         'torch.matmul on the normalized input'),
          **route_summary(dot_cases, {'train': train_routes,
                                      'custom-train': custom_routes})},
@@ -8579,7 +9052,11 @@ def main():
                          'kv-dist-sync':
                              sync_launches['fused_scale_bias_conv3x3'],
                          'kv-dist-async':
-                             async_launches['fused_scale_bias_conv3x3']},
+                             async_launches['fused_scale_bias_conv3x3'],
+                         'mesh-fit':
+                             mesh_fit_launches['fused_scale_bias_conv3x3'],
+                         'mesh-ranks':
+                             mesh_ranks_launches['fused_scale_bias_conv3x3']},
                         'F.conv2d on the normalized input'),
          **route_summary(conv_cases, {'train': train_conv_routes,
                                       'custom-train': custom_conv_routes}),
@@ -8645,4 +9122,8 @@ if __name__ == '__main__':
         sys.exit(abandon_child(int(sys.argv[2])))
     if sys.argv[1:2] == ['--kv-worker']:
         sys.exit(kv_worker(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ['--mesh-worker']:
+        sys.exit(mesh_worker(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ['--mesh-warm-child']:
+        sys.exit(mesh_warm_child())
     sys.exit(main())

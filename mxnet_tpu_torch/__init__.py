@@ -17,7 +17,10 @@ op, Custom operators (``operator``) and runtime-compiled CUDA kernels
 kvstore, as in the reference: a context list (one executor per context)
 over ``kv.create('local')``/``'device'``, and workers started by
 ``tools/launch.py`` over ``'dist_sync'`` (``torch.distributed``) or
-``'dist_async'`` (the apply-on-arrival server).  Training runs the whole lifecycle: the
+``'dist_async'`` (the apply-on-arrival server); ``Module.fit(mesh=,
+partition=)`` trains over a dp×tp mesh of ranks (one process per mesh
+position: the batch split over dp, parameters tp-sharded, optimizer state
+ZeRO-sharded, BatchNorm over the global batch).  Training runs the whole lifecycle: the
 reference's optimizers and their update ops, checkpoints of parameters
 and optimizer state, ``fit``'s per-epoch checkpoint and auto-resume,
 the checkpoint callbacks and the ``FeedForward`` estimator, with
@@ -52,7 +55,7 @@ from . import (callback, initializer, io, lr_scheduler, metric, module,
 from . import model, monitor
 from . import kvstore, kvstore_server
 from . import kvstore as kv
-from . import chronicle, detector, health, iowatch, perfwatch
+from . import chronicle, commwatch, detector, health, iowatch, perfwatch
 from . import initializer as init
 from . import module as mod
 from . import optimizer as opt
@@ -73,6 +76,7 @@ __all__ = ['MXNetError', 'Context', 'cpu', 'gpu', 'current_context',
            'io', 'metric', 'optimizer', 'lr_scheduler', 'initializer',
            'opt', 'init', 'callback', 'random', 'parallel', 'rnn',
            'engine', 'model', 'FeedForward', 'resilience', 'monitor',
-           'detector', 'health', 'iowatch', 'perfwatch', 'chronicle',
+           'detector', 'health', 'iowatch', 'perfwatch', 'commwatch',
+           'chronicle',
            'kv', 'kvstore', 'kvstore_server']
 

@@ -116,6 +116,23 @@ _register('MXTPU_PRECOMPILE_BUCKETS', False, _bool,
           'bucket declared via bucket_keys=[...] at fit start instead of '
           'binding each bucket lazily the first time its key appears '
           'mid-epoch.')
+# -- dp x tp sharded fit (parallel/mesh.py) ---------------------------------
+_register('MXTPU_MESH', '', str,
+          "Device mesh for Module.fit: '4x2' / 'dp=4,tp=2' / '8'.  One "
+          'process per mesh position (tools/launch.py or '
+          'torch.multiprocessing.spawn; dp*tp ranks, rank (d, t) = d*tp + '
+          't): the batch is split over dp, parameters placed per '
+          'MXTPU_PARTITION, optimizer state ZeRO-sharded over dp '
+          '(parallel/zero.py), BatchNorm over the global batch.  The '
+          "collectives run inside each rank's step; a dist kvstore is "
+          'demoted to control-plane duties.  Same as fit(mesh=...).  '
+          "'1x1' needs no process group.  Unset: the unmeshed fit.")
+_register('MXTPU_PARTITION', '', str,
+          "Parameter partition policy under MXTPU_MESH: 'replicated' "
+          "(default, pure data parallelism) or 'auto' (each parameter's "
+          'storage and optimizer state sharded over the tp axis along its '
+          'largest tp-divisible dim; indivisible tensors stay replicated).  '
+          'fit(partition=...) also takes a {name-substring: spec} dict.')
 # -- serving (serving/batcher.py, serving/server.py) -----------------------
 _register('MXTPU_SERVE_MAX_DELAY_MS', 2.0, float,
           'Dynamic-batching flush deadline (milliseconds): a queued '
@@ -272,6 +289,30 @@ _register('MXTPU_PEAK_FLOPS', 0.0, float,
           'denominator.  0 = the entry of perfwatch.PEAKS for the '
           'card\'s name (unknown names fall back to the H100, a CPU host '
           'to a nominal host figure).')
+# -- communication-attribution plane (commwatch.py) -------------------------
+_register('MXTPU_COMMWATCH', False, _bool,
+          'Enable the communication-attribution plane (commwatch.py): '
+          'every collective the port issues counted where it is issued '
+          '(comm.all_reduce/all_gather/reduce_scatter count, bytes, '
+          'wire_bytes and seconds gauges, comm.bytes_per_step), the '
+          'comm-vs-compute roofline split (perf.comm_fraction against '
+          'commwatch.ICI_PEAKS / MXTPU_PEAK_BW), and the step-cadence and '
+          'barrier-wait histograms the kv server turns into '
+          'cluster.step_skew.  Implies metrics.  Off: every hook is a '
+          'single flag check.')
+_register('MXTPU_PEAK_BW', 0.0, float,
+          'Override the interconnect peak (bytes/sec) used as the '
+          'perf.comm_fraction denominator.  0 = commwatch.ICI_PEAKS by '
+          'device kind (a nominal host figure for the CPU; a card not in '
+          'the table falls back to it with one warning).')
+_register('MXTPU_SKEW_WARN_PCT', 0.0, float,
+          'Cross-rank straggler threshold (percent): when the kv '
+          "server's merged telemetry view shows the slowest rank's mean "
+          'step time this far above the cluster median, the health plane '
+          'logs the laggard (health.skew_warnings) and dumps a flight '
+          'record naming it (health.note_skew; needs MXTPU_COMMWATCH on '
+          'the workers so comm.step_time rides the heartbeats).  0 = '
+          'never warn.')
 # -- input-pipeline & goodput plane (iowatch.py) -----------------------------
 _register('MXTPU_IOWATCH', False, _bool,
           'Enable the input-pipeline & goodput attribution plane '

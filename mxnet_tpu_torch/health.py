@@ -30,9 +30,12 @@ the crash flight recorder; the port of ``mxnet_tpu/health.py``.
   is installed on first use or by :func:`install_flight_recorder`, not
   at import as in the reference.
 
-The cross-rank hooks of the reference (``note_skew``,
-``note_cluster_alert``, ``cluster_diverged_error``) need the kvstore and
-come with it.
+- **Cross-rank straggler threshold** (``MXTPU_SKEW_WARN_PCT``):
+  :func:`note_skew`, called by the kv server whenever its merged
+  telemetry view names a slowest rank, logs the laggard and commits a
+  ``skew`` flight record, at most once per 30 s per rank.  The elastic
+  plane's hooks (``note_cluster_alert``, ``cluster_diverged_error``) come
+  with ``elastic.py``, their only caller.
 """
 from __future__ import annotations
 
@@ -57,6 +60,7 @@ __all__ = [
     'all_finite_tree', 'l2_norm_tree', 'update_ratio',
     'init_state', 'fold_state',
     'install_flight_recorder', 'flight_recorder', 'dump_flight',
+    'note_skew',
 ]
 
 _log = logging.getLogger('mxnet_tpu_torch.health')
@@ -569,3 +573,53 @@ def install_flight_recorder(dirpath=None, ring=None, every=None):
     _install_signal_hooks()
     resilience.on_kill(_kill_dump)
     return _recorder
+
+
+# ---------------------------------------------------------------------------
+# Cross-rank straggler threshold (the communication plane's laggard hook)
+# ---------------------------------------------------------------------------
+
+# rank -> monotonic time of the last warning, so a persistent laggard logs
+# once per window instead of once per heartbeat merge
+_skew_warned = {}
+_SKEW_WARN_INTERVAL = 30.0
+
+
+def note_skew(skew, laggard, now=None):
+    """Called by the kv server whenever a merged telemetry view carries a
+    straggler attribution (``kvstore_server.compute_step_skew``): when
+    the slowest rank's mean step time sits more than
+    ``MXTPU_SKEW_WARN_PCT`` percent above the cluster median, log the
+    laggard (``health.skew_warnings``) and commit a ``skew`` flight
+    record naming it.  Throttled to once per 30 s per rank
+    (``_SKEW_WARN_INTERVAL``); never when the knob is 0.  Returns True
+    when it warned (``mxnet_tpu/health.py:389-431``)."""
+    pct = float(config.get('MXTPU_SKEW_WARN_PCT'))
+    if pct <= 0 or laggard is None or skew * 100.0 < pct:
+        return False
+    rank = laggard.get('rank')
+    now = time.monotonic() if now is None else now
+    last = _skew_warned.get(rank)
+    if last is not None and now - last < _SKEW_WARN_INTERVAL:
+        return False
+    _skew_warned[rank] = now
+    logging.warning(
+        'mxtpu health: rank %s is a straggler — mean step %.4gs vs '
+        'cluster median %.4gs (%.1f%% over, threshold %.0f%%): check '
+        'that host\'s input pipeline / thermals / neighbors',
+        rank, laggard.get('mean_step_secs', float('nan')),
+        laggard.get('median_step_secs', float('nan')),
+        skew * 100.0, pct)
+    instrument.inc('health.skew_warnings')
+    instrument.decision(
+        'health', 'skew_warn', severity='warn',
+        reason='rank %s is a straggler — mean step %.4gs vs cluster '
+               'median %.4gs (%.1f%% over)'
+               % (rank, laggard.get('mean_step_secs', float('nan')),
+                  laggard.get('median_step_secs', float('nan')),
+                  skew * 100.0),
+        rank=rank, skew=skew)
+    if flight_recorder() is None:
+        install_flight_recorder()      # a no-op without the knob
+    dump_flight('skew', extra={'skew': skew, 'laggard': laggard})
+    return True

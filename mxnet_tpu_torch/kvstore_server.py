@@ -63,10 +63,10 @@ the job instead of hanging it.  Every recovery event is counted in the
 :mod:`resilience` fault plan (``MXTPU_FAULTS``) can drop, delay or
 sever frames at the marked points to drive the chaos tests.
 
-Two hooks of the reference wait for their modules: the straggler
-record's ``health.note_skew`` and the client barrier's
-``commwatch.barrier_wait`` (the cross-rank planes).  The view still
-carries ``cluster.step_skew``.  The server answers the membership RPCs
+The cross-rank planes hook in as in the reference: a merged view that
+names a straggler calls ``health.note_skew`` (``MXTPU_SKEW_WARN_PCT``),
+and the client's barrier wait lands in ``commwatch.barrier_wait``.  The
+server answers the membership RPCs
 (join, membership, resize, ckpt_vote); their client side is
 ``elastic.py``'s, which is not ported yet.
 """
@@ -1069,6 +1069,10 @@ class AsyncKVServer(object):
                 view['membership']['health'] = self._health_alert
         if laggard is not None:
             view['cluster']['step_skew'] = laggard
+            # the health plane's laggard threshold (MXTPU_SKEW_WARN_PCT):
+            # log and flight-record the slow rank
+            from . import health
+            health.note_skew(skew, laggard)
         return view
 
     def _maybe_write_status(self):
@@ -1604,9 +1608,13 @@ class AsyncKVClient(object):
 
         The wait is a ``kvstore.barrier`` trace span (the shared-anchor
         event ``tools/merge_traces.py`` aligns rank clocks on: every
-        rank leaves a barrier at the same real instant) and the goodput
-        ledger's 'barrier' bucket."""
+        rank leaves a barrier at the same real instant), the goodput
+        ledger's 'barrier' bucket and, under MXTPU_COMMWATCH, the
+        ``comm.barrier_wait`` histogram: the cross-rank wait-time half of
+        the straggler picture (a rank that computes slowly makes its
+        PEERS wait here)."""
         self._bseq += 1
+        t0 = time.monotonic()
         from . import iowatch
         with instrument.span('kvstore.barrier', cat='kvstore'), \
                 iowatch.account('barrier'):
@@ -1614,6 +1622,8 @@ class AsyncKVClient(object):
                        self._rank),
                       deadline=(config.get('MXTPU_KV_BARRIER_TIMEOUT')
                                 if timeout is None else timeout))
+        from . import commwatch
+        commwatch.barrier_wait(time.monotonic() - t0)
 
     def stats(self):
         return self._rpc(('stats',))[1]

@@ -20,6 +20,15 @@ Two update paths per metric, as in the JAX package:
 Accuracy, TopKAccuracy, CrossEntropy, Perplexity, MAE, MSE and RMSE have
 a device form; ``device_fold_key`` is the identity of the folded
 computation (a fresh metric of equal key reuses a fused step).
+
+Over a dp×tp mesh (``Module.fit(mesh=...)``) each rank folds its own rows
+of the batch.  While such a fit runs it hands the metric its dp group
+(:func:`set_dp_group`), and each drain sums the accumulators over dp (one
+all-reduce, on every rank at the same drain) and counts dp times the
+rank's instances, so a reading is the global batch's on every rank: a
+callback that reads the metric inside the fit does so on every rank.
+The fit takes the group back when it returns or unwinds, after its last
+drain, so a later read issues no collective.
 """
 from __future__ import annotations
 
@@ -33,7 +42,18 @@ from . import instrument
 
 __all__ = ['EvalMetric', 'CompositeEvalMetric', 'Accuracy', 'TopKAccuracy',
            'F1', 'Perplexity', 'MAE', 'MSE', 'RMSE', 'CrossEntropy', 'Torch',
-           'Caffe', 'CustomMetric', 'np', 'create', 'check_label_shapes']
+           'Caffe', 'CustomMetric', 'np', 'create', 'check_label_shapes',
+           'set_dp_group']
+
+
+def set_dp_group(metric, group, dp):
+    """Let ``metric`` (and a composite's children) sum its device
+    accumulators over ``group``, a mesh's dp process group of ``dp``
+    ranks, at every drain (``group`` None: its own rows only, with no
+    collective).  ``BaseModule.fit`` sets it for the fit's duration."""
+    metric._dp_sum = (group, int(dp)) if group is not None else None
+    for child in getattr(metric, 'metrics', ()):
+        set_dp_group(child, group, dp)
 
 
 def check_label_shapes(labels, preds, shape=0):
@@ -178,12 +198,20 @@ class EvalMetric(object):
         held = [m._dev_held for m, _, _ in pending
                 if getattr(m, '_dev_held', None) is not None]
         parts = [s for _, s, _ in pending] + held + list(extra)
+        dp_sum = getattr(self, '_dp_sum', None) if pending else None
         # the goodput ledger charges the transfer to metric_drain: one
         # ledger event per counted host sync
         with _perfwatch.phase('metric_drain'), \
                 _iowatch.account('metric_drain'):
-            flat = torch.cat([t.double().reshape(-1) for t in parts]) \
-                .cpu().tolist()
+            flat = torch.cat([t.double().reshape(-1) for t in parts])
+            if dp_sum is not None:
+                # the metric's part summed over the mesh's dp ranks (the
+                # health state rides along unsummed)
+                from .parallel import collectives
+                k = sum(s.numel() for _, s, _ in pending) + len(held)
+                flat = torch.cat([collectives.psum(flat[:k], dp_sum[0]),
+                                  flat[k:]])
+            flat = flat.cpu().tolist()
         if pending:
             instrument.inc('metric.host_syncs')
         else:
@@ -193,6 +221,8 @@ class EvalMetric(object):
         health_values = flat[i + len(held):]
         i = 0
         for metric, acc, n in pending:
+            if dp_sum is not None:
+                n *= dp_sum[1]
             if getattr(metric, '_dev_held', None) is not None:
                 n -= int(round(held_values[id(metric._dev_held)]))
                 metric._dev_held.zero_()

@@ -49,8 +49,15 @@ stops heartbeating, so its peers' barriers exclude it), and a
 ``dist_async`` fit ends in the store's barrier, which holds every live
 rank until all have flushed their pushes (rank 0 hosts the server).  The
 elastic coordinator (``mxnet_tpu/module/base_module.py:285``,
-``_elastic.activate_fit``) waits for ``elastic.py``, and ``mesh=`` /
-``partition=`` for the mesh; asking for a mesh raises.
+``_elastic.activate_fit``) waits for ``elastic.py``.
+
+``fit(mesh=, partition=)`` (defaults: the ``MXTPU_MESH`` /
+``MXTPU_PARTITION`` knobs) installs a dp×tp plan before bind
+(``_set_parallel``: ``Module`` and ``BucketingModule`` implement it; other
+modules warn that they train on their own layout).  Over a mesh of more
+than one rank every rank runs the same fit: ``auto_resume``'s newest
+checkpoint is rank 0's, broadcast, and the epoch's checkpoint is written
+by rank 0 while the others wait at a barrier.
 """
 from __future__ import annotations
 
@@ -146,12 +153,41 @@ class BaseModule(object):
         if self._window is not None:
             self._window.drain()
 
+    def _set_parallel(self, mesh, partition=None):
+        """Install a dp×tp plan (``fit(mesh=...)``).  ``Module`` and
+        ``BucketingModule`` implement it; other module types train on
+        their own layout and say so instead of ignoring the request
+        silently (``mxnet_tpu/module/base_module.py:97-105``)."""
+        self.logger.warning(
+            '%s does not implement fit(mesh=...): the mesh/partition '
+            'request is ignored and training stays on the module\'s '
+            'own device layout', type(self).__name__)
+
+    def _mesh_coordinator(self):
+        """The mesh whose ranks share this fit's checkpoints, or None."""
+        plan = getattr(self, '_mesh_plan', None)
+        return plan.mesh if plan is not None and plan.multi_rank else None
+
+    def _metric_dp(self):
+        """``(dp group, dp)`` when this fit's ranks split each batch over
+        more than one dp position, else None."""
+        coord = self._mesh_coordinator()
+        if coord is None or self._mesh_plan.dp == 1:
+            return None
+        from ..parallel.mesh import DP_AXIS
+        return coord.group(DP_AXIS), self._mesh_plan.dp
+
+    def _ticket_outputs(self):
+        """The outputs the step ticket waits on (``Module``: this rank's,
+        with no collective)."""
+        return self.get_outputs()
+
     def _step_ticket(self):
         """What ``engine.StepWindow`` waits on for the last launched
         step: a CUDA event recorded after it on the card, its output
         tensors on the CPU."""
         try:
-            outs = [o.handle for o in self.get_outputs()]
+            outs = [o.handle for o in self._ticket_outputs()]
         except (AssertionError, AttributeError, IndexError):
             return None
         if not outs:
@@ -247,22 +283,41 @@ class BaseModule(object):
             begin_epoch=0, num_epoch=None, validation_metric=None,
             monitor=None, checkpoint_prefix=None, checkpoint_period=1,
             auto_resume=None, warm_start=None, mesh=None, partition=None):
-        """Train (reference base_module.py:369-503)."""
+        """Train (reference base_module.py:369-503).
+
+        ``mesh`` (default: the MXTPU_MESH knob) trains over a dp×tp mesh
+        of ranks, one process per position (``'4x2'``, ``'dp=4,tp=2'``,
+        ``8``; ``parallel/mesh.py``): the batch split over dp, parameters
+        per ``partition`` (default: the MXTPU_PARTITION knob;
+        ``'replicated'``, ``'auto'`` or a name dict), optimizer state
+        ZeRO-sharded over dp, BatchNorm over the global batch, a dist
+        kvstore demoted to its control plane.  ``partition`` without a
+        mesh is ignored, as in the reference."""
         assert num_epoch is not None, 'please specify number of epochs'
-        unported = {'mesh': mesh, 'partition': partition}
-        asked = sorted(k for k, v in unported.items() if v)
-        if asked:
-            raise NotImplementedError('fit(%s=...) is not ported to '
-                                      'mxnet_tpu_torch yet' % asked[0])
         if initializer is None:
             from .. import initializer as _init
             initializer = _init.Uniform(0.01)
+        # the mesh knobs resolve, and the plan is installed, before bind
+        # so the executor group binds this rank's rows
+        if mesh is None:
+            mesh = _config.get('MXTPU_MESH') or None
+        if partition is None:
+            partition = _config.get('MXTPU_PARTITION') or None
+        if mesh is not None:
+            self._set_parallel(mesh, partition)
         if checkpoint_prefix:
             if auto_resume is None:
                 auto_resume = _config.get('MXTPU_AUTO_RESUME')
             if auto_resume:
                 from ..model import find_latest_checkpoint, load_checkpoint
                 latest = find_latest_checkpoint(checkpoint_prefix)
+                coord = self._mesh_coordinator()
+                if coord is not None:
+                    # every rank resumes from rank 0's newest checkpoint
+                    from ..parallel import collectives
+                    box = [latest]
+                    collectives._dist().broadcast_object_list(box, src=0)
+                    latest = box[0]
                 if latest is not None and latest > begin_epoch:
                     _, arg_params, aux_params = load_checkpoint(
                         checkpoint_prefix, latest)
@@ -299,6 +354,13 @@ class BaseModule(object):
         except BaseException:
             _health.deactivate()
             raise
+        # over more than one dp rank the metric's drains sum over dp while
+        # this fit runs (every rank reaches them together); once it
+        # returns or unwinds the metric is the caller's again, read with
+        # no collective
+        dp = self._metric_dp()
+        if dp is not None:
+            _metric.set_dp_group(eval_metric, *dp)
         try:
             try:
                 try:
@@ -344,6 +406,8 @@ class BaseModule(object):
             if kv is not None and 'dist' in kv_type and 'async' in kv_type:
                 kv.barrier()
         finally:
+            if dp is not None:
+                _metric.set_dp_group(eval_metric, None, 1)
             if gp_token is not None:
                 _iowatch.goodput_end(gp_token)
 
@@ -432,9 +496,14 @@ class BaseModule(object):
             if checkpoint_prefix and ((epoch + 1) % checkpoint_period == 0
                                       or epoch + 1 == num_epoch):
                 from ..model import save_checkpoint
+                coord = self._mesh_coordinator()
                 with _iowatch.account('checkpoint'):
-                    save_checkpoint(checkpoint_prefix, epoch + 1,
-                                    self.symbol, arg_params_, aux_params_)
+                    if coord is None or coord.rank == 0:
+                        save_checkpoint(checkpoint_prefix, epoch + 1,
+                                        self.symbol, arg_params_,
+                                        aux_params_)
+                    if coord is not None:
+                        coord.barrier()
             if epoch_end_callback is not None:
                 for callback in _as_list(epoch_end_callback):
                     callback(epoch, self.symbol, arg_params_, aux_params_)
@@ -475,6 +544,9 @@ class BaseModule(object):
         from .. import ndarray as nd
         from .. import resilience
         arg_params, aux_params = self.get_params()
+        coord = self._mesh_coordinator()
+        if coord is not None and coord.rank != 0:
+            return          # a mesh's rank 0 writes
         save_dict = {('arg:%s' % k): v for k, v in arg_params.items()}
         save_dict.update({('aux:%s' % k): v for k, v in aux_params.items()})
         with resilience.atomic_replace(fname) as tmp:

@@ -26,8 +26,14 @@ bucket's module makes it, and every bucket borrows it with the optimizer
 training is float32, as in the reference (whose BucketingModule takes no
 ``compute_dtype``).  ``install_monitor`` taps every bucket's module, the
 buckets bound later included (each trains through the loop then; the
-reference taps only the buckets bound at the call).  The
-mesh (``_set_parallel``) is not ported yet and raises.
+reference taps only the buckets bound at the call).
+
+Over a dp×tp mesh (``fit(mesh=...)``, ``_set_parallel``,
+``mxnet_tpu/module/bucketing_module.py:51``) every bucket's module takes
+the ONE plan the bucketing module made: each binds this rank's rows of
+its bucket's batch, and every bucket's fused step updates the shared
+parameters through the same ZeRO layout, so the optimizer state handed
+from bucket to bucket is this rank's ZeRO part.
 """
 from __future__ import annotations
 
@@ -63,6 +69,7 @@ class BucketingModule(BaseModule):
         self._declared_bucket_keys = list(bucket_keys or [])
         self._warm_eager = False
         self._monitor = None
+        self._mesh_plan = None
 
     def _reset_bind(self):
         self.binded = False
@@ -123,9 +130,12 @@ class BucketingModule(BaseModule):
 
     def _new_module(self, bucket_key, made=None):
         symbol, data_names, label_names = made or self._sym_gen(bucket_key)
-        return Module(symbol, data_names, label_names, logger=self.logger,
-                      context=self._context,
-                      work_load_list=self._work_load_list)
+        module = Module(symbol, data_names, label_names, logger=self.logger,
+                        context=self._context,
+                        work_load_list=self._work_load_list)
+        if self._mesh_plan is not None:
+            module._set_parallel(self._mesh_plan)
+        return module
 
     def bind(self, data_shapes, label_shapes=None, for_training=True,
              inputs_need_grad=False, force_rebind=False, shared_module=None,
@@ -366,6 +376,18 @@ class BucketingModule(BaseModule):
             mod.install_monitor(mon)
 
     def _set_parallel(self, mesh, partition=None):
-        raise NotImplementedError('BucketingModule._set_parallel (a mesh) '
-                                  'is not ported to mxnet_tpu_torch yet '
-                                  '(ROADMAP Queue 1, item 8)')
+        """Install the dp×tp plan: one plan for every bucket, the bound
+        ones and those bound later (``mxnet_tpu/module/
+        bucketing_module.py:51``)."""
+        from ..parallel import mesh as _pmesh
+        plan = mesh if isinstance(mesh, _pmesh.ShardingPlan) else \
+            _pmesh.make_plan(mesh, partition)
+        if self._mesh_plan is not None and \
+                plan.sig() == self._mesh_plan.sig():
+            plan = self._mesh_plan
+        self._mesh_plan = plan
+        for mod in self._buckets.values():
+            mod._set_parallel(plan)
+
+    def _ticket_outputs(self):
+        return self._curr_module._ticket_outputs()

@@ -1,5 +1,5 @@
 """The executor group of a Module — the port of
-``mxnet_tpu/module/executor_group.py`` without its mesh.
+``mxnet_tpu/module/executor_group.py``.
 
 One context: one :class:`~mxnet_tpu_torch.executor.Executor`.  Each
 batch is copied INTO the bound data and label arrays (:meth:`load_batch`),
@@ -28,7 +28,19 @@ With ``shared_group`` (a bucket of a ``BucketingModule``) the executor
 takes the shared group's own ``NDArray`` objects for every parameter, aux
 state and gradient buffer; only its data and label inputs are its own.
 The fused step updates those tensors in place, so every bucket trains
-the one set of weights."""
+the one set of weights.
+
+With ``mesh_plan`` (a ``parallel.mesh.ShardingPlan``: ``Module.fit(mesh=
+...)``, ``mxnet_tpu/module/executor_group.py:58-123``) the group is this
+rank's position of a dp×tp mesh of processes: its one executor is bound
+at this rank's rows of the batch (B/dp; ``ShardingPlan.rows``), every
+batch's arrays are cut to those rows as they are loaded (the tp peers
+of a dp slot take the same rows), and a training forward or
+backward over more than one dp rank runs with BatchNorm over the global
+batch (``mesh.DpBatchStats``).  :meth:`get_outputs` all-gathers the
+outputs over dp, so a metric update, ``predict`` and ``score`` see the
+global batch as the JAX group's dp-sharded outputs are.  A mesh and a
+context list are exclusive; a batch not divisible by dp raises."""
 from __future__ import annotations
 
 import contextlib
@@ -152,7 +164,14 @@ class DataParallelExecutorGroup(object):
     def __init__(self, symbol, contexts, data_shapes, label_shapes,
                  param_names, for_training, inputs_need_grad,
                  shared_group=None, logger=logging, fixed_param_names=None,
-                 grad_req='write', workload=None):
+                 grad_req='write', workload=None, mesh_plan=None):
+        if mesh_plan is not None and len(contexts) > 1:
+            raise MXNetError(
+                'Module(context=[...]) and fit(mesh=...) are mutually '
+                'exclusive device layouts — drop the context list, the '
+                'mesh covers the devices')
+        self.mesh_plan = mesh_plan
+        self.mesh_rows = None
         if workload is None:
             workload = [1] * len(contexts)
         if len(workload) != len(contexts):
@@ -188,10 +207,21 @@ class DataParallelExecutorGroup(object):
         """A tensor on the group's device (float64 becomes float32)."""
         return self._host(value).to(self._device)
 
+    def _mine(self, t):
+        """``t``'s rows of this mesh rank when ``t`` is a global batch's
+        array (unchanged off a mesh, and when it holds local rows)."""
+        if self.mesh_rows is not None and t.ndim and \
+                t.shape[0] == self.batch_size:
+            return t[self.mesh_rows]
+        return t
+
     def _place_data(self, value):
         """The feed's placement: ``value`` on the group's device, through
         pinned host memory and an asynchronous copy on the current
-        stream when it goes from the host to the card."""
+        stream when it goes from the host to the card.  On a mesh the
+        whole batch is placed (the batch's consumers, a metric among them,
+        read the global batch); :meth:`load_batch` takes this rank's
+        rows."""
         t = self._host(value)
         if self._device.type == 'cuda' and t.device.type == 'cpu':
             return t.pin_memory().to(self._device, non_blocking=True)
@@ -205,6 +235,9 @@ class DataParallelExecutorGroup(object):
         self.label_names = [n for n, _ in self.label_shapes]
         self.batch_size = self.data_shapes[0][1][0]
         self.slices = _split_input_slice(self.batch_size, self.workload)
+        if self.mesh_plan is not None:
+            self.mesh_plan.validate_batch(self.batch_size)
+            self.mesh_rows = self.mesh_plan.rows(self.batch_size)
         grad_req = {}
         for name in self.arg_names:
             req = 'null'
@@ -221,7 +254,9 @@ class DataParallelExecutorGroup(object):
                       for i in range(len(self.contexts))]
 
     def _sliced(self, shapes, islice):
-        if len(self.contexts) == 1:
+        if self.mesh_rows is not None:
+            islice = self.mesh_rows
+        elif len(self.contexts) == 1:
             return shapes
         return [(n, (islice.stop - islice.start,) + tuple(s[1:]))
                 for n, s in shapes]
@@ -324,7 +359,7 @@ class DataParallelExecutorGroup(object):
         many = len(self.execs) > 1
         with torch.no_grad():
             for (name, _), value in pairs:
-                whole = self._host(value)
+                whole = self._mine(self._host(value))
                 slices = self.slices if not many or \
                     whole.shape[0] == self.batch_size else \
                     _split_input_slice(whole.shape[0], self.workload)
@@ -351,8 +386,16 @@ class DataParallelExecutorGroup(object):
         if is_train and len(self.execs) > 1:
             self._in_turn(lambda e: e.forward(is_train=True))
             return
-        for exec_ in self.execs:
-            exec_.forward(is_train=is_train)
+        with self._global_batch(is_train):
+            for exec_ in self.execs:
+                exec_.forward(is_train=is_train)
+
+    def _global_batch(self, is_train=True):
+        """On a mesh, a training forward's (and its backward's) BatchNorm
+        statistics are the global batch's (``ShardingPlan.global_batch``)."""
+        if not is_train or self.mesh_plan is None:
+            return contextlib.nullcontext()
+        return self.mesh_plan.global_batch()
 
     def _in_turn(self, run):
         """``run(executor)`` for every executor, each on a thread of its
@@ -403,7 +446,8 @@ class DataParallelExecutorGroup(object):
         assert self.for_training, \
             're-bind with for_training=True to run backward'
         if len(self.execs) == 1:
-            self.execs[0].backward(out_grads)
+            with self._global_batch():
+                self.execs[0].backward(out_grads)
             return
         execs = [e for e in self.execs if e._grad_names]
         if any(e._pending is None for e in execs):
@@ -437,7 +481,8 @@ class DataParallelExecutorGroup(object):
     def forward_backward(self, data_batch, out_grads=None):
         self.load_batch(data_batch)
         if len(self.execs) == 1:
-            self.execs[0].forward_backward(out_grads)
+            with self._global_batch():
+                self.execs[0].forward_backward(out_grads)
             return
         self._forward_execs(True)
         self.backward(out_grads)
@@ -450,9 +495,26 @@ class DataParallelExecutorGroup(object):
                         self.contexts[0])
                 for arrs in zip(*per_exec)]
 
+    def _gather_dp(self, arrays):
+        """Over more than one dp rank of a mesh, ``arrays`` (this rank's
+        rows) all-gathered over dp into the global batch's."""
+        plan = self.mesh_plan
+        if plan is None or plan.dp == 1:
+            return arrays
+        from ..parallel import collectives
+        from ..parallel.mesh import DP_AXIS
+        group = plan.mesh.group(DP_AXIS)
+        return [NDArray(collectives.all_gather(a.handle, group), a.context)
+                for a in arrays]
+
+    def local_outputs(self):
+        """This rank's outputs (no collective)."""
+        return self.execs[0].outputs if len(self.execs) == 1 else \
+            [o for e in self.execs for o in e.outputs]
+
     def get_outputs(self, merge_multi_context=True):
         if len(self.execs) == 1:
-            outs = self.execs[0].outputs
+            outs = self._gather_dp(self.execs[0].outputs)
             return outs if merge_multi_context else [[o] for o in outs]
         per_exec = [e.outputs for e in self.execs]
         if merge_multi_context:
@@ -464,7 +526,7 @@ class DataParallelExecutorGroup(object):
         per_exec = [[e.grad_dict[n] for n in self.data_names]
                     for e in self.execs]
         if len(self.execs) == 1:
-            grads = per_exec[0]
+            grads = self._gather_dp(per_exec[0])
             return grads if merge_multi_context else [[g] for g in grads]
         if merge_multi_context:
             return self._merge(per_exec)

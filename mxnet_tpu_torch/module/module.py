@@ -64,7 +64,28 @@ here, one state per parameter and context, as upstream).  A context list
 (one executor per context, ``executor_group.py``) or a ``dist`` store
 trains through ``forward_backward(); update()``, not the fused step, as
 the reference does for a dist store (``mxnet_tpu/module/module.py:
-677-681``).  Meshes (``fit(mesh=)``) are not ported.
+677-681``).
+
+The dp×tp mesh (``fit(mesh=, partition=)`` / ``MXTPU_MESH``,
+``_set_parallel``, ``mxnet_tpu/module/module.py:334-371``): one process
+per mesh position (``parallel/mesh.py``).  The executor group is bound at
+this rank's rows of the batch; the fused step (``make_fit_step(
+shardings=)``) normalises BatchNorm over the global batch, reduces the
+gradients over dp and updates through ``zero.ZeroUpdate``: the optimizer
+state (``_fused_opt_state``) is this rank's ZeRO part, 1/dp of every
+leaf (1/(dp·tp) of a tp-sharded parameter's).  ``rescale_grad`` is
+1/global batch, as the unmeshed step has it.  A mesh of more than one
+rank trains eagerly (its collectives are not captured); ``'1x1'`` is the
+unmeshed fit bit for bit, captured, its manifest entries and graph keys
+carrying the plan's sig.  Checkpoints are written in the unsharded
+format by rank 0 after the shards are gathered (every rank calls the
+save; the others wait at a barrier).  A dist kvstore passed with a mesh
+is demoted to its control plane (``demote_to_control_plane``: its
+``push``/``pull`` raise; the step reduces the gradients).  Changing the
+layout of a bound module rebinds it and re-initializes the optimizer (a
+resumed fit restores momentum from its checkpoint).  Under
+``MXTPU_FUSED_FIT=0`` the per-parameter loop trains on the rank's rows
+with the gradients all-reduced over dp and unsharded optimizer state.
 """
 from __future__ import annotations
 
@@ -74,6 +95,7 @@ import logging
 import torch
 
 from .. import compile_cache, instrument, resilience
+from .. import commwatch as _commwatch
 from .. import config as _config
 from .. import health as _health
 from .. import perfwatch as _perfwatch
@@ -175,6 +197,10 @@ class Module(BaseModule):
         # BucketingModule's bucket points at the default bucket)
         self._pool_owner = None
         self._graph_pool = None
+        # the dp×tp plan (_set_parallel), sticky across fits until
+        # replaced, and the shardings its fused step was built with
+        self._mesh_plan = None
+        self._fused_shardings = None
         self._reset_fused()
 
     def _reset_fused(self):
@@ -220,10 +246,14 @@ class Module(BaseModule):
     def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
         """``prefix-symbol.json``, ``prefix-%04d.params`` and, when asked,
         ``prefix-%04d.states``, each committed atomically
-        (module.py:152); counts ``checkpoint.commits``."""
+        (module.py:152); counts ``checkpoint.commits``.  Over a mesh every
+        rank calls it: rank 0 writes the unsharded files, the others wait
+        at a barrier."""
         from .. import resilience
-        with resilience.atomic_replace('%s-symbol.json' % prefix) as tmp:
-            self._symbol.save(tmp)
+        if self._is_writer():
+            with resilience.atomic_replace('%s-symbol.json' % prefix) \
+                    as tmp:
+                self._symbol.save(tmp)
         param_name = '%s-%04d.params' % (prefix, epoch)
         self.save_params(param_name)
         instrument.inc('checkpoint.commits')
@@ -232,6 +262,7 @@ class Module(BaseModule):
             state_name = '%s-%04d.states' % (prefix, epoch)
             self.save_optimizer_states(state_name)
             logging.info('Saved optimizer state to "%s"', state_name)
+        self._checkpoint_barrier()
 
     def save_optimizer_states(self, fname):
         """Pickle the optimizer state (``Updater.get_states``), the fused
@@ -243,9 +274,11 @@ class Module(BaseModule):
             self._kvstore.save_optimizer_states(fname)
             return
         self._sync_fused_states_to_updater()
-        with resilience.atomic_replace(fname) as tmp:
-            with open(tmp, 'wb') as fout:
-                fout.write(self._updater.get_states())
+        if self._is_writer():
+            with resilience.atomic_replace(fname) as tmp:
+                with open(tmp, 'wb') as fout:
+                    fout.write(self._updater.get_states())
+        self._checkpoint_barrier()
 
     def load_optimizer_states(self, fname):
         """Load a ``.states`` file (either package's) into the Updater and,
@@ -267,11 +300,16 @@ class Module(BaseModule):
         if self._fused_opt_state is None or self._updater is None:
             return
         self._drain_window()
+        states = self._fused_opt_state
+        zero = self._fused.zero if self._fused is not None else None
+        if zero is not None:
+            # the ZeRO and tp shards gathered (every rank calls this)
+            states = zero.gather_states(self._fused_buffers()[0], states)
         for idx, name in enumerate(self._param_names):
-            if name in self._fused_opt_state:
+            if name in states:
                 self._updater.states[idx] = \
                     self._functional_opt.state_to_updater(
-                        name, self._fused_opt_state[name])
+                        name, states[name])
 
     def _overlay_updater_states(self):
         """Copy ``Updater.states`` into the fused step's optimizer-state
@@ -280,11 +318,81 @@ class Module(BaseModule):
         upd = self._updater
         if upd is None or not upd.states or self._fused_opt_state is None:
             return
+        zero = self._fused.zero if self._fused is not None else None
+        params = self._fused_buffers()[0] if zero is not None else None
         for idx, name in enumerate(self._param_names):
             entry = upd.states.get(idx)
             if name in self._fused_opt_state and entry is not None:
+                if zero is not None:
+                    # this rank's part of the unsharded state
+                    zero.scatter_state(name, params[name],
+                                       self._fused_opt_state[name], entry)
+                    continue
                 self._functional_opt.load_state(
                     name, self._fused_opt_state[name], entry)
+
+    # -- the dp×tp mesh ----------------------------------------------------
+    def _set_parallel(self, mesh, partition=None):
+        """Install the dp×tp plan for this module's fit (``fit(mesh=...,
+        partition=...)`` / MXTPU_MESH; ``mxnet_tpu/module/module.py:
+        334-365``).  ``mesh`` is a spec (``'2x2'``, ``'dp=2,tp=2'``, ...),
+        a ``parallel.mesh.RankMesh`` or a ready ``ShardingPlan`` (a
+        BucketingModule hands its buckets one).  Changing the layout of a
+        bound module rebinds it (its parameters are kept) and makes the
+        next fit re-initialize the optimizer: the store's role (demotion,
+        ``update_on_kvstore``, ``rescale_grad``) depends on the layout,
+        and accumulated momentum does not survive a layout change (resume
+        from a checkpoint to keep it)."""
+        from ..parallel import mesh as _pmesh
+        plan = mesh if isinstance(mesh, _pmesh.ShardingPlan) else \
+            _pmesh.make_plan(mesh, partition)
+        if self._mesh_plan is not None and \
+                plan.sig() == self._mesh_plan.sig():
+            self._mesh_plan = plan
+            return
+        if self.binded:
+            if self.params_initialized:
+                self.get_params()
+            self.logger.info('mesh layout changed to %s: rebinding',
+                             plan.sig())
+            self._reset_bind()
+        if self.optimizer_initialized:
+            self.logger.info('mesh layout changed: optimizer will '
+                             're-initialize')
+            self.optimizer_initialized = False
+        self._mesh_plan = plan
+
+    def _reset_bind(self):
+        self.binded = False
+        self._exec_group = None
+        self._reset_fused()
+
+    @property
+    def _mesh_sig(self):
+        """The plan's sig folded into graph keys and manifest meta (None
+        off the mesh): the same batch is another step on another mesh."""
+        return self._mesh_plan.sig() if self._mesh_plan is not None \
+            else None
+
+    def _multi_rank(self):
+        return self._mesh_coordinator() is not None
+
+    def _is_writer(self):
+        """Whether this process writes checkpoints: rank 0 of a mesh."""
+        coord = self._mesh_coordinator()
+        return coord is None or coord.rank == 0
+
+    def _checkpoint_barrier(self):
+        """The ranks of a mesh wait for rank 0's files."""
+        coord = self._mesh_coordinator()
+        if coord is not None:
+            coord.barrier()
+
+    def _sig(self, batch):
+        return compile_cache.batch_sig(batch, mesh=self._mesh_sig)
+
+    def _ticket_outputs(self):
+        return self._exec_group.local_outputs()
 
     # -- properties --------------------------------------------------------
     @property
@@ -361,6 +469,11 @@ class Module(BaseModule):
             _impl(name, arr, arg_params)
         for name, arr in self._aux_params.items():
             _impl(name, arr, aux_params)
+        if self._multi_rank():
+            # one model on every rank of the mesh: rank 0's values
+            from ..parallel import collectives
+            collectives.broadcast([a.handle for a in list(
+                self._arg_params.values()) + list(self._aux_params.values())])
         self.params_initialized = True
         self._params_dirty = False
         self._exec_group.set_params(self._arg_params, self._aux_params)
@@ -395,7 +508,7 @@ class Module(BaseModule):
             self._symbol, self._context, self._data_shapes, self._label_shapes, self._param_names,
             for_training, inputs_need_grad, shared_group, logger=self.logger,
             fixed_param_names=self._fixed_param_names, grad_req=grad_req,
-            workload=self._work_load_list)
+            workload=self._work_load_list, mesh_plan=self._mesh_plan)
         if shared_module is not None:
             self.params_initialized = True
             self._arg_params = shared_module._arg_params
@@ -418,7 +531,9 @@ class Module(BaseModule):
                        optimizer_params=(('learning_rate', 0.01),),
                        force_init=False):
         """(reference module.py:459; ``mxnet_tpu/module/module.py:
-        441-505`` without its mesh demotion)."""
+        441-505``).  Under a mesh a dist store is demoted to its control
+        plane: the step reduces the gradients, so the global batch is the
+        mesh's, not ``num_workers`` times it."""
         assert self.binded and self.params_initialized
         if self.optimizer_initialized and not force_init:
             self.logger.warning('optimizer already initialized, '
@@ -426,8 +541,21 @@ class Module(BaseModule):
             return
         (kvstore, update_on_kvstore) = _create_kvstore(
             kvstore, len(self._context), self._arg_params)
+        demoted = False
+        if kvstore is not None and self._mesh_plan is not None and \
+                'dist' in kvstore.type:
+            demote = getattr(kvstore, 'demote_to_control_plane', None)
+            if demote is not None:
+                demote()
+            update_on_kvstore = False
+            demoted = True
+            self.logger.info(
+                'mesh %s active: dist kvstore %r demoted to control plane '
+                '(gradients reduce inside the step)',
+                self._mesh_plan.sig(), kvstore.type)
         batch_size = self._exec_group.batch_size
-        if kvstore and 'dist' in kvstore.type and '_sync' in kvstore.type:
+        if kvstore and not demoted and 'dist' in kvstore.type and \
+                '_sync' in kvstore.type:
             batch_size *= kvstore.num_workers
         rescale_grad = 1.0 / batch_size
         if isinstance(optimizer, str):
@@ -444,8 +572,9 @@ class Module(BaseModule):
         self._update_on_kvstore = update_on_kvstore
         self._updater = None
         self._reset_fused()
-        if kvstore:
-            # the initialized params seed the store
+        if kvstore and not demoted:
+            # the initialized params seed the store (a demoted store keeps
+            # no data plane: nothing to seed)
             execs = self._exec_group.execs
             _initialize_kvstore(
                 kvstore=kvstore,
@@ -506,6 +635,22 @@ class Module(BaseModule):
         idxs = [i for i, _ in live]
         grads = [[e.grad_dict[n] for e in execs] for _, n in live]
         kvstore = self._kvstore
+        if kvstore is not None and \
+                getattr(kvstore, 'control_plane_only', False) and \
+                not self._update_on_kvstore:
+            # demoted under a mesh: the gradients are reduced here
+            kvstore = None
+        if self._multi_rank() and self._mesh_plan.dp > 1:
+            # the rank's rows' gradients summed over dp: the global
+            # batch's, in one all-reduce per dtype
+            from ..parallel import collectives
+            from ..parallel.mesh import DP_AXIS
+            group = self._mesh_plan.mesh.group(DP_AXIS)
+            flat = [g[0].handle for g in grads]
+            with torch.no_grad():
+                for g, total in zip(flat, collectives.allreduce_hosts_batch(
+                        flat, group)):
+                    g.copy_(total)
         with instrument.span('module.update', cat='executor'):
             if self._update_on_kvstore:
                 kvstore.push(idxs, grads)
@@ -662,7 +807,7 @@ class Module(BaseModule):
             for name in self._fused.kernels:
                 _kernels.library(name)
         batch = self._fused_buffers()[3]
-        bound = compile_cache.batch_sig(batch)
+        bound = self._sig(batch)
         if data_sig is not None and data_sig != bound:
             self.logger.info('warm start: the iterator\'s signature is not '
                              'the bound one; its first batch captures')
@@ -675,7 +820,8 @@ class Module(BaseModule):
             shapes = {name: (tuple(sd[0]), str(sd[1]))
                       for name, sd in entry['batch'].items()}
             if set(shapes) == set(batch):
-                sigs.setdefault(compile_cache.sig_key(shapes), shapes)
+                sigs.setdefault(compile_cache.sig_key(
+                    shapes, mesh=self._mesh_sig), shapes)
         self._warm_sigs = list(sigs)
         for sig, shapes in sigs.items():
             if compile_cache.cache_dir() is None:
@@ -689,7 +835,7 @@ class Module(BaseModule):
         its batch buffers: the bound ones, or buffers of ``shapes`` made
         as the first batch of that signature would make them."""
         params, frozen, aux, batch = self._fused_buffers()
-        if compile_cache.batch_sig(batch) != sig:
+        if self._sig(batch) != sig:
             device = self._context[0].torch_device
             batch = self._sig_batches.get(sig) or {
                 name: torch.zeros(shape, dtype=getattr(torch, dt),
@@ -706,7 +852,8 @@ class Module(BaseModule):
         """The ``meta`` of this step's manifest entries, in the
         reference's form (``mxnet_tpu/parallel/train_step.py:219-227``):
         the metric's fold key (the port's module names written as the
-        reference's), the compute dtype, the health action, no mesh."""
+        reference's), the compute dtype, the health action, the mesh
+        plan's sig (None off a mesh)."""
         metric = self._fused_metric
         key = compile_cache.reference_names(metric.device_fold_key()) \
             if metric is not None else None
@@ -714,7 +861,7 @@ class Module(BaseModule):
             if self._compute_dtype is not None else None
         return compile_cache.jsonable({'metric': key, 'compute_dtype': dtype,
                                        'health': self._fused_health_key,
-                                       'mesh': None})
+                                       'mesh': self._mesh_sig})
 
     def _record_fit_step(self, batch):
         """File ``batch``'s signature in the warmup manifest as a
@@ -747,7 +894,7 @@ class Module(BaseModule):
         gens = [_random.generator(device)] if compile_cache.random_nodes(
             self._fused.program) else []
         restore = compile_cache.snapshot(tensors, gens)
-        self._first_step(cap, compile_cache.batch_sig(batch), batch)
+        self._first_step(cap, self._sig(batch), batch)
         restore()
 
     def _first_step(self, cap, sig, batch):
@@ -780,7 +927,9 @@ class Module(BaseModule):
         pool = cap.pool_bytes or 0
         cost['pool_bytes'] = pool
         cap.cost = _perfwatch.register_executable(
-            'fit_step', key, cost, file=known is None) or cost
+            'fit_step', key, cost, file=known is None,
+            num_devices=self._mesh_plan.num_devices
+            if self._mesh_plan is not None else 1) or cost
         if pool > 0:
             _perfwatch.ledger_alloc('graph_pool', cap, nbytes=pool)
         return outs
@@ -807,6 +956,7 @@ class Module(BaseModule):
         """(``mxnet_tpu/module/module.py:662-731``)"""
         from ..parallel.train_step import make_fit_step
         self._fused_unavailable = True        # until proven otherwise
+        self._fused_shardings = None
         if not _config.get('MXTPU_FUSED_FIT'):
             return
         if not (self.binded and self.params_initialized and
@@ -816,9 +966,10 @@ class Module(BaseModule):
             return
         if len(self._exec_group.execs) > 1 or (
                 self._kvstore is not None and
-                'dist' in self._kvstore.type):
+                'dist' in self._kvstore.type and self._mesh_plan is None):
             # one executor per context, or a dist store: gradients go
-            # through the store (mxnet_tpu/module/module.py:677-681)
+            # through the store (mxnet_tpu/module/module.py:677-681); a
+            # mesh keeps the fused step (its store is demoted)
             return
         if self.inputs_need_grad or \
                 self._exec_group.grad_req_spec != 'write':
@@ -835,15 +986,20 @@ class Module(BaseModule):
         self._fused_trainable = trainable
         self._fused_frozen = frozen
         hkey = _health.fold_key()
+        shardings = None
+        if self._mesh_plan is not None:
+            shardings = self._build_fit_shardings(trainable, frozen, exec_,
+                                                  functional)
         self._fused = make_fit_step(
             self._symbol, functional, data_names=self._data_names,
             compute_dtype=self._compute_dtype, metric=metric,
             metric_label=self._label_names[0] if metric else None,
-            health_action=hkey)
+            health_action=hkey, shardings=shardings)
+        self._fused_shardings = shardings
         self._fused_metric = metric
         self._fused_health_key = hkey
         if self._fused_opt_state is None:
-            self._fused_opt_state = functional.init(
+            self._fused_opt_state = self._fused.init_state(
                 {n: exec_.arg_dict[n].handle for n in trainable})
             # a loaded .states file, or the loop path's state
             self._overlay_updater_states()
@@ -851,6 +1007,31 @@ class Module(BaseModule):
                                  device=self._context[0].torch_device)
         self._drop_graphs()
         self._fused_unavailable = False
+
+    def _build_fit_shardings(self, trainable, frozen, exec_, functional):
+        """The plan's specs for this step (``mxnet_tpu/module/module.py:
+        733-759``): per-name trainable and frozen parameter specs and the
+        inspector's per-leaf ZeRO specs; a parameter whose requested tp
+        placement degraded to replicated is warned about once per fit."""
+        from ..parallel.mesh import FitShardings
+        plan = self._mesh_plan
+        arg = exec_.arg_dict
+        param_sh = {n: plan.param_sharding(n, arg[n].shape, arg[n].dtype)
+                    for n in trainable}
+        frozen_sh = {n: plan.param_sharding(n, arg[n].shape, arg[n].dtype)
+                     for n in frozen}
+        plan.begin_opt_records(trainable)
+        probe = functional.init({n: torch.empty((1,)) for n in trainable})
+        opt_sh = {}
+        for n in trainable:
+            state = probe.get(n)
+            leaves = [] if state is None else (
+                list(state) if isinstance(state, tuple) else [state])
+            opt_sh[n] = tuple(plan.opt_leaf_sharding(n, arg[n].shape,
+                                                     arg[n].dtype)
+                              for _ in leaves)
+        plan.note_degraded(self.logger)
+        return FitShardings(plan, param_sh, opt_sh, frozen=frozen_sh)
 
     def _fused_buffers(self):
         """The fixed buffers of the fused step: (params, frozen, aux,
@@ -880,7 +1061,7 @@ class Module(BaseModule):
     def _step_graph(self, params, frozen, aux, batch):
         """The captured step of ``batch``'s signature over these buffers,
         made on a miss (or when its tensors were rebound)."""
-        sig = compile_cache.batch_sig(batch)
+        sig = self._sig(batch)
         cap = self._graphs.get(sig)
         if cap is None or not cap.holds(self._step_tensors(params, frozen,
                                                            aux, batch)):
@@ -907,10 +1088,10 @@ class Module(BaseModule):
         names = group.data_names + group.label_names
         if len(values) != len(names):
             return None
-        tensors = [group._host(v) for v in values]
+        tensors = [group._mine(group._host(v)) for v in values]
         return compile_cache.sig_key({
             n: (tuple(t.shape), compile_cache._dtype_name(t.dtype))
-            for n, t in zip(names, tensors)})
+            for n, t in zip(names, tensors)}, mesh=self._mesh_sig)
 
     def _use_sig_batch(self, data_batch):
         """Before a batch is loaded: point the bound input arrays at its
@@ -934,8 +1115,9 @@ class Module(BaseModule):
         self._use_sig_batch(data_batch)
         group.load_batch(data_batch)
         buffers = self._fused_buffers()
-        sig = compile_cache.batch_sig(buffers[3])
+        sig = self._sig(buffers[3])
         cap = self._step_graph(*buffers)
+        _commwatch.step_begin()
         for idx, name in enumerate(self._param_names):
             if name in exec_.grad_dict:
                 self._optimizer._update_count(idx)

@@ -349,9 +349,12 @@ register_simple('SoftmaxActivation',
 # the JAX op's custom_vjp, mxnet_tpu/ops/nn.py:468-527).
 # ---------------------------------------------------------------------------
 
-def _softmax_output_grad(prob, label, attrs):
+def _softmax_output_grad(prob, label, attrs, rows=None):
     """d(loss)/d(data) of softmax cross-entropy: ``prob - onehot(label)``
-    with the op's ignore-label mask, normalization and grad_scale."""
+    with the op's ignore-label mask, normalization and grad_scale.
+    ``rows``: the group of ranks whose rows make the global batch (a
+    ``parallel.mesh.DpBatchStats``), whose divisor 'batch' and 'valid'
+    take, or None."""
     multi = bool(attrs.get('multi_output', False))
     grad_scale = float(attrs.get('grad_scale', 1.0))
     use_ignore = bool(attrs.get('use_ignore', False))
@@ -380,8 +383,11 @@ def _softmax_output_grad(prob, label, attrs):
                                        + (1,) * (grad.ndim - mask.ndim))
         valid = torch.sum(mask)
     if normalization == 'batch':
-        grad = grad / prob.shape[0]
+        grad = grad / (prob.shape[0] if rows is None
+                       else rows.loss_rows(prob.shape[0]))
     elif normalization == 'valid' and valid is not None:
+        if rows is not None:
+            valid = rows.psum_count(valid)
         grad = grad / torch.clamp(valid, min=1.0)
     return grad * grad_scale
 
@@ -402,12 +408,14 @@ class _SoftmaxOutputFn(torch.autograd.Function):
         prob = _softmax(d, attrs)
         ctx.save_for_backward(prob, label)
         ctx.attrs = attrs
+        ctx.rows = _global_rows()
         return prob
 
     @staticmethod
     def backward(ctx, g):
         prob, label = ctx.saved_tensors
-        grad = _softmax_output_grad(prob, label, ctx.attrs).to(prob.dtype)
+        grad = _softmax_output_grad(prob, label, ctx.attrs,
+                                    ctx.rows).to(prob.dtype)
         return grad, None, None
 
 
@@ -543,6 +551,15 @@ def shared_batch_stats(group, index):
         yield
     finally:
         _shared.member = prev
+
+
+def _global_rows():
+    """The group whose rows make a loss head's global batch (a mesh's
+    ``DpBatchStats``, which has ``loss_rows``), or None."""
+    member = getattr(_shared, 'member', None)
+    if member is None or not hasattr(member[0], 'loss_rows'):
+        return None
+    return member[0]
 
 
 def _moments(x32, axes):

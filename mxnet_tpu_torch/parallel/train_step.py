@@ -51,10 +51,26 @@ replays, each segment's backward a graph of its own, the update and the
 metric in the last one.  Under ``MXNET_BACKWARD_DO_MIRROR`` such a step
 stays one eager piece (the mirror recomputes across the user's code).
 
-Not ported: shardings (a mesh); asking for them raises.
+With ``shardings`` (a ``parallel.mesh.FitShardings``: ``Module.fit(
+mesh=, partition=)``) over a mesh of more than one rank, the same body
+runs in every rank's process on its rows of the batch: BatchNorm
+normalises the global batch (``mesh.DpBatchStats`` under
+``ops.nn.shared_batch_stats``, the sums all-reduced over dp inside
+autograd), and the update is ``zero.ZeroUpdate``'s (the gradients
+reduce-scattered over dp, this rank's part of every parameter updated
+against its part of the optimizer state, the parts all-gathered over dp,
+then the tp shards over tp).  Such a step stays eager, by the caller's
+rule (its collectives are not captured, as ``make_sp_train_step``'s are
+not); the mirror is refused over more than one dp rank (its recompute
+would run the collectives again inside the backward).  Under
+``skip_update`` the ranks agree on ``ok`` (one all-reduce), so a skipped
+step is skipped everywhere; the probe's gradient norm is each rank's
+local, pre-reduction gradient's.  A one-rank mesh (``'1x1'``) is the
+unmeshed step, captured as it is.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -134,7 +150,7 @@ class FitStep(object):
     body over fixed buffers in a ``compile_cache.CapturedStep``."""
 
     def __init__(self, symbol, functional_opt, data_names, compute_dtype,
-                 metric, metric_label, health_action=None):
+                 metric, metric_label, health_action=None, shardings=None):
         from ..fuse import apply_fuse_passes
         self.program = apply_fuse_passes(symbol, True)
         self._graph_fn = _build_graph_fn(self.program, True)
@@ -150,6 +166,23 @@ class FitStep(object):
         self.health_action = health_action
         self.plan = SegmentPlan(self.program) \
             if custom_nodes(self.program) else None
+        # a mesh of more than one rank: the ZeRO update, and BatchNorm
+        # over the global batch
+        self.zero = self.mesh_plan = None
+        if shardings is not None and shardings.plan.multi_rank:
+            from .zero import ZeroUpdate
+            self.mesh_plan = shardings.plan
+            self.zero = self._opt = ZeroUpdate(functional_opt,
+                                               shardings.plan,
+                                               shardings.params)
+
+    def init_state(self, params):
+        """The optimizer state of ``params`` (name -> tensor) this step
+        updates: the functional optimizer's, or over a mesh of more than
+        one rank this rank's ZeRO part of it."""
+        if self.zero is not None:
+            return self.zero.init(params)
+        return self._opt.init(params)
 
     def _cast(self, v):
         return v.to(self._dtype) if self._dtype is not None and \
@@ -173,7 +206,9 @@ class FitStep(object):
 
         gens = [random.generator(next(iter(batch.values())).device)] \
             if self._draws else []
-        with torch.enable_grad():
+        with torch.enable_grad(), (
+                self.mesh_plan.global_batch() if self.mesh_plan is not None
+                else contextlib.nullcontext()):
             outs, aux_upd = mirror_wrap(forward, gens)(leaves)
             heads = [o for o in outs if o.requires_grad]
             if heads:
@@ -211,6 +246,10 @@ class FitStep(object):
         'skip_update', else the parameters for the update ratio)."""
         with torch.no_grad():
             ok = _health.all_finite_tree((outs, grads))
+            if self.zero is not None:
+                # one verdict for every rank: a step is skipped everywhere
+                from . import collectives
+                ok = collectives.psum(torch.logical_not(ok).float()) == 0
             gnorm = _health.l2_norm_tree(grads)
             kept = list(params.values())
             if self.health_action == 'skip_update':
@@ -257,11 +296,14 @@ class FitStep(object):
             if self.health_action == 'skip_update':
                 self.metric._held(device)
         skip = compile_cache.capture_skip_reason(device, self.program)
+        if skip is None and self.zero is not None:
+            skip = 'collectives'
+            compile_cache.note_skip(name, skip)
         gens = [random.generator(device)] if skip is None and \
             compile_cache.random_nodes(self.program) else []
         bindings = compile_cache.step_tensors(params, frozen, aux, batch,
                                               opt_state, lr_t, health_state)
-        if self.staged and mirror_policy() is None:
+        if self.staged and mirror_policy() is None and self.zero is None:
             return compile_cache.StagedStep(
                 name, self.stages(params, frozen, aux, opt_state, batch,
                                   lr_t, health_state),
@@ -518,16 +560,20 @@ def make_fit_step(symbol: Symbol, functional_opt, data_names=(),
     takes a ``health_state`` argument after ``lr_t`` (``health.
     HealthMonitor.device_state``) and folds the health probe into it;
     under 'skip_update' a non-finite step leaves every state it would
-    write as it was (the module docstring)."""
-    if shardings is not None:
-        raise NotImplementedError('make_fit_step: sharded (mesh) steps are '
-                                  'not ported to mxnet_tpu_torch yet')
+    write as it was (the module docstring).
+
+    With ``shardings`` (a ``parallel.mesh.FitShardings``) over a mesh of
+    more than one rank, each rank calls the step with its rows of the
+    batch and the full parameters; the optimizer state is
+    :meth:`FitStep.init_state`'s (this rank's ZeRO part), the update
+    ``zero.ZeroUpdate``'s and BatchNorm the global batch's (the module
+    docstring).  Over a one-rank mesh it is the unmeshed step."""
     if health_action is not None and \
             health_action not in _health._ACTIONS:
         raise ValueError('make_fit_step: health_action must be one of %s, '
                          'got %r' % (_health._ACTIONS, health_action))
     return FitStep(symbol, functional_opt, data_names, compute_dtype,
-                   metric, metric_label, health_action)
+                   metric, metric_label, health_action, shardings)
 
 
 class _PlainUpdate(object):

@@ -39,10 +39,17 @@ ledger, OOM forensics; the port of ``mxnet_tpu/perfwatch.py``.
    the signature's row, the largest ledger entries and the current
    MFU/phase picture.
 
+Under a dp×tp mesh a row's ``flops`` are one rank's (its rows of the
+batch) and ``global_flops`` that times ``num_devices`` (dp·tp), and
+``perf.mfu`` divides by ``num_devices`` times the card's peak: a per-card
+fraction (the tp peers of a rank run the same arithmetic, so global
+FLOPs count it tp times; ROADMAP Queue 3).
+
 Off by default: every hook is one module-global check, no event is
 recorded and nothing counted.  ``MXTPU_PERFWATCH=1`` implies the metrics
-registry.  The communication plane's hook (``_comm``) stays None until
-that plane is ported.
+registry.  The communication plane (``commwatch.py``) hooks in through
+``_comm``: :func:`activate_fit` re-reads its knob and :func:`note_step`
+hands it each step's interval and per-device FLOPs.
 """
 from __future__ import annotations
 
@@ -84,7 +91,9 @@ _sample_n = 0
 _peaks = None              # (flops, bw) once resolved on the card
 _lock = threading.Lock()
 
-# the communication plane hooks in here when it is ported
+# the communication plane (commwatch.py) sets _comm to its module at
+# import and mirrors its enablement into _comm_on, a plain bool, so the
+# hot path's off check is one global read
 _comm = None
 _comm_on = False
 
@@ -133,10 +142,13 @@ def activate_fit():
     """Called by ``BaseModule.fit`` before the first batch: re-read the
     knobs and reset the sampling cadence and the steps/sec window."""
     global _sample_count
+    if _comm is not None:
+        _comm.activate_fit()
     refresh()
-    if not _on:
+    if not _on and not _comm_on:
         return
     _sample_count = 0
+    # the comm plane's step intervals must not span fits either
     _step_window.clear()
     instrument.set_gauge('perf.peak_flops', peaks()[0])
 
@@ -419,12 +431,21 @@ def roofline_mandatory(min_bytes, steps_per_sec, peak_bw=None):
 def note_step(kind, key, nsamples=0, device=None):
     """One training step dispatched: advance the rolling steps/sec window
     and publish ``perf.mfu`` / ``perf.steps_per_sec`` /
-    ``perf.step_flops`` (and the card's memory gauges).  One flag check
-    when off."""
-    if not _on:
+    ``perf.step_flops`` (and the card's memory gauges), and feed
+    ``commwatch.on_step`` (the step interval, its collectives, the
+    per-device FLOPs).  Two flag checks when both planes are off."""
+    if not _on and not _comm_on:
         return
+    comm = _comm if _comm_on else None
     now = time.monotonic()
+    interval = (now - _step_window[-1]) if _step_window else None
     _step_window.append(now)
+    if not _on:
+        info = executable_info(kind, key) if key is not None else None
+        ndev = info.get('num_devices', 1) if info else 1
+        flops = info.get('global_flops', 0.0) if info else 0.0
+        comm.on_step(kind, key, interval, flops / ndev)
+        return
     instrument.inc('perf.steps')
     if nsamples:
         instrument.inc('perf.samples', int(nsamples))
@@ -444,6 +465,8 @@ def note_step(kind, key, nsamples=0, device=None):
     instrument.set_gauge('perf.num_devices', ndev)
     instrument.set_gauge('perf.mfu',
                          mfu(flops, sps, peak=peak_flops(device) * ndev))
+    if comm is not None:
+        comm.on_step(kind, key, interval, flops / ndev)
     if device is not None and torch.device(device).type == 'cuda':
         instrument.set_gauge('mem.device_allocated_bytes',
                              torch.cuda.memory_allocated(device))

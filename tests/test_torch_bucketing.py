@@ -261,8 +261,10 @@ def test_unported_bucketing_methods_raise(arg, method):
     """Both methods match the JAX package: ``get_input_grads`` gives the
     current bucket's data gradient (bound with ``inputs_need_grad``) over
     alternating buckets, and ``install_monitor`` taps the bound buckets
-    (tests/test_torch_monitor.py covers the taps).  What still raises is
-    the mesh, in the port only."""
+    (tests/test_torch_monitor.py covers the taps).  The mesh, which
+    raised here until it was ported, installs one plan on every bucket,
+    whose sig equals the JAX package's (tests/test_torch_mesh.py trains a
+    BucketingModule on ranks)."""
     r = np.random.RandomState(6)
     weight = r.randn(3, 1).astype(np.float32)
     got = {}
@@ -310,8 +312,13 @@ def test_unported_bucketing_methods_raise(arg, method):
             assert t.shape == j.shape
             np.testing.assert_allclose(t, j, rtol=1e-5, atol=1e-7)
     mod = _module(tmx, tlm, arg)
-    with pytest.raises(NotImplementedError, match='Queue 1'):
-        mod._set_parallel(None)
+    mod._set_parallel('1x1', 'auto')
+    jmod = _module(mx, jlm, arg)
+    jmod._set_parallel('1x1', 'auto')
+    assert mod._buckets and all(m._mesh_plan is mod._mesh_plan
+                                for m in mod._buckets.values())
+    assert mod._mesh_plan.sig() == \
+        next(iter(jmod._buckets.values()))._mesh_plan.sig()
 
 
 # ---------------------------------------------------------------------------

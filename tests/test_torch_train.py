@@ -420,10 +420,14 @@ def test_bf16_compute_keeps_f32_masters(monkeypatch):
 
 
 def test_fit_refuses_unported_options():
+    """A mesh needs one process per position: '2x1' in a one-process job
+    raises (tests/test_torch_mesh.py runs meshes on gloo ranks), as the
+    JAX package's does over too few devices; ``partition`` without a mesh
+    trains the unmeshed fit, as in the reference."""
     m = tmx.Module(_mlp(tmx), context=tmx.cpu())
     it = tmx.io.NDArrayIter(np.zeros((4, 5), np.float32),
                             np.zeros(4, np.float32), batch_size=2)
-    with pytest.raises(NotImplementedError, match='mesh'):
+    with pytest.raises(ValueError, match='needs 2 ranks'):
         m.fit(it, num_epoch=1, mesh='2x1')
-    with pytest.raises(NotImplementedError, match='partition'):
-        m.fit(it, num_epoch=1, partition='auto')
+    m.fit(it, num_epoch=1, partition='auto')
+    assert m._mesh_plan is None and m._fused is not None
