@@ -6922,7 +6922,7 @@ def nms_summary(case, launches):
 # off and cuDNN deterministic; KV_STEPS steps of BATCH rows per executor
 # (kv-local, kv-dist-sync), KV_ASYNC_STEPS per worker (kv-dist-async)
 KV_STEPS = 4
-KV_ASYNC_STEPS = 8
+KV_ASYNC_STEPS = 4
 KV_FAULT_STEPS = 4
 # the fault run: rank 1's client severs its 40th push frame (a step is
 # 161 pushes, one per parameter), then reconnects and replays
@@ -6933,7 +6933,7 @@ KV_RTOL = 1e-5                  # against the slice arithmetic (-n 2)
 # floor, the distance of a one-context fit over every batch's rows in
 # another order (the same arithmetic summed in another order)
 KV_NOISE_FACTOR = 2.0
-FEED_CAPTURE_CHILDREN = 6
+FEED_CAPTURE_CHILDREN = 3
 
 
 def kv_data(rows):
@@ -7876,6 +7876,303 @@ def mesh_ranks(mx, torch, symbol, arg, aux, kernels, expected, tmp):
             'one_1x1_launches_per_step': one_launches,
             'one_1x1_bytes_per_step': one_bytes,
             'meshes': out}, launches
+
+
+# -- the image input pipeline: RecordIO, the native decode, ImageRecordIter --
+REC_IMAGES = 1280           # imagenet-rec: 40 batches of BATCH
+REC_QUALITY = 95            # tools/im2rec.py's default
+REC_MEAN = {'mean_r': 123.68, 'mean_g': 116.779, 'mean_b': 103.939}
+REC_THREADS = 4             # examples/train_imagenet.py's default
+REC_HEAVY = {'max_rotate_angle': 10, 'max_shear_ratio': 0.1,
+             'max_aspect_ratio': 0.25, 'random_h': 36, 'random_s': 50,
+             'random_l': 50, 'min_random_scale': 0.533,
+             'max_random_scale': 1.0}
+
+
+def rec_image(torch, rng):
+    """One smooth ImageNet-shaped RGB image (uint8 HWC) made on the card:
+    short side 256-480, aspect 3:4-4:3, linear gradients, a low-frequency
+    texture and four soft-edged ellipses of random colours, all drawn from
+    ``rng``."""
+    short = int(rng.integers(256, 481))
+    aspect = float(rng.uniform(3 / 4, 4 / 3))
+    h, w = (short, int(round(short * aspect))) if aspect >= 1 else \
+        (int(round(short / aspect)), short)
+    yy = torch.linspace(0, 1, h, device='cuda')[:, None]
+    xx = torch.linspace(0, 1, w, device='cuda')[None, :]
+    p = torch.from_numpy(rng.uniform(size=(3, 6)).astype(np.float32)) \
+        .cuda()[:, :, None, None]
+    img = (40 + 170 * p[:, 0] + 60 * (p[:, 1] - 0.5) * xx
+           + 60 * (p[:, 2] - 0.5) * yy
+           + 18 * torch.sin(6.2832 * (1 + 4 * p[:, 3]) * xx
+                            + 6.2832 * (1 + 4 * p[:, 4]) * yy
+                            + 6.2832 * p[:, 5]))
+    for e in rng.uniform(size=(4, 7)).astype(np.float32):
+        d = ((xx - e[0]) / (0.05 + 0.3 * e[2])) ** 2 + \
+            ((yy - e[1]) / (0.05 + 0.3 * e[3])) ** 2
+        a = torch.sigmoid((1 - d) * 12)
+        color = torch.tensor(255 * e[4:7], device='cuda')[:, None, None]
+        img = img * (1 - a) + color * a
+    return img.clamp(0, 255).round().to(torch.uint8).permute(1, 2, 0) \
+        .contiguous().cpu().numpy()
+
+
+def rec_write(mx, torch, path_rec, path_idx):
+    """imagenet-rec's .rec/.idx: REC_IMAGES JPEGs at REC_QUALITY through
+    the port's pack_img (its native encoder, on every host core) and
+    MXIndexedRecordIO; labels 0-999.  The seconds and bytes of each part."""
+    from concurrent.futures import ThreadPoolExecutor
+    rng = np.random.default_rng(SEED + 31)
+    labels = rng.integers(0, 1000, REC_IMAGES)
+    t0 = time.monotonic()
+    images = [rec_image(torch, rng) for _ in range(REC_IMAGES)]
+    made_s = time.monotonic() - t0
+    t0 = time.monotonic()
+
+    def packed(i):
+        return mx.recordio.pack_img(
+            mx.recordio.IRHeader(0, float(labels[i]), i, 0), images[i],
+            quality=REC_QUALITY)
+    with ThreadPoolExecutor(os.cpu_count()) as pool:
+        records = list(pool.map(packed, range(REC_IMAGES)))
+    encode_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    writer = mx.recordio.MXIndexedRecordIO(path_idx, path_rec, 'w')
+    for i, rec in enumerate(records):
+        writer.write_idx(i, rec)
+    writer.close()
+    shorts = [min(im.shape[:2]) for im in images]
+    return {'images': REC_IMAGES, 'make_s': made_s, 'encode_s': encode_s,
+            'write_s': time.monotonic() - t0,
+            'rec_bytes': os.path.getsize(path_rec),
+            'mean_jpeg_bytes': float(np.mean([len(r) for r in records])),
+            'short_side_min_max': [min(shorts), max(shorts)],
+            'pixels_mean': float(np.mean([im.shape[0] * im.shape[1]
+                                          for im in images]))}
+
+
+def rec_iter(mx, path_rec, threads, **kw):
+    return mx.io.ImageRecordIter(
+        path_imgrec=path_rec, data_shape=IMAGE, batch_size=BATCH,
+        preprocess_threads=threads, seed=SEED, **kw)
+
+
+def rec_rate(mx, path_rec, threads, heavy):
+    """The iterator alone: images/s over one epoch (the producer restarted
+    just before the clock starts), REC_MEAN with rand_crop and
+    rand_mirror, and the heavy augmenter knobs when ``heavy``."""
+    kw = dict(REC_MEAN, rand_crop=True, rand_mirror=True,
+              **(REC_HEAVY if heavy else {}))
+    it = rec_iter(mx, path_rec, threads, **kw)
+    it.reset()
+    t0 = time.monotonic()
+    n, finite = 0, True
+    for batch in it:
+        n += batch.data[0].shape[0]
+        finite = finite and bool(np.isfinite(
+            batch.data[0].asnumpy()[:, :, ::37, ::37]).all())
+    wall = time.monotonic() - t0
+    it.close()
+    return {'threads': threads, 'augment': 'heavy' if heavy else 'off',
+            'images': n, 'seconds': wall, 'images_per_s': n / wall,
+            'finite': finite}
+
+
+def rec_fit_run(mx, torch, symbol, arg, aux, data_iter, kernels):
+    """One ``Module.fit`` of ResNet-50 v2 (bf16 over f32 masters, SGD
+    lr 0.05 momentum 0.9 wd 1e-4, metrics acc and ce) over ``data_iter``
+    for one epoch, a synchronise after each step: the module, each step's
+    host seconds, the fit's wall seconds, the launches per step by kernel,
+    the fit's launches by kernel (counts zeroed just before the fit, read
+    just after) and the metric's reading."""
+    times, last = [], [0.0]
+
+    def tick(_):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        times.append(now - last[0])
+        last[0] = time.perf_counter()
+    for k in kernels:
+        reset_launches(k)
+    counts0 = launch_counts(kernels)
+    metric = mx.metric.create(['acc', 'ce'])
+    mod = mx.mod.Module(symbol, context=mx.gpu(0),
+                        compute_dtype=torch.bfloat16)
+    t0 = last[0] = time.perf_counter()
+    mod.fit(data_iter, num_epoch=1, eval_metric=metric, optimizer='sgd',
+            optimizer_params=dict(SGD_MOMENTUM), batch_end_callback=tick,
+            arg_params={k: mx.nd.array(v) for k, v in arg.items()},
+            aux_params={k: mx.nd.array(v) for k, v in aux.items()})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts(kernels)
+    per_step = launches_per_step(counts0, counts, len(times))
+    totals = {k: n - counts0[k][0] for k, (n, _) in counts.items()}
+    return mod, times, wall, per_step, totals, metric.get_name_value()
+
+
+_REC_STAGES = ('read', 'decode', 'batchify', 'prefetch_wait', 'feed_wait',
+               'device_stage', 'window_wait')
+
+
+def rec_stage_sums(instrument):
+    out = {}
+    for name in _REC_STAGES:
+        h = instrument.histogram('iowatch.stage.' + name)
+        out[name] = (h.sum, h.count)
+    return out
+
+
+def imagenet_rec(mx, torch, symbol, arg, aux, kernels, expected, tmp):
+    """imagenet-rec: ResNet-50 v2 trained through ``Module.fit`` from a
+    ``.rec`` of JPEGs, as ``examples/train_imagenet.py`` does.  Writes the
+    .rec/.idx (rec_write), times the iterator alone at REC_THREADS and at
+    the host's core count, augmenter off and heavy, then fits one epoch
+    (captured, device feed on, pinned staging) over
+    ``ImageRecordIter(shuffle, rand_crop, rand_mirror, REC_MEAN)`` with
+    iowatch on, and the same fit over an ``NDArrayIter`` holding the
+    batches a second iterator of the same seed produces: bit for bit
+    (cuDNN deterministic, TF32 off).  The report and the launches by
+    kernel of both fits."""
+    from mxnet_tpu_torch import instrument, iowatch
+    failures = []
+    path_rec = os.path.join(tmp, 'imagenet.rec')
+    path_idx = os.path.join(tmp, 'imagenet.idx')
+    out = {'data': rec_write(mx, torch, path_rec, path_idx),
+           'host_cores': os.cpu_count(),
+           'codec': 'the port\'s baseline JPEG codec (csrc/host/jpeg.cc); '
+                    'no libjpeg on this host'}
+    rates = [rec_rate(mx, path_rec, n, heavy)
+             for n in sorted({REC_THREADS, os.cpu_count()})
+             for heavy in (False, True)]
+    out['iterator'] = rates
+    if not all(r['finite'] and r['images'] == REC_IMAGES for r in rates):
+        failures.append('imagenet-rec iterator: %s' % rates)
+    deterministic(torch, True)
+    fit_kw = dict(REC_MEAN, shuffle=True, rand_crop=True, rand_mirror=True)
+    launches = dict.fromkeys(expected, 0)
+    pinned0 = instrument.counter_value('io.pinned_buffers')
+    with knobs(MXTPU_IOWATCH=1):
+        iowatch.refresh()
+        stages0 = rec_stage_sums(instrument)
+        it = rec_iter(mx, path_rec, REC_THREADS, **fit_kw)
+        mod, times, wall, per_step, totals, metric = rec_fit_run(
+            mx, torch, symbol, arg, aux, it, kernels)
+        stages1 = rec_stage_sums(instrument)
+        gp = iowatch.goodput_snapshot()
+    iowatch.refresh()
+    it.close()
+    steps = len(times)
+    if steps != REC_IMAGES // BATCH or not mesh_launches_ok(per_step,
+                                                            expected):
+        failures.append('imagenet-rec fit: %d steps, launches per step %s '
+                        '(expected %s)' % (steps, per_step, expected))
+    graphs = graph_report(mod._graphs.values())
+    if len(graphs) != 1 or not graphs[0]['captured'] or \
+            graphs[0]['replays'] != steps - 1:
+        failures.append('imagenet-rec fit: not one replayed graph: %s'
+                        % graphs)
+    for k in expected:
+        launches[k] += totals.get(k, 0)
+    state = mesh_state(mod)
+    if not all(np.all(np.isfinite(v)) for v in state.values()):
+        failures.append('imagenet-rec fit: a parameter is not finite')
+    del mod
+    step_ms = statistics.median(times[TRAIN_WARMUP:]) * 1e3
+    buckets = gp.get('buckets') or {}
+    out['fit'] = {
+        'steps': steps, 'preprocess_threads': REC_THREADS,
+        'fit_wall_s': wall, 'images_per_s_fit_wall': REC_IMAGES / wall,
+        'step_ms': [t * 1e3 for t in times],
+        'step_ms_median_after_warmup': step_ms,
+        'images_per_s_median_step': BATCH / step_ms * 1e3,
+        'launches_per_step': per_step, 'graphs': graphs, 'metric': metric,
+        'pinned_buffers_made': instrument.counter_value('io.pinned_buffers')
+        - pinned0,
+        'stage_s': {k: stages1[k][0] - stages0[k][0] for k in _REC_STAGES},
+        'stage_samples': {k: stages1[k][1] - stages0[k][1]
+                          for k in _REC_STAGES},
+        'goodput_fraction': gp.get('fraction'),
+        'goodput_wall_s': gp.get('wall_secs'),
+        'goodput_buckets_s': buckets,
+        'input_stall_share': (buckets.get('input_stall', 0.0)
+                              / gp['wall_secs'] if gp.get('wall_secs')
+                              else None)}
+    # the twin: the very batches, from a second iterator of the same seed
+    t0 = time.monotonic()
+    xs, ys = [], []
+    twin = rec_iter(mx, path_rec, os.cpu_count(), **fit_kw)
+    for batch in twin:
+        xs.append(batch.data[0].asnumpy())
+        ys.append(batch.label[0].asnumpy())
+    twin.close()
+    collect_s = time.monotonic() - t0
+    x, y = np.concatenate(xs), np.concatenate(ys)
+    del xs, ys
+    mod, ttimes, _, tper_step, ttotals, tmetric = rec_fit_run(
+        mx, torch, symbol, arg, aux,
+        mx.io.NDArrayIter(x, y, batch_size=BATCH), kernels)
+    del x, y
+    for k in expected:
+        launches[k] += ttotals.get(k, 0)
+    twin_state = mesh_state(mod)
+    del mod
+    diff = max(float(np.max(np.abs(state[k] - twin_state[k])))
+               for k in state)
+    bit = all(np.array_equal(state[k], twin_state[k]) for k in state) and \
+        metric == tmetric
+    out['exact'] = {'against': 'the same fit over an NDArrayIter holding '
+                               'the batches a second ImageRecordIter of '
+                               'the same seed produced',
+                    'bit_for_bit': bit, 'max_abs_diff': diff,
+                    'metric': metric, 'twin_metric': tmetric,
+                    'twin_step_ms_median_after_warmup':
+                        statistics.median(ttimes[TRAIN_WARMUP:]) * 1e3,
+                    'collect_s': collect_s, 'cudnn_deterministic': True,
+                    'tf32': False}
+    if not bit:
+        failures.append('imagenet-rec: the fit over ImageRecordIter is not '
+                        'the NDArrayIter fit over its batches bit for bit '
+                        '(max abs diff %g; metric %s against %s)'
+                        % (diff, metric, tmetric))
+    if not mesh_launches_ok(tper_step, expected):
+        failures.append('imagenet-rec twin launches per step %s' % tper_step)
+    deterministic(torch, False)
+    if failures:
+        raise AssertionError('; '.join(failures))
+    return out, launches
+
+
+def pick_fill_cases(torch):
+    """tail-ops' card case of the fill rule: ``pick`` (both keepdims),
+    ``choose_element_0index`` and ``batch_take`` on a CUDA tensor with the
+    indices -1, -size-1 and size against the same call on the CPU (NaN
+    where an index is past either end), then a synchronise and a fresh
+    kernel: the CUDA context is alive (an out-of-range gather index would
+    have been a device-side assert)."""
+    from mxnet_tpu_torch.ops import get_op
+    x = torch.arange(24, dtype=torch.float32).reshape(4, 6)
+    idx = torch.tensor([-1.0, -7.0, 6.0, 2.0])
+    cases = []
+    for name, attrs in (('pick', {'axis': 1}),
+                        ('pick', {'axis': 1, 'keepdims': True}),
+                        ('choose_element_0index', {}),
+                        ('batch_take', {})):
+        op = get_op(name)
+        attrs = op.canon_attrs(attrs)
+        host = op.apply(attrs, [x, idx], False, None)[0][0]
+        card = op.apply(attrs, [x.cuda(), idx.cuda()], False, None)[0][0]
+        torch.cuda.synchronize()
+        card = card.cpu()
+        cases.append({'op': name, 'attrs': {k: str(v) for k, v in
+                                            attrs.items()},
+                      'index': idx.tolist(), 'card': card.flatten().tolist(),
+                      'equal_to_cpu': bool(torch.equal(
+                          card.isnan(), host.isnan()) and torch.equal(
+                          card.nan_to_num(), host.nan_to_num()))})
+    torch.cuda.synchronize()
+    alive = float(torch.ones(8, device='cuda').sum().item()) == 8.0
+    return cases, alive
 
 
 def main():
@@ -8878,9 +9175,14 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     tail_cases, failures = run_op_cases(torch, 'tail-ops', flush)
+    fill_cases, alive = pick_fill_cases(torch)
+    if not alive or not all(c['equal_to_cpu'] for c in fill_cases):
+        failures.append('tail-ops fill rule: %s, context alive %s'
+                        % (fill_cases, alive))
     torch.backends.cudnn.allow_tf32 = True
     del flush
     log({'phase': 'tail-ops', 'tf32': False, 'cases': tail_cases,
+         'fill_cases': fill_cases, 'context_alive': alive,
          'seconds': time.monotonic() - t0, 'failures': failures})
     if failures:
         raise AssertionError('; '.join(failures))
@@ -8943,6 +9245,18 @@ def main():
                      + mesh_ranks_launches.get(k, 0)
                      for k in resnet_expected}
 
+    # -- imagenet-rec: ResNet-50 v2 fed from a .rec through ImageRecordIter -
+    with tempfile.TemporaryDirectory() as rec_tmp:
+        t0 = time.monotonic()
+        rec_report, rec_launches = imagenet_rec(
+            mx, torch, symbol, arg, aux, resnet_kernels, resnet_expected,
+            rec_tmp)
+        log({'phase': 'imagenet-rec', 'model': 'resnet-50 v2',
+             'batch': BATCH, 'compute_dtype': 'bfloat16',
+             'optimizer': 'sgd lr 0.05 momentum 0.9 wd 1e-4',
+             'launches': rec_launches, **rec_report,
+             'seconds': time.monotonic() - t0})
+
     # -- summary -------------------------------------------------------------
     on_path = [c for c in cases if c['launches_per_forward']]
     summary = {
@@ -8957,7 +9271,8 @@ def main():
         + observe_launches['fused_bn_relu']
         + sum(zoo_launches['fused_bn_relu'].values())
         + serve_launches['fused_bn_relu'] + fleet_bn + auto_bn
-        + kv_launches['fused_bn_relu'] + mesh_launches['fused_bn_relu'],
+        + kv_launches['fused_bn_relu'] + mesh_launches['fused_bn_relu']
+        + rec_launches['fused_bn_relu'],
         'launches_by_path': {'serve': launches['fused_bn_relu'],
                              'fleet': fleet_bn, 'autoscale': auto_bn,
                              'train': train_launches['fused_bn_relu'],
@@ -8979,7 +9294,8 @@ def main():
                                  async_launches['fused_bn_relu'],
                              'mesh-fit': mesh_fit_launches['fused_bn_relu'],
                              'mesh-ranks':
-                                 mesh_ranks_launches['fused_bn_relu']},
+                                 mesh_ranks_launches['fused_bn_relu'],
+                             'imagenet-rec': rec_launches['fused_bn_relu']},
         'max_abs_err': max(c['max_abs_err'] for c in
                            on_path + fleet_report['bn_relu_cases']
                            + kv_cases['fused_bn_relu']),
@@ -9025,7 +9341,9 @@ def main():
                              async_launches['fused_scale_bias_dot'],
                          'mesh-fit': mesh_fit_launches['fused_scale_bias_dot'],
                          'mesh-ranks':
-                             mesh_ranks_launches['fused_scale_bias_dot']},
+                             mesh_ranks_launches['fused_scale_bias_dot'],
+                         'imagenet-rec':
+                             rec_launches['fused_scale_bias_dot']},
                         'torch.matmul on the normalized input'),
          **route_summary(dot_cases, {'train': train_routes,
                                      'custom-train': custom_routes})},
@@ -9056,7 +9374,9 @@ def main():
                          'mesh-fit':
                              mesh_fit_launches['fused_scale_bias_conv3x3'],
                          'mesh-ranks':
-                             mesh_ranks_launches['fused_scale_bias_conv3x3']},
+                             mesh_ranks_launches['fused_scale_bias_conv3x3'],
+                         'imagenet-rec':
+                             rec_launches['fused_scale_bias_conv3x3']},
                         'F.conv2d on the normalized input'),
          **route_summary(conv_cases, {'train': train_conv_routes,
                                       'custom-train': custom_conv_routes}),

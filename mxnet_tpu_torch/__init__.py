@@ -25,7 +25,9 @@ reference's optimizers and their update ops, checkpoints of parameters
 and optimizer state, ``fit``'s per-epoch checkpoint and auto-resume,
 the checkpoint callbacks and the ``FeedForward`` estimator, with
 monitors (``monitor.Monitor``), backward mirroring
-(``MXNET_BACKWARD_DO_MIRROR``) and the reference's data iterators.  The TPU
+(``MXNET_BACKWARD_DO_MIRROR``) and the reference's data iterators, the
+image pipeline among them (``recordio``, ``io.ImageRecordIter`` over a
+native JPEG decode-and-augment library, ``image``, ``opencv``).  The TPU
 kernels — ``fused_bn_relu``,
 ``fused_scale_bias_dot``, ``fused_scale_bias_conv3x3``,
 ``fused_dot_epilogue``, ``flash_attention`` and ``Rtc`` — are CUDA C++
@@ -59,7 +61,8 @@ from . import chronicle, commwatch, detector, health, iowatch, perfwatch
 from . import initializer as init
 from . import module as mod
 from . import optimizer as opt
-from .base import MXNetError
+from . import fs, recordio, image
+from .base import AttrScope, MXNetError
 from .context import Context, cpu, current_context, gpu
 from .model import FeedForward
 from .module import Module
@@ -77,6 +80,6 @@ __all__ = ['MXNetError', 'Context', 'cpu', 'gpu', 'current_context',
            'opt', 'init', 'callback', 'random', 'parallel', 'rnn',
            'engine', 'model', 'FeedForward', 'resilience', 'monitor',
            'detector', 'health', 'iowatch', 'perfwatch', 'commwatch',
-           'chronicle',
+           'chronicle', 'fs', 'recordio', 'image', 'AttrScope',
            'kv', 'kvstore', 'kvstore_server']
 

@@ -11,7 +11,8 @@ import threading
 import numpy as np
 import torch
 
-__all__ = ['MXNetError', 'NameManager', 'AttrScope', 'resolve_dtype']
+__all__ = ['MXNetError', 'NameManager', 'Prefix', 'AttrScope',
+           'resolve_dtype']
 
 
 class MXNetError(Exception):
@@ -54,6 +55,18 @@ class NameManager(_ScopedSingleton):
         name = '%s%d' % (hint, self._counter[hint])
         self._counter[hint] += 1
         return name
+
+
+class Prefix(NameManager):
+    """NameManager that prepends a prefix (``python/mxnet/name.py:73-88``)."""
+
+    def __init__(self, prefix):
+        super().__init__()
+        self._prefix = prefix
+
+    def get(self, name, hint):
+        name = super().get(name, hint)
+        return self._prefix + name
 
 
 class AttrScope(_ScopedSingleton):

@@ -435,6 +435,22 @@ _register('MXTPU_FAULTS_SEED', 0, int,
           'RNG seed for MXTPU_FAULTS coin flips (deterministic chaos).')
 
 
+def describe(effective_only=False):
+    """The catalog of the knobs this package reads (the analogue of
+    docs/how_to/env_var.md), in the JAX package's format
+    (``mxnet_tpu/config.py:600``).  Every knob registered here is read,
+    so ``effective_only`` leaves none out."""
+    lines = []
+    for knob in sorted(_REGISTRY.values()):
+        lines.append('%s (default %r)\n    %s'
+                     % (knob.name, knob.default, knob.doc))
+    return '\n'.join(lines)
+
+
+def list_knobs():
+    return sorted(_REGISTRY)
+
+
 def get(name):
     """Read a registered knob from the environment (typed)."""
     knob = _REGISTRY[name]

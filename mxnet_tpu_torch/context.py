@@ -103,6 +103,13 @@ def gpu(device_id=0):
     return Context('gpu', device_id)
 
 
+def num_devices():
+    """Number of addressable devices: the CUDA devices, or the host's one
+    CPU device where there are none (the JAX package counts its
+    platform's devices, ``mxnet_tpu/context.py:102``)."""
+    return torch.cuda.device_count() or 1
+
+
 def current_context() -> Context:
     """The thread-local default context (``cpu(0)`` outside any ``with``
     scope)."""

@@ -4,10 +4,12 @@
 (``pad`` wraps around to the start, ``discard`` drops the tail,
 ``roll_over`` carries it into the next epoch), the double-buffered
 device feed ``DeviceFeedIter`` (``:191-358``) of the sync-free fit loop,
-``ResizeIter`` (``:114``), ``PrefetchingIter`` (``:359``), and the
+``ResizeIter`` (``:114``), ``PrefetchingIter`` (``:359``), the
 readers of the upstream MNIST examples, ``MNISTIter`` (idx files,
-``:694``) and ``CSVIter`` (``:747``).  Each delivered batch counts
-``io.batches`` once and is noted by the input-pipeline plane
+``:694``) and ``CSVIter`` (``:747``), and ``ImageRecordIter``
+(``:783``, the RecordIO image pipeline of ``io_record.py``).  Each
+delivered batch counts ``io.batches`` once and is noted by the
+input-pipeline plane
 (``iowatch.note_batch``); the time the fit thread waits for a batch is
 the goodput ledger's ``input_stall``, the feed's wait also the
 ``feed_wait`` stage.
@@ -31,7 +33,7 @@ import struct
 import sys
 import threading
 import weakref
-from collections import OrderedDict
+from collections import OrderedDict, namedtuple
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -44,8 +46,11 @@ from . import perfwatch as _perfwatch
 from .base import MXNetError
 from .ndarray import NDArray, array
 
-__all__ = ['DataBatch', 'DataIter', 'NDArrayIter', 'DeviceFeedIter',
-           'ResizeIter', 'PrefetchingIter', 'MNISTIter', 'CSVIter']
+__all__ = ['DataDesc', 'DataBatch', 'DataIter', 'NDArrayIter',
+           'DeviceFeedIter', 'ResizeIter', 'PrefetchingIter', 'MNISTIter',
+           'CSVIter', 'ImageRecordIter']
+
+DataDesc = namedtuple('DataDesc', ['name', 'shape'])
 
 
 class DataBatch(object):
@@ -350,7 +355,13 @@ class DeviceFeedIter(DataIter):
     back in a clean state (resetting it only if a staged batch had to be
     discarded).  Because the feed runs one fetch ahead of the consumer,
     ``io.batches`` counting moves to this wrapper (delivered batches),
-    and ``close()`` restores the inner iterators' counting flags."""
+    and ``close()`` restores the inner iterators' counting flags.
+
+    On a card, an inner iterator that can decode into pinned buffers
+    (``pin_batches``, ``io_record.ImageRecordIter``) is asked to, so the
+    copy reads its buffer directly; a batch that carries ``release`` gets
+    it called with ``ready_event`` once the copy is enqueued, and its
+    buffer is not written again before that event."""
 
     def __init__(self, data_iter, place_data, place_label=None, device=None):
         super().__init__()
@@ -363,6 +374,10 @@ class DeviceFeedIter(DataIter):
         device = torch.device(device) if device is not None else None
         self._stream = torch.cuda.Stream(device) \
             if device is not None and device.type == 'cuda' else None
+        self._pins = getattr(data_iter, 'pin_batches', None) \
+            if self._stream is not None else None
+        if self._pins is not None:
+            self._pins(device)
         self._pool = ThreadPoolExecutor(
             max_workers=1, thread_name_prefix='mxtpu-device-feed')
         self._pending = None
@@ -390,6 +405,9 @@ class DeviceFeedIter(DataIter):
             if on_card:
                 staged.ready_event = torch.cuda.Event()
                 staged.ready_event.record(self._stream)
+                release = getattr(batch, 'release', None)
+                if release is not None:
+                    release(staged.ready_event)
         return staged
 
     def _prime(self):
@@ -469,6 +487,9 @@ class DeviceFeedIter(DataIter):
         for it, old in self._silenced:
             it._counts_io_batches = old
         self._silenced = []
+        if self._pins is not None:
+            self._pins(None)
+            self._pins = None
         self._pool.shutdown(wait=False)
 
     def __del__(self):
@@ -778,3 +799,10 @@ class CSVIter(DataIter):
 
     def next(self):
         return self._inner.next()
+
+
+def ImageRecordIter(**kwargs):
+    """RecordIO image pipeline — the native implementation lives in
+    ``io_record`` (C++ RecordIO + decode, ``csrc/host/recordio.cc``)."""
+    from .io_record import ImageRecordIter as _Impl
+    return _Impl(**kwargs)

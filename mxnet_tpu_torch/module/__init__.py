@@ -3,11 +3,11 @@
 executor per context, gradients through the kvstore), ``BucketingModule`` (one Module per bucket over shared
 arrays), ``SequentialModule``, ``PythonModule`` and ``PythonLossModule``.
 The pipeline module is not ported."""
-from .base_module import BaseModule
+from .base_module import BaseModule, BatchEndParam
 from .bucketing_module import BucketingModule
 from .module import Module
 from .python_module import PythonLossModule, PythonModule
 from .sequential_module import SequentialModule
 
-__all__ = ['BaseModule', 'BucketingModule', 'Module', 'PythonModule',
+__all__ = ['BaseModule', 'BatchEndParam', 'BucketingModule', 'Module', 'PythonModule',
            'PythonLossModule', 'SequentialModule']

@@ -101,6 +101,11 @@ class BucketingModule(BaseModule):
         return self._curr_module.label_shapes
 
     @property
+    def output_shapes(self):
+        assert self.binded
+        return self._curr_module.output_shapes
+
+    @property
     def symbol(self):
         assert self.binded
         return self._curr_module.symbol

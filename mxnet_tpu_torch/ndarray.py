@@ -35,6 +35,7 @@ import struct
 import numpy as np
 import torch
 
+from . import fs
 from .base import _DTYPES, MXNetError, resolve_dtype
 from .context import (Context, as_torch_device, compute_context, context_of,
                       current_context)
@@ -422,7 +423,7 @@ def save(fname, data):
     else:
         keys = []
         arrays = list(data)
-    with open(fname, 'wb') as f:
+    with fs.open_uri(fname, 'wb') as f:
         f.write(_MAGIC)
         f.write(struct.pack('<q', len(arrays)))
         f.write(struct.pack('<q', len(keys)))
@@ -454,9 +455,16 @@ def validate(fname):
     """Whether ``fname`` is a whole ``MXTPU001`` container: walks the
     headers and checks that every byte they promise is there, without
     building the arrays (``mxnet_tpu/ndarray.py:440``).  A truncated or
-    torn file gives False; never raises."""
+    torn file gives False; never raises.  A remote URI is checked by a
+    full :func:`load`, as in the JAX package."""
+    if fs.is_remote(fname):
+        try:
+            load(fname)
+            return True
+        except Exception:       # noqa: BLE001 - any damage reads False
+            return False
     try:
-        with open(fname, 'rb') as f:
+        with fs.open_uri(fname, 'rb') as f:
             if f.read(len(_MAGIC)) != _MAGIC:
                 return False
             n_arrays, = struct.unpack('<q', _read(f, 8))
@@ -493,8 +501,9 @@ def validate(fname):
 
 def load(fname, ctx=None):
     """Load a ``MXTPU001`` container: a dict when it has keys, else a
-    list.  Arrays land on ``ctx`` (default ``cpu()``)."""
-    with open(fname, 'rb') as f:
+    list.  Arrays land on ``ctx`` (default ``cpu()``).  ``fname`` may be
+    a remote URI (``fs.open_uri``)."""
+    with fs.open_uri(fname, 'rb') as f:
         if f.read(len(_MAGIC)) != _MAGIC:
             raise MXNetError('invalid NDArray file format: %s' % fname)
         n_arrays, = struct.unpack('<q', _read(f, 8))

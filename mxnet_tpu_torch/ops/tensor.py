@@ -479,7 +479,11 @@ def _slice_axis(x, axis=0, begin=0, end=None):
         b += size
     if e < 0:
         e += size
-    return x.narrow(axis, b, e - b)
+    # Python slicing clamps to the dimension (an end past it, or before
+    # the begin, gives fewer or no rows), as the JAX op's x[b:e] does
+    idx = [slice(None)] * x.ndim
+    idx[axis] = slice(b, e)
+    return x[tuple(idx)]
 
 
 register_simple('slice_axis', _slice_axis,
@@ -535,6 +539,29 @@ def fill_index(ids, n):
     return ids.clamp(0, n - 1), (ids >= 0) & (ids < n)
 
 
+def _take_along_axis(a, indices, axis):
+    """``jnp.take_along_axis`` in its default "fill" mode: an index in
+    [-n, 0) counts from the end, and one past either end reads the fill
+    value (NaN for floats, the most negative value for signed integers,
+    the largest for unsigned ones).  The gather reads a clamped index and
+    a ``where`` puts the fill in, so the card sees no out-of-range index
+    (which would be a device-side assert)."""
+    n = a.shape[axis]
+    idx = indices.long()                # truncation, as astype(int32)
+    idx = torch.where(idx < 0, idx + n, idx)
+    ok = (idx >= 0) & (idx < n)
+    out = torch.gather(a, axis, idx.clamp(0, max(n - 1, 0)))
+    if a.dtype.is_floating_point or a.dtype.is_complex:
+        fill = float('nan')
+    elif a.dtype == torch.bool:
+        fill = True
+    elif a.dtype == torch.uint8:
+        fill = torch.iinfo(a.dtype).max
+    else:
+        fill = torch.iinfo(a.dtype).min
+    return torch.where(ok, out, torch.full_like(out, fill))
+
+
 def _take(a, indices, axis=0, mode='clip'):
     axis = int(axis) % a.ndim
     n = a.shape[axis]
@@ -547,9 +574,8 @@ def _take(a, indices, axis=0, mode='clip'):
 
 register_simple('take', _take, ninputs=2, input_names=['a', 'indices'],
                 attr_defaults={'axis': 0, 'mode': 'clip'})
-register_simple('batch_take', lambda a, indices: torch.gather(
-    a, 1, indices.long()[:, None])[:, 0], ninputs=2,
-    input_names=['a', 'indices'])
+register_simple('batch_take', lambda a, indices: _take_along_axis(
+    a, indices[:, None], 1)[:, 0], ninputs=2, input_names=['a', 'indices'])
 
 
 def _one_hot(indices, depth=0, on_value=1.0, off_value=0.0,
@@ -635,12 +661,20 @@ def _topk(x, axis=-1, k=1, ret_typ='indices', is_ascend=False):
 register_simple('topk', _topk,
                 attr_defaults={'axis': -1, 'k': 1, 'ret_typ': 'indices',
                                'is_ascend': False})
-register_simple('sort', lambda x, axis=-1, is_ascend=True: torch.sort(
-    x, dim=int(axis), descending=not is_ascend, stable=True)[0],
+def _sort(x, axis=-1, is_ascend=True):
+    """Values and indices of a stable sort along ``axis``; ``axis=None``
+    sorts the flattened array, as ``jnp.sort(x, axis=None)`` does."""
+    if axis is None:
+        x, axis = x.reshape(-1), 0
+    return torch.sort(x, dim=int(axis), descending=not is_ascend,
+                      stable=True)
+
+
+register_simple('sort', lambda x, axis=-1, is_ascend=True: _sort(
+    x, axis, is_ascend)[0], attr_defaults={'axis': -1, 'is_ascend': True})
+register_simple('argsort', lambda x, axis=-1, is_ascend=True: _sort(
+    x, axis, is_ascend)[1].to(torch.float32),
     attr_defaults={'axis': -1, 'is_ascend': True})
-register_simple('argsort', lambda x, axis=-1, is_ascend=True: torch.sort(
-    x, dim=int(axis), descending=not is_ascend, stable=True)[1]
-    .to(torch.float32), attr_defaults={'axis': -1, 'is_ascend': True})
 
 # ---------------------------------------------------------------------------
 # Sampling ops (sample_op.cc), from the per-device generator
@@ -716,7 +750,7 @@ register('stack', _stack_apply, input_names=_num_args_names,
 
 def _pick(data, index, axis=-1, keepdims=False):
     axis = data.ndim - 1 if axis is None else int(axis) % data.ndim
-    out = torch.gather(data, axis, index.long().unsqueeze(axis))
+    out = _take_along_axis(data, index.unsqueeze(axis), axis)
     return out if keepdims else out.squeeze(axis)
 
 

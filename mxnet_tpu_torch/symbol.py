@@ -700,8 +700,9 @@ def _infer(sym: Symbol, known_shapes: Dict[str, tuple],
                             shapes[inp_node.name] = tuple(shp)
                             dtypes[inp_node.name] = dt
             # aux shapes: the op's aux_shape hook, else aux tracks
-            # input[0]'s channel dim
-            if ins[0] is not None and op.aux_names(attrs):
+            # input[0]'s channel dim (an op of no input, _zeros say,
+            # has none)
+            if ins and ins[0] is not None and op.aux_names(attrs):
                 hint = None
                 if op.aux_shape is not None:
                     try:
@@ -956,6 +957,11 @@ def _make_creator(op_name):
 for _op_name in list_ops():
     globals().setdefault(_op_name, _make_creator(_op_name))
 del _op_name
+
+# common aliases used by reference model zoo scripts
+# (mxnet_tpu/symbol.py:1064-1065)
+zeros = _zeros      # noqa: F821 - made by the loop above
+ones = _ones        # noqa: F821
 
 
 def _scalar_or_broadcast(lhs, rhs, broadcast_op, scalar_op,

@@ -49,7 +49,10 @@ def test_import_leaves_jax_out():
             'mxnet_tpu_torch.models.inception_bn, '
             'mxnet_tpu_torch.models.googlenet, '
             'mxnet_tpu_torch.models.resnext, '
-            'mxnet_tpu_torch.models.inception_resnet_v2; '
+            'mxnet_tpu_torch.models.inception_resnet_v2, '
+            'mxnet_tpu_torch.fs, mxnet_tpu_torch.recordio, '
+            'mxnet_tpu_torch.io_record, mxnet_tpu_torch.image, '
+            'mxnet_tpu_torch.opencv; '
             'bad = sorted(m for m in sys.modules if m == "jax" or '
             'm.startswith("jax.") or m == "mxnet_tpu" or '
             'm.startswith("mxnet_tpu.")); print(bad); '
@@ -67,6 +70,34 @@ def test_source_imports_no_jax(path):
     with open(path) as f:
         src = f.read()
     assert not _FORBIDDEN.search(src), path
+
+
+def test_the_image_pipeline_leaves_pil_out(tmp_path):
+    """The card's input path (pack_img, ImageRecordIter over the native
+    decode, unpack_img) imports no PIL, and no jax: it runs on a host
+    that has neither.  ``image``/``opencv`` import PIL only inside their
+    functions."""
+    code = ('import sys, numpy as np, mxnet_tpu_torch as mx; '
+            'from mxnet_tpu_torch import opencv, image; '
+            'r = mx.recordio; p = sys.argv[1]; '
+            'w = r.MXRecordIO(p, "w"); '
+            'img = (np.arange(48 * 40 * 3) % 251).astype(np.uint8)'
+            '.reshape(48, 40, 3); '
+            '[w.write(r.pack_img(r.IRHeader(0, float(i), i, 0), img)) '
+            'for i in range(4)]; w.close(); '
+            'it = mx.io.ImageRecordIter(path_imgrec=p, data_shape=(3, 32, 32),'
+            ' batch_size=2, rand_crop=True); '
+            'n = sum(1 for _ in it); it.close(); '
+            'h, a = r.unpack_img(r.MXRecordIO(p, "r").read()); '
+            'bad = sorted(m for m in sys.modules if m.split(".")[0] in '
+            '("PIL", "jax", "mxnet_tpu")); '
+            'print(n, a.shape, bad); sys.exit(1 if bad or n != 2 else 0)')
+    env = dict(os.environ)
+    env['PYTHONPATH'] = ROOT
+    proc = subprocess.run([sys.executable, '-c', code,
+                           str(tmp_path / 'a.rec')], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 def test_sources_cover_every_subpackage():
