@@ -114,7 +114,7 @@ graphs held), and peak allocated and reserved device memory.
                   serve phase's ResNet-50 v2 (f32, TF32 off, cuDNN
                   deterministic, pow2 buckets to 32 rows captured by every
                   replica before it serves) from 1, 2 and 4 replicas, each
-                  its own Predictor on its own CUDA stream: 256 requests
+                  its own Predictor on its own CUDA stream: 192 requests
                   of 1-8 rows from 16 client threads per count (images/s,
                   p50/p99, graphs held = replicas x buckets, reserved
                   memory, fused_bn_relu by replica: 17 per forward, every
@@ -185,7 +185,7 @@ graphs held), and peak allocated and reserved device memory.
                   dump's ms.  Every response against the one-replica
                   oracle (fleet's, its parameters copied back), bit for
                   bit at its bucket.  Then fleet's
-                  2-replica traffic (256 requests of 1-8 rows, 16
+                  2-replica traffic (192 requests of 1-8 rows, 16
                   clients) with servewatch off, then on: images/s, p99
                   and postmortem ms; a drain commits through the flight
                   recorder.
@@ -510,6 +510,37 @@ graphs held), and peak allocated and reserved device memory.
                   all-gather and BatchNorm all-reduce).  The ranks' kernel
                   shapes (f32 at 16 and 32 rows) are kv-local's and the
                   kernels phase's cases.
+
+16. serve-mesh  — the serving side of the mesh: full-width ResNet-50 v2
+                  (f32, TF32 off, cuDNN deterministic) served by
+                  ModelServer from one unsharded replica, from a '1x1'
+                  replica built by load_model(mesh='1x1',
+                  partition='auto') (the server carves the one card) and
+                  from prebuilt Predictor(mesh='1x2' | '2x1' | '2x2',
+                  partition='auto', devices=[gpu(0)] * dp*tp): each warmed
+                  to 32 rows (every slot graph captured), then 64 requests
+                  of 1-32 rows from 4 threads.  Every flush is rebuilt row
+                  for row (tags in pixel [0, 0, 0]) and each response held
+                  bit for bit against the unsharded Predictor run on each
+                  dp slot's B/dp rows; compile.traces frozen while
+                  serving.sharded_aot_calls counts every flush;
+                  fused_bn_relu 17 times a slot forward; per mesh p50/p99
+                  and images/s beside the unsharded replica's, each
+                  position's parameter bytes against sharding_records()'s
+                  shard bytes, peak allocated bytes during a 32-row
+                  forward, graphs and reserved bytes; on the one card
+                  load_model(mesh='1x2') raises the carve's error and a
+                  sharded model's replica_capacity is 1 (scale_up None).
+17. group2ctx   — the model-parallel LSTM LM of
+                  examples/model_parallel_lstm.py on the port's rnn cells at
+                  the PTB widths (V 10000, E = H = 200, 2 layers, T 35, 32
+                  rows, f32, TF32 off), groups embed / layer0 / layer1 /
+                  decode all on gpu(0), then embed on cpu(0) (host <->
+                  card copies forward and backward), then bound with no
+                  group2ctx: the first step's output and gradients within
+                  rtol 1e-5 across the three, each gradient on its
+                  variable's device, the loss falling over 10 SGD steps in
+                  each, step ms.
 
 Then the card's nvidia-smi line, the kernels summary line (the entries of
 the GEMM, conv and attention kernels also carry path_route,
@@ -2454,7 +2485,7 @@ def serve_phase(mx, torch, server, symbol, params, data, rng, fused,
 
 # -- 4b. fleet: replicas on their own streams, lanes, deadlines, changes ----
 FLEET_REPLICAS = (1, 2, 4)
-FLEET_REQUESTS = 256
+FLEET_REQUESTS = 192
 FLEET_CLIENTS = 16
 FLEET_BURST = 64            # 8-row requests, all submitted at once
 FLEET_CHANGE_CLIENTS = 4
@@ -6922,8 +6953,8 @@ def nms_summary(case, launches):
 # off and cuDNN deterministic; KV_STEPS steps of BATCH rows per executor
 # (kv-local, kv-dist-sync), KV_ASYNC_STEPS per worker (kv-dist-async)
 KV_STEPS = 4
-KV_ASYNC_STEPS = 4
-KV_FAULT_STEPS = 4
+KV_ASYNC_STEPS = 2
+KV_FAULT_STEPS = 2
 # the fault run: rank 1's client severs its 40th push frame (a step is
 # 161 pushes, one per parameter), then reconnects and replays
 KV_FAULT = 'client.send.push:after:40:sever'
@@ -8175,6 +8206,470 @@ def pick_fill_cases(torch):
     return cases, alive
 
 
+# -- serve-mesh: tensor-parallel replicas over [gpu(0)] * dp*tp --------------
+SMESH_MESHES = ('1x1', '1x2', '2x1', '2x2')
+SMESH_REQUESTS = 64             # of 1-32 rows each, per mesh
+SMESH_CLIENTS = 4
+
+
+class SmeshTraffic(object):
+    """serve-mesh's requests: ``rows`` images of a seeded pool, each row's
+    pixel [0, 0, 0] replaced by a unique tag ((uid * 64 + row + 1) /
+    FLEET_TAG_SCALE, exact in float32), so a logged flush names its rows
+    and the rows can be rebuilt for the oracle."""
+
+    def __init__(self, pool, seed):
+        self.pool = pool
+        rng = np.random.default_rng(seed)
+        self.sizes = [int(v) for v in rng.integers(1, BATCH + 1,
+                                                   size=SMESH_REQUESTS)]
+
+    def rows_of(self, uid):
+        rows = self.sizes[uid]
+        start = (uid * 13) % (len(self.pool) - BATCH)
+        x = self.pool[start:start + rows].copy()
+        x[:, 0, 0, 0] = (uid * 64 + np.arange(1, rows + 1)) / FLEET_TAG_SCALE
+        return x
+
+    def row(self, tag):
+        uid, r = divmod(tag - 1, 64)
+        return self.rows_of(uid)[r]
+
+    def run(self, server, name):
+        """Every request from SMESH_CLIENTS threads: ({uid: output},
+        [latency s], wall s)."""
+        outs, lat, errors = {}, [], []
+
+        def client(k):
+            try:
+                for uid in range(k, SMESH_REQUESTS, SMESH_CLIENTS):
+                    x = self.rows_of(uid)
+                    t0 = time.monotonic()
+                    outs[uid] = server.predict(name, timeout=300, data=x)[0]
+                    lat.append(time.monotonic() - t0)
+            except Exception as e:                # noqa: BLE001 - reported
+                errors.append(repr(e))
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(SMESH_CLIENTS)]
+        t0 = time.monotonic()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.monotonic() - t0
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError('serve-mesh %s: %s' % (name,
+                                                        errors or 'hung'))
+        return outs, lat, wall
+
+
+def smesh_record(predictor):
+    """Log each forward of ``predictor`` as (the tags of its rows, its
+    bucket): the flushes the server made."""
+    flushes, fwd = [], predictor.forward
+
+    def forward(**inputs):
+        outs = fwd(**inputs)
+        tags = np.asarray(inputs['data'])[:, 0, 0, 0]
+        flushes.append((tuple(int(round(t * FLEET_TAG_SCALE))
+                              for t in tags), predictor._active_bucket))
+        return outs
+    predictor.forward = forward
+    return flushes
+
+
+def smesh_latency(lat, wall, images):
+    lat = np.array(lat) * 1e3
+    return {'p50_ms': float(np.percentile(lat, 50)),
+            'p99_ms': float(np.percentile(lat, 99)),
+            'images_per_s': images / wall, 'wall_s': wall}
+
+
+def smesh_check(traffic, outs, flushes, oracle, dp):
+    """Every flush rebuilt row for row, padded to its bucket and split into
+    its dp slots; each slot's rows through the unsharded oracle at the
+    slot's bucket (B/dp rows); every response bit for bit those rows.
+    Returns the flushes checked."""
+    where = {}
+    for i, (tags, bucket) in enumerate(flushes):
+        for j, tag in enumerate(tags):
+            where.setdefault(tag, (i, j))
+    want_of = {}
+    for i, (tags, bucket) in enumerate(flushes):
+        x = np.stack([traffic.row(t) for t in tags])
+        per = bucket // dp
+        padded = np.concatenate([x, np.zeros((bucket - len(x),) + x.shape[1:],
+                                             np.float32)])
+        got = []
+        for d in range(dp):
+            oracle.forward(data=padded[d * per:(d + 1) * per])
+            got.append(oracle.get_output(0))
+        want_of[i] = np.concatenate(got)
+    bad = []
+    for uid, out in outs.items():
+        rows = traffic.sizes[uid]
+        spots = [where.get(uid * 64 + r + 1) for r in range(rows)]
+        if any(s is None for s in spots) or len({s[0] for s in spots}) != 1:
+            bad.append((uid, 'rows not in one logged flush'))
+            continue
+        i = spots[0][0]
+        want = want_of[i][[s[1] for s in spots]]
+        if out.shape != (rows, 1000) or not np.array_equal(out, want):
+            bad.append((uid, float(np.max(np.abs(out - want)))
+                        if out.shape == want.shape else out.shape))
+    if bad:
+        raise AssertionError('serve-mesh: %d responses differ from the '
+                             'unsharded Predictor at their slot buckets, '
+                             'e.g. %s' % (len(bad), bad[:3]))
+    return len(flushes)
+
+
+def smesh_bytes(sp):
+    """Persistent bytes of each mesh position: its shard (or copy) of every
+    argument, and its copy of the aux states."""
+    def nbytes(t):
+        return t.numel() * t.element_size()
+    plan = sp._plan
+    out = []
+    for d in range(plan.dp):
+        for t in range(plan.tp):
+            out.append({'position': [d, t],
+                        'param_bytes': sum(nbytes(g[d][t])
+                                           for g in sp._params.values()),
+                        'aux_bytes': sum(nbytes(g[d][t])
+                                         for g in sp._aux.values())})
+    return out
+
+
+def serve_mesh(mx, torch, instrument, all_kernels, symbol, params):
+    """serve-mesh: full-width ResNet-50 v2 (f32, TF32 off, cuDNN
+    deterministic) served by ModelServer from one unsharded replica, then
+    from a '1x1' replica (load_model(mesh='1x1', partition='auto'), which
+    carves the one card) and from prebuilt Predictor(mesh='1x2' | '2x1' |
+    '2x2', partition='auto', devices=[gpu(0)] * dp*tp): each warmed to
+    BATCH rows, then SMESH_REQUESTS requests of 1-32 rows from
+    SMESH_CLIENTS threads.  Each response bit for bit the unsharded
+    Predictor's at its slot bucket; compile.traces frozen while
+    serving.sharded_aot_calls counts every flush; fused_bn_relu 17 times a
+    slot forward, from the captured slot graphs."""
+    shapes = {'data': (BATCH,) + IMAGE}
+    sym_json = symbol.tojson()
+    pool = np.random.default_rng(SEED + 22).standard_normal(
+        (96,) + IMAGE, dtype=np.float32)
+    traffic = SmeshTraffic(pool, SEED + 23)
+    images = sum(traffic.sizes)
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    report, failures = {'meshes': {}}, []
+    launches = {}
+    instrument.set_metrics(True)
+    try:
+        fresh_memory(torch)
+        oracle = mx.Predictor(sym_json, params, shapes, pad_to_bucket=True)
+        oracle.warm_buckets(BATCH)
+        server = mx.serving.ModelServer(max_delay_ms=2.0, max_batch=BATCH)
+        try:
+            server.load_model('plain', symbol_json=sym_json, params=params,
+                              input_shapes=shapes)
+            outs, lat, wall = traffic.run(server, 'plain')
+            report['unsharded'] = smesh_latency(lat, wall, images)
+            server.unload_model('plain')
+            # one card: no disjoint pair for a '1x2' replica of its own
+            try:
+                server.load_model('wide', symbol_json=sym_json,
+                                  params=params, input_shapes=shapes,
+                                  mesh='1x2', partition='auto')
+                failures.append('load_model(mesh=1x2) on one card built a '
+                                'replica')
+            except mx.MXNetError as e:
+                report['carve_refusal'] = str(e)
+                if 'no disjoint device set' not in str(e):
+                    failures.append('load_model(mesh=1x2): %s' % e)
+            for mesh in SMESH_MESHES:
+                dp, tp = (int(v) for v in mesh.split('x'))
+                fresh_memory(torch)
+                name = 'm' + mesh.replace('x', '_')
+                t0 = time.monotonic()
+                if mesh == '1x1':
+                    sp = server.load_model(name, symbol_json=sym_json,
+                                           params=params, input_shapes=shapes,
+                                           mesh=mesh, partition='auto')
+                else:
+                    sp = mx.Predictor(sym_json, params, shapes, mesh=mesh,
+                                      partition='auto',
+                                      devices=[mx.gpu(0)] * (dp * tp))
+                    server.load_model(name, predictor=sp, input_shapes=shapes,
+                                      mesh=mesh, partition='auto')
+                torch.cuda.synchronize()
+                load_s = time.monotonic() - t0
+                steps = [slot['step'] for e in sp._slots.values()
+                         for slot in e['slots']]
+                buckets = sum(1 for b in (1, 2, 4, 8, 16, 32) if b >= dp)
+                flushes = smesh_record(sp)
+                c1 = launch_counts(all_kernels)
+                traces0 = instrument.counter_value('compile.traces')
+                aot0 = instrument.counter_value('serving.sharded_aot_calls')
+                outs, lat, wall = traffic.run(server, name)
+                torch.cuda.synchronize()
+                traces = instrument.counter_value('compile.traces') - traces0
+                aot = instrument.counter_value('serving.sharded_aot_calls') \
+                    - aot0
+                flushes = list(flushes)     # the peak forward comes later
+                slot_forwards = dp * len(flushes)
+                hot = {k: n - c1[k][0] for k, (n, _) in
+                       launch_counts(all_kernels).items()}
+                bn = hot['fused_bn_relu']
+                checked = smesh_check(traffic, outs, flushes, oracle, dp)
+                per_replay = sorted({s.launches.get('fused_bn_relu', 0)
+                                     for s in steps})
+                recs = sp.sharding_records()
+                rec_bytes = sum(r['shard_bytes']
+                                for r in recs['params'].values())
+                positions = smesh_bytes(sp)
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                sp.forward(data=pool[:BATCH])
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated()
+                entry = {
+                    'dp': dp, 'tp': tp, 'devices': ['gpu(0)'] * (dp * tp),
+                    'entry': ('load_model(mesh=%r, partition=auto)' % mesh
+                              if mesh == '1x1' else
+                              'Predictor(mesh=%r, partition=auto, devices='
+                              '[gpu(0)] * %d) -> load_model(predictor=)'
+                              % (mesh, dp * tp)),
+                    'load_s': load_s, 'requests': len(outs),
+                    'images': images, 'flushes': len(flushes),
+                    'flushes_checked_bit_for_bit': checked,
+                    **smesh_latency(lat, wall, images),
+                    'hot_path_captures': traces,
+                    'sharded_aot_calls': aot,
+                    'slot_forwards': slot_forwards,
+                    'fused_bn_relu_launches': bn,
+                    'fused_bn_relu_per_slot_forward': bn / max(slot_forwards,
+                                                               1),
+                    'launches_by_kernel': hot,
+                    'launches_per_replay': per_replay,
+                    'graphs': sum(1 for s in steps if s.captured),
+                    'graphs_expected': buckets * dp,
+                    'capture_ms': sum(s.capture_ms or 0 for s in steps),
+                    'sharded_params': sum(1 for r in recs['params'].values()
+                                          if 'tp' in r['spec']),
+                    'degraded_params': len([r for r in
+                                            recs['params'].values()
+                                            if r.get('reason')]),
+                    'records_shard_bytes': rec_bytes,
+                    'positions': positions,
+                    'forward_base_allocated_bytes': base,
+                    'forward_peak_allocated_bytes': peak,
+                    'reserved_bytes': torch.cuda.memory_reserved(),
+                    'replica_capacity': server.replica_capacity(name),
+                    'scale_up': server.scale_up(name)}
+                launches[mesh] = hot
+                if traces:
+                    failures.append('%s: %d captures on the hot path'
+                                    % (mesh, traces))
+                if aot != len(flushes) or not flushes:
+                    failures.append('%s: %d sharded calls for %d flushes'
+                                    % (mesh, aot, len(flushes)))
+                if bn != 17 * slot_forwards or per_replay != [17]:
+                    failures.append('%s: fused_bn_relu %d in %d slot '
+                                    'forwards (replays %s)'
+                                    % (mesh, bn, slot_forwards, per_replay))
+                if entry['graphs'] != entry['graphs_expected']:
+                    failures.append('%s: %d graphs, expected %d'
+                                    % (mesh, entry['graphs'],
+                                       entry['graphs_expected']))
+                if any(p['param_bytes'] != rec_bytes for p in positions):
+                    failures.append('%s: position bytes %s against the '
+                                    'records\' %d' % (mesh, positions,
+                                                      rec_bytes))
+                if entry['replica_capacity'] != 1 or \
+                        entry['scale_up'] is not None:
+                    failures.append('%s: capacity %s, scale_up %s'
+                                    % (mesh, entry['replica_capacity'],
+                                       entry['scale_up']))
+                report['meshes'][mesh] = entry
+                server.unload_model(name)
+                del sp, steps
+        finally:
+            server.close(drain=False)
+        del oracle
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = tf32
+    if failures:
+        raise AssertionError('serve-mesh: ' + '; '.join(failures))
+    report['launches_by_mesh'] = launches
+    return report, {k: sum(v[k] for v in launches.values())
+                    for k in launches['1x1']}
+
+
+# -- group2ctx: the model-parallel LSTM LM ------------------------------------
+G2C = dict(vocab=10000, embed=200, hidden=200, layers=2, seq_len=35,
+           batch=32)                # BASELINE config 4's PTB widths
+G2C_STEPS = 10
+G2C_LR = 0.005                      # examples/model_parallel_lstm.py's
+G2C_GROUPS = ('embed', 'layer0', 'layer1', 'decode')
+
+
+def g2c_lm(mx):
+    """``examples/model_parallel_lstm.py``'s ``build_lm`` on the port's
+    own rnn cells."""
+    from mxnet_tpu_torch.rnn.rnn_cell import LSTMCell
+    data = mx.sym.Variable('data')
+    label = mx.sym.Variable('softmax_label')
+    with mx.AttrScope(ctx_group='embed'):
+        states = mx.sym.Embedding(data, input_dim=G2C['vocab'],
+                                  output_dim=G2C['embed'], name='embed')
+    for i in range(G2C['layers']):
+        with mx.AttrScope(ctx_group='layer%d' % i):
+            cell = LSTMCell(num_hidden=G2C['hidden'], prefix='lstm_l%d_' % i)
+            begin = cell.begin_state(func=mx.sym.Variable,
+                                     shape=(G2C['batch'], G2C['hidden']))
+            states, _ = cell.unroll(G2C['seq_len'], inputs=states,
+                                    begin_state=begin, merge_outputs=True)
+    with mx.AttrScope(ctx_group='decode'):
+        pred = mx.sym.Reshape(states, shape=(-1, G2C['hidden']))
+        pred = mx.sym.FullyConnected(pred, num_hidden=G2C['vocab'],
+                                     name='pred')
+        label_flat = mx.sym.Reshape(label, shape=(-1,))
+        return mx.sym.SoftmaxOutput(pred, label_flat, name='softmax')
+
+
+def g2c_train(mx, torch, net, group2ctx):
+    """The example's loop: weights rand * 0.1 from one seed, the +1 token
+    walk, G2C_STEPS SGD steps at G2C_LR.  Returns the first step's output
+    and gradients (numpy), the executor, the loss of every step and each
+    step's ms (to a device synchronise)."""
+    b, t = G2C['batch'], G2C['seq_len']
+    ex = net.simple_bind(mx.gpu(0), data=(b, t), softmax_label=(b, t),
+                         group2ctx=group2ctx, grad_req='write')
+    rng = np.random.RandomState(0)
+    for name in net.list_arguments():
+        if name.endswith(('weight', 'parameters')):
+            arr = ex.arg_dict[name]
+            arr[:] = (rng.rand(*arr.shape) * 0.1).astype(np.float32)
+    tokens = np.arange(b * (t + 1)).reshape(b, t + 1) % (G2C['vocab'] - 1) + 1
+    label = tokens[:, 1:]
+    ex.arg_dict['data'][:] = tokens[:, :-1].astype(np.float32)
+    ex.arg_dict['softmax_label'][:] = label.astype(np.float32)
+    first, losses, step_ms = None, [], []
+    for _ in range(G2C_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ex.forward(is_train=True)[0]
+        ex.backward()
+        for name, arr in ex.arg_dict.items():
+            g = ex.grad_dict.get(name)
+            if g is not None and name not in ('data', 'softmax_label'):
+                arr[:] = arr - G2C_LR * g
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if first is None:
+            first = (out.asnumpy(), {k: g.asnumpy()
+                                     for k, g in ex.grad_dict.items()
+                                     if k not in ('data', 'softmax_label')})
+        p = out.asnumpy().reshape(b, t, -1)
+        losses.append(float(-np.log(np.maximum(
+            p[np.arange(b)[:, None], np.arange(t)[None, :], label],
+            1e-8)).mean()))
+    return first, ex, losses, step_ms
+
+
+def g2c_compare(got, want):
+    """(max abs err, max err over rtol 1e-5 * |want| + atol) of two
+    (output, gradients) pairs; the atol of each tensor is 1e-5 of its
+    largest magnitude."""
+    worst, over = 0.0, 0.0
+    pairs = [(got[0], want[0])] + [(got[1][k], want[1][k])
+                                   for k in sorted(want[1])]
+    if sorted(got[1]) != sorted(want[1]):
+        return float('inf'), float('inf')
+    for a, b in pairs:
+        diff = np.abs(a - b)
+        bound = 1e-5 * np.abs(b) + 1e-5 * float(np.max(np.abs(b)) or 1.0)
+        worst = max(worst, float(np.max(diff)))
+        over = max(over, float(np.max(diff / bound)))
+    return worst, over
+
+
+def group2ctx_phase(mx, torch, all_kernels):
+    """group2ctx: the model-parallel LSTM LM (examples/model_parallel_lstm.py
+    on the port's rnn cells) at BASELINE config 4's PTB widths, f32, TF32
+    off, bound three ways: groups all on gpu(0); 'embed' on cpu(0) and the
+    rest on gpu(0) (host <-> card copies forward and backward); no
+    group2ctx (the pass pipeline's program).  The first step's output and
+    gradients within rtol 1e-5 (atol 1e-5 of each tensor's largest
+    magnitude) across the three, each gradient on its variable's device;
+    the loss falls over G2C_STEPS steps in each."""
+    from mxnet_tpu_torch.executor import _partition_segments
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    net = g2c_lm(mx)
+    runs, failures = {}, []
+    c0 = launch_counts(all_kernels)
+    try:
+        for key, g2c in (
+                ('all_gpu', {g: mx.gpu(0) for g in G2C_GROUPS}),
+                ('embed_cpu', dict({g: mx.gpu(0) for g in G2C_GROUPS},
+                                   embed=mx.cpu(0))),
+                ('unpartitioned', None)):
+            fresh_memory(torch)
+            first, ex, losses, step_ms = g2c_train(mx, torch, net, g2c)
+            wrong = sorted(n for n, g in ex.grad_dict.items()
+                           if g.context != ex.arg_dict[n].context)
+            runs[key] = {'first': first, 'losses': losses,
+                         'step_ms': step_ms,
+                         'step_ms_median_after_first':
+                             statistics.median(step_ms[1:]),
+                         'peak_allocated_bytes':
+                             torch.cuda.max_memory_allocated(),
+                         'grads_off_their_device': wrong,
+                         'embed_weight_on': str(
+                             ex.arg_dict['embed_weight'].context),
+                         'segments': len(_partition_segments(
+                             net, ex._group2ctx, ex._ctx))
+                         if g2c else None}
+            if wrong:
+                failures.append('%s: gradients off their variable\'s '
+                                'device: %s' % (key, wrong[:4]))
+            if not losses[-1] < losses[0] or not np.isfinite(losses[-1]):
+                failures.append('%s: the loss did not fall: %s'
+                                % (key, losses))
+            del ex
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    launches = {k: n - c0[k][0] for k, (n, _) in
+                launch_counts(all_kernels).items()}
+    report = {'model': 'examples/model_parallel_lstm.py build_lm', **G2C,
+              'steps': G2C_STEPS, 'lr': G2C_LR, 'dtype': 'float32',
+              'tf32': False, 'launches_by_kernel': launches}
+    for a, b in (('all_gpu', 'unpartitioned'), ('embed_cpu', 'all_gpu')):
+        worst, over = g2c_compare(runs[a]['first'], runs[b]['first'])
+        report['%s_vs_%s' % (a, b)] = {'max_abs_err': worst,
+                                       'max_err_over_bound': over}
+        if not over <= 1.0:
+            failures.append('%s against %s: first step beyond rtol 1e-5 '
+                            '(%g of the bound, max abs err %g)'
+                            % (a, b, over, worst))
+    for key, run in runs.items():
+        run.pop('first')
+        report[key] = run
+    if failures:
+        raise AssertionError('group2ctx: ' + '; '.join(failures))
+    return report
+
+
 def main():
     try:
         import torch
@@ -9257,6 +9752,23 @@ def main():
              'launches': rec_launches, **rec_report,
              'seconds': time.monotonic() - t0})
 
+    # -- serve-mesh: tensor-parallel replicas over [gpu(0)] * dp*tp --------
+    t0 = time.monotonic()
+    smesh_report, smesh_launches = serve_mesh(
+        mx, torch, instrument, all_kernels, symbol,
+        convert.params_from_numpy(arg, aux, 'cuda:0'))
+    log({'phase': 'serve-mesh', 'model': 'resnet-50 v2', 'classes': 1000,
+         'image': list(IMAGE), 'max_batch': BATCH, 'fuse': 'aggressive',
+         'dtype': 'float32', 'tf32': False, 'cudnn_deterministic': True,
+         'requests_per_mesh': SMESH_REQUESTS, 'clients': SMESH_CLIENTS,
+         'launches': smesh_launches, **smesh_report,
+         'seconds': time.monotonic() - t0})
+
+    # -- group2ctx: the model-parallel LSTM LM ------------------------------
+    t0 = time.monotonic()
+    log({'phase': 'group2ctx', **group2ctx_phase(mx, torch, all_kernels),
+         'seconds': time.monotonic() - t0})
+
     # -- summary -------------------------------------------------------------
     on_path = [c for c in cases if c['launches_per_forward']]
     summary = {
@@ -9272,7 +9784,7 @@ def main():
         + sum(zoo_launches['fused_bn_relu'].values())
         + serve_launches['fused_bn_relu'] + fleet_bn + auto_bn
         + kv_launches['fused_bn_relu'] + mesh_launches['fused_bn_relu']
-        + rec_launches['fused_bn_relu'],
+        + rec_launches['fused_bn_relu'] + smesh_launches['fused_bn_relu'],
         'launches_by_path': {'serve': launches['fused_bn_relu'],
                              'fleet': fleet_bn, 'autoscale': auto_bn,
                              'train': train_launches['fused_bn_relu'],
@@ -9295,7 +9807,8 @@ def main():
                              'mesh-fit': mesh_fit_launches['fused_bn_relu'],
                              'mesh-ranks':
                                  mesh_ranks_launches['fused_bn_relu'],
-                             'imagenet-rec': rec_launches['fused_bn_relu']},
+                             'imagenet-rec': rec_launches['fused_bn_relu'],
+                             'serve-mesh': smesh_launches['fused_bn_relu']},
         'max_abs_err': max(c['max_abs_err'] for c in
                            on_path + fleet_report['bn_relu_cases']
                            + kv_cases['fused_bn_relu']),

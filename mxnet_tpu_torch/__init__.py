@@ -20,7 +20,11 @@ over ``kv.create('local')``/``'device'``, and workers started by
 ``'dist_async'`` (the apply-on-arrival server); ``Module.fit(mesh=,
 partition=)`` trains over a dp×tp mesh of ranks (one process per mesh
 position: the batch split over dp, parameters tp-sharded, optimizer state
-ZeRO-sharded, BatchNorm over the global batch).  Training runs the whole lifecycle: the
+ZeRO-sharded, BatchNorm over the global batch); a served model shards
+over a dp×tp grid of devices in one process (``Predictor(mesh=,
+partition=, devices=)``, ``ModelServer.load_model(mesh=)``), and a bound
+symbol places its ``ctx_group``s on devices of their own (``group2ctx``).
+Training runs the whole lifecycle: the
 reference's optimizers and their update ops, checkpoints of parameters
 and optimizer state, ``fit``'s per-epoch checkpoint and auto-resume,
 the checkpoint callbacks and the ``FeedForward`` estimator, with

@@ -39,7 +39,29 @@ run's aux updates, as the reference's monitored step runs its fused
 differentiated forward — this executor's, the fused train step's and the
 sequence-parallel step's — in non-reentrant
 ``torch.utils.checkpoint``: activations are recomputed in backward
-instead of kept.  The group2ctx path of the JAX executor is not ported.
+instead of kept.
+
+**Model parallelism** (``group2ctx``, ``mxnet_tpu/executor.py:403-537``):
+an executor bound with ``group2ctx={'group': ctx}`` runs each node on the
+context of its ``ctx_group`` attribute (the executor's own context for a
+node with none).  The ORIGINAL symbol's topological order is split into
+contiguous segments, one per context (:func:`_partition_segments`, the
+reference's ``PlaceDevice``), and each segment runs on its device; a
+tensor that crosses a boundary is copied onto the next segment's device
+once (the meaning of ``_CrossDeviceCopy``, whose graph op stays an
+identity).  Such a forward runs eagerly, by rule, as the monitored one
+does; a training forward records autograd across the devices, so each
+gradient lands in ``grad_dict`` on its variable's device, and the
+outputs are copied onto the executor's context.  ``shared_exec`` is
+accepted, as in the JAX package, and shares nothing more than the
+executor already does.
+
+**Sharded parameters** (the sharded Predictor, ``predictor.py``): an
+argument may be bound to a :class:`TpShards`, a parameter held as its tp
+shards.  The interpreter gathers it (one ``torch.cat`` of the shards,
+copied onto the slot's device) right before its first consuming node and
+drops the gathered tensor after its last, so the persistent bytes stay
+the shards.
 """
 from __future__ import annotations
 
@@ -56,29 +78,88 @@ from .context import Context
 from .ndarray import NDArray, zeros as nd_zeros
 from .symbol import Symbol
 
-__all__ = ['Executor', 'simple_bind']
+__all__ = ['Executor', 'simple_bind', 'TpShards']
+
+
+class TpShards(object):
+    """A parameter held as its tp shards (``shards``, in tp order, each on
+    its mesh position's device), concatenated along ``dim`` onto
+    ``device`` where a graph reads it."""
+
+    __slots__ = ('shards', 'dim', 'device')
+
+    def __init__(self, shards, dim, device):
+        self.shards = list(shards)
+        self.dim = int(dim)
+        self.device = torch.device(device)
+
+    def gather(self):
+        """The whole parameter on ``device``: a copy of each shard there,
+        then one ``torch.cat``."""
+        return torch.cat([s.to(self.device, non_blocking=True)
+                          for s in self.shards], self.dim)
 
 
 def _value_of(src, x, entry_vals, arg_values, aux_values):
     if src.is_variable:
         if src.name in arg_values:
-            return arg_values[src.name]
+            v = arg_values[src.name]
+            if isinstance(v, TpShards):
+                key = ('gathered', src.name)
+                if key not in entry_vals:
+                    entry_vals[key] = v.gather()
+                return entry_vals[key]
+            return v
         if src.name in aux_values:
             return aux_values[src.name]
         raise MXNetError('unbound variable %s' % src.name)
     return entry_vals[(id(src), x)]
 
 
+def _last_gathers(nodes, arg_values):
+    """Node index -> names of the sharded arguments whose last consumer it
+    is (their gathered tensors are dropped after it)."""
+    last = {}
+    for i, node in enumerate(nodes):
+        for src, _ in node.inputs:
+            if src.is_variable and \
+                    isinstance(arg_values.get(src.name), TpShards):
+                last[src.name] = i
+    out = {}
+    for name, i in last.items():
+        out.setdefault(i, []).append(name)
+    return out
+
+
+def _placed(value, key, dev, entry_vals):
+    """``value`` on ``dev``: a tensor made on another device is copied
+    there once per forward (the copy kept under ``key``)."""
+    if value.device == dev:
+        return value
+    moved = entry_vals.get(('to', key, dev))
+    if moved is None:
+        moved = entry_vals[('to', key, dev)] = value.to(dev)
+    return moved
+
+
 def _run_nodes(nodes, entry_vals, arg_values, aux_values, is_train, dev,
-               aux_updates, monitor_re=None, monitored=None):
+               aux_updates, monitor_re=None, monitored=None, place=False):
     """Evaluate the operator nodes ``nodes`` (topological order) into
     ``entry_vals`` ((id(node), output index) -> tensor); variables are
     read from ``arg_values`` / ``aux_values`` by name, and the aux
-    updates the nodes make go into ``aux_updates`` by graph name."""
-    for node in nodes:
+    updates the nodes make go into ``aux_updates`` by graph name.  With
+    ``place`` every input is first copied onto ``dev`` (a ``group2ctx``
+    segment)."""
+    drops = _last_gathers(nodes, arg_values) if any(
+        isinstance(v, TpShards) for v in arg_values.values()) else {}
+    for i, node in enumerate(nodes):
         op = node.opdef()
         ins = [_value_of(n, x, entry_vals, arg_values, aux_values)
                for n, x in node.inputs]
+        if place:
+            ins = [_placed(v, (n.name, x) if n.is_variable else
+                           (id(n), x), dev, entry_vals)
+                   for v, (n, x) in zip(ins, node.inputs)]
         attrs = node.attrs if ins or dev is None else \
             dict(node.attrs, ctx=dev)
         try:
@@ -93,6 +174,8 @@ def _run_nodes(nodes, entry_vals, arg_values, aux_values, is_train, dev,
                     'node %r (op %s) cannot run inside a CUDA graph '
                     'capture: %s' % (node.name, node.op, e)) from e
             raise
+        for name in drops.get(i, ()):
+            del entry_vals[('gathered', name)]
         for j, o in enumerate(outs):
             entry_vals[(id(node), j)] = o
         if monitor_re is not None:
@@ -131,6 +214,54 @@ def _build_graph_fn(symbol: Symbol, is_train: bool, monitor_re=None):
         _run_nodes(nodes, entry_vals, arg_values, aux_values, is_train,
                    _device_of(arg_values, aux_values), aux_updates,
                    monitor_re, monitored)
+        outputs = [_value_of(n, x, entry_vals, arg_values, aux_values)
+                   for n, x in out_entries]
+        if monitor_re is not None:
+            return outputs, aux_updates, monitored
+        return outputs, aux_updates
+
+    return fn
+
+
+def _node_group(node):
+    return node._extra_attr.get('ctx_group') or \
+        node._extra_attr.get('__ctx_group__')
+
+
+def _partition_segments(symbol, group2ctx, default_ctx):
+    """The operator nodes of ``symbol`` in topological order, split into
+    contiguous ``(context, nodes)`` segments, one per run of nodes whose
+    ``ctx_group`` maps to the same context (``default_ctx`` for a node
+    with no group or an unmapped one): ``_build_partition_plan``,
+    ``mxnet_tpu/executor.py:411-427``."""
+    segments = []
+    for node in symbol.topo_nodes():
+        if node.is_variable:
+            continue
+        grp = _node_group(node)
+        ctx = group2ctx[grp] if grp and grp in group2ctx else default_ctx
+        if segments and segments[-1][0] == ctx:
+            segments[-1][1].append(node)
+        else:
+            segments.append((ctx, [node]))
+    return segments
+
+
+def _build_partitioned_fn(symbol, is_train, group2ctx, default_ctx,
+                          monitor_re=None):
+    """:func:`_build_graph_fn` for a ``group2ctx`` executor: each segment
+    of :func:`_partition_segments` runs on its context's device, its
+    inputs copied there when they live elsewhere.  The outputs stay where
+    they were made."""
+    segments = [(ctx.torch_device, nodes) for ctx, nodes in
+                _partition_segments(symbol, group2ctx, default_ctx)]
+    out_entries = symbol._outputs
+
+    def fn(arg_values, aux_values):
+        entry_vals, aux_updates, monitored = {}, {}, {}
+        for dev, nodes in segments:
+            _run_nodes(nodes, entry_vals, arg_values, aux_values, is_train,
+                       dev, aux_updates, monitor_re, monitored, place=True)
         outputs = [_value_of(n, x, entry_vals, arg_values, aux_values)
                    for n, x in out_entries]
         if monitor_re is not None:
@@ -382,9 +513,12 @@ class Executor:
     """A bound computation (reference ``python/mxnet/executor.py``)."""
 
     def __init__(self, symbol: Symbol, ctx, args, args_grad=None,
-                 grad_req='write', aux_states=None):
+                 grad_req='write', aux_states=None, group2ctx=None,
+                 shared_exec=None):
         self._symbol = symbol
         self._ctx = ctx if isinstance(ctx, Context) else Context(ctx)
+        self._group2ctx = {k: v if isinstance(v, Context) else Context(v)
+                           for k, v in (group2ctx or {}).items()}
         self.arg_names = symbol.list_arguments()
         self.aux_names = symbol.list_auxiliary_states()
         self.output_names = symbol.list_outputs()
@@ -451,7 +585,25 @@ class Executor:
             self._fuse_cache[key] = cached
         return cached
 
-    def _graph_fn(self, is_train):
+    def _graph_fn(self, is_train, monitor_re=None):
+        """The interpreter over the program (a ``group2ctx`` executor's:
+        over the ORIGINAL symbol, placed by segment, as the JAX package's
+        partitioned path runs it)."""
+        if self._group2ctx:
+            if monitor_re is not None:
+                return _build_partitioned_fn(self._symbol, bool(is_train),
+                                             self._group2ctx, self._ctx,
+                                             monitor_re)
+            key = ('placed', bool(is_train))
+            fn = self._graph_fns.get(key)
+            if fn is None:
+                fn = self._graph_fns[key] = _build_partitioned_fn(
+                    self._symbol, bool(is_train), self._group2ctx,
+                    self._ctx)
+            return fn
+        if monitor_re is not None:
+            return _build_graph_fn(self._symbol, is_train,
+                                   monitor_re=monitor_re)
         key = bool(is_train)
         fn = self._graph_fns.get(key)
         if fn is None:
@@ -493,7 +645,7 @@ class Executor:
         if self._monitor_callback is not None:
             return self._forward_monitored(is_train)
         self._record(is_train)
-        if not is_train and self._capture:
+        if not is_train and self._capture and not self._group2ctx:
             outs, aux_updates = self._inference_graph().run(), {}
         elif is_train and self._grad_names:
             outs, aux_updates, leaves = self._run_with_grad()
@@ -503,11 +655,23 @@ class Executor:
             aux = {k: v.handle for k, v in self.aux_dict.items()}
             with torch.no_grad():
                 outs, aux_updates = self._graph_fn(is_train)(args, aux)
-        for name, val in aux_updates.items():
-            self.aux_dict[name]._set_data(val)
-        self.outputs = [NDArray(o.detach(), self._ctx) for o in outs]
+        self._apply_aux(aux_updates)
+        self.outputs = self._output_arrays(outs)
         instrument.inc('executor.forwards')
         return self.outputs
+
+    def _apply_aux(self, aux_updates):
+        for name, val in aux_updates.items():
+            dst = self.aux_dict[name]
+            dst._set_data(val if val.device == dst.handle.device
+                          else val.to(dst.handle.device))
+
+    def _output_arrays(self, outs):
+        """The outputs as NDArrays on the executor's context (a
+        ``group2ctx`` segment may have made them elsewhere)."""
+        dev = self._ctx.torch_device if self._group2ctx else None
+        return [NDArray(o.detach() if dev is None or o.device == dev
+                        else o.detach().to(dev), self._ctx) for o in outs]
 
     def _record(self, is_train):
         """File the program this forward runs in the warmup manifest, once
@@ -544,15 +708,14 @@ class Executor:
         key = (bool(is_train), pattern.pattern)
         fn = self._monitored_fns.get(key)
         if fn is None:
-            fn = self._monitored_fns[key] = _build_graph_fn(
-                self._symbol, is_train, monitor_re=pattern)
+            fn = self._monitored_fns[key] = self._graph_fn(
+                is_train, monitor_re=pattern)
         args = {k: v.handle for k, v in self.arg_dict.items()}
         aux = {k: v.handle for k, v in self.aux_dict.items()}
         with torch.no_grad():
             outs, aux_updates, monitored = fn(args, aux)
-        for name, val in aux_updates.items():
-            self.aux_dict[name]._set_data(val)
-        self.outputs = [NDArray(o, self._ctx) for o in outs]
+        self._apply_aux(aux_updates)
+        self.outputs = self._output_arrays(outs)
         instrument.inc('executor.forwards')
         for name, val in monitored.items():
             self._monitor_callback(name, NDArray(val, self._ctx))
@@ -725,26 +888,37 @@ class Executor:
             new_aux[name] = old if shape == old.shape else \
                 nd_zeros(shape, self._ctx, dtype=old.dtype)
         return Executor(self._symbol, self._ctx, new_args,
-                        new_grads or None, self.grad_req, new_aux)
+                        new_grads or None, self.grad_req, new_aux,
+                        group2ctx=self._group2ctx)
 
 
 def simple_bind(symbol: Symbol, ctx, grad_req='write', type_dict=None,
-                **kwargs):
+                group2ctx=None, shared_exec=None, **kwargs):
     """Allocate argument, gradient and aux arrays from the shapes
     inferred from ``kwargs`` and bind (``mxnet_tpu/executor.py:808``;
-    reference ``symbol.py:788``)."""
+    reference ``symbol.py:788``).  With ``group2ctx`` each variable, and
+    its gradient, is allocated on its ``ctx_group``'s context
+    (``AssignContext``, ``mxnet_tpu/executor.py:819-846``)."""
     arg_shapes, _, aux_shapes = symbol.infer_shape(**kwargs)
     if arg_shapes is None:
         raise MXNetError('cannot infer shapes from %s' % kwargs)
     type_dict = type_dict or {}
     ctx = ctx if isinstance(ctx, Context) else Context(ctx)
+    var_ctx = {}
+    for node in symbol.topo_nodes() if group2ctx else ():
+        grp = _node_group(node) if node.is_variable else None
+        if grp and grp in group2ctx:
+            var_ctx[node.name] = group2ctx[grp]
     arg_names = symbol.list_arguments()
     req = _grad_req_map(grad_req, arg_names)
-    args = {n: nd_zeros(s, ctx, dtype=resolve_dtype(type_dict.get(n)))
+    args = {n: nd_zeros(s, var_ctx.get(n, ctx),
+                        dtype=resolve_dtype(type_dict.get(n)))
             for n, s in zip(arg_names, arg_shapes)}
-    grads = {n: nd_zeros(s, ctx, dtype=resolve_dtype(type_dict.get(n)))
+    grads = {n: nd_zeros(s, var_ctx.get(n, ctx),
+                         dtype=resolve_dtype(type_dict.get(n)))
              for n, s in zip(arg_names, arg_shapes)
              if req.get(n, 'null') != 'null'}
-    aux = {n: nd_zeros(s, ctx)
+    aux = {n: nd_zeros(s, var_ctx.get(n, ctx))
            for n, s in zip(symbol.list_auxiliary_states(), aux_shapes)}
-    return Executor(symbol, ctx, args, grads or None, req, aux)
+    return Executor(symbol, ctx, args, grads or None, req, aux,
+                    group2ctx=group2ctx, shared_exec=shared_exec)

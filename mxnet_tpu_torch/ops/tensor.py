@@ -123,7 +123,9 @@ register('make_loss', _make_loss_apply,
 alias('MakeLoss', 'make_loss')
 register_simple('_identity_with_attr_like_rhs', lambda lhs, rhs: lhs,
                 ninputs=2)
-# the device-boundary copy of group2ctx placement: an identity here too
+# the device-boundary copy of group2ctx placement is made by the
+# executor between segments (executor._placed); a graph naming the op
+# gets an identity, as in the JAX package
 register_simple('_CrossDeviceCopy', lambda x: x)
 
 

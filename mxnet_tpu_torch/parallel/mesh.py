@@ -24,6 +24,17 @@ ranks of one dp slot).  The step issues its own collectives on them
   the arithmetic: the tp peers run the same forward and backward (XLA
   may split the arithmetic; ROADMAP Queue 3).
 
+A mesh may also be a grid of DEVICES in one process (:class:`DeviceMesh`,
+``build_dp_tp_mesh(spec, devices=[...])``): position (d, t) is
+``devices[d·tp + t]``, and a position may repeat a device, as a context
+list may.  The sharded Predictor serves over such a grid
+(``mxnet_tpu/predictor.py:161-393``): position (d, t) holds shard t of
+each tp-sharded parameter, gathered at use onto the dp slot's lead
+position (d, 0).  The serving fleet carves one disjoint grid per replica
+out of the local devices (:func:`carve_submesh_devices`,
+:func:`submesh_capacity`; :func:`local_devices` is the list they default
+to).
+
 The selection rules (:func:`parse_mesh_spec`, :func:`_pick_shard_dim`,
 :func:`_spec_and_reason`, :func:`records_for_shapes`, the inspector's
 records and reason strings) are the JAX package's, word for word, so a
@@ -40,11 +51,13 @@ import logging
 import numpy as np
 import torch
 
+from ..context import Context
 from . import collectives
 
-__all__ = ['DP_AXIS', 'TP_AXIS', 'RankMesh', 'parse_mesh_spec',
-           'build_dp_tp_mesh', 'mesh_sig', 'partition_spec',
-           'ShardingPlan', 'FitShardings', 'make_plan',
+__all__ = ['DP_AXIS', 'TP_AXIS', 'RankMesh', 'DeviceMesh', 'parse_mesh_spec',
+           'build_dp_tp_mesh', 'local_devices', 'shrunk_spec',
+           'carve_submesh_devices', 'submesh_capacity', 'mesh_sig',
+           'partition_spec', 'ShardingPlan', 'FitShardings', 'make_plan',
            'records_for_shapes', 'DpBatchStats']
 
 DP_AXIS = 'dp'
@@ -98,6 +111,45 @@ class RankMesh(object):
         return 'RankMesh(%s, rank=%d)' % (mesh_sig(self), self.rank)
 
 
+class DeviceMesh(object):
+    """A ``('dp', 'tp')`` grid of device positions in ONE process: the
+    ``Mesh`` of the JAX package over a list of local devices.  ``shape``
+    maps axis name to size; :meth:`position` is the :class:`Context` at
+    (d, t).  Positions may repeat a device (a context list on one card).
+    Nothing crosses positions by a collective: a tp-sharded parameter is
+    gathered by copies between devices (:class:`~mxnet_tpu_torch.executor.
+    TpShards`)."""
+
+    axis_names = (DP_AXIS, TP_AXIS)
+
+    def __init__(self, dp, tp, devices):
+        self.shape = {DP_AXIS: int(dp), TP_AXIS: int(tp)}
+        devices = list(devices)
+        if len(devices) != self.size:
+            raise ValueError('a %dx%d device mesh takes %d devices, got %d'
+                             % (dp, tp, self.size, len(devices)))
+        self.devices = devices
+
+    @property
+    def size(self):
+        return self.shape[DP_AXIS] * self.shape[TP_AXIS]
+
+    def position(self, d, t):
+        """The Context at position (d, t): ``devices[d·tp + t]``."""
+        return self.devices[d * self.shape[TP_AXIS] + t]
+
+    def __repr__(self):
+        return 'DeviceMesh(%s, %s)' % (mesh_sig(self), self.devices)
+
+
+def local_devices():
+    """The devices of this process, what the JAX package's
+    ``jax.devices()`` is to its mesh helpers: the CUDA devices as
+    ``gpu(i)``, or ``[cpu(0)]`` on a host with none."""
+    n = torch.cuda.device_count()
+    return [Context('gpu', i) for i in range(n)] if n else [Context('cpu', 0)]
+
+
 def parse_mesh_spec(spec):
     """Normalize a user mesh spec into ``{'dp': d, 'tp': t}``.
 
@@ -108,7 +160,7 @@ def parse_mesh_spec(spec):
       - ``{'dp': 4, 'tp': 2}`` — already parsed;
       - ``(4, 2)``             — positional tuple/list.
     """
-    if isinstance(spec, RankMesh):
+    if isinstance(spec, (RankMesh, DeviceMesh)):
         raise TypeError('pass a ready Mesh directly, not through '
                         'parse_mesh_spec')
     if isinstance(spec, dict):
@@ -171,14 +223,20 @@ def _make_groups(dp, tp):
     return _groups[key]
 
 
-def build_dp_tp_mesh(spec) -> RankMesh:
-    """A ``('dp', 'tp')`` mesh over the job's ranks: one process per
-    mesh position, so dp×tp must equal the job's size (a mesh larger than
-    the job raises, as the JAX package's does over too few devices; one
-    smaller would leave ranks with no position).  ``'1x1'`` is this
-    process alone: no group.  ``spec`` is anything
-    :func:`parse_mesh_spec` takes, or a ready :class:`RankMesh`."""
-    if isinstance(spec, RankMesh):
+def build_dp_tp_mesh(spec, devices=None):
+    """A ``('dp', 'tp')`` mesh.  ``spec`` is anything
+    :func:`parse_mesh_spec` takes, or a ready :class:`RankMesh` or
+    :class:`DeviceMesh`.
+
+    With ``devices`` (a list of :class:`Context`) it is a
+    :class:`DeviceMesh` in this process over the first dp×tp of them,
+    raising as the JAX package's does when there are too few; a device
+    may repeat.  Without, it is a :class:`RankMesh` over the job's ranks:
+    one process per mesh position, so dp×tp must equal the job's size (a
+    mesh larger than the job raises, as the JAX package's does over too
+    few devices; one smaller would leave ranks with no position).
+    ``'1x1'`` is then this process alone: no group."""
+    if isinstance(spec, (RankMesh, DeviceMesh)):
         if DP_AXIS not in spec.shape:
             raise ValueError("mesh %r has no 'dp' axis" % (spec,))
         return spec
@@ -187,6 +245,15 @@ def build_dp_tp_mesh(spec) -> RankMesh:
     need = dp * tp
     if need < 1:
         raise ValueError('mesh sizes must be positive: %r' % (axes,))
+    if devices is not None:
+        devices = list(devices)
+        if need > len(devices):
+            raise ValueError(
+                'mesh dp=%d x tp=%d needs %d devices but only %d are '
+                'attached (a device may repeat: devices=[gpu(0)] * %d '
+                'puts every position on one card)' % (dp, tp, need,
+                                                      len(devices), need))
+        return DeviceMesh(dp, tp, [Context(d) for d in devices[:need]])
     if need == 1:
         return RankMesh(1, 1)
     world = collectives.world_size()
@@ -203,6 +270,61 @@ def build_dp_tp_mesh(spec) -> RankMesh:
             'rank must hold a mesh position' % (dp, tp, need, world))
     dp_groups, tp_groups = _make_groups(dp, tp)
     return RankMesh(dp, tp, collectives.rank(), dp_groups, tp_groups)
+
+
+def shrunk_spec(plan_or_mesh, by=1):
+    """The dp-shrunk mesh spec of a live plan/mesh — what the elastic
+    plane rebuilds with when a rank dies and no replacement arrives
+    within MXTPU_ELASTIC_WAIT (``Module._apply_dp_shrink``,
+    docs/resilience.md): ``{'dp': dp - by, 'tp': tp}``.  Raises when
+    the dp axis cannot lose ``by`` members (dp would drop below 1) —
+    the caller then keeps the old mesh rather than killing training."""
+    if isinstance(plan_or_mesh, ShardingPlan):
+        dp, tp = plan_or_mesh.dp, plan_or_mesh.tp
+    elif isinstance(plan_or_mesh, (RankMesh, DeviceMesh)):
+        dp = int(plan_or_mesh.shape.get(DP_AXIS, 1))
+        tp = int(plan_or_mesh.shape.get(TP_AXIS, 1))
+    else:
+        axes = parse_mesh_spec(plan_or_mesh)
+        dp, tp = axes[DP_AXIS], axes[TP_AXIS]
+    if dp - by < 1:
+        raise ValueError(
+            'cannot shrink dp=%d by %d: the data-parallel axis would '
+            'vanish' % (dp, by))
+    return {DP_AXIS: dp - by, TP_AXIS: tp}
+
+
+def carve_submesh_devices(spec, slot, devices=None):
+    """The DISJOINT device set of replica ``slot`` for a ``spec``-shaped
+    submesh: slot *r* of a dp×tp mesh owns local devices
+    ``[r·dp·tp, (r+1)·dp·tp)`` — how the serving fleet places N
+    replicas of one sharded model side by side (docs/serving.md).
+    Raises when the slot's range runs past the attached devices (no
+    disjoint set left — the autoscaler's hard ceiling,
+    :func:`submesh_capacity`).  ``devices`` defaults to
+    :func:`local_devices`."""
+    if devices is None:
+        devices = local_devices()
+    axes = parse_mesh_spec(spec)
+    per = max(1, axes[DP_AXIS] * axes[TP_AXIS])
+    lo = int(slot) * per
+    if lo + per > len(devices):
+        raise ValueError(
+            'replica slot %d of mesh %r needs local devices [%d, %d) '
+            'but only %d are attached — no disjoint device set left'
+            % (slot, spec, lo, lo + per, len(devices)))
+    return list(devices)[lo:lo + per]
+
+
+def submesh_capacity(spec, devices=None):
+    """How many disjoint ``spec``-shaped submeshes the device set
+    holds: ``len(devices) // (dp·tp)``, at least 0.  ``devices``
+    defaults to :func:`local_devices`."""
+    if devices is None:
+        devices = local_devices()
+    axes = parse_mesh_spec(spec)
+    per = max(1, axes[DP_AXIS] * axes[TP_AXIS])
+    return len(devices) // per
 
 
 def mesh_sig(mesh) -> str:
@@ -340,8 +462,9 @@ class ShardingPlan(object):
 
     @property
     def multi_rank(self):
-        """Whether the mesh spans more than this process (collectives)."""
-        return self.num_devices > 1
+        """Whether the mesh spans more than this process (collectives); a
+        :class:`DeviceMesh` never does."""
+        return isinstance(self.mesh, RankMesh) and self.num_devices > 1
 
     def rows(self, batch_size):
         """This rank's rows of a global batch: [d·B/dp, (d+1)·B/dp)."""

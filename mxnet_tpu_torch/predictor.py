@@ -22,8 +22,26 @@ without inferring them again.
 :meth:`Predictor.reshape` rebinds at new input shapes and drops the
 bucket executors and the graphs the old shapes captured; the module's
 :func:`load` builds a Predictor from ``prefix-symbol.json`` and
-``prefix-%04d.params``.  The tensor-parallel ``mesh=`` path of the JAX
-Predictor is not ported.
+``prefix-%04d.params``.
+
+**Tensor-parallel serving** (``Predictor(mesh=, partition=, devices=)``,
+``mxnet_tpu/predictor.py:159-395``): a dp×tp grid of positions over
+``devices`` in this process (``parallel.mesh.DeviceMesh``; a device may
+repeat), placed by the same ``ShardingPlan`` selection rule the sharded
+fit uses, degradations recorded per tensor (:meth:`sharding_records`).
+Position (d, t) holds shard t of each tp-sharded argument and a copy of
+each replicated argument and of every aux state.  A request pads to the
+pow2 bucket ``B >= dp`` and splits into dp slices of ``B/dp`` rows; slot
+d runs its slice on position (d, 0)'s device through the pass
+pipeline's program, gathering its tp peers' shards at use
+(``executor.TpShards``: tp shards the parameters' storage, not the
+arithmetic).  Outputs whose leading dim is the bucket are concatenated
+in slot order, the others taken from slot 0.  On the card each (bucket,
+mesh signature) slot forward is one CUDA graph (the gathers are copies
+inside it), and slots that share a card run in turn on the caller's
+stream; :meth:`warm_buckets` captures every bucket before the first
+request, so the hot path takes no capture (``compile.traces``) while
+``serving.sharded_aot_calls`` counts each sharded forward.
 """
 from __future__ import annotations
 
@@ -114,7 +132,8 @@ class Predictor(object):
 
     def __init__(self, symbol_json_str, param_raw_bytes_or_dict,
                  input_shapes, dev_type='gpu', dev_id=0,
-                 output_keys=None, pad_to_bucket=False):
+                 output_keys=None, pad_to_bucket=False,
+                 mesh=None, partition=None, devices=None):
         symbol = sym_mod.load_json(symbol_json_str) \
             if isinstance(symbol_json_str, str) else symbol_json_str
         if output_keys:
@@ -129,7 +148,9 @@ class Predictor(object):
         self._shape_key = symbol_json_str if isinstance(
             symbol_json_str, str) and not output_keys else symbol.tojson()
         self._ctx = Context(dev_type, dev_id)
-        self._ctx.torch_device      # raises now when the device is absent
+        if mesh is None or devices is None:
+            self._ctx.torch_device  # raises now when the device is absent
+        self._plan = None
 
         if isinstance(param_raw_bytes_or_dict, (bytes, bytearray)):
             fd, path = tempfile.mkstemp(suffix='.params')
@@ -148,6 +169,15 @@ class Predictor(object):
         self._out_arrays = None
         self._active_bucket = None
         self._valid_rows = None
+        self._graph_pool = None
+        self._staging = {}      # key -> (pinned tensor, event)
+        if mesh is not None:
+            # tensor-parallel serving: per-bucket slot forwards over the
+            # mesh's positions, no single-device executor
+            self._pad_to_bucket = True
+            self._init_sharded(mesh, partition, devices, arg_params,
+                               aux_params)
+            return
 
         inferred = _infer_shapes(symbol, self._shape_key, self._input_shapes)
         if inferred is None:
@@ -172,8 +202,6 @@ class Predictor(object):
         # executor sharing the parameter arrays; outputs are sliced back
         self._pad_to_bucket = bool(pad_to_bucket)
         self._bucket_execs = {}
-        self._graph_pool = None
-        self._staging = {}      # (bucket, input) -> (pinned tensor, event)
 
     def _infer_batch_inputs(self):
         """Inputs sharing the batch axis: leading dim equal to the
@@ -188,47 +216,194 @@ class Predictor(object):
             batch = max(dims, key=dims.count)
         return {k for k, d in leading.items() if d == batch}
 
-    @property
-    def num_outputs(self):
-        return len(self._symbol.list_outputs())
+    # -- tensor-parallel serving (mesh=...) ---------------------------------
 
-    def set_input(self, key, data):
-        """(MXPredSetInput)"""
-        if key not in self._executor.arg_dict:
-            raise MXNetError('unknown input %s' % key)
-        self._executor.arg_dict[key][:] = np.asarray(data, np.float32)
+    def _init_sharded(self, mesh, partition, devices, arg_params,
+                      aux_params):
+        """The sharded serving state (``mxnet_tpu/predictor.py:161``): a
+        dp×tp ``ShardingPlan`` over the device grid, each argument placed
+        per position (degradations recorded per tensor), and an empty
+        table of per-bucket slot forwards."""
+        from . import fuse
+        from .parallel import mesh as pmesh
+        if devices is None:
+            devices = pmesh.local_devices() \
+                if self._ctx.device_type == 'gpu' else [self._ctx]
+        plan = pmesh.ShardingPlan(
+            pmesh.build_dp_tp_mesh(mesh, devices=devices),
+            partition or 'auto')
+        if plan.dp & (plan.dp - 1):
+            raise MXNetError(
+                'serving dp axis must be a power of two so pow2 request '
+                'buckets stay dp-divisible, got dp=%d' % plan.dp)
+        self._plan = plan
+        grid = [[plan.mesh.position(d, t) for t in range(plan.tp)]
+                for d in range(plan.dp)]
+        for row in grid:
+            for ctx in row:
+                ctx.torch_device    # a 'gpu' position raises with no card
+        self._ctx = grid[0][0]
+        # the pass pipeline runs once: every bucket and slot runs the
+        # same rewritten graph
+        self._prog_symbol = fuse.apply_fuse_passes(self._symbol, False)
+        inferred = _infer_shapes(self._symbol, self._shape_key,
+                                 self._input_shapes)
+        if inferred is None:
+            raise MXNetError('cannot infer shapes from %s'
+                             % self._input_shapes)
+        arg_shapes, aux_shapes = inferred
+        declared_batch = None
+        if self._batch_inputs:
+            declared_batch = self._input_shapes[
+                sorted(self._batch_inputs)[0]][0]
 
-    def forward(self, **kwargs):
-        """(MXPredForward)"""
-        if self._pad_to_bucket and kwargs:
-            return self._forward_bucketed(kwargs)
-        return self.forward_exact(**kwargs)
+        def placed(value, dim):
+            # position (d, t)'s own copy of shard t (the whole tensor
+            # when dim is None), even where positions share a device
+            full = value.handle if isinstance(value, NDArray) else \
+                torch.as_tensor(value)
+            pieces = [full] * plan.tp if dim is None else \
+                list(torch.chunk(full, plan.tp, dim))
+            return [[torch.empty(pieces[t].shape, dtype=full.dtype,
+                                 device=ctx.torch_device).copy_(pieces[t])
+                     for t, ctx in enumerate(row)] for row in grid]
 
-    def _bucket_executor(self, rows):
-        bucket = compile_cache.pad_to_bucket(rows)
-        exe = self._bucket_execs.get(bucket)
-        if exe is None:
-            shapes = {name: ((bucket,) + tuple(shape[1:])
-                             if name in self._batch_inputs else shape)
-                      for name, shape in self._input_shapes.items()}
-            inferred = _infer_shapes(self._symbol, self._shape_key, shapes)
-            if inferred is None:
-                raise MXNetError('Insufficient argument shapes provided.')
-            exe = self._executor.rebind(*inferred)
-            if self._ctx.device_type == 'gpu':
-                if self._graph_pool is None:
+        self._params = {}       # name -> [d][t] tensors
+        self._shard_dims = {}   # name -> the dim tp splits
+        self._batch_labels = {}     # label args that carry the batch axis
+        for name, shape in zip(self._symbol.list_arguments(), arg_shapes):
+            if name in self._input_shapes:
+                continue
+            if name in arg_params:
+                value = arg_params[name]
+                if not isinstance(value, (NDArray, torch.Tensor)):
+                    value = np.asarray(value)
+                dim = pmesh.tp_dim(plan.param_sharding(name, shape,
+                                                       value.dtype))
+                self._params[name] = placed(value, dim)
+                if dim is not None:
+                    self._shard_dims[name] = dim
+            elif name.endswith('label'):
+                if shape and declared_batch is not None and \
+                        shape[0] == declared_batch:
+                    # batch-axis label: zeros rebuilt per bucket
+                    self._batch_labels[name] = tuple(shape[1:])
+                else:
+                    self._params[name] = placed(
+                        torch.zeros(shape, dtype=torch.float32), None)
+            else:
+                raise MXNetError('missing parameter %s' % name)
+        # aux (BN moving stats) replicated: eval-mode reads must not
+        # depend on the partition policy
+        self._aux = {name: placed(aux_params[name] if name in aux_params
+                                  else torch.zeros(shape), None)
+                     for name, shape in zip(
+                         self._symbol.list_auxiliary_states(), aux_shapes)}
+        bound = set(self._params) | set(self._aux) | \
+            set(self._input_shapes) | set(self._batch_labels)
+        renamed = [n for n in self._prog_symbol.list_arguments()
+                   + self._prog_symbol.list_auxiliary_states()
+                   if n not in bound]
+        if renamed:
+            raise MXNetError('the pass pipeline introduced unbound '
+                             'variables %s' % renamed)
+        plan.note_degraded()
+        self._slots = {}        # bucket signature -> its slot forwards
+        self._slot_lock = threading.Lock()
+
+    def sharding_records(self):
+        """The sharding-inspector document of the serving plan: per
+        tensor its spec, shard bytes and the DEGRADATION REASON when the
+        requested tensor-parallel placement fell back to replicated.
+        None off the sharded path."""
+        return None if self._plan is None else self._plan.records_doc()
+
+    def _bucket_shapes(self, bucket):
+        """The input shapes at ``bucket`` rows (batch-axis inputs only)."""
+        return {k: ((bucket,) + tuple(s[1:]) if k in self._batch_inputs
+                    else s) for k, s in self._input_shapes.items()}
+
+    def _sharded_sig(self, bucket):
+        return compile_cache.sig_key(
+            {k: (s, 'float32') for k, s in
+             self._bucket_shapes(bucket).items()},
+            mesh=self._plan.sig())
+
+    def _bucket_entry(self, bucket):
+        """The dp slot forwards serving ``bucket``, built on first use (or
+        by :meth:`warm_buckets`): slot d's input buffers of ``bucket/dp``
+        rows, its arguments (the tp-sharded ones as :class:`~mxnet_tpu_
+        torch.executor.TpShards` gathered onto position (d, 0)) and one
+        ``CapturedStep`` of the program over them, keyed by
+        ``compile_cache.sig_key(..., mesh=plan.sig())``."""
+        from .executor import TpShards, _build_graph_fn
+        sig = self._sharded_sig(bucket)
+        with self._slot_lock:
+            entry = self._slots.get(sig)
+            if entry is not None:
+                return entry
+            plan = self._plan
+            per = bucket // plan.dp
+            _, out_shapes, _ = self._symbol.infer_shape(
+                **self._bucket_shapes(bucket))
+            program = self._prog_symbol
+            graph_fn = _build_graph_fn(program, False)
+            slots = []
+            for d in range(plan.dp):
+                ctx = plan.mesh.position(d, 0)
+                dev = ctx.torch_device
+                inputs = {k: torch.zeros(s, device=dev) for k, s in
+                          self._bucket_shapes(per).items()}
+                args = dict(inputs)
+                for k, tail in self._batch_labels.items():
+                    args[k] = torch.zeros((per,) + tail, device=dev)
+                for name, grid in self._params.items():
+                    row = grid[d]
+                    args[name] = TpShards(row, self._shard_dims[name], dev) \
+                        if name in self._shard_dims else row[0]
+                aux = {name: grid[d][0] for name, grid in self._aux.items()}
+                skip = compile_cache.capture_skip_reason(
+                    dev, program, is_train=False)
+                if skip is None and self._graph_pool is None:
                     self._graph_pool = torch.cuda.graph_pool_handle()
-                exe.enable_capture(self._graph_pool)
-            self._bucket_execs[bucket] = exe
+                bindings = compile_cache.step_tensors(
+                    inputs, [a.shards if isinstance(a, TpShards) else a
+                             for a in args.values()], aux)
+
+                def body(args=args, aux=aux):
+                    with torch.no_grad():
+                        return graph_fn(args, aux)[0]
+                step = compile_cache.CapturedStep(
+                    'serve_sharded', body, dev, bindings,
+                    pool=self._graph_pool, skip=skip)
+                slots.append({'ctx': ctx, 'inputs': inputs, 'step': step})
+            entry = {'bucket': bucket, 'slots': slots,
+                     'batch_out': [bool(s) and int(s[0]) == bucket
+                                   for s in out_shapes]}
+            self._slots[sig] = entry
             instrument.inc('compile.shape_buckets')
-        return exe, bucket
+            return entry
 
     def warm_buckets(self, max_batch):
-        """Build, and on the card capture, the executor of every pow2
-        bucket up to ``max_batch`` (``mxnet_tpu/predictor.py:334``): a
-        forward of zeros records each bucket's graph, so no request pays
-        a capture.  Returns the buckets; without ``pad_to_bucket`` (or
-        batch-axis inputs) none."""
+        """Build, and on the card capture, every bucket up to
+        ``max_batch`` before the first request (``mxnet_tpu/predictor.py
+        :334``): a forward of zeros records each bucket's graphs, so no
+        request pays a capture.  Returns the buckets (from dp on the
+        sharded path); without ``pad_to_bucket`` (or batch-axis inputs)
+        none."""
+        if self._plan is not None:
+            buckets = []
+            top = compile_cache.pad_to_bucket(max(int(max_batch), 1),
+                                              minimum=self._plan.dp)
+            b = self._plan.dp
+            while b <= top:
+                for slot in self._bucket_entry(b)['slots']:
+                    if slot['step'].skip is None and \
+                            not slot['step'].captured:
+                        slot['step'].run()
+                buckets.append(b)
+                b *= 2
+            return buckets
         if not (self._pad_to_bucket and self._batch_inputs):
             return []
         buckets, top = [], compile_cache.pad_to_bucket(max_batch)
@@ -243,11 +418,97 @@ class Predictor(object):
             b *= 2
         return buckets
 
-    def _stage(self, exe, bucket, name, value, rows):
+    def _forward_sharded(self, kwargs):
+        rows = {np.asarray(v).shape[0] for k, v in kwargs.items()
+                if k in self._batch_inputs}
+        if len(rows) != 1:
+            raise MXNetError('sharded forward needs one row count '
+                             'across the batch-axis inputs %s, got %s'
+                             % (sorted(self._batch_inputs), sorted(rows)))
+        rows = rows.pop()
+        missing = [k for k in self._input_shapes if kwargs.get(k) is None]
+        if missing:
+            raise MXNetError('sharded forward needs every declared '
+                             'input; missing %r' % missing[0])
+        unknown = set(kwargs) - set(self._input_shapes)
+        if unknown:
+            raise MXNetError('unknown input(s) %s' % sorted(unknown))
+        bucket = compile_cache.pad_to_bucket(rows, minimum=self._plan.dp)
+        entry = self._bucket_entry(bucket)
+        per = bucket // self._plan.dp
+        values = {k: np.asarray(kwargs[k], np.float32)
+                  for k in self._input_shapes}
+        slot_outs = []
+        for d, slot in enumerate(entry['slots']):
+            for k, v in values.items():
+                if k in self._batch_inputs:
+                    part = v[d * per:(d + 1) * per]
+                    self._stage(slot['inputs'][k], (bucket, d, k), part,
+                                len(part))
+                else:
+                    self._stage(slot['inputs'][k], (bucket, d, k), v, None)
+            outs = slot['step'].run()
+            if slot['step'].captured:
+                # the graph's outputs: the next slot's replay (one pool)
+                # or the next forward overwrites them
+                outs = [o.clone() for o in outs]
+            slot_outs.append(outs)
+        dev = self._ctx.torch_device
+        merged = [torch.cat([o[j].to(dev) for o in slot_outs])
+                  if batch and len(slot_outs) > 1 else out0
+                  for j, (out0, batch) in enumerate(zip(slot_outs[0],
+                                                        entry['batch_out']))]
+        instrument.inc('serving.sharded_aot_calls')
+        self._out_arrays = [NDArray(o, self._ctx) for o in merged]
+        self._valid_rows = rows
+        self._active_bucket = bucket
+        _note_pad_waste(rows, bucket)
+        return self._out_arrays
+
+    @property
+    def num_outputs(self):
+        return len(self._symbol.list_outputs())
+
+    def set_input(self, key, data):
+        """(MXPredSetInput)"""
+        if self._plan is not None:
+            raise MXNetError('set_input is not available on the sharded '
+                             '(mesh=) path: pass inputs to forward()')
+        if key not in self._executor.arg_dict:
+            raise MXNetError('unknown input %s' % key)
+        self._executor.arg_dict[key][:] = np.asarray(data, np.float32)
+
+    def forward(self, **kwargs):
+        """(MXPredForward)"""
+        if self._plan is not None:
+            return self._forward_sharded(kwargs)
+        if self._pad_to_bucket and kwargs:
+            return self._forward_bucketed(kwargs)
+        return self.forward_exact(**kwargs)
+
+    def _bucket_executor(self, rows):
+        bucket = compile_cache.pad_to_bucket(rows)
+        exe = self._bucket_execs.get(bucket)
+        if exe is None:
+            inferred = _infer_shapes(self._symbol, self._shape_key,
+                                     self._bucket_shapes(bucket))
+            if inferred is None:
+                raise MXNetError('Insufficient argument shapes provided.')
+            exe = self._executor.rebind(*inferred)
+            if self._ctx.device_type == 'gpu':
+                if self._graph_pool is None:
+                    self._graph_pool = torch.cuda.graph_pool_handle()
+                exe.enable_capture(self._graph_pool)
+            self._bucket_execs[bucket] = exe
+            instrument.inc('compile.shape_buckets')
+        return exe, bucket
+
+    def _stage(self, dst, key, value, rows):
         """Copy ``value`` (``rows`` rows of a batch-axis input, zero-padded
-        to the bucket, or a whole constant input) into the executor's
-        bound input: through the bucket's pinned staging on the card."""
-        dst = exe.arg_dict[name].handle
+        to ``dst``'s rows, or a whole constant input) into the bound input
+        ``dst``: on the card through the pinned staging buffer kept under
+        ``key``."""
+        name = key[-1]
         if tuple(value.shape[1:]) != tuple(dst.shape[1:]) or \
                 (rows is None and value.shape != dst.shape):
             raise MXNetError('input %s has shape %s, the bucket wants %s'
@@ -258,7 +519,7 @@ class Predictor(object):
                     (dst.shape[0] - rows,) + value.shape[1:], value.dtype)])
             dst.copy_(torch.from_numpy(np.ascontiguousarray(value)))
             return
-        stage, done = self._staging.get((bucket, name), (None, None))
+        stage, done = self._staging.get(key, (None, None))
         if stage is None:
             stage = torch.empty(dst.shape, dtype=dst.dtype, pin_memory=True)
         elif done is not None:
@@ -270,7 +531,7 @@ class Predictor(object):
         dst.copy_(stage, non_blocking=True)
         done = torch.cuda.Event()
         done.record(torch.cuda.current_stream(dst.device))
-        self._staging[(bucket, name)] = (stage, done)
+        self._staging[key] = (stage, done)
 
     def _forward_bucketed(self, kwargs):
         rows = {np.asarray(v).shape[0] for k, v in kwargs.items()
@@ -286,7 +547,8 @@ class Predictor(object):
         for k, v in kwargs.items():
             if k not in exe.arg_dict:
                 raise MXNetError('unknown input %s' % k)
-            self._stage(exe, bucket, k, np.asarray(v, np.float32),
+            self._stage(exe.arg_dict[k].handle, (bucket, k),
+                        np.asarray(v, np.float32),
                         rows if k in self._batch_inputs else None)
         outs = exe.forward(is_train=False)
         if exe._capture:
@@ -301,6 +563,11 @@ class Predictor(object):
     def forward_exact(self, **kwargs):
         """Forward at the EXACT bound shapes, bypassing the pow2 bucket
         policy."""
+        if self._plan is not None:
+            raise MXNetError('forward_exact is not available on the '
+                             'sharded (mesh=) path: every sharded '
+                             'forward rides a pow2-bucket AOT '
+                             'executable')
         self._valid_rows = None
         self._active_bucket = None
         for k, v in kwargs.items():
@@ -325,6 +592,10 @@ class Predictor(object):
         bucket executors, their captured graphs and their staging
         buffers are dropped, and the next forward builds what the new
         shapes need."""
+        if self._plan is not None:
+            raise MXNetError('reshape is not available on the sharded '
+                             '(mesh=) path: build a new Predictor (the '
+                             'bucket table is shape-keyed already)')
         self._executor = self._executor.reshape(**input_shapes)
         self._input_shapes = {k: tuple(v) for k, v in input_shapes.items()}
         self._bucket_execs = {}

@@ -23,10 +23,13 @@ and the windowed shed count, and closes the loop:
   windows with fewer than ``min_samples`` observations and no backlog
   make no decision at all.
 
-Capacity is counted in replicas, as in the reference: an unsharded
-model has no device ceiling (``ModelServer.replica_capacity``), so on
-one card the controller climbs to ``max_replicas`` whatever share of
-the card each replica adds.
+Capacity is counted in replicas, as in the reference
+(``ModelServer.replica_capacity``): an unsharded model has no device
+ceiling, so on one card the controller climbs to ``max_replicas``
+whatever share of the card each replica adds; a tensor-parallel model's
+ceiling is the count of disjoint device sets its mesh carves, at least
+one, and at it the controller takes the at-capacity relief (shrink max
+batch, or the brownout ladder) instead of a scale_up.
 
 EVERY decision (refusals too) is an event: appended to :attr:`events`
 (bounded), an ``instrument.decision('autoscaler', ...)``, counted

@@ -339,25 +339,38 @@ class DynamicBatcher(object):
                     'queued; shedding' % self.name))
         return True
 
-    def detach_worker(self, replica):
+    def detach_worker(self, replica, keep_running=False):
         """Quarantine detach: retire ``replica``'s worker WITHOUT joining
         it (it may be wedged inside a flush).  A live thread is kept as a
         zombie so :meth:`add_worker` cannot reuse its id under it; if it
         wakes, it abandons its seized flush and exits.  If this was the
-        last worker, what is queued sheds typed."""
+        last worker, what is queued sheds typed, unless ``keep_running``
+        (a replacement is about to attach: the queue waits for it, and
+        the caller calls :meth:`shed_if_workerless` if none came)."""
         with self._cond:
             t = self._workers.pop(replica, None)
             self._retired.add(replica)
             self._dead.pop(replica, None)
             if t is not None and t.is_alive():
                 self._zombies[replica] = t
-            if not self._workers:
-                self._running = False
-                self._fail_queued(ServerOverloadedError(
-                    'model %r lost its last replica with requests '
-                    'queued; shedding' % self.name))
+            if not keep_running:
+                self._shed_if_workerless()
             self._cond.notify_all()
         return t is not None
+
+    def shed_if_workerless(self):
+        """With no worker left, stop admitting and fail what is queued
+        typed (the last-replica rule of :meth:`detach_worker`)."""
+        with self._cond:
+            self._shed_if_workerless()
+            self._cond.notify_all()
+
+    def _shed_if_workerless(self):
+        if not self._workers:
+            self._running = False
+            self._fail_queued(ServerOverloadedError(
+                'model %r lost its last replica with requests '
+                'queued; shedding' % self.name))
 
     def requeue_head(self, batch, error):
         """Re-queue a quarantined replica's seized requests at the HEAD

@@ -54,9 +54,19 @@ behind ONE shared admission queue with per-replica
   :class:`~mxnet_tpu_torch.serving.supervisor.FleetSupervisor`.
 - **Attribution**: with servewatch on, :meth:`drain` commits its
   snapshot, the servewatch rings included, through the flight recorder.
-
-Not ported yet: the tensor-parallel ``mesh=`` / ``partition=`` replicas
-raise :class:`MXNetError` naming the distributed plane they wait for.
+- **Tensor-parallel replicas**: ``load_model(..., mesh='1x2',
+  partition='auto')`` serves each replica from a sharded Predictor
+  (``Predictor(mesh=, partition=, devices=)``) over a DISJOINT device
+  set carved from the server's local devices (the CUDA devices; ``[cpu(0)]``
+  for a CPU server): replica slot ``r`` of a dp×tp model owns devices
+  ``[r·dp·tp, (r+1)·dp·tp)`` (``parallel.mesh.carve_submesh_devices``),
+  and a slot past them raises the carve's error.  The replica capacity
+  of a sharded model is ``max(1, submesh_capacity(mesh))``, so
+  ``scale_up`` past it is refused (None) and the autoscaler takes its
+  at-capacity relief instead; a partial ``reload_model`` keeps the stored
+  ``mesh``/``partition``.  A prebuilt sharded Predictor (say over
+  ``[gpu(0)] * 2``) serves through ``load_model(predictor=...)``.  Each
+  sharded replica has its own stream and graph pool, as any replica.
 """
 from __future__ import annotations
 
@@ -83,10 +93,6 @@ __all__ = ['ModelServer', 'ModelNotFoundError', 'ServerOverloadedError',
            'DeadlineExceededError', 'ReplicaQuarantinedError']
 
 _log = logging.getLogger('mxnet_tpu_torch.serving')
-
-_MESH_LATER = ('tensor-parallel replicas (mesh=/partition=) need the '
-               'distributed plane (ROADMAP Queue 1 item 8)')
-
 
 class ModelNotFoundError(MXNetError):
     """No model with that name is loaded."""
@@ -152,16 +158,39 @@ class ModelServer(object):
 
     def _capacity_for(self, entry):
         """Replica capacity from an entry in hand (the autoscaler passes
-        the one it holds, so no registry lookup races an unload).  The
-        port serves unsharded models only, and those have no ceiling:
-        replicas past the device count share devices round-robin."""
-        return 1 << 30
+        the one it holds, so no registry lookup races an unload): a
+        sharded model needs DISJOINT device sets, ``max(1,
+        submesh_capacity(mesh))``; an unsharded one has no ceiling
+        (replicas past the device count share devices round-robin)."""
+        mesh = (entry.build_kw or {}).get('mesh')
+        if mesh is None:
+            return 1 << 30
+        from ..parallel.mesh import submesh_capacity
+        return max(1, submesh_capacity(mesh, self._local_devices()))
 
     def replica_capacity(self, name):
-        """How many replicas the local devices can hold for ``name``
-        (the autoscaler's hard ceiling).  Unsharded models are unbounded
-        here; the autoscaler's ``max_replicas`` is the cap that governs."""
+        """How many replicas the local devices can hold for ``name`` (the
+        autoscaler's hard ceiling).  Sharded models need disjoint
+        submeshes (``mesh.submesh_capacity``); unsharded ones are
+        unbounded here, and the autoscaler's ``max_replicas`` governs."""
         return self._capacity_for(self._entry(name))
+
+    def _local_devices(self):
+        """The devices replicas are carved from: the CUDA devices for a GPU
+        server, ``[cpu(0)]`` for a CPU one."""
+        from ..parallel.mesh import local_devices
+        return local_devices() if self._dev[0] == 'gpu' else \
+            [Context('cpu', 0)]
+
+    def _replica_devices(self, mesh, slot):
+        """The device set of a sharded model's replica slot ``slot``: a
+        disjoint submesh (``mesh.carve_submesh_devices``); the carve's
+        error as an :class:`MXNetError` when no such set is left."""
+        from ..parallel.mesh import carve_submesh_devices
+        try:
+            return carve_submesh_devices(mesh, slot, self._local_devices())
+        except ValueError as e:
+            raise MXNetError(str(e))
 
     def _replica_context(self, slot):
         """The Context of replica slot ``slot``: the server's device for
@@ -172,10 +201,13 @@ class ModelServer(object):
         n = max(1, torch.cuda.device_count())
         return Context('gpu', (int(dev_id) + int(slot)) % n)
 
-    def _replica_stream(self, slot):
-        """A new CUDA stream on replica slot ``slot``'s device (None on
-        the host)."""
-        ctx = self._replica_context(slot)
+    def _replica_stream(self, slot, predictor):
+        """A new CUDA stream on the replica's device: its Predictor's (a
+        sharded one's first position), else slot ``slot``'s; None on the
+        host."""
+        ctx = getattr(predictor, '_ctx', None)
+        if not isinstance(ctx, Context):
+            ctx = self._replica_context(slot)
         if ctx.device_type != 'gpu':
             return None
         return torch.cuda.Stream(ctx.torch_device)
@@ -190,7 +222,7 @@ class ModelServer(object):
 
     def _build_predictor(self, prefix=None, epoch=None, symbol_json=None,
                          params=None, input_shapes=None, output_keys=None,
-                         slot=0):
+                         mesh=None, partition=None, slot=0):
         if input_shapes is None:
             raise MXNetError('input_shapes is required')
         if prefix is not None:
@@ -204,6 +236,13 @@ class ModelServer(object):
             params = nd.load('%s-%04d.params' % (prefix, epoch))
         if symbol_json is None or params is None:
             raise MXNetError('need prefix= or symbol_json= + params=')
+        if mesh is not None:
+            # each position holds its own copy of its shard
+            return Predictor(symbol_json, params, dict(input_shapes),
+                             dev_type=self._dev[0], dev_id=self._dev[1],
+                             output_keys=output_keys, pad_to_bucket=True,
+                             mesh=mesh, partition=partition,
+                             devices=self._replica_devices(mesh, slot))
         ctx = self._replica_context(slot)
         if isinstance(params, dict):
             # each replica owns its parameters: an NDArray already on the
@@ -226,9 +265,9 @@ class ModelServer(object):
         ``.params`` bytes), or a prebuilt ``predictor`` (a LIST of them
         for a prebuilt fleet).  ``replicas`` (default
         ``MXTPU_SERVE_REPLICAS``) replicas start, each warmed (captured on
-        the card) before it serves."""
-        if mesh is not None or partition is not None:
-            raise MXNetError(_MESH_LATER)
+        the card) before it serves.  ``mesh``/``partition`` serve each
+        replica tensor-parallel over its own carved device set
+        (``Predictor(mesh=...)``)."""
         if not re.fullmatch(r'[A-Za-z0-9._:-]+', str(name)):
             # the name becomes a metric label: label metacharacters
             # (| , = ") would forge labels downstream
@@ -252,7 +291,8 @@ class ModelServer(object):
         build_kw = dict(prefix=prefix, epoch=epoch,
                         symbol_json=symbol_json, params=params,
                         input_shapes=input_shapes,
-                        output_keys=output_keys)
+                        output_keys=output_keys, mesh=mesh,
+                        partition=partition)
         prebuilt = None
         if predictor is not None:
             prebuilt = list(predictor) if isinstance(
@@ -281,7 +321,7 @@ class ModelServer(object):
             with entry.admin_lock:
                 first = prebuilt[0] if prebuilt else \
                     self._build_predictor(slot=0, **build_kw)
-                rep0 = _Replica(0, first, self._replica_stream(0))
+                rep0 = _Replica(0, first, self._replica_stream(0, first))
                 if warm_start:
                     self._warm_predictor(self._warm_rows(), first)
                 self._ready(rep0)
@@ -412,7 +452,8 @@ class ModelServer(object):
         if predictor is None:
             predictor = self._build_predictor(slot=slot,
                                               **entry.build_kw)
-        rep = _Replica(slot, predictor, self._replica_stream(slot))
+        rep = _Replica(slot, predictor,
+                       self._replica_stream(slot, predictor))
         if warm:
             self._warm_predictor(self._warm_rows(entry), predictor)
         self._ready(rep)
@@ -424,10 +465,11 @@ class ModelServer(object):
 
     def scale_up(self, name, warm=True):
         """Add one replica on the lowest free slot; returns the new
-        replica count, None when the model is unloaded or closing.  A
-        genuine build failure (a missing checkpoint, a builder source
-        dropped by a prebuilt reload, a failed capture) raises, and so
-        does ``warm=False`` on a GPU server."""
+        replica count, None when the model is unloaded or closing or, for
+        a sharded model, no disjoint device set is left (the capacity
+        refusals).  A genuine build failure (a missing checkpoint, a
+        builder source dropped by a prebuilt reload, a failed capture)
+        raises, and so does ``warm=False`` on a GPU server."""
         self._refuse_cold(warm)
         entry = self._models.get(name)
         if entry is None:
@@ -441,6 +483,11 @@ class ModelServer(object):
                 # a quarantined worker (or a timed-out removal's zombie)
                 # still holds its slot
                 slot += 1
+            mesh = (entry.build_kw or {}).get('mesh')
+            if mesh is not None:
+                from ..parallel.mesh import submesh_capacity
+                if slot >= submesh_capacity(mesh, self._local_devices()):
+                    return None       # no disjoint device set left
             self._add_replica(entry, slot, warm=warm)
             instrument.inc('serving.scale_ups')
             self._note_replicas(entry)
@@ -513,9 +560,9 @@ class ModelServer(object):
         replacement is built and warmed (captured) BEFORE the first swap;
         a flush in progress finishes on the old Predictor (the swap takes
         the replica lock its execute hook holds), later flushes run the
-        new one.  The old Predictors' memory is released after."""
-        if mesh is not None or partition is not None:
-            raise MXNetError(_MESH_LATER)
+        new one.  The old Predictors' memory is released after.  The
+        non-source fields (``output_keys``, ``mesh``, ``partition``) keep
+        their stored values unless passed again."""
         entry = self._entry(name)
         with entry.admin_lock:
             if entry.closed:
@@ -524,12 +571,16 @@ class ModelServer(object):
             if input_shapes is None:
                 input_shapes = kw.get('input_shapes') or \
                     entry.predictor._input_shapes
-            # the SOURCE fields replace wholesale; output_keys is kept
-            # unless passed again
+            # the SOURCE fields replace wholesale; output_keys, mesh and
+            # partition are kept unless passed again
             kw.update(prefix=prefix, epoch=epoch, symbol_json=symbol_json,
                       params=params, input_shapes=input_shapes)
             if output_keys is not None:
                 kw['output_keys'] = output_keys
+            if mesh is not None:
+                kw['mesh'] = mesh
+            if partition is not None:
+                kw['partition'] = partition
             if predictor is not None:
                 new = list(predictor) if isinstance(
                     predictor, (list, tuple)) else [predictor]
@@ -540,11 +591,13 @@ class ModelServer(object):
                         % (len(entry.replicas), len(new)))
                 # the builder source now describes the PREVIOUS version:
                 # drop it, so a later scale_up refuses loudly instead of
-                # building a replica of the old model
-                entry.build_kw = {
-                    'input_shapes': input_shapes,
-                    'output_keys': (entry.build_kw or {}).get(
-                        'output_keys')}
+                # building a replica of the old model; mesh stays, for the
+                # capacity rule
+                old = entry.build_kw or {}
+                entry.build_kw = {'input_shapes': input_shapes,
+                                  'output_keys': old.get('output_keys'),
+                                  'mesh': old.get('mesh'),
+                                  'partition': old.get('partition')}
             else:
                 new = [self._build_predictor(slot=rep.rid, **kw)
                        for rep in entry.replicas]

@@ -24,7 +24,10 @@ reload or unload can race the repair):
    with :class:`ReplicaQuarantinedError` instead of looping;
 3. build and warm (on the card: capture every bucket of) a REPLACEMENT
    through ``scale_up`` BEFORE tearing the quarantined replica down,
-   and protect it from ``scale_down`` for a grace window;
+   and protect it from ``scale_down`` for a grace window.  Where no free
+   slot is left (a sharded model at its device ceiling) the quarantined
+   worker is detached first, admission kept open, and the replacement
+   is built on that slot's devices;
 4. detach the quarantined worker (its slot stays busy while the wedged
    thread lives).
 
@@ -282,11 +285,16 @@ class FleetSupervisor(object):
             # quarantined slot is still busy (its worker/zombie holds
             # it), so scale_up lands on another slot; when it refuses
             # (e.g. a dead worker held the LAST free slot of a sharded
-            # mesh), detach first to free the slot and retry once.
+            # mesh), detach first to free the slot and retry once, on
+            # that slot's devices.  Admission stays open meanwhile: the
+            # reference's detach of the last worker stops the batcher,
+            # and its retry then cannot attach (ROADMAP Queue 3)
             n = self._replace(w, entry, rid)
             if n is None:
-                batcher.detach_worker(rid)
+                batcher.detach_worker(rid, keep_running=True)
                 n = self._replace(w, entry, rid)
+                if n is None:
+                    batcher.shed_if_workerless()
             else:
                 batcher.detach_worker(rid)
             if n is not None:

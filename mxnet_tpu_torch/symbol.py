@@ -329,18 +329,25 @@ class Symbol:
 
     # -- executor entry point (executor.py) --------------------------------
     def bind(self, ctx, args, args_grad=None, grad_req='write',
-             aux_states=None):
+             aux_states=None, group2ctx=None, shared_exec=None):
         """An :class:`~mxnet_tpu_torch.executor.Executor` over ``args`` /
         ``args_grad`` / ``aux_states`` (dicts or lists of NDArrays);
-        without ``args_grad`` it computes no gradients."""
+        without ``args_grad`` it computes no gradients.  ``group2ctx``
+        maps ``ctx_group`` names to contexts (model parallelism);
+        ``shared_exec`` is accepted and shares nothing more."""
         from .executor import Executor
-        return Executor(self, ctx, args, args_grad, grad_req, aux_states)
+        return Executor(self, ctx, args, args_grad, grad_req, aux_states,
+                        group2ctx=group2ctx, shared_exec=shared_exec)
 
-    def simple_bind(self, ctx, grad_req='write', type_dict=None, **kwargs):
+    def simple_bind(self, ctx, grad_req='write', type_dict=None,
+                    group2ctx=None, shared_exec=None, **kwargs):
         """Bind with argument, gradient and aux arrays allocated from the
-        shapes inferred from ``kwargs``."""
+        shapes inferred from ``kwargs`` (each on its ``ctx_group``'s
+        context under ``group2ctx``)."""
         from .executor import simple_bind
-        return simple_bind(self, ctx, grad_req, type_dict, **kwargs)
+        return simple_bind(self, ctx, grad_req, type_dict,
+                           group2ctx=group2ctx, shared_exec=shared_exec,
+                           **kwargs)
 
     def eval(self, ctx=None, **kwargs):
         """Bind ``kwargs`` (name -> NDArray) on ``ctx`` (default the

@@ -12,7 +12,7 @@ drains and the last-replica guard, a scale-up into a freed slot, a
 reload of every replica, lane preemption and the starvation valve,
 per-lane admission bounds, prebuilt-count validation, unload dropping
 every labeled series; the autoscaler's cases are in
-``test_torch_autoscale.py``, the mesh's wait for their module).  One real-model case serves a narrow ResNet v2 from two
+``test_torch_autoscale.py``, the mesh's in ``test_torch_serve_mesh.py``).  One real-model case serves a narrow ResNet v2 from two
 port replicas against the JAX Predictor, rtol 1e-5, atol 1e-7.
 """
 import threading
@@ -480,9 +480,13 @@ def test_unload_drops_every_labeled_series():
 
 
 def test_autoscale_and_mesh_wait_for_their_modules():
-    """The autoscaler has landed (autoscale, autoscaler and
-    replica_capacity answer, and the export lists are equal); the
-    tensor-parallel replicas still raise, naming ROADMAP item 8."""
+    """The autoscaler and the tensor-parallel replicas have landed
+    (autoscale, autoscaler and replica_capacity answer, and the export
+    lists are equal): a ``mesh=`` model on a CPU server, whose local
+    devices are ``[cpu(0)]``, has capacity 1, a scale_up past it is
+    refused, a prebuilt reload keeps the stored mesh, and a mesh wider
+    than the devices raises the carve's error
+    (``tests/test_torch_serve_mesh.py`` serves real sharded models)."""
     server, _ = _stub_server(TORCH, n=1)
     try:
         assert server.autoscaler is None
@@ -490,12 +494,14 @@ def test_autoscale_and_mesh_wait_for_their_modules():
         sc = server.autoscale('s', slo_p99_ms=5.0, interval_s=0,
                               start=False)
         assert server.autoscaler is sc and sc.watched() == ['s']
-        for call in (lambda: server.load_model('m', predictor=_Stub(),
-                                               input_shapes=dict(SHAPES),
-                                               mesh='1x1'),
-                     lambda: server.reload_model('s', partition='auto')):
-            with pytest.raises(tmx.MXNetError, match='item 8'):
-                call()
+        server.load_model('m', predictor=_Stub(), input_shapes=dict(SHAPES),
+                          mesh='1x1', warm_start=False)
+        assert server.replica_capacity('m') == 1
+        assert server.scale_up('m') is None
+        server.reload_model('m', predictor=_Stub(), partition='auto')
+        assert server._entry('m').build_kw['mesh'] == '1x1'
+        with pytest.raises(tmx.MXNetError, match='no disjoint device set'):
+            server._replica_devices('1x2', 0)
     finally:
         server.close(drain=False, timeout=WAIT)
     assert set(j_serving.__all__) == set(t_serving.__all__)
